@@ -17,8 +17,21 @@ Phases, each printed on a line of its own:
               package's bench times its headline; test accuracy must
               reach 0.72, and the fused conv+rectify+pool kernel must
               have run once per microbatch.
-5. cross    - the same 2048 images through the fused kernel and through
-              an fp32 conv followed by the rectify+pool kernel.
+5. linear_pixels - LinearPixels on the same images: the elementwise chain
+              kernel once per 4096-image microbatch, test accuracy within
+              0.005 of the JAX package's 0.7919 on these arrays.
+6. kernel_cifar  - RandomPatchCifarKernel on the same images (256
+              filters, gamma 2e-3, lambda 10, 2048-row blocks, one
+              epoch): the RBF block kernel in every block step of the fit
+              and every train block of the apply; test accuracy >= 0.72.
+7. cross    - the same 2048 images through the fused kernel and through
+              an fp32 conv followed by the rectify+pool+vectorize stage,
+              which runs the rectify+pool kernel through
+              rectify_pool_vectorize; that stage is also held against its
+              plain version.
+
+Each path's launch counts are set to 0 just before it runs and read just
+after.
 
 Then a ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and the script
@@ -45,11 +58,29 @@ HBM_BYTES = 3.35e12
 # the main path's shapes: one 2048-image microbatch, the headline data
 HEADLINE_N = 2048
 N_TRAIN, N_TEST = 50_000, 10_000
+# one LinearPixels microbatch
+CHAIN_N = 4096
+# (m, n, d, gamma) of the RBF block: a fit block of RandomPatchCifarKernel
+# (50,000 rows against 2048 of them, 2048 features), then the JAX bench's
+# KRR flagship geometry (bench.py:359-361, 678-706)
+RBF_GEOMETRIES = ((N_TRAIN, 2048, 2048, 2e-3), (98_304, 4096, 440, 0.01))
 
 # bf16 operands: max error over max |plain|, the limit the JAX package's
 # tests hold its Pallas kernel to (tests/test_pallas_ops.py:162-164)
 K1_TOL = 2e-2
 K2_TOL = 1e-5   # fp32 sums in another order: max error over max |plain|
+# the elementwise chain: only the reductions' order differs; max error
+# over max |plain|, the JAX interpret test's limit
+# (tests/test_chain_kernels.py:128)
+K4_TOL = 1e-6
+# the RBF block: max abs error on outputs in (0, 1]. fp32 sums in
+# another order give about 1e-5 on the diagonal, where x2 + y2 - 2xy
+# cancels; a TF32 product would give about 4e-3 there
+K5_TOL = 5e-5
+
+# the JAX package's test accuracies on these arrays (CPU runs)
+LINEAR_PIXELS_JAX_ACC = 0.7919
+KERNEL_CIFAR_JAX_ACC = 0.8199
 
 
 def check(cond: bool, msg: str) -> None:
@@ -114,6 +145,44 @@ def k2_bound_ms(n, h, w, k, pool, gy, gx):
                                        else "bytes")
 
 
+def k4_bound_ms(n, layout):
+    """(ms, bound_by): each row read once and written once (plus the
+    stages' vectors) against two fp32 operations per element per stage,
+    an upper count."""
+    in_len = layout.lens[0]
+    out_len = math.prod(layout.out_shape)
+    nbytes = 4.0 * (n * in_len + n * out_len + layout.packed.numel())
+    flops = 2.0 * n * sum(layout.lens)
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def k5_bound_ms(m, n, d):
+    """(ms, bound_by): the product's 2·m·n·d fp32 operations at the
+    CUDA-core rate (the contract is fp32, so no TF32 tensor cores)
+    against X and Yb read once and the block written once."""
+    flops = 2.0 * m * n * d
+    nbytes = 4.0 * (m * d + n * d + m * n)
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                       else "bytes")
+
+
+def run_stages(steps):
+    """Run ``(name, fn)`` steps in order, each closed by a device sync:
+    ({name: seconds}, their sum, the last step's result). The pipelines'
+    nodes fit lazily, so forcing them one by one stages the same run that
+    a plain call would make."""
+    seconds, out = {}, None
+    for step, fn in steps:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[step] = time.perf_counter() - t
+    return seconds, sum(seconds.values()), out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -132,12 +201,21 @@ def main() -> int:
         SymmetricRectifier,
     )
     from keystone_tpu_torch.nodes.util.fusion import FusedBatchTransformer
-    from keystone_tpu_torch.ops import _build, kernels
+    from keystone_tpu_torch.ops import _build, chain_kernels, kernels
+    from keystone_tpu_torch.utils.images import GRAY_WEIGHTS
+    from keystone_tpu_torch.pipelines.cifar_variants import (
+        LINEAR_PIXELS_MICROBATCH,
+        LinearPixelsConfig,
+        RandomPatchCifarKernelConfig,
+        build_linear_pixels,
+        build_random_patch_cifar_kernel,
+    )
     from keystone_tpu_torch.pipelines.random_patch_cifar import (
         RandomPatchCifarConfig,
         build_pipeline,
         run_staged,
     )
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
 
     # ---- 1. device -------------------------------------------------------
     dev = resolve_device("cuda")
@@ -226,11 +304,105 @@ def main() -> int:
             k2["bound_ms"], k2["bound_by"] = k2_bound_ms(n, h, w, k, p, gy,
                                                          gx)
         del x, got, want
+
+    def chain_case(chain):
+        """(statics, params) of a chain: LinearPixels' trail, or every
+        other head over (1024,) rows with the scale form masked."""
+        if chain == "linear_pixels":
+            return ((("PixelScaler",), ("GrayScaler",), ("ImageVectorizer",)),
+                    [(), (), ()])
+        sign = torch.randint(0, 2, (1024,), generator=gen, device=dev) * 2.0
+        return ((("LinearRectifier",), ("RandomSignNode",),
+                 ("SignedHellingerMapper",), ("NormalizeRows",),
+                 (("StandardScaler", "scale"), "masked"),
+                 ("StandardScaler", "center")),
+                [(-0.3, 0.1), (sign - 1.0,), (), (1e-3,),
+                 (torch.randn((1024,), generator=gen, device=dev),
+                  torch.rand((1024,), generator=gen, device=dev) + 0.5),
+                 (torch.randn((1024,), generator=gen, device=dev),)])
+
+    k4_checks, k4 = [], None  # the first case is the headline
+    for chain, n, item, masked_rows in (
+            ("linear_pixels", CHAIN_N, (32, 32, 3), 0),
+            ("linear_pixels", 37, (32, 32, 3), 0),
+            ("every_other_head", 37, (1024,), 5)):
+        statics, params = chain_case(chain)
+        if chain == "linear_pixels":
+            x = torch.rand((n,) + item, generator=gen, device=dev) * 255.0
+        else:
+            x = torch.randn((n,) + item, generator=gen, device=dev)
+        mask = None
+        if masked_rows:
+            mask = torch.arange(n, device=dev) < n - masked_rows
+        got = chain_kernels.elementwise_chain(statics, params, x, mask)
+        torch.cuda.synchronize()
+        want = chain_kernels.elementwise_chain_reference(statics, params, x,
+                                                         mask)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"elementwise_chain {chain}: bad output at n={n}")
+        err, rel = rel_err(got, want)
+        check(rel <= K4_TOL, f"elementwise_chain {chain} n={n}: relative "
+              f"error {rel} > {K4_TOL}")
+        k4_checks.append(dict(chain=chain, n=n, masked_rows=masked_rows,
+                              max_abs_err=err, rel_err=rel))
+        if k4 is None:
+            k4 = dict(max_abs_err=err, rel_err=rel)
+            k4["ms"] = time_ms(lambda: chain_kernels.elementwise_chain(
+                statics, params, x, mask))
+            k4["plain_ms"] = time_ms(
+                lambda: chain_kernels.elementwise_chain_reference(
+                    statics, params, x, mask))
+            k4["bound_ms"], k4["bound_by"] = k4_bound_ms(
+                n, chain_kernels.chain_layout(statics, params, item, dev))
+            # one PyTorch call computes LinearPixels' chain: the pixels
+            # times the gray weights over 255, already one row per image
+            w_gray = torch.tensor(GRAY_WEIGHTS, dtype=torch.float32,
+                                  device=dev) / 255.0
+            lib = torch.matmul(x, w_gray).reshape(n, -1)
+            _, lib_rel = rel_err(lib, want)
+            check(lib.shape == want.shape and lib_rel <= K4_TOL,
+                  f"elementwise_chain library call: relative error "
+                  f"{lib_rel} > {K4_TOL}")
+            k4["library_rel_err"] = lib_rel
+            k4["library_ms"] = time_ms(
+                lambda: torch.matmul(x, w_gray).reshape(n, -1))
+            del lib, w_gray
+        del x, got, want
+
+    k5_checks, k5 = [], None  # the first geometry is the headline
+    for m, n, d, gamma in RBF_GEOMETRIES:
+        X = torch.randn((m, d), generator=gen, device=dev)
+        # the fit's block: rows of X itself, so the diagonal cancels
+        ids = torch.randperm(m, generator=gen, device=dev)[:n]
+        Yb = X[ids].contiguous()
+        got = kernels.rbf_block(X, Yb, gamma)
+        torch.cuda.synchronize()
+        want = kernels.rbf_block_reference(X, Yb, gamma)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"rbf_block: bad output at {(m, n, d)}")
+        err, rel = rel_err(got, want)
+        check(err <= K5_TOL, f"rbf_block {(m, n, d)}: max abs error {err} "
+              f"> {K5_TOL}")
+        diag = float(got[ids, torch.arange(n, device=dev)].min())
+        k5_checks.append(dict(m=m, n=n, d=d, gamma=gamma, max_abs_err=err,
+                              min_diagonal=diag))
+        if k5 is None:
+            k5 = dict(max_abs_err=err)
+            k5["ms"] = time_ms(lambda: kernels.rbf_block(X, Yb, gamma))
+            k5["plain_ms"] = time_ms(
+                lambda: kernels.rbf_block_reference(X, Yb, gamma))
+            k5["matmul_fp32_gemm_only_ms"] = time_ms(lambda: X @ Yb.T)
+            k5["bound_ms"], k5["bound_by"] = k5_bound_ms(m, n, d)
+        del X, Yb, got, want
     torch.cuda.empty_cache()
     phase("kernels", conv_rectify_pool=dict(headline=k1, checks=k1_checks,
                                             tolerance_rel=K1_TOL),
           rectify_pool=dict(headline=k2, checks=k2_checks,
-                            tolerance_rel=K2_TOL))
+                            tolerance_rel=K2_TOL),
+          elementwise_chain=dict(headline=k4, checks=k4_checks,
+                                 tolerance_rel=K4_TOL),
+          rbf_block=dict(headline=k5, checks=k5_checks,
+                         tolerance_abs=K5_TOL))
 
     # ---- 4. the slice ----------------------------------------------------
     t0 = time.perf_counter()
@@ -270,24 +442,126 @@ def main() -> int:
           f"conv_rectify_pool launched {k1_launches} times for "
           f"{microbatches} microbatches")
 
-    # ---- 5. cross-check: fused kernel vs fp32 conv + rectify_pool --------
+    # ---- 5. LinearPixels -------------------------------------------------
+    lp_config = LinearPixelsConfig()
+    warm = build_linear_pixels(train, lp_config)
+    evaluator(warm(train.data), train.labels)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    lp = None
+
+    def lp_build():
+        nonlocal lp
+        lp = build_linear_pixels(train, lp_config)
+
+    lp_stages, lp_seconds, lp_train = run_stages([
+        ("build", lp_build),
+        ("featurize", lambda: Pipeline(lp.nodes[:2])(train.data).get()),
+        ("normal_equations", lambda: lp.nodes[2].fitted),
+        ("predict_eval", lambda: evaluator(lp(train.data), train.labels)),
+    ])
+    lp_test = evaluator(lp(test.data), test.labels)
+    k4_launches = chain_kernels.elementwise_chain.launches
+    lp_microbatches = (
+        math.ceil(train.data.count / LINEAR_PIXELS_MICROBATCH)
+        + math.ceil(test.data.count / LINEAR_PIXELS_MICROBATCH))
+    phase("linear_pixels", train_seconds=lp_seconds,
+          images_per_sec=train.data.count / lp_seconds,
+          train_error=lp_train.error, test_accuracy=lp_test.accuracy,
+          jax_cpu_test_accuracy=LINEAR_PIXELS_JAX_ACC,
+          elementwise_chain_launches=k4_launches,
+          microbatches=lp_microbatches, stage_seconds=lp_stages,
+          peak_mem_bytes=torch.cuda.max_memory_allocated(), card=card)
+    check(abs(lp_test.accuracy - LINEAR_PIXELS_JAX_ACC) <= 0.005,
+          f"LinearPixels test accuracy {lp_test.accuracy} is not within "
+          f"0.005 of {LINEAR_PIXELS_JAX_ACC}")
+    check(k4_launches >= lp_microbatches,
+          f"elementwise_chain launched {k4_launches} times for "
+          f"{lp_microbatches} microbatches")
+    del lp
+    torch.cuda.empty_cache()
+
+    # ---- 6. RandomPatchCifarKernel ---------------------------------------
+    kc_config = RandomPatchCifarKernelConfig(
+        num_filters=256, gamma=2e-3, lam=10.0, kernel_block=2048,
+        kernel_epochs=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    kc = None
+
+    def kc_build():
+        nonlocal kc
+        kc = build_random_patch_cifar_kernel(train, kc_config)
+
+    # the filters are learned as the pipeline is built; the featurizer
+    # fills the Cacher that the scaler's and the solver's fits read
+    kc_stages, kc_seconds, kc_train = run_stages([
+        ("filter_learning", kc_build),
+        ("featurize", lambda: Pipeline(kc.nodes[:2])(train.data).get()),
+        ("scaler", lambda: kc.nodes[2].fitted),
+        ("krr_fit", lambda: kc.nodes[3].fitted),
+        ("predict_eval", lambda: evaluator(kc(train.data), train.labels)),
+    ])
+    kc_test = evaluator(kc(test.data), test.labels)
+    kc_k1 = kernels.conv_rectify_pool.launches
+    kc_k5 = kernels.rbf_block.launches
+    blocks = math.ceil(train.data.count / kc_config.kernel_block)
+    phase("kernel_cifar", train_seconds=kc_seconds,
+          images_per_sec=train.data.count / kc_seconds,
+          krr_fit_seconds=kc_stages["krr_fit"],
+          train_error=kc_train.error, test_accuracy=kc_test.accuracy,
+          jax_cpu_test_accuracy=KERNEL_CIFAR_JAX_ACC,
+          gap_to_jax_cpu=kc_test.accuracy - KERNEL_CIFAR_JAX_ACC,
+          conv_rectify_pool_launches=kc_k1, rbf_block_launches=kc_k5,
+          fit_blocks=blocks, stage_seconds=kc_stages,
+          peak_mem_bytes=torch.cuda.max_memory_allocated(), card=card)
+    check(kc_test.accuracy >= 0.72,
+          f"RandomPatchCifarKernel test accuracy {kc_test.accuracy} below "
+          f"0.72")
+    check(kc_k5 >= 2 * blocks, f"rbf_block launched {kc_k5} times for "
+          f"{blocks} fit blocks and {blocks} apply blocks")
+    check(kc_k1 >= microbatches, f"conv_rectify_pool launched {kc_k1} "
+          f"times for {microbatches} microbatches")
+    del kc
+    torch.cuda.empty_cache()
+
+    # ---- 7. cross-check: fused kernel vs fp32 conv + rectify_pool --------
     featurizer = predictor.nodes[0]
     conv = featurizer.stages[1]
     imgs = Dataset(train.data.array[:config.microbatch])
     fused = featurizer.apply_batch(imgs).array
     convolved = conv.apply_batch(PixelScaler().apply_batch(imgs))
-    kernels.reset_launches()
-    staged = FusedBatchTransformer(
+    staged_fbt = FusedBatchTransformer(
         [SymmetricRectifier(alpha=config.alpha),
          Pooler(config.pool_stride, config.pool_size, pool_fn="sum"),
          ImageVectorizer()],
-        microbatch=config.microbatch).apply_batch(convolved).array
+        microbatch=config.microbatch)
+    check(staged_fbt.planned_kernel is not None
+          and staged_fbt.planned_kernel[2] == "rectify_pool_vectorize",
+          f"rectify+pool+vectorize planned as {staged_fbt.planned_kernel}")
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    staged = staged_fbt.apply_batch(convolved).array
     torch.cuda.synchronize()
     k2_launches = kernels.rectify_pool.launches
+    k3_launches = kernels.rectify_pool_vectorize.launches
     err, rel = rel_err(fused, staged)
+    k3_err, k3_rel = rel_err(staged, kernels.rectify_pool_vectorize_reference(
+        convolved.array, config.alpha, 0.0, config.pool_size,
+        config.pool_stride))
     phase("cross", max_abs_err=err, rel_err=rel, tolerance_rel=K1_TOL,
-          rectify_pool_launches=k2_launches)
-    check(k2_launches >= 1, "the rectify+pool path did not launch its kernel")
+          rectify_pool_launches=k2_launches,
+          rectify_pool_vectorize_launches=k3_launches,
+          rectify_pool_vectorize_max_abs_err=k3_err,
+          rectify_pool_vectorize_rel_err=k3_rel,
+          rectify_pool_vectorize_tolerance_rel=K2_TOL)
+    check(k3_launches >= 1, "the rectify+pool+vectorize stage did not "
+          "launch its kernel through rectify_pool_vectorize")
+    check(k3_rel <= K2_TOL, f"rectify_pool_vectorize: relative error "
+          f"{k3_rel} > {K2_TOL}")
     check(rel <= K1_TOL, f"fused vs staged featurizer: relative error {rel}")
 
     record = {"kernels": [
@@ -303,10 +577,29 @@ def main() -> int:
              source="keystone_tpu_torch/csrc/rectify_pool.cu",
              replaces="keystone_tpu/ops/pallas_kernels.py:132",
              also_replaces="keystone_tpu/ops/chain_kernels.py:346",
-             launches=k2_launches, max_abs_err=k2["max_abs_err"],
+             launches=k2_launches,
+             rectify_pool_vectorize_launches=k3_launches,
+             max_abs_err=k2["max_abs_err"],
              rel_err=k2["rel_err"], tolerance_rel=K2_TOL, ms=k2["ms"],
              plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None),
+        dict(name="elementwise_chain", route="cuda",
+             source="keystone_tpu_torch/csrc/elementwise_chain.cu",
+             replaces="keystone_tpu/ops/chain_kernels.py:504",
+             launches=k4_launches, max_abs_err=k4["max_abs_err"],
+             rel_err=k4["rel_err"], tolerance_rel=K4_TOL, ms=k4["ms"],
+             plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
+             bound_by=k4["bound_by"], library_ms=k4["library_ms"],
+             library_call="torch.matmul(x, gray_weights / 255)",
+             library_rel_err=k4["library_rel_err"]),
+        dict(name="rbf_block", route="cuda",
+             source="keystone_tpu_torch/csrc/rbf_block.cu",
+             replaces="keystone_tpu/ops/pallas_kernels.py:212",
+             launches=kc_k5, max_abs_err=k5["max_abs_err"],
+             tolerance_abs=K5_TOL, ms=k5["ms"], plain_ms=k5["plain_ms"],
+             bound_ms=k5["bound_ms"], bound_by=k5["bound_by"],
+             library_ms=None,
+             matmul_fp32_gemm_only_ms=k5["matmul_fp32_gemm_only_ms"]),
     ]}
     print(json.dumps(record), flush=True)
     print(f"card: {card}", flush=True)

@@ -2,11 +2,12 @@
 
 from .core import (
     Convolver,
+    GrayScaler,
     ImageVectorizer,
     PixelScaler,
     Pooler,
     SymmetricRectifier,
 )
 
-__all__ = ["Convolver", "ImageVectorizer", "PixelScaler", "Pooler",
-           "SymmetricRectifier"]
+__all__ = ["Convolver", "GrayScaler", "ImageVectorizer", "PixelScaler",
+           "Pooler", "SymmetricRectifier"]

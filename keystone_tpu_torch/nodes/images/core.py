@@ -1,9 +1,12 @@
 """Core image featurization nodes.
 
 Counterpart of `keystone_tpu/nodes/images/core.py` (`PixelScaler`,
-`Convolver` `:44-125`, `SymmetricRectifier`, `Pooler`, `ImageVectorizer`).
-Images are NHWC. The Convolver folds the ZCA whitener and the patch-mean
-normalization into the conv:
+`Convolver` `:44-125`, `SymmetricRectifier`, `Pooler`, `ImageVectorizer`,
+`GrayScaler` `:268-306`). Images are NHWC. The stages an elementwise
+chain kernel can absorb carry a `fuse` method that returns the JAX
+package's static key and parameters (`core.py:228, 257, 279`), which the
+fusion matcher reads (`nodes/util/fusion.py`). The Convolver folds the
+ZCA whitener and the patch-mean normalization into the conv:
 
     out[p, k] = (patch_p − mean(patch_p)·1 − zca_mean) · (W_zca f_k)
               = conv(img, G)[p, k] − mean_p · colsum(G_k) − zca_mean·G_k
@@ -20,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.kernels import folded_conv_reference
+from ...utils.images import grayscale
 from ...workflow.pipeline import Transformer
 
 
@@ -28,6 +32,20 @@ class PixelScaler(Transformer):
 
     def batch_fn(self):
         return lambda x: x.to(torch.float32) / 255.0
+
+    def fuse(self):
+        return ("PixelScaler",), ()
+
+
+class GrayScaler(Transformer):
+    """NTSC grayscale (GrayScaler.scala:9): (..., 3) → (..., 1), the
+    identity on one channel."""
+
+    def batch_fn(self):
+        return grayscale
+
+    def fuse(self):
+        return ("GrayScaler",), ()
 
 
 class Convolver(Transformer):
@@ -122,3 +140,6 @@ class ImageVectorizer(Transformer):
 
     def batch_fn(self):
         return lambda x: x.reshape(x.shape[0], -1)
+
+    def fuse(self):
+        return ("ImageVectorizer",), ()

@@ -1,0 +1,68 @@
+"""Linear models and the exact least-squares solver.
+
+Counterpart of `LinearMapper` (`:38-101`) and `LinearMapEstimator` with
+`_normal_equations` (`:104-168`) in `keystone_tpu/nodes/learning/linear.py`
+(reference nodes/learning/LinearMapper.scala:18-161). The normal
+equations are one Gram product and one Cholesky solve in true float32
+(TF32 off, `device.py`), as the JAX package pins ``Precision.HIGHEST``
+and solves with ``assume_a="pos"``. The intercept comes from the Gram
+correction Xcᵀ Xc = XᵀX − n·x̄x̄ᵀ rather than a centred copy of X.
+`LocalLeastSquaresEstimator` and `SparseLinearMapper` are not ported
+yet.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ...workflow.pipeline import LabelEstimator, Transformer
+
+
+class LinearMapper(Transformer):
+    """y = xW (+ b) (LinearMapper.scala:18-63)."""
+
+    def __init__(self, W: torch.Tensor, b: Optional[torch.Tensor] = None):
+        self.W = W
+        self.b = b
+
+    def batch_fn(self):
+        if self.b is None:
+            return lambda x: x @ self.W
+        return lambda x: x @ self.W + self.b
+
+
+def normal_equations(X: torch.Tensor, Y: torch.Tensor, count: int,
+                     lam: float, fit_intercept: bool):
+    """(W, b) minimizing ‖XW + b − Y‖² + lam‖W‖² from the Gram matrix
+    (`linear.py:108-130`); b is zeros without an intercept."""
+    A = X.T @ X
+    B = X.T @ Y
+    d = X.shape[1]
+    if fit_intercept:
+        xm = X.sum(dim=0) / count
+        ym = Y.sum(dim=0) / count
+        A = A - count * torch.outer(xm, xm)
+        B = B - count * torch.outer(xm, ym)
+    A = A + lam * torch.eye(d, dtype=X.dtype, device=X.device)
+    W = torch.cholesky_solve(B, torch.linalg.cholesky(A))
+    if fit_intercept:
+        b = ym - xm @ W
+    else:
+        b = torch.zeros(Y.shape[1], dtype=X.dtype, device=X.device)
+    return W, b
+
+
+class LinearMapEstimator(LabelEstimator):
+    """Exact OLS/ridge by the normal equations
+    (LinearMapper.scala:69-161)."""
+
+    def __init__(self, lam: float = 0.0, fit_intercept: bool = True):
+        self.lam = lam
+        self.fit_intercept = fit_intercept
+
+    def fit(self, data, labels) -> LinearMapper:
+        W, b = normal_equations(data.array, labels.array.to(data.array.dtype),
+                                data.count, self.lam, self.fit_intercept)
+        return LinearMapper(W, b if self.fit_intercept else None)

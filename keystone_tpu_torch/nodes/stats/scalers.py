@@ -30,6 +30,11 @@ def moments(x: torch.Tensor, count: int, normalize_std: bool):
 class StandardScalerModel(Transformer):
     """(x − mean) / std, or x − mean when ``std`` is None."""
 
+    #: the JAX package's batch path re-zeros padded rows after this
+    #: stage (`_scale`'s mask), so a chain kernel applies the row mask
+    #: at its place in the chain (`scalers.py:42-75`)
+    fuse_masks_output = True
+
     def __init__(self, mean: torch.Tensor, std=None):
         self.mean = mean
         self.std = std
@@ -38,6 +43,13 @@ class StandardScalerModel(Transformer):
         if self.std is None:
             return lambda x: x - self.mean
         return lambda x: (x - self.mean) / self.std
+
+    def fuse(self):
+        """The JAX package's static key and parameters
+        (`scalers.py:66-75`)."""
+        if self.std is None:
+            return ("StandardScaler", "center"), (self.mean,)
+        return ("StandardScaler", "scale"), (self.mean, self.std)
 
 
 class StandardScaler(Estimator):

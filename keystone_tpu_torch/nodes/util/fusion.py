@@ -5,17 +5,21 @@ Counterpart of `keystone_tpu/nodes/util/fusion.py`: `FusedBatchTransformer`
 microbatch's intermediates are alive at a time, and `_peephole`
 (`:141-176`) merges Convolver >> SymmetricRectifier >> Pooler(sum) into
 the fused conv+rectify+pool kernel and a bare SymmetricRectifier >>
-Pooler(sum) into the rectify+pool kernel (`ops/kernels.py`). The JAX
-package's program caching, planned precision, sharding tags and planned
-chain kernels have no counterpart here.
+Pooler(sum) into the rectify+pool kernel (`ops/kernels.py`). The
+`planned_kernel` tag (`:371-394`) swaps a sub-trail of the peepholed
+stages for one chain kernel launch (`ops/chain_kernels.py`; the swap is
+`_kernel_swap`, `:460-477`, applied `:538-555`). The JAX package's
+program caching, planned precision and sharding tags have no
+counterpart here.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
+from ...ops.chain_kernels import build_chain_fn, lowerability
 from ...ops.kernels import conv_rectify_pool, hwio_to_cmajor, rectify_pool
 from ...workflow.pipeline import Transformer
 
@@ -32,6 +36,10 @@ class _RectifyPoolStage(Transformer):
     def batch_fn(self):
         return lambda x: rectify_pool(x, self.alpha, self.max_val, self.pool,
                                       self.stride)
+
+    def fuse(self):
+        return ("RectifyPool", self.alpha, self.max_val, self.pool,
+                self.stride), ()
 
 
 class _ConvRectifyPoolStage(Transformer):
@@ -56,6 +64,11 @@ class _ConvRectifyPoolStage(Transformer):
             x.contiguous(), self.g_cmajor, self.colsum, self.bias,
             self.alpha, self.max_val, self.pool, self.stride, self.normalize,
             self.patch)
+
+    def fuse(self):
+        return (("ConvRectifyPool", self.alpha, self.max_val, self.pool,
+                 self.stride, self.patch, self.normalize),
+                (self.g_cmajor, self.colsum, self.bias))
 
 
 def _is_sum_pooler(stage) -> bool:
@@ -92,16 +105,82 @@ def _peephole(stages):
     return out
 
 
+def stage_fuse(stage) -> Tuple[tuple, tuple]:
+    """(static key, parameters) of a peepholed stage (`_stage_fuse`,
+    `:190-224`, without the function): the stage's ``fuse()``, or an
+    id-keyed opaque key; wrapped as ``(key, "masked")`` when the stage
+    re-zeroes padded rows (``fuse_masks_output``)."""
+    fuse = getattr(stage, "fuse", None)
+    key, params = fuse() if fuse is not None else (("opaque", id(stage)), ())
+    if getattr(stage, "fuse_masks_output", False):
+        key = (key, "masked")
+    return key, params
+
+
+def stage_statics(stages) -> tuple:
+    """The peepholed chain's static keys: the matcher's input."""
+    return tuple(stage_fuse(s)[0] for s in _peephole(list(stages)))
+
+
+def plan_chain_kernel(statics) -> Optional[Tuple[int, int, str]]:
+    """``(start, stop, family)`` of the first maximal run of two or more
+    stages that `lowerability` accepts, or None."""
+    statics = tuple(statics)
+    for start in range(len(statics) - 1):
+        for stop in range(len(statics), start + 1, -1):
+            verdict = lowerability(statics[start:stop])
+            if verdict["lowerable"]:
+                return start, stop, verdict["family"]
+    return None
+
+
 class FusedBatchTransformer(Transformer):
     """Run ``stages`` (after the peephole) over consecutive microbatches
-    of ``microbatch`` rows; the last microbatch is ragged."""
+    of ``microbatch`` rows; the last microbatch is ragged.
+
+    ``planned_kernel`` is ``(start, stop, family)`` over the peepholed
+    stages, or None: that sub-trail runs as one chain kernel launch. In
+    the JAX package the unified planner sets the tag, and its kernel axis
+    takes any run that lowers, since it prices the kernel at one pass
+    over device memory against a round trip per stage boundary
+    (`analysis/roofline.py:907-920`). Until that planner is ported, the
+    transformer tags itself with the same choice: the first maximal run
+    that lowers (`plan_chain_kernel`)."""
 
     def __init__(self, stages: Sequence[Transformer], microbatch: int = 2048):
         self.stages = list(stages)
         self.microbatch = microbatch
+        self.fused = _peephole(self.stages)
+        self.planned_kernel = plan_chain_kernel(
+            stage_fuse(s)[0] for s in self.fused)
+
+    def _stage_fns(self):
+        """One batch function per peepholed stage, with the planned
+        sub-trail swapped for its chain kernel. A tag that does not lower
+        raises: the stages never fall back to running one by one."""
+        fns = [s.batch_fn() for s in self.fused]
+        if self.planned_kernel is None:
+            return fns
+        start, stop, family = self.planned_kernel
+        if not 0 <= start < stop <= len(self.fused):
+            raise ValueError(f"planned_kernel {self.planned_kernel} is out "
+                             f"of range for {len(self.fused)} stages")
+        fused = [stage_fuse(s) for s in self.fused[start:stop]]
+        statics = [f[0] for f in fused]
+        kern = build_chain_fn(statics, family)
+        if kern is None:
+            verdict = lowerability(statics)
+            raise ValueError(
+                f"planned_kernel {self.planned_kernel} does not lower: the "
+                f"matcher says family {verdict['family']!r} "
+                f"({verdict['reason']})")
+        params = tuple(f[1] for f in fused)
+        # one dataset device: no padded rows, so no row mask
+        fns[start:stop] = [lambda xb: kern(params, xb.contiguous(), None)]
+        return fns
 
     def batch_fn(self):
-        fns = [s.batch_fn() for s in _peephole(self.stages)]
+        fns = self._stage_fns()
 
         def run(xb):
             for fn in fns:

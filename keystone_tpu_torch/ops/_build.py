@@ -29,6 +29,8 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = {
     "conv_rectify_pool": "conv_rectify_pool.cu",
     "rectify_pool": "rectify_pool.cu",
+    "elementwise_chain": "elementwise_chain.cu",
+    "rbf_block": "rbf_block.cu",
 }
 
 NVCC_FLAGS = (

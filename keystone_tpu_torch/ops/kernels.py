@@ -1,10 +1,11 @@
-"""The featurizer's kernels: plain PyTorch versions, CUDA wrappers, and
-launch counters.
+"""The kernels' plain PyTorch versions, CUDA wrappers, and launch
+counters.
 
 Counterpart of `keystone_tpu/ops/pallas_kernels.py` (the fused
-conv+rectify+pool kernel, `:591-659`, and the rectify+pool kernel,
-`:132-159`) and of the `rectify_pool_vectorize` family of
-`keystone_tpu/ops/chain_kernels.py` (`:346-381`).
+conv+rectify+pool kernel, `:591-659`, the rectify+pool kernel,
+`:132-159`, and the RBF block, `:183-246`) and of the
+`rectify_pool_vectorize` family of `keystone_tpu/ops/chain_kernels.py`
+(`:346-381`). The elementwise chain kernel is in `chain_kernels.py`.
 
 Each wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it launches the hand-written kernel (`csrc/`, built at first
@@ -74,6 +75,15 @@ def conv_rectify_pool_reference(images, kernel_hwio, colsum, bias,
     """Convolver >> SymmetricRectifier >> Pooler(sum), unfused, in fp32."""
     out = folded_conv_reference(images, kernel_hwio, colsum, bias, normalize)
     return rectify_pool_reference(out, alpha, max_val, pool, stride)
+
+
+def rbf_block_reference(X, Yb, gamma: float) -> torch.Tensor:
+    """exp(−γ·max(‖x‖² − 2x·y + ‖y‖², 0)) for every row x of X (m,d) and
+    y of Yb (n,d), in float32 (`pallas_kernels.py:183-191`); on the card
+    the product runs in true fp32 (TF32 off, `device.py`)."""
+    d2 = ((X * X).sum(dim=1, keepdim=True) - 2.0 * (X @ Yb.T)
+          + (Yb * Yb).sum(dim=1))
+    return torch.exp(-gamma * torch.clamp(d2, min=0.0))
 
 
 def hwio_to_cmajor(kernel_hwio: torch.Tensor) -> torch.Tensor:
@@ -214,12 +224,56 @@ rectify_pool.launches = 0
 def rectify_pool_vectorize(x, alpha: float, max_val: float, pool: int,
                            stride: int) -> torch.Tensor:
     """`rectify_pool` followed by a flatten to (N, gy·gx·2K): the same
-    kernel, and a view of its output."""
+    kernel, and a view of its output. Its own count holds the launches
+    made through it."""
+    before = rectify_pool.launches
     y = rectify_pool(x, alpha, max_val, pool, stride)
+    rectify_pool_vectorize.launches += rectify_pool.launches - before
     return y.reshape(y.shape[0], -1)
+
+
+rectify_pool_vectorize.launches = 0
+
+
+def rbf_block(X, Yb, gamma: float) -> torch.Tensor:
+    """RBF kernel block. X (m,d), Yb (n,d) f32 → (m,n) f32. CUDA tensors
+    run the kernel in ``csrc/rbf_block.cu`` (fp32 products and sums, the
+    epilogue before the write); CPU tensors run `rbf_block_reference`.
+    The rows' squared norms are torch reductions outside the kernel, as
+    the JAX wrapper computes them outside its ``pallas_call``."""
+    if X.device.type == "cpu":
+        return rbf_block_reference(X, Yb, gamma)
+    if X.device.type != "cuda":
+        raise ValueError(f"rbf_block: unsupported device {X.device}")
+    _check_cuda("rbf_block", X.device, X=X, Yb=Yb)
+    if X.ndim != 2 or Yb.ndim != 2 or X.shape[1] != Yb.shape[1]:
+        raise ValueError(f"rbf_block: X {tuple(X.shape)} and Yb "
+                         f"{tuple(Yb.shape)} must be (m,d) and (n,d)")
+    m, d = X.shape
+    n = Yb.shape[0]
+    out = torch.empty((m, n), dtype=torch.float32, device=X.device)
+    if m == 0 or n == 0:
+        return out
+    x2 = (X * X).sum(dim=1)
+    y2 = (Yb * Yb).sum(dim=1)
+    lib = _build.load("rbf_block")
+    fn = lib.keystone_rbf_block
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
+    fn.restype = _I
+    rc = fn(X.data_ptr(), Yb.data_ptr(), x2.data_ptr(), y2.data_ptr(),
+            out.data_ptr(), m, n, d, float(gamma), _stream(X.device))
+    _raise_on_error(lib, "rbf_block", rc)
+    rbf_block.launches += 1
+    return out
+
+
+rbf_block.launches = 0
 
 
 def reset_launches() -> None:
     """Set every wrapper's launch count to 0."""
-    conv_rectify_pool.launches = 0
-    rectify_pool.launches = 0
+    from .chain_kernels import elementwise_chain
+
+    for wrapper in (conv_rectify_pool, rectify_pool, rectify_pool_vectorize,
+                    rbf_block, elementwise_chain):
+        wrapper.launches = 0

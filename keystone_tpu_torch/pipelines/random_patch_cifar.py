@@ -220,21 +220,26 @@ def run_staged(train, config, evaluator):
     return stages, train_metrics
 
 
-def run(config: RandomPatchCifarConfig, device="cuda"):
-    """Load or synthesize the data, fit, and score train and test."""
+def load_data(config, device):
+    """(train, test): CIFAR from ``config.train_path``/``test_path``, or
+    ``synthetic_cifar`` at ``config.synth_train``/``synth_test``."""
     if config.train_path:
-        train = cifar_loader(config.train_path, device=device)
-        test = cifar_loader(config.test_path or config.train_path,
-                            device=device)
-    else:
-        train, test = synthetic_cifar(
-            config.synth_train, config.synth_test, config.num_classes,
-            config.seed, device=device)
+        return (cifar_loader(config.train_path, device=device),
+                cifar_loader(config.test_path or config.train_path,
+                             device=device))
+    return synthetic_cifar(config.synth_train, config.synth_test,
+                           config.num_classes, config.seed, device=device)
+
+
+def fit_and_score(build, train, test, num_classes: int):
+    """Fit with ``build()`` and score train and test; the train clock
+    covers the fit and the train predict and evaluation, closed by a
+    device sync."""
     dev = train.data.device
     _sync(dev)
     t0 = time.perf_counter()
-    predictor = build_pipeline(train, config)
-    evaluator = MulticlassClassifierEvaluator(config.num_classes)
+    predictor = build()
+    evaluator = MulticlassClassifierEvaluator(num_classes)
     train_metrics = evaluator(predictor(train.data), train.labels)
     _sync(dev)
     t_train = time.perf_counter() - t0
@@ -248,6 +253,13 @@ def run(config: RandomPatchCifarConfig, device="cuda"):
         "summary": test_metrics.summary(),
         "predictor": predictor,
     }
+
+
+def run(config: RandomPatchCifarConfig, device="cuda"):
+    """Load or synthesize the data, fit, and score train and test."""
+    train, test = load_data(config, device)
+    return fit_and_score(lambda: build_pipeline(train, config), train, test,
+                         config.num_classes)
 
 
 def main(argv=None):

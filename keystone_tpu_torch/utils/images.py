@@ -16,3 +16,17 @@ def extract_patches_device(images: torch.Tensor, patch: int,
     cols = F.unfold(images.permute(0, 3, 1, 2), patch, stride=stride)
     cols = cols.transpose(1, 2).reshape(-1, c, patch, patch)
     return cols.permute(0, 2, 3, 1)
+
+
+#: NTSC luminance weights (ImageUtils.toGrayScale)
+GRAY_WEIGHTS = (0.299, 0.587, 0.114)
+
+
+def grayscale(images: torch.Tensor) -> torch.Tensor:
+    """NTSC luminance over the last axis, kept as an axis of 1; the
+    identity when that axis is already 1
+    (`keystone_tpu/utils/images.py:48-53`)."""
+    if images.shape[-1] == 1:
+        return images
+    w = torch.tensor(GRAY_WEIGHTS, dtype=torch.float32, device=images.device)
+    return (images.to(torch.float32) * w).sum(dim=-1, keepdim=True)

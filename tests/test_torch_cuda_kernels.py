@@ -98,3 +98,81 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     x = torch.zeros((2, 8, 27, 27), device=cuda_device).permute(0, 2, 3, 1)
     with pytest.raises(ValueError):
         kernels.rectify_pool(x, 0.25, 0.0, 14, 13)
+
+
+# (statics, params as numpy, item shape, pixel scale) of the chains the
+# CPU tests hold against JAX (tests/test_torch_chain_kernels.py)
+def _chain(name, rng):
+    if name == "linear_pixels":
+        return ((("PixelScaler",), ("GrayScaler",), ("ImageVectorizer",)),
+                [(), (), ()], (32, 32, 3), 255.0)
+    if name == "every_other_head":
+        return ((("LinearRectifier",), ("RandomSignNode",),
+                 ("SignedHellingerMapper",), ("NormalizeRows",),
+                 (("StandardScaler", "scale"), "masked"),
+                 ("StandardScaler", "center")),
+                [(-0.3, 0.1),
+                 (rng.choice([-1.0, 1.0], size=1024).astype(np.float32),),
+                 (), (1e-3,),
+                 (rng.normal(size=1024).astype(np.float32),
+                  rng.uniform(0.5, 2.0, size=1024).astype(np.float32)),
+                 (rng.normal(size=1024).astype(np.float32),)],
+                (1024,), 1.0)
+    return ((("PixelScaler",), ("GrayScaler",), ("ImageVectorizer",),
+             (("StandardScaler",), "masked")),
+            [(), (), (), (rng.normal(size=36).astype(np.float32),
+                          rng.uniform(0.5, 2.0, size=36).astype(np.float32))],
+            (6, 6, 1), 255.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["linear_pixels", "every_other_head",
+                                  "one_channel"])
+@pytest.mark.parametrize("n,masked_rows", [(37, 0), (37, 5), (300, 0)])
+def test_cuda_elementwise_chain_matches_plain(cuda_device, name, n,
+                                              masked_rows):
+    """The chain kernel against its plain version on the card: max error
+    over max |plain| within 1e-6 (only the reductions' order differs)."""
+    from keystone_tpu_torch.ops import chain_kernels
+
+    rng = np.random.default_rng(2)
+    statics, params, item, scale = _chain(name, rng)
+    x = rng.normal(size=(n,) + item) * scale
+    x = torch.tensor(np.abs(x) if scale > 1.0 else x, dtype=torch.float32,
+                     device=cuda_device)
+    mask = None
+    if masked_rows:
+        mask = torch.arange(n, device=cuda_device) < n - masked_rows
+    before = chain_kernels.elementwise_chain.launches
+    got = chain_kernels.elementwise_chain(statics, params, x, mask)
+    torch.cuda.synchronize()
+    assert chain_kernels.elementwise_chain.launches == before + 1
+    want = chain_kernels.elementwise_chain_reference(statics, params, x, mask)
+    assert got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d,gamma", [
+    (70, 33, 50, 0.07),      # ragged on every axis of a 128x128x8 tile
+    (300, 257, 440, 0.01),   # bench.py's KRR width, ragged
+    (1000, 2048, 2048, 2e-3),  # a fit block's width and depth
+])
+def test_cuda_rbf_block_matches_plain(cuda_device, m, n, d, gamma):
+    """The RBF kernel against its plain version (fp32 matmul, TF32 off)
+    on standardized rows and on a block against itself: 5e-5 absolute on
+    outputs in (0, 1], where x2 + y2 - 2xy cancels on the diagonal."""
+    rng = np.random.default_rng(3)
+    X = torch.tensor(rng.normal(size=(m, d)), dtype=torch.float32,
+                     device=cuda_device)
+    Y = torch.tensor(rng.normal(size=(n, d)), dtype=torch.float32,
+                     device=cuda_device)
+    for Yb in (Y, X[:min(m, n)].contiguous()):
+        before = kernels.rbf_block.launches
+        got = kernels.rbf_block(X, Yb, gamma)
+        torch.cuda.synchronize()
+        assert kernels.rbf_block.launches == before + 1
+        want = kernels.rbf_block_reference(X, Yb, gamma)
+        assert got.shape == want.shape == (m, Yb.shape[0])
+        assert float((got - want).abs().max()) <= 5e-5
