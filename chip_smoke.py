@@ -231,7 +231,7 @@ def main() -> int:
     t0 = time.perf_counter()
     seconds = _build.build()
     regs = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
-                if "registers" in ln or "spill" in ln]
+                if "Used" in ln or "spill" in ln or "C75" in ln]
             for n in _build.SOURCES}
     phase("build", seconds=round(time.perf_counter() - t0, 3),
           per_kernel=seconds, ptxas=regs)
@@ -572,7 +572,8 @@ def main() -> int:
              rel_err=k1["rel_err"], tolerance_rel=K1_TOL, ms=k1["ms"],
              plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None,
-             conv2d_bf16_conv_only_ms=k1["conv2d_bf16_conv_only_ms"]),
+             conv2d_bf16_conv_only_ms=k1["conv2d_bf16_conv_only_ms"],
+             ptxas=regs["conv_rectify_pool"]),
         dict(name="rectify_pool", route="cuda",
              source="keystone_tpu_torch/csrc/rectify_pool.cu",
              replaces="keystone_tpu/ops/pallas_kernels.py:132",

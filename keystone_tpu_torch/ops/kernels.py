@@ -102,12 +102,89 @@ def pooled_grid(h: int, w: int, pool: int, stride: int):
     return (h - pool) // stride + 1, (w - pool) // stride + 1
 
 
+def pool_window_ranges(n_pos: int, pool: int, stride: int):
+    """For each index 0..n_pos−1 along one axis, the first and last pool
+    window that covers it: window i covers [i·stride, i·stride + pool).
+    Two int64 tensors; first > last where no window covers the index."""
+    pos = torch.arange(n_pos)
+    n_win = (n_pos - pool) // stride + 1
+    first = torch.clamp(-((pool - 1 - pos) // stride), min=0)
+    last = torch.clamp(pos // stride, max=n_win - 1)
+    return first, last
+
+
+#: positions that share one class word in the fused conv kernel's plan
+CONV_GROUP_ROWS = 8
+#: largest window index a class word holds (7 bits a field)
+CONV_MAX_WINDOWS = 127
+#: set in a class word whose positions include padding
+CONV_PAD_FLAG = 1 << 28
+
+
+def conv_row_plan(pos_h: int, pos_w: int, pool: int, stride: int):
+    """The fused conv kernel's plan of positions over a (pos_h, pos_w)
+    grid of conv positions: (row_pos, group_windows), int32 tensors.
+
+    ``row_pos`` lists the positions (y·pos_w + x) that lie in at least
+    one pool window, grouped by their class, the window range they fall
+    in along each axis, in the raster order of each class's first
+    position; each class is padded with −1 to a multiple of
+    `CONV_GROUP_ROWS`. ``group_windows[i]`` packs the class of entries
+    8i..8i+7 as ``wy0 | wy1 << 7 | wx0 << 14 | wx1 << 21`` (first and last
+    window along y and x), with `CONV_PAD_FLAG` where they include
+    padding.
+    """
+    fy, ly = pool_window_ranges(pos_h, pool, stride)
+    fx, lx = pool_window_ranges(pos_w, pool, stride)
+    classes = {}
+    for y in range(pos_h):
+        for x in range(pos_w):
+            key = (int(fy[y]), int(ly[y]), int(fx[x]), int(lx[x]))
+            if key[0] <= key[1] and key[2] <= key[3]:
+                classes.setdefault(key, []).append(y * pos_w + x)
+    rows, groups = [], []
+    for (wy0, wy1, wx0, wx1), members in classes.items():
+        pad = -len(members) % CONV_GROUP_ROWS
+        rows += members + [-1] * pad
+        word = wy0 | wy1 << 7 | wx0 << 14 | wx1 << 21
+        groups += [word] * (len(members) // CONV_GROUP_ROWS)
+        if pad:
+            groups.append(word | CONV_PAD_FLAG)
+    return (torch.tensor(rows, dtype=torch.int32),
+            torch.tensor(groups, dtype=torch.int32))
+
+
+_row_plans = {}
+
+
+def _device_row_plan(pos_h, pos_w, pool, stride, device):
+    key = (pos_h, pos_w, pool, stride, device)
+    if key not in _row_plans:
+        _row_plans[key] = tuple(
+            t.to(device) for t in conv_row_plan(pos_h, pos_w, pool, stride))
+    return _row_plans[key]
+
+
 # ---------------------------------------------------------------------------
 # Wrappers
 # ---------------------------------------------------------------------------
 
 #: largest dynamic shared memory one block may use on Hopper
 MAX_SMEM_BYTES = 232_448
+
+#: filters per M tile of the fused conv kernel
+CONV_FILTER_TILE = 64
+
+
+def conv_filter_chunk(k: int, smem_of, limit: int = MAX_SMEM_BYTES) -> int:
+    """Filters per launch of the fused conv kernel, whose block holds its
+    share of the bank in shared memory: ``k`` where ``smem_of(k)`` bytes
+    fit ``limit``, else the largest multiple of `CONV_FILTER_TILE` that
+    fits; 0 where not even one tile does."""
+    kc = k
+    while kc > 0 and smem_of(kc) > limit:
+        kc = (kc - 1) // CONV_FILTER_TILE * CONV_FILTER_TILE
+    return kc
 
 
 def _check_cuda(name: str, device: torch.device, **tensors) -> None:
@@ -138,8 +215,11 @@ def conv_rectify_pool(images, g_cmajor, colsum, bias, alpha: float,
 
     images (N,H,W,C) f32, g_cmajor (C·P·P, K) f32 in channel-major order,
     colsum and bias (K,) f32 → (N, gy, gx, 2K) f32. CUDA tensors run the
-    kernel in ``csrc/conv_rectify_pool.cu`` (bf16 operands, fp32 sums);
-    CPU tensors run `conv_rectify_pool_reference`."""
+    kernel in ``csrc/conv_rectify_pool.cu`` (bf16 operands on the tensor
+    cores, fp32 sums) over the row plan of `conv_row_plan`; CPU tensors
+    run `conv_rectify_pool_reference`. A bank too large for one block's
+    shared memory runs as one launch per chunk of `conv_filter_chunk`
+    filters."""
     n, h, w, c = images.shape
     k = g_cmajor.shape[1]
     if images.device.type == "cpu":
@@ -157,32 +237,46 @@ def conv_rectify_pool(images, g_cmajor, colsum, bias, alpha: float,
                          f"{c * patch * patch}")
     if colsum.shape != (k,) or bias.shape != (k,):
         raise ValueError("conv_rectify_pool: colsum and bias must be (K,)")
-    gy, gx = pooled_grid(h - patch + 1, w - patch + 1, pool, stride)
+    pos_h, pos_w = h - patch + 1, w - patch + 1
+    gy, gx = pooled_grid(pos_h, pos_w, pool, stride)
     if gy < 1 or gx < 1:
         raise ValueError("conv_rectify_pool: pool window exceeds the "
                          "conv output")
+    if max(gy, gx) > CONV_MAX_WINDOWS + 1:
+        raise ValueError(f"conv_rectify_pool: {gy}x{gx} pool windows; the "
+                         f"row plan packs window indices in 7 bits")
+    row_pos, group_windows = _device_row_plan(pos_h, pos_w, pool, stride,
+                                              images.device)
     lib = _build.load("conv_rectify_pool")
     fn = lib.keystone_conv_rectify_pool
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
-                   _F, _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _I, _I, _F, _F, _I, _P]
     fn.restype = _I
     smem_fn = lib.keystone_conv_rectify_pool_smem
-    smem_fn.argtypes = [_I] * 6
+    smem_fn.argtypes = [_I] * 7
     smem_fn.restype = ctypes.c_size_t
-    smem = smem_fn(h, w, c, patch, gy, gx)
-    if smem > MAX_SMEM_BYTES:
+    rows = row_pos.numel()
+    kc = conv_filter_chunk(
+        k, lambda f: smem_fn(h, w, c, patch, f, gy * gx, rows))
+    if kc == 0:
+        smem = smem_fn(h, w, c, patch, min(k, CONV_FILTER_TILE), gy * gx,
+                       rows)
         raise ValueError(f"conv_rectify_pool: a block would need {smem} "
                          f"bytes of shared memory (limit {MAX_SMEM_BYTES})")
     out = torch.empty((n, gy, gx, 2 * k), dtype=torch.float32,
                       device=images.device)
     if n == 0:
         return out
-    rc = fn(images.data_ptr(), g_cmajor.data_ptr(), colsum.data_ptr(),
-            bias.data_ptr(), out.data_ptr(), n, h, w, c, k, patch, pool,
-            stride, float(alpha), float(max_val), int(bool(normalize)),
-            _stream(images.device))
-    _raise_on_error(lib, "conv_rectify_pool", rc)
-    conv_rectify_pool.launches += 1
+    # chunk f0..f0+kc−1 of the bank: offset the per-filter pointers
+    for f0 in range(0, k, kc):
+        rc = fn(images.data_ptr(), g_cmajor.data_ptr() + 4 * f0,
+                colsum.data_ptr() + 4 * f0, bias.data_ptr() + 4 * f0,
+                row_pos.data_ptr(), group_windows.data_ptr(),
+                out.data_ptr() + 4 * f0, n, h, w, c, min(kc, k - f0), k,
+                patch, pool, stride, rows, float(alpha), float(max_val),
+                int(bool(normalize)), _stream(images.device))
+        _raise_on_error(lib, "conv_rectify_pool", rc)
+        conv_rectify_pool.launches += 1
     return out
 
 

@@ -13,8 +13,12 @@ import torch
 
 from keystone_tpu_torch.ops import kernels
 
-# geometries and ragged counts of tests/test_pallas_ops.py:117-160, plus
-# the headline width at a ragged count
+# geometries and ragged counts of tests/test_pallas_ops.py:117-160, the
+# headline width at a ragged count, and the kernel's tile edges: a ragged
+# 256-filter tile, two filter tiles, more images than one walk of the
+# persistent blocks, the headline without the mean correction, and banks
+# too large for one block's shared memory (two launches, the second
+# ragged at 520)
 CONV_GEOMETRIES = [
     (5, 32, 32, 3, 6, 32, 14, 13, True),
     (3, 16, 16, 1, 5, 16, 6, 6, False),
@@ -23,7 +27,17 @@ CONV_GEOMETRIES = [
     (5, 12, 12, 1, 3, 8, 10, 10, True),
     (3, 12, 10, 2, 3, 8, 8, 2, False),
     (37, 32, 32, 3, 6, 256, 14, 13, True),
+    (7, 32, 32, 3, 6, 100, 14, 13, True),
+    (5, 32, 32, 3, 6, 384, 14, 13, True),
+    (2049, 32, 32, 3, 6, 256, 14, 13, True),
+    (64, 32, 32, 3, 6, 256, 14, 13, False),
+    (3, 32, 32, 3, 6, 512, 14, 13, True),
+    (4, 32, 32, 3, 6, 520, 14, 13, False),
 ]
+
+# at 32x32x3, P 6, pool 14 stride 13, one block holds at most this many
+# filters of the bank; the wrapper launches once per such chunk
+HEADLINE_FILTER_CHUNK = 448
 
 # geometries of tests/test_pallas_ops.py:25-40, plus a ragged width
 RECTIFY_GEOMETRIES = [
@@ -62,7 +76,8 @@ def test_cuda_conv_rectify_pool_matches_plain(
     got = kernels.conv_rectify_pool(x, g, colsum, bias, 0.25, 0.0, pool,
                                     stride, normalize, patch)
     torch.cuda.synchronize()
-    assert kernels.conv_rectify_pool.launches == before + 1
+    chunk = HEADLINE_FILTER_CHUNK if (h, w, c, patch) == (32, 32, 3, 6) else k
+    assert kernels.conv_rectify_pool.launches == before + -(-k // chunk)
     want = kernels.conv_rectify_pool_reference(x, kern, colsum, bias, 0.25,
                                                0.0, pool, stride, normalize)
     assert got.shape == want.shape
