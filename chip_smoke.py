@@ -11,7 +11,17 @@ Phases, each printed on a line of its own:
 2. build    - nvcc builds every kernel of the main path from csrc/.
 3. kernels  - each kernel against its plain PyTorch version on the card,
               at the main path's shapes and at ragged ones, with its
-              error, tolerance and time (CUDA events, median of reps).
+              error, tolerance and times: ``ms``, single calls between
+              CUDA events (host work in the wrapper included), and
+              ``device_ms``, a CUDA graph of its launches replayed between
+              two events, per launch. The chain kernel's ``device_ms``
+              rotates over twelve 4096-image microbatches (600 MB, well
+              past the 50 MB L2), as the pipeline's stream of microbatches
+              finds its inputs cold; ``planned_call_ms`` is the wall clock
+              per microbatch of its planned path over the same inputs.
+              Its ``short_rows`` times the short-row design (a warp a
+              row, several rows a step) on 440-float rows against the
+              block-a-row design on the same arrays seen as rows of ten.
 4. slice    - RandomPatchCifar at full width (256 filters) on 50,000
               synthetic training and 10,000 test images, as the JAX
               package's bench times its headline; test accuracy must
@@ -60,6 +70,9 @@ HEADLINE_N = 2048
 N_TRAIN, N_TEST = 50_000, 10_000
 # one LinearPixels microbatch
 CHAIN_N = 4096
+# rows of 440 floats (the TIMIT frames of the JAX bench's KRR geometry)
+# that time the chain kernel's short-row design: 72 MB an input
+SHORT_ROWS_N, SHORT_ROW_FLOATS = 40_960, 440
 # (m, n, d, gamma) of the RBF block: a fit block of RandomPatchCifarKernel
 # (50,000 rows against 2048 of them, 2048 features), then the JAX bench's
 # KRR flagship geometry (bench.py:359-361, 678-706)
@@ -115,6 +128,50 @@ def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(calls, reps: int = 5) -> float:
+    """Device time per launch: ``calls`` run once to warm up (builds,
+    plans, allocations, attributes), then captured in order into one
+    CUDA graph, replayed between two events; the median over ``reps``
+    replays, divided by the number of calls."""
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for fn in calls:
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / len(calls))
+    del graph
+    return statistics.median(times)
+
+
+def host_ms(fn, count: int, reps: int = 5):
+    """(wall clock per call with a sync at the end, host time per call
+    to enqueue): ``fn`` makes ``count`` calls; medians over ``reps``."""
+    fn()
+    torch.cuda.synchronize()
+    wall, enqueue = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        enqueue.append(1e3 * (t1 - t0) / count)
+        wall.append(1e3 * (t2 - t0) / count)
+    return statistics.median(wall), statistics.median(enqueue)
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor):
@@ -268,6 +325,8 @@ def main() -> int:
             k1 = dict(max_abs_err=err, rel_err=rel)
             k1["ms"] = time_ms(lambda: kernels.conv_rectify_pool(
                 x, g, cs, bs, alpha, mv, pool, stride, normalize, patch))
+            k1["device_ms"] = device_ms([lambda: kernels.conv_rectify_pool(
+                x, g, cs, bs, alpha, mv, pool, stride, normalize, patch)] * 20)
             k1["plain_ms"] = time_ms(
                 lambda: kernels.conv_rectify_pool_reference(
                     x, kern, cs, bs, alpha, mv, pool, stride, normalize))
@@ -298,6 +357,8 @@ def main() -> int:
         if k2 is None:
             k2 = dict(max_abs_err=err, rel_err=rel)
             k2["ms"] = time_ms(lambda: kernels.rectify_pool(x, a, m, p, s))
+            k2["device_ms"] = device_ms(
+                [lambda: kernels.rectify_pool(x, a, m, p, s)] * 20)
             k2["plain_ms"] = time_ms(
                 lambda: kernels.rectify_pool_reference(x, a, m, p, s))
             gy, gx = kernels.pooled_grid(h, w, p, s)
@@ -305,21 +366,25 @@ def main() -> int:
                                                          gx)
         del x, got, want
 
-    def chain_case(chain):
-        """(statics, params) of a chain: LinearPixels' trail, or every
-        other head over (1024,) rows with the scale form masked."""
+    def chain_case(chain, d=1024):
+        """(statics, params) of a chain: LinearPixels' trail; every
+        other head over (d,) rows with the scale form masked; or the
+        same without NormalizeRows (``elementwise_heads``)."""
         if chain == "linear_pixels":
             return ((("PixelScaler",), ("GrayScaler",), ("ImageVectorizer",)),
                     [(), (), ()])
-        sign = torch.randint(0, 2, (1024,), generator=gen, device=dev) * 2.0
-        return ((("LinearRectifier",), ("RandomSignNode",),
-                 ("SignedHellingerMapper",), ("NormalizeRows",),
-                 (("StandardScaler", "scale"), "masked"),
-                 ("StandardScaler", "center")),
-                [(-0.3, 0.1), (sign - 1.0,), (), (1e-3,),
-                 (torch.randn((1024,), generator=gen, device=dev),
-                  torch.rand((1024,), generator=gen, device=dev) + 0.5),
-                 (torch.randn((1024,), generator=gen, device=dev),)])
+        sign = torch.randint(0, 2, (d,), generator=gen, device=dev) * 2.0
+        statics = [("LinearRectifier",), ("RandomSignNode",),
+                   ("SignedHellingerMapper",), ("NormalizeRows",),
+                   (("StandardScaler", "scale"), "masked"),
+                   ("StandardScaler", "center")]
+        params = [(-0.3, 0.1), (sign - 1.0,), (), (1e-3,),
+                  (torch.randn((d,), generator=gen, device=dev),
+                   torch.rand((d,), generator=gen, device=dev) + 0.5),
+                  (torch.randn((d,), generator=gen, device=dev),)]
+        if chain == "elementwise_heads":
+            del statics[3], params[3]
+        return tuple(statics), params
 
     k4_checks, k4 = [], None  # the first case is the headline
     for chain, n, item, masked_rows in (
@@ -366,8 +431,71 @@ def main() -> int:
             k4["library_rel_err"] = lib_rel
             k4["library_ms"] = time_ms(
                 lambda: torch.matmul(x, w_gray).reshape(n, -1))
-            del lib, w_gray
+            # cold: twelve microbatches in turn, as the pipeline feeds them
+            xs = [torch.rand((n,) + item, generator=gen, device=dev) * 255.0
+                  for _ in range(12)]
+            plan = chain_kernels.ChainPlan(statics, params, item, dev)
+            outs = [torch.empty((n,) + plan.out_shape, device=dev)
+                    for _ in xs]
+            planned = [lambda xb=xb, ob=ob: plan(xb, None, ob)
+                       for xb, ob in zip(xs, outs)]
+            k4["plan"] = dict(grid=plan.grid, **vars(plan.layout.launch))
+            k4["library_device_ms"] = device_ms(
+                [lambda xb=xb: torch.matmul(xb, w_gray).reshape(n, -1)
+                 for xb in xs] * 2)
+            k4["device_ms"] = device_ms(planned * 2)
+
+            def planned_path():
+                for f in planned:
+                    f()
+
+            k4["planned_call_ms"], k4["planned_enqueue_ms"] = host_ms(
+                planned_path, len(planned))
+            del lib, w_gray, xs, outs, planned, plan
         del x, got, want
+
+    # the short-row design (a warp a row, twelve rows a step) against the
+    # block-a-row design on the same bytes: 440-float rows (the TIMIT
+    # frames of the JAX bench's KRR geometry) through every elementwise
+    # head but NormalizeRows, whose sum would change with the grouping,
+    # and the same arrays seen as rows of ten frames; cold over four
+    # rotating 72 MB inputs, in the order short, grouped, grouped, short
+    frames, width, ten = SHORT_ROWS_N, SHORT_ROW_FLOATS, 10
+    statics, params = chain_case("elementwise_heads", d=width)
+    xs = [torch.randn((frames, width), generator=gen, device=dev)
+          for _ in range(4)]
+    outs = [torch.empty_like(xb) for xb in xs]
+    short_rows = dict(n=frames, row_floats=width, grouped_row_floats=
+                      ten * width)
+    timed = {}
+    for label, shape in (("short", (frames, width)),
+                         ("grouped", (frames // ten, ten, width))):
+        plan = chain_kernels.ChainPlan(statics, params, shape[1:], dev)
+        got = plan(xs[0].view(shape))
+        torch.cuda.synchronize()
+        err, rel = rel_err(got, chain_kernels.elementwise_chain_reference(
+            statics, params, xs[0].view(shape)))
+        check(rel <= K4_TOL, f"elementwise_chain {label} rows: relative "
+              f"error {rel} > {K4_TOL}")
+        short_rows[label] = dict(rows_per_step=plan.layout.launch.rows,
+                                 threads_per_row=plan.layout.launch.group,
+                                 grid=plan.grid, max_abs_err=err,
+                                 rel_err=rel)
+        timed[label] = [lambda p=plan, xb=xb, ob=ob, shape=shape: p(
+            xb.view(shape), None, ob.view(shape)) for xb, ob in zip(xs, outs)]
+        if label == "short":
+            short_rows["bound_ms"], short_rows["bound_by"] = k4_bound_ms(
+                frames, plan.layout)
+    check(short_rows["short"]["threads_per_row"] == 32
+          and short_rows["grouped"]["threads_per_row"] == 128,
+          f"elementwise_chain short rows: plans {short_rows}")
+    order = [device_ms(timed[label] * 2)
+             for label in ("short", "grouped", "grouped", "short")]
+    short_rows["short"]["device_ms"] = (order[0] + order[3]) / 2
+    short_rows["grouped"]["device_ms"] = (order[1] + order[2]) / 2
+    short_rows["order_device_ms"] = order
+    k4["short_rows"] = short_rows
+    del xs, outs, timed, plan, got
 
     k5_checks, k5 = [], None  # the first geometry is the headline
     for m, n, d, gamma in RBF_GEOMETRIES:
@@ -389,6 +517,8 @@ def main() -> int:
         if k5 is None:
             k5 = dict(max_abs_err=err)
             k5["ms"] = time_ms(lambda: kernels.rbf_block(X, Yb, gamma))
+            k5["device_ms"] = device_ms(
+                [lambda: kernels.rbf_block(X, Yb, gamma)] * 10)
             k5["plain_ms"] = time_ms(
                 lambda: kernels.rbf_block_reference(X, Yb, gamma))
             k5["matmul_fp32_gemm_only_ms"] = time_ms(lambda: X @ Yb.T)
@@ -570,7 +700,8 @@ def main() -> int:
              replaces="keystone_tpu/ops/pallas_kernels.py:591",
              launches=k1_launches, max_abs_err=k1["max_abs_err"],
              rel_err=k1["rel_err"], tolerance_rel=K1_TOL, ms=k1["ms"],
-             plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             device_ms=k1["device_ms"], plain_ms=k1["plain_ms"],
+             bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None,
              conv2d_bf16_conv_only_ms=k1["conv2d_bf16_conv_only_ms"],
              ptxas=regs["conv_rectify_pool"]),
@@ -582,22 +713,29 @@ def main() -> int:
              rectify_pool_vectorize_launches=k3_launches,
              max_abs_err=k2["max_abs_err"],
              rel_err=k2["rel_err"], tolerance_rel=K2_TOL, ms=k2["ms"],
-             plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
+             device_ms=k2["device_ms"], plain_ms=k2["plain_ms"],
+             bound_ms=k2["bound_ms"],
              bound_by=k2["bound_by"], library_ms=None),
         dict(name="elementwise_chain", route="cuda",
              source="keystone_tpu_torch/csrc/elementwise_chain.cu",
              replaces="keystone_tpu/ops/chain_kernels.py:504",
              launches=k4_launches, max_abs_err=k4["max_abs_err"],
              rel_err=k4["rel_err"], tolerance_rel=K4_TOL, ms=k4["ms"],
+             device_ms=k4["device_ms"],
+             planned_call_ms=k4["planned_call_ms"],
+             planned_enqueue_ms=k4["planned_enqueue_ms"],
              plain_ms=k4["plain_ms"], bound_ms=k4["bound_ms"],
              bound_by=k4["bound_by"], library_ms=k4["library_ms"],
+             library_device_ms=k4["library_device_ms"],
              library_call="torch.matmul(x, gray_weights / 255)",
-             library_rel_err=k4["library_rel_err"]),
+             library_rel_err=k4["library_rel_err"], plan=k4["plan"],
+             short_rows=k4["short_rows"]),
         dict(name="rbf_block", route="cuda",
              source="keystone_tpu_torch/csrc/rbf_block.cu",
              replaces="keystone_tpu/ops/pallas_kernels.py:212",
              launches=kc_k5, max_abs_err=k5["max_abs_err"],
-             tolerance_abs=K5_TOL, ms=k5["ms"], plain_ms=k5["plain_ms"],
+             tolerance_abs=K5_TOL, ms=k5["ms"], device_ms=k5["device_ms"],
+             plain_ms=k5["plain_ms"],
              bound_ms=k5["bound_ms"], bound_by=k5["bound_by"],
              library_ms=None,
              matmul_fp32_gemm_only_ms=k5["matmul_fp32_gemm_only_ms"]),

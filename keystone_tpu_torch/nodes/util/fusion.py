@@ -8,7 +8,9 @@ the fused conv+rectify+pool kernel and a bare SymmetricRectifier >>
 Pooler(sum) into the rectify+pool kernel (`ops/kernels.py`). The
 `planned_kernel` tag (`:371-394`) swaps a sub-trail of the peepholed
 stages for one chain kernel launch (`ops/chain_kernels.py`; the swap is
-`_kernel_swap`, `:460-477`, applied `:538-555`). The JAX package's
+`_kernel_swap`, `:460-477`, applied `:538-555`). Where that launch is
+the last stage, the transformer allocates its result once and each
+microbatch's launch writes its own rows of it. The JAX package's
 program caching, planned precision and sharding tags have no
 counterpart here.
 """
@@ -153,48 +155,74 @@ class FusedBatchTransformer(Transformer):
         self.fused = _peephole(self.stages)
         self.planned_kernel = plan_chain_kernel(
             stage_fuse(s)[0] for s in self.fused)
+        self._chain = None  # (tag, chain fn) of the planned sub-trail
 
-    def _stage_fns(self):
-        """One batch function per peepholed stage, with the planned
-        sub-trail swapped for its chain kernel. A tag that does not lower
-        raises: the stages never fall back to running one by one."""
-        fns = [s.batch_fn() for s in self.fused]
-        if self.planned_kernel is None:
-            return fns
+    def _chain_fn(self):
+        """The planned sub-trail's chain function, built once per tag and
+        kept, so that its launch plans (one per item shape) serve every
+        later microbatch and apply. The stages' parameters are read here
+        once: fitted stages do not change, as the JAX package's
+        immutable parameters do not. A tag that does not lower raises."""
+        if self._chain is not None and self._chain[0] == self.planned_kernel:
+            return self._chain[1]
         start, stop, family = self.planned_kernel
         if not 0 <= start < stop <= len(self.fused):
             raise ValueError(f"planned_kernel {self.planned_kernel} is out "
                              f"of range for {len(self.fused)} stages")
         fused = [stage_fuse(s) for s in self.fused[start:stop]]
         statics = [f[0] for f in fused]
-        kern = build_chain_fn(statics, family)
+        kern = build_chain_fn(statics, tuple(f[1] for f in fused), family)
         if kern is None:
             verdict = lowerability(statics)
             raise ValueError(
                 f"planned_kernel {self.planned_kernel} does not lower: the "
                 f"matcher says family {verdict['family']!r} "
                 f"({verdict['reason']})")
-        params = tuple(f[1] for f in fused)
+        self._chain = (self.planned_kernel, kern)
+        return kern
+
+    def _stage_fns(self):
+        """One batch function per peepholed stage, with the planned
+        sub-trail swapped for its chain kernel, and that kernel's function
+        where it is the last stage and writes into a given ``out`` (else
+        None). The stages never fall back to running one by one."""
+        fns = [s.batch_fn() for s in self.fused]
+        if self.planned_kernel is None:
+            return fns, None
+        start, stop, _ = self.planned_kernel
+        kern = self._chain_fn()
         # one dataset device: no padded rows, so no row mask
-        fns[start:stop] = [lambda xb: kern(params, xb.contiguous(), None)]
-        return fns
+        fns[start:stop] = [lambda xb: kern(xb.contiguous())]
+        last = kern if stop == len(self.fused) and kern.plans is not None \
+            else None
+        return fns, last
 
     def batch_fn(self):
-        fns = self._stage_fns()
+        fns, last = self._stage_fns()
+        head = fns if last is None else fns[:-1]
 
-        def run(xb):
-            for fn in fns:
+        def run(xb, stage_fns):
+            for fn in stage_fns:
                 xb = fn(xb)
             return xb
 
         def fn(x):
-            out = None
-            for start in range(0, x.shape[0], self.microbatch):
-                y = run(x[start:start + self.microbatch])
+            n, out = x.shape[0], None
+            for start in range(0, n, self.microbatch):
+                y = run(x[start:start + self.microbatch], head)
+                if last is not None:
+                    # the chain kernel writes its rows of the result
+                    y = y.contiguous()
+                    if out is None:
+                        out = torch.empty(
+                            (n,) + last.plan_for(y).out_shape,
+                            dtype=torch.float32, device=y.device)
+                    last(y, out[start:start + y.shape[0]])
+                    continue
                 if out is None:
-                    out = torch.empty((x.shape[0],) + tuple(y.shape[1:]),
+                    out = torch.empty((n,) + tuple(y.shape[1:]),
                                       dtype=y.dtype, device=y.device)
                 out[start:start + y.shape[0]] = y
-            return out if out is not None else run(x)
+            return out if out is not None else run(x, fns)
 
         return fn

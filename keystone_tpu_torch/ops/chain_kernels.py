@@ -18,14 +18,17 @@ A chain is the static keys of its stages, ``(head, ...)`` wrapped as
 ``(key, "masked")`` when the stage re-zeroes padded rows, and one
 parameter tuple per stage, as the nodes' ``fuse`` methods give them. The
 TPU's VMEM block choosers and compile canaries (`:61-133, 614-655`) have
-no counterpart: a block of the CUDA kernel holds one row in shared
-memory, and the wrapper raises when a row does not fit.
+no counterpart: `chain_launch_config` sizes the CUDA kernel's row slot
+in shared memory, and raises when a row does not fit. A
+`ChainPlan` holds what a chain's launches share, so that a microbatch
+costs one C call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import weakref
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -213,14 +216,66 @@ def elementwise_chain_reference(statics, params, x: torch.Tensor,
 #: csrc/elementwise_chain.cu)
 MAX_STAGES = 16
 
+#: threads of a chain kernel block (``THREADS``)
+CHAIN_THREADS = 128
+#: shared memory ahead of the kernel's row slot (``FIXED_SMEM``): the
+#: slot's barrier (16 bytes), 32 warp sums, and the norm denominators of
+#: each row group (a warp at most)
+CHAIN_FIXED_SMEM = 16 + 4 * 32 + 4 * (CHAIN_THREADS // 32) * MAX_STAGES
+#: rows shorter than this share a step with their neighbours, a warp a
+#: row, so that a step moves at least `CHAIN_STEP_BYTES`, in a multiple
+#: of the block's warps
+CHAIN_SHORT_ROW_BYTES = 4096
+CHAIN_STEP_BYTES = 16384
+
+
+@dataclass(frozen=True)
+class ChainLaunch:
+    """How the chain kernel walks rows of ``in_len`` floats: ``rows`` per
+    step, ``group`` threads per row (the whole block on one row, or a
+    warp a row where a step holds several, as many for each warp), one
+    slot of ``slot_bytes``
+    (the step's bytes, rounded up to 16, plus 16 for an unaligned start)
+    and ``smem_bytes`` of shared memory in all."""
+
+    rows: int
+    group: int
+    slot_bytes: int
+    smem_bytes: int
+
+
+def chain_launch_config(in_len: int) -> ChainLaunch:
+    """The launch of the chain kernel over rows of ``in_len`` floats;
+    raises ValueError where a step does not fit a block's shared memory.
+
+    A block holds one step at a time: the SM's other resident blocks keep
+    their copies in flight while a block computes. A ring of two or three
+    slots a block measured slower on the card at LinearPixels' rows
+    (fewer resident blocks, or more copies queued at a launch's start;
+    PERF.md)."""
+    row_bytes = 4 * in_len
+    if row_bytes < 4:
+        raise ValueError("elementwise_chain: rows need at least one element")
+    warps = CHAIN_THREADS // 32
+    rows = (1 if row_bytes >= CHAIN_SHORT_ROW_BYTES
+            else -(-CHAIN_STEP_BYTES // (warps * row_bytes)) * warps)
+    slot = -(-rows * row_bytes // 16) * 16 + 16
+    smem = CHAIN_FIXED_SMEM + slot
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"elementwise_chain: a row of {row_bytes} bytes "
+                         f"needs {smem} bytes of shared memory (limit "
+                         f"{MAX_SMEM_BYTES})")
+    return ChainLaunch(rows=rows, group=CHAIN_THREADS if rows == 1 else 32,
+                       slot_bytes=slot, smem_bytes=smem)
+
 
 @dataclass
 class ChainLayout:
     """What the CUDA kernel is told about a chain over rows of
     ``item_shape``: one table entry per stage (its code, the row length
     and last-axis length entering it, the offset of its vectors in
-    ``packed``, its mask flag and two scalars), the two shared-memory row
-    buffers' lengths in floats, and the output's item shape."""
+    ``packed``, its mask flag and two scalars), the output's item shape,
+    and the launch (`chain_launch_config`)."""
 
     codes: list
     lens: list
@@ -230,20 +285,14 @@ class ChainLayout:
     s0: list
     s1: list
     packed: torch.Tensor
-    buf0: int
-    buf1: int
     out_shape: tuple
-
-    @property
-    def smem_bytes(self) -> int:
-        return 4 * (self.buf0 + self.buf1 + 32)
+    launch: ChainLaunch
 
 
 def chain_layout(statics, params, item_shape, device) -> ChainLayout:
     """Walk the chain over a row of ``item_shape``: the kernel's stage
-    table, its packed vectors (on ``device``) and its buffer sizes. The
-    GrayScaler on three channels writes a shorter row into the other
-    buffer. Raises ValueError for a chain the kernel does not take."""
+    table, its packed vectors (on ``device``) and its launch. Raises
+    ValueError for a chain the kernel does not take."""
     stages = _compile(statics)
     params = tuple(params)
     if len(params) != len(stages):
@@ -258,7 +307,6 @@ def chain_layout(statics, params, item_shape, device) -> ChainLayout:
     table = {k: [] for k in ("codes", "lens", "lasts", "offs", "masked",
                              "s0", "s1")}
     vectors, off = [], 0
-    sizes, cur = [math.prod(shape), 0], 0
     for (masked, body), p in zip(stages, params):
         p = tuple(p)
         vecs = tuple(_f32(q, device).reshape(-1) for q in p[:body.vectors])
@@ -278,83 +326,170 @@ def chain_layout(statics, params, item_shape, device) -> ChainLayout:
         vectors.extend(vecs)
         off += len(vecs) * last
         shape = body.shape(shape)
-        if body is _BODIES["GrayScaler"] and last == 3:
-            cur = 1 - cur
-            sizes[cur] = max(sizes[cur], math.prod(shape))
     packed = (torch.cat(vectors).contiguous() if vectors else
               torch.empty(0, dtype=torch.float32, device=device))
-    buf0, buf1 = (-(-size // 4) * 4 for size in sizes)
-    layout = ChainLayout(packed=packed, buf0=buf0, buf1=buf1,
-                         out_shape=shape, **table)
-    if layout.smem_bytes > MAX_SMEM_BYTES:
-        raise ValueError(f"elementwise_chain: a row needs "
-                         f"{layout.smem_bytes} bytes of shared memory "
-                         f"(limit {MAX_SMEM_BYTES})")
-    return layout
+    return ChainLayout(packed=packed, out_shape=shape,
+                       launch=chain_launch_config(math.prod(item_shape)),
+                       **table)
 
 
 _IntArray = ctypes.POINTER(ctypes.c_int)
 _FloatArray = ctypes.POINTER(ctypes.c_float)
+_VoidP = ctypes.c_void_p
+
+
+def _library():
+    """The chain kernel's library, its entry points typed once."""
+    lib = _build.load("elementwise_chain")
+    if not getattr(lib, "chain_typed", False):
+        if lib.keystone_elementwise_chain_max_stages() != MAX_STAGES:
+            raise RuntimeError("elementwise_chain: the kernel's stage table "
+                               "and MAX_STAGES disagree")
+        if lib.keystone_elementwise_chain_fixed_smem() != CHAIN_FIXED_SMEM:
+            raise RuntimeError("elementwise_chain: the kernel's shared "
+                               "memory layout and CHAIN_FIXED_SMEM disagree")
+        lib.keystone_elementwise_chain_plan.argtypes = (
+            [_VoidP] + [ctypes.c_int] * 7 + [_IntArray] * 4
+            + [_FloatArray] * 2 + [ctypes.POINTER(_VoidP),
+                                   ctypes.POINTER(ctypes.c_int)])
+        lib.keystone_elementwise_chain_plan.restype = ctypes.c_int
+        lib.keystone_elementwise_chain_run.argtypes = [
+            _VoidP, _VoidP, _VoidP, _VoidP, ctypes.c_longlong, _VoidP]
+        lib.keystone_elementwise_chain_run.restype = ctypes.c_int
+        lib.keystone_elementwise_chain_free.argtypes = [_VoidP]
+        lib.keystone_elementwise_chain_free.restype = None
+        lib.chain_typed = True
+    return lib
+
+
+class ChainPlan:
+    """One chain over rows of one item shape on one device, planned once
+    and launched for every microbatch.
+
+    The plan holds what does not change between launches: the stage
+    table and packed vectors on the device and the scalars as host
+    floats (`chain_layout`), and, on a CUDA device, the C side's plan
+    (the table by value, the grid, the kernel's shared-memory attribute
+    set once). A launch is then one C call with the pointers, the row
+    count and the stream: no device sync, no upload, no walk of the
+    chain. The parameters are read once, here: as in the JAX package,
+    whose arrays are immutable, a chain's parameters are fixed once its
+    stages are fitted. On the CPU a call runs
+    `elementwise_chain_reference`."""
+
+    def __init__(self, statics, params, item_shape, device):
+        self.statics = tuple(statics)
+        self.params = tuple(tuple(p) for p in params)
+        self.item_shape = tuple(item_shape)
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.device = device
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"elementwise_chain: unsupported device "
+                             f"{self.device}")
+        self.layout = chain_layout(self.statics, self.params,
+                                   self.item_shape, self.device)
+        self.out_shape = self.layout.out_shape
+        self.in_len = math.prod(self.item_shape)
+        self.grid = None
+        self._handle = None
+        if self.device.type == "cuda":
+            self._plan_kernel()
+
+    def _plan_kernel(self):
+        lay, launch = self.layout, self.layout.launch
+        k = len(lay.codes)
+
+        def ints(values):
+            return (ctypes.c_int * k)(*values)
+
+        def floats(values):
+            return (ctypes.c_float * k)(*values)
+
+        lib = _library()
+        handle, grid = _VoidP(), ctypes.c_int()
+        with torch.cuda.device(self.device):
+            rc = lib.keystone_elementwise_chain_plan(
+                lay.packed.data_ptr() if lay.packed.numel() else None,
+                self.in_len, math.prod(self.out_shape), launch.rows,
+                launch.group, launch.slot_bytes, launch.smem_bytes, k,
+                ints(lay.codes), ints(lay.lasts), ints(lay.offs),
+                ints(lay.masked), floats(lay.s0), floats(lay.s1),
+                ctypes.byref(handle), ctypes.byref(grid))
+        _raise_on_error(lib, "elementwise_chain plan", rc)
+        self._lib = lib
+        self._run = lib.keystone_elementwise_chain_run
+        self._handle = handle.value
+        self.grid = grid.value
+        weakref.finalize(self, lib.keystone_elementwise_chain_free,
+                         self._handle)
+
+    def __call__(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The chain over x (N, *item_shape) f32 → (N, *out_shape) f32,
+        written into ``out`` where given (a contiguous tensor of that
+        shape, such as a slice of a larger result)."""
+        n = x.shape[0]
+        shape = (n,) + self.out_shape
+        if tuple(x.shape[1:]) != self.item_shape:
+            raise ValueError(f"elementwise_chain: rows of {tuple(x.shape[1:])}"
+                             f", the plan is for {self.item_shape}")
+        if x.device != self.device:
+            raise ValueError(f"elementwise_chain: x is on {x.device}, the "
+                             f"plan on {self.device}")
+        if out is not None and (tuple(out.shape) != shape
+                                or out.device != x.device):
+            raise ValueError(f"elementwise_chain: out must be {shape} on "
+                             f"{x.device}, not {tuple(out.shape)} on "
+                             f"{out.device}")
+        if self._handle is None:
+            y = elementwise_chain_reference(self.statics, self.params, x,
+                                            mask)
+            return y if out is None else out.copy_(y)
+        m = None
+        if mask is not None:
+            m = _f32(mask, x.device).reshape(-1).contiguous()
+            if m.numel() != n:
+                raise ValueError("elementwise_chain: mask must be (N,)")
+        if out is None:
+            out = torch.empty(shape, dtype=torch.float32, device=x.device)
+        _check_cuda("elementwise_chain", x.device, x=x, out=out)
+        if n == 0:
+            return out
+        rc = self._run(self._handle, x.data_ptr(),
+                       None if m is None else m.data_ptr(), out.data_ptr(), n,
+                       _stream(x.device))
+        if rc:
+            _raise_on_error(self._lib, "elementwise_chain", rc)
+        elementwise_chain.launches += 1
+        return out
 
 
 def elementwise_chain(statics, params, x: torch.Tensor,
-                      mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The chain in one pass. x (N, ...) f32 → (N, ...) f32. CUDA tensors
+                      mask: Optional[torch.Tensor] = None,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The chain in one pass. x (N, ...) f32 → (N, ...) f32, written into
+    ``out`` where given. Builds a `ChainPlan` for this call: CUDA tensors
     run the kernel in ``csrc/elementwise_chain.cu``; CPU tensors run
-    `elementwise_chain_reference`."""
-    if x.device.type == "cpu":
-        return elementwise_chain_reference(statics, params, x, mask)
-    if x.device.type != "cuda":
-        raise ValueError(f"elementwise_chain: unsupported device "
-                         f"{x.device}")
-    _check_cuda("elementwise_chain", x.device, x=x)
-    n = x.shape[0]
-    layout = chain_layout(statics, params, x.shape[1:], x.device)
-    m = None
-    if mask is not None:
-        m = _f32(mask, x.device).reshape(-1).contiguous()
-        if m.numel() != n:
-            raise ValueError("elementwise_chain: mask must be (N,)")
-    out = torch.empty((n,) + layout.out_shape, dtype=torch.float32,
-                      device=x.device)
-    if n == 0:
-        return out
-    lib = _build.load("elementwise_chain")
-    if lib.keystone_elementwise_chain_max_stages() != MAX_STAGES:
-        raise RuntimeError("elementwise_chain: the kernel's stage table "
-                           "and MAX_STAGES disagree")
-    fn = lib.keystone_elementwise_chain
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [_IntArray] * 5 + [_FloatArray] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    k = len(layout.codes)
-
-    def ints(values):
-        return (ctypes.c_int * k)(*values)
-
-    def floats(values):
-        return (ctypes.c_float * k)(*values)
-
-    rc = fn(x.data_ptr(), None if m is None else m.data_ptr(),
-            layout.packed.data_ptr() if layout.packed.numel() else None,
-            out.data_ptr(), n, math.prod(x.shape[1:]),
-            math.prod(layout.out_shape), layout.buf0, layout.buf1, k,
-            ints(layout.codes), ints(layout.lens), ints(layout.lasts),
-            ints(layout.offs), ints(layout.masked), floats(layout.s0),
-            floats(layout.s1), _stream(x.device))
-    _raise_on_error(lib, "elementwise_chain", rc)
-    elementwise_chain.launches += 1
-    return out
+    `elementwise_chain_reference`. Its ``launches`` count every launch
+    of the kernel, by a plan or through here."""
+    return ChainPlan(statics, params, x.shape[1:], x.device)(x, mask, out)
 
 
 elementwise_chain.launches = 0
 
 
-def build_chain_fn(statics, family: Optional[str] = None):
-    """A ``fn(params, xb, mb)`` that runs the sub-trail ``statics`` in
-    one kernel launch, or None when it matches no family or ``family``
-    (from a plan tag) disagrees with the matcher: a stale tag is never
-    lowered wrongly."""
+def build_chain_fn(statics, params, family: Optional[str] = None):
+    """A function that runs the sub-trail ``statics`` with its fitted
+    ``params`` in one kernel launch, or None when it matches no family
+    or ``family`` (from a plan tag) disagrees with the matcher: a stale
+    tag is never lowered wrongly. The elementwise family's
+    ``fn(xb, out=None)`` keeps one `ChainPlan` per item shape and device
+    in ``fn.plans``, built at the first microbatch of that shape
+    (``fn.plan_for(xb)``) and reused for every later one, and writes
+    into ``out`` where given. The rectify+pool family's ``fn(xb)``
+    returns a new tensor (``fn.plans`` is None)."""
     statics = tuple(statics)
     verdict = lowerability(statics)
     if not verdict["lowerable"]:
@@ -365,12 +500,23 @@ def build_chain_fn(statics, family: Optional[str] = None):
         inner, _ = _unwrap(statics[0])
         _, alpha, max_val, pool, stride = inner[:5]
 
-        def fn(ps, xb, mb):
+        def fn(xb):
             return rectify_pool_vectorize(xb, alpha, max_val, pool, stride)
 
+        fn.plans = None
         return fn
 
-    def fn(ps, xb, mb):
-        return elementwise_chain(statics, ps, xb, mb)
+    plans = {}
 
+    def plan_for(xb) -> ChainPlan:
+        key = (tuple(xb.shape[1:]), xb.device)
+        plan = plans.get(key)
+        if plan is None:
+            plan = plans[key] = ChainPlan(statics, params, *key)
+        return plan
+
+    def fn(xb, out=None):
+        return plan_for(xb)(xb, None, out)
+
+    fn.plans, fn.plan_for = plans, plan_for
     return fn

@@ -6,8 +6,8 @@ ragged count pads a tail block) and `elementwise_chain_reference`, and
 through the port's `elementwise_chain_reference`, which is the plain
 version of the CUDA kernel. The stage table the CUDA kernel is given
 (`chain_layout`) is interpreted here in numpy as the kernel reads it, so
-its offsets, broadcast periods and buffer sizes are checked without a
-card. Also: the matcher's verdicts, the nodes' static keys, and the
+its offsets, broadcast periods, norm passes and slot sizes are checked
+without a card. Also: the matcher's verdicts, the nodes' static keys, and the
 routing of `FusedBatchTransformer` through the chain kernels.
 """
 
@@ -127,46 +127,61 @@ def test_elementwise_chain_reference_matches_jax(chain, n, masked_rows):
 
 
 def _emulate(layout, x, mask):
-    """The CUDA kernel's reading of a `ChainLayout`, in numpy: rows held
-    in two buffers of the layout's sizes, stage codes applied in order,
+    """The CUDA kernel's reading of a `ChainLayout`, in numpy: the rows
+    of a step held in the block's slot of ``launch.slot_bytes``; for each
+    NormalizeRows a pass that runs the stages before it from the row as
+    loaded and sums the squares, then a pass through every stage that
+    divides by the denominators found; stage codes applied in order,
     vectors read at ``offs[s] + e % lasts[s]``."""
     n = x.shape[0]
+    rows = x.reshape(n, -1).astype(np.float32)
+    launch = layout.launch
+    assert launch.rows * rows.shape[1] * 4 + 16 <= launch.slot_bytes
+    assert launch.slot_bytes % 16 == 0
     packed = layout.packed.numpy()
-    cur = x.reshape(n, -1).astype(np.float32)
-    sizes, which = [layout.buf0, layout.buf1], 0
-    assert cur.shape[1] <= sizes[0]
     m = (np.ones(n, np.float32) if mask is None
          else mask.astype(np.float32))[:, None]
+
+    def run(stop, denoms):
+        cur, k = rows, 0
+        for s in range(stop):
+            code = layout.codes[s]
+            length, last = layout.lens[s], layout.lasts[s]
+            assert cur.shape[1] == length
+            idx = np.arange(length) % last
+            vec = packed[layout.offs[s]:]
+            if code == 1 and last == 3:
+                cur = (cur[:, 0::3] * np.float32(0.299)
+                       + cur[:, 1::3] * np.float32(0.587)
+                       + cur[:, 2::3] * np.float32(0.114))
+            elif code == 0:
+                cur = cur / np.float32(255.0)
+            elif code == 3:
+                cur = np.maximum(np.float32(layout.s0[s]),
+                                 cur - np.float32(layout.s1[s]))
+            elif code == 4:
+                cur = cur / denoms[k]
+                k += 1
+            elif code == 5:
+                cur = np.sign(cur) * np.sqrt(np.abs(cur))
+            elif code == 6:
+                cur = cur * vec[idx]
+            elif code == 7:
+                cur = (cur - vec[idx]) / vec[last + idx]
+            elif code == 8:
+                cur = cur - vec[idx]
+            if layout.masked[s]:
+                cur = cur * m
+        return cur
+
+    denoms = []
     for s, code in enumerate(layout.codes):
-        length, last = layout.lens[s], layout.lasts[s]
-        assert cur.shape[1] == length
-        idx = np.arange(length) % last
-        vec = packed[layout.offs[s]:]
-        if code == 1 and last == 3:
-            cur = (cur[:, 0::3] * np.float32(0.299)
-                   + cur[:, 1::3] * np.float32(0.587)
-                   + cur[:, 2::3] * np.float32(0.114))
-            which = 1 - which
-            assert cur.shape[1] <= sizes[which]
-        elif code == 0:
-            cur = cur / np.float32(255.0)
-        elif code == 3:
-            cur = np.maximum(np.float32(layout.s0[s]),
-                             cur - np.float32(layout.s1[s]))
-        elif code == 4:
-            norms = np.sqrt((cur * cur).sum(axis=1, keepdims=True))
-            cur = cur / np.maximum(norms, np.float32(layout.s0[s]))
-        elif code == 5:
-            cur = np.sign(cur) * np.sqrt(np.abs(cur))
-        elif code == 6:
-            cur = cur * vec[idx]
-        elif code == 7:
-            cur = (cur - vec[idx]) / vec[last + idx]
-        elif code == 8:
-            cur = cur - vec[idx]
-        if layout.masked[s]:
-            cur = cur * m
-    return cur.reshape((n,) + layout.out_shape)
+        if code == 4:
+            pre = run(s, denoms)
+            denoms.append(np.maximum(
+                np.sqrt((pre * pre).sum(axis=1, keepdims=True)),
+                np.float32(layout.s0[s])))
+    return run(len(layout.codes), denoms).reshape((n,) + layout.out_shape)
 
 
 @pytest.mark.parametrize("chain", sorted(CHAINS))
@@ -183,14 +198,18 @@ def test_chain_layout_as_the_kernel_reads_it_matches_reference(chain):
 
 
 def test_linear_pixels_layout_holds_one_row_in_shared_memory():
-    """(32, 32, 3) rows: 3072 floats in, 1024 after the GrayScaler, one
-    flat (1024,) row out, 16.5 KB of shared memory a block."""
+    """(32, 32, 3) rows: 3072 floats in, one flat (1024,) row out; a step
+    is one 12 KB row, the whole block on it, in one slot of 12,304 bytes
+    (the row and 16 for an unaligned start)."""
     statics = (("PixelScaler",), ("GrayScaler",), ("ImageVectorizer",))
     layout = ck.chain_layout(statics, [(), (), ()], (32, 32, 3), "cpu")
-    assert (layout.buf0, layout.buf1) == (3072, 1024)
+    assert layout.lens == [3072, 3072, 1024]
+    assert layout.lasts == [3, 3, 1]
     assert layout.out_shape == (1024,)
     assert layout.codes == [0, 1, 2]
-    assert layout.smem_bytes == 4 * (3072 + 1024 + 32)
+    assert layout.launch == ck.ChainLaunch(
+        rows=1, group=128, slot_bytes=12304,
+        smem_bytes=ck.CHAIN_FIXED_SMEM + 12304)
     assert layout.packed.numel() == 0
 
 
@@ -290,18 +309,26 @@ def _stagewise(stages, x):
 def test_linear_pixels_trail_runs_the_elementwise_chain(monkeypatch):
     """PixelScaler >> GrayScaler >> ImageVectorizer is tagged as one
     elementwise chain and runs one chain launch per microbatch (37 rows
-    in microbatches of 16: three, the last ragged)."""
-    spy = _Spy(ck.elementwise_chain)
-    monkeypatch.setattr(ck, "elementwise_chain", spy)
+    in microbatches of 16: three, the last ragged), each through the
+    transformer's plan and into its rows of the result."""
+    calls = []
+    real = ck.ChainPlan.__call__
+
+    def spy(plan, x, mask=None, out=None):
+        calls.append((plan.statics, x.shape[0], out))
+        return real(plan, x, mask, out)
+
+    monkeypatch.setattr(ck.ChainPlan, "__call__", spy)
     stages = [PixelScaler(), GrayScaler(), ImageVectorizer()]
     fbt = FusedBatchTransformer(stages, microbatch=16)
     assert fbt.planned_kernel == (0, 3, "elementwise_chain")
     x = torch.from_numpy(np.random.default_rng(0).random(
         size=(37, 8, 8, 3)).astype(np.float32) * 255.0)
     got = fbt.batch_fn()(x)
-    assert [c[2].shape[0] for c in spy.calls] == [16, 16, 5]
+    assert [c[1] for c in calls] == [16, 16, 5]
     assert all(c[0] == (("PixelScaler",), ("GrayScaler",),
-                        ("ImageVectorizer",)) for c in spy.calls)
+                        ("ImageVectorizer",)) for c in calls)
+    assert all(c[2] is not None and c[2].shape[0] == c[1] for c in calls)
     torch.testing.assert_close(got, _stagewise(stages, x), rtol=1e-6,
                                atol=1e-6)
 

@@ -191,3 +191,127 @@ def test_cuda_rbf_block_matches_plain(cuda_device, m, n, d, gamma):
         want = kernels.rbf_block_reference(X, Yb, gamma)
         assert got.shape == want.shape == (m, Yb.shape[0])
         assert float((got - want).abs().max()) <= 5e-5
+
+
+def _k4_check(got, want):
+    assert got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+
+
+# (statics, item shape, pixel scale, rows) of the redesigned K4's edges:
+# LinearPixels at its full microbatch and below the persistent grid; rows
+# whose length is not a multiple of 4, a warp a row (105 in, 35 out; 1023
+# without a GrayScaler) and the block a row (3267 in, 1089 out; 1025
+# with a NormalizeRows); short rows (35 floats) that share a step, at a
+# count that is not a multiple of the rows per step; and the
+# Fisher-vector tail at KeystoneML's VOC width, 2 x 256 centres x 64 PCA
+# dims = 32,768 floats a row, which fits shared memory once
+_LP = (("PixelScaler",), ("GrayScaler",), ("ImageVectorizer",))
+_FV = (("SignedHellingerMapper",), ("NormalizeRows",))
+K4_EDGES = {
+    "linear_pixels_4096": (_LP, (32, 32, 3), 255.0, 4096),
+    "linear_pixels_5": (_LP, (32, 32, 3), 255.0, 5),
+    "gray_len_105": (_LP, (7, 5, 3), 255.0, 333),
+    "hellinger_len_1023": (_FV, (1023,), 1.0, 77),
+    "hellinger_len_1025": (_FV, (1025,), 1.0, 77),
+    "gray_33x33": (_LP, (33, 33, 3), 255.0, 129),
+    "short_rows_35": (_FV, (5, 7), 1.0, 1001),
+    "fisher_tail_32768": (_FV, (32_768,), 1.0, 300),
+}
+
+
+def _k4_inputs(name, device, pad_rows=0):
+    statics, item, scale, n = K4_EDGES[name]
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(n + pad_rows,) + item) * scale
+    x = torch.tensor(np.abs(x) if scale > 1.0 else x, dtype=torch.float32,
+                     device=device)
+    params = [(1e-3,) if s == ("NormalizeRows",) else () for s in statics]
+    return statics, params, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(K4_EDGES))
+def test_cuda_elementwise_chain_edges(cuda_device, name):
+    """The redesigned K4 at its edges against its plain version, 1e-6 of
+    scale: one launch each, through the public wrapper."""
+    from keystone_tpu_torch.ops import chain_kernels
+
+    statics, params, x = _k4_inputs(name, cuda_device)
+    before = chain_kernels.elementwise_chain.launches
+    got = chain_kernels.elementwise_chain(statics, params, x)
+    torch.cuda.synchronize()
+    assert chain_kernels.elementwise_chain.launches == before + 1
+    _k4_check(got, chain_kernels.elementwise_chain_reference(statics, params,
+                                                             x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["gray_len_105", "hellinger_len_1023",
+                                  "hellinger_len_1025", "gray_33x33",
+                                  "short_rows_35"])
+def test_cuda_elementwise_chain_unaligned_base(cuda_device, name):
+    """Rows of an odd length sliced from their second row: the base
+    pointer is not 16-byte aligned, so steps copy their head and tail
+    with plain loads and read their rows a float at a time, in a warp a
+    row and in the block a row."""
+    from keystone_tpu_torch.ops import chain_kernels
+
+    statics, params, big = _k4_inputs(name, cuda_device, pad_rows=1)
+    x = big[1:]
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    got = chain_kernels.elementwise_chain(statics, params, x)
+    torch.cuda.synchronize()
+    _k4_check(got, chain_kernels.elementwise_chain_reference(statics, params,
+                                                             x))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["linear_pixels_4096", "gray_len_105",
+                                  "gray_33x33", "hellinger_len_1025",
+                                  "fisher_tail_32768"])
+def test_cuda_elementwise_chain_writes_into_a_slice(cuda_device, name):
+    """``out`` as rows of a larger tensor, at an odd row: the kernel
+    writes those rows and leaves the rows on either side untouched."""
+    from keystone_tpu_torch.ops import chain_kernels
+
+    statics, params, x = _k4_inputs(name, cuda_device)
+    n = x.shape[0]
+    plan = chain_kernels.ChainPlan(statics, params, x.shape[1:], cuda_device)
+    big = torch.full((n + 4,) + plan.out_shape, 7.0, device=cuda_device)
+    got = plan(x, None, big[1:n + 1])
+    torch.cuda.synchronize()
+    assert got.data_ptr() == big[1:n + 1].data_ptr()
+    _k4_check(big[1:n + 1], chain_kernels.elementwise_chain_reference(
+        statics, params, x))
+    assert bool((big[0] == 7.0).all()) and bool((big[n + 1:] == 7.0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_linear_pixels_transformer_reuses_its_plan(cuda_device):
+    """LinearPixels' transformer over 9,000 images (microbatches of
+    4096, the last ragged), applied twice: one plan, three launches an
+    apply, each into its rows of the result, equal to the plain
+    version."""
+    from keystone_tpu_torch.nodes.images.core import (
+        GrayScaler,
+        ImageVectorizer,
+        PixelScaler,
+    )
+    from keystone_tpu_torch.nodes.util.fusion import FusedBatchTransformer
+    from keystone_tpu_torch.ops import chain_kernels
+
+    statics, params, _ = _k4_inputs("linear_pixels_5", cuda_device)
+    x = torch.tensor(np.random.default_rng(6).random(size=(9000, 32, 32, 3))
+                     * 255.0, dtype=torch.float32, device=cuda_device)
+    fbt = FusedBatchTransformer([PixelScaler(), GrayScaler(),
+                                 ImageVectorizer()], microbatch=4096)
+    before = chain_kernels.elementwise_chain.launches
+    for _ in range(2):
+        got = fbt.batch_fn()(x)
+    torch.cuda.synchronize()
+    assert chain_kernels.elementwise_chain.launches == before + 6
+    assert len(fbt._chain[1].plans) == 1
+    _k4_check(got, chain_kernels.elementwise_chain_reference(statics, params,
+                                                             x))
