@@ -86,6 +86,40 @@ def rbf_block_reference(X, Yb, gamma: float) -> torch.Tensor:
     return torch.exp(-gamma * torch.clamp(d2, min=0.0))
 
 
+#: the bits a TF32 tensor core keeps of an fp32 value: sign, exponent and
+#: the top 10 of the 23 mantissa bits (0xffffe000 as int32)
+TF32_MASK = -8192
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) with hi = x truncated to TF32 (its low 13 mantissa bits
+    cleared, as a TF32 tensor core reads x) and lo = x − hi, both exact in
+    float32: the split of the RBF kernel's prepass (``csrc/rbf_block.cu``).
+    """
+    hi = (x.contiguous().view(torch.int32) & TF32_MASK).view(torch.float32)
+    return hi, x - hi
+
+
+def rbf_block_3xtf32_emulated(X, Yb, gamma: float,
+                              products: int = 3) -> torch.Tensor:
+    """Plain emulation of the RBF kernel's product, for the tests:
+    ``products=3`` sums hi·loᵀ + lo·hiᵀ, then hi·hiᵀ,
+    with lo truncated to TF32 as the tensor cores read it (lo·lo dropped);
+    ``products=1`` takes hi·hiᵀ alone (one TF32 product). The products
+    are float32 matmuls; the norms come from the unsplit rows, as in the
+    kernel's prepass."""
+    if products not in (1, 3):
+        raise ValueError(f"products must be 1 or 3, not {products}")
+    xh, xl = tf32_split(X)
+    yh, yl = tf32_split(Yb)
+    acc = xh @ yh.T
+    if products == 3:
+        acc = (xh @ tf32_split(yl)[0].T + tf32_split(xl)[0] @ yh.T) + acc
+    d2 = ((X * X).sum(dim=1, keepdim=True) - 2.0 * acc
+          + (Yb * Yb).sum(dim=1))
+    return torch.exp(-gamma * torch.clamp(d2, min=0.0))
+
+
 def hwio_to_cmajor(kernel_hwio: torch.Tensor) -> torch.Tensor:
     """(P,P,C,K) → the channel-major (C·P·P, K) layout the fused kernel
     takes (the order of `conv_general_dilated_patches`)."""
@@ -329,16 +363,75 @@ def rectify_pool_vectorize(x, alpha: float, max_val: float, pool: int,
 rectify_pool_vectorize.launches = 0
 
 
+def _padded_depth(d: int) -> int:
+    """Row stride, in floats, of the RBF prepass's outputs where it writes
+    hi: d rounded up to 4 floats, as TMA needs 16-byte row strides."""
+    return (d + 3) // 4 * 4
+
+
+def _rbf_raw_hi(X) -> bool:
+    """Whether X can serve as its own hi part on the card: rows of whole
+    16-byte units at a 16-byte aligned base, as TMA reads them."""
+    return X.shape[-1] % 4 == 0 and X.data_ptr() % 16 == 0
+
+
+def rbf_split(X) -> tuple:
+    """The RBF kernel's prepass on its own, as `rbf_block` runs it on
+    each operand: (hi, lo, x2) for the rows of X (m,d) f32, hi and lo as
+    `tf32_split` gives them and x2 the rows' squared norms in float32.
+    CUDA tensors run ``keystone_rbf_split`` of ``csrc/rbf_block.cu``,
+    whose hi is None where X serves as its own hi part; CPU tensors run
+    `tf32_split` and a torch sum."""
+    if X.device.type == "cpu":
+        hi, lo = tf32_split(X)
+        return hi, lo, (X * X).sum(dim=1)
+    if X.device.type != "cuda":
+        raise ValueError(f"rbf_split: unsupported device {X.device}")
+    _check_cuda("rbf_split", X.device, X=X)
+    if X.ndim != 2:
+        raise ValueError(f"rbf_split: X {tuple(X.shape)} must be (m,d)")
+    m, d = X.shape
+    raw = _rbf_raw_hi(X)
+    ld = d if raw else _padded_depth(d)
+    lo = torch.empty((m, ld), dtype=torch.float32, device=X.device)
+    hi = None if raw else torch.empty_like(lo)
+    x2 = torch.empty((m,), dtype=torch.float32, device=X.device)
+    if m > 0:
+        lib = _build.load("rbf_block")
+        fn = lib.keystone_rbf_split
+        fn.argtypes = [_P, _I, _I, _I, _P, _P, _P, _P]
+        fn.restype = _I
+        rc = fn(X.data_ptr(), m, d, ld, lo.data_ptr(),
+                None if hi is None else hi.data_ptr(), x2.data_ptr(),
+                _stream(X.device))
+        _raise_on_error(lib, "rbf_split", rc)
+        rbf_split.launches += 1
+    return None if hi is None else hi[:, :d], lo[:, :d], x2
+
+
+rbf_split.launches = 0
+
+
 def rbf_block(X, Yb, gamma: float) -> torch.Tensor:
     """RBF kernel block. X (m,d), Yb (n,d) f32 → (m,n) f32. CUDA tensors
-    run the kernel in ``csrc/rbf_block.cu`` (fp32 products and sums, the
-    epilogue before the write); CPU tensors run `rbf_block_reference`.
-    The rows' squared norms are torch reductions outside the kernel, as
-    the JAX wrapper computes them outside its ``pallas_call``."""
+    run ``csrc/rbf_block.cu``: a prepass that splits the rows into TF32
+    hi and lo parts and takes their squared norms (`rbf_split`), then
+    three TF32 tensor-core products a step (hi·lo, lo·hi, hi·hi) summed
+    in fp32, with the epilogue before the write. CPU tensors run
+    `rbf_block_reference`. Operands that can serve as their own hi part
+    (`_rbf_raw_hi`) are read as such; otherwise the prepass writes hi
+    too, at a row stride of whole 16-byte units."""
     if X.device.type == "cpu":
         return rbf_block_reference(X, Yb, gamma)
     if X.device.type != "cuda":
         raise ValueError(f"rbf_block: unsupported device {X.device}")
+    return _rbf_block_cuda(X, Yb, gamma,
+                           write_hi=not (_rbf_raw_hi(X) and _rbf_raw_hi(Yb)))
+
+
+def _rbf_block_cuda(X, Yb, gamma: float, write_hi: bool) -> torch.Tensor:
+    """`rbf_block` on the card, with the hi parts written by the prepass
+    (``write_hi``) or read from X and Yb themselves."""
     _check_cuda("rbf_block", X.device, X=X, Yb=Yb)
     if X.ndim != 2 or Yb.ndim != 2 or X.shape[1] != Yb.shape[1]:
         raise ValueError(f"rbf_block: X {tuple(X.shape)} and Yb "
@@ -348,14 +441,19 @@ def rbf_block(X, Yb, gamma: float) -> torch.Tensor:
     out = torch.empty((m, n), dtype=torch.float32, device=X.device)
     if m == 0 or n == 0:
         return out
-    x2 = (X * X).sum(dim=1)
-    y2 = (Yb * Yb).sum(dim=1)
+    if d == 0:
+        raise ValueError("rbf_block: rows of length 0")
+    ld = _padded_depth(d) if write_hi else d
+    lo = torch.empty((m + n, ld), dtype=torch.float32, device=X.device)
+    hi = torch.empty_like(lo) if write_hi else None
+    norms = torch.empty((m + n,), dtype=torch.float32, device=X.device)
     lib = _build.load("rbf_block")
     fn = lib.keystone_rbf_block
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P]
     fn.restype = _I
-    rc = fn(X.data_ptr(), Yb.data_ptr(), x2.data_ptr(), y2.data_ptr(),
-            out.data_ptr(), m, n, d, float(gamma), _stream(X.device))
+    rc = fn(X.data_ptr(), Yb.data_ptr(), lo.data_ptr(),
+            None if hi is None else hi.data_ptr(), norms.data_ptr(),
+            out.data_ptr(), m, n, d, ld, float(gamma), _stream(X.device))
     _raise_on_error(lib, "rbf_block", rc)
     rbf_block.launches += 1
     return out
@@ -369,5 +467,5 @@ def reset_launches() -> None:
     from .chain_kernels import elementwise_chain
 
     for wrapper in (conv_rectify_pool, rectify_pool, rectify_pool_vectorize,
-                    rbf_block, elementwise_chain):
+                    rbf_block, rbf_split, elementwise_chain):
         wrapper.launches = 0

@@ -170,9 +170,17 @@ def test_cuda_elementwise_chain_matches_plain(cuda_device, name, n,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,n,d,gamma", [
-    (70, 33, 50, 0.07),      # ragged on every axis of a 128x128x8 tile
+    (70, 33, 50, 0.07),      # ragged on every axis of a 128x128x32 tile
     (300, 257, 440, 0.01),   # bench.py's KRR width, ragged
     (1000, 2048, 2048, 2e-3),  # a fit block's width and depth
+    # the 3xTF32 kernel's tile edges: m and n just under and over a
+    # 128-row tile, depths that are not a multiple of the 32-float slab,
+    # of 4 floats (rows of 37 floats: the prepass writes hi at stride
+    # 40), or that are one whole slab
+    (127, 129, 100, 0.02),
+    (129, 127, 37, 0.05),
+    (128, 128, 32, 0.1),
+    (255, 257, 2052, 2e-3),
 ])
 def test_cuda_rbf_block_matches_plain(cuda_device, m, n, d, gamma):
     """The RBF kernel against its plain version (fp32 matmul, TF32 off)
@@ -190,6 +198,100 @@ def test_cuda_rbf_block_matches_plain(cuda_device, m, n, d, gamma):
         assert kernels.rbf_block.launches == before + 1
         want = kernels.rbf_block_reference(X, Yb, gamma)
         assert got.shape == want.shape == (m, Yb.shape[0])
+        assert float((got - want).abs().max()) <= 5e-5
+
+
+def _rbf_fit_block(device, m=4096, n=2048, d=2048, seed=7):
+    """X (m, d) standardized, Yb = n of its rows, and their indices."""
+    rng = np.random.default_rng(seed)
+    X = torch.tensor(rng.normal(size=(m, d)), dtype=torch.float32,
+                     device=device)
+    ids = torch.tensor(rng.permutation(m)[:n], device=device)
+    return X, X[ids].contiguous(), ids
+
+
+@pytest.mark.cuda
+def test_cuda_rbf_block_diagonal_at_fit_width(cuda_device):
+    """A fit block's geometry (2048 features, 2048 of X's rows, gamma
+    2e-3): every diagonal entry, where x2 + y2 − 2xy cancels over 2048
+    terms, is within 5e-5 of 1, and the block within 5e-5 of its plain
+    version."""
+    X, Yb, ids = _rbf_fit_block(cuda_device)
+    got = kernels.rbf_block(X, Yb, 2e-3)
+    torch.cuda.synchronize()
+    diag = got[ids, torch.arange(len(ids), device=cuda_device)]
+    assert float(diag.min()) >= 1.0 - 5e-5
+    want = kernels.rbf_block_reference(X, Yb, 2e-3)
+    assert float((got - want).abs().max()) <= 5e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,d,gamma", [
+    (300, 257, 440, 0.01),
+    (1000, 2048, 2048, 2e-3),
+])
+def test_cuda_tf32_reads_raw_fp32_as_its_truncation(cuda_device, m, n, d,
+                                                    gamma):
+    """The kernel with X and Yb as their own hi parts and with hi written
+    by the prepass (bits & 0xffffe000) gives the same bits: the tensor
+    cores read a raw fp32 value as its TF32 truncation, which the aligned
+    path relies on."""
+    rng = np.random.default_rng(8)
+    X = torch.tensor(rng.normal(size=(m, d)), dtype=torch.float32,
+                     device=cuda_device)
+    Y = torch.tensor(rng.normal(size=(n, d)), dtype=torch.float32,
+                     device=cuda_device)
+    for Yb in (Y, X[:min(m, n)].contiguous()):
+        before = kernels.rbf_block.launches
+        raw = kernels._rbf_block_cuda(X, Yb, gamma, write_hi=False)
+        written = kernels._rbf_block_cuda(X, Yb, gamma, write_hi=True)
+        torch.cuda.synchronize()
+        assert kernels.rbf_block.launches == before + 2
+        assert torch.equal(raw, written)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,d,offset", [
+    (70, 50, 0),       # rows not a multiple of 4 floats: padded stride
+    (300, 440, 0),     # aligned rows: float4 loads and stores
+    (33, 2048, 0),
+    (129, 440, 1),     # one float off a 16-byte boundary
+])
+def test_cuda_rbf_split_matches_torch(cuda_device, m, d, offset):
+    """The prepass's lo (and hi, where it writes one) equal torch's bit
+    mask and difference (`tf32_split`) bit for bit, and its norms torch's
+    sum of squares to fp32 summation order. It writes hi exactly where X
+    cannot serve as its own hi part."""
+    rng = np.random.default_rng(9)
+    flat = torch.tensor(rng.normal(size=m * d + offset),
+                        dtype=torch.float32, device=cuda_device)
+    X = flat[offset:].view(m, d)
+    before = kernels.rbf_split.launches
+    hi, lo, x2 = kernels.rbf_split(X)
+    torch.cuda.synchronize()
+    assert kernels.rbf_split.launches == before + 1
+    want_hi, want_lo = kernels.tf32_split(X)
+    assert torch.equal(lo, want_lo)
+    assert (hi is None) == (d % 4 == 0 and offset == 0)
+    assert hi is None or torch.equal(hi, want_hi)
+    torch.testing.assert_close(x2, (X * X).sum(dim=1), rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_rbf_block_unaligned_rows(cuda_device):
+    """X one float off a 16-byte boundary cannot serve as its own hi (TMA
+    needs aligned rows): the prepass writes hi, and the block still
+    matches its plain version."""
+    m, n, d = 130, 70, 440
+    rng = np.random.default_rng(10)
+    flat = torch.tensor(rng.normal(size=m * d + 1), dtype=torch.float32,
+                        device=cuda_device)
+    X = flat[1:].view(m, d)
+    assert X.data_ptr() % 16 != 0
+    for Yb in (X[:n].contiguous(), X[:n].clone()):
+        got = kernels.rbf_block(X, Yb, 0.01)
+        torch.cuda.synchronize()
+        want = kernels.rbf_block_reference(X, Yb, 0.01)
         assert float((got - want).abs().max()) <= 5e-5
 
 
