@@ -41,9 +41,31 @@ Phases, each printed on a line of its own:
               which runs the rectify+pool kernel through
               rectify_pool_vectorize; that stage is also held against its
               plain version.
+8. fused    - RandomPatchCifar's run_fused on the same images after a
+              warm call: one stream of launches, timed on the train +
+              test basis, its stages on the stream's clock beside
+              run_staged's, and the synchronizing calls it makes beside
+              the staged pipeline's (torch's sync debug mode, each call
+              named by its source line); test accuracy >= 0.72 and within
+              0.005 of the slice's, whose filters it shares.
+9. random_cifar - RandomCifar (numpy Gaussian filters, no whitener) on the
+              same images: one fused conv kernel launch per microbatch,
+              test accuracy >= 0.72 and within 0.005 of the JAX
+              package's on these arrays.
+10. augmented - RandomPatchCifarAugmented: 200,000 random 24x24 training
+              crops, the fused conv kernel at pool 12 stride 11, BCD, five
+              views a test image averaged; test accuracy >= 0.72 and
+              within 0.01 of the JAX package's (its filter draws differ).
+11. augmented_kernel - RandomPatchCifarAugmentedKernel: the crops flipped
+              and shuffled, kernel ridge regression at gamma 2e-4 over
+              98 blocks of 2048 rows (the RBF block at 200,000 x 2048 x
+              512), ten views a test image; test accuracy >= 0.72, and
+              the RBF products at least the fit's and the test apply's
+              blocks.
 
 Each path's launch counts are set to 0 just before it runs and read just
-after.
+after. The RBF kernel counts its products (``rbf_block.launches``) and
+its split prepasses (``rbf_split.launches``, two a product) apart.
 
 Then a ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and the script
@@ -52,12 +74,16 @@ exits non-zero; with no card it exits non-zero before any phase.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
 import time
+import traceback
+import warnings
 
 import torch
 
@@ -79,7 +105,24 @@ SHORT_ROWS_N, SHORT_ROW_FLOATS = 40_960, 440
 # (m, n, d, gamma) of the RBF block: a fit block of RandomPatchCifarKernel
 # (50,000 rows against 2048 of them, 2048 features), then the JAX bench's
 # KRR flagship geometry (bench.py:359-361, 678-706)
-RBF_GEOMETRIES = ((N_TRAIN, 2048, 2048, 2e-3), (98_304, 4096, 440, 0.01))
+# the augmented kernel pipeline's blocks (four 24x24 crops of each
+# training image, 512 features, gamma 2e-4)
+N_AUG_TRAIN = 4 * N_TRAIN
+RBF_GEOMETRIES = ((N_TRAIN, 2048, 2048, 2e-3), (98_304, 4096, 440, 0.01),
+                  (N_AUG_TRAIN, 2048, 512, 2e-4))
+# the geometries timed beside their checks: the fit block and the
+# augmented fit block
+RBF_TIMED = ((N_TRAIN, 2048, 2048), (N_AUG_TRAIN, 2048, 512))
+# (n, side, filters, normalize, pool, stride, timed) of the fused conv
+# kernel: the headline microbatch, ragged and narrow banks, and a
+# microbatch of the augmented pipelines' 24x24 crops (pool 12 stride 11:
+# one window an axis)
+CONV_CHECKS = ((HEADLINE_N, 32, 256, True, 14, 13, True),
+               (37, 32, 256, True, 14, 13, False),
+               (64, 32, 16, True, 14, 13, False),
+               (128, 32, 256, False, 14, 13, False),
+               (HEADLINE_N, 24, 256, True, 12, 11, True),
+               (37, 24, 256, True, 12, 11, False))
 
 # bf16 operands: max error over max |plain|, the limit the JAX package's
 # tests hold its Pallas kernel to (tests/test_pallas_ops.py:162-164)
@@ -99,6 +142,9 @@ K5_TOL = 5e-5
 # the JAX package's test accuracies on these arrays (CPU runs)
 LINEAR_PIXELS_JAX_ACC = 0.7919
 KERNEL_CIFAR_JAX_ACC = 0.8199
+# RandomCifar's and RandomPatchCifarAugmented's (full width, 256 filters)
+RANDOM_CIFAR_JAX_ACC = 0.7314
+AUGMENTED_JAX_ACC = 0.8012
 # RandomPatchCifarKernel's test accuracy on the card with the fp32 RBF
 # kernel it had before the 3xTF32 one (NVIDIA H100 80GB HBM3, 700 W)
 KERNEL_CIFAR_FP32_ACC = 0.8227
@@ -188,11 +234,16 @@ def rel_err(got: torch.Tensor, want: torch.Tensor):
     return err, err / scale
 
 
-def k1_bound_ms(n, h, w, c, patch, k, gy, gx):
-    """(ms, bound_by): the conv's products at the bf16 peak against each
-    input read once and each output written once at the HBM rate."""
+def k1_bound_ms(n, h, w, c, patch, k, pool, stride):
+    """(ms, bound_by): the conv's products at the positions some pool
+    window covers (all 27x27 at 32x32 pool 14 stride 13; 12x12 of 19x19
+    at 24x24 pool 12 stride 11), at the bf16 peak, against each input
+    read once and each output written once at the HBM rate."""
     ph, pw = h - patch + 1, w - patch + 1
-    flops = 2.0 * n * ph * pw * c * patch * patch * k
+    gy, gx = (ph - pool) // stride + 1, (pw - pool) // stride + 1
+    cy, cx = min(ph, (gy - 1) * stride + pool), min(pw, (gx - 1) * stride
+                                                     + pool)
+    flops = 2.0 * n * cy * cx * c * patch * patch * k
     nbytes = 4.0 * (n * h * w * c + c * patch * patch * k + 2 * k
                     + n * gy * gx * 2 * k)
     t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES
@@ -249,6 +300,39 @@ def run_stages(steps):
     return seconds, sum(seconds.values()), out
 
 
+def count_syncs(fn):
+    """({source line: count}, total) of the calls in ``fn`` that wait for
+    the card, as torch's sync debug mode reports them. Each is named by
+    the innermost frame of the call's stack in this repository, where
+    one exists (the frame of the port's call into torch), else by the
+    warning's own frame."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    lines = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(repo + os.sep)]
+        where = (ours[-1].filename, ours[-1].lineno) if ours else (
+            filename, lineno)
+        lines[f"{os.path.relpath(where[0], repo)}:{where[1]}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        # installed after the mode is set: with torch 2.11 the first
+        # switch to "warn" is itself reported as a synchronizing call,
+        # and it is no call of ``fn``
+        warnings.showwarning = record
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(lines), sum(lines.values())
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -269,16 +353,27 @@ def main() -> int:
     from keystone_tpu_torch.nodes.util.fusion import FusedBatchTransformer
     from keystone_tpu_torch.ops import _build, chain_kernels, kernels
     from keystone_tpu_torch.utils.images import GRAY_WEIGHTS
+    from keystone_tpu_torch.nodes.util.basic import MaxClassifier
     from keystone_tpu_torch.pipelines.cifar_variants import (
         LINEAR_PIXELS_MICROBATCH,
         LinearPixelsConfig,
+        RandomCifarConfig,
+        RandomPatchCifarAugmentedConfig,
+        RandomPatchCifarAugmentedKernelConfig,
         RandomPatchCifarKernelConfig,
         build_linear_pixels,
+        build_random_cifar,
+        build_random_patch_cifar_augmented,
+        build_random_patch_cifar_augmented_kernel,
         build_random_patch_cifar_kernel,
+        flipped_shuffled_crops,
+        random_crops,
+        score_center_corner_views,
     )
     from keystone_tpu_torch.pipelines.random_patch_cifar import (
         RandomPatchCifarConfig,
         build_pipeline,
+        run_fused,
         run_staged,
     )
     from keystone_tpu_torch.workflow.pipeline import Pipeline
@@ -304,48 +399,59 @@ def main() -> int:
 
     # ---- 3. kernels against their plain versions -------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
-    alpha, mv, pool, stride, patch = 0.25, 0.0, 14, 13, 6
+    alpha, mv, patch = 0.25, 0.0, 6
 
-    def conv_inputs(n, k):
-        x = torch.rand((n, 32, 32, 3), generator=gen, device=dev)
+    def conv_inputs(n, side, k):
+        x = torch.rand((n, side, side, 3), generator=gen, device=dev)
         kern = torch.randn((patch, patch, 3, k), generator=gen,
                            device=dev) / 10.0
         cs = torch.randn((k,), generator=gen, device=dev)
         bs = torch.randn((k,), generator=gen, device=dev)
         return x, kern, kernels.hwio_to_cmajor(kern).contiguous(), cs, bs
 
-    k1_checks, k1 = [], None  # the first geometry is the headline
-    for n, k, normalize in ((HEADLINE_N, 256, True), (37, 256, True),
-                            (64, 16, True), (128, 256, False)):
-        x, kern, g, cs, bs = conv_inputs(n, k)
+    # the first timed geometry is the headline; the 24x24 one is timed
+    # under "augmented"
+    k1_checks, k1 = [], None
+    for n, side, k, normalize, pool, stride, timed in CONV_CHECKS:
+        x, kern, g, cs, bs = conv_inputs(n, side, k)
+        before = kernels.conv_rectify_pool.launches
         got = kernels.conv_rectify_pool(x, g, cs, bs, alpha, mv, pool,
                                         stride, normalize, patch)
         torch.cuda.synchronize()
+        calls = kernels.conv_rectify_pool.launches - before
         want = kernels.conv_rectify_pool_reference(
             x, kern, cs, bs, alpha, mv, pool, stride, normalize)
         check(got.shape == want.shape and bool(torch.isfinite(got).all()),
-              f"conv_rectify_pool: bad output at n={n} k={k}")
+              f"conv_rectify_pool: bad output at n={n} side={side} k={k}")
         err, rel = rel_err(got, want)
-        check(rel <= K1_TOL, f"conv_rectify_pool n={n} k={k} "
+        check(rel <= K1_TOL, f"conv_rectify_pool n={n} side={side} k={k} "
               f"normalize={normalize}: relative error {rel} > {K1_TOL}")
-        k1_checks.append(dict(n=n, k=k, normalize=normalize,
+        k1_checks.append(dict(n=n, side=side, k=k, normalize=normalize,
+                              pool=pool, stride=stride, launches=calls,
                               max_abs_err=err, rel_err=rel))
-        if k1 is None:
-            k1 = dict(max_abs_err=err, rel_err=rel)
-            k1["ms"] = time_ms(lambda: kernels.conv_rectify_pool(
+        if timed:
+            t = dict(n=n, side=side, k=k, pool=pool, stride=stride,
+                     launches=calls, max_abs_err=err, rel_err=rel)
+            t["ms"] = time_ms(lambda: kernels.conv_rectify_pool(
                 x, g, cs, bs, alpha, mv, pool, stride, normalize, patch))
-            k1["device_ms"] = device_ms([lambda: kernels.conv_rectify_pool(
+            t["device_ms"] = device_ms([lambda: kernels.conv_rectify_pool(
                 x, g, cs, bs, alpha, mv, pool, stride, normalize, patch)] * 20)
-            k1["plain_ms"] = time_ms(
+            t["plain_ms"] = time_ms(
                 lambda: kernels.conv_rectify_pool_reference(
                     x, kern, cs, bs, alpha, mv, pool, stride, normalize))
             xb = x.permute(0, 3, 1, 2).contiguous().to(torch.bfloat16)
             wb = kern.permute(3, 2, 0, 1).contiguous().to(torch.bfloat16)
-            k1["conv2d_bf16_conv_only_ms"] = time_ms(lambda: F.conv2d(xb, wb))
-            k1["bound_ms"], k1["bound_by"] = k1_bound_ms(
-                n, 32, 32, 3, patch, k, 2, 2)
+            t["conv2d_bf16_conv_only_ms"] = time_ms(lambda: F.conv2d(xb, wb))
+            t["bound_ms"], t["bound_by"] = k1_bound_ms(
+                n, side, side, 3, patch, k, pool, stride)
             del xb, wb
+            if k1 is None:
+                k1 = t
+            else:
+                k1["augmented"] = t
         del x, kern, g, cs, bs, got, want
+    check(k1["augmented"]["launches"] == 1, f"conv_rectify_pool at 24x24 "
+          f"took {k1['augmented']['launches']} launches for 256 filters")
 
     k2_checks, k2 = [], None  # the first geometry is the headline
     for n, h, w, k, p, s, a, m in ((HEADLINE_N, 27, 27, 256, 14, 13, 0.25,
@@ -506,14 +612,22 @@ def main() -> int:
     k4["short_rows"] = short_rows
     del xs, outs, timed, plan, got
 
-    k5_checks, k5 = [], None  # the first geometry is the headline
+    # RBF_TIMED's first geometry is the headline; the augmented one is
+    # timed under "augmented"
+    k5_checks, k5 = [], None
     for m, n, d, gamma in RBF_GEOMETRIES:
         X = torch.randn((m, d), generator=gen, device=dev)
         # the fit's block: rows of X itself, so the diagonal cancels
         ids = torch.randperm(m, generator=gen, device=dev)[:n]
         Yb = X[ids].contiguous()
+        products = kernels.rbf_block.launches
+        prepasses = kernels.rbf_split.launches
         got = kernels.rbf_block(X, Yb, gamma)
         torch.cuda.synchronize()
+        launched = dict(products=kernels.rbf_block.launches - products,
+                        prepasses=kernels.rbf_split.launches - prepasses)
+        check(launched == dict(products=1, prepasses=2),
+              f"rbf_block {(m, n, d)}: one call counted {launched}")
         want = kernels.rbf_block_reference(X, Yb, gamma)
         check(got.shape == want.shape and bool(torch.isfinite(got).all()),
               f"rbf_block: bad output at {(m, n, d)}")
@@ -525,26 +639,33 @@ def main() -> int:
               f"diagonal {diag} < 1 - {K5_TOL}")
         k5_checks.append(dict(m=m, n=n, d=d, gamma=gamma, max_abs_err=err,
                               min_diagonal=diag))
-        if k5 is None:
-            k5 = dict(max_abs_err=err, min_diagonal=diag)
-            k5["ms"] = time_ms(lambda: kernels.rbf_block(X, Yb, gamma))
-            k5["device_ms"] = device_ms(
+        del got, want
+        if (m, n, d) in RBF_TIMED:
+            t = dict(m=m, n=n, d=d, gamma=gamma, max_abs_err=err,
+                     min_diagonal=diag)
+            t["ms"] = time_ms(lambda: kernels.rbf_block(X, Yb, gamma))
+            t["device_ms"] = device_ms(
                 [lambda: kernels.rbf_block(X, Yb, gamma)] * 10)
             # the prepass alone, on both operands as rbf_block runs it
-            k5["split_device_ms"] = device_ms(
+            t["split_device_ms"] = device_ms(
                 [lambda: (kernels.rbf_split(X), kernels.rbf_split(Yb))] * 10)
-            k5["plain_ms"] = time_ms(
+            t["plain_ms"] = time_ms(
                 lambda: kernels.rbf_block_reference(X, Yb, gamma))
-            k5["matmul_fp32_gemm_only_ms"] = time_ms(lambda: X @ Yb.T)
+            t["matmul_fp32_gemm_only_ms"] = time_ms(lambda: X @ Yb.T)
             # one TF32 product, for this timing only: three of them are
             # what cuBLAS's tensor cores take for the kernel's work
             torch.backends.cuda.matmul.allow_tf32 = True
             try:
-                k5["matmul_tf32_gemm_only_ms"] = time_ms(lambda: X @ Yb.T)
+                t["matmul_tf32_gemm_only_ms"] = time_ms(lambda: X @ Yb.T)
             finally:
                 torch.backends.cuda.matmul.allow_tf32 = False
-            k5["bound_ms"], k5["bound_by"] = k5_bound_ms(m, n, d)
-        del X, Yb, got, want
+            t["bound_ms"], t["bound_by"] = k5_bound_ms(m, n, d)
+            if k5 is None:
+                k5 = t
+            else:
+                k5["augmented"] = t
+        del X, Yb
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     phase("kernels", conv_rectify_pool=dict(headline=k1, checks=k1_checks,
                                             tolerance_rel=K1_TOL),
@@ -659,6 +780,7 @@ def main() -> int:
     kc_test = evaluator(kc(test.data), test.labels)
     kc_k1 = kernels.conv_rectify_pool.launches
     kc_k5 = kernels.rbf_block.launches
+    kc_k5_split = kernels.rbf_split.launches
     blocks = math.ceil(train.data.count / kc_config.kernel_block)
     # krr_fit's split: K5's device time at the fit geometry (the kernels
     # phase) times the fit's launches, the last block counted by its rows;
@@ -677,6 +799,7 @@ def main() -> int:
           jax_cpu_test_accuracy=KERNEL_CIFAR_JAX_ACC,
           gap_to_jax_cpu=kc_test.accuracy - KERNEL_CIFAR_JAX_ACC,
           conv_rectify_pool_launches=kc_k1, rbf_block_launches=kc_k5,
+          rbf_split_launches=kc_k5_split,
           fit_blocks=blocks, stage_seconds=kc_stages,
           peak_mem_bytes=torch.cuda.max_memory_allocated(), card=card)
     check(kc_test.accuracy >= 0.72,
@@ -687,6 +810,8 @@ def main() -> int:
           f"within 0.005 of {KERNEL_CIFAR_FP32_ACC}")
     check(kc_k5 >= 2 * blocks, f"rbf_block launched {kc_k5} times for "
           f"{blocks} fit blocks and {blocks} apply blocks")
+    check(kc_k5_split == 2 * kc_k5, f"rbf_split launched {kc_k5_split} "
+          f"times for {kc_k5} products")
     check(kc_k1 >= microbatches, f"conv_rectify_pool launched {kc_k1} "
           f"times for {microbatches} microbatches")
     del kc
@@ -728,6 +853,211 @@ def main() -> int:
           f"{k3_rel} > {K2_TOL}")
     check(rel <= K1_TOL, f"fused vs staged featurizer: relative error {rel}")
 
+    # ---- 8. run_fused -----------------------------------------------------
+    rpc_evaluator = MulticlassClassifierEvaluator(config.num_classes)
+    run_fused(train, test, config)  # warm, at the same shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    fused_res = run_fused(train, test, config)
+    fused_seconds = time.perf_counter() - t0
+    fused_k1 = kernels.conv_rectify_pool.launches
+    fused_peak = torch.cuda.max_memory_allocated()
+    fused_syncs, fused_sync_count = count_syncs(
+        lambda: run_fused(train, test, config))
+
+    def staged_run():
+        p = build_pipeline(train, config)
+        rpc_evaluator(p(train.data), train.labels)
+        rpc_evaluator(p(test.data), test.labels)
+
+    staged_syncs, staged_sync_count = count_syncs(staged_run)
+    fused_acc = fused_res["test_accuracy"]
+    phase("fused", train_seconds=fused_seconds,
+          images_per_sec=(train.data.count + test.data.count) / fused_seconds,
+          rate_basis="train+test images",
+          test_accuracy=fused_acc, train_error=fused_res["train_error"],
+          slice_test_accuracy=test_metrics.accuracy,
+          stage_ms_on_stream=fused_res["stage_ms"],
+          staged_stage_seconds=stages, staged_train_seconds=train_seconds,
+          conv_rectify_pool_launches=fused_k1, microbatches=microbatches,
+          syncs=fused_sync_count, sync_lines=fused_syncs,
+          staged_syncs=staged_sync_count, staged_sync_lines=staged_syncs,
+          peak_mem_bytes=fused_peak, card=card)
+    check(fused_acc >= 0.72, f"run_fused test accuracy {fused_acc} below "
+          f"0.72")
+    check(abs(fused_acc - test_metrics.accuracy) <= 0.005,
+          f"run_fused test accuracy {fused_acc} is not within 0.005 of the "
+          f"staged pipeline's {test_metrics.accuracy}")
+    check(fused_k1 == microbatches, f"run_fused launched conv_rectify_pool "
+          f"{fused_k1} times for {microbatches} microbatches")
+    del fused_res
+    torch.cuda.empty_cache()
+
+    # ---- 9. RandomCifar --------------------------------------------------
+    rc_config = RandomCifarConfig(num_filters=256)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    rc = None
+
+    def rc_build():
+        nonlocal rc
+        rc = build_random_cifar(train, rc_config)
+
+    rc_stages, rc_seconds, rc_train = run_stages([
+        ("build", rc_build),
+        ("featurize", lambda: Pipeline(rc.nodes[:2])(train.data).get()),
+        ("scaler", lambda: rc.nodes[2].fitted),
+        ("bcd_solve", lambda: rc.nodes[3].fitted),
+        ("predict_eval", lambda: evaluator(rc(train.data), train.labels)),
+    ])
+    rc_test = evaluator(rc(test.data), test.labels)
+    rc_k1 = kernels.conv_rectify_pool.launches
+    phase("random_cifar", train_seconds=rc_seconds,
+          images_per_sec=train.data.count / rc_seconds,
+          train_error=rc_train.error, test_accuracy=rc_test.accuracy,
+          jax_cpu_test_accuracy=RANDOM_CIFAR_JAX_ACC,
+          gap_to_jax_cpu=rc_test.accuracy - RANDOM_CIFAR_JAX_ACC,
+          conv_rectify_pool_launches=rc_k1, microbatches=microbatches,
+          stage_seconds=rc_stages,
+          peak_mem_bytes=torch.cuda.max_memory_allocated(), card=card)
+    check(rc_test.accuracy >= 0.72, f"RandomCifar test accuracy "
+          f"{rc_test.accuracy} below 0.72")
+    check(abs(rc_test.accuracy - RANDOM_CIFAR_JAX_ACC) <= 0.005,
+          f"RandomCifar test accuracy {rc_test.accuracy} is not within 0.005 "
+          f"of {RANDOM_CIFAR_JAX_ACC}")
+    check(rc_k1 == microbatches, f"RandomCifar launched conv_rectify_pool "
+          f"{rc_k1} times for {microbatches} microbatches")
+    del rc
+    torch.cuda.empty_cache()
+
+    # ---- 10. RandomPatchCifarAugmented ------------------------------------
+    ag_config = RandomPatchCifarAugmentedConfig(num_filters=256)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    ag = ag_scorer = None
+
+    def ag_augment():
+        nonlocal ag
+        ag = random_crops(train, ag_config)
+
+    def ag_build():
+        nonlocal ag_scorer
+        ag_scorer = build_random_patch_cifar_augmented(ag, ag_config)
+
+    ag_stages, ag_seconds, ag_train = run_stages([
+        ("augment", ag_augment),
+        ("filter_learning", ag_build),
+        ("featurize", lambda: Pipeline(ag_scorer.nodes[:2])(ag.data).get()),
+        ("scaler", lambda: ag_scorer.nodes[2].fitted),
+        ("bcd_solve", lambda: ag_scorer.nodes[3].fitted),
+        ("predict_eval", lambda: evaluator(
+            (ag_scorer >> MaxClassifier())(ag.data), ag.labels)),
+    ])
+    test_stages, _, ag_test = run_stages([
+        ("test_apply_eval", lambda: score_center_corner_views(
+            ag_scorer, test, ag_config, with_flips=False))])
+    ag_stages.update(test_stages)
+    ag_k1 = kernels.conv_rectify_pool.launches
+    ag_microbatches = (math.ceil(ag.data.count / ag_config.microbatch)
+                       + math.ceil(5 * test.data.count / ag_config.microbatch))
+    phase("augmented", train_seconds=ag_seconds,
+          train_views=ag.data.count,
+          views_per_sec=ag.data.count / ag_seconds,
+          train_error=ag_train.error, test_accuracy=ag_test.accuracy,
+          test_views=5 * test.data.count,
+          jax_cpu_test_accuracy=AUGMENTED_JAX_ACC,
+          gap_to_jax_cpu=ag_test.accuracy - AUGMENTED_JAX_ACC,
+          conv_rectify_pool_launches=ag_k1, microbatches=ag_microbatches,
+          stage_seconds=ag_stages,
+          peak_mem_bytes=torch.cuda.max_memory_allocated(), card=card)
+    check(ag.data.count == N_AUG_TRAIN, f"{ag.data.count} training crops")
+    check(ag_test.accuracy >= 0.72, f"RandomPatchCifarAugmented test "
+          f"accuracy {ag_test.accuracy} below 0.72")
+    check(abs(ag_test.accuracy - AUGMENTED_JAX_ACC) <= 0.01,
+          f"RandomPatchCifarAugmented test accuracy {ag_test.accuracy} is "
+          f"not within 0.01 of {AUGMENTED_JAX_ACC}")
+    check(ag_k1 == ag_microbatches, f"RandomPatchCifarAugmented launched "
+          f"conv_rectify_pool {ag_k1} times for {ag_microbatches} "
+          f"microbatches")
+    del ag, ag_scorer
+    torch.cuda.empty_cache()
+
+    # ---- 11. RandomPatchCifarAugmentedKernel -------------------------------
+    ak_config = RandomPatchCifarAugmentedKernelConfig(
+        num_filters=256, gamma=2e-4, lam=10.0, kernel_block=2048,
+        kernel_epochs=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    ak = ak_scorer = None
+
+    def ak_augment():
+        nonlocal ak
+        ak = flipped_shuffled_crops(train, ak_config)
+
+    def ak_build():
+        nonlocal ak_scorer
+        ak_scorer = build_random_patch_cifar_augmented_kernel(ak, ak_config)
+
+    ak_stages, ak_seconds, ak_train = run_stages([
+        ("augment", ak_augment),
+        ("filter_learning", ak_build),
+        ("featurize", lambda: Pipeline(ak_scorer.nodes[:2])(ak.data).get()),
+        ("scaler", lambda: ak_scorer.nodes[2].fitted),
+        ("krr_fit", lambda: ak_scorer.nodes[3].fitted),
+        ("predict_eval", lambda: evaluator(
+            (ak_scorer >> MaxClassifier())(ak.data), ak.labels)),
+    ])
+    ak_fit_products = kernels.rbf_block.launches
+    test_stages, _, ak_test = run_stages([
+        ("test_apply_eval", lambda: score_center_corner_views(
+            ak_scorer, test, ak_config, with_flips=True))])
+    ak_stages.update(test_stages)
+    ak_k1 = kernels.conv_rectify_pool.launches
+    ak_k5 = kernels.rbf_block.launches
+    ak_k5_split = kernels.rbf_split.launches
+    ak_blocks = math.ceil(ak.data.count / ak_config.kernel_block)
+    ak_apply_blocks = math.ceil(ak.data.count / ak_config.kernel_block)
+    ak_microbatches = (
+        math.ceil(ak.data.count / ak_config.microbatch)
+        + math.ceil(10 * test.data.count / ak_config.microbatch))
+    ak_fit_k5_seconds = (k5["augmented"]["device_ms"] / 1e3 * ak.data.count
+                         / ak_config.kernel_block)
+    ak_split = dict(
+        k5_seconds=ak_fit_k5_seconds,
+        rest_seconds=ak_stages["krr_fit"] - ak_fit_k5_seconds,
+        rest_ms_per_block=1e3 * (ak_stages["krr_fit"] - ak_fit_k5_seconds)
+        / ak_blocks)
+    phase("augmented_kernel", train_seconds=ak_seconds,
+          train_views=ak.data.count,
+          views_per_sec=ak.data.count / ak_seconds,
+          krr_fit_seconds=ak_stages["krr_fit"], krr_fit_split=ak_split,
+          train_error=ak_train.error, test_accuracy=ak_test.accuracy,
+          test_views=10 * test.data.count,
+          conv_rectify_pool_launches=ak_k1, microbatches=ak_microbatches,
+          rbf_block_launches=ak_k5, rbf_split_launches=ak_k5_split,
+          rbf_block_launches_through_train_eval=ak_fit_products,
+          fit_blocks=ak_blocks, test_apply_blocks=ak_apply_blocks,
+          stage_seconds=ak_stages,
+          peak_mem_bytes=torch.cuda.max_memory_allocated(), card=card)
+    check(ak.data.count == N_AUG_TRAIN, f"{ak.data.count} training crops")
+    check(ak_test.accuracy >= 0.72, f"RandomPatchCifarAugmentedKernel test "
+          f"accuracy {ak_test.accuracy} below 0.72")
+    check(ak_k5 >= ak_blocks + ak_apply_blocks, f"rbf_block launched "
+          f"{ak_k5} times for {ak_blocks} fit blocks and {ak_apply_blocks} "
+          f"test-apply blocks")
+    check(ak_k5_split == 2 * ak_k5, f"rbf_split launched {ak_k5_split} "
+          f"times for {ak_k5} products")
+    check(ak_k1 == ak_microbatches, f"RandomPatchCifarAugmentedKernel "
+          f"launched conv_rectify_pool {ak_k1} times for {ak_microbatches} "
+          f"microbatches")
+    del ak, ak_scorer
+    torch.cuda.empty_cache()
+
     record = {"kernels": [
         dict(name="conv_rectify_pool", route="cuda",
              source="keystone_tpu_torch/csrc/conv_rectify_pool.cu",
@@ -738,6 +1068,11 @@ def main() -> int:
              bound_ms=k1["bound_ms"],
              bound_by=k1["bound_by"], library_ms=None,
              conv2d_bf16_conv_only_ms=k1["conv2d_bf16_conv_only_ms"],
+             augmented=dict(k1["augmented"], library_ms=None),
+             launches_by_path=dict(
+                 slice=k1_launches, kernel_cifar=kc_k1, fused=fused_k1,
+                 random_cifar=rc_k1, augmented=ag_k1,
+                 augmented_kernel=ak_k1),
              ptxas=regs["conv_rectify_pool"]),
         dict(name="rectify_pool", route="cuda",
              source="keystone_tpu_torch/csrc/rectify_pool.cu",
@@ -767,7 +1102,13 @@ def main() -> int:
         dict(name="rbf_block", route="cuda",
              source="keystone_tpu_torch/csrc/rbf_block.cu",
              replaces="keystone_tpu/ops/pallas_kernels.py:212",
-             launches=kc_k5, max_abs_err=k5["max_abs_err"],
+             launches=kc_k5, split_launches=kc_k5_split,
+             launches_by_path=dict(
+                 kernel_cifar=dict(products=kc_k5, prepasses=kc_k5_split),
+                 augmented_kernel=dict(products=ak_k5,
+                                       prepasses=ak_k5_split)),
+             augmented=dict(k5["augmented"], library_ms=None),
+             max_abs_err=k5["max_abs_err"],
              min_diagonal=k5["min_diagonal"], tolerance_abs=K5_TOL,
              ms=k5["ms"], device_ms=k5["device_ms"],
              split_device_ms=k5["split_device_ms"], plain_ms=k5["plain_ms"],

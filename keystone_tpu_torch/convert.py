@@ -5,9 +5,11 @@ objects: the learned filters (K, D), the ZCA whitener W (D, D) and means
 μ (D,); the fitted scaler's mean and std; BCD's W and b; a
 `LinearMapper`'s W and b; a `KernelBlockLinearMapper`'s anchors, dual
 weights, γ and block size. `fitted_predictor`,
-`fitted_linear_pixels` and `fitted_kernel_predictor` assemble them into
-the port's fitted prediction pipelines, so both packages compute the
-same function from the same weights.
+`fitted_linear_pixels`, `fitted_kernel_predictor` and
+`fitted_augmented_scorer` (RandomPatchCifarAugmented and its kernel
+variant, whose scores are averaged over test views before the argmax)
+assemble them into the port's fitted pipelines, so both packages compute
+the same function from the same weights.
 """
 
 from __future__ import annotations
@@ -55,6 +57,11 @@ def fitted_predictor(filters, whitener_W, whitener_mu, scaler_mean,
             >> MaxClassifier())
 
 
+def block_linear_mapper(W, b,
+                        device: DeviceLike = "cuda") -> BlockLinearMapper:
+    return BlockLinearMapper(to_tensor(W, device), to_tensor(b, device))
+
+
 def linear_mapper(W, b=None, device: DeviceLike = "cuda") -> LinearMapper:
     return LinearMapper(to_tensor(W, device),
                         None if b is None else to_tensor(b, device))
@@ -94,3 +101,21 @@ def fitted_kernel_predictor(filters, whitener_W, whitener_mu, scaler_mean,
                                    to_tensor(scaler_std, device))
             >> kernel_mapper(train_X, alpha, gamma, block_size, device)
             >> MaxClassifier())
+
+
+def fitted_augmented_scorer(filters, whitener_W, whitener_mu, scaler_mean,
+                            scaler_std, model, config,
+                            device: DeviceLike = "cuda") -> Pipeline:
+    """The augmented pipelines' featurizer over ``config.aug_patch``
+    crops >> StandardScalerModel >> ``model`` (from `block_linear_mapper`
+    or `kernel_mapper`), from the JAX package's fitted parameters; no
+    argmax, as the test views' scores are averaged first."""
+    from .pipelines.cifar_variants import augmented_featurizer
+
+    featurizer = augmented_featurizer(
+        to_tensor(filters, device), whitener(whitener_W, whitener_mu, device),
+        config)
+    return (featurizer.to_pipeline()
+            >> StandardScalerModel(to_tensor(scaler_mean, device),
+                                   to_tensor(scaler_std, device))
+            >> model)

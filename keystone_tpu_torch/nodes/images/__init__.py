@@ -1,13 +1,20 @@
 """Image nodes (counterpart of `keystone_tpu/nodes/images`)."""
 
 from .core import (
+    CenterCornerPatcher,
     Convolver,
+    Cropper,
     GrayScaler,
     ImageVectorizer,
     PixelScaler,
     Pooler,
+    RandomImageTransformer,
+    RandomPatcher,
     SymmetricRectifier,
+    Windower,
 )
 
-__all__ = ["Convolver", "GrayScaler", "ImageVectorizer", "PixelScaler",
-           "Pooler", "SymmetricRectifier"]
+__all__ = ["CenterCornerPatcher", "Convolver", "Cropper", "GrayScaler",
+           "ImageVectorizer", "PixelScaler", "Pooler",
+           "RandomImageTransformer", "RandomPatcher", "SymmetricRectifier",
+           "Windower"]

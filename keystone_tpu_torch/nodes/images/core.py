@@ -2,11 +2,17 @@
 
 Counterpart of `keystone_tpu/nodes/images/core.py` (`PixelScaler`,
 `Convolver` `:44-125`, `SymmetricRectifier`, `Pooler`, `ImageVectorizer`,
-`GrayScaler` `:268-306`). Images are NHWC. The stages an elementwise
-chain kernel can absorb carry a `fuse` method that returns the JAX
-package's static key and parameters (`core.py:228, 257, 279`), which the
-fusion matcher reads (`nodes/util/fusion.py`). The Convolver folds the
-ZCA whitener and the patch-mean normalization into the conv:
+`GrayScaler` `:268-306`, and the augmentation nodes `Cropper` `:308`,
+`Windower` `:329`, `RandomPatcher` `:361-395`, `CenterCornerPatcher`
+`:398-440`, `RandomImageTransformer` `:443-483`). Images are NHWC. The
+augmentation nodes draw their offsets and flips from numpy's
+``default_rng(seed)`` exactly as the JAX package does, so both packages
+make the same crops; the crops themselves are device gathers. The
+stages an elementwise chain kernel can absorb carry a `fuse` method that
+returns the JAX package's static key and parameters (`core.py:228, 257,
+279`), which the fusion matcher reads (`nodes/util/fusion.py`). The
+Convolver folds the ZCA whitener and the patch-mean normalization into
+the conv:
 
     out[p, k] = (patch_p − mean(patch_p)·1 − zca_mean) · (W_zca f_k)
               = conv(img, G)[p, k] − mean_p · colsum(G_k) − zca_mean·G_k
@@ -22,8 +28,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ...data.dataset import Dataset
 from ...ops.kernels import folded_conv_reference
-from ...utils.images import grayscale
+from ...utils.images import (
+    extract_patches_device,
+    flip_horizontal,
+    grayscale,
+)
 from ...workflow.pipeline import Transformer
 
 
@@ -143,3 +154,162 @@ class ImageVectorizer(Transformer):
 
     def fuse(self):
         return ("ImageVectorizer",), ()
+
+
+class Cropper(Transformer):
+    """The box rows y0..y1−1, columns x0..x1−1 of every image
+    (Cropper.scala:19)."""
+
+    def __init__(self, y0: int, x0: int, y1: int, x1: int):
+        self.box = (y0, x0, y1, x1)
+
+    def batch_fn(self):
+        y0, x0, y1, x1 = self.box
+        return lambda x: x[:, y0:y1, x0:x1, :]
+
+
+class Windower(Transformer):
+    """Every strided window of each image, flattened image-major: (N, H,
+    W, C) → (N·gy·gx, w, w, C), so the count grows by gy·gx
+    (Windower.scala:13-56)."""
+
+    def __init__(self, stride: int, window_size: int):
+        self.stride = stride
+        self.window_size = window_size
+
+    def batch_fn(self):
+        return lambda x: extract_patches_device(x, self.window_size,
+                                                self.stride)
+
+    def apply(self, image):
+        return self.batch_fn()(torch.as_tensor(image)[None])
+
+    def apply_batch(self, data):
+        h, w = data.array.shape[1:3]
+        gy = (h - self.window_size) // self.stride + 1
+        gx = (w - self.window_size) // self.stride + 1
+        return Dataset(self.batch_fn()(data.array), count=data.count * gy * gx)
+
+
+def gather_crops(images: torch.Tensor, img_idx: torch.Tensor,
+                 ys: torch.Tensor, xs: torch.Tensor, patch_h: int,
+                 patch_w: int) -> torch.Tensor:
+    """Crop i is rows ys[i].., columns xs[i].. of image img_idx[i]: (M,)
+    index tensors → (M, patch_h, patch_w, C), one device gather. The
+    source is a strided view of every window (`Tensor.unfold`), so only
+    the M offsets are materialized, never a per-pixel index."""
+    windows = (images.unfold(1, patch_h, 1).unfold(2, patch_w, 1)
+               .permute(0, 1, 2, 4, 5, 3))  # (N, H', W', ph, pw, C) view
+    return windows[img_idx, ys, xs]
+
+
+class RandomPatcher(Transformer):
+    """``patches_per_image`` random crops of each image, image-major, so
+    the count grows by that factor (RandomPatcher.scala:16-47). The batch
+    path draws the offsets from ``default_rng(seed)`` on every call, the
+    rows (ys) then the columns (xs), each (n, patches_per_image), as the
+    JAX package does; one datum draws from a generator kept across
+    calls."""
+
+    def __init__(self, patches_per_image: int, patch_h: int, patch_w: int,
+                 seed: int = 0):
+        self.patches_per_image = patches_per_image
+        self.patch_h = patch_h
+        self.patch_w = patch_w
+        self.seed = seed
+        self._rng = np.random.default_rng(seed)
+
+    def apply_batch(self, data):
+        n = data.count
+        images = data.array[:n]
+        rng = np.random.default_rng(self.seed)
+        size = (n, self.patches_per_image)
+        ys = rng.integers(0, images.shape[1] - self.patch_h + 1, size=size)
+        xs = rng.integers(0, images.shape[2] - self.patch_w + 1, size=size)
+        dev = images.device
+        img_idx = torch.arange(n, device=dev).repeat_interleave(
+            self.patches_per_image)
+        out = gather_crops(images, img_idx,
+                           torch.as_tensor(ys.reshape(-1), device=dev),
+                           torch.as_tensor(xs.reshape(-1), device=dev),
+                           self.patch_h, self.patch_w)
+        return Dataset(out, count=n * self.patches_per_image)
+
+    def apply(self, image):
+        y = self._rng.integers(0, image.shape[0] - self.patch_h + 1)
+        x = self._rng.integers(0, image.shape[1] - self.patch_w + 1)
+        return image[y:y + self.patch_h, x:x + self.patch_w]
+
+
+class CenterCornerPatcher(Transformer):
+    """The four corner crops and the centre crop of each image, then
+    their horizontal flips where ``with_flips``; image-major, so the
+    count grows by 5 or 10 (CenterCornerPatcher.scala:19-48)."""
+
+    def __init__(self, patch_h: int, patch_w: int, with_flips: bool = False):
+        self.patch_h = patch_h
+        self.patch_w = patch_w
+        self.with_flips = with_flips
+
+    @property
+    def views(self) -> int:
+        return 10 if self.with_flips else 5
+
+    def _starts(self, h: int, w: int):
+        """The crops' top-left corners, in the JAX package's order."""
+        ph, pw = self.patch_h, self.patch_w
+        return [(0, 0), (0, w - pw), (h - ph, 0), (h - ph, w - pw),
+                ((h - ph) // 2, (w - pw) // 2)]
+
+    def _crops(self, images):
+        """(N, views, ph, pw, C) from (N, H, W, C)."""
+        ph, pw = self.patch_h, self.patch_w
+        crops = [images[:, y:y + ph, x:x + pw]
+                 for y, x in self._starts(images.shape[1], images.shape[2])]
+        if self.with_flips:
+            crops += [flip_horizontal(c) for c in crops]
+        return torch.stack(crops, dim=1)
+
+    def apply(self, image):
+        return self._crops(torch.as_tensor(image)[None])[0]
+
+    def apply_batch(self, data):
+        crops = self._crops(data.array[:data.count])
+        return Dataset(crops.reshape((-1,) + tuple(crops.shape[2:])),
+                       count=data.count * self.views)
+
+
+class RandomImageTransformer(Transformer):
+    """``transform`` applied to each image with probability ``prob``
+    (RandomImageTransformer.scala:15-31). The batch path draws the mask
+    ``default_rng(seed).random(count) < prob`` on every call, as the JAX
+    package does. A transform marked ``batchable`` (`flip_horizontal`:
+    shape- and dtype-preserving) runs once on the whole batch and a
+    device `torch.where` keeps the drawn rows; any other transform runs
+    image by image on the host, as the JAX package runs a transform not
+    marked traceable."""
+
+    def __init__(self, prob: float, transform, seed: int = 0):
+        self.prob = prob
+        self.transform = transform
+        self.seed = seed
+        self._rng = np.random.default_rng(seed)
+
+    def apply_batch(self, data):
+        rng = np.random.default_rng(self.seed)
+        flips = rng.random(data.count) < self.prob
+        images = data.array[:data.count]
+        if getattr(self.transform, "batchable", False):
+            mask = torch.as_tensor(flips, device=images.device)
+            mask = mask.reshape((-1,) + (1,) * (images.ndim - 1))
+            return data.with_data(
+                torch.where(mask, self.transform(images), images))
+        host = images.cpu().clone()
+        for i in np.nonzero(flips)[0]:
+            host[i] = torch.as_tensor(self.transform(host[i]))
+        return Dataset(host, device=images.device)
+
+    def apply(self, image):
+        if self._rng.random() < self.prob:
+            return self.transform(image)
+        return image

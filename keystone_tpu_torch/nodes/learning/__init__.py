@@ -1,6 +1,11 @@
 """Learning nodes (counterpart of `keystone_tpu/nodes/learning`)."""
 
-from .block_ls import BlockLeastSquaresEstimator, BlockLinearMapper, bcd_fit
+from .block_ls import (
+    BlockLeastSquaresEstimator,
+    BlockLinearMapper,
+    bcd_fit,
+    raise_if_unfactored,
+)
 from .kernels import (
     BlockKernelMatrix,
     GaussianKernelGenerator,
@@ -15,4 +20,5 @@ __all__ = ["BlockKernelMatrix", "BlockLeastSquaresEstimator",
            "BlockLinearMapper", "GaussianKernelGenerator",
            "GaussianKernelTransformer", "KernelBlockLinearMapper",
            "KernelRidgeRegression", "LinearMapEstimator", "LinearMapper",
-           "ZCAWhitener", "bcd_fit", "zca_from_covariance"]
+           "ZCAWhitener", "bcd_fit", "raise_if_unfactored",
+           "zca_from_covariance"]

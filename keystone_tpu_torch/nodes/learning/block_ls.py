@@ -23,9 +23,13 @@ from ...workflow.pipeline import LabelEstimator, Transformer
 
 def bcd_fit(x: torch.Tensor, y: torch.Tensor, lam: float, block_size: int,
             num_iter: int, center: bool = True):
-    """(W, b) minimizing ‖(x W + b) − y‖² + lam‖W‖² by ``num_iter``
-    sweeps over feature blocks of ``block_size`` columns. ``x``'s width
-    must be a multiple of ``block_size``; W has that width."""
+    """(W, b, info): W, b minimize ‖(x W + b) − y‖² + lam‖W‖² by
+    ``num_iter`` sweeps over feature blocks of ``block_size`` columns.
+    ``x``'s width must be a multiple of ``block_size``; W has that width.
+    ``info`` is a 0-d int32 tensor on x's device, nonzero where a block's
+    ridge Gram matrix was not positive definite: the factorizations are
+    `cholesky_ex`, which leaves that check on the device, so the fit
+    makes no host sync of its own. Check it with `raise_if_unfactored`."""
     n, d = x.shape
     k = y.shape[1]
     if center:
@@ -40,16 +44,27 @@ def bcd_fit(x: torch.Tensor, y: torch.Tensor, lam: float, block_size: int,
     w = torch.zeros((num_blocks, block_size, k), dtype=x.dtype,
                     device=x.device)
     eye = lam * torch.eye(block_size, dtype=x.dtype, device=x.device)
+    info = torch.zeros((), dtype=torch.int32, device=x.device)
     for _ in range(num_iter):
         for b in range(num_blocks):
             xb = xc[:, b * block_size:(b + 1) * block_size]
             r = r + xb @ w[b]
             gram = xb.T @ xb + eye
-            chol = torch.linalg.cholesky(gram)
+            chol, failed = torch.linalg.cholesky_ex(gram)
+            info = torch.maximum(info, failed)
             w[b] = torch.cholesky_solve(xb.T @ r, chol)
             r = r - xb @ w[b]
     w_full = w.reshape(d, k)
-    return w_full, ym - xm @ w_full
+    return w_full, ym - xm @ w_full, info
+
+
+def raise_if_unfactored(info: torch.Tensor) -> None:
+    """Raise where `bcd_fit`'s ``info`` says a block's Gram matrix was
+    not positive definite (reading it waits for the device)."""
+    if int(info):
+        raise torch.linalg.LinAlgError(
+            f"BCD: a block's ridge Gram matrix is not positive definite "
+            f"(leading minor of order {int(info)})")
 
 
 class BlockLinearMapper(Transformer):
@@ -89,5 +104,7 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         d_pad = -(-d // bs) * bs
         if d_pad != d:
             x = F.pad(x, (0, d_pad - d))
-        w, b = bcd_fit(x, y, self.lam, bs, self.num_iter, self.fit_intercept)
+        w, b, info = bcd_fit(x, y, self.lam, bs, self.num_iter,
+                             self.fit_intercept)
+        raise_if_unfactored(info)
         return BlockLinearMapper(w, b if self.fit_intercept else None)

@@ -11,12 +11,17 @@ Each wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it launches the hand-written kernel (`csrc/`, built at first
 use by `_build`) or raises: there is no fallback. Each wrapper counts its
 launches in a plain integer attribute, ``<wrapper>.launches``, that grows
-by one per kernel launch and by nothing else.
+by one per kernel launch and by nothing else. One `rbf_block` call
+launches three kernels: the split prepass on X and on Yb, counted in
+``rbf_split.launches``, and the product, counted in
+``rbf_block.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -231,6 +236,16 @@ def _check_cuda(name: str, device: torch.device, **tensors) -> None:
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
+def _check_out(name: str, out: torch.Tensor, shape, device) -> None:
+    """``out`` can take a result of ``shape``: as many f32 elements,
+    contiguous, on ``device``."""
+    if out.device != device or out.dtype != torch.float32 \
+            or not out.is_contiguous() or out.numel() != math.prod(shape):
+        raise ValueError(f"{name}: out {tuple(out.shape)} {out.dtype} on "
+                         f"{out.device} cannot take a contiguous float32 "
+                         f"result of shape {tuple(shape)} on {device}")
+
+
 def _raise_on_error(lib, name: str, rc: int) -> None:
     if rc != 0:
         msg = lib.keystone_error_string(rc).decode()
@@ -244,7 +259,8 @@ def _stream(device: torch.device) -> int:
 
 def conv_rectify_pool(images, g_cmajor, colsum, bias, alpha: float,
                       max_val: float, pool: int, stride: int,
-                      normalize: bool, patch: int) -> torch.Tensor:
+                      normalize: bool, patch: int,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused conv + patch-mean correction + two-sided rectify + sum pool.
 
     images (N,H,W,C) f32, g_cmajor (C·P·P, K) f32 in channel-major order,
@@ -253,13 +269,19 @@ def conv_rectify_pool(images, g_cmajor, colsum, bias, alpha: float,
     cores, fp32 sums) over the row plan of `conv_row_plan`; CPU tensors
     run `conv_rectify_pool_reference`. A bank too large for one block's
     shared memory runs as one launch per chunk of `conv_filter_chunk`
-    filters."""
+    filters. With ``out``, a contiguous f32 tensor of N·gy·gx·2K
+    elements on the images' device (rows of a larger feature matrix, for
+    one), the result is written there and ``out`` is returned."""
     n, h, w, c = images.shape
     k = g_cmajor.shape[1]
     if images.device.type == "cpu":
-        return conv_rectify_pool_reference(
+        y = conv_rectify_pool_reference(
             images, cmajor_to_hwio(g_cmajor, patch), colsum, bias, alpha,
             max_val, pool, stride, normalize)
+        if out is None:
+            return y
+        _check_out("conv_rectify_pool", out, y.shape, images.device)
+        return out.copy_(y.reshape(out.shape))
     if images.device.type != "cuda":
         raise ValueError(f"conv_rectify_pool: unsupported device "
                          f"{images.device}")
@@ -297,8 +319,12 @@ def conv_rectify_pool(images, g_cmajor, colsum, bias, alpha: float,
                        rows)
         raise ValueError(f"conv_rectify_pool: a block would need {smem} "
                          f"bytes of shared memory (limit {MAX_SMEM_BYTES})")
-    out = torch.empty((n, gy, gx, 2 * k), dtype=torch.float32,
-                      device=images.device)
+    if out is None:
+        out = torch.empty((n, gy, gx, 2 * k), dtype=torch.float32,
+                          device=images.device)
+    else:
+        _check_out("conv_rectify_pool", out, (n, gy, gx, 2 * k),
+                   images.device)
     if n == 0:
         return out
     # chunk f0..f0+kc−1 of the bank: offset the per-filter pointers
@@ -455,7 +481,8 @@ def _rbf_block_cuda(X, Yb, gamma: float, write_hi: bool) -> torch.Tensor:
             None if hi is None else hi.data_ptr(), norms.data_ptr(),
             out.data_ptr(), m, n, d, ld, float(gamma), _stream(X.device))
     _raise_on_error(lib, "rbf_block", rc)
-    rbf_block.launches += 1
+    rbf_split.launches += 2  # the prepass on X, then on Yb
+    rbf_block.launches += 1  # the product
     return out
 
 

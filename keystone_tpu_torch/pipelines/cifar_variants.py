@@ -1,5 +1,6 @@
-"""CIFAR variants on one CUDA card: LinearPixels and
-RandomPatchCifarKernel.
+"""CIFAR variants on one CUDA card: LinearPixels, RandomCifar,
+RandomPatchCifarKernel, RandomPatchCifarAugmented and
+RandomPatchCifarAugmentedKernel.
 
 Counterpart of `keystone_tpu/pipelines/cifar_variants.py`:
 
@@ -8,27 +9,67 @@ Counterpart of `keystone_tpu/pipelines/cifar_variants.py`:
   `FusedBatchTransformer` over 4096-row microbatches, whose three stages
   run as one elementwise chain kernel launch, then a `Cacher`,
   `LinearMapEstimator(λ)` and `MaxClassifier`.
+- RandomCifar (`:116-161`; RandomCifar.scala): unit-norm Gaussian
+  filters drawn with numpy from the seed (so both packages hold the same
+  bank), no whitener, the RandomPatchCifar featurizer on the fused
+  conv+rectify+pool kernel, `StandardScaler` and one BCD sweep.
 - RandomPatchCifarKernel (`:163-207`; RandomPatchCifarKernel.scala:62-75):
   RandomPatchCifar's learned filters and featurizer, then
   `StandardScaler` and `KernelRidgeRegression`, whose block steps and
   apply run the RBF block kernel.
+- RandomPatchCifarAugmented (`:210-266`; RandomPatchCifarAugmented.scala):
+  four random 24×24 crops an image (`RandomPatcher`), filters learned on
+  the crops, the featurizer at 24×24 with one 12×12 pool window
+  (`Pooler(max(ap//2 − 1, 1), ap//2)`: stride 11, pool 12), one BCD
+  sweep; at test the four corner and the centre crops
+  (`CenterCornerPatcher`), their scores averaged an image by
+  `AugmentedExamplesEvaluator`.
+- RandomPatchCifarAugmentedKernel (`:268-354`;
+  RandomPatchCifarAugmentedKernel.scala): the crops, then horizontal
+  flips with probability 0.5 (seed + 1), then one numpy permutation
+  (seed + 2) of images and labels, applied on the device;
+  `KernelRidgeRegression` at γ 2e-4 with its seed and checkpointing; ten
+  test views (the five crops and their flips).
 
-`build_linear_pixels` and `build_random_patch_cifar_kernel` fit a
-predictor on given training data; the ``run_*`` functions load or
-synthesize the data, fit and score. RandomCifar and the augmented
-variants are not ported yet.
+The ``build_*`` functions fit on given training data (the augmented
+ones on given training views, from `random_crops` or
+`flipped_shuffled_crops`); the ``run_*`` functions load or synthesize
+the data, fit and score.
 
     python -m keystone_tpu_torch.pipelines.cifar_variants linear-pixels
     python -m keystone_tpu_torch.pipelines.cifar_variants kernel --device cpu
+    python -m keystone_tpu_torch.pipelines.cifar_variants random-cifar
+    python -m keystone_tpu_torch.pipelines.cifar_variants augmented
+    python -m keystone_tpu_torch.pipelines.cifar_variants augmented-kernel \
+        --checkpoint-dir ckpt
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Optional
 
-from ..nodes.images.core import GrayScaler, ImageVectorizer, PixelScaler
+import numpy as np
+import torch
+
+from ..data.dataset import Dataset
+from ..evaluation import (
+    AugmentedExamplesEvaluator,
+    MulticlassClassifierEvaluator,
+)
+from ..loaders.cifar_loader import LabeledData
+from ..nodes.images.core import (
+    CenterCornerPatcher,
+    GrayScaler,
+    ImageVectorizer,
+    PixelScaler,
+    RandomImageTransformer,
+    RandomPatcher,
+)
+from ..nodes.learning.block_ls import BlockLeastSquaresEstimator
 from ..nodes.learning.kernels import KernelRidgeRegression
 from ..nodes.learning.linear import LinearMapEstimator
 from ..nodes.stats.scalers import StandardScaler
@@ -38,8 +79,10 @@ from ..nodes.util.basic import (
     MaxClassifier,
 )
 from ..nodes.util.fusion import FusedBatchTransformer
+from ..utils.images import flip_horizontal
 from .random_patch_cifar import (
     RandomPatchCifarConfig,
+    _sync,
     fit_and_score,
     learn_filters,
     load_data,
@@ -88,6 +131,54 @@ def run_linear_pixels(config: LinearPixelsConfig, device="cuda"):
 
 
 @dataclass
+class RandomCifarConfig(RandomPatchCifarConfig):
+    pass
+
+
+def random_filters(config, channels: int = 3) -> np.ndarray:
+    """(K, P·P·C) unit-norm Gaussian filters from numpy's
+    ``default_rng(seed)``, as the JAX package draws them
+    (`cifar_variants.py:124-127`)."""
+    rng = np.random.default_rng(config.seed)
+    d = config.patch_size * config.patch_size * channels
+    filters = rng.normal(size=(config.num_filters, d)).astype(np.float32)
+    return filters / np.linalg.norm(filters, axis=1, keepdims=True)
+
+
+def _fit_scaled_bcd(featurizer, data, labels, config):
+    """featurizer >> Cacher >> StandardScaler >> one BCD sweep, fit on
+    ``data`` with int ``labels``: the scorer both RandomCifar and
+    RandomPatchCifarAugmented fit (the JAX package fixes one sweep)."""
+    indicators = ClassLabelIndicatorsFromInt(config.num_classes)(
+        labels).get()
+    return (
+        (featurizer.to_pipeline() >> Cacher("features"))
+        .and_then(StandardScaler(), data)
+        .and_then(BlockLeastSquaresEstimator(config.block_size, 1,
+                                             config.lam),
+                  data, indicators)
+    )
+
+
+def build_random_cifar(train, config: RandomCifarConfig):
+    """Build + fit the RandomCifar predictor on ``train``."""
+    h, w, c = train.data.array.shape[1:]
+    filters = torch.as_tensor(random_filters(config, c),
+                              device=train.data.device)
+    featurizer = make_featurizer(filters, None, h, w, c, config)
+    return _fit_scaled_bcd(featurizer, train.data, train.labels,
+                           config) >> MaxClassifier()
+
+
+def run_random_cifar(config: RandomCifarConfig, device="cuda"):
+    """Load or synthesize the data, fit RandomCifar, score train and
+    test."""
+    train, test = load_data(config, device)
+    return fit_and_score(lambda: build_random_cifar(train, config), train,
+                         test, config.num_classes)
+
+
+@dataclass
 class RandomPatchCifarKernelConfig(RandomPatchCifarConfig):
     gamma: float = 2e-3
     kernel_block: int = 2048
@@ -124,36 +215,219 @@ def run_random_patch_cifar_kernel(config: RandomPatchCifarKernelConfig,
         config.num_classes)
 
 
+@dataclass
+class RandomPatchCifarAugmentedConfig(RandomPatchCifarConfig):
+    patches_per_image: int = 4
+    aug_patch: int = 24
+
+
+@dataclass
+class RandomPatchCifarAugmentedKernelConfig(RandomPatchCifarConfig):
+    patches_per_image: int = 4
+    aug_patch: int = 24
+    flip_chance: float = 0.5
+    gamma: float = 2e-4
+    kernel_block: int = 2048
+    kernel_epochs: int = 1
+    checkpoint_dir: Optional[str] = None
+    blocks_before_checkpoint: int = 25
+
+
+def augmented_featurizer(filters, whitener, config,
+                         channels: int = 3) -> FusedBatchTransformer:
+    """The featurizer over ``aug_patch``-square crops, pooled as the JAX
+    package pools them: pool ap//2 at stride max(ap//2 − 1, 1), one
+    window an axis at 24 (`cifar_variants.py:232, 323`)."""
+    ap = config.aug_patch
+    pooled = dataclasses.replace(config, pool_size=ap // 2,
+                                 pool_stride=max(ap // 2 - 1, 1))
+    return make_featurizer(filters, whitener, ap, ap, channels, pooled)
+
+
+def random_crops(train, config) -> LabeledData:
+    """``patches_per_image`` random crops of every training image
+    (`RandomPatcher`, seeded by ``config.seed``), each with its image's
+    label."""
+    crops = RandomPatcher(config.patches_per_image, config.aug_patch,
+                          config.aug_patch, seed=config.seed
+                          ).apply_batch(train.data)
+    labels = train.labels.array[:train.labels.count].repeat_interleave(
+        config.patches_per_image)
+    return LabeledData(labels=Dataset(labels), data=crops)
+
+
+def flipped_shuffled_crops(train, config) -> LabeledData:
+    """`random_crops`, each flipped with probability ``flip_chance``
+    (seed + 1), then images and labels shuffled by one numpy permutation
+    (seed + 2) applied on the device (`cifar_variants.py:289-307`)."""
+    crops = random_crops(train, config)
+    images = RandomImageTransformer(config.flip_chance, flip_horizontal,
+                                    seed=config.seed + 1
+                                    ).apply_batch(crops.data)
+    perm = np.random.default_rng(config.seed + 2).permutation(
+        crops.data.count)
+    perm = torch.as_tensor(perm, device=images.device)
+    return LabeledData(labels=Dataset(crops.labels.array[perm]),
+                       data=Dataset(images.array[perm]))
+
+
+def _learned_augmented_featurizer(aug: LabeledData, config):
+    """Filters learned on the crops and the featurizer over them."""
+    filters, whitener = learn_filters(aug.data, config)
+    return augmented_featurizer(filters, whitener, config,
+                                aug.data.array.shape[-1])
+
+
+def build_random_patch_cifar_augmented(
+        aug: LabeledData, config: RandomPatchCifarAugmentedConfig):
+    """Fit RandomPatchCifarAugmented's scorer (featurizer, scaler, BCD;
+    no argmax: the test views' scores are averaged first) on training
+    views ``aug``."""
+    return _fit_scaled_bcd(_learned_augmented_featurizer(aug, config),
+                           aug.data, aug.labels, config)
+
+
+def build_random_patch_cifar_augmented_kernel(
+        aug: LabeledData, config: RandomPatchCifarAugmentedKernelConfig):
+    """Fit RandomPatchCifarAugmentedKernel's scorer (featurizer, scaler,
+    kernel ridge regression; no argmax) on training views ``aug``."""
+    featurizer = _learned_augmented_featurizer(aug, config).to_pipeline() \
+        >> Cacher("features")
+    indicators = ClassLabelIndicatorsFromInt(config.num_classes)(
+        aug.labels).get()
+    return (
+        featurizer
+        .and_then(StandardScaler(), aug.data)
+        .and_then(KernelRidgeRegression(
+            config.gamma, config.lam, config.kernel_block,
+            config.kernel_epochs, seed=config.seed,
+            checkpoint_dir=config.checkpoint_dir,
+            blocks_before_checkpoint=config.blocks_before_checkpoint),
+            aug.data, indicators)
+    )
+
+
+def center_corner_views(test, config, with_flips: bool):
+    """(views, ids, labels): the centre and corner crops of every test
+    image (and their flips), image-major, each row with its image's
+    index and label."""
+    patcher = CenterCornerPatcher(config.aug_patch, config.aug_patch,
+                                  with_flips=with_flips)
+    views = patcher.apply_batch(test.data)
+    n = test.data.count
+    ids = torch.arange(n, device=views.device).repeat_interleave(
+        patcher.views)
+    labels = test.labels.array[:n].repeat_interleave(patcher.views)
+    return views, ids, labels
+
+
+def score_center_corner_views(scorer, test, config, with_flips: bool):
+    """Test metrics: ``scorer``'s scores of the test views, averaged an
+    image by `AugmentedExamplesEvaluator`."""
+    views, ids, labels = center_corner_views(test, config, with_flips)
+    return AugmentedExamplesEvaluator(config.num_classes)(
+        ids, scorer(views), labels)
+
+
+def fit_and_score_augmented(augment, build, train, test, config,
+                            with_flips: bool):
+    """Augment the training set with ``augment(train, config)``, fit
+    with ``build(views, config)`` and score the training views and the
+    test views. The train clock covers the augmentation, the fit and the
+    training views' predict and evaluation, closed by a device sync; the
+    rate counts training views."""
+    dev = train.data.device
+    _sync(dev)
+    t0 = time.perf_counter()
+    aug = augment(train, config)
+    scorer = build(aug, config)
+    train_metrics = MulticlassClassifierEvaluator(config.num_classes)(
+        (scorer >> MaxClassifier())(aug.data), aug.labels)
+    _sync(dev)
+    t_train = time.perf_counter() - t0
+    test_metrics = score_center_corner_views(scorer, test, config,
+                                             with_flips)
+    return {
+        "train_error": train_metrics.error,
+        "test_error": test_metrics.error,
+        "test_accuracy": test_metrics.accuracy,
+        "train_seconds": t_train,
+        "train_views": aug.data.count,
+        "images_per_sec": aug.data.count / t_train,
+        "summary": test_metrics.summary(),
+        "scorer": scorer,
+    }
+
+
+def run_random_patch_cifar_augmented(config: RandomPatchCifarAugmentedConfig,
+                                     device="cuda"):
+    """Load or synthesize the data, fit RandomPatchCifarAugmented on
+    random crops, score five views a test image."""
+    train, test = load_data(config, device)
+    return fit_and_score_augmented(random_crops,
+                                   build_random_patch_cifar_augmented,
+                                   train, test, config, with_flips=False)
+
+
+def run_random_patch_cifar_augmented_kernel(
+        config: RandomPatchCifarAugmentedKernelConfig, device="cuda"):
+    """Load or synthesize the data, fit RandomPatchCifarAugmentedKernel
+    on flipped, shuffled crops, score ten views a test image."""
+    train, test = load_data(config, device)
+    return fit_and_score_augmented(flipped_shuffled_crops,
+                                   build_random_patch_cifar_augmented_kernel,
+                                   train, test, config, with_flips=True)
+
+
+#: each CLI choice: its config, its run function, and the options it
+#: takes beyond the common ones
+PIPELINES = {
+    "linear-pixels": (LinearPixelsConfig, run_linear_pixels, ()),
+    "random-cifar": (RandomCifarConfig, run_random_cifar, ("num_filters",)),
+    "kernel": (RandomPatchCifarKernelConfig, run_random_patch_cifar_kernel,
+               ("num_filters", "gamma", "kernel_block", "kernel_epochs")),
+    "augmented": (RandomPatchCifarAugmentedConfig,
+                  run_random_patch_cifar_augmented,
+                  ("num_filters", "patches_per_image", "aug_patch")),
+    "augmented-kernel": (RandomPatchCifarAugmentedKernelConfig,
+                         run_random_patch_cifar_augmented_kernel,
+                         ("num_filters", "patches_per_image", "aug_patch",
+                          "flip_chance", "gamma", "kernel_block",
+                          "kernel_epochs", "checkpoint_dir",
+                          "blocks_before_checkpoint")),
+}
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("pipeline", choices=("linear-pixels", "kernel"))
+    p.add_argument("pipeline", choices=tuple(PIPELINES))
     p.add_argument("--train-path", dest="train_path")
     p.add_argument("--test-path", dest="test_path")
     p.add_argument("--lam", type=float)
-    p.add_argument("--num-filters", dest="num_filters", type=int,
-                   help="kernel only")
-    p.add_argument("--gamma", type=float, help="kernel only")
-    p.add_argument("--kernel-block", dest="kernel_block", type=int,
-                   help="kernel only")
-    p.add_argument("--kernel-epochs", dest="kernel_epochs", type=int,
-                   help="kernel only")
     p.add_argument("--synth-train", dest="synth_train", type=int)
     p.add_argument("--synth-test", dest="synth_test", type=int)
     p.add_argument("--seed", type=int)
+    for flag, kind in (("num-filters", int), ("patches-per-image", int),
+                       ("aug-patch", int), ("flip-chance", float),
+                       ("gamma", float), ("kernel-block", int),
+                       ("kernel-epochs", int), ("checkpoint-dir", str),
+                       ("blocks-before-checkpoint", int)):
+        dest = flag.replace("-", "_")
+        users = [k for k, v in PIPELINES.items() if dest in v[2]]
+        p.add_argument(f"--{flag}", dest=dest, type=kind,
+                       help=f"{', '.join(users)} only")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     args = vars(p.parse_args(argv))
     pipeline, device = args.pop("pipeline"), args.pop("device")
+    config_cls, run_fn, own = PIPELINES[pipeline]
     given = {k: v for k, v in args.items() if v is not None}
-    if pipeline == "linear-pixels":
-        kernel_only = {"num_filters", "gamma", "kernel_block",
-                       "kernel_epochs"} & set(given)
-        if kernel_only:
-            p.error(f"linear-pixels takes no {sorted(kernel_only)}")
-        result = run_linear_pixels(LinearPixelsConfig(**given), device)
-    else:
-        result = run_random_patch_cifar_kernel(
-            RandomPatchCifarKernelConfig(**given), device)
+    common = {"train_path", "test_path", "lam", "synth_train", "synth_test",
+              "seed"}
+    foreign = set(given) - common - set(own)
+    if foreign:
+        p.error(f"{pipeline} takes no {sorted(foreign)}")
+    result = run_fn(config_cls(**given), device)
     print(result["summary"])
     print(f"train_error={result['train_error']:.4f} "
           f"test_error={result['test_error']:.4f} "

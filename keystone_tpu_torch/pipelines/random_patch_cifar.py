@@ -17,8 +17,16 @@ pool run in the fused conv+rectify+pool CUDA kernel. Filter learning is
 split in two: `draw_filter_indices` makes the random draws from a
 `torch.Generator`, and `learn_filters_from_indices` does the rest, so
 the arithmetic can be fed any draw. `run_staged` times the same
-components one stage at a time. The one-program `run_fused` of the JAX
-package is not ported yet.
+components one stage at a time.
+
+`run_fused` (JAX `_fused_step` `:266-385`, `run_fused` `:390-437`) is
+the whole training run as one stream of launches with no host sync
+between its stages: filter learning as the staged path does it (the
+same draws from ``config.seed``), then `fused_fit` — each microbatch's
+fused kernel writes its rows of one preallocated feature matrix, the
+moments, BCD on the scaled features folded back into a raw-feature
+(W, b), and both confusion matrices from one-hot products — ending in
+one packed transfer of the two 10×10 matrices to the host.
 """
 
 from __future__ import annotations
@@ -28,7 +36,9 @@ import time
 from dataclasses import dataclass
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ..evaluation import MulticlassClassifierEvaluator
 from ..loaders.cifar_loader import cifar_loader, synthetic_cifar
@@ -39,15 +49,21 @@ from ..nodes.images.core import (
     Pooler,
     SymmetricRectifier,
 )
-from ..nodes.learning.block_ls import BlockLeastSquaresEstimator
+from ..evaluation.multiclass import MulticlassMetrics
+from ..nodes.learning.block_ls import (
+    BlockLeastSquaresEstimator,
+    bcd_fit,
+    raise_if_unfactored,
+)
 from ..nodes.learning.zca import ZCAWhitener, zca_from_covariance
-from ..nodes.stats.scalers import StandardScaler
+from ..nodes.stats.scalers import StandardScaler, moments
 from ..nodes.util.basic import (
     Cacher,
     ClassLabelIndicatorsFromInt,
     MaxClassifier,
 )
 from ..nodes.util.fusion import FusedBatchTransformer
+from ..ops.kernels import conv_rectify_pool, hwio_to_cmajor, pooled_grid
 from ..utils.images import extract_patches_device
 
 
@@ -101,11 +117,11 @@ def learn_filters_from_indices(images: torch.Tensor, img_idx, patch_idx,
     (`random_patch_cifar.py:139-175`). images: (N, H, W, C) raw pixels.
     Returns (filters (K, P·P·C), ZCAWhitener)."""
     dev = images.device
-    sel = images[img_idx.to(dev)] / 255.0
+    sel = images[_to_device(img_idx, dev)] / 255.0
     c = sel.shape[-1]
     flat = extract_patches_device(sel, patch, step).reshape(
         -1, patch * patch * c)
-    flat = flat[patch_idx.to(dev)]
+    flat = flat[_to_device(patch_idx, dev)]
     # normalizeRows(_, 10.0): subtract the patch mean, divide by
     # max(norm, 10/255)
     flat = flat - flat.mean(dim=1, keepdim=True)
@@ -118,8 +134,16 @@ def learn_filters_from_indices(images: torch.Tensor, img_idx, patch_idx,
     whitened = (flat - mu) @ whitener
     wnorms = torch.linalg.norm(whitened, dim=1, keepdim=True)
     whitened = whitened / torch.clamp(wnorms, min=1e-8)
-    filters = whitened[filter_idx.to(dev)]
+    filters = whitened[_to_device(filter_idx, dev)]
     return filters, ZCAWhitener(whitener, mu)
+
+
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A CPU tensor on ``device``; to the card from pinned memory without
+    waiting, so the copy is not a host sync."""
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def learn_filters(train_data, config):
@@ -220,6 +244,124 @@ def run_staged(train, config, evaluator):
     return stages, train_metrics
 
 
+class StageClock:
+    """CUDA events recorded on the stream at stage boundaries and read
+    after the run's one sync: each stage's milliseconds on the stream,
+    with no sync between stages. Off the card it records nothing."""
+
+    def __init__(self, device: torch.device):
+        self.on = device.type == "cuda"
+        self.marks = []
+        self.mark("start")
+
+    def mark(self, name: str) -> None:
+        if self.on:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            self.marks.append((name, event))
+
+    def stage_ms(self) -> dict:
+        """{stage: ms} between consecutive marks; call after a sync."""
+        return {name: a.elapsed_time(b)
+                for (_, a), (name, b) in zip(self.marks, self.marks[1:])}
+
+
+def _one_hot(labels: torch.Tensor, k: int) -> torch.Tensor:
+    """(n, k) float32 indicators by comparison (no bounds check, no
+    sync)."""
+    classes = torch.arange(k, device=labels.device)
+    return (labels.long()[:, None] == classes).to(torch.float32)
+
+
+def fused_fit(train, test, filters, whitener, config, clock=None):
+    """The training run after filter learning, as JAX's `_fused_step`
+    does it (`random_patch_cifar.py:318-385`), as one stream of launches
+    with no host sync: featurize the training images (each microbatch's
+    fused conv+rectify+pool launch writes its rows of one (n, d)
+    matrix), the scaler's moments, the pipeline's BCD on the scaled
+    features folded back into a raw-feature (W, b), then the training
+    and the test confusion matrices from one-hot products. Returns
+    device tensors (W, b, conf_train, conf_test, info), ``info`` from
+    `bcd_fit`. ``clock``, a `StageClock`, is marked after each stage."""
+    clock = clock or StageClock(train.data.device)
+    images = train.data.array[:train.data.count]
+    n, h, w, c = images.shape
+    conv = Convolver(filters, h, w, c, whitener=whitener,
+                     normalize_patches=True)
+    g_cmajor = hwio_to_cmajor(conv.kernel).contiguous()
+    colsum, bias = conv.colsum.contiguous(), conv.bias.contiguous()
+    gy, gx = pooled_grid(h - conv.patch + 1, w - conv.patch + 1,
+                         config.pool_size, config.pool_stride)
+    k = config.num_classes
+
+    def featurize(imgs):
+        x = torch.empty((imgs.shape[0], gy * gx * 2 * conv.num_filters),
+                        dtype=torch.float32, device=imgs.device)
+        for start in range(0, imgs.shape[0], config.microbatch):
+            stop = start + config.microbatch
+            conv_rectify_pool(
+                imgs[start:stop].to(torch.float32) / 255.0, g_cmajor, colsum,
+                bias, config.alpha, 0.0, config.pool_size,
+                config.pool_stride, True, conv.patch, out=x[start:stop])
+        return x
+
+    def confusion(x, labels, W, b):
+        pred = torch.argmax(x @ W + b, dim=1)
+        return _one_hot(labels, k).T @ _one_hot(pred, k)
+
+    X = featurize(images)
+    clock.mark("featurize")
+    mu, sd = moments(X, n, True)
+    clock.mark("scaler")
+    labels = train.labels.array[:n]
+    Y = 2.0 * _one_hot(labels, k) - 1.0
+    d = X.shape[1]
+    B = min(config.block_size, d)
+    Xs = F.pad((X - mu) / sd, (0, -d % B))
+    Ws, bs, info = bcd_fit(Xs, Y, config.lam, B, config.bcd_iters)
+    Ws = Ws[:d]
+    # fold the scaling back: x·W + b on raw features
+    W = Ws / sd[:, None]
+    b = bs - (mu / sd) @ Ws
+    del Xs
+    clock.mark("bcd_solve")
+    conf_train = confusion(X, labels, W, b)
+    clock.mark("train_eval")
+    del X
+    Xt = featurize(test.data.array[:test.data.count])
+    conf_test = confusion(Xt, test.labels.array[:test.data.count], W, b)
+    clock.mark("test_featurize_eval")
+    return W, b, conf_train, conf_test, info
+
+
+def run_fused(train, test, config):
+    """One stream of launches for the whole training run (`fused_fit`
+    after `learn_filters`, the staged path's filters), ended by one
+    transfer of both confusion matrices and BCD's check. Returns the
+    raw-feature model (W, b) on the device, the metrics, and
+    ``stage_ms``, each stage's milliseconds on the stream (on the card;
+    empty on the CPU)."""
+    clock = StageClock(train.data.device)
+    filters, whitener = learn_filters(train.data, config)
+    clock.mark("filter_learning")
+    W, b, conf_train, conf_test, info = fused_fit(
+        train, test, filters, whitener, config, clock)
+    k = config.num_classes
+    packed = torch.cat([conf_train.flatten(), conf_test.flatten(),
+                        info.to(torch.float32)[None]]).cpu().numpy()
+    raise_if_unfactored(torch.tensor(int(packed[-1])))
+    train_m = MulticlassMetrics(packed[:k * k].reshape(k, k)
+                                .astype(np.float64))
+    test_m = MulticlassMetrics(packed[k * k:2 * k * k].reshape(k, k)
+                               .astype(np.float64))
+    return {
+        "W": W, "b": b,
+        "train_metrics": train_m, "test_metrics": test_m,
+        "train_error": train_m.error, "test_accuracy": test_m.accuracy,
+        "stage_ms": clock.stage_ms(),
+    }
+
+
 def load_data(config, device):
     """(train, test): CIFAR from ``config.train_path``/``test_path``, or
     ``synthetic_cifar`` at ``config.synth_train``/``synth_test``."""
@@ -255,11 +397,32 @@ def fit_and_score(build, train, test, num_classes: int):
     }
 
 
-def run(config: RandomPatchCifarConfig, device="cuda"):
-    """Load or synthesize the data, fit, and score train and test."""
+def run(config: RandomPatchCifarConfig, device="cuda", fused: bool = False):
+    """Load or synthesize the data, fit, and score train and test; with
+    ``fused``, through `run_fused`, whose clock also covers the test
+    featurize and evaluation, so its rate counts train + test images (as
+    the JAX package reports it, `random_patch_cifar.py:501-531`)."""
     train, test = load_data(config, device)
-    return fit_and_score(lambda: build_pipeline(train, config), train, test,
-                         config.num_classes)
+    if not fused:
+        return fit_and_score(lambda: build_pipeline(train, config), train,
+                             test, config.num_classes)
+    _sync(train.data.device)
+    t0 = time.perf_counter()
+    res = run_fused(train, test, config)
+    t_total = time.perf_counter() - t0
+    test_metrics = res["test_metrics"]
+    return {
+        "train_error": res["train_error"],
+        "test_error": test_metrics.error,
+        "test_accuracy": test_metrics.accuracy,
+        "train_seconds": t_total,
+        "images_per_sec": (train.data.count + test.data.count) / t_total,
+        "rate_basis": "train+test images (the fused run includes the test "
+                      "featurize and evaluation)",
+        "summary": test_metrics.summary(),
+        "model": (res["W"], res["b"]),
+        "stage_ms": res["stage_ms"],
+    }
 
 
 def main(argv=None):
@@ -277,14 +440,17 @@ def main(argv=None):
                    default=2000)
     p.add_argument("--synth-test", dest="synth_test", type=int, default=500)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--fused", action="store_true",
+                   help="run the whole fit as one stream of launches with "
+                        "no host sync between stages (run_fused)")
     p.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
     args = p.parse_args(argv)
-    device = args.device
-    del args.device
+    device, fused = args.device, args.fused
+    del args.device, args.fused
     config = RandomPatchCifarConfig(
         **{k: v for k, v in vars(args).items() if v is not None})
-    result = run(config, device=device)
+    result = run(config, device=device, fused=fused)
     print(result["summary"])
     print(
         f"train_error={result['train_error']:.4f} "

@@ -1,4 +1,10 @@
-"""Image utilities (counterpart of `keystone_tpu/utils/images.py`)."""
+"""Image utilities (counterpart of `keystone_tpu/utils/images.py`:
+`grayscale` `:48-53`, `crop` `:56`, `flip_horizontal` `:61`,
+`extract_patches_device` `:119-135`).
+
+`crop` and `flip_horizontal` take one (H, W, C) image or an (N, H, W, C)
+batch: they index the last three axes.
+"""
 
 from __future__ import annotations
 
@@ -30,3 +36,21 @@ def grayscale(images: torch.Tensor) -> torch.Tensor:
         return images
     w = torch.tensor(GRAY_WEIGHTS, dtype=torch.float32, device=images.device)
     return (images.to(torch.float32) * w).sum(dim=-1, keepdim=True)
+
+
+def crop(images: torch.Tensor, y0: int, x0: int, y1: int,
+         x1: int) -> torch.Tensor:
+    """Rows y0..y1−1 and columns x0..x1−1 (ImageUtils.crop): a view."""
+    return images[..., y0:y1, x0:x1, :]
+
+
+def flip_horizontal(images: torch.Tensor) -> torch.Tensor:
+    """The columns in reverse order. `torch.flip` copies, as a tensor
+    has no negative strides."""
+    return torch.flip(images, dims=(-2,))
+
+
+#: pure, shape- and dtype-preserving, no host state: a batch may be
+#: flipped in one device call (`RandomImageTransformer` keys on this, as
+#: the JAX package's device path keys on ``jax_traceable``)
+flip_horizontal.batchable = True

@@ -16,9 +16,11 @@ from keystone_tpu_torch.ops import kernels
 # geometries and ragged counts of tests/test_pallas_ops.py:117-160, the
 # headline width at a ragged count, and the kernel's tile edges: a ragged
 # 256-filter tile, two filter tiles, more images than one walk of the
-# persistent blocks, the headline without the mean correction, and banks
+# persistent blocks, the headline without the mean correction, banks
 # too large for one block's shared memory (two launches, the second
-# ragged at 520)
+# ragged at 520), and the augmented pipelines' 24x24 crops, pool 12
+# stride 11 (one window an axis, which 217 of the 361 conv positions
+# miss) at a microbatch and at a ragged count
 CONV_GEOMETRIES = [
     (5, 32, 32, 3, 6, 32, 14, 13, True),
     (3, 16, 16, 1, 5, 16, 6, 6, False),
@@ -33,6 +35,8 @@ CONV_GEOMETRIES = [
     (64, 32, 32, 3, 6, 256, 14, 13, False),
     (3, 32, 32, 3, 6, 512, 14, 13, True),
     (4, 32, 32, 3, 6, 520, 14, 13, False),
+    (2048, 24, 24, 3, 6, 256, 12, 11, True),
+    (37, 24, 24, 3, 6, 256, 12, 11, True),
 ]
 
 # at 32x32x3, P 6, pool 14 stride 13, one block holds at most this many
@@ -181,6 +185,9 @@ def test_cuda_elementwise_chain_matches_plain(cuda_device, name, n,
     (129, 127, 37, 0.05),
     (128, 128, 32, 0.1),
     (255, 257, 2052, 2e-3),
+    # the augmented kernel pipeline's width (512 features, gamma 2e-4)
+    # at a ragged m
+    (3001, 2048, 512, 2e-4),
 ])
 def test_cuda_rbf_block_matches_plain(cuda_device, m, n, d, gamma):
     """The RBF kernel against its plain version (fp32 matmul, TF32 off)
@@ -199,6 +206,23 @@ def test_cuda_rbf_block_matches_plain(cuda_device, m, n, d, gamma):
         want = kernels.rbf_block_reference(X, Yb, gamma)
         assert got.shape == want.shape == (m, Yb.shape[0])
         assert float((got - want).abs().max()) <= 5e-5
+
+
+@pytest.mark.cuda
+def test_cuda_rbf_block_counts_products_and_prepasses_apart(cuda_device):
+    """One `rbf_block` call launches the prepass twice (X, then Yb) and
+    the product once: ``rbf_split.launches`` grows by 2 and
+    ``rbf_block.launches`` by 1, for raw and written hi parts alike."""
+    rng = np.random.default_rng(12)
+    for d in (512, 37):
+        X = torch.tensor(rng.normal(size=(300, d)), dtype=torch.float32,
+                         device=cuda_device)
+        products = kernels.rbf_block.launches
+        prepasses = kernels.rbf_split.launches
+        kernels.rbf_block(X, X[:100].contiguous(), 0.01)
+        torch.cuda.synchronize()
+        assert kernels.rbf_block.launches == products + 1
+        assert kernels.rbf_split.launches == prepasses + 2
 
 
 def _rbf_fit_block(device, m=4096, n=2048, d=2048, seed=7):
