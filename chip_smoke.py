@@ -63,6 +63,29 @@ Phases, each printed on a line of its own:
               the RBF products at least the fit's and the test apply's
               blocks.
 
+12. timit   - TimitPipeline at full width (440-dimensional frames, 4096
+              Gaussian cosines at gamma 0.0555, 2048-column blocks, three
+              BCD epochs, lambda 1e-3) on 200,000 synthetic training and
+              50,000 test frames of 12 classes, after a warm call; then
+              the same stages one at a time (featurize, each BCD epoch,
+              predict and evaluation); test accuracy within 0.005 of the
+              JAX package's on these arrays.
+13. mnist    - MnistRandomFFT at MNIST's width: 784-dimensional rows, 10
+              classes, 60,000 train and 10,000 test rows (the TIMIT
+              stand-in at that shape: no MNIST file is in the repository),
+              four FFT branches (2048 features), block 2048, lambda 1e-4,
+              after a warm call; 1,000 rows written to a label-first CSV
+              and read back equal; test accuracy within 0.005 of the JAX
+              package's; no chain kernel planned and no kernel launched.
+14. solvers  - on the timit phase's training features (200,000 x 4096,
+              the -1/+1 class indicators, lambda 1e-3): the exact normal
+              equations, BCD (2048, three epochs) and dense L-BFGS (20
+              steps, memory 10), each after a warm call, with its objective
+              against the exact one and its train accuracy; L-BFGS's loss
+              history, line-search evaluations and synchronizing calls;
+              and the dual-form solve on the first 2,048 rows against the
+              primal ridge (float64) on the same rows.
+
 Each path's launch counts are set to 0 just before it runs and read just
 after. The RBF kernel counts its products (``rbf_block.launches``) and
 its split prepasses (``rbf_split.launches``, two a product) apart.
@@ -81,10 +104,12 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 import warnings
 
+import numpy as np
 import torch
 
 # H100 SXM peaks (NVIDIA data sheet, dense): bf16 and TF32 tensor-core
@@ -148,6 +173,34 @@ AUGMENTED_JAX_ACC = 0.8012
 # RandomPatchCifarKernel's test accuracy on the card with the fp32 RBF
 # kernel it had before the 3xTF32 one (NVIDIA H100 80GB HBM3, 700 W)
 KERNEL_CIFAR_FP32_ACC = 0.8227
+
+# TIMIT's depth, cut from 2,251,569 training frames to keep the script's
+# time; the test set is a quarter of it, as the pipeline makes it
+TIMIT_N_SYNTH = 200_000
+# MNIST's published shape
+MNIST_N_TRAIN, MNIST_N_TEST, MNIST_DIM, MNIST_CLASSES = 60_000, 10_000, 784, 10
+MNIST_CSV_ROWS = 1_000
+# the JAX package's test accuracies on these arrays (CPU runs; the
+# synthetic frames separate their classes)
+TIMIT_JAX_ACC = 1.0
+MNIST_JAX_ACC = 1.0
+# ½‖XW + b − Y‖² + ½λ‖W‖² on the timit features after the JAX package's
+# fits on the CPU: DenseLBFGSwithL2's 20 steps, and BCD's three epochs.
+# The port on the CPU came within 3.9e-7 (L-BFGS) and 1.1e-8 (BCD) of
+# them; the tolerances leave room for the card's other sums, the
+# iterative L-BFGS more. Three epochs of BCD over two correlated
+# 2048-column blocks stay far above the exact minimum (0.66 above it,
+# 0.665 in float64 at 50,000 rows), so BCD is held to JAX's objective
+# and to the exact one as a floor
+LBFGS_JAX_OBJECTIVE = 3255.0658926011715
+LBFGS_OBJECTIVE_RTOL = 1e-3
+BCD_JAX_OBJECTIVE = 5402.08106084742
+BCD_OBJECTIVE_RTOL = 1e-4
+# the dual solve against the float64 primal, relative
+DUAL_PRIMAL_RTOL = 1e-3
+# the zoom line search accepts a step that raises the objective by up to
+# this share of its value (optax's approx_dec_rtol)
+LBFGS_APPROX_DECREASE = 1e-6
 
 
 def check(cond: bool, msg: str) -> None:
@@ -333,6 +386,25 @@ def count_syncs(fn):
     return dict(lines), sum(lines.values())
 
 
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count."""
+    from keystone_tpu_torch.ops import chain_kernels, kernels
+
+    return {w.__name__: w.launches for w in (
+        kernels.conv_rectify_pool, kernels.rectify_pool,
+        kernels.rectify_pool_vectorize, kernels.rbf_block, kernels.rbf_split,
+        chain_kernels.elementwise_chain)}
+
+
+def timed_s(fn):
+    """(seconds of ``fn()`` closed by a device sync, its result)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -377,6 +449,19 @@ def main() -> int:
         run_staged,
     )
     from keystone_tpu_torch.workflow.pipeline import Pipeline
+    from keystone_tpu_torch.loaders.csv_loader import LabeledData
+    from keystone_tpu_torch.nodes.learning.block_ls import (
+        BlockLinearMapper,
+        bcd_fit,
+        raise_if_unfactored,
+    )
+    from keystone_tpu_torch.nodes.learning.lbfgs import DenseLBFGSwithL2
+    from keystone_tpu_torch.nodes.learning.linear import (
+        LocalLeastSquaresEstimator,
+        normal_equations,
+    )
+    from keystone_tpu_torch.nodes.util.basic import ClassLabelIndicatorsFromInt
+    from keystone_tpu_torch.pipelines import mnist_random_fft, timit
 
     # ---- 1. device -------------------------------------------------------
     dev = resolve_device("cuda")
@@ -1056,6 +1141,200 @@ def main() -> int:
           f"launched conv_rectify_pool {ak_k1} times for {ak_microbatches} "
           f"microbatches")
     del ak, ak_scorer
+    torch.cuda.empty_cache()
+
+    # ---- 12. TIMIT ---------------------------------------------------------
+    tm_config = timit.TimitConfig(n_synth=TIMIT_N_SYNTH)
+    t0 = time.perf_counter()
+    tm_train, tm_test, tm_classes = timit.load(tm_config, dev)
+    tm_data_seconds = time.perf_counter() - t0
+    timit.run_on(tm_train, tm_test, tm_config, tm_classes)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    tm = timit.run_on(tm_train, tm_test, tm_config, tm_classes)
+    tm_peak = torch.cuda.max_memory_allocated()
+    tm_launches = launch_counts()
+    del tm["predictor"]
+    # the same run one stage at a time, each closed by a device sync
+    tm_dim = tm_train.data.array.shape[1]
+    tm_stages = {}
+    tm_stages["featurize"], tm_X = timed_s(
+        lambda: timit.featurizer(tm_dim, tm_config, dev)(tm_train.data)
+        .get().array)
+    tm_Y = ClassLabelIndicatorsFromInt(tm_classes)(tm_train.labels).get().array
+    marks = []
+
+    def mark(epoch):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    tm_W, tm_b, tm_info = bcd_fit(tm_X, tm_Y, tm_config.lam,
+                                  tm_config.block_size, tm_config.num_epochs,
+                                  on_epoch=mark)
+    raise_if_unfactored(tm_info)
+    tm_stages["bcd_epochs"] = [b - a for a, b in zip([t0] + marks, marks)]
+    tm_eval = MulticlassClassifierEvaluator(tm_classes)
+    tm_stages["predict_eval"], _ = timed_s(lambda: tm_eval(
+        (BlockLinearMapper(tm_W, tm_b) >> MaxClassifier())(tm_train.data
+                                                           .with_data(tm_X)),
+        tm_train.labels))
+    phase("timit", train_seconds=tm["train_seconds"],
+          frames_per_sec=tm["frames_per_sec"],
+          train_error=tm["train_error"], test_accuracy=tm["test_accuracy"],
+          jax_cpu_test_accuracy=TIMIT_JAX_ACC,
+          gap_to_jax_cpu=tm["test_accuracy"] - TIMIT_JAX_ACC,
+          train_frames=tm_train.data.count, test_frames=tm_test.data.count,
+          classes=tm_classes, staged_stage_seconds=tm_stages,
+          data_seconds=tm_data_seconds, peak_mem_bytes=tm_peak,
+          launches=tm_launches, card=card)
+    check(abs(tm["test_accuracy"] - TIMIT_JAX_ACC) <= 0.005,
+          f"TIMIT test accuracy {tm['test_accuracy']} is not within 0.005 "
+          f"of {TIMIT_JAX_ACC}")
+    del tm_test, tm_W, tm_b
+    torch.cuda.empty_cache()
+
+    # ---- 13. MnistRandomFFT ------------------------------------------------
+    mn_config = mnist_random_fft.MnistRandomFFTConfig()
+    t0 = time.perf_counter()
+    mn_train = timit.synthetic_timit(MNIST_N_TRAIN, MNIST_DIM, MNIST_CLASSES,
+                                     mn_config.seed, device=dev)
+    mn_test = timit.synthetic_timit(MNIST_N_TEST, MNIST_DIM, MNIST_CLASSES,
+                                    mn_config.seed + 1, device=dev)
+    mn_data_seconds = time.perf_counter() - t0
+    # a label-first CSV of the first rows, read back through the loader
+    rows_y = mn_train.labels.take(MNIST_CSV_ROWS)
+    rows_x = mn_train.data.take(MNIST_CSV_ROWS)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mnist.csv")
+        np.savetxt(path, np.column_stack([rows_y, rows_x]), delimiter=",",
+                   fmt="%.9g")
+        back = LabeledData.label_featured_csv(path, device=dev)
+    csv_equal = (np.array_equal(back.labels.numpy(), rows_y)
+                 and np.array_equal(back.data.numpy(), rows_x))
+    del back
+    mnist_random_fft.run_on(mn_train, mn_test, mn_config)  # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    mn = mnist_random_fft.run_on(mn_train, mn_test, mn_config)
+    mn_launches = launch_counts()
+    mn_featurizer = mn.pop("predictor").nodes[0]
+    phase("mnist", seconds=mn["seconds"], rows_per_sec=mn["rows_per_sec"],
+          rate_basis="train+test rows", train_error=mn["train_error"],
+          test_accuracy=mn["test_accuracy"],
+          jax_cpu_test_accuracy=MNIST_JAX_ACC,
+          gap_to_jax_cpu=mn["test_accuracy"] - MNIST_JAX_ACC,
+          features=mn_config.num_ffts * 512,
+          microbatches=mn_featurizer.microbatches_run,
+          planned_kernel=mn_featurizer.planned_kernel,
+          csv_rows=MNIST_CSV_ROWS, csv_round_trip_equal=csv_equal,
+          data_seconds=mn_data_seconds,
+          peak_mem_bytes=torch.cuda.max_memory_allocated(),
+          launches=mn_launches, card=card)
+    check(csv_equal, "the label-first CSV did not read back equal")
+    check(abs(mn["test_accuracy"] - MNIST_JAX_ACC) <= 0.005,
+          f"MnistRandomFFT test accuracy {mn['test_accuracy']} is not within "
+          f"0.005 of {MNIST_JAX_ACC}")
+    check(mn_featurizer.planned_kernel is None,
+          f"MnistRandomFFT planned {mn_featurizer.planned_kernel}")
+    check(not any(mn_launches.values()),
+          f"MnistRandomFFT launched kernels: {mn_launches}")
+    del mn_train, mn_test, mn_featurizer
+    torch.cuda.empty_cache()
+
+    # ---- 14. solvers on the TIMIT features ---------------------------------
+    sv_lam = tm_config.lam
+    sv_n = tm_X.shape[0]
+    sv_labels = tm_train.labels.array.long()
+    sv_data, sv_y = tm_train.data.with_data(tm_X), tm_train.data.with_data(
+        tm_Y)
+
+    def objective(W, b):
+        """½‖XW + b − Y‖² + ½λ‖W‖², the products in fp32, the sums in
+        float64."""
+        r = torch.addmm(b, tm_X, W) - tm_Y
+        return float(0.5 * r.double().square().sum()
+                     + 0.5 * sv_lam * W.double().square().sum())
+
+    def train_acc(W, b):
+        return float((torch.addmm(b, tm_X, W).argmax(1) == sv_labels)
+                     .double().mean())
+
+    def exact():
+        return normal_equations(tm_X, tm_Y, sv_n, sv_lam, True)
+
+    def bcd():
+        W, b, info = bcd_fit(tm_X, tm_Y, sv_lam, tm_config.block_size,
+                             tm_config.num_epochs)
+        raise_if_unfactored(info)
+        return W, b
+
+    lbfgs = DenseLBFGSwithL2(lam=sv_lam, num_iters=20, memory_size=10)
+
+    def lbfgs_fit():
+        model = lbfgs.fit(sv_data, sv_y)
+        return model.W, model.b
+
+    solvers = {}
+    for label, fit in (("exact", exact), ("bcd", bcd), ("lbfgs", lbfgs_fit)):
+        fit()  # warm
+        seconds, (W, b) = timed_s(fit)
+        solvers[label] = dict(seconds=seconds, objective=objective(W, b),
+                              train_accuracy=train_acc(W, b))
+        del W, b
+    for label in ("bcd", "lbfgs"):
+        solvers[label]["objective_over_exact"] = (
+            solvers[label]["objective"] / solvers["exact"]["objective"] - 1.0)
+    solvers["bcd"].update(jax_cpu_objective=BCD_JAX_OBJECTIVE,
+                          objective_over_jax_cpu=(solvers["bcd"]["objective"]
+                                                  / BCD_JAX_OBJECTIVE - 1.0))
+    history = lbfgs.loss_history.tolist()
+    lbfgs_syncs, lbfgs_sync_count = count_syncs(lbfgs_fit)
+    solvers["lbfgs"].update(
+        loss_history=history, linesearch_steps=lbfgs.linesearch_steps,
+        evaluations=sum(lbfgs.linesearch_steps), syncs=lbfgs_sync_count,
+        sync_lines=lbfgs_syncs, jax_cpu_objective=LBFGS_JAX_OBJECTIVE,
+        objective_over_jax_cpu=(solvers["lbfgs"]["objective"]
+                                / LBFGS_JAX_OBJECTIVE - 1.0))
+    # the dual form where d > n: the first 2048 rows, against the primal
+    # ridge without intercept in float64 on the same rows
+    Xd, Yd = tm_X[:2048], tm_Y[:2048]
+    dual = LocalLeastSquaresEstimator(sv_lam)
+    dual.fit(tm_train.data.with_data(Xd, count=2048),
+             tm_train.data.with_data(Yd, count=2048))  # warm
+    dual_seconds, dual_model = timed_s(lambda: dual.fit(
+        tm_train.data.with_data(Xd, count=2048),
+        tm_train.data.with_data(Yd, count=2048)))
+    X64 = Xd.double()
+    primal = torch.linalg.solve(
+        X64.T @ X64 + sv_lam * torch.eye(X64.shape[1], dtype=torch.float64,
+                                         device=dev), X64.T @ Yd.double())
+    dual_rel = float((dual_model.W.double() - primal).abs().max()
+                     / primal.abs().max())
+    solvers["local_least_squares"] = dict(
+        rows=2048, features=Xd.shape[1], seconds=dual_seconds,
+        rel_diff_from_primal=dual_rel, primal="float64 normal equations")
+    phase("solvers", n=sv_n, d=tm_X.shape[1], k=tm_Y.shape[1], lam=sv_lam,
+          solvers=solvers, card=card)
+    check(all(b - a <= LBFGS_APPROX_DECREASE * abs(a)
+              for a, b in zip(history, history[1:])),
+          f"L-BFGS loss history increases: {history}")
+    check(abs(solvers["lbfgs"]["objective_over_jax_cpu"])
+          <= LBFGS_OBJECTIVE_RTOL,
+          f"L-BFGS objective {solvers['lbfgs']['objective']} is not within "
+          f"{LBFGS_OBJECTIVE_RTOL} of JAX's {LBFGS_JAX_OBJECTIVE}")
+    check(abs(solvers["bcd"]["objective"] / BCD_JAX_OBJECTIVE - 1.0)
+          <= BCD_OBJECTIVE_RTOL,
+          f"BCD objective {solvers['bcd']['objective']} is not within "
+          f"{BCD_OBJECTIVE_RTOL} of JAX's {BCD_JAX_OBJECTIVE}")
+    check(min(solvers["bcd"]["objective_over_exact"],
+              solvers["lbfgs"]["objective_over_exact"]) >= -1e-6,
+          "an iterative solver's objective is below the exact minimum")
+    check(dual_rel <= DUAL_PRIMAL_RTOL, f"dual solve differs from the primal "
+          f"by {dual_rel}")
+    del tm_X, tm_Y, sv_data, sv_y, dual_model, primal, X64, tm_train
     torch.cuda.empty_cache()
 
     record = {"kernels": [

@@ -1,5 +1,5 @@
 """Datasets (counterpart of `keystone_tpu/data`)."""
 
-from .dataset import Dataset
+from .dataset import Dataset, ZippedDataset, zip_datasets
 
-__all__ = ["Dataset"]
+__all__ = ["Dataset", "ZippedDataset", "zip_datasets"]

@@ -1,7 +1,8 @@
 """Device-resident dataset handle.
 
 Counterpart of `keystone_tpu/data/dataset.py::Dataset` (`:95-276`),
-single-device part only. The JAX `Dataset` pads its leading axis to a
+single-device part only, and of `zip_datasets` (`:592-610`) for device
+datasets. The JAX `Dataset` pads its leading axis to a
 multiple of the mesh's data shards; with one device and no mesh there is
 nothing to pad, so ``padded_count == count`` and ``mask`` is all ones.
 Both stay for API parity.
@@ -9,7 +10,7 @@ Both stay for API parity.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -86,3 +87,38 @@ class Dataset:
     def __repr__(self) -> str:
         return (f"Dataset(count={self.count}, shape={tuple(self.data.shape)}, "
                 f"device={self.device})")
+
+
+class ZippedDataset(Dataset):
+    """N aligned datasets zipped row by row: ``data`` is the tuple of
+    their row tensors, in order (the JAX package's `Dataset` over a
+    tuple)."""
+
+    def __init__(self, parts: Sequence[torch.Tensor], count: int):
+        self.data = tuple(parts)
+        self.count = count
+
+    @property
+    def device(self) -> torch.device:
+        return self.data[0].device
+
+    @property
+    def padded_count(self) -> int:
+        return self.data[0].shape[0]
+
+    def __repr__(self) -> str:
+        shapes = [tuple(p.shape) for p in self.data]
+        return (f"ZippedDataset(count={self.count}, shapes={shapes}, "
+                f"device={self.device})")
+
+
+def zip_datasets(datasets: Sequence[Dataset]) -> ZippedDataset:
+    """Elementwise zip of N aligned datasets (≈ `RDD.zip`; used by
+    gather, GatherTransformerOperator.scala:9-18). Misaligned counts
+    raise."""
+    if not datasets:
+        raise ValueError("zip_datasets requires at least one dataset")
+    counts = {d.count for d in datasets}
+    if len(counts) != 1:
+        raise ValueError(f"zip of misaligned datasets: counts {counts}")
+    return ZippedDataset([d.data for d in datasets], datasets[0].count)

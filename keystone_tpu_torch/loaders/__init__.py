@@ -1,5 +1,8 @@
 """Data loaders (counterpart of `keystone_tpu/loaders`)."""
 
-from .cifar_loader import LabeledData, cifar_loader, synthetic_cifar
+from .cifar_loader import cifar_loader, synthetic_cifar
+from .csv_loader import LabeledData, csv_data_loader
+from .text_loaders import timit_loader
 
-__all__ = ["LabeledData", "cifar_loader", "synthetic_cifar"]
+__all__ = ["LabeledData", "cifar_loader", "csv_data_loader",
+           "synthetic_cifar", "timit_loader"]

@@ -1,7 +1,7 @@
 """CIFAR-10 binary loader and the synthetic CIFAR-like task.
 
-Counterpart of `keystone_tpu/loaders/cifar_loader.py` (`:19-115`) and of
-`LabeledData` (`keystone_tpu/loaders/csv_loader.py:29`). The binary
+Counterpart of `keystone_tpu/loaders/cifar_loader.py` (`:19-115`);
+`LabeledData` lives in `csv_loader.py`, as in the JAX package. The binary
 format is 1 label byte + 3072 channel-planar bytes per record
 (reference loaders/CifarLoader.scala:13-52). `synthetic_cifar` is a
 numpy-identical copy of the JAX package's generator, so both packages see
@@ -11,24 +11,15 @@ bit-identical arrays for one seed.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
 
 from ..data.dataset import Dataset
 from ..device import DeviceLike, resolve_device
+from .csv_loader import LabeledData
 
 RECORD_BYTES = 1 + 3072
-
-
-@dataclass
-class LabeledData:
-    """Aligned (labels, data) pair of datasets (LabeledData.scala:12-15).
-    ``labels`` are int class ids; ``data`` is the feature dataset."""
-
-    labels: Dataset
-    data: Dataset
 
 
 def parse_cifar(records: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:

@@ -13,7 +13,7 @@ float32 (TF32 off, see `device.py`), as the JAX package pins
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -22,14 +22,17 @@ from ...workflow.pipeline import LabelEstimator, Transformer
 
 
 def bcd_fit(x: torch.Tensor, y: torch.Tensor, lam: float, block_size: int,
-            num_iter: int, center: bool = True):
+            num_iter: int, center: bool = True,
+            on_epoch: Optional[Callable[[int], None]] = None):
     """(W, b, info): W, b minimize ‖(x W + b) − y‖² + lam‖W‖² by
     ``num_iter`` sweeps over feature blocks of ``block_size`` columns.
     ``x``'s width must be a multiple of ``block_size``; W has that width.
     ``info`` is a 0-d int32 tensor on x's device, nonzero where a block's
     ridge Gram matrix was not positive definite: the factorizations are
     `cholesky_ex`, which leaves that check on the device, so the fit
-    makes no host sync of its own. Check it with `raise_if_unfactored`."""
+    makes no host sync of its own. Check it with `raise_if_unfactored`.
+    The residual carries from one epoch into the next; ``on_epoch(i)``,
+    where given, is called after epoch ``i`` is enqueued."""
     n, d = x.shape
     k = y.shape[1]
     if center:
@@ -45,7 +48,7 @@ def bcd_fit(x: torch.Tensor, y: torch.Tensor, lam: float, block_size: int,
                     device=x.device)
     eye = lam * torch.eye(block_size, dtype=x.dtype, device=x.device)
     info = torch.zeros((), dtype=torch.int32, device=x.device)
-    for _ in range(num_iter):
+    for epoch in range(num_iter):
         for b in range(num_blocks):
             xb = xc[:, b * block_size:(b + 1) * block_size]
             r = r + xb @ w[b]
@@ -54,17 +57,22 @@ def bcd_fit(x: torch.Tensor, y: torch.Tensor, lam: float, block_size: int,
             info = torch.maximum(info, failed)
             w[b] = torch.cholesky_solve(xb.T @ r, chol)
             r = r - xb @ w[b]
+        if on_epoch is not None:
+            on_epoch(epoch)
     w_full = w.reshape(d, k)
     return w_full, ym - xm @ w_full, info
 
 
-def raise_if_unfactored(info: torch.Tensor) -> None:
-    """Raise where `bcd_fit`'s ``info`` says a block's Gram matrix was
-    not positive definite (reading it waits for the device)."""
+def raise_if_unfactored(
+        info: torch.Tensor,
+        what: str = "BCD: a block's ridge Gram matrix") -> None:
+    """Raise where a `cholesky_ex` ``info`` (`bcd_fit`'s by default) says
+    ``what`` was not positive definite (reading it waits for the
+    device)."""
     if int(info):
         raise torch.linalg.LinAlgError(
-            f"BCD: a block's ridge Gram matrix is not positive definite "
-            f"(leading minor of order {int(info)})")
+            f"{what} is not positive definite (leading minor of order "
+            f"{int(info)})")
 
 
 class BlockLinearMapper(Transformer):

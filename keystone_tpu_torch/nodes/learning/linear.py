@@ -7,8 +7,10 @@ equations are one Gram product and one Cholesky solve in true float32
 (TF32 off, `device.py`), as the JAX package pins ``Precision.HIGHEST``
 and solves with ``assume_a="pos"``. The intercept comes from the Gram
 correction Xcᵀ Xc = XᵀX − n·x̄x̄ᵀ rather than a centred copy of X.
-`LocalLeastSquaresEstimator` and `SparseLinearMapper` are not ported
-yet.
+`LocalLeastSquaresEstimator` with `dual_solve` (`:216-255`) is the dual
+form for d ≫ n: the n×n kernel system (XXᵀ + λI)α = Y by one
+`cholesky_ex` and `cholesky_solve`, its factorization checked once a
+fit, then W = Xᵀα. `SparseLinearMapper` is not ported yet.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from typing import Optional
 import torch
 
 from ...workflow.pipeline import LabelEstimator, Transformer
+from .block_ls import raise_if_unfactored
 
 
 class LinearMapper(Transformer):
@@ -66,3 +69,31 @@ class LinearMapEstimator(LabelEstimator):
         W, b = normal_equations(data.array, labels.array.to(data.array.dtype),
                                 data.count, self.lam, self.fit_intercept)
         return LinearMapper(W, b if self.fit_intercept else None)
+
+
+def dual_solve(X: torch.Tensor, Y: torch.Tensor, mask: torch.Tensor,
+               lam: float):
+    """(W, info): W = Xmᵀα with (Xm Xmᵀ + lam·I)α = Y·mask, Xm the rows
+    of X under ``mask`` (`_dual_solve_impl`, `:216-230`); no intercept.
+    ``info`` is `cholesky_ex`'s 0-d int32 on X's device, nonzero where
+    the system was not positive definite."""
+    m = mask.to(X.dtype)[:, None]
+    Xm = X * m
+    K = Xm @ Xm.T
+    K.diagonal().add_(lam)
+    chol, info = torch.linalg.cholesky_ex(K)
+    alpha = torch.cholesky_solve(Y.to(X.dtype) * m, chol)
+    return Xm.T @ alpha, info
+
+
+class LocalLeastSquaresEstimator(LabelEstimator):
+    """Dual-form ridge for d ≫ n: the n×n kernelized system solved on one
+    device (LocalLeastSquaresEstimator.scala:16-61)."""
+
+    def __init__(self, lam: float = 0.0):
+        self.lam = lam
+
+    def fit(self, data, labels) -> LinearMapper:
+        W, info = dual_solve(data.array, labels.array, data.mask, self.lam)
+        raise_if_unfactored(info, "the dual system XXᵀ + λI")
+        return LinearMapper(W)

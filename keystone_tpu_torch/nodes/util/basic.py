@@ -1,8 +1,10 @@
 """Small utility nodes.
 
-Counterpart of `ClassLabelIndicatorsFromInt`, `MaxClassifier` and
-`Cacher` in `keystone_tpu/nodes/util/basic.py` (reference
-nodes/util/{ClassLabelIndicators,MaxClassifier,Cacher}.scala).
+Counterpart of `ClassLabelIndicatorsFromInt`, `MaxClassifier`,
+`VectorCombiner` (`:165-182`) and `Cacher` in
+`keystone_tpu/nodes/util/basic.py` (reference
+nodes/util/{ClassLabelIndicators,MaxClassifier,VectorCombiner,
+Cacher}.scala).
 """
 
 from __future__ import annotations
@@ -32,6 +34,18 @@ class MaxClassifier(Transformer):
 
     def batch_fn(self):
         return lambda x: torch.argmax(x, dim=-1)
+
+
+class VectorCombiner(Transformer):
+    """Concatenate the tuple of branch outputs that gather produces along
+    the last axis (VectorCombiner.scala)."""
+
+    def apply(self, xs):
+        return torch.cat([torch.as_tensor(x) for x in xs], dim=-1)
+
+    def apply_batch(self, data):
+        # one output, allocated once, each branch copied into its columns
+        return data.with_data(torch.cat(data.data, dim=-1))
 
 
 class Cacher(Transformer):

@@ -10,9 +10,13 @@ Pooler(sum) into the rectify+pool kernel (`ops/kernels.py`). The
 stages for one chain kernel launch (`ops/chain_kernels.py`; the swap is
 `_kernel_swap`, `:460-477`, applied `:538-555`). Where that launch is
 the last stage, the transformer allocates its result once and each
-microbatch's launch writes its own rows of it. The JAX package's
-program caching, planned precision and sharding tags have no
-counterpart here.
+microbatch's launch writes its own rows of it. `_GatherConcatStage`
+(`:274-316`) is a `Pipeline.gather` fan-out and its `VectorCombiner`
+collapsed into one stage, the form the JAX optimizer's gather pass
+(`workflow/fusion_rule.py:650-705`) gives them; as the last stage it too
+writes each microbatch's branch outputs into their columns of the rows
+allocated once. The JAX package's program caching, planned precision
+and sharding tags have no counterpart here.
 """
 
 from __future__ import annotations
@@ -71,6 +75,75 @@ class _ConvRectifyPoolStage(Transformer):
         return (("ConvRectifyPool", self.alpha, self.max_val, self.pool,
                  self.stride, self.patch, self.normalize),
                 (self.g_cmajor, self.colsum, self.bias))
+
+
+def _run(fns, xb):
+    for fn in fns:
+        xb = fn(xb)
+    return xb
+
+
+class _GatherConcatStage(Transformer):
+    """N branch chains over one input, their outputs concatenated along
+    the last axis in branch order: `Pipeline.gather(branches) >>
+    VectorCombiner()` as one stage. Each branch is a transformer or a
+    pipeline of transformers that act row by row."""
+
+    def __init__(self, branches: Sequence):
+        self.branches = [list(b.to_pipeline().nodes) for b in branches]
+        self._layouts = {}  # input item shape -> (column bounds, dtype)
+
+    def _fns(self):
+        return [[s.batch_fn() for s in b] for b in self.branches]
+
+    def batch_fn(self):
+        fns = self._fns()
+        return lambda x: torch.cat([_run(f, x) for f in fns], dim=-1)
+
+    def fuse(self):
+        """The JAX package's key: ``("GatherConcat",)`` and each branch's
+        key, a many-stage branch keyed as the fused chain the JAX
+        optimizer makes of it (``("FusedChain", ...)``)."""
+        keys, params = [], []
+        for b in self.branches:
+            if len(b) == 1:
+                key, p = stage_fuse(b[0])
+            else:
+                fused = [stage_fuse(s) for s in _peephole(b)]
+                key = ("FusedChain",) + tuple(f[0] for f in fused)
+                p = tuple(f[1] for f in fused)
+            keys.append(key)
+            params.append(p)
+        return ("GatherConcat",) + tuple(keys), tuple(params)
+
+    def writer(self):
+        """``(layout, write)``: ``layout(xb)`` is the concatenated item
+        shape and dtype for rows like ``xb``; ``write(xb, out)`` runs every
+        branch on ``xb`` and writes its output into its columns of
+        ``out`` (rows of ``xb``). The column bounds come from one row
+        through each branch, once per input item shape."""
+        fns = self._fns()
+
+        def bounds(xb):
+            key = tuple(xb.shape[1:])
+            if key not in self._layouts:
+                ys = [_run(f, xb[:1]) for f in fns]
+                cols = [0]
+                for y in ys:
+                    cols.append(cols[-1] + y.shape[-1])
+                self._layouts[key] = (cols, ys[0].dtype, ys[0].shape[1:-1])
+            return self._layouts[key]
+
+        def layout(xb):
+            cols, dtype, inner = bounds(xb)
+            return tuple(inner) + (cols[-1],), dtype
+
+        def write(xb, out):
+            cols = bounds(xb)[0]
+            for f, c0, c1 in zip(fns, cols, cols[1:]):
+                out[..., c0:c1] = _run(f, xb)
+
+        return layout, write
 
 
 def _is_sum_pooler(stage) -> bool:
@@ -156,6 +229,7 @@ class FusedBatchTransformer(Transformer):
         self.planned_kernel = plan_chain_kernel(
             stage_fuse(s)[0] for s in self.fused)
         self._chain = None  # (tag, chain fn) of the planned sub-trail
+        self.microbatches_run = 0  # microbatches through batch_fn, ever
 
     def _chain_fn(self):
         """The planned sub-trail's chain function, built once per tag and
@@ -183,46 +257,49 @@ class FusedBatchTransformer(Transformer):
 
     def _stage_fns(self):
         """One batch function per peepholed stage, with the planned
-        sub-trail swapped for its chain kernel, and that kernel's function
-        where it is the last stage and writes into a given ``out`` (else
-        None). The stages never fall back to running one by one."""
+        sub-trail swapped for its chain kernel; and ``(layout, write)``
+        where the last stage writes its rows into a given ``out`` (the
+        planned chain kernel, or a gather stage), else None: ``layout(y)``
+        is the item shape and dtype of its rows for input rows ``y``. The
+        stages never fall back to running one by one."""
         fns = [s.batch_fn() for s in self.fused]
         if self.planned_kernel is None:
+            if self.fused and isinstance(self.fused[-1], _GatherConcatStage):
+                return fns, self.fused[-1].writer()
             return fns, None
         start, stop, _ = self.planned_kernel
         kern = self._chain_fn()
         # one dataset device: no padded rows, so no row mask
         fns[start:stop] = [lambda xb: kern(xb.contiguous())]
-        last = kern if stop == len(self.fused) and kern.plans is not None \
-            else None
+        last = None
+        if stop == len(self.fused) and kern.plans is not None:
+            last = (lambda y: (kern.plan_for(y).out_shape, torch.float32),
+                    kern)
         return fns, last
 
     def batch_fn(self):
         fns, last = self._stage_fns()
         head = fns if last is None else fns[:-1]
 
-        def run(xb, stage_fns):
-            for fn in stage_fns:
-                xb = fn(xb)
-            return xb
-
         def fn(x):
             n, out = x.shape[0], None
             for start in range(0, n, self.microbatch):
-                y = run(x[start:start + self.microbatch], head)
+                self.microbatches_run += 1
+                y = _run(head, x[start:start + self.microbatch])
                 if last is not None:
-                    # the chain kernel writes its rows of the result
+                    # the last stage writes its rows of the result
+                    layout, write = last
                     y = y.contiguous()
                     if out is None:
-                        out = torch.empty(
-                            (n,) + last.plan_for(y).out_shape,
-                            dtype=torch.float32, device=y.device)
-                    last(y, out[start:start + y.shape[0]])
+                        shape, dtype = layout(y)
+                        out = torch.empty((n,) + tuple(shape), dtype=dtype,
+                                          device=y.device)
+                    write(y, out[start:start + y.shape[0]])
                     continue
                 if out is None:
                     out = torch.empty((n,) + tuple(y.shape[1:]),
                                       dtype=y.dtype, device=y.device)
                 out[start:start + y.shape[0]] = y
-            return out if out is not None else run(x, fns)
+            return out if out is not None else _run(fns, x)
 
         return fn

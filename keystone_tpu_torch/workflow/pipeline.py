@@ -1,13 +1,15 @@
 """Typed combinator API: Transformer / Estimator / LabelEstimator / Pipeline.
 
-Counterpart of the part of `keystone_tpu/workflow/pipeline.py` that
-RandomPatchCifar's `build_pipeline` and the evaluator use (reference
+Counterpart of the part of `keystone_tpu/workflow/pipeline.py` that the
+ported pipelines and the evaluator use (reference
 workflow/{Pipeline,Chainable,Transformer,Estimator,LabelEstimator,
 PipelineResult}.scala). A pipeline is a chain of nodes. Applying it
 returns a lazy `PipelineResult`; nothing runs until ``.get()``. An
 estimator appended with ``and_then(est, data[, labels])`` is fit once,
 the first time the chain runs through it, on this pipeline applied to
-``data``.
+``data``. `Pipeline.gather` (`:303-319`) is one node that holds N branch
+chains over the same input, the counterpart of the JAX graph's fan-out
+into a `GatherTransformerOperator` (`workflow/operators.py:465`).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Any, Callable, Sequence
 
 import torch
 
+from ..data.dataset import zip_datasets
 from .executor import execute
 
 _UNSET = object()
@@ -85,6 +88,14 @@ class Pipeline(Chainable):
 
     def __call__(self, data: Any) -> PipelineResult:
         return self.apply(data)
+
+    @staticmethod
+    def gather(branches: Sequence[Chainable]) -> "Pipeline":
+        """Merge N branches that consume the same input into one pipeline
+        whose output is the tuple of the branch outputs, in branch order
+        (Pipeline.scala:119-154); a dataset's branch outputs are zipped
+        row by row (`zip_datasets`)."""
+        return Pipeline((_Gather([b.to_pipeline() for b in branches]),))
 
 
 class Transformer(Chainable):
@@ -160,3 +171,17 @@ class _Delegating(Transformer):
 
     def apply_batch(self, data):
         return self.fitted.apply_batch(data)
+
+
+class _Gather(Transformer):
+    """Runs each branch chain on the same input and zips the outputs
+    (GatherTransformerOperator.scala:9-18)."""
+
+    def __init__(self, branches: Sequence[Pipeline]):
+        self.branches = list(branches)
+
+    def apply(self, x):
+        return tuple(execute(b.nodes, x) for b in self.branches)
+
+    def apply_batch(self, data):
+        return zip_datasets([execute(b.nodes, data) for b in self.branches])
