@@ -85,6 +85,24 @@ Phases, each printed on a line of its own:
               history, line-search evaluations and synchronizing calls;
               and the dual-form solve on the first 2,048 rows against the
               primal ridge (float64) on the same rows.
+15. voc      - VOCSIFTFisher at the reference's widths: dense SIFT (step 6,
+              2 scales), PCA to 80, a 256-component GMM (k-means++ start,
+              30 EM steps), 40,960-wide Fisher vectors, class-weighted BCD
+              (block 4096, one pass, lambda 0.5, mixture weight 0.5) over
+              20 classes, on 5,011 training and 4,952 test synthetic 48x48
+              images (VOC 2007's trainval and test counts), after a warm
+              call on 500 of each; then the same run one stage at a time
+              (SIFT, PCA fit, GMM fit, Fisher encode, BWLS fit, predict and
+              mAP) and once more under torch's sync debug mode. mAP within
+              0.01 of the JAX package's on these arrays; the fitted PCA,
+              GMM and (W, b) carried to the CPU score the first 256 test
+              images within 1e-3 of max|score| of the card's, with the same
+              argmax; no kernel launched.
+16. imagenet - ImageNetSiftLcsFV at the JAX configuration's widths (SIFT
+              and LCS branches, PCA 32, 8 components, 1,024 features, 10
+              classes) on 5,000 training and 2,000 test synthetic images,
+              after a warm call on 500 of each; test accuracy within 0.01
+              of the JAX package's on these arrays; no kernel launched.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The RBF kernel counts its products (``rbf_block.launches``) and
@@ -201,6 +219,25 @@ DUAL_PRIMAL_RTOL = 1e-3
 # the zoom line search accepts a step that raises the objective by up to
 # this share of its value (optax's approx_dec_rtol)
 LBFGS_APPROX_DECREASE = 1e-6
+
+# VOC 2007's trainval and test counts, the generator's 48x48 images (cut
+# from VOC's ~500x375); the reference's widths (PCA 80, 256 components)
+VOC_N_TRAIN, VOC_N_TEST, VOC_CLASSES = 5011, 4952, 20
+VOC_PCA_DIMS, VOC_GMM_K = 80, 256
+IMAGENET_N_TRAIN, IMAGENET_N_TEST = 5000, 2000
+# images of each set in the warm call before a timed run
+SIFT_FISHER_WARM = 500
+# the JAX package's CPU mAP and test accuracy on these arrays (the
+# synthetic classes separate fully, so the scores are also held to the
+# port's CPU path on the card's fitted weights)
+VOC_JAX_MAP = 1.0
+IMAGENET_JAX_ACC = 1.0
+# test images the port's CPU path scores with the card's fitted weights,
+# and the share of max|score| their scores may differ by (SIFT entries
+# that quantize 1 apart; tests/test_torch_sift_fisher.py measures 1.4e-4
+# between the packages on the CPU)
+VOC_CPU_CHECK = 256
+VOC_CPU_SCORE_RTOL = 1e-3
 
 
 def check(cond: bool, msg: str) -> None:
@@ -403,6 +440,121 @@ def timed_s(fn):
     out = fn()
     torch.cuda.synchronize()
     return time.perf_counter() - t, out
+
+
+def voc_phase(dev, card) -> None:
+    """Phase 15: VOCSIFTFisher at the reference's widths."""
+    from keystone_tpu_torch import convert
+    from keystone_tpu_torch.data.dataset import HostDataset
+    from keystone_tpu_torch.evaluation import MeanAveragePrecisionEvaluator
+    from keystone_tpu_torch.ops import kernels
+    from keystone_tpu_torch.pipelines import voc_sift_fisher
+
+    vc_config = voc_sift_fisher.VOCSIFTFisherConfig(
+        num_classes=VOC_CLASSES, pca_dims=VOC_PCA_DIMS, gmm_k=VOC_GMM_K)
+    t0 = time.perf_counter()
+    vc_train = voc_sift_fisher._synthetic_voc(VOC_N_TRAIN, VOC_CLASSES,
+                                              vc_config.seed)
+    vc_test = voc_sift_fisher._synthetic_voc(VOC_N_TEST, VOC_CLASSES,
+                                             vc_config.seed + 1)
+    vc_data_seconds = time.perf_counter() - t0
+    voc_sift_fisher.run_on(
+        HostDataset(vc_train.items[:SIFT_FISHER_WARM]),
+        HostDataset(vc_test.items[:SIFT_FISHER_WARM]), vc_config, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    vc = voc_sift_fisher.run_on(vc_train, vc_test, vc_config, dev)
+    vc_peak = torch.cuda.max_memory_allocated()
+    vc_launches = launch_counts()
+    # the same run one stage at a time, each closed by a device sync
+    vc_tr = HostDataset(vc_train.items, device=dev)
+    vc_te = HostDataset(vc_test.items, device=dev)
+    vc_model = voc_sift_fisher.build(vc_tr, vc_config, dev)
+    vc_labels = [list(x.labels) for x in vc_test.items]
+    vc_stages, _, vc_staged_map = run_stages([
+        ("sift", lambda: vc_model.sift(vc_tr).get()),
+        ("pca_fit", lambda: vc_model.pca.fitted),
+        ("gmm_fit", lambda: vc_model.fisher.fitted),
+        ("fisher_encode", lambda: vc_model.featurizer(vc_tr).get()),
+        ("bwls_fit", lambda: vc_model.solver.fitted),
+        ("predict_map", lambda: MeanAveragePrecisionEvaluator(VOC_CLASSES)(
+            vc_model.predictor(vc_te), vc_labels).mean()),
+    ])
+    del vc_model
+    vc_syncs, vc_sync_count = count_syncs(
+        lambda: voc_sift_fisher.run_on(vc_train, vc_test, vc_config, dev))
+    # the card's fitted PCA, GMM and (W, b) on the CPU, first test images
+    model = vc["model"]
+    gmm = model.fisher.fitted.gmm
+    cpu_predictor = convert.fitted_voc_predictor(*[
+        t.cpu().numpy() for t in (
+            model.pca.fitted.components, gmm.means, gmm.variances,
+            gmm.weights, model.solver.fitted.W, model.solver.fitted.b)],
+        device="cpu")
+    cpu_scores = cpu_predictor(HostDataset(
+        vc_test.items[:VOC_CPU_CHECK], device="cpu")).get().numpy()
+    card_scores = vc["scores"].array[:VOC_CPU_CHECK].cpu().numpy()
+    vc_cpu_rel = float(np.abs(cpu_scores - card_scores).max()
+                       / np.abs(card_scores).max())
+    vc_cpu_argmax = bool((cpu_scores.argmax(1)
+                          == card_scores.argmax(1)).all())
+    vc_features = model.solver.fitted.W.shape[0]
+    phase("voc", seconds=vc["seconds"], images_per_sec=vc["images_per_sec"],
+          rate_basis="train+test images", train_images=len(vc_train),
+          test_images=len(vc_test), features=vc_features,
+          mean_average_precision=vc["map"], jax_cpu_map=VOC_JAX_MAP,
+          gap_to_jax_cpu=vc["map"] - VOC_JAX_MAP,
+          staged_stage_seconds=vc_stages, staged_map=vc_staged_map,
+          cpu_check_images=VOC_CPU_CHECK, cpu_score_rel_diff=vc_cpu_rel,
+          cpu_argmax_equal=vc_cpu_argmax, syncs=vc_sync_count,
+          sync_lines=vc_syncs, data_seconds=vc_data_seconds,
+          peak_mem_bytes=vc_peak, launches=vc_launches, card=card)
+    check(abs(vc["map"] - VOC_JAX_MAP) <= 0.01, f"VOCSIFTFisher mAP "
+          f"{vc['map']} is not within 0.01 of {VOC_JAX_MAP}")
+    check(vc_features == 2 * VOC_PCA_DIMS * VOC_GMM_K,
+          f"VOCSIFTFisher has {vc_features} features")
+    check(vc_cpu_argmax and vc_cpu_rel <= VOC_CPU_SCORE_RTOL,
+          f"the CPU path's VOC scores differ from the card's by "
+          f"{vc_cpu_rel} of max|score| (argmax equal: {vc_cpu_argmax})")
+    check(not any(vc_launches.values()),
+          f"VOCSIFTFisher launched kernels: {vc_launches}")
+
+
+def imagenet_phase(dev, card) -> None:
+    """Phase 16: ImageNetSiftLcsFV at the JAX configuration's widths."""
+    from keystone_tpu_torch.data.dataset import HostDataset
+    from keystone_tpu_torch.ops import kernels
+    from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv
+
+    im_config = imagenet_sift_lcs_fv.ImageNetSiftLcsFVConfig()
+    im_train = imagenet_sift_lcs_fv._synthetic_imagenet(
+        IMAGENET_N_TRAIN, im_config.num_classes, im_config.seed)
+    im_test = imagenet_sift_lcs_fv._synthetic_imagenet(
+        IMAGENET_N_TEST, im_config.num_classes, im_config.seed + 1)
+    imagenet_sift_lcs_fv.run_on(
+        HostDataset(im_train.items[:SIFT_FISHER_WARM]),
+        HostDataset(im_test.items[:SIFT_FISHER_WARM]), im_config, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    im = imagenet_sift_lcs_fv.run_on(im_train, im_test, im_config, dev)
+    im_launches = launch_counts()
+    im_features = im["predictor"].nodes[-2].fitted.W.shape[0]
+    phase("imagenet", seconds=im["seconds"],
+          images_per_sec=im["images_per_sec"],
+          rate_basis="train+test images", train_images=len(im_train),
+          test_images=len(im_test), features=im_features,
+          test_accuracy=im["test_accuracy"],
+          jax_cpu_test_accuracy=IMAGENET_JAX_ACC,
+          gap_to_jax_cpu=im["test_accuracy"] - IMAGENET_JAX_ACC,
+          peak_mem_bytes=torch.cuda.max_memory_allocated(),
+          launches=im_launches, card=card)
+    check(abs(im["test_accuracy"] - IMAGENET_JAX_ACC) <= 0.01,
+          f"ImageNetSiftLcsFV test accuracy {im['test_accuracy']} is not "
+          f"within 0.01 of {IMAGENET_JAX_ACC}")
+    check(not any(im_launches.values()),
+          f"ImageNetSiftLcsFV launched kernels: {im_launches}")
 
 
 def main() -> int:
@@ -1335,6 +1487,12 @@ def main() -> int:
     check(dual_rel <= DUAL_PRIMAL_RTOL, f"dual solve differs from the primal "
           f"by {dual_rel}")
     del tm_X, tm_Y, sv_data, sv_y, dual_model, primal, X64, tm_train
+    torch.cuda.empty_cache()
+
+    # ---- 15-16. VOCSIFTFisher and ImageNetSiftLcsFV ------------------------
+    voc_phase(dev, card)
+    torch.cuda.empty_cache()
+    imagenet_phase(dev, card)
     torch.cuda.empty_cache()
 
     record = {"kernels": [

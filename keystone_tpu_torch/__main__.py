@@ -7,6 +7,7 @@ has:
     python -m keystone_tpu_torch MnistRandomFFT --num-ffts 4 --device cpu
     python -m keystone_tpu_torch pipelines.speech.TimitPipeline --n-synth 4000
     python -m keystone_tpu_torch RandomPatchCifar --num-filters 256
+    python -m keystone_tpu_torch VOCSIFTFisher --n-synth 60 --device cpu
 
 Names take the reference's qualified form or the bare class name; the
 reference apps' camelCase flags (``--numFFTs``) are accepted. A pipeline
@@ -40,12 +41,14 @@ REGISTRY = {
     "pipelines.images.cifar.RandomPatchCifarAugmentedKernel":
         (_PIPELINES + "cifar_variants", "main", ("augmented-kernel",)),
     "pipelines.speech.TimitPipeline": (_PIPELINES + "timit", "main", ()),
+    "pipelines.images.voc.VOCSIFTFisher":
+        (_PIPELINES + "voc_sift_fisher", "main", ()),
+    "pipelines.images.imagenet.ImageNetSiftLcsFV":
+        (_PIPELINES + "imagenet_sift_lcs_fv", "main", ()),
 }
 
 #: registered in the JAX package, not ported yet
 NOT_PORTED = (
-    "pipelines.images.voc.VOCSIFTFisher",
-    "pipelines.images.imagenet.ImageNetSiftLcsFV",
     "pipelines.text.NewsgroupsPipeline",
     "pipelines.text.AmazonReviewsPipeline",
     "pipelines.nlp.StupidBackoffPipeline",

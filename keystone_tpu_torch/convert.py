@@ -9,7 +9,10 @@ weights, γ and block size. `fitted_predictor`,
 `fitted_augmented_scorer` (RandomPatchCifarAugmented and its kernel
 variant, whose scores are averaged over test views before the argmax)
 assemble them into the port's fitted pipelines, so both packages compute
-the same function from the same weights.
+the same function from the same weights. For the SIFT–Fisher family: a
+fitted PCA's components (d, k), a GMM's means and variances (k, d) and
+weights (k,), and the class-weighted solver's W and b, assembled by
+`fitted_voc_predictor` and `fitted_imagenet_predictor`.
 """
 
 from __future__ import annotations
@@ -18,12 +21,16 @@ import numpy as np
 import torch
 
 from .device import DeviceLike, resolve_device
+from .nodes.images.fisher_vector import FisherVector
 from .nodes.learning.block_ls import BlockLinearMapper
+from .nodes.learning.gmm import GaussianMixtureModel
 from .nodes.learning.kernels import KernelBlockLinearMapper
 from .nodes.learning.linear import LinearMapper
+from .nodes.learning.pca import PCATransformer
 from .nodes.learning.zca import ZCAWhitener
 from .nodes.stats.scalers import StandardScalerModel
-from .nodes.util.basic import MaxClassifier
+from .nodes.stats.normalization import NormalizeRows, SignedHellingerMapper
+from .nodes.util.basic import MatrixVectorizer, MaxClassifier
 from .workflow.pipeline import Pipeline
 
 
@@ -119,3 +126,61 @@ def fitted_augmented_scorer(filters, whitener_W, whitener_mu, scaler_mean,
             >> StandardScalerModel(to_tensor(scaler_mean, device),
                                    to_tensor(scaler_std, device))
             >> model)
+
+
+def pca_transformer(components, device: DeviceLike = "cuda") -> PCATransformer:
+    return PCATransformer(to_tensor(components, device))
+
+
+def gmm(means, variances, weights,
+        device: DeviceLike = "cuda") -> GaussianMixtureModel:
+    return GaussianMixtureModel(to_tensor(means, device),
+                                to_tensor(variances, device),
+                                to_tensor(weights, device))
+
+
+def _fisher_encoder(pca, mixture, device) -> Pipeline:
+    """descriptors >> PCA >> FisherVector >> the per-image
+    normalizations, from (components) and (means, variances, weights)."""
+    return (pca_transformer(pca, device).to_pipeline()
+            >> FisherVector(gmm(*mixture, device=device))
+            >> MatrixVectorizer() >> SignedHellingerMapper()
+            >> NormalizeRows())
+
+
+def fitted_voc_predictor(pca_components, gmm_means, gmm_variances,
+                         gmm_weights, W, b,
+                         device: DeviceLike = "cuda") -> Pipeline:
+    """VOCSIFTFisher's images → scores from the JAX package's fitted
+    PCA, GMM and class-weighted solver."""
+    from .nodes.images.core import GrayScaler, PixelScaler
+    from .nodes.images.extractors import MultiLabeledImageExtractor
+    from .nodes.images.sift import SIFTExtractor
+    from .pipelines.voc_sift_fisher import _Stack
+
+    return (MultiLabeledImageExtractor().to_pipeline() >> PixelScaler()
+            >> GrayScaler() >> SIFTExtractor(step=6, num_scales=2)
+            >> _fisher_encoder(pca_components, (gmm_means, gmm_variances,
+                                                gmm_weights), device)
+            >> _Stack() >> linear_mapper(W, b, device))
+
+
+def fitted_imagenet_predictor(sift_pca, sift_gmm, lcs_pca, lcs_gmm, W, b,
+                              device: DeviceLike = "cuda") -> Pipeline:
+    """ImageNetSiftLcsFV's images → class ids from the JAX package's
+    fitted branches (each a PCA's components and a GMM's (means,
+    variances, weights)) and class-weighted solver."""
+    from .nodes.images.core import GrayScaler, PixelScaler
+    from .nodes.images.descriptors import LCSExtractor
+    from .nodes.images.extractors import ImageExtractor
+    from .nodes.images.sift import SIFTExtractor
+    from .pipelines.imagenet_sift_lcs_fv import _Concat
+    from .pipelines.voc_sift_fisher import _Stack
+
+    img = ImageExtractor().to_pipeline() >> PixelScaler()
+    sift = (img >> GrayScaler() >> SIFTExtractor(step=6, num_scales=2)
+            >> _fisher_encoder(sift_pca, sift_gmm, device))
+    lcs = img >> LCSExtractor(stride=6) >> _fisher_encoder(lcs_pca, lcs_gmm,
+                                                           device)
+    return (Pipeline.gather([sift, lcs]) >> _Concat() >> _Stack()
+            >> linear_mapper(W, b, device) >> MaxClassifier())

@@ -1,5 +1,12 @@
 """Datasets (counterpart of `keystone_tpu/data`)."""
 
-from .dataset import Dataset, ZippedDataset, zip_datasets
+from .dataset import (
+    Dataset,
+    HostDataset,
+    ZippedDataset,
+    ZippedHostDataset,
+    zip_datasets,
+)
 
-__all__ = ["Dataset", "ZippedDataset", "zip_datasets"]
+__all__ = ["Dataset", "HostDataset", "ZippedDataset", "ZippedHostDataset",
+           "zip_datasets"]

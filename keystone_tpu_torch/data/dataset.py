@@ -1,21 +1,31 @@
-"""Device-resident dataset handle.
+"""Device-resident and host-list dataset handles.
 
 Counterpart of `keystone_tpu/data/dataset.py::Dataset` (`:95-276`),
-single-device part only, and of `zip_datasets` (`:592-610`) for device
-datasets. The JAX `Dataset` pads its leading axis to a
+single-device part only, of `HostDataset` (`:278-341`) and of
+`zip_datasets` (`:592-610`). The JAX `Dataset` pads its leading axis to a
 multiple of the mesh's data shards; with one device and no mesh there is
 nothing to pad, so ``padded_count == count`` and ``mask`` is all ones.
 Both stay for API parity.
+
+A `HostDataset` is a list of items: host objects (labeled images, numpy
+arrays of any shape) or tensors. A batched stage over it
+(`HostDataset.map_batches`, `utils/batching.py`) groups the items by
+shape, stacks each group on the device once, and keeps its results as
+those groups: (item indices, one stacked tensor) each. The next batched
+stage takes the groups whole, so a chain of stages over images of one
+shape makes one call a stage, not one per item, and per-item views exist
+only when someone asks for ``items``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..utils.batching import DEFAULT_CHUNK, bucket_by_shape, run_chunked
 
 
 class Dataset:
@@ -112,12 +122,162 @@ class ZippedDataset(Dataset):
                 f"device={self.device})")
 
 
-def zip_datasets(datasets: Sequence[Dataset]) -> ZippedDataset:
+#: one group of a `HostDataset`: the indices of its items, and the
+#: items stacked along a new leading axis
+Bucket = Tuple[List[int], torch.Tensor]
+
+
+def _torch_dtype(dtype):
+    """A torch dtype from a torch or numpy dtype (None stays None)."""
+    if dtype is None or isinstance(dtype, torch.dtype):
+        return dtype
+    return torch.from_numpy(np.zeros(0, dtype=dtype)).dtype
+
+
+def _stack_items(items: Sequence, device: torch.device) -> torch.Tensor:
+    """Equal-shape items stacked on ``device``: tensors with
+    `torch.stack`, host arrays with `np.stack` and one copy."""
+    if isinstance(items[0], torch.Tensor):
+        return torch.stack([x.to(device) for x in items])
+    return torch.from_numpy(np.stack([np.asarray(x) for x in items])).to(
+        device)
+
+
+class HostDataset:
+    """A list of items (≈ an RDD of JVM objects for the non-dense stages:
+    labeled images, variable-size images, descriptor matrices).
+
+    ``device`` is where a batched stage stacks host items (None: the
+    card); it is resolved only when something is stacked, so a dataset
+    of host objects can be made anywhere."""
+
+    is_dataset = True
+
+    def __init__(self, items: Sequence[Any] = (),
+                 device: DeviceLike = None):
+        self._items: Optional[List[Any]] = list(items)
+        self._buckets: Optional[List[Bucket]] = None
+        self._count = len(self._items)
+        self.device = device
+
+    @classmethod
+    def from_buckets(cls, buckets: Sequence[Bucket], count: int,
+                     device: DeviceLike = None) -> "HostDataset":
+        """A dataset whose items are the rows of ``buckets``' tensors."""
+        ds = cls(device=device)
+        ds._items, ds._buckets, ds._count = None, list(buckets), count
+        return ds
+
+    @property
+    def items(self) -> List[Any]:
+        if self._items is None:
+            out: List[Any] = [None] * self._count
+            for idx, stacked in self._buckets:
+                for j, i in enumerate(idx):
+                    out[i] = stacked[j]
+            self._items = out
+        return self._items
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    def buckets(self) -> List[Bucket]:
+        """The items grouped by shape and dtype, in order of first
+        appearance, each group stacked on the device."""
+        if self._buckets is None:
+            dev = resolve_device(self.device)
+            self._buckets = [
+                (idx, _stack_items([self.items[i] for i in idx], dev))
+                for idx in bucket_by_shape(self.items)]
+        return self._buckets
+
+    def map(self, fn: Callable) -> "HostDataset":
+        """``fn`` on each item."""
+        return HostDataset([fn(x) for x in self.items], device=self.device)
+
+    def map_batches(self, fn: Callable[[torch.Tensor], torch.Tensor],
+                    chunk: Optional[int] = DEFAULT_CHUNK) -> "HostDataset":
+        """A batched (leading-axis) function over each bucket, in chunks
+        of at most ``chunk`` items (None: a bucket at once); the results
+        stay bucketed on the device."""
+        return HostDataset.from_buckets(
+            [(idx, run_chunked(fn, stacked, chunk))
+             for idx, stacked in self.buckets()], self._count, self.device)
+
+    def stack(self, dtype=None) -> Dataset:
+        """Equal-shape items as one device `Dataset`, in item order:
+        the buckets' tensors, no per-item transfer."""
+        if not self._count:
+            raise ValueError("stack of an empty HostDataset")
+        buckets = self.buckets()
+        shapes = {tuple(t.shape[1:]) for _, t in buckets}
+        if len(shapes) != 1:
+            raise ValueError(f"stack of items of shapes {sorted(shapes)}")
+        dtype = _torch_dtype(dtype)
+        if dtype is None:   # the dtype np.stack would give
+            dtype = buckets[0][1].dtype
+            for _, t in buckets[1:]:
+                dtype = torch.promote_types(dtype, t.dtype)
+        idx, stacked = buckets[0]
+        if len(buckets) == 1 and idx == list(range(self._count)):
+            return Dataset(stacked.to(dtype))
+        data = torch.empty((self._count,) + shapes.pop(), dtype=dtype,
+                           device=stacked.device)
+        for idx, stacked in buckets:
+            data[torch.tensor(idx, device=data.device)] = stacked.to(dtype)
+        return Dataset(data)
+
+    def numpy(self) -> List[Any]:
+        """The items, tensors copied to the host."""
+        return [x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                else x for x in self.items]
+
+    def take(self, k: int) -> List[Any]:
+        return self.items[:k]
+
+    def __len__(self) -> int:
+        return self._count
+
+    def __iter__(self):
+        return iter(self.items)
+
+    def __repr__(self) -> str:
+        return f"HostDataset(count={self._count})"
+
+
+class ZippedHostDataset(HostDataset):
+    """N aligned host datasets zipped item by item: each item is the list
+    of their items, in order (the JAX package's host `zip_datasets`).
+    ``parts`` keeps the datasets, so a batched consumer can take their
+    buckets instead of the per-item lists."""
+
+    def __init__(self, parts: Sequence[HostDataset]):
+        super().__init__(device=parts[0].device)
+        self.parts = list(parts)
+        self._items = None
+        self._count = min(len(p) for p in self.parts)
+
+    @property
+    def items(self) -> List[Any]:
+        if self._items is None:
+            self._items = [list(t) for t in
+                           zip(*(p.items for p in self.parts))]
+        return self._items
+
+
+def zip_datasets(datasets: Sequence):
     """Elementwise zip of N aligned datasets (≈ `RDD.zip`; used by
-    gather, GatherTransformerOperator.scala:9-18). Misaligned counts
-    raise."""
+    gather, GatherTransformerOperator.scala:9-18). Device datasets give a
+    `ZippedDataset` (misaligned counts raise); host datasets a
+    `ZippedHostDataset` of lists, cut to the shortest, as `zip` is."""
     if not datasets:
         raise ValueError("zip_datasets requires at least one dataset")
+    if all(isinstance(d, HostDataset) for d in datasets):
+        return ZippedHostDataset(datasets)
+    if not all(isinstance(d, Dataset) for d in datasets):
+        raise TypeError("zip_datasets requires all-device or all-host "
+                        "datasets")
     counts = {d.count for d in datasets}
     if len(counts) != 1:
         raise ValueError(f"zip of misaligned datasets: counts {counts}")

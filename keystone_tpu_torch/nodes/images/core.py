@@ -39,7 +39,9 @@ from ...workflow.pipeline import Transformer
 
 
 class PixelScaler(Transformer):
-    """x / 255 (PixelScaler.scala:9)."""
+    """x / 255 (PixelScaler.scala:9). Over a `HostDataset` (`core.py:
+    232-262`) the images of one shape go through one batched call, on
+    the device."""
 
     def batch_fn(self):
         return lambda x: x.to(torch.float32) / 255.0
@@ -50,7 +52,8 @@ class PixelScaler(Transformer):
 
 class GrayScaler(Transformer):
     """NTSC grayscale (GrayScaler.scala:9): (..., 3) → (..., 1), the
-    identity on one channel."""
+    identity on one channel. Over a `HostDataset` (`core.py:268-305`)
+    one batched call per image shape."""
 
     def batch_fn(self):
         return grayscale

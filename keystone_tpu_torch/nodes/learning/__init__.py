@@ -13,12 +13,31 @@ from .kernels import (
     KernelBlockLinearMapper,
     KernelRidgeRegression,
 )
+from .gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
+from .kmeans import KMeansModel, KMeansPlusPlusEstimator
 from .linear import LinearMapEstimator, LinearMapper
+from .pca import (
+    ApproximatePCAEstimator,
+    BatchPCATransformer,
+    ColumnPCAEstimator,
+    DistributedPCAEstimator,
+    PCAEstimator,
+    PCATransformer,
+)
+from .weighted_ls import (
+    BlockWeightedLeastSquaresEstimator,
+    PerClassWeightedLeastSquares,
+)
 from .zca import ZCAWhitener, zca_from_covariance
 
-__all__ = ["BlockKernelMatrix", "BlockLeastSquaresEstimator",
-           "BlockLinearMapper", "GaussianKernelGenerator",
-           "GaussianKernelTransformer", "KernelBlockLinearMapper",
-           "KernelRidgeRegression", "LinearMapEstimator", "LinearMapper",
-           "ZCAWhitener", "bcd_fit", "raise_if_unfactored",
-           "zca_from_covariance"]
+__all__ = ["ApproximatePCAEstimator", "BatchPCATransformer",
+           "BlockKernelMatrix", "BlockLeastSquaresEstimator",
+           "BlockLinearMapper", "BlockWeightedLeastSquaresEstimator",
+           "ColumnPCAEstimator", "DistributedPCAEstimator",
+           "GaussianKernelGenerator", "GaussianKernelTransformer",
+           "GaussianMixtureModel", "GaussianMixtureModelEstimator",
+           "KMeansModel", "KMeansPlusPlusEstimator",
+           "KernelBlockLinearMapper", "KernelRidgeRegression",
+           "LinearMapEstimator", "LinearMapper", "PCAEstimator",
+           "PCATransformer", "PerClassWeightedLeastSquares", "ZCAWhitener",
+           "bcd_fit", "raise_if_unfactored", "zca_from_covariance"]

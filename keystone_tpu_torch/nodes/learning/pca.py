@@ -1,0 +1,163 @@
+"""PCA family.
+
+Counterpart of `keystone_tpu/nodes/learning/pca.py` (`:36-327`;
+reference nodes/learning/PCA.scala:19-247, DistributedPCA.scala:20-74,
+ApproximatePCA.scala:22-85), without the two cost models (`:273-287`)
+and `ColumnPCAEstimator.optimize`, which wait for the optimizer (ROADMAP
+queue 1, items 7 and 9):
+
+- `PCAEstimator`, "local": the rows (at most ``sample_rows``, an even
+  `linspace` subsample as in JAX) centred, their QR factor R, and the
+  SVD of R. XᵀX = RᵀR, so V is the SVD's V of the centred rows, which
+  JAX takes directly; the tall, skinny SVD becomes a QR (cuSOLVER's
+  geqrf) and a d × d SVD;
+- `DistributedPCAEstimator` in its one-device form: TSQR on one shard
+  is the QR of all the centred rows, then the SVD of R;
+- `ApproximatePCAEstimator`: the randomized range finder with power
+  iterations. Its Gaussian test matrix is a `torch.Generator` draw where
+  JAX draws with `jax.random`, so it matches JAX's by subspace, not by
+  value.
+
+Each component's sign is fixed as the reference's matlab convention
+fixes it (`_sign_convention`), so components compare by value. Items may
+be vectors or per-item descriptor matrices: `PCATransformer` maps the
+last axis. The rows are gathered on the device (`collect_rows`).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ...data.dataset import Dataset, HostDataset
+from ...workflow.pipeline import Estimator, OptimizableEstimator, Transformer
+
+
+def _sign_convention(V: torch.Tensor) -> torch.Tensor:
+    """Flip each column so its largest-|.| entry is positive
+    (PCA.scala:196-206)."""
+    idx = torch.argmax(V.abs(), dim=0)
+    signs = torch.sign(V[idx, torch.arange(V.shape[1], device=V.device)])
+    return V * signs
+
+
+class PCATransformer(Transformer):
+    """x @ components, x a vector or a (rows × d) descriptor matrix;
+    components (d, k)."""
+
+    def __init__(self, components: torch.Tensor):
+        self.components = components
+
+    def batch_fn(self):
+        return lambda x: x.to(self.components.dtype) @ self.components
+
+
+#: the reference's per-matrix variant
+BatchPCATransformer = PCATransformer
+
+
+def collect_rows(data, max_rows: Optional[int] = None) -> torch.Tensor:
+    """The rows of a dataset of vectors or descriptor matrices as one
+    float32 (n, d) tensor on the device, items in order (the reference
+    collects them to one machine, PCA.scala:177-185); above ``max_rows``
+    rows an even `linspace` subsample of them."""
+    if isinstance(data, HostDataset):
+        buckets = data.buckets()
+        idx, stacked = buckets[0]
+        if len(buckets) == 1 and idx == list(range(len(data))):
+            X = stacked.reshape(-1, stacked.shape[-1])
+        else:
+            X = torch.cat([torch.atleast_2d(x) for x in data.items])
+    elif isinstance(data, Dataset):
+        X = data.array
+        if X.ndim == 3:
+            X = X.reshape(-1, X.shape[-1])
+    else:
+        X = torch.atleast_2d(torch.as_tensor(data))
+    if max_rows is not None and X.shape[0] > max_rows:
+        idx = np.linspace(0, X.shape[0] - 1, max_rows, dtype=np.int64)
+        X = X[torch.as_tensor(idx, device=X.device)]
+    return X.to(torch.float32)
+
+
+def _components_of_centred(Xc: torch.Tensor) -> torch.Tensor:
+    """V of the SVD of ``Xc`` from the SVD of its QR factor R."""
+    R = torch.linalg.qr(Xc, mode="r")[1]
+    _, _, Vt = torch.linalg.svd(R, full_matrices=False)
+    return _sign_convention(Vt.T)
+
+
+class PCAEstimator(Estimator):
+    """Local PCA (PCA.scala:162-247)."""
+
+    def __init__(self, dims: int, sample_rows: Optional[int] = 100_000):
+        self.dims = dims
+        self.sample_rows = sample_rows
+
+    def fit(self, data) -> PCATransformer:
+        X = collect_rows(data, self.sample_rows)
+        V = _components_of_centred(X - X.mean(dim=0))
+        return PCATransformer(V[:, :self.dims])
+
+
+class DistributedPCAEstimator(Estimator):
+    """PCA by TSQR and the SVD of R (DistributedPCA.scala:20-74), on one
+    device: the QR of all the centred rows."""
+
+    def __init__(self, dims: int):
+        self.dims = dims
+
+    def fit(self, data) -> PCATransformer:
+        X = collect_rows(data)
+        mu = X.sum(dim=0) / X.shape[0]
+        V = _components_of_centred(X - mu)
+        return PCATransformer(V[:, :self.dims])
+
+
+def randomized_components(X: torch.Tensor, k: int, q: int,
+                          generator: torch.Generator) -> torch.Tensor:
+    """Halko–Martinsson–Tropp range finder with ``q`` power iterations
+    (ApproximatePCA.scala:22-85): (d, k) components."""
+    Xc = X - X.mean(dim=0)
+    omega = torch.randn((X.shape[1], k), generator=generator,
+                        dtype=X.dtype, device=X.device)
+    Q = torch.linalg.qr(Xc @ omega)[0]
+    for _ in range(q):
+        Q = torch.linalg.qr(Xc.T @ Q)[0]
+        Q = torch.linalg.qr(Xc @ Q)[0]
+    _, _, Vt = torch.linalg.svd(Q.T @ Xc, full_matrices=False)
+    return _sign_convention(Vt.T)
+
+
+class ApproximatePCAEstimator(Estimator):
+    """Randomized sketch PCA (ApproximatePCA.scala:22-85)."""
+
+    def __init__(self, dims: int, oversample: int = 10, q: int = 2,
+                 seed: int = 0):
+        self.dims = dims
+        self.oversample = oversample
+        self.q = q
+        self.seed = seed
+
+    def fit(self, data) -> PCATransformer:
+        X = collect_rows(data)
+        gen = torch.Generator(device=X.device).manual_seed(self.seed)
+        V = randomized_components(X, self.dims + self.oversample, self.q,
+                                  gen)
+        return PCATransformer(V[:, :self.dims])
+
+
+class ColumnPCAEstimator(OptimizableEstimator):
+    """The reference's cost-model choice between local and distributed
+    PCA (PCA.scala:117-155). Its fit is its default's, local PCA, as the
+    JAX package's is without the optimizer."""
+
+    def __init__(self, dims: int, num_chips: Optional[int] = None):
+        self.dims = dims
+        self.num_chips = num_chips
+
+    @property
+    def default(self) -> Estimator:
+        return PCAEstimator(self.dims)

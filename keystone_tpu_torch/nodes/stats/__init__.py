@@ -1,5 +1,11 @@
 """Statistics nodes (counterpart of `keystone_tpu/nodes/stats`)."""
 
+from .normalization import (
+    ColumnSampler,
+    NormalizeRows,
+    Sampler,
+    SignedHellingerMapper,
+)
 from .random_features import (
     CosineRandomFeatures,
     LinearRectifier,
@@ -8,5 +14,6 @@ from .random_features import (
 )
 from .scalers import StandardScaler, StandardScalerModel
 
-__all__ = ["CosineRandomFeatures", "LinearRectifier", "PaddedFFT",
-           "RandomSignNode", "StandardScaler", "StandardScalerModel"]
+__all__ = ["ColumnSampler", "CosineRandomFeatures", "LinearRectifier",
+           "NormalizeRows", "PaddedFFT", "RandomSignNode", "Sampler",
+           "SignedHellingerMapper", "StandardScaler", "StandardScalerModel"]

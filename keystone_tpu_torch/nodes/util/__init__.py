@@ -3,10 +3,13 @@
 from .basic import (
     Cacher,
     ClassLabelIndicatorsFromInt,
+    ClassLabelIndicatorsFromIntArray,
+    MatrixVectorizer,
     MaxClassifier,
     VectorCombiner,
 )
 from .fusion import FusedBatchTransformer
 
-__all__ = ["Cacher", "ClassLabelIndicatorsFromInt", "FusedBatchTransformer",
-           "MaxClassifier", "VectorCombiner"]
+__all__ = ["Cacher", "ClassLabelIndicatorsFromInt",
+           "ClassLabelIndicatorsFromIntArray", "FusedBatchTransformer",
+           "MatrixVectorizer", "MaxClassifier", "VectorCombiner"]

@@ -1,10 +1,11 @@
 """Small utility nodes.
 
-Counterpart of `ClassLabelIndicatorsFromInt`, `MaxClassifier`,
-`VectorCombiner` (`:165-182`) and `Cacher` in
-`keystone_tpu/nodes/util/basic.py` (reference
+Counterpart of `ClassLabelIndicatorsFromInt`,
+`ClassLabelIndicatorsFromIntArray` (`:89-122`), `MaxClassifier`,
+`VectorCombiner` (`:165-182`), `MatrixVectorizer` (`:246-259`) and
+`Cacher` in `keystone_tpu/nodes/util/basic.py` (reference
 nodes/util/{ClassLabelIndicators,MaxClassifier,VectorCombiner,
-Cacher}.scala).
+MatrixVectorizer,Cacher}.scala).
 """
 
 from __future__ import annotations
@@ -29,6 +30,26 @@ class ClassLabelIndicatorsFromInt(Transformer):
                           - 1.0).to(torch.float32)
 
 
+class ClassLabelIndicatorsFromIntArray(Transformer):
+    """Multi-label int array → length-k float32 vector of −1/+1
+    (ClassLabelIndicators.scala:38-55). Items are fixed-length label
+    arrays padded with −1; the padding marks no class."""
+
+    def __init__(self, num_classes: int):
+        self.num_classes = num_classes
+
+    def batch_fn(self):
+        def fn(Y):
+            classes = torch.arange(self.num_classes, device=Y.device)
+            member = (Y.long()[..., None] == classes).any(dim=-2)
+            return 2.0 * member.to(torch.float32) - 1.0
+
+        return fn
+
+    def fuse(self):
+        return ("ClassLabelIndicatorsArray", self.num_classes), ()
+
+
 class MaxClassifier(Transformer):
     """argmax over scores → int label (MaxClassifier.scala)."""
 
@@ -46,6 +67,17 @@ class VectorCombiner(Transformer):
     def apply_batch(self, data):
         # one output, allocated once, each branch copied into its columns
         return data.with_data(torch.cat(data.data, dim=-1))
+
+
+class MatrixVectorizer(Transformer):
+    """Flatten each item's matrix to a vector, row-major
+    (MatrixVectorizer.scala)."""
+
+    def batch_fn(self):
+        return lambda x: x.reshape(x.shape[0], -1)
+
+    def fuse(self):
+        return ("MatrixVectorizer",), ()
 
 
 class Cacher(Transformer):

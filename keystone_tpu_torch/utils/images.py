@@ -1,15 +1,90 @@
-"""Image utilities (counterpart of `keystone_tpu/utils/images.py`:
-`grayscale` `:48-53`, `crop` `:56`, `flip_horizontal` `:61`,
+"""Image containers and utilities (counterpart of
+`keystone_tpu/utils/images.py`: `ImageMetadata`, `LabeledImage`,
+`MultiLabeledImage` `:23-46`, `grayscale` `:48-53`, `crop` `:56`,
+`flip_horizontal` `:61`, `depthwise_conv2d` `:70-102`,
 `extract_patches_device` `:119-135`).
 
-`crop` and `flip_horizontal` take one (H, W, C) image or an (N, H, W, C)
-batch: they index the last three axes.
+`crop`, `flip_horizontal` and `depthwise_conv2d` take one (H, W, C)
+image or an (N, H, W, C) batch.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional, Sequence
+
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+@dataclass(frozen=True)
+class ImageMetadata:
+    """(reference utils/images/Image.scala:143)"""
+
+    x_dim: int
+    y_dim: int
+    num_channels: int
+
+
+@dataclass
+class LabeledImage:
+    """(reference utils/images/Image.scala:374-380)"""
+
+    image: np.ndarray  # (H, W, C)
+    label: int
+
+
+@dataclass
+class MultiLabeledImage:
+    """(reference utils/images/Image.scala:385-394)"""
+
+    image: np.ndarray
+    labels: Sequence[int]
+    filename: Optional[str] = None
+
+
+def sep_conv_nchw(x: torch.Tensor, taps_y, taps_x,
+                  padding: str = "same") -> torch.Tensor:
+    """Separable depthwise convolution of (N, C, H, W) maps: one
+    `F.conv2d(..., groups=C)` per axis, a cross-correlation as XLA's.
+    The taps are sequences, arrays or tensors (on ``x``'s device, no
+    copy).
+
+    ``padding``: ``"same"`` pads with zeros as XLA's SAME does, k − 1 in
+    all, (k − 1)//2 before and the rest after (so an even kernel puts its
+    extra zero at the end); ``"edge"`` replicates the border by
+    (k − 1)//2 on both sides and convolves valid (vlfeat's
+    VL_PAD_BY_CONTINUITY), so an even kernel shortens the axis by one."""
+    c = x.shape[1]
+    ky = torch.as_tensor(taps_y, dtype=torch.float32, device=x.device)
+    kx = torch.as_tensor(taps_x, dtype=torch.float32, device=x.device)
+    ly, lx = ky.numel(), kx.numel()
+    if padding == "edge":
+        ry, rx = (ly - 1) // 2, (lx - 1) // 2
+        x = F.pad(x, (rx, rx, ry, ry), mode="replicate")
+    elif padding == "same":
+        x = F.pad(x, ((lx - 1) // 2, lx - 1 - (lx - 1) // 2,
+                      (ly - 1) // 2, ly - 1 - (ly - 1) // 2))
+    else:
+        raise ValueError(f"padding must be 'same' or 'edge', not {padding!r}")
+    x = F.conv2d(x, ky.reshape(1, 1, ly, 1).expand(c, 1, ly, 1), groups=c)
+    return F.conv2d(x, kx.reshape(1, 1, 1, lx).expand(c, 1, 1, lx), groups=c)
+
+
+def depthwise_conv2d(image: torch.Tensor, kernel_y, kernel_x,
+                     padding: str = "same") -> torch.Tensor:
+    """Separable depthwise 2-D convolution of an (H, W, C) image or an
+    (N, H, W, C) batch in float32, the rows first (ImageUtils.conv2D's
+    separable path; `keystone_tpu/utils/images.py:70-102`). ``padding``
+    as in `sep_conv_nchw`."""
+    x = torch.as_tensor(image).to(torch.float32)
+    single = x.ndim == 3
+    if single:
+        x = x[None]
+    out = sep_conv_nchw(x.permute(0, 3, 1, 2), kernel_y, kernel_x, padding)
+    out = out.permute(0, 2, 3, 1)
+    return out[0] if single else out
 
 
 def extract_patches_device(images: torch.Tensor, patch: int,

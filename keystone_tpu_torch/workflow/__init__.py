@@ -4,12 +4,13 @@ from .executor import PrefixMemo, execute
 from .pipeline import (
     Estimator,
     LabelEstimator,
+    OptimizableEstimator,
     Pipeline,
     PipelineResult,
     Transformer,
 )
 
 __all__ = [
-    "Estimator", "LabelEstimator", "Pipeline", "PipelineResult",
-    "PrefixMemo", "Transformer", "execute",
+    "Estimator", "LabelEstimator", "OptimizableEstimator", "Pipeline",
+    "PipelineResult", "PrefixMemo", "Transformer", "execute",
 ]

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 from typing import Any, List, Sequence, Tuple
 
-from ..data.dataset import Dataset
+from ..data.dataset import Dataset, HostDataset
 
 
 class PrefixMemo:
@@ -37,10 +37,10 @@ class PrefixMemo:
 
 
 def execute(nodes: Sequence, data) -> Any:
-    """Run ``nodes`` in order on ``data``: a `Dataset` goes through each
-    node's batch path, anything else is one datum."""
+    """Run ``nodes`` in order on ``data``: a `Dataset` or a `HostDataset`
+    goes through each node's batch path, anything else is one datum."""
     nodes = tuple(nodes)
-    if not isinstance(data, Dataset):
+    if not isinstance(data, (Dataset, HostDataset)):
         for node in nodes:
             data = node.apply(data)
         return data

@@ -3,7 +3,8 @@
 Counterpart of the part of `keystone_tpu/workflow/pipeline.py` that the
 ported pipelines and the evaluator use (reference
 workflow/{Pipeline,Chainable,Transformer,Estimator,LabelEstimator,
-PipelineResult}.scala). A pipeline is a chain of nodes. Applying it
+PipelineResult}.scala), and `OptimizableEstimator` (`:707-716`). A
+pipeline is a chain of nodes. Applying it
 returns a lazy `PipelineResult`; nothing runs until ``.get()``. An
 estimator appended with ``and_then(est, data[, labels])`` is fit once,
 the first time the chain runs through it, on this pipeline applied to
@@ -133,6 +134,20 @@ class Estimator(Chainable):
 
     def to_pipeline(self):
         raise TypeError("an Estimator needs data: use .with_data(data)")
+
+
+class OptimizableEstimator(Estimator):
+    """An estimator with a default implementation: `fit` is the
+    default's (`keystone_tpu/workflow/pipeline.py:707-716`). The JAX
+    optimizer's sample-driven choice (`optimize`) is not ported yet
+    (ROADMAP queue 1, items 7 and 9)."""
+
+    @property
+    def default(self) -> Estimator:
+        raise NotImplementedError
+
+    def fit(self, data) -> Transformer:
+        return self.default.fit(data)
 
 
 class LabelEstimator(Chainable):

@@ -248,7 +248,7 @@ def test_launcher_as_a_module():
     assert "train_error=" in out.stdout
 
 
-@pytest.mark.parametrize("name", ["VOCSIFTFisher",
+@pytest.mark.parametrize("name", ["AmazonReviewsPipeline",
                                   "pipelines.text.NewsgroupsPipeline"])
 def test_launcher_refuses_unported_pipelines(name):
     with pytest.raises(SystemExit, match="not ported yet"):
