@@ -103,6 +103,29 @@ Phases, each printed on a line of its own:
               classes) on 5,000 training and 2,000 test synthetic images,
               after a warm call on 500 of each; test accuracy within 0.01
               of the JAX package's on these arrays; no kernel launched.
+17. newsgroups - NewsgroupsPipeline at the reference's widths: n-grams of
+              orders 1-2, square-root TF, 100,000 common features, naive
+              Bayes (lambda 1) over 20 classes, on 11,314 training and
+              7,532 test synthetic documents (20 Newsgroups' "bydate"
+              counts), after a warm call on 500 of each; the strings are
+              featurized on the host and the CSR goes to the card once.
+              Then the same run one stage at a time (featurize, vocabulary
+              fit, vectorize, copy, fit, predict, evaluate) and the CSR
+              products between events. Test accuracy within 0.005 of the
+              JAX package's; the card's vocabulary and model carried to
+              the CPU score the first 256 test documents within 1e-5 of
+              max|score| of the card's, with the same argmax; the
+              synchronizing calls named; no kernel launched.
+18. amazon   - AmazonReviewsPipeline: 20,000 synthetic reviews split
+              80/20, the same featurizer at 100,000 features, logistic
+              regression (lambda 1e-3, 50 L-BFGS steps) on the CSR on the
+              card; its objective within 1e-3 of the JAX package's,
+              accuracy within 0.005; a fit's line-search evaluations and
+              synchronizing calls; staged as Newsgroups; no kernel
+              launched.
+19. stupid_backoff - StupidBackoffPipeline over 11,314 synthetic
+              documents: host code in both packages; vocabulary, trigram
+              count and mean log score equal to the JAX package's.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The RBF kernel counts its products (``rbf_block.launches``) and
@@ -116,6 +139,7 @@ exits non-zero; with no card it exits non-zero before any phase.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import math
 import os
@@ -238,6 +262,38 @@ IMAGENET_JAX_ACC = 1.0
 # between the packages on the CPU)
 VOC_CPU_CHECK = 256
 VOC_CPU_SCORE_RTOL = 1e-3
+
+# 20 Newsgroups "bydate": 11,314 training and 7,532 test posts (the corpus
+# is not in the repository: the JAX package's synthetic_corpus at those
+# counts fills the reference's 100,000 common features); Amazon: 20,000
+# synthetic reviews, split 80/20 (the reference corpus is far larger);
+# stupid backoff over 11,314 synthetic documents
+NEWS_N_TRAIN, NEWS_N_TEST, NEWS_CLASSES = 11_314, 7_532, 20
+TEXT_FEATURES = 100_000
+AMAZON_N, AMAZON_LAM = 20_000, 1e-3
+BACKOFF_N = 11_314
+# documents of each set in the warm call before a timed run
+TEXT_WARM = 500
+# the JAX package's CPU values at these sizes, from
+# `python tests/test_torch_text_pipelines.py` (jax_reference_values): the
+# Newsgroups test accuracy; Amazon's objective, evaluated in float64 from
+# the training CSR at JAX's fitted W, its test accuracy and F1; the
+# stupid-backoff results. The synthetic classes separate fully, so the
+# accuracies are weak checks: the objective and the scores are held too
+NEWS_JAX_ACC = 1.0
+AMAZON_JAX_OBJECTIVE = 0.008395272325415535
+AMAZON_OBJECTIVE_RTOL = 1e-3
+AMAZON_JAX_ACC, AMAZON_JAX_F1 = 1.0, 1.0
+BACKOFF_JAX = {"vocab": 400, "num_trigrams": 652_275,
+               "mean_log_score": -7.824418656112373}
+BACKOFF_TOL = 1e-9
+# test documents the port's CPU path scores with the card's fitted
+# vocabulary and naive Bayes model, and the share of max|score| their
+# scores may differ by (float32 sums over a row's ~100 nonzeros in
+# another order; tests/test_torch_classifiers.py holds the packages to
+# 1e-6 on the CPU)
+NEWS_CPU_CHECK = 256
+NEWS_CPU_SCORE_RTOL = 1e-5
 
 
 def check(cond: bool, msg: str) -> None:
@@ -555,6 +611,259 @@ def imagenet_phase(dev, card) -> None:
           f"within 0.01 of {IMAGENET_JAX_ACC}")
     check(not any(im_launches.values()),
           f"ImageNetSiftLcsFV launched kernels: {im_launches}")
+
+
+def text_stages(model, train, test, evaluate, predict_train: bool):
+    """A text model's run one stage at a time, each closed by a device
+    sync (`run_stages`): ({stage: seconds}, their sum, ``evaluate``'s
+    result on the predictions, the train and test CSRs). The training
+    documents' CSR goes to the card with its transpose, which scipy
+    builds on the host first. ``predict_train``: the train documents are
+    scored too, as Newsgroups' clock scores them."""
+    out = {}
+    steps = [
+        ("featurize_train", lambda: model.featurizer(train).get()),
+        ("vocabulary_fit", lambda: model.vocabulary.fitted),
+        ("vectorize_train", lambda: out.setdefault(
+            "X", model.vectorizer(train).get())),
+        ("to_device_train", lambda: (out["X"].csr(), out["X"].csr_t())),
+        ("fit", lambda: model.classifier.fitted),
+        ("featurize_test", lambda: model.featurizer(test).get()),
+        ("vectorize_test", lambda: out.setdefault(
+            "Xt", model.vectorizer(test).get())),
+        ("to_device_test", lambda: out["Xt"].csr()),
+        ("predict", lambda: out.setdefault(
+            "pred", (model.predictor(train).get() if predict_train
+                     else None, model.predictor(test).get()))),
+        ("evaluate", lambda: evaluate(*out["pred"])),
+    ]
+    seconds, total, result = run_stages(steps)
+    return seconds, total, result, out["X"], out["Xt"]
+
+
+def host_transpose_s(X) -> float:
+    """Seconds of scipy's host transpose of a CSR, which the copy of
+    Xᵀ to the card includes."""
+    t = time.perf_counter()
+    X.matrix.T.tocsr()
+    return time.perf_counter() - t
+
+
+def objective64(X, y, W, lam) -> float:
+    """The softmax objective −Σ(logits·onehot − logsumexp)/n + ½λ‖W‖² in
+    float64 on the host, from a scipy CSR and W."""
+    L = X.astype(np.float64) @ np.asarray(W, np.float64)
+    m = L.max(1, keepdims=True)
+    logz = (m + np.log(np.exp(L - m).sum(1, keepdims=True)))[:, 0]
+    return float(-np.sum(L[np.arange(len(y)), y] - logz) / len(y)
+                 + 0.5 * lam * np.sum(np.asarray(W, np.float64) ** 2))
+
+
+def newsgroups_phase(dev, card) -> None:
+    """Phase 17: NewsgroupsPipeline at the reference's widths."""
+    from keystone_tpu_torch import convert
+    from keystone_tpu_torch.data.dataset import HostDataset
+    from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.nodes.learning.classifiers import (
+        NaiveBayesEstimator,
+    )
+    from keystone_tpu_torch.ops import kernels
+    from keystone_tpu_torch.pipelines import text_pipelines as tp
+
+    config = tp.NewsgroupsConfig(num_classes=NEWS_CLASSES,
+                                 common_features=TEXT_FEATURES)
+    t0 = time.perf_counter()
+    train_labels, train_docs = tp.synthetic_corpus(NEWS_N_TRAIN,
+                                                   NEWS_CLASSES, seed=0)
+    test_labels, test_docs = tp.synthetic_corpus(NEWS_N_TEST, NEWS_CLASSES,
+                                                 seed=1)
+    data_seconds = time.perf_counter() - t0
+    few = [HostDataset(d.items[:TEXT_WARM]) for d in (
+        train_labels, train_docs, test_labels, test_docs)]
+    tp.run_newsgroups_on(*few, NEWS_CLASSES, config, dev)
+    # the synchronizing calls of a run; their count does not grow with the
+    # corpus (no loop on the host waits for the card), so a warm-sized run
+    syncs, sync_count = count_syncs(
+        lambda: tp.run_newsgroups_on(*few, NEWS_CLASSES, config, dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_mem = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    nw = tp.run_newsgroups_on(train_labels, train_docs, test_labels,
+                              test_docs, NEWS_CLASSES, config, dev)
+    peak = torch.cuda.max_memory_allocated()
+    launches = launch_counts()
+    # the card's fitted vocabulary and model on the CPU, first test docs
+    fitted = nw.pop("model")
+    card_nb = fitted.classifier.fitted
+    cpu_scorer = convert.fitted_text_predictor(
+        fitted.vocabulary.fitted.vocab, convert.naive_bayes_model(
+            card_nb.log_priors.cpu().numpy(), card_nb.log_cond.cpu().numpy(),
+            "cpu"))
+    cpu_scores = cpu_scorer(HostDataset(
+        test_docs.items[:NEWS_CPU_CHECK], device="cpu")).get().numpy()
+    card_scores = card_nb.apply_batch(fitted.vectorizer(HostDataset(
+        test_docs.items[:NEWS_CPU_CHECK], device=dev)).get()).numpy()
+    cpu_rel = float(np.abs(cpu_scores - card_scores).max()
+                    / np.abs(card_scores).max())
+    cpu_argmax = bool((cpu_scores.argmax(1) == card_scores.argmax(1)).all())
+    width = len(fitted.vocabulary.fitted.vocab)
+    # the staged run below starts with no earlier run's host objects alive
+    del fitted, card_nb, cpu_scorer
+    gc.collect()
+    # the same run one stage at a time
+    tr = HostDataset(train_docs.items, device=dev)
+    te = HostDataset(test_docs.items, device=dev)
+    model = tp.build_text_model(tr, train_labels,
+                                NaiveBayesEstimator(NEWS_CLASSES))
+    evaluator = MulticlassClassifierEvaluator(NEWS_CLASSES)
+    stages, staged_total, staged_acc, X, Xt = text_stages(
+        model, tr, te, lambda p_tr, p_te: (
+            evaluator(p_tr, train_labels.items),
+            evaluator(p_te, test_labels.items).accuracy)[1], True)
+    # the two CSR products, on the card between events
+    nb = model.classifier.fitted
+    onehot = torch.nn.functional.one_hot(torch.as_tensor(
+        train_labels.items, device=dev), NEWS_CLASSES).float()
+    products_ms = {
+        "fit_Xt_onehot": time_ms(lambda: X.csr_t() @ onehot),
+        "scores_X_log_cond": time_ms(lambda: Xt.csr() @ nb._log_cond_t),
+    }
+    transpose_s = host_transpose_s(X)
+    del model, tr, te
+    phase("newsgroups", seconds=nw["seconds"],
+          docs_per_sec=nw["docs_per_sec"], rate_basis="train+test documents",
+          train_docs=NEWS_N_TRAIN, test_docs=NEWS_N_TEST,
+          classes=NEWS_CLASSES, features=width, train_nnz=X.nnz,
+          test_nnz=Xt.nnz, test_accuracy=nw["test_accuracy"],
+          jax_cpu_test_accuracy=NEWS_JAX_ACC,
+          gap_to_jax_cpu=nw["test_accuracy"] - NEWS_JAX_ACC,
+          staged_stage_seconds=stages, staged_seconds=staged_total,
+          staged_test_accuracy=staged_acc,
+          host_transpose_seconds=transpose_s, products_ms=products_ms,
+          cpu_check_docs=NEWS_CPU_CHECK, cpu_score_rel_diff=cpu_rel,
+          cpu_argmax_equal=cpu_argmax, syncs=sync_count,
+          sync_lines=syncs, syncs_counted_on=f"{TEXT_WARM}+{TEXT_WARM} docs",
+          data_seconds=data_seconds, peak_mem_bytes=peak,
+          mem_at_start_bytes=start_mem, peak_over_start_bytes=peak
+          - start_mem, launches=launches, card=card)
+    check(abs(nw["test_accuracy"] - NEWS_JAX_ACC) <= 0.005,
+          f"NewsgroupsPipeline test accuracy {nw['test_accuracy']} is not "
+          f"within 0.005 of {NEWS_JAX_ACC}")
+    check(width == TEXT_FEATURES, f"NewsgroupsPipeline has {width} features")
+    check(cpu_argmax and cpu_rel <= NEWS_CPU_SCORE_RTOL,
+          f"the CPU path's Newsgroups scores differ from the card's by "
+          f"{cpu_rel} of max|score| (argmax equal: {cpu_argmax})")
+    check(not any(launches.values()),
+          f"NewsgroupsPipeline launched kernels: {launches}")
+
+
+def amazon_phase(dev, card) -> None:
+    """Phase 18: AmazonReviewsPipeline, logistic regression by L-BFGS."""
+    from keystone_tpu_torch.data.dataset import Dataset, HostDataset
+    from keystone_tpu_torch.evaluation import BinaryClassifierEvaluator
+    from keystone_tpu_torch.nodes.learning.classifiers import (
+        LogisticRegressionEstimator,
+    )
+    from keystone_tpu_torch.ops import kernels
+    from keystone_tpu_torch.pipelines import text_pipelines as tp
+
+    config = tp.AmazonReviewsConfig(common_features=TEXT_FEATURES,
+                                    lam=AMAZON_LAM)
+    t0 = time.perf_counter()
+    labels, docs = tp.synthetic_corpus(AMAZON_N, 2, seed=0)
+    data_seconds = time.perf_counter() - t0
+    few = [HostDataset(d.items[:2 * TEXT_WARM]) for d in (labels, docs)]
+    tp.run_amazon_on(*few, config, dev)
+    run_syncs, run_sync_count = count_syncs(
+        lambda: tp.run_amazon_on(*few, config, dev))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start_mem = torch.cuda.memory_allocated()
+    kernels.reset_launches()
+    am = tp.run_amazon_on(labels, docs, config, dev)
+    peak = torch.cuda.max_memory_allocated()
+    launches = launch_counts()
+    est = am.pop("estimator")
+    model = am.pop("model")
+    n_train = int(0.8 * AMAZON_N)
+    X = model.vectorizer(model.vocabulary.fit_inputs[0].data).get()
+    y = np.asarray(labels.items[:n_train], np.int64)
+    W = model.classifier.fitted.W
+    objective = objective64(X.matrix, y, W.cpu().numpy(), AMAZON_LAM)
+    y_dev = Dataset(y.astype(np.int32), device=dev)
+    card_objective = float(est.objective(X, y_dev)(W)[0])
+    # one fit's synchronizing calls, on the run's training CSR
+    refit = LogisticRegressionEstimator(2, lam=AMAZON_LAM)
+    fit_syncs, fit_sync_count = count_syncs(lambda: refit.fit(X, y_dev))
+    # the staged run below starts with no earlier run's host objects alive
+    del model, X
+    gc.collect()
+    # the same run one stage at a time
+    tr = HostDataset(docs.items[:n_train], device=dev)
+    te = HostDataset(docs.items[n_train:], device=dev)
+    staged = tp.build_text_model(
+        tr, y_dev, LogisticRegressionEstimator(2, lam=AMAZON_LAM))
+    actual = np.asarray(labels.items[n_train:], bool)
+    stages, staged_total, staged_acc, Xs, Xt = text_stages(
+        staged, tr, te, lambda p_tr, p_te: BinaryClassifierEvaluator()(
+            p_te, actual).accuracy, False)
+    resid = torch.randn(n_train, 2, device=dev)
+    products_ms = {"X_W": time_ms(lambda: Xs.csr() @ W),
+                   "Xt_resid": time_ms(lambda: Xs.csr_t() @ resid)}
+    transpose_s = host_transpose_s(Xs)
+    del staged, tr, te
+    steps = est.linesearch_steps
+    phase("amazon", seconds=am["seconds"], docs_per_sec=am["docs_per_sec"],
+          rate_basis="train+test documents", train_docs=n_train,
+          test_docs=AMAZON_N - n_train, features=Xs.dim, train_nnz=Xs.nnz,
+          test_accuracy=am["test_accuracy"], f1=am["f1"],
+          jax_cpu_test_accuracy=AMAZON_JAX_ACC, jax_cpu_f1=AMAZON_JAX_F1,
+          objective=objective, card_objective_fp32=card_objective,
+          jax_cpu_objective=AMAZON_JAX_OBJECTIVE,
+          objective_rel_gap=objective / AMAZON_JAX_OBJECTIVE - 1.0,
+          loss_history_first_last=[est.loss_history[0],
+                                   est.loss_history[-1]],
+          linesearch_evals=sum(steps), linesearch_per_step=steps,
+          fit_syncs=fit_sync_count, fit_sync_lines=fit_syncs,
+          fit_syncs_linesearch_evals=sum(refit.linesearch_steps),
+          run_syncs=run_sync_count, run_sync_lines=run_syncs,
+          run_syncs_counted_on=f"{2 * TEXT_WARM} docs",
+          staged_stage_seconds=stages, staged_seconds=staged_total,
+          staged_test_accuracy=staged_acc,
+          host_transpose_seconds=transpose_s, products_ms=products_ms,
+          data_seconds=data_seconds, peak_mem_bytes=peak,
+          mem_at_start_bytes=start_mem, peak_over_start_bytes=peak
+          - start_mem, launches=launches, card=card)
+    check(abs(objective / AMAZON_JAX_OBJECTIVE - 1.0)
+          <= AMAZON_OBJECTIVE_RTOL, f"AmazonReviewsPipeline objective "
+          f"{objective} is not within {AMAZON_OBJECTIVE_RTOL} of JAX's "
+          f"{AMAZON_JAX_OBJECTIVE}")
+    check(abs(am["test_accuracy"] - AMAZON_JAX_ACC) <= 0.005,
+          f"AmazonReviewsPipeline test accuracy {am['test_accuracy']} is "
+          f"not within 0.005 of {AMAZON_JAX_ACC}")
+    check(Xs.dim == TEXT_FEATURES, f"AmazonReviewsPipeline has {Xs.dim} "
+          "features")
+    check(not any(launches.values()),
+          f"AmazonReviewsPipeline launched kernels: {launches}")
+
+
+def stupid_backoff_phase(dev, card) -> None:
+    """Phase 19: StupidBackoffPipeline, host code in both packages."""
+    from keystone_tpu_torch.pipelines import text_pipelines as tp
+
+    sb = tp.run_stupid_backoff(tp.StupidBackoffConfig(n_synth=BACKOFF_N),
+                               dev)
+    phase("stupid_backoff", seconds=sb["seconds"], docs=BACKOFF_N,
+          vocab=sb["vocab"], num_trigrams=sb["num_trigrams"],
+          mean_log_score=sb["mean_log_score"], jax_cpu=BACKOFF_JAX,
+          runs_on="host (numpy and Python dicts), in both packages",
+          card=card)
+    check(sb["vocab"] == BACKOFF_JAX["vocab"]
+          and sb["num_trigrams"] == BACKOFF_JAX["num_trigrams"]
+          and abs(sb["mean_log_score"] - BACKOFF_JAX["mean_log_score"])
+          <= BACKOFF_TOL, f"StupidBackoffPipeline gave {sb}, JAX "
+          f"{BACKOFF_JAX}")
 
 
 def main() -> int:
@@ -1494,6 +1803,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     imagenet_phase(dev, card)
     torch.cuda.empty_cache()
+
+    # ---- 17-19. the text family -------------------------------------------
+    newsgroups_phase(dev, card)
+    torch.cuda.empty_cache()
+    amazon_phase(dev, card)
+    torch.cuda.empty_cache()
+    stupid_backoff_phase(dev, card)
 
     record = {"kernels": [
         dict(name="conv_rectify_pool", route="cuda",

@@ -8,12 +8,13 @@ has:
     python -m keystone_tpu_torch pipelines.speech.TimitPipeline --n-synth 4000
     python -m keystone_tpu_torch RandomPatchCifar --num-filters 256
     python -m keystone_tpu_torch VOCSIFTFisher --n-synth 60 --device cpu
+    python -m keystone_tpu_torch NewsgroupsPipeline --nSynth 400 --device cpu
 
 Names take the reference's qualified form or the bare class name; the
-reference apps' camelCase flags (``--numFFTs``) are accepted. A pipeline
-the JAX package registers but the port does not have yet, and the JAX
-launcher's multi-host flags, stop the launcher with a message: nothing
-falls back.
+reference apps' camelCase flags (``--numFFTs``) are accepted. The port
+has every pipeline the JAX package registers, so `NOT_PORTED` is empty; a
+name listed there, and the JAX launcher's multi-host flags, stop the
+launcher with a message: nothing falls back.
 """
 
 from __future__ import annotations
@@ -45,14 +46,16 @@ REGISTRY = {
         (_PIPELINES + "voc_sift_fisher", "main", ()),
     "pipelines.images.imagenet.ImageNetSiftLcsFV":
         (_PIPELINES + "imagenet_sift_lcs_fv", "main", ()),
+    "pipelines.text.NewsgroupsPipeline":
+        (_PIPELINES + "text_pipelines", "main", ("newsgroups",)),
+    "pipelines.text.AmazonReviewsPipeline":
+        (_PIPELINES + "text_pipelines", "main", ("amazon",)),
+    "pipelines.nlp.StupidBackoffPipeline":
+        (_PIPELINES + "text_pipelines", "main", ("stupid-backoff",)),
 }
 
-#: registered in the JAX package, not ported yet
-NOT_PORTED = (
-    "pipelines.text.NewsgroupsPipeline",
-    "pipelines.text.AmazonReviewsPipeline",
-    "pipelines.nlp.StupidBackoffPipeline",
-)
+#: registered in the JAX package, not ported yet (none: every one is)
+NOT_PORTED: tuple = ()
 
 MULTIHOST_FLAGS = ("--coordinator", "--num-processes", "--process-id")
 

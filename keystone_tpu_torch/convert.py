@@ -12,7 +12,10 @@ assemble them into the port's fitted pipelines, so both packages compute
 the same function from the same weights. For the SIFT–Fisher family: a
 fitted PCA's components (d, k), a GMM's means and variances (k, d) and
 weights (k,), and the class-weighted solver's W and b, assembled by
-`fitted_voc_predictor` and `fitted_imagenet_predictor`.
+`fitted_voc_predictor` and `fitted_imagenet_predictor`. For the text
+family: a vocabulary (feature → column), naive Bayes' log priors (k,)
+and log conditionals (k, d), and logistic regression's W (d, k),
+assembled by `fitted_text_predictor` and `fitted_newsgroups_predictor`.
 """
 
 from __future__ import annotations
@@ -23,6 +26,10 @@ import torch
 from .device import DeviceLike, resolve_device
 from .nodes.images.fisher_vector import FisherVector
 from .nodes.learning.block_ls import BlockLinearMapper
+from .nodes.learning.classifiers import (
+    LogisticRegressionModel,
+    NaiveBayesModel,
+)
 from .nodes.learning.gmm import GaussianMixtureModel
 from .nodes.learning.kernels import KernelBlockLinearMapper
 from .nodes.learning.linear import LinearMapper
@@ -31,7 +38,8 @@ from .nodes.learning.zca import ZCAWhitener
 from .nodes.stats.scalers import StandardScalerModel
 from .nodes.stats.normalization import NormalizeRows, SignedHellingerMapper
 from .nodes.util.basic import MatrixVectorizer, MaxClassifier
-from .workflow.pipeline import Pipeline
+from .nodes.util.sparse_features import SparseFeatureVectorizer
+from .workflow.pipeline import Pipeline, Transformer
 
 
 def to_tensor(x, device: DeviceLike = "cuda") -> torch.Tensor:
@@ -184,3 +192,39 @@ def fitted_imagenet_predictor(sift_pca, sift_gmm, lcs_pca, lcs_gmm, W, b,
                                                            device)
     return (Pipeline.gather([sift, lcs]) >> _Concat() >> _Stack()
             >> linear_mapper(W, b, device) >> MaxClassifier())
+
+
+def naive_bayes_model(log_priors, log_cond,
+                      device: DeviceLike = "cuda") -> NaiveBayesModel:
+    return NaiveBayesModel(to_tensor(log_priors, device),
+                           to_tensor(log_cond, device))
+
+
+def logistic_regression_model(W, device: DeviceLike = "cuda"
+                              ) -> LogisticRegressionModel:
+    return LogisticRegressionModel(to_tensor(W, device))
+
+
+def sparse_vectorizer(vocab) -> SparseFeatureVectorizer:
+    """A vectorizer over a fitted vocabulary (feature → column)."""
+    return SparseFeatureVectorizer(dict(vocab))
+
+
+def fitted_text_predictor(vocab, model: Transformer,
+                          ngram_orders=(1, 2)) -> Pipeline:
+    """The text featurizer >> the vectorizer over ``vocab`` >> ``model``
+    (from `naive_bayes_model` or `logistic_regression_model`). The CSR
+    goes to the device of the documents' `HostDataset`."""
+    from .pipelines.text_pipelines import text_featurizer
+
+    return text_featurizer(ngram_orders) >> sparse_vectorizer(vocab) >> model
+
+
+def fitted_newsgroups_predictor(vocab, log_priors, log_cond,
+                                ngram_orders=(1, 2),
+                                device: DeviceLike = "cuda") -> Pipeline:
+    """Newsgroups' documents → class ids from a fitted vocabulary and
+    naive Bayes model."""
+    return fitted_text_predictor(
+        vocab, naive_bayes_model(log_priors, log_cond, device),
+        ngram_orders) >> MaxClassifier()

@@ -6,6 +6,13 @@ from .block_ls import (
     bcd_fit,
     raise_if_unfactored,
 )
+from .classifiers import (
+    LinearDiscriminantAnalysis,
+    LogisticRegressionEstimator,
+    LogisticRegressionModel,
+    NaiveBayesEstimator,
+    NaiveBayesModel,
+)
 from .kernels import (
     BlockKernelMatrix,
     GaussianKernelGenerator,
@@ -38,6 +45,9 @@ __all__ = ["ApproximatePCAEstimator", "BatchPCATransformer",
            "GaussianMixtureModel", "GaussianMixtureModelEstimator",
            "KMeansModel", "KMeansPlusPlusEstimator",
            "KernelBlockLinearMapper", "KernelRidgeRegression",
-           "LinearMapEstimator", "LinearMapper", "PCAEstimator",
+           "LinearDiscriminantAnalysis", "LinearMapEstimator",
+           "LinearMapper", "LogisticRegressionEstimator",
+           "LogisticRegressionModel", "NaiveBayesEstimator",
+           "NaiveBayesModel", "PCAEstimator",
            "PCATransformer", "PerClassWeightedLeastSquares", "ZCAWhitener",
            "bcd_fit", "raise_if_unfactored", "zca_from_covariance"]

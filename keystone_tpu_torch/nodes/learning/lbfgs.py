@@ -13,7 +13,9 @@ initial preconditioner (`optax/_src/transform.py:1497-1750`), a step of
 −1, and `scale_by_zoom_linesearch(max_linesearch_steps=20,
 initial_guess_strategy="one")` (`optax/_src/linesearch.py:576-1450`).
 `torch.optim.LBFGS` searches and scales otherwise, so its iterates
-differ; this module keeps its own copy of optax's algorithm:
+differ; this module keeps its own copy of optax's algorithm,
+`lbfgs_minimize`, apart from the objective it minimizes (the ridge
+`_Objective` here, the softmax one in `classifiers.py`):
 
 - the model, gradients, the history ring buffers and every inner
   product of the two-loop recursion stay on the device;
@@ -241,17 +243,15 @@ class LBFGSResult:
     linesearch_steps: List[int]
 
 
-def lbfgs_fit(X: torch.Tensor, Y: torch.Tensor, mask: torch.Tensor,
-              lam: float, count: int, num_iters: int, memory_size: int,
-              fit_intercept: bool) -> LBFGSResult:
-    """``num_iters`` steps of optax's L-BFGS on the ridge objective from
-    W = 0 (`_lbfgs_fit_impl`, `:41-85`)."""
+def lbfgs_minimize(objective, W: torch.Tensor, num_iters: int,
+                   memory_size: int = 10):
+    """``num_iters`` steps of optax's L-BFGS from ``W`` on
+    ``objective``, a callable W → (value, gradient) of device tensors:
+    (final W, the objective's value at the start of each step, each
+    step's line-search evaluations). No step stops early, as JAX's
+    `lax.scan` over ``optax.lbfgs`` does not."""
     if memory_size < 1:
         raise ValueError("memory_size must be >= 1")
-    Xc, Yc, xm, ym = lbfgs_prepare(X, Y, mask, count, fit_intercept)
-    objective = _Objective(Xc, Yc, lam)
-    W = torch.zeros((X.shape[1], Yc.shape[1]), dtype=X.dtype,
-                    device=X.device)
     # the history ring: slot (k − 1) mod m holds step k's differences
     dws = [None] * memory_size
     dus = [None] * memory_size
@@ -295,6 +295,19 @@ def lbfgs_fit(X: torch.Tensor, Y: torch.Tensor, mask: torch.Tensor,
         prev_W, prev_grad = W, grad
         W = W + u * float(point.stepsize)
         value, grad = point.value, point.grad
+    return W, history, steps
+
+
+def lbfgs_fit(X: torch.Tensor, Y: torch.Tensor, mask: torch.Tensor,
+              lam: float, count: int, num_iters: int, memory_size: int,
+              fit_intercept: bool) -> LBFGSResult:
+    """``num_iters`` steps of optax's L-BFGS on the ridge objective from
+    W = 0 (`_lbfgs_fit_impl`, `:41-85`)."""
+    Xc, Yc, xm, ym = lbfgs_prepare(X, Y, mask, count, fit_intercept)
+    W0 = torch.zeros((X.shape[1], Yc.shape[1]), dtype=X.dtype,
+                     device=X.device)
+    W, history, steps = lbfgs_minimize(_Objective(Xc, Yc, lam), W0,
+                                       num_iters, memory_size)
     b = ym - xm @ W if fit_intercept else None
     return LBFGSResult(W, b, history, steps)
 

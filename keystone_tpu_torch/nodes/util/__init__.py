@@ -4,12 +4,21 @@ from .basic import (
     Cacher,
     ClassLabelIndicatorsFromInt,
     ClassLabelIndicatorsFromIntArray,
+    Densify,
     MatrixVectorizer,
     MaxClassifier,
+    Sparsify,
     VectorCombiner,
 )
 from .fusion import FusedBatchTransformer
+from .sparse_features import (
+    AllSparseFeatures,
+    CommonSparseFeatures,
+    SparseFeatureVectorizer,
+)
 
-__all__ = ["Cacher", "ClassLabelIndicatorsFromInt",
-           "ClassLabelIndicatorsFromIntArray", "FusedBatchTransformer",
-           "MatrixVectorizer", "MaxClassifier", "VectorCombiner"]
+__all__ = ["AllSparseFeatures", "Cacher", "ClassLabelIndicatorsFromInt",
+           "ClassLabelIndicatorsFromIntArray", "CommonSparseFeatures",
+           "Densify", "FusedBatchTransformer", "MatrixVectorizer",
+           "MaxClassifier", "SparseFeatureVectorizer", "Sparsify",
+           "VectorCombiner"]

@@ -2,17 +2,21 @@
 
 Counterpart of `ClassLabelIndicatorsFromInt`,
 `ClassLabelIndicatorsFromIntArray` (`:89-122`), `MaxClassifier`,
-`VectorCombiner` (`:165-182`), `MatrixVectorizer` (`:246-259`) and
-`Cacher` in `keystone_tpu/nodes/util/basic.py` (reference
-nodes/util/{ClassLabelIndicators,MaxClassifier,VectorCombiner,
-MatrixVectorizer,Cacher}.scala).
+`VectorCombiner` (`:165-182`), `Densify`, `Sparsify` (`:209-238`),
+`MatrixVectorizer` (`:246-259`) and `Cacher` in
+`keystone_tpu/nodes/util/basic.py` (reference
+nodes/util/{ClassLabelIndicators,MaxClassifier,VectorCombiner,Densify,
+Sparsify,MatrixVectorizer,Cacher}.scala).
 """
 
 from __future__ import annotations
 
+import numpy as np
+import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
+from ...data.sparse import SparseDataset
 from ...workflow.executor import PrefixMemo
 from ...workflow.pipeline import Transformer
 
@@ -69,6 +73,32 @@ class VectorCombiner(Transformer):
         return data.with_data(torch.cat(data.data, dim=-1))
 
 
+class Densify(Transformer):
+    """`SparseDataset` → dense device `Dataset` on its device; one sparse
+    row → a dense host vector (Densify.scala)."""
+
+    def apply(self, x):
+        return np.asarray(x.todense()).ravel() if sp.issparse(x) else x
+
+    def apply_batch(self, data):
+        return data.densify() if isinstance(data, SparseDataset) else data
+
+
+class Sparsify(Transformer):
+    """Device `Dataset` → host `SparseDataset` whose device is the
+    rows' (Sparsify.scala)."""
+
+    def apply(self, x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        return sp.csr_matrix(x)
+
+    def apply_batch(self, data):
+        if isinstance(data, SparseDataset):
+            return data
+        return SparseDataset(sp.csr_matrix(data.numpy()), device=data.device)
+
+
 class MatrixVectorizer(Transformer):
     """Flatten each item's matrix to a vector, row-major
     (MatrixVectorizer.scala)."""
@@ -83,11 +113,15 @@ class MatrixVectorizer(Transformer):
 class Cacher(Transformer):
     """Keep the dataset that reaches this node, for every (upstream
     chain, input) pair, so a later run of the same chain on the same
-    input starts here (Cacher.scala:15-25)."""
+    input starts here (Cacher.scala:15-25). It passes any datum or
+    dataset through as it is."""
 
     def __init__(self, name: str = ""):
         self.name = name
         self.memo = PrefixMemo()
 
-    def batch_fn(self):
-        return lambda x: x
+    def apply(self, x):
+        return x
+
+    def apply_batch(self, data):
+        return data

@@ -3,6 +3,7 @@
 from .executor import PrefixMemo, execute
 from .pipeline import (
     Estimator,
+    ItemTransformer,
     LabelEstimator,
     OptimizableEstimator,
     Pipeline,
@@ -11,6 +12,6 @@ from .pipeline import (
 )
 
 __all__ = [
-    "Estimator", "LabelEstimator", "OptimizableEstimator", "Pipeline",
-    "PipelineResult", "PrefixMemo", "Transformer", "execute",
+    "Estimator", "ItemTransformer", "LabelEstimator", "OptimizableEstimator",
+    "Pipeline", "PipelineResult", "PrefixMemo", "Transformer", "execute",
 ]

@@ -14,8 +14,6 @@ from __future__ import annotations
 
 from typing import Any, List, Sequence, Tuple
 
-from ..data.dataset import Dataset, HostDataset
-
 
 class PrefixMemo:
     """Outputs of one caching node, keyed by the identity of the nodes
@@ -37,10 +35,11 @@ class PrefixMemo:
 
 
 def execute(nodes: Sequence, data) -> Any:
-    """Run ``nodes`` in order on ``data``: a `Dataset` or a `HostDataset`
-    goes through each node's batch path, anything else is one datum."""
+    """Run ``nodes`` in order on ``data``: a dataset (a `Dataset`, a
+    `HostDataset` or a `SparseDataset`, each marked ``is_dataset``) goes
+    through each node's batch path, anything else is one datum."""
     nodes = tuple(nodes)
-    if not isinstance(data, (Dataset, HostDataset)):
+    if not getattr(data, "is_dataset", False):
         for node in nodes:
             data = node.apply(data)
         return data

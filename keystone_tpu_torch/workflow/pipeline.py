@@ -3,7 +3,8 @@
 Counterpart of the part of `keystone_tpu/workflow/pipeline.py` that the
 ported pipelines and the evaluator use (reference
 workflow/{Pipeline,Chainable,Transformer,Estimator,LabelEstimator,
-PipelineResult}.scala), and `OptimizableEstimator` (`:707-716`). A
+PipelineResult}.scala), and `OptimizableEstimator` (`:707-716`), and the host-item path
+of `Transformer.apply_batch` (`:497-521`) as `ItemTransformer`. A
 pipeline is a chain of nodes. Applying it
 returns a lazy `PipelineResult`; nothing runs until ``.get()``. An
 estimator appended with ``and_then(est, data[, labels])`` is fit once,
@@ -118,6 +119,19 @@ class Transformer(Chainable):
 
     def __call__(self, data: Any) -> PipelineResult:
         return self.to_pipeline().apply(data)
+
+
+class ItemTransformer(Transformer):
+    """A function of one host item (a string, a token list, a list of
+    pairs). Its batch path maps `apply` over a `HostDataset`'s items, as
+    the JAX package's `Transformer.apply_batch` does over a host dataset
+    (`keystone_tpu/workflow/pipeline.py:497-521`)."""
+
+    def apply(self, x):
+        raise NotImplementedError
+
+    def apply_batch(self, data):
+        return data.map(self.apply)
 
 
 class Estimator(Chainable):
