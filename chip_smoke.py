@@ -22,6 +22,10 @@ Phases, each printed on a line of its own:
               Its ``short_rows`` times the short-row design (a warp a
               row, several rows a step) on 440-float rows against the
               block-a-row design on the same arrays seen as rows of ten.
+              Its ``at_path_shapes`` holds and times it at the chains the
+              fusion pass tags in the SIFT-Fisher pipelines: VOC's
+              PixelScaler >> GrayScaler on 48x48 images and the
+              Fisher-vector tail on VOC's and ImageNet's encodings.
 4. slice    - RandomPatchCifar at full width (256 filters) on 50,000
               synthetic training and 10,000 test images, as the JAX
               package's bench times its headline; test accuracy must
@@ -29,7 +33,11 @@ Phases, each printed on a line of its own:
               have run once per microbatch.
 5. linear_pixels - LinearPixels on the same images: the elementwise chain
               kernel once per 4096-image microbatch, test accuracy within
-              0.005 of the JAX package's 0.7919 on these arrays.
+              0.005 of the JAX package's 0.7919 on these arrays. Then the
+              same stages again, each executor's optimizer run and
+              structural check timed (``workflow_host_split``), and the
+              fused apply head over the training rows in 2048-row
+              microbatches against one batch.
 6. kernel_cifar  - RandomPatchCifarKernel on the same images (256
               filters, gamma 2e-3, lambda 10, 2048-row blocks, one
               epoch): the RBF block kernel in every block step of the fit
@@ -97,12 +105,16 @@ Phases, each printed on a line of its own:
               0.01 of the JAX package's on these arrays; the fitted PCA,
               GMM and (W, b) carried to the CPU score the first 256 test
               images within 1e-3 of max|score| of the card's, with the same
-              argmax; no kernel launched.
+              argmax; the chain kernel once per fused microbatch of its
+              two tagged chains, train and test, and once for the
+              optimizer's sample of three images; no other kernel.
 16. imagenet - ImageNetSiftLcsFV at the JAX configuration's widths (SIFT
               and LCS branches, PCA 32, 8 components, 1,024 features, 10
               classes) on 5,000 training and 2,000 test synthetic images,
               after a warm call on 500 of each; test accuracy within 0.01
-              of the JAX package's on these arrays; no kernel launched.
+              of the JAX package's on these arrays; the chain kernel
+              once per fused microbatch of each branch's Fisher-vector
+              tail, train and test; no other kernel.
 17. newsgroups - NewsgroupsPipeline at the reference's widths: n-grams of
               orders 1-2, square-root TF, 100,000 common features, naive
               Bayes (lambda 1) over 20 classes, on 11,314 training and
@@ -126,10 +138,29 @@ Phases, each printed on a line of its own:
 19. stupid_backoff - StupidBackoffPipeline over 11,314 synthetic
               documents: host code in both packages; vocabulary, trigram
               count and mean log score equal to the JAX package's.
+20. workflow - RandomPatchCifar at the slice's width and data through the
+              workflow layer: the default optimizer's batches one at a
+              time (host seconds, node count after each); `Pipeline.fit`
+              (the fit's seconds beside run_staged's total; the
+              conv+rectify+pool kernel once per training microbatch: CSE
+              shares the training featurization of the scaler's fit, the
+              solver's fit and the train predict); the fitted form (the
+              featurizer, the Cacher, one fused scaler, linear map and
+              argmax); `save` (bytes) and `FittedPipeline.load` on the
+              card (seconds); the loaded pipeline on the 10,000 test
+              images (seconds, images/s, the kernel once per test
+              microbatch), its predictions equal bit for bit to the
+              in-memory pipeline's and its accuracy within 0.002 of the
+              slice's; the synchronizing calls of the fit and of the
+              apply; and one `AutoCachingOptimizer` plan's cache points.
+              No chain kernel: none of the fitted form's runs lowers.
 
 Each path's launch counts are set to 0 just before it runs and read just
-after. The RBF kernel counts its products (``rbf_block.launches``) and
-its split prepasses (``rbf_split.launches``, two a product) apart.
+after. The process-wide prefix table (`PipelineEnv`) is reset before each
+phase's timed run, so no phase reuses an earlier run's fits or cached
+datasets, and its peak memory holds only its own run. The RBF kernel
+counts its products (``rbf_block.launches``) and its split prepasses
+(``rbf_split.launches``, two a product) apart.
 
 Then a ``kernels`` JSON line, the card line, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure raises and the script
@@ -489,6 +520,109 @@ def launch_counts() -> dict:
         chain_kernels.elementwise_chain)}
 
 
+def cut(pipeline, k: int):
+    """``pipeline`` ending at the ``k``-th node of its data path: the same
+    nodes, so a run of it fills the prefix table for the whole one."""
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    end = pipeline.data_path()[k - 1]
+    return Pipeline(pipeline.graph.set_sink_dependency(pipeline.sink, end),
+                    pipeline.source, pipeline.sink)
+
+
+def fused_in_plan(result):
+    """The `FusedBatchTransformer`s of a lazy result's optimized plan,
+    those inside fused chains included."""
+    from keystone_tpu_torch.nodes.util.fusion import FusedBatchTransformer
+
+    out = []
+    for op in result.executor.optimized_graph.operators.values():
+        for s in getattr(op, "stage_specs", [op]):
+            if isinstance(s, FusedBatchTransformer):
+                out.append(s)
+                out.extend(t for t in s.stages
+                           if isinstance(t, FusedBatchTransformer))
+    return out
+
+
+class WorkflowHostClock:
+    """While open, the host seconds of each executor's optimizer run and
+    structural check, summed: ``executors`` (optimizer runs),
+    ``optimize_seconds``, ``checks`` and ``check_seconds``. It wraps the
+    prefix table's optimizer and `analysis.structural_report`."""
+
+    def __init__(self):
+        self.totals = dict(executors=0, optimize_seconds=0.0, checks=0,
+                           check_seconds=0.0)
+
+    def _add(self, count, seconds, t0):
+        self.totals[count] += 1
+        self.totals[seconds] += time.perf_counter() - t0
+
+    def __enter__(self):
+        import keystone_tpu_torch.analysis as analysis
+        from keystone_tpu_torch.workflow import PipelineEnv
+
+        clock, env = self, PipelineEnv.get()
+        optimizer = self._optimizer = env.get_optimizer()
+        report = self._report = analysis.structural_report
+
+        class Timed:
+            def __getattr__(self, name):
+                return getattr(optimizer, name)
+
+            def execute(self, *args, **kwargs):
+                t0 = time.perf_counter()
+                try:
+                    return optimizer.execute(*args, **kwargs)
+                finally:
+                    clock._add("executors", "optimize_seconds", t0)
+
+        def timed_report(graph):
+            t0 = time.perf_counter()
+            try:
+                return report(graph)
+            finally:
+                clock._add("checks", "check_seconds", t0)
+
+        env.set_optimizer(Timed())
+        analysis.structural_report = timed_report
+        return self
+
+    def __exit__(self, *exc):
+        import keystone_tpu_torch.analysis as analysis
+        from keystone_tpu_torch.workflow import PipelineEnv
+
+        PipelineEnv.get().set_optimizer(self._optimizer)
+        analysis.structural_report = self._report
+        return False
+
+
+def host_split(steps):
+    """``steps`` run once more as `run_stages` runs them, under a
+    `WorkflowHostClock`: {step: its seconds, executors, the optimizer's
+    and the structural check's host seconds}."""
+    out = {}
+    with WorkflowHostClock() as clock:
+        for step, fn in steps:
+            before = dict(clock.totals)
+            seconds, _, _ = run_stages([(step, fn)])
+            out[step] = dict(seconds=seconds[step], **{
+                k: clock.totals[k] - before[k] for k in before})
+    return out
+
+
+def fused_microbatches(*counts) -> int:
+    """Microbatches of the optimizer's fused chains over host datasets of
+    ``counts`` items, whose buckets run in chunks (`run_chunked`)."""
+    from keystone_tpu_torch.utils.batching import DEFAULT_CHUNK
+    from keystone_tpu_torch.workflow.fusion_rule import NodeFusionRule
+
+    mb = NodeFusionRule.microbatch
+    return sum(math.ceil(min(DEFAULT_CHUNK, n - i) / mb)
+               for n in counts for i in range(0, n, DEFAULT_CHUNK))
+
+
 def timed_s(fn):
     """(seconds of ``fn()`` closed by a device sync, its result)."""
     torch.cuda.synchronize()
@@ -498,13 +632,15 @@ def timed_s(fn):
     return time.perf_counter() - t, out
 
 
-def voc_phase(dev, card) -> None:
-    """Phase 15: VOCSIFTFisher at the reference's widths."""
+def voc_phase(dev, card) -> int:
+    """Phase 15: VOCSIFTFisher at the reference's widths; returns the
+    chain kernel's launches in its run."""
     from keystone_tpu_torch import convert
     from keystone_tpu_torch.data.dataset import HostDataset
     from keystone_tpu_torch.evaluation import MeanAveragePrecisionEvaluator
     from keystone_tpu_torch.ops import kernels
     from keystone_tpu_torch.pipelines import voc_sift_fisher
+    from keystone_tpu_torch.workflow import PipelineEnv
 
     vc_config = voc_sift_fisher.VOCSIFTFisherConfig(
         num_classes=VOC_CLASSES, pca_dims=VOC_PCA_DIMS, gmm_k=VOC_GMM_K)
@@ -518,6 +654,7 @@ def voc_phase(dev, card) -> None:
         HostDataset(vc_train.items[:SIFT_FISHER_WARM]),
         HostDataset(vc_test.items[:SIFT_FISHER_WARM]), vc_config, dev)
     torch.cuda.synchronize()
+    PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     vc = voc_sift_fisher.run_on(vc_train, vc_test, vc_config, dev)
@@ -530,10 +667,10 @@ def voc_phase(dev, card) -> None:
     vc_labels = [list(x.labels) for x in vc_test.items]
     vc_stages, _, vc_staged_map = run_stages([
         ("sift", lambda: vc_model.sift(vc_tr).get()),
-        ("pca_fit", lambda: vc_model.pca.fitted),
-        ("gmm_fit", lambda: vc_model.fisher.fitted),
+        ("pca_fit", lambda: vc_model.pca.fitted()),
+        ("gmm_fit", lambda: vc_model.fisher.fitted()),
         ("fisher_encode", lambda: vc_model.featurizer(vc_tr).get()),
-        ("bwls_fit", lambda: vc_model.solver.fitted),
+        ("bwls_fit", lambda: vc_model.predictor.fitted()),
         ("predict_map", lambda: MeanAveragePrecisionEvaluator(VOC_CLASSES)(
             vc_model.predictor(vc_te), vc_labels).mean()),
     ])
@@ -542,11 +679,12 @@ def voc_phase(dev, card) -> None:
         lambda: voc_sift_fisher.run_on(vc_train, vc_test, vc_config, dev))
     # the card's fitted PCA, GMM and (W, b) on the CPU, first test images
     model = vc["model"]
-    gmm = model.fisher.fitted.gmm
+    gmm = model.fisher.fitted().gmm
+    solver = model.predictor.fitted()
     cpu_predictor = convert.fitted_voc_predictor(*[
         t.cpu().numpy() for t in (
-            model.pca.fitted.components, gmm.means, gmm.variances,
-            gmm.weights, model.solver.fitted.W, model.solver.fitted.b)],
+            model.pca.fitted().components, gmm.means, gmm.variances,
+            gmm.weights, solver.W, solver.b)],
         device="cpu")
     cpu_scores = cpu_predictor(HostDataset(
         vc_test.items[:VOC_CPU_CHECK], device="cpu")).get().numpy()
@@ -555,7 +693,7 @@ def voc_phase(dev, card) -> None:
                        / np.abs(card_scores).max())
     vc_cpu_argmax = bool((cpu_scores.argmax(1)
                           == card_scores.argmax(1)).all())
-    vc_features = model.solver.fitted.W.shape[0]
+    vc_features = solver.W.shape[0]
     phase("voc", seconds=vc["seconds"], images_per_sec=vc["images_per_sec"],
           rate_basis="train+test images", train_images=len(vc_train),
           test_images=len(vc_test), features=vc_features,
@@ -573,15 +711,27 @@ def voc_phase(dev, card) -> None:
     check(vc_cpu_argmax and vc_cpu_rel <= VOC_CPU_SCORE_RTOL,
           f"the CPU path's VOC scores differ from the card's by "
           f"{vc_cpu_rel} of max|score| (argmax equal: {vc_cpu_argmax})")
-    check(not any(vc_launches.values()),
-          f"VOCSIFTFisher launched kernels: {vc_launches}")
+    # the chain kernel, once a fused microbatch, for the two chains the
+    # fusion pass tags (PixelScaler >> GrayScaler, the Fisher-vector
+    # tail) over the train and test images, and once more for the gray
+    # chain over NodeOptimizationRule's sample of three images; no other
+    # kernel
+    vc_k4 = vc_launches["elementwise_chain"]
+    vc_k4_want = 2 * fused_microbatches(len(vc_train), len(vc_test)) + 1
+    others = {k: n for k, n in vc_launches.items()
+              if n and k != "elementwise_chain"}
+    check(vc_k4 == vc_k4_want and not others, f"VOCSIFTFisher launched "
+          f"{vc_launches}, not elementwise_chain {vc_k4_want} times alone")
+    return vc_k4
 
 
-def imagenet_phase(dev, card) -> None:
-    """Phase 16: ImageNetSiftLcsFV at the JAX configuration's widths."""
+def imagenet_phase(dev, card) -> int:
+    """Phase 16: ImageNetSiftLcsFV at the JAX configuration's widths;
+    returns the chain kernel's launches in its run."""
     from keystone_tpu_torch.data.dataset import HostDataset
     from keystone_tpu_torch.ops import kernels
     from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv
+    from keystone_tpu_torch.workflow import PipelineEnv
 
     im_config = imagenet_sift_lcs_fv.ImageNetSiftLcsFVConfig()
     im_train = imagenet_sift_lcs_fv._synthetic_imagenet(
@@ -592,11 +742,12 @@ def imagenet_phase(dev, card) -> None:
         HostDataset(im_train.items[:SIFT_FISHER_WARM]),
         HostDataset(im_test.items[:SIFT_FISHER_WARM]), im_config, dev)
     torch.cuda.synchronize()
+    PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     im = imagenet_sift_lcs_fv.run_on(im_train, im_test, im_config, dev)
     im_launches = launch_counts()
-    im_features = im["predictor"].nodes[-2].fitted.W.shape[0]
+    im_features = im["predictor"].fitted().W.shape[0]
     phase("imagenet", seconds=im["seconds"],
           images_per_sec=im["images_per_sec"],
           rate_basis="train+test images", train_images=len(im_train),
@@ -609,8 +760,15 @@ def imagenet_phase(dev, card) -> None:
     check(abs(im["test_accuracy"] - IMAGENET_JAX_ACC) <= 0.01,
           f"ImageNetSiftLcsFV test accuracy {im['test_accuracy']} is not "
           f"within 0.01 of {IMAGENET_JAX_ACC}")
-    check(not any(im_launches.values()),
-          f"ImageNetSiftLcsFV launched kernels: {im_launches}")
+    # the chain kernel, once a fused microbatch, for each branch's
+    # Fisher-vector tail over the train and test images; no other kernel
+    im_k4 = im_launches["elementwise_chain"]
+    im_k4_want = 2 * fused_microbatches(len(im_train), len(im_test))
+    others = {k: n for k, n in im_launches.items()
+              if n and k != "elementwise_chain"}
+    check(im_k4 == im_k4_want and not others, f"ImageNetSiftLcsFV launched "
+          f"{im_launches}, not elementwise_chain {im_k4_want} times alone")
+    return im_k4
 
 
 def text_stages(model, train, test, evaluate, predict_train: bool):
@@ -623,11 +781,11 @@ def text_stages(model, train, test, evaluate, predict_train: bool):
     out = {}
     steps = [
         ("featurize_train", lambda: model.featurizer(train).get()),
-        ("vocabulary_fit", lambda: model.vocabulary.fitted),
+        ("vocabulary_fit", lambda: model.vocabulary.fitted()),
         ("vectorize_train", lambda: out.setdefault(
             "X", model.vectorizer(train).get())),
         ("to_device_train", lambda: (out["X"].csr(), out["X"].csr_t())),
-        ("fit", lambda: model.classifier.fitted),
+        ("fit", lambda: model.classifier.fitted()),
         ("featurize_test", lambda: model.featurizer(test).get()),
         ("vectorize_test", lambda: out.setdefault(
             "Xt", model.vectorizer(test).get())),
@@ -669,6 +827,7 @@ def newsgroups_phase(dev, card) -> None:
     )
     from keystone_tpu_torch.ops import kernels
     from keystone_tpu_torch.pipelines import text_pipelines as tp
+    from keystone_tpu_torch.workflow import PipelineEnv
 
     config = tp.NewsgroupsConfig(num_classes=NEWS_CLASSES,
                                  common_features=TEXT_FEATURES)
@@ -686,6 +845,7 @@ def newsgroups_phase(dev, card) -> None:
     syncs, sync_count = count_syncs(
         lambda: tp.run_newsgroups_on(*few, NEWS_CLASSES, config, dev))
     torch.cuda.synchronize()
+    PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     start_mem = torch.cuda.memory_allocated()
     kernels.reset_launches()
@@ -695,9 +855,10 @@ def newsgroups_phase(dev, card) -> None:
     launches = launch_counts()
     # the card's fitted vocabulary and model on the CPU, first test docs
     fitted = nw.pop("model")
-    card_nb = fitted.classifier.fitted
+    card_nb = fitted.classifier.fitted()
+    vocab = fitted.vocabulary.fitted().vocab
     cpu_scorer = convert.fitted_text_predictor(
-        fitted.vocabulary.fitted.vocab, convert.naive_bayes_model(
+        vocab, convert.naive_bayes_model(
             card_nb.log_priors.cpu().numpy(), card_nb.log_cond.cpu().numpy(),
             "cpu"))
     cpu_scores = cpu_scorer(HostDataset(
@@ -707,7 +868,7 @@ def newsgroups_phase(dev, card) -> None:
     cpu_rel = float(np.abs(cpu_scores - card_scores).max()
                     / np.abs(card_scores).max())
     cpu_argmax = bool((cpu_scores.argmax(1) == card_scores.argmax(1)).all())
-    width = len(fitted.vocabulary.fitted.vocab)
+    width = len(vocab)
     # the staged run below starts with no earlier run's host objects alive
     del fitted, card_nb, cpu_scorer
     gc.collect()
@@ -722,7 +883,7 @@ def newsgroups_phase(dev, card) -> None:
             evaluator(p_tr, train_labels.items),
             evaluator(p_te, test_labels.items).accuracy)[1], True)
     # the two CSR products, on the card between events
-    nb = model.classifier.fitted
+    nb = model.classifier.fitted()
     onehot = torch.nn.functional.one_hot(torch.as_tensor(
         train_labels.items, device=dev), NEWS_CLASSES).float()
     products_ms = {
@@ -767,6 +928,7 @@ def amazon_phase(dev, card) -> None:
     )
     from keystone_tpu_torch.ops import kernels
     from keystone_tpu_torch.pipelines import text_pipelines as tp
+    from keystone_tpu_torch.workflow import PipelineEnv
 
     config = tp.AmazonReviewsConfig(common_features=TEXT_FEATURES,
                                     lam=AMAZON_LAM)
@@ -778,6 +940,7 @@ def amazon_phase(dev, card) -> None:
     run_syncs, run_sync_count = count_syncs(
         lambda: tp.run_amazon_on(*few, config, dev))
     torch.cuda.synchronize()
+    PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     start_mem = torch.cuda.memory_allocated()
     kernels.reset_launches()
@@ -787,9 +950,9 @@ def amazon_phase(dev, card) -> None:
     est = am.pop("estimator")
     model = am.pop("model")
     n_train = int(0.8 * AMAZON_N)
-    X = model.vectorizer(model.vocabulary.fit_inputs[0].data).get()
+    X = model.vectorizer(model.train_docs).get()
     y = np.asarray(labels.items[:n_train], np.int64)
-    W = model.classifier.fitted.W
+    W = model.classifier.fitted().W
     objective = objective64(X.matrix, y, W.cpu().numpy(), AMAZON_LAM)
     y_dev = Dataset(y.astype(np.int32), device=dev)
     card_objective = float(est.objective(X, y_dev)(W)[0])
@@ -866,6 +1029,126 @@ def stupid_backoff_phase(dev, card) -> None:
           f"{BACKOFF_JAX}")
 
 
+def workflow_phase(train, test, config, staged_seconds, staged_accuracy,
+                   card) -> int:
+    """Phase 20: RandomPatchCifar fit through the workflow's optimizer,
+    saved, loaded on the card and applied to the test images; returns
+    the chain kernel's launches in the fit and the apply."""
+    from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.nodes.images.core import Convolver
+    from keystone_tpu_torch.nodes.learning.block_ls import BlockLinearMapper
+    from keystone_tpu_torch.nodes.stats.scalers import StandardScalerModel
+    from keystone_tpu_torch.nodes.util.basic import Cacher, MaxClassifier
+    from keystone_tpu_torch.nodes.util.fusion import (
+        FusedBatchTransformer,
+        _ConvRectifyPoolStage,
+    )
+    from keystone_tpu_torch.ops import kernels
+    from keystone_tpu_torch.pipelines.random_patch_cifar import build_pipeline
+    from keystone_tpu_torch.workflow import (
+        AutoCachingOptimizer,
+        DefaultOptimizer,
+        FittedPipeline,
+        PipelineEnv,
+    )
+    from keystone_tpu_torch.workflow.optimizer import run_batch
+
+    evaluator = MulticlassClassifierEvaluator(config.num_classes)
+    torch.cuda.synchronize()
+    PipelineEnv.reset()
+    torch.cuda.reset_peak_memory_stats()
+    # the default optimizer's batches one at a time on the unfit graph:
+    # host seconds and node count after each
+    plan, batches = (build_pipeline(train, config).graph, {}), {}
+    for batch in DefaultOptimizer().batches:
+        t = time.perf_counter()
+        plan = run_batch(batch, plan)
+        batches[batch.name] = dict(host_seconds=time.perf_counter() - t,
+                                   nodes=len(plan[0].operators))
+    del plan
+    PipelineEnv.reset()
+
+    def fit():
+        return build_pipeline(train, config).fit()
+
+    kernels.reset_launches()
+    fit_seconds, fitted = timed_s(fit)
+    fit_launches = launch_counts()
+    ops = list(fitted.graph.operators.values())
+    featurizers = [op for op in ops if isinstance(op, FusedBatchTransformer)
+                   and any(isinstance(s, Convolver) for s in op.stages)]
+    heads = [op for op in ops if isinstance(op, FusedBatchTransformer)
+             and [type(s) for s in op.stages] == [
+                 StandardScalerModel, BlockLinearMapper, MaxClassifier]]
+    fitted_form = [op.label for op in ops]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "random_patch_cifar.pkl")
+        save_seconds, _ = timed_s(lambda: fitted.save(path))
+        artifact_bytes = os.path.getsize(path)
+        load_seconds, loaded = timed_s(
+            lambda: FittedPipeline.load(path, device="cuda"))
+    in_memory = fitted.apply(test.data).array
+    loaded.apply(test.data)  # warm
+    kernels.reset_launches()
+    apply_seconds, predictions = timed_s(lambda: loaded.apply(test.data))
+    apply_launches = launch_counts()
+    bit_equal = torch.equal(predictions.array, in_memory)
+    accuracy = evaluator(predictions, test.labels).accuracy
+    peak = torch.cuda.max_memory_allocated()
+    fit_syncs, fit_sync_count = count_syncs(fit)
+    apply_syncs, apply_sync_count = count_syncs(
+        lambda: loaded.apply(test.data))
+    # one profile-guided caching plan of the unfit graph
+    PipelineEnv.reset()
+    auto = AutoCachingOptimizer("greedy")
+    auto_seconds, _ = timed_s(
+        lambda: auto.execute(build_pipeline(train, config).graph))
+    chosen = [label for _, label in auto.batches[-1].rules[0].chosen]
+    PipelineEnv.reset()
+    phase("workflow", optimizer_batches=batches, fit_seconds=fit_seconds,
+          staged_seconds=staged_seconds, fitted_form=fitted_form,
+          fit_launches=fit_launches, save_seconds=save_seconds,
+          artifact_bytes=artifact_bytes, load_seconds=load_seconds,
+          test_apply_seconds=apply_seconds,
+          test_images_per_sec=test.data.count / apply_seconds,
+          apply_launches=apply_launches, test_accuracy=accuracy,
+          staged_test_accuracy=staged_accuracy,
+          loaded_equals_in_memory=bit_equal, fit_syncs=fit_sync_count,
+          fit_sync_lines=fit_syncs, apply_syncs=apply_sync_count,
+          apply_sync_lines=apply_syncs, autocache_seconds=auto_seconds,
+          autocache_chosen=chosen, peak_mem_bytes=peak, card=card)
+    fit_k1 = fit_launches["conv_rectify_pool"]
+    apply_k1 = apply_launches["conv_rectify_pool"]
+    train_mb = math.ceil(train.data.count / config.microbatch)
+    test_mb = math.ceil(test.data.count / config.microbatch)
+    check(fit_k1 == train_mb, f"Pipeline.fit launched conv_rectify_pool "
+          f"{fit_k1} times for {train_mb} microbatches (CSE failed?)")
+    check(apply_k1 == test_mb, f"the loaded pipeline launched "
+          f"conv_rectify_pool {apply_k1} times for {test_mb} microbatches")
+    check(len(featurizers) == 1 and isinstance(featurizers[0].fused[1],
+                                               _ConvRectifyPoolStage)
+          and len(heads) == 1
+          and sum(isinstance(op, Cacher) for op in ops) == 1
+          and len(ops) == 3, f"the fitted pipeline is {fitted_form}, not "
+          "the featurizer, the Cacher and one fused scaler, linear map and "
+          "argmax")
+    check(bit_equal, "the loaded pipeline's predictions differ from the "
+          "in-memory pipeline's")
+    check(abs(accuracy - staged_accuracy) <= 0.002, f"the fitted pipeline's "
+          f"test accuracy {accuracy} is not within 0.002 of the staged "
+          f"pipeline's {staged_accuracy}")
+    # every fused transformer tags its own chain-kernel run, but none
+    # lowers here: the featurizer is one opaque stage of the fused head,
+    # and the scaler, the only stage of the head with a chain body, is
+    # followed by the linear map
+    k4 = fit_launches["elementwise_chain"] + apply_launches[
+        "elementwise_chain"]
+    check(k4 == 0 and heads and heads[0].planned_kernel is None,
+          f"the fitted pipeline launched the chain kernel: {fit_launches}, "
+          f"{apply_launches}")
+    return k4
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -878,12 +1161,22 @@ def main() -> int:
     from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
     from keystone_tpu_torch.loaders.cifar_loader import synthetic_cifar
     from keystone_tpu_torch.nodes.images.core import (
+        GrayScaler,
         ImageVectorizer,
         PixelScaler,
         Pooler,
         SymmetricRectifier,
     )
-    from keystone_tpu_torch.nodes.util.fusion import FusedBatchTransformer
+    from keystone_tpu_torch.nodes.stats.normalization import (
+        NormalizeRows,
+        SignedHellingerMapper,
+    )
+    from keystone_tpu_torch.nodes.util.basic import MatrixVectorizer
+    from keystone_tpu_torch.nodes.util.fusion import (
+        FusedBatchTransformer,
+        _GatherConcatStage,
+        stage_fuse,
+    )
     from keystone_tpu_torch.ops import _build, chain_kernels, kernels
     from keystone_tpu_torch.utils.images import GRAY_WEIGHTS
     from keystone_tpu_torch.nodes.util.basic import MaxClassifier
@@ -909,7 +1202,6 @@ def main() -> int:
         run_fused,
         run_staged,
     )
-    from keystone_tpu_torch.workflow.pipeline import Pipeline
     from keystone_tpu_torch.loaders.csv_loader import LabeledData
     from keystone_tpu_torch.nodes.learning.block_ls import (
         BlockLinearMapper,
@@ -922,7 +1214,13 @@ def main() -> int:
         normal_equations,
     )
     from keystone_tpu_torch.nodes.util.basic import ClassLabelIndicatorsFromInt
-    from keystone_tpu_torch.pipelines import mnist_random_fft, timit
+    from keystone_tpu_torch.pipelines import (
+        imagenet_sift_lcs_fv,
+        mnist_random_fft,
+        timit,
+    )
+    from keystone_tpu_torch.workflow import PipelineEnv
+    from keystone_tpu_torch.workflow.fusion_rule import NodeFusionRule
 
     # ---- 1. device -------------------------------------------------------
     dev = resolve_device("cuda")
@@ -1115,6 +1413,55 @@ def main() -> int:
             del lib, w_gray, xs, outs, planned, plan
         del x, got, want
 
+    # the chains the optimizer's fusion pass tags in the SIFT-Fisher
+    # pipelines, built from their nodes, at one fused microbatch:
+    # VOC's PixelScaler >> GrayScaler over its 48x48 images and the
+    # Fisher-vector tail over VOC's and ImageNet's encodings
+    fisher_tail = (MatrixVectorizer(), SignedHellingerMapper(),
+                   NormalizeRows())
+    im_config = imagenet_sift_lcs_fv.ImageNetSiftLcsFVConfig()
+    k4_paths = {}
+    for label, nodes, item in (
+            ("voc_gray", (PixelScaler(), GrayScaler()), (48, 48, 3)),
+            ("voc_fisher", fisher_tail, (VOC_PCA_DIMS, 2 * VOC_GMM_K)),
+            ("imagenet_fisher", fisher_tail,
+             (im_config.pca_dims, 2 * im_config.gmm_k))):
+        fused = [stage_fuse(node) for node in nodes]
+        statics, params = tuple(f[0] for f in fused), [f[1] for f in fused]
+        n = NodeFusionRule.microbatch
+        x = torch.randn((n,) + item, generator=gen, device=dev)
+        if label == "voc_gray":
+            x = torch.rand((n,) + item, generator=gen, device=dev) * 255.0
+        got = chain_kernels.elementwise_chain(statics, params, x)
+        torch.cuda.synchronize()
+        want = chain_kernels.elementwise_chain_reference(statics, params, x)
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"elementwise_chain {label}: bad output")
+        err, rel = rel_err(got, want)
+        check(rel <= K4_TOL, f"elementwise_chain {label}: relative error "
+              f"{rel} > {K4_TOL}")
+        k4_checks.append(dict(chain=label, n=n, masked_rows=0,
+                              max_abs_err=err, rel_err=rel))
+        # ``ms`` through the public wrapper, which plans each call, as
+        # the headline's; ``planned_ms`` and ``device_ms`` through one
+        # plan, as the fused transformer calls it
+        entry = dict(n=n, item=item, max_abs_err=err, rel_err=rel)
+        entry["ms"] = time_ms(lambda: chain_kernels.elementwise_chain(
+            statics, params, x))
+        plan = chain_kernels.ChainPlan(statics, params, item, dev)
+        out = torch.empty_like(got)
+        entry["planned_ms"] = time_ms(lambda: plan(x, None, out))
+        entry["device_ms"] = device_ms([lambda: plan(x, None, out)] * 4)
+        entry["plan"] = dict(grid=plan.grid, **vars(plan.layout.launch))
+        entry["plain_ms"] = time_ms(
+            lambda: chain_kernels.elementwise_chain_reference(
+                statics, params, x))
+        entry["bound_ms"], entry["bound_by"] = k4_bound_ms(
+            n, chain_kernels.chain_layout(statics, params, item, dev))
+        k4_paths[label] = entry
+        del x, got, want, plan, out
+    k4["at_path_shapes"] = k4_paths
+
     # the short-row design (a warp a row, twelve rows a step) against the
     # block-a-row design on the same bytes: 440-float rows (the TIMIT
     # frames of the JAX bench's KRR geometry) through every elementwise
@@ -1234,6 +1581,7 @@ def main() -> int:
     evaluator(warm(train.data), train.labels)
     del warm
     torch.cuda.synchronize()
+    PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1266,6 +1614,7 @@ def main() -> int:
     evaluator(warm(train.data), train.labels)
     del warm
     torch.cuda.synchronize()
+    PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     lp = None
@@ -1274,14 +1623,31 @@ def main() -> int:
         nonlocal lp
         lp = build_linear_pixels(train, lp_config)
 
-    lp_stages, lp_seconds, lp_train = run_stages([
+    lp_steps = [
         ("build", lp_build),
-        ("featurize", lambda: Pipeline(lp.nodes[:2])(train.data).get()),
-        ("normal_equations", lambda: lp.nodes[2].fitted),
+        ("featurize", lambda: cut(lp, 2)(train.data).get()),
+        ("normal_equations", lambda: lp.fitted(0)),
         ("predict_eval", lambda: evaluator(lp(train.data), train.labels)),
-    ])
+    ]
+    lp_stages, lp_seconds, lp_train = run_stages(lp_steps)
     lp_test = evaluator(lp(test.data), test.labels)
     k4_launches = chain_kernels.elementwise_chain.launches
+    lp_peak = torch.cuda.max_memory_allocated()
+    # where the workflow layer's host time goes: the same stages again,
+    # their executors' optimizer runs and structural checks timed; and
+    # the fused apply head (linear map >> argmax) over the 50,000
+    # training rows in the fusion pass's 2048-row microbatches against
+    # one batch of them all
+    PipelineEnv.reset()
+    lp_split = host_split(lp_steps)
+    pixels = cut(lp, 2)(train.data).get().array
+    head_ms = {}
+    for rows in (NodeFusionRule.microbatch, train.data.count):
+        head = FusedBatchTransformer([lp.fitted(0), MaxClassifier()],
+                                     microbatch=rows).batch_fn()
+        head_ms[rows] = time_ms(lambda: head(pixels))
+    del pixels, head
+    lp_split["fused_head_ms_by_microbatch"] = head_ms
     lp_microbatches = (
         math.ceil(train.data.count / LINEAR_PIXELS_MICROBATCH)
         + math.ceil(test.data.count / LINEAR_PIXELS_MICROBATCH))
@@ -1291,7 +1657,7 @@ def main() -> int:
           jax_cpu_test_accuracy=LINEAR_PIXELS_JAX_ACC,
           elementwise_chain_launches=k4_launches,
           microbatches=lp_microbatches, stage_seconds=lp_stages,
-          peak_mem_bytes=torch.cuda.max_memory_allocated(), card=card)
+          workflow_host_split=lp_split, peak_mem_bytes=lp_peak, card=card)
     check(abs(lp_test.accuracy - LINEAR_PIXELS_JAX_ACC) <= 0.005,
           f"LinearPixels test accuracy {lp_test.accuracy} is not within "
           f"0.005 of {LINEAR_PIXELS_JAX_ACC}")
@@ -1306,6 +1672,7 @@ def main() -> int:
         num_filters=256, gamma=2e-3, lam=10.0, kernel_block=2048,
         kernel_epochs=1)
     torch.cuda.synchronize()
+    PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     kc = None
@@ -1318,9 +1685,9 @@ def main() -> int:
     # fills the Cacher that the scaler's and the solver's fits read
     kc_stages, kc_seconds, kc_train = run_stages([
         ("filter_learning", kc_build),
-        ("featurize", lambda: Pipeline(kc.nodes[:2])(train.data).get()),
-        ("scaler", lambda: kc.nodes[2].fitted),
-        ("krr_fit", lambda: kc.nodes[3].fitted),
+        ("featurize", lambda: cut(kc, 2)(train.data).get()),
+        ("scaler", lambda: kc.fitted(0)),
+        ("krr_fit", lambda: kc.fitted(1)),
         ("predict_eval", lambda: evaluator(kc(train.data), train.labels)),
     ])
     kc_test = evaluator(kc(test.data), test.labels)
@@ -1364,7 +1731,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 7. cross-check: fused kernel vs fp32 conv + rectify_pool --------
-    featurizer = predictor.nodes[0]
+    featurizer = predictor.graph.get_operator(predictor.data_path()[0])
     conv = featurizer.stages[1]
     imgs = Dataset(train.data.array[:config.microbatch])
     fused = featurizer.apply_batch(imgs).array
@@ -1403,6 +1770,7 @@ def main() -> int:
     rpc_evaluator = MulticlassClassifierEvaluator(config.num_classes)
     run_fused(train, test, config)  # warm, at the same shapes
     torch.cuda.synchronize()
+    PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1444,6 +1812,7 @@ def main() -> int:
     # ---- 9. RandomCifar --------------------------------------------------
     rc_config = RandomCifarConfig(num_filters=256)
     torch.cuda.synchronize()
+    PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     rc = None
@@ -1454,9 +1823,9 @@ def main() -> int:
 
     rc_stages, rc_seconds, rc_train = run_stages([
         ("build", rc_build),
-        ("featurize", lambda: Pipeline(rc.nodes[:2])(train.data).get()),
-        ("scaler", lambda: rc.nodes[2].fitted),
-        ("bcd_solve", lambda: rc.nodes[3].fitted),
+        ("featurize", lambda: cut(rc, 2)(train.data).get()),
+        ("scaler", lambda: rc.fitted(0)),
+        ("bcd_solve", lambda: rc.fitted(1)),
         ("predict_eval", lambda: evaluator(rc(train.data), train.labels)),
     ])
     rc_test = evaluator(rc(test.data), test.labels)
@@ -1482,6 +1851,7 @@ def main() -> int:
     # ---- 10. RandomPatchCifarAugmented ------------------------------------
     ag_config = RandomPatchCifarAugmentedConfig(num_filters=256)
     torch.cuda.synchronize()
+    PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     ag = ag_scorer = None
@@ -1497,9 +1867,9 @@ def main() -> int:
     ag_stages, ag_seconds, ag_train = run_stages([
         ("augment", ag_augment),
         ("filter_learning", ag_build),
-        ("featurize", lambda: Pipeline(ag_scorer.nodes[:2])(ag.data).get()),
-        ("scaler", lambda: ag_scorer.nodes[2].fitted),
-        ("bcd_solve", lambda: ag_scorer.nodes[3].fitted),
+        ("featurize", lambda: cut(ag_scorer, 2)(ag.data).get()),
+        ("scaler", lambda: ag_scorer.fitted(0)),
+        ("bcd_solve", lambda: ag_scorer.fitted(1)),
         ("predict_eval", lambda: evaluator(
             (ag_scorer >> MaxClassifier())(ag.data), ag.labels)),
     ])
@@ -1537,6 +1907,7 @@ def main() -> int:
         num_filters=256, gamma=2e-4, lam=10.0, kernel_block=2048,
         kernel_epochs=1)
     torch.cuda.synchronize()
+    PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     ak = ak_scorer = None
@@ -1552,9 +1923,9 @@ def main() -> int:
     ak_stages, ak_seconds, ak_train = run_stages([
         ("augment", ak_augment),
         ("filter_learning", ak_build),
-        ("featurize", lambda: Pipeline(ak_scorer.nodes[:2])(ak.data).get()),
-        ("scaler", lambda: ak_scorer.nodes[2].fitted),
-        ("krr_fit", lambda: ak_scorer.nodes[3].fitted),
+        ("featurize", lambda: cut(ak_scorer, 2)(ak.data).get()),
+        ("scaler", lambda: ak_scorer.fitted(0)),
+        ("krr_fit", lambda: ak_scorer.fitted(1)),
         ("predict_eval", lambda: evaluator(
             (ak_scorer >> MaxClassifier())(ak.data), ak.labels)),
     ])
@@ -1611,6 +1982,7 @@ def main() -> int:
     tm_data_seconds = time.perf_counter() - t0
     timit.run_on(tm_train, tm_test, tm_config, tm_classes)  # warm
     torch.cuda.synchronize()
+    PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     tm = timit.run_on(tm_train, tm_test, tm_config, tm_classes)
@@ -1677,19 +2049,22 @@ def main() -> int:
     del back
     mnist_random_fft.run_on(mn_train, mn_test, mn_config)  # warm
     torch.cuda.synchronize()
+    PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     mn = mnist_random_fft.run_on(mn_train, mn_test, mn_config)
     mn_launches = launch_counts()
-    mn_featurizer = mn.pop("predictor").nodes[0]
+    # the test apply's plan: the gather pass's fused stage, no chain kernel
+    mn_gathers = fused_in_plan(mn.pop("predictor")(mn_test.data))
+    mn_planned = [f.planned_kernel for f in mn_gathers]
     phase("mnist", seconds=mn["seconds"], rows_per_sec=mn["rows_per_sec"],
           rate_basis="train+test rows", train_error=mn["train_error"],
           test_accuracy=mn["test_accuracy"],
           jax_cpu_test_accuracy=MNIST_JAX_ACC,
           gap_to_jax_cpu=mn["test_accuracy"] - MNIST_JAX_ACC,
           features=mn_config.num_ffts * 512,
-          microbatches=mn_featurizer.microbatches_run,
-          planned_kernel=mn_featurizer.planned_kernel,
+          fused_transformers=[f.label for f in mn_gathers],
+          planned_kernels=mn_planned,
           csv_rows=MNIST_CSV_ROWS, csv_round_trip_equal=csv_equal,
           data_seconds=mn_data_seconds,
           peak_mem_bytes=torch.cuda.max_memory_allocated(),
@@ -1698,11 +2073,13 @@ def main() -> int:
     check(abs(mn["test_accuracy"] - MNIST_JAX_ACC) <= 0.005,
           f"MnistRandomFFT test accuracy {mn['test_accuracy']} is not within "
           f"0.005 of {MNIST_JAX_ACC}")
-    check(mn_featurizer.planned_kernel is None,
-          f"MnistRandomFFT planned {mn_featurizer.planned_kernel}")
+    check(any(isinstance(f.stages[0], _GatherConcatStage)
+              for f in mn_gathers),
+          "MnistRandomFFT's gather was not fused into one stage")
+    check(not any(mn_planned), f"MnistRandomFFT planned {mn_planned}")
     check(not any(mn_launches.values()),
           f"MnistRandomFFT launched kernels: {mn_launches}")
-    del mn_train, mn_test, mn_featurizer
+    del mn_train, mn_test, mn_gathers
     torch.cuda.empty_cache()
 
     # ---- 14. solvers on the TIMIT features ---------------------------------
@@ -1799,17 +2176,19 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 15-16. VOCSIFTFisher and ImageNetSiftLcsFV ------------------------
-    voc_phase(dev, card)
+    voc_k4 = voc_phase(dev, card)
     torch.cuda.empty_cache()
-    imagenet_phase(dev, card)
+    imagenet_k4 = imagenet_phase(dev, card)
     torch.cuda.empty_cache()
 
     # ---- 17-19. the text family -------------------------------------------
-    newsgroups_phase(dev, card)
-    torch.cuda.empty_cache()
-    amazon_phase(dev, card)
-    torch.cuda.empty_cache()
-    stupid_backoff_phase(dev, card)
+    for run_phase in (newsgroups_phase, amazon_phase, stupid_backoff_phase):
+        run_phase(dev, card)
+        torch.cuda.empty_cache()
+
+    # ---- 20. the workflow: fit, save, load, apply ---------------------------
+    workflow_k4 = workflow_phase(train, test, config, sum(stages.values()),
+                                 test_metrics.accuracy, card)
 
     record = {"kernels": [
         dict(name="conv_rectify_pool", route="cuda",
@@ -1841,7 +2220,11 @@ def main() -> int:
         dict(name="elementwise_chain", route="cuda",
              source="keystone_tpu_torch/csrc/elementwise_chain.cu",
              replaces="keystone_tpu/ops/chain_kernels.py:504",
-             launches=k4_launches, max_abs_err=k4["max_abs_err"],
+             launches=k4_launches,
+             launches_by_path=dict(linear_pixels=k4_launches, voc=voc_k4,
+                                   imagenet=imagenet_k4,
+                                   workflow=workflow_k4),
+             max_abs_err=k4["max_abs_err"],
              rel_err=k4["rel_err"], tolerance_rel=K4_TOL, ms=k4["ms"],
              device_ms=k4["device_ms"],
              planned_call_ms=k4["planned_call_ms"],
@@ -1851,7 +2234,8 @@ def main() -> int:
              library_device_ms=k4["library_device_ms"],
              library_call="torch.matmul(x, gray_weights / 255)",
              library_rel_err=k4["library_rel_err"], plan=k4["plan"],
-             short_rows=k4["short_rows"]),
+             short_rows=k4["short_rows"],
+             at_path_shapes=k4["at_path_shapes"]),
         dict(name="rbf_block", route="cuda",
              source="keystone_tpu_torch/csrc/rbf_block.cu",
              replaces="keystone_tpu/ops/pallas_kernels.py:212",

@@ -91,6 +91,25 @@ class Dataset:
             torch.cuda.synchronize(self.device)
         return self
 
+    def cache(self) -> "Dataset":
+        """The rows are already materialized on the device (≈ `.cache()`;
+        `:228-235`). Not a timing fence: `Cacher` calls it on every run."""
+        return self
+
+    @property
+    def per_shard_count(self) -> int:
+        """Examples a shard (≈ `numPerPartition`, WorkflowUtils.scala:
+        12-17; `:150`): one card is one shard."""
+        return self.padded_count
+
+    def sample_per_shard(self, k: int, seed: int = 0) -> "Dataset":
+        """≤ k rows at evenly spread indices (≈ SampleCollector's
+        per-partition samples, NodeOptimizationRule.scala:145-197;
+        `:262-267`)."""
+        m = min(self.count, k)
+        idx = np.linspace(0, self.count - 1, num=m, dtype=np.int64)
+        return Dataset(self.data[torch.as_tensor(idx, device=self.device)])
+
     def take(self, k: int) -> np.ndarray:
         return self.data[: min(k, self.count)].detach().cpu().numpy()
 
@@ -195,6 +214,22 @@ class HostDataset:
     def map(self, fn: Callable) -> "HostDataset":
         """``fn`` on each item."""
         return HostDataset([fn(x) for x in self.items], device=self.device)
+
+    def cache(self) -> "HostDataset":
+        return self
+
+    @property
+    def per_shard_count(self) -> int:
+        """Items a shard (`:292-293`): one card is one shard."""
+        return self._count
+
+    def sample_per_shard(self, k: int, seed: int = 0) -> "HostDataset":
+        """≤ k items at evenly spread indices (`:301-306`)."""
+        m = min(self._count, k)
+        if m == 0:
+            return HostDataset([], device=self.device)
+        idx = np.linspace(0, self._count - 1, num=m, dtype=np.int64)
+        return HostDataset([self.items[i] for i in idx], device=self.device)
 
     def map_batches(self, fn: Callable[[torch.Tensor], torch.Tensor],
                     chunk: Optional[int] = DEFAULT_CHUNK) -> "HostDataset":

@@ -90,6 +90,11 @@ class SparseDataset:
         return Dataset(np.asarray(self.matrix.todense(), dtype=dtype),
                        device=resolve_device(self.device))
 
+    @property
+    def per_shard_count(self) -> int:
+        """Rows a shard: one card is one shard."""
+        return self.count
+
     def sample_per_shard(self, k: int, seed: int = 0) -> "SparseDataset":
         """``k`` rows evenly spaced (one device: one shard)."""
         m = min(self.count, k)

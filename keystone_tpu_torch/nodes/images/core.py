@@ -43,6 +43,8 @@ class PixelScaler(Transformer):
     232-262`) the images of one shape go through one batched call, on
     the device."""
 
+    fusable = True
+
     def batch_fn(self):
         return lambda x: x.to(torch.float32) / 255.0
 
@@ -54,6 +56,8 @@ class GrayScaler(Transformer):
     """NTSC grayscale (GrayScaler.scala:9): (..., 3) → (..., 1), the
     identity on one channel. Over a `HostDataset` (`core.py:268-305`)
     one batched call per image shape."""
+
+    fusable = True
 
     def batch_fn(self):
         return grayscale
@@ -70,6 +74,8 @@ class Convolver(Transformer):
     filters: (K, D) with D = patch·patch·C in (patch, patch, C) order, or
     (K, patch, patch, C); a tensor or an array. The folded bank lives on
     the filters' device (an array goes to ``device``)."""
+
+    fusable = True
 
     def __init__(self, filters, img_height: int, img_width: int,
                  img_channels: int, whitener=None,
@@ -112,6 +118,8 @@ class SymmetricRectifier(Transformer):
     """Two-sided ReLU: channels double to [max(mv, x−α), max(mv, −x−α)]
     (SymmetricRectifier.scala:7-32)."""
 
+    fusable = True
+
     def __init__(self, max_val: float = 0.0, alpha: float = 0.0):
         self.max_val = max_val
         self.alpha = alpha
@@ -125,6 +133,8 @@ class SymmetricRectifier(Transformer):
 class Pooler(Transformer):
     """Strided sum or max pooling over (N, H, W, C) with an elementwise
     pre-map (Pooler.scala:21-69)."""
+
+    fusable = True
 
     def __init__(self, stride: int, pool_size: int, pixel_fn=None,
                  pool_fn: str = "sum"):
@@ -152,6 +162,8 @@ class Pooler(Transformer):
 class ImageVectorizer(Transformer):
     """(H, W, C) → flat vector (ImageVectorizer.scala:12)."""
 
+    fusable = True
+
     def batch_fn(self):
         return lambda x: x.reshape(x.shape[0], -1)
 
@@ -162,6 +174,8 @@ class ImageVectorizer(Transformer):
 class Cropper(Transformer):
     """The box rows y0..y1−1, columns x0..x1−1 of every image
     (Cropper.scala:19)."""
+
+    fusable = True
 
     def __init__(self, y0: int, x0: int, y1: int, x1: int):
         self.box = (y0, x0, y1, x1)

@@ -87,3 +87,7 @@ class GMMFisherVectorEstimator(OptimizableEstimator):
     def default(self) -> Estimator:
         return ScalaGMMFisherVectorEstimator(self.k, self.num_iters,
                                              self.seed)
+
+    def optimize(self, sample, num_per_shard) -> Estimator:
+        """Both routes are one computation (`fisher_vector.py:156-157`)."""
+        return self.default

@@ -35,7 +35,7 @@ from .weighted_ls import (
     BlockWeightedLeastSquaresEstimator,
     PerClassWeightedLeastSquares,
 )
-from .zca import ZCAWhitener, zca_from_covariance
+from .zca import ZCAWhitener, ZCAWhitenerEstimator, zca_from_covariance
 
 __all__ = ["ApproximatePCAEstimator", "BatchPCATransformer",
            "BlockKernelMatrix", "BlockLeastSquaresEstimator",
@@ -50,4 +50,5 @@ __all__ = ["ApproximatePCAEstimator", "BatchPCATransformer",
            "LogisticRegressionModel", "NaiveBayesEstimator",
            "NaiveBayesModel", "PCAEstimator",
            "PCATransformer", "PerClassWeightedLeastSquares", "ZCAWhitener",
+           "ZCAWhitenerEstimator",
            "bcd_fit", "raise_if_unfactored", "zca_from_covariance"]

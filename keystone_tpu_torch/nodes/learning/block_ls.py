@@ -79,6 +79,8 @@ class BlockLinearMapper(Transformer):
     """x ↦ x W + b; inputs narrower than W are zero-padded, as the fit
     padded them (BlockLinearMapper.scala:22-137)."""
 
+    fusable = True
+
     def __init__(self, W: torch.Tensor, b: Optional[torch.Tensor] = None):
         self.W = W
         self.b = b if b is not None else torch.zeros(
@@ -98,12 +100,16 @@ class BlockLinearMapper(Transformer):
 class BlockLeastSquaresEstimator(LabelEstimator):
     """BCD least squares with L2 (BlockLinearMapper.scala:199-283)."""
 
+    fusable_fit = True
+
     def __init__(self, block_size: int, num_iter: int, lam: float = 0.0,
                  fit_intercept: bool = True):
         self.block_size = block_size
         self.num_iter = num_iter
         self.lam = lam
         self.fit_intercept = fit_intercept
+        #: passes over the features (`workflow/autocache.py::node_weight`)
+        self.weight = 3 * num_iter + 1
 
     def fit(self, data, labels) -> BlockLinearMapper:
         x, y = data.array, labels.array.to(data.array.dtype)

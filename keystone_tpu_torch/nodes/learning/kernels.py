@@ -149,6 +149,11 @@ class KernelRidgeRegression(LabelEstimator):
         self.checkpoint_dir = checkpoint_dir
         self.blocks_before_checkpoint = blocks_before_checkpoint
 
+    @property
+    def weight(self) -> int:
+        """Passes over the features (`workflow/autocache.py::node_weight`)."""
+        return 3 * self.num_epochs + 1
+
     def _ckpt_path(self, data, labels) -> Optional[str]:
         """The checkpoint file for this fit (`kernels.py:251-282`): the
         data's first rows, count and shape are fingerprinted, so a

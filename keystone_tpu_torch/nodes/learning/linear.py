@@ -26,6 +26,8 @@ from .block_ls import raise_if_unfactored
 class LinearMapper(Transformer):
     """y = xW (+ b) (LinearMapper.scala:18-63)."""
 
+    fusable = True  # a GEMM (the port's mapper carries no feature scaler)
+
     def __init__(self, W: torch.Tensor, b: Optional[torch.Tensor] = None):
         self.W = W
         self.b = b
@@ -61,6 +63,8 @@ class LinearMapEstimator(LabelEstimator):
     """Exact OLS/ridge by the normal equations
     (LinearMapper.scala:69-161)."""
 
+    fusable_fit = True  # always fits a LinearMapper
+
     def __init__(self, lam: float = 0.0, fit_intercept: bool = True):
         self.lam = lam
         self.fit_intercept = fit_intercept
@@ -89,6 +93,8 @@ def dual_solve(X: torch.Tensor, Y: torch.Tensor, mask: torch.Tensor,
 class LocalLeastSquaresEstimator(LabelEstimator):
     """Dual-form ridge for d ≫ n: the n×n kernelized system solved on one
     device (LocalLeastSquaresEstimator.scala:16-61)."""
+
+    fusable_fit = True  # always fits a LinearMapper
 
     def __init__(self, lam: float = 0.0):
         self.lam = lam

@@ -2,9 +2,9 @@
 
 Counterpart of `keystone_tpu/nodes/learning/pca.py` (`:36-327`;
 reference nodes/learning/PCA.scala:19-247, DistributedPCA.scala:20-74,
-ApproximatePCA.scala:22-85), without the two cost models (`:273-287`)
-and `ColumnPCAEstimator.optimize`, which wait for the optimizer (ROADMAP
-queue 1, items 7 and 9):
+ApproximatePCA.scala:22-85), without the two cost models (`:273-287`),
+whose weights are TPU v5e constants (ROADMAP queue 1, item 7), so
+`ColumnPCAEstimator.optimize` always chooses local PCA:
 
 - `PCAEstimator`, "local": the rows (at most ``sample_rows``, an even
   `linspace` subsample as in JAX) centred, their QR factor R, and the
@@ -151,13 +151,22 @@ class ApproximatePCAEstimator(Estimator):
 
 class ColumnPCAEstimator(OptimizableEstimator):
     """The reference's cost-model choice between local and distributed
-    PCA (PCA.scala:117-155). Its fit is its default's, local PCA, as the
-    JAX package's is without the optimizer."""
+    PCA (PCA.scala:117-155). Its fit is its default's, local PCA.
+
+    `optimize` differs from JAX's (`pca.py:273-327`): JAX prices the two
+    routes with cost models whose weights are TPU v5e constants; until
+    they are measured on the card, the choice is always the default,
+    local PCA (``chosen = "local"``)."""
 
     def __init__(self, dims: int, num_chips: Optional[int] = None):
         self.dims = dims
         self.num_chips = num_chips
+        self.chosen = None
 
     @property
     def default(self) -> Estimator:
         return PCAEstimator(self.dims)
+
+    def optimize(self, sample, num_per_shard) -> Estimator:
+        self.chosen = "local"
+        return self.default

@@ -102,6 +102,8 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         self.num_iter = num_iter
         self.lam = lam
         self.mixture_weight = mixture_weight
+        #: passes over the features (`workflow/autocache.py::node_weight`)
+        self.weight = 3 * num_iter + 1
 
     def fit(self, data, labels) -> LinearMapper:
         X, Y = data.array, labels.array.to(data.array.dtype)

@@ -3,6 +3,8 @@
 Counterpart of `keystone_tpu/nodes/learning/zca.py` (reference
 nodes/learning/ZCAWhitener.scala:12-77): whitener = V diag((λ+ε)^-½) Vᵀ.
 The result does not depend on the sign `eigh` gives each eigenvector.
+`ZCAWhitenerEstimator` (`:73-87`) fits it from a sample matrix on the
+sample's device; JAX fits on the host with numpy.
 """
 
 from __future__ import annotations
@@ -10,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...workflow.pipeline import Transformer
+from ...workflow.pipeline import Estimator, Transformer
 
 
 def zca_from_covariance(cov: torch.Tensor, eps: float) -> torch.Tensor:
@@ -35,3 +37,25 @@ class ZCAWhitener(Transformer):
 
     def batch_fn(self):
         return lambda x: (x - self.means) @ self.whitener
+
+
+class ZCAWhitenerEstimator(Estimator):
+    """Fit a `ZCAWhitener` on an (m × D) sample matrix: its mean, and the
+    whitener of its covariance over m − 1 (ZCAWhitener.scala:53-60)."""
+
+    def __init__(self, eps: float = 0.1):
+        self.eps = eps
+
+    def fit(self, data) -> ZCAWhitener:
+        X = data.array if hasattr(data, "array") else data
+        return self.fit_single(X)
+
+    def fit_single(self, X) -> ZCAWhitener:
+        """Fit on an in-memory (m × D) matrix (ZCAWhitener.fitSingle): a
+        tensor, or an array put on the CPU."""
+        X = torch.as_tensor(X).to(torch.float32)
+        n = X.shape[0]
+        mu = X.mean(dim=0)
+        Xc = X - mu
+        cov = (Xc.T @ Xc) / max(n - 1.0, 1.0)
+        return ZCAWhitener(zca_from_covariance(cov, self.eps), mu)

@@ -34,6 +34,8 @@ def _sorted_choice(n: int, size: int, seed: int) -> np.ndarray:
 class NormalizeRows(Transformer):
     """x / max(‖x‖₂, eps) per item (NormalizeRows.scala:10)."""
 
+    fusable = True
+
     def __init__(self, eps: float = 2.2e-16):
         self.eps = eps
 
@@ -51,6 +53,8 @@ class NormalizeRows(Transformer):
 
 class SignedHellingerMapper(Transformer):
     """sign(x)·sqrt(|x|) (SignedHellingerMapper.scala:12-22)."""
+
+    fusable = True
 
     def batch_fn(self):
         return lambda x: torch.sign(x) * torch.sqrt(torch.abs(x))

@@ -34,6 +34,8 @@ class CosineRandomFeatures(Transformer):
     """cos(x W + b) with W (input_dim, num_features) ~ gamma·N(0, 1)
     (``"gaussian"``) or gamma·Cauchy (``"cauchy"``), b ~ U[0, 2π)."""
 
+    fusable = True
+
     def __init__(self, input_dim: int, num_features: int, gamma: float = 1.0,
                  distribution: str = "gaussian", seed: int = 0,
                  device: DeviceLike = "cuda"):
@@ -59,6 +61,8 @@ class CosineRandomFeatures(Transformer):
 
 class RandomSignNode(Transformer):
     """Elementwise product with a fixed random ±1 vector."""
+
+    fusable = True
 
     def __init__(self, dim: int, seed: int = 0, device: DeviceLike = "cuda"):
         rng = np.random.default_rng(seed)
@@ -91,6 +95,8 @@ class PaddedFFT(Transformer):
     part of the first half of the real FFT's bins (the Nyquist bin is
     dropped, as in the JAX package)."""
 
+    fusable = True
+
     def batch_fn(self):
         def fn(x):
             padded = padded_width(x.shape[-1])
@@ -104,6 +110,8 @@ class PaddedFFT(Transformer):
 
 class LinearRectifier(Transformer):
     """max(max_val, x − alpha)."""
+
+    fusable = True
 
     def __init__(self, max_val: float = 0.0, alpha: float = 0.0):
         self.max_val = max_val

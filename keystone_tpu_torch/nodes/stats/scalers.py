@@ -30,6 +30,8 @@ def moments(x: torch.Tensor, count: int, normalize_std: bool):
 class StandardScalerModel(Transformer):
     """(x − mean) / std, or x − mean when ``std`` is None."""
 
+    fusable = True
+
     #: the JAX package's batch path re-zeros padded rows after this
     #: stage (`_scale`'s mask), so a chain kernel applies the row mask
     #: at its place in the chain (`scalers.py:42-75`)
@@ -54,6 +56,8 @@ class StandardScalerModel(Transformer):
 
 class StandardScaler(Estimator):
     """Fit per-feature mean/std (StandardScaler.scala:36-60)."""
+
+    fusable_fit = True
 
     def __init__(self, normalize_std_dev: bool = True):
         self.normalize_std_dev = normalize_std_dev

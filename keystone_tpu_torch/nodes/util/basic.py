@@ -17,12 +17,13 @@ import torch
 import torch.nn.functional as F
 
 from ...data.sparse import SparseDataset
-from ...workflow.executor import PrefixMemo
 from ...workflow.pipeline import Transformer
 
 
 class ClassLabelIndicatorsFromInt(Transformer):
     """int label → length-k float32 vector of −1/+1."""
+
+    fusable = True
 
     def __init__(self, num_classes: int):
         if num_classes < 2:
@@ -38,6 +39,8 @@ class ClassLabelIndicatorsFromIntArray(Transformer):
     """Multi-label int array → length-k float32 vector of −1/+1
     (ClassLabelIndicators.scala:38-55). Items are fixed-length label
     arrays padded with −1; the padding marks no class."""
+
+    fusable = True
 
     def __init__(self, num_classes: int):
         self.num_classes = num_classes
@@ -57,12 +60,14 @@ class ClassLabelIndicatorsFromIntArray(Transformer):
 class MaxClassifier(Transformer):
     """argmax over scores → int label (MaxClassifier.scala)."""
 
+    fusable = True
+
     def batch_fn(self):
         return lambda x: torch.argmax(x, dim=-1)
 
 
 class VectorCombiner(Transformer):
-    """Concatenate the tuple of branch outputs that gather produces along
+    """Concatenate the list of branch outputs that gather produces along
     the last axis (VectorCombiner.scala)."""
 
     def apply(self, xs):
@@ -103,6 +108,8 @@ class MatrixVectorizer(Transformer):
     """Flatten each item's matrix to a vector, row-major
     (MatrixVectorizer.scala)."""
 
+    fusable = True
+
     def batch_fn(self):
         return lambda x: x.reshape(x.shape[0], -1)
 
@@ -111,17 +118,22 @@ class MatrixVectorizer(Transformer):
 
 
 class Cacher(Transformer):
-    """Keep the dataset that reaches this node, for every (upstream
-    chain, input) pair, so a later run of the same chain on the same
-    input starts here (Cacher.scala:15-25). It passes any datum or
-    dataset through as it is."""
+    """Materialize the dataset and mark its prefix saveable, so the
+    prefix table keeps it across pipelines (Cacher.scala:15-25 with
+    ExtractSaveablePrefixes): a later run of the same upstream chain on
+    the same input starts here."""
+
+    saveable = True
 
     def __init__(self, name: str = ""):
         self.name = name
-        self.memo = PrefixMemo()
+
+    @property
+    def label(self) -> str:
+        return f"Cacher[{self.name}]"
 
     def apply(self, x):
         return x
 
     def apply_batch(self, data):
-        return data
+        return data.cache() if hasattr(data, "cache") else data

@@ -12,11 +12,15 @@ stages for one chain kernel launch (`ops/chain_kernels.py`; the swap is
 the last stage, the transformer allocates its result once and each
 microbatch's launch writes its own rows of it. `_GatherConcatStage`
 (`:274-316`) is a `Pipeline.gather` fan-out and its `VectorCombiner`
-collapsed into one stage, the form the JAX optimizer's gather pass
-(`workflow/fusion_rule.py:650-705`) gives them; as the last stage it too
-writes each microbatch's branch outputs into their columns of the rows
-allocated once. The JAX package's program caching, planned precision
-and sharding tags have no counterpart here.
+collapsed into one stage, the form the optimizer's gather pass
+(`workflow/fusion_rule.py::NodeFusionRule._fuse_gathers`) gives them; as
+the last stage it too writes each microbatch's branch outputs into their
+columns of the rows allocated once. A `FusedBatchTransformer` is itself
+a fusable stage (`:328-330`): inside a larger fused chain it is one
+opaque stage keyed ``("FusedChain", ...)``, which no chain kernel
+absorbs, while its own peephole and planned kernel still run inside it.
+The JAX package's program caching, planned precision and sharding tags
+have no counterpart here.
 """
 
 from __future__ import annotations
@@ -32,6 +36,8 @@ from ...workflow.pipeline import Transformer
 
 class _RectifyPoolStage(Transformer):
     """SymmetricRectifier >> Pooler(sum) through the rectify+pool kernel."""
+
+    fusable = True
 
     def __init__(self, alpha: float, max_val: float, pool: int, stride: int):
         self.alpha = alpha
@@ -52,6 +58,8 @@ class _ConvRectifyPoolStage(Transformer):
     """Convolver >> SymmetricRectifier >> Pooler(sum) through the fused
     conv+rectify+pool kernel: the conv output and the channel-doubled
     activations never reach device memory."""
+
+    fusable = True
 
     def __init__(self, conv, alpha: float, max_val: float, pool: int,
                  stride: int):
@@ -84,37 +92,35 @@ def _run(fns, xb):
 
 
 class _GatherConcatStage(Transformer):
-    """N branch chains over one input, their outputs concatenated along
-    the last axis in branch order: `Pipeline.gather(branches) >>
-    VectorCombiner()` as one stage. Each branch is a transformer or a
-    pipeline of transformers that act row by row."""
+    """N branch transformers over one input, their outputs concatenated
+    along the last axis in branch order: `Pipeline.gather(branches) >>
+    VectorCombiner()` as one stage. Each branch acts row by row: a
+    fusable stage, or the `FusedBatchTransformer` the optimizer makes of a
+    many-stage branch."""
 
-    def __init__(self, branches: Sequence):
-        self.branches = [list(b.to_pipeline().nodes) for b in branches]
+    fusable = True
+
+    def __init__(self, branches: Sequence[Transformer]):
+        self.branches = list(branches)
         self._layouts = {}  # input item shape -> (column bounds, dtype)
 
+    @property
+    def label(self) -> str:
+        return "Gather[" + " | ".join(b.label for b in self.branches) + "]"
+
     def _fns(self):
-        return [[s.batch_fn() for s in b] for b in self.branches]
+        return [b.batch_fn() for b in self.branches]
 
     def batch_fn(self):
         fns = self._fns()
-        return lambda x: torch.cat([_run(f, x) for f in fns], dim=-1)
+        return lambda x: torch.cat([f(x) for f in fns], dim=-1)
 
     def fuse(self):
         """The JAX package's key: ``("GatherConcat",)`` and each branch's
-        key, a many-stage branch keyed as the fused chain the JAX
-        optimizer makes of it (``("FusedChain", ...)``)."""
-        keys, params = [], []
-        for b in self.branches:
-            if len(b) == 1:
-                key, p = stage_fuse(b[0])
-            else:
-                fused = [stage_fuse(s) for s in _peephole(b)]
-                key = ("FusedChain",) + tuple(f[0] for f in fused)
-                p = tuple(f[1] for f in fused)
-            keys.append(key)
-            params.append(p)
-        return ("GatherConcat",) + tuple(keys), tuple(params)
+        key."""
+        fused = [stage_fuse(b) for b in self.branches]
+        return (("GatherConcat",) + tuple(f[0] for f in fused),
+                tuple(f[1] for f in fused))
 
     def writer(self):
         """``(layout, write)``: ``layout(xb)`` is the concatenated item
@@ -127,7 +133,7 @@ class _GatherConcatStage(Transformer):
         def bounds(xb):
             key = tuple(xb.shape[1:])
             if key not in self._layouts:
-                ys = [_run(f, xb[:1]) for f in fns]
+                ys = [f(xb[:1]) for f in fns]
                 cols = [0]
                 for y in ys:
                     cols.append(cols[-1] + y.shape[-1])
@@ -141,7 +147,7 @@ class _GatherConcatStage(Transformer):
         def write(xb, out):
             cols = bounds(xb)[0]
             for f, c0, c1 in zip(fns, cols, cols[1:]):
-                out[..., c0:c1] = _run(f, xb)
+                out[..., c0:c1] = f(xb)
 
         return layout, write
 
@@ -218,9 +224,14 @@ class FusedBatchTransformer(Transformer):
     the JAX package the unified planner sets the tag, and its kernel axis
     takes any run that lowers, since it prices the kernel at one pass
     over device memory against a round trip per stage boundary
-    (`analysis/roofline.py:907-920`). Until that planner is ported, the
-    transformer tags itself with the same choice: the first maximal run
-    that lowers (`plan_chain_kernel`)."""
+    (`analysis/roofline.py:907-920`). The port has no such planner (the
+    JAX unified planner prices TPU programs), so every transformer, a
+    pipeline's own featurizer or one the optimizer's fusion pass builds,
+    tags itself with the same choice: the first maximal run that lowers
+    (`plan_chain_kernel`). A nested transformer is one stage keyed
+    ``("FusedChain", ...)``, which no run takes in."""
+
+    fusable = True
 
     def __init__(self, stages: Sequence[Transformer], microbatch: int = 2048):
         self.stages = list(stages)
@@ -230,6 +241,25 @@ class FusedBatchTransformer(Transformer):
             stage_fuse(s)[0] for s in self.fused)
         self._chain = None  # (tag, chain fn) of the planned sub-trail
         self.microbatches_run = 0  # microbatches through batch_fn, ever
+
+    @property
+    def label(self) -> str:
+        return "Fused[" + " >> ".join(s.label for s in self.stages) + "]"
+
+    def fuse(self):
+        """``(("FusedChain",) + the peepholed stages' keys, their
+        parameters)`` (`:417-433`): inside a larger chain this
+        transformer is one stage, which no chain kernel absorbs."""
+        fused = [stage_fuse(s) for s in self.fused]
+        return (("FusedChain",) + tuple(f[0] for f in fused),
+                tuple(f[1] for f in fused))
+
+    def __getstate__(self):
+        # the chain function holds its launch plans and a closure; it is
+        # rebuilt at first use
+        state = dict(self.__dict__)
+        state["_chain"] = None
+        return state
 
     def _chain_fn(self):
         """The planned sub-trail's chain function, built once per tag and

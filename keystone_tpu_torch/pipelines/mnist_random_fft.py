@@ -7,13 +7,16 @@ reference pipelines/images/mnist/MnistRandomFFT.scala:18-114):
 `BlockLeastSquaresEstimator` (one sweep) and `MaxClassifier`, scored by
 the multiclass evaluator.
 
-The JAX optimizer's gather pass runs the fan-out and its `VectorCombiner`
-as one `_GatherConcatStage` inside a `FusedBatchTransformer` of 2048-row
-microbatches (`workflow/fusion_rule.py:650-705`); until the optimizer is
-ported, `featurizer` builds that form itself. Each microbatch's branches
-write their columns of the feature rows, allocated once. The FFT runs on
-cuFFT through `torch.fft`; no chain kernel is planned (`PaddedFFT` is a
-named suppression).
+The pipeline is built as JAX builds it, `Pipeline.gather(branches) >>
+VectorCombiner()`, and the optimizer's fusion pass
+(`workflow/fusion_rule.py::NodeFusionRule`) fuses each branch into a
+`FusedBatchTransformer`, then the gather pass collapses the fan-out and
+its `VectorCombiner` into one `_GatherConcatStage` inside a
+`FusedBatchTransformer` of 2048-row microbatches: each microbatch's
+branches write their columns of the feature rows, allocated once. CSE
+shares the training featurization between the fit and the training
+predict. The FFT runs on cuFFT through `torch.fft`; no chain kernel is
+planned (`PaddedFFT` is a named suppression).
 
 Data: a label-first CSV (the reference's MNIST format) from
 ``--train-path``/``--test-path``; without paths, scikit-learn's bundled
@@ -43,12 +46,13 @@ from ..nodes.stats.random_features import (
     PaddedFFT,
     RandomSignNode,
 )
-from ..nodes.util.basic import ClassLabelIndicatorsFromInt, MaxClassifier
-from ..nodes.util.fusion import FusedBatchTransformer, _GatherConcatStage
+from ..nodes.util.basic import (
+    ClassLabelIndicatorsFromInt,
+    MaxClassifier,
+    VectorCombiner,
+)
+from ..workflow.pipeline import Pipeline
 from .random_patch_cifar import _sync
-
-#: the JAX optimizer's fusion microbatch (`NodeFusionRule`, 2048 rows)
-FUSION_MICROBATCH = 2048
 
 
 @dataclass
@@ -81,15 +85,13 @@ def _load(config: MnistRandomFFTConfig, device) -> tuple:
             LabeledData.from_arrays(y[te], X[te], device))
 
 
-def featurizer(dim: int, config: MnistRandomFFTConfig,
-               device) -> FusedBatchTransformer:
+def featurizer(dim: int, config: MnistRandomFFTConfig, device) -> Pipeline:
     """The gather of the ``num_ffts`` branch chains (branch ``i`` seeded
-    ``seed + i``) and its combiner, as one microbatched stage."""
+    ``seed + i``) and its combiner (`:70-76`)."""
     branches = [RandomSignNode(dim, seed=config.seed + i, device=device)
                 >> PaddedFFT() >> LinearRectifier(0.0)
                 for i in range(config.num_ffts)]
-    return FusedBatchTransformer([_GatherConcatStage(branches)],
-                                 microbatch=FUSION_MICROBATCH)
+    return Pipeline.gather(branches) >> VectorCombiner()
 
 
 def build(train: LabeledData, config: MnistRandomFFTConfig):
@@ -97,7 +99,7 @@ def build(train: LabeledData, config: MnistRandomFFTConfig):
     dim = train.data.array.shape[1]
     labels = ClassLabelIndicatorsFromInt(config.num_classes)(
         train.labels).get()
-    return featurizer(dim, config, train.data.device).to_pipeline().and_then(
+    return featurizer(dim, config, train.data.device).and_then(
         BlockLeastSquaresEstimator(config.block_size, num_iter=1,
                                    lam=config.lam),
         train.data, labels) >> MaxClassifier()

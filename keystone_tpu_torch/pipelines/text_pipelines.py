@@ -66,7 +66,7 @@ from ..nodes.nlp import (
 )
 from ..nodes.util.basic import Cacher, MaxClassifier
 from ..nodes.util.sparse_features import CommonSparseFeatures
-from ..workflow.pipeline import Pipeline, Transformer
+from ..workflow.pipeline import Pipeline
 from .random_patch_cifar import _sync
 
 #: classes of a synthetic Newsgroups run (`:125`)
@@ -104,15 +104,19 @@ def text_featurizer(ngram_orders=(1, 2)) -> Pipeline:
 @dataclass
 class TextModel:
     """A text classifier's parts: ``featurizer`` (documents → pairs,
-    cached), the lazily fit ``vocabulary`` node, ``vectorizer``
-    (documents → a `SparseDataset`, cached), the lazily fit
-    ``classifier`` node and ``predictor`` (documents → class ids)."""
+    cached), ``vocabulary`` (the featurizer and the lazily fit
+    vocabulary: its `fitted()` is the vectorizer the vocabulary fit
+    gives), ``vectorizer`` (documents → a `SparseDataset`, cached),
+    ``classifier`` (the vectorizer and the lazily fit classifier: its
+    `fitted()` is the model), ``predictor`` (documents → class ids) and
+    ``train_docs``, the documents both fits train on."""
 
     featurizer: Pipeline
-    vocabulary: Transformer
+    vocabulary: Pipeline
     vectorizer: Pipeline
-    classifier: Transformer
+    classifier: Pipeline
     predictor: Pipeline
+    train_docs: object
 
 
 def build_text_model(train_docs, train_labels, estimator,
@@ -123,14 +127,14 @@ def build_text_model(train_docs, train_labels, estimator,
     until it runs. A naive Bayes model's scores go through
     `MaxClassifier`; a logistic regression model gives class ids."""
     featurizer = text_featurizer(ngram_orders)
-    vectorizer = featurizer.and_then(
-        CommonSparseFeatures(common_features), train_docs) \
-        >> Cacher("text-csr")
+    vocabulary = featurizer.and_then(CommonSparseFeatures(common_features),
+                                     train_docs)
+    vectorizer = vocabulary >> Cacher("text-csr")
     classified = vectorizer.and_then(estimator, train_docs, train_labels)
     predictor = classified >> MaxClassifier() if isinstance(
         estimator, NaiveBayesEstimator) else classified
-    return TextModel(featurizer, vectorizer.nodes[-2], vectorizer,
-                     classified.nodes[-1], predictor)
+    return TextModel(featurizer, vocabulary, vectorizer, classified,
+                     predictor, train_docs)
 
 
 def build_newsgroups_predictor(train_docs, train_labels, num_classes: int,

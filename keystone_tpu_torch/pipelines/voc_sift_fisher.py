@@ -34,7 +34,7 @@ from __future__ import annotations
 import argparse
 import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -141,16 +141,17 @@ def _pad_labels(ds: HostDataset, num_classes: int) -> np.ndarray:
 
 @dataclass
 class VOCModel:
-    """The pipeline's parts: ``sift`` (images → descriptors, cached),
-    the lazily fit ``pca``, ``fisher`` and ``solver`` nodes (or fitted
-    transformers from the sideband files), ``featurizer`` (images →
-    stacked Fisher vectors) and ``predictor`` (images → scores)."""
+    """The pipeline's parts: ``sift`` (images → descriptors, cached);
+    ``pca`` and ``fisher``, each a pipeline that ends in its lazily fit
+    estimator (`Pipeline.fitted` fits it and gives the transformer) or
+    the transformer read from the sideband files; ``featurizer`` (images
+    → stacked Fisher vectors) and ``predictor`` (images → scores), whose
+    `fitted()` is the BWLS model."""
 
     sift: Pipeline
-    pca: Transformer
-    fisher: Transformer
+    pca: Union[Pipeline, Transformer]
+    fisher: Union[Pipeline, Transformer]
     featurizer: Pipeline
-    solver: Transformer
     predictor: Pipeline
 
 
@@ -173,14 +174,14 @@ def build(train: HostDataset, config: VOCSIFTFisherConfig,
         sampled = (sift >> ColumnSampler(config.descriptor_samples))(train)
         pca_featurizer = sift.and_then(
             ColumnPCAEstimator(config.pca_dims).with_data(sampled))
-        pca_node = pca_featurizer.nodes[-1]
+        pca_node = pca_featurizer
     if config.gmm_mean_file:
         if not (config.gmm_var_file and config.gmm_wts_file):
             raise ValueError("--gmm-mean-file requires --gmm-var-file and "
                              "--gmm-wts-file")
         fisher = FisherVector(GaussianMixtureModel.load_csv(
             config.gmm_mean_file, config.gmm_var_file, config.gmm_wts_file,
-            device=dev)).to_pipeline()
+            device=dev))
     else:
         fisher_sample = (pca_featurizer
                          >> ColumnSampler(config.descriptor_samples))(train)
@@ -195,8 +196,7 @@ def build(train: HostDataset, config: VOCSIFTFisherConfig,
                                            config.lam,
                                            config.mixture_weight),
         train, labels)
-    return VOCModel(sift, pca_node, fisher.nodes[0], featurizer,
-                    predictor.nodes[-1], predictor)
+    return VOCModel(sift, pca_node, fisher, featurizer, predictor)
 
 
 def run_on(train: HostDataset, test: HostDataset,

@@ -1,17 +1,58 @@
-"""Pipelines and their execution (counterpart of `keystone_tpu/workflow`)."""
+"""Workflow core: the lazy memoized DAG runtime, its optimizer and the
+typed combinator API (counterpart of `keystone_tpu/workflow`)."""
 
-from .executor import PrefixMemo, execute
+from . import analysis
+from .autocache import AutoCacheRule, CacheMarker
+from .env import IdentityKey, PipelineEnv, Prefix, compute_prefix
+from .executor import GraphExecutor
+from .expressions import (
+    DatasetExpression,
+    DatumExpression,
+    Expression,
+    TransformerExpression,
+)
+from .fusion_rule import FusedChainOperator, NodeFusionRule
+from .graph import Graph, NodeId, NodeOrSourceId, SinkId, SourceId
+from .operators import (
+    DatasetOperator,
+    DatumOperator,
+    DelegatingOperator,
+    EstimatorOperator,
+    ExpressionOperator,
+    GatherTransformerOperator,
+    Operator,
+    TransformerOperator,
+)
+from .optimizer import (
+    AutoCachingOptimizer,
+    Batch,
+    DefaultOptimizer,
+    EquivalentNodeMergeRule,
+    ExtractSaveablePrefixes,
+    NodeOptimizationRule,
+    Optimizer,
+    Rule,
+    RuleExecutor,
+    SavedStateLoadRule,
+    UnusedBranchRemovalRule,
+)
 from .pipeline import (
+    Chainable,
     Estimator,
+    EstimatorChain,
+    FittedPipeline,
     ItemTransformer,
     LabelEstimator,
+    LabelEstimatorChain,
     OptimizableEstimator,
+    OptimizableLabelEstimator,
+    OptimizableTransformer,
     Pipeline,
+    PipelineDataset,
+    PipelineDatum,
     PipelineResult,
     Transformer,
+    TransformerChain,
 )
 
-__all__ = [
-    "Estimator", "ItemTransformer", "LabelEstimator", "OptimizableEstimator",
-    "Pipeline", "PipelineResult", "PrefixMemo", "Transformer", "execute",
-]
+__all__ = [n for n in dir() if not n.startswith("_")]

@@ -66,8 +66,6 @@ from keystone_tpu_torch.nodes.util import (
 )
 from keystone_tpu_torch.utils.batching import map_host_batched
 from keystone_tpu_torch.utils.images import LabeledImage, MultiLabeledImage
-from keystone_tpu_torch.workflow.executor import execute
-from keystone_tpu_torch.workflow.pipeline import Pipeline
 
 CPU = "cpu"
 
@@ -173,7 +171,8 @@ def test_execute_runs_the_batch_path_over_a_host_dataset():
     labeled = [LabeledImage(x, i % 3) for i, x in enumerate(imgs)]
     jax_labeled = [JaxLabeledImage(x, i % 3) for i, x in enumerate(imgs)]
     ds = HostDataset(labeled, device=CPU)
-    out = execute([ImageExtractor(), PixelScaler(), GrayScaler()], ds)
+    out = (ImageExtractor().to_pipeline() >> PixelScaler() >> GrayScaler())(
+        ds).get()
     assert isinstance(out, HostDataset)
     # one bucket a shape: each stage ran twice, not once an image
     assert len(out.buckets()) == 2
@@ -184,7 +183,7 @@ def test_execute_runs_the_batch_path_over_a_host_dataset():
     assert labels.items == JaxLabelExtractor().apply_batch(
         JaxHostDataset(jax_labeled)).items
     # and a single datum still goes through `apply`
-    one = Pipeline([PixelScaler(), GrayScaler()])(imgs[0]).get()
+    one = (PixelScaler() >> GrayScaler())(imgs[0]).get()
     np.testing.assert_array_equal(np.asarray(one), np.asarray(want.items[0]))
 
 

@@ -57,12 +57,15 @@ def test_importing_the_port_loads_no_jax():
     assert out.stdout.strip() == "ok"
 
 
-def test_entry_points_raise_without_a_card():
+def test_entry_points_raise_without_a_card(tmp_path):
     """Called without ``device="cpu"``, the entry points ask for the card;
     with no card they raise instead of running on the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     import numpy as np
+
+    from keystone_tpu_torch.nodes.util.basic import MaxClassifier
+    from keystone_tpu_torch.workflow import FittedPipeline
 
     from keystone_tpu_torch.data.dataset import Dataset
     from keystone_tpu_torch.device import resolve_device
@@ -80,4 +83,9 @@ def test_entry_points_raise_without_a_card():
         synthetic_cifar(8, 4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run(RandomPatchCifarConfig(synth_train=8, synth_test=4))
+    path = str(tmp_path / "fitted.pkl")
+    MaxClassifier().to_pipeline().fit().save(path)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        FittedPipeline.load(path)
     assert resolve_device("cpu") == torch.device("cpu")
+    assert isinstance(FittedPipeline.load(path, device="cpu"), FittedPipeline)

@@ -58,6 +58,10 @@ from keystone_tpu_torch.loaders.csv_loader import LabeledData, csv_data_loader
 from keystone_tpu_torch.loaders.text_loaders import timit_loader
 from keystone_tpu_torch.nodes.learning.block_ls import bcd_fit
 from keystone_tpu_torch.nodes.stats import CosineRandomFeatures, RandomSignNode
+from keystone_tpu_torch.nodes.util.fusion import (
+    FusedBatchTransformer,
+    _GatherConcatStage,
+)
 from keystone_tpu_torch.pipelines import mnist_random_fft as mnist
 from keystone_tpu_torch.pipelines import timit
 from keystone_tpu_torch.workflow.pipeline import Pipeline
@@ -80,9 +84,17 @@ def _assert_same_scores(got, want):
                                atol=SCORE_REL * float(np.abs(want).max()))
 
 
+def _scorer(predictor):
+    """``predictor`` with its sink moved off the final MaxClassifier."""
+    g = predictor.graph
+    argmax = g.get_sink_dependency(predictor.sink)
+    g = g.set_sink_dependency(predictor.sink, g.get_dependencies(argmax)[0])
+    return Pipeline(g, predictor.source, predictor.sink)
+
+
 def _port_scores(predictor, data):
     """Every node but the final MaxClassifier."""
-    return Pipeline(predictor.nodes[:-1])(data).get().array.numpy()
+    return _scorer(predictor)(data).get().array.numpy()
 
 
 @pytest.fixture
@@ -91,7 +103,7 @@ def one_device_mesh():
         yield mesh
 
 
-def test_mnist_random_fft_matches_jax_on_digits(one_device_mesh):
+def test_mnist_random_fft_matches_jax_on_digits(one_device_mesh, monkeypatch):
     jcfg = jax_mnist.MnistRandomFFTConfig(**MNIST_CFG)
     cfg = mnist.MnistRandomFFTConfig(**MNIST_CFG)
     jtrain, jtest = jax_mnist._load(jcfg)
@@ -108,12 +120,22 @@ def test_mnist_random_fft_matches_jax_on_digits(one_device_mesh):
         labels)
     want = _jax_rows(scorer(jtest.data).get())
 
+    # every fused transformer the optimizer makes
+    made = []
+    real_init = FusedBatchTransformer.__init__
+
+    def recording(self, *args, **kwargs):
+        real_init(self, *args, **kwargs)
+        made.append(self)
+
+    monkeypatch.setattr(FusedBatchTransformer, "__init__", recording)
     result = mnist.run_on(train, test, cfg)
-    featurizer = result["predictor"].nodes[0]
-    assert featurizer.planned_kernel is None
-    # the fit's and both predicts' featurizations: one 2048-row
+    gathers = [f for f in made if isinstance(f.stages[0], _GatherConcatStage)]
+    assert gathers and all(f.planned_kernel is None for f in made)
+    # the gather pass's featurizer: the fit and the train predict share
+    # one featurization (CSE), the test predict has its own; one 2048-row
     # microbatch each
-    assert featurizer.microbatches_run == 3
+    assert sum(f.microbatches_run for f in gathers) == 2
     got = _port_scores(result["predictor"], test.data)
     _assert_same_scores(got, want)
     want_acc = float(np.mean(want.argmax(1) == _jax_rows(jtest.labels)))

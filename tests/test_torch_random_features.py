@@ -142,10 +142,19 @@ def test_cosine_random_features_cauchy_matches_jax():
     assert np.all(np.abs(got - want) <= bound)
 
 
+def _branch_stages(dim, n_branches):
+    return [[RandomSignNode(dim, seed=i, device="cpu"), PaddedFFT(),
+             LinearRectifier(0.0)] for i in range(n_branches)]
+
+
+def _fused_branches(dim, n_branches):
+    """Each branch as the optimizer fuses it: one FusedBatchTransformer."""
+    return [FusedBatchTransformer(s) for s in _branch_stages(dim, n_branches)]
+
+
 def _branches(dim, n_branches, port=True):
     if port:
-        return [RandomSignNode(dim, seed=i, device="cpu") >> PaddedFFT()
-                >> LinearRectifier(0.0) for i in range(n_branches)]
+        return [a >> b >> c for a, b, c in _branch_stages(dim, n_branches)]
     return [JaxSign(dim, seed=i) >> JaxFFT() >> JaxRectifier(0.0)
             for i in range(n_branches)]
 
@@ -183,22 +192,22 @@ def test_gather_combiner_and_fused_stage_match_jax(n, microbatch):
     assert len(gathered.data) == nb and gathered.count == n
     combined = (Pipeline.gather(_branches(dim, nb)) >> VectorCombiner())(
         data).get().array.numpy()
-    fused = FusedBatchTransformer([_GatherConcatStage(_branches(dim, nb))],
-                                  microbatch=microbatch)
+    fused = FusedBatchTransformer(
+        [_GatherConcatStage(_fused_branches(dim, nb))], microbatch=microbatch)
     got = fused.apply_batch(data).array.numpy()
     assert want.shape == (n, nb * 64)
     _close_rel(combined, want, FFT_REL)
     _close_rel(got, want, FFT_REL)
     assert fused.microbatches_run == -(-n // microbatch)
-    # the gather on one datum is the tuple of the branch outputs
+    # the gather on one datum is the list of the branch outputs
     one = Pipeline.gather(_branches(dim, nb))(torch.tensor(x[0])).get()
-    assert isinstance(one, tuple) and len(one) == nb
+    assert isinstance(one, list) and len(one) == nb
     _close_rel(VectorCombiner().apply(one).numpy(), want[0], FFT_REL)
 
 
 def test_branch_lowerability_matches_jax():
     """Not lowerable, with PaddedFFT the named suppression, in both."""
-    port = lowerability(stage_statics(_branches(784, 1)[0].nodes))
+    port = lowerability(stage_statics(_branch_stages(784, 1)[0]))
     ref = jax_lowerability([s.fuse()[0] for s in (JaxSign(784), JaxFFT(),
                                                   JaxRectifier(0.0))])
     assert port["lowerable"] is ref["lowerable"] is False
@@ -209,7 +218,7 @@ def test_branch_lowerability_matches_jax():
 def test_gather_stage_keys_match_jax_and_plan_no_chain_kernel():
     """The fused stage's key is JAX's (each branch keyed as the fused
     chain its optimizer makes of it), and no chain kernel is planned."""
-    stage = _GatherConcatStage(_branches(784, 4))
+    stage = _GatherConcatStage(_fused_branches(784, 4))
     ref = JaxGatherStage([JaxFBT([JaxSign(784, seed=i), JaxFFT(),
                                   JaxRectifier(0.0)]) for i in range(4)])
     key = stage_fuse(stage)[0]

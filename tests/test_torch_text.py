@@ -30,8 +30,7 @@ from keystone_tpu_torch.data.sparse import SparseDataset
 from keystone_tpu_torch.nodes import nlp
 from keystone_tpu_torch.nodes.util import basic
 from keystone_tpu_torch.nodes.util import sparse_features as sf
-from keystone_tpu_torch.workflow.executor import execute
-from keystone_tpu_torch.workflow.pipeline import ItemTransformer, Pipeline
+from keystone_tpu_torch.workflow.pipeline import ItemTransformer
 
 ODD_STRINGS = [
     "a\x0bb c\x0cd e\xa0f  g\th",
@@ -264,12 +263,12 @@ class _NoItems(ItemTransformer):
 
 def test_executor_takes_the_batch_path_for_a_sparse_dataset():
     ds = SparseDataset(np.eye(3, dtype=np.float32), device="cpu")
-    assert execute([_NoItems()], ds) == 3
-    out = Pipeline([basic.Densify()])(ds).get()
+    assert _NoItems()(ds).get() == 3
+    out = basic.Densify()(ds).get()
     assert isinstance(out, Dataset)
     np.testing.assert_array_equal(out.numpy(), np.eye(3))
     # one datum: a 1 × V row goes through `apply`
-    row = execute([basic.Densify()], sp.csr_matrix(np.eye(3)[1:2]))
+    row = basic.Densify()(sp.csr_matrix(np.eye(3)[1:2])).get()
     np.testing.assert_array_equal(row, [0.0, 1.0, 0.0])
 
 

@@ -56,6 +56,7 @@ from keystone_tpu_torch.data.dataset import HostDataset
 from keystone_tpu_torch.data.sparse import SparseDataset
 from keystone_tpu_torch.loaders import text_loaders
 from keystone_tpu_torch.pipelines import text_pipelines as tp
+from keystone_tpu_torch.workflow.env import PipelineEnv, compute_prefix
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 NB_SCORE_REL = 1e-6
@@ -160,14 +161,17 @@ def test_newsgroups_app_equals_jax():
     # the training documents' CSR is kept: the fit and the train predict
     # share it, and its device copy
     model = got["model"]
-    kept = model.vectorizer.nodes[-1].memo.get(model.vectorizer.nodes[:-1],
-                                               _train_docs(model))
+    kept = _cached(model.vectorizer, model.train_docs)
     assert isinstance(kept, SparseDataset) and kept._csr is not None
 
 
-def _train_docs(model):
-    """The training documents the vocabulary was fit on."""
-    return model.vocabulary.fit_inputs[0].data
+def _cached(pipeline, data):
+    """The value that ``pipeline``'s final Cacher keeps for ``data``:
+    the prefix table's entry for the Cacher's prefix."""
+    applied = pipeline(data)
+    graph = applied.graph
+    prefix = compute_prefix(graph, graph.get_sink_dependency(applied.sink))
+    return PipelineEnv.get().state[prefix].get
 
 
 def test_amazon_app_equals_jax():
@@ -185,9 +189,9 @@ def test_amazon_objective_equals_jax():
     labels, docs = tp.synthetic_corpus(300, 2, seed=0)
     got = tp.run_amazon_on(labels, docs, tp.AmazonReviewsConfig(), "cpu")
     model = got["model"]
-    X = model.vectorizer(_train_docs(model)).get()
+    X = model.vectorizer(model.train_docs).get()
     y = np.asarray(labels.items[:240])
-    W = model.classifier.fitted.W.numpy()
+    W = model.classifier.fitted().W.numpy()
     assert abs(objective64(X.matrix, y, W, 1e-3) / want["objective"] - 1.0) \
         <= LR_OBJECTIVE_REL
     assert (got["test_accuracy"], got["f1"]) == (want["test_accuracy"],
