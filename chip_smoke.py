@@ -107,14 +107,19 @@ Phases, each printed on a line of its own:
               images within 1e-3 of max|score| of the card's, with the same
               argmax; the chain kernel once per fused microbatch of its
               two tagged chains, train and test, and once for the
-              optimizer's sample of three images; no other kernel.
+              optimizer's sample of three images; no other kernel. Its
+              ``pca``: the route the PCA node's cost models chose
+              (``pca_route``), both costs under the card's weights, and
+              the route the JAX package's formulas give under its
+              analytic CPU weights, which must be the same.
 16. imagenet - ImageNetSiftLcsFV at the JAX configuration's widths (SIFT
               and LCS branches, PCA 32, 8 components, 1,024 features, 10
               classes) on 5,000 training and 2,000 test synthetic images,
               after a warm call on 500 of each; test accuracy within 0.01
               of the JAX package's on these arrays; the chain kernel
               once per fused microbatch of each branch's Fisher-vector
-              tail, train and test; no other kernel.
+              tail, train and test; no other kernel; ``pca`` as VOC's,
+              for both branches.
 17. newsgroups - NewsgroupsPipeline at the reference's widths: n-grams of
               orders 1-2, square-root TF, 100,000 common features, naive
               Bayes (lambda 1) over 20 classes, on 11,314 training and
@@ -154,6 +159,29 @@ Phases, each printed on a line of its own:
               slice's; the synchronizing calls of the fit and of the
               apply; and one `AutoCachingOptimizer` plan's cache points.
               No chain kernel: none of the fitted form's runs lowers.
+21. least_squares - the cost-model solver choice. The cost weights
+              measured on the card (the probes' seconds a step, the
+              rates they imply beside the H100's published peaks, and
+              whether the committed cuda_calibration.json applied), the
+              measurement written to smoke_out/cuda_calibration.json;
+              LeastSquaresEstimator on TIMIT's 200,000 x 4096 cosine
+              features (12 classes, lambda 1e-3): every candidate's
+              estimate, the choice, its fit seconds and its objective
+              against the exact solve's; on Amazon's training CSR
+              (16,000 x 100,000, the -1/+1 indicators of two classes,
+              lambda 1e-3): the choice (sparse L-BFGS), its route, fit
+              seconds, the float64 objective against the JAX package's
+              on the CPU, and the SparseLinearMapper's test error on
+              the test CSR; SparseLBFGSwithL2 forced to each route on a
+              seeded CSR of 200,000 x 16,384 at density 0.004 (the
+              reference suite's shape, n cut from 5,000,000 for time):
+              seconds, objectives, the routes' W difference, the route
+              the automatic rule takes and its estimate for each; and
+              the same CSR as a PaddedSparseDataset (bytes) on the
+              sparse-product route. No kernel.
+22. hog_daisy - HogExtractor and DaisyExtractor on 4,096 seeded 48x48 gray
+              images (the VOC stand-in's size): seconds, and the first 64
+              held against the port's CPU path. No kernel.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The process-wide prefix table (`PipelineEnv`) is reset before each
@@ -275,6 +303,11 @@ DUAL_PRIMAL_RTOL = 1e-3
 # this share of its value (optax's approx_dec_rtol)
 LBFGS_APPROX_DECREASE = 1e-6
 
+# the analytic weights the JAX package resolves on the CPU
+# (keystone_tpu/nodes/learning/cost_model.py:40-42): PCA's route by JAX's
+# formulas, printed beside the port's choice under the card's weights
+JAX_CPU_WEIGHTS = (5e-15, 1.25e-12, 1e-11)
+
 # VOC 2007's trainval and test counts, the generator's 48x48 images (cut
 # from VOC's ~500x375); the reference's widths (PCA 80, 256 components)
 VOC_N_TRAIN, VOC_N_TEST, VOC_CLASSES = 5011, 4952, 20
@@ -325,6 +358,35 @@ BACKOFF_TOL = 1e-9
 # 1e-6 on the CPU)
 NEWS_CPU_CHECK = 256
 NEWS_CPU_SCORE_RTOL = 1e-5
+
+
+# the calibration probes: a 4096-square fp32 GEMM (137 GFLOP a step) and a
+# 256 MB read-and-write pass, each chained 10 and 20 steps; where the
+# measurement is written
+CAL_GEMM_DIM, CAL_MEM_MB, CAL_ITERS = 4096, 256, 10
+OUT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "smoke_out")
+# the least-squares choice: the objective of the chosen solver may lie
+# below the exact one by float32 rounding only
+LSQ_EXACT_FLOOR = -1e-6
+AMAZON_LSQ_LAM = 1e-3
+# the JAX package's LeastSquaresEstimator on Amazon's training CSR on the
+# CPU (`python tests/test_torch_sparse_solvers.py`): sparse L-BFGS by
+# sparse products (20 steps), its float64 objective and the test error
+# rate. The port on the CPU lands 1.4e-4 below that objective (float32
+# sums in another order over 100,000 features)
+AMAZON_LSQ_JAX_OBJECTIVE = 0.040898551132522276
+AMAZON_LSQ_JAX_TEST_ERROR = 0.0
+AMAZON_LSQ_RTOL = 1e-3
+# the reference suite's sparse shape (LeastSquaresEstimatorSuite: d =
+# 16,384 at density 0.004, k = 2), n cut from 5,000,000 to 200,000
+SPARSE_N, SPARSE_D, SPARSE_K, SPARSE_DENSITY = 200_000, 16_384, 2, 0.004
+SPARSE_LAM, SPARSE_ITERS = 1.0, 20
+# the two routes' W, as a share of max|W|; the padded rows against the CSR
+SPARSE_ROUTES_RTOL = 1e-3
+PADDED_RTOL = 1e-5
+# HOG and DAISY on the card against the CPU path, a share of max|value|
+DESC_N, DESC_SIDE, DESC_CPU_CHECK, DESC_RTOL = 4096, 48, 64, 1e-4
 
 
 def check(cond: bool, msg: str) -> None:
@@ -632,6 +694,40 @@ def timed_s(fn):
     return time.perf_counter() - t, out
 
 
+def pca_routes(pipeline) -> list:
+    """Each `ColumnPCAEstimator` of a run pipeline's graph: the route its
+    cost models chose, both costs under the card's resolved weights, the
+    profile it priced, and the route the JAX package's formulas give
+    under JAX's analytic CPU weights."""
+    from keystone_tpu_torch.nodes.learning.pca import (
+        ColumnPCAEstimator,
+        DistributedPCACostModel,
+        LocalPCACostModel,
+    )
+
+    out = []
+    # one estimator may stand at several vertices before CSE merges them
+    ests = {id(op): op for op in pipeline.graph.operators.values()
+            if isinstance(op, ColumnPCAEstimator)}
+    for op in ests.values():
+        p = op.cost_profile
+        check(p is not None, "a ColumnPCAEstimator was never priced")
+        jax_costs = {"local": LocalPCACostModel().cost(p, *JAX_CPU_WEIGHTS),
+                     "distributed": DistributedPCACostModel().cost(
+                         p, *JAX_CPU_WEIGHTS)}
+        out.append(dict(
+            pca_route=op.chosen, costs_card_weights=op.costs,
+            profile=dict(n=p.n, d=p.d, k=p.k, num_chips=p.num_chips),
+            jax_formulas_route=("local" if jax_costs["local"]
+                                <= jax_costs["distributed"]
+                                else "distributed"),
+            jax_formulas_costs=jax_costs))
+    check(out and all(r["pca_route"] == r["jax_formulas_route"]
+                      for r in out), f"PCA routes {out} differ from the "
+          "JAX formulas' or are missing")
+    return out
+
+
 def voc_phase(dev, card) -> int:
     """Phase 15: VOCSIFTFisher at the reference's widths; returns the
     chain kernel's launches in its run."""
@@ -694,6 +790,7 @@ def voc_phase(dev, card) -> int:
     vc_cpu_argmax = bool((cpu_scores.argmax(1)
                           == card_scores.argmax(1)).all())
     vc_features = solver.W.shape[0]
+    vc_pca = pca_routes(model.predictor)
     phase("voc", seconds=vc["seconds"], images_per_sec=vc["images_per_sec"],
           rate_basis="train+test images", train_images=len(vc_train),
           test_images=len(vc_test), features=vc_features,
@@ -701,7 +798,7 @@ def voc_phase(dev, card) -> int:
           gap_to_jax_cpu=vc["map"] - VOC_JAX_MAP,
           staged_stage_seconds=vc_stages, staged_map=vc_staged_map,
           cpu_check_images=VOC_CPU_CHECK, cpu_score_rel_diff=vc_cpu_rel,
-          cpu_argmax_equal=vc_cpu_argmax, syncs=vc_sync_count,
+          cpu_argmax_equal=vc_cpu_argmax, pca=vc_pca, syncs=vc_sync_count,
           sync_lines=vc_syncs, data_seconds=vc_data_seconds,
           peak_mem_bytes=vc_peak, launches=vc_launches, card=card)
     check(abs(vc["map"] - VOC_JAX_MAP) <= 0.01, f"VOCSIFTFisher mAP "
@@ -748,6 +845,7 @@ def imagenet_phase(dev, card) -> int:
     im = imagenet_sift_lcs_fv.run_on(im_train, im_test, im_config, dev)
     im_launches = launch_counts()
     im_features = im["predictor"].fitted().W.shape[0]
+    im_pca = pca_routes(im["predictor"])
     phase("imagenet", seconds=im["seconds"],
           images_per_sec=im["images_per_sec"],
           rate_basis="train+test images", train_images=len(im_train),
@@ -755,7 +853,7 @@ def imagenet_phase(dev, card) -> int:
           test_accuracy=im["test_accuracy"],
           jax_cpu_test_accuracy=IMAGENET_JAX_ACC,
           gap_to_jax_cpu=im["test_accuracy"] - IMAGENET_JAX_ACC,
-          peak_mem_bytes=torch.cuda.max_memory_allocated(),
+          pca=im_pca, peak_mem_bytes=torch.cuda.max_memory_allocated(),
           launches=im_launches, card=card)
     check(abs(im["test_accuracy"] - IMAGENET_JAX_ACC) <= 0.01,
           f"ImageNetSiftLcsFV test accuracy {im['test_accuracy']} is not "
@@ -919,8 +1017,9 @@ def newsgroups_phase(dev, card) -> None:
           f"NewsgroupsPipeline launched kernels: {launches}")
 
 
-def amazon_phase(dev, card) -> None:
-    """Phase 18: AmazonReviewsPipeline, logistic regression by L-BFGS."""
+def amazon_phase(dev, card) -> dict:
+    """Phase 18: AmazonReviewsPipeline, logistic regression by L-BFGS;
+    returns the staged run's training and test CSRs and their labels."""
     from keystone_tpu_torch.data.dataset import Dataset, HostDataset
     from keystone_tpu_torch.evaluation import BinaryClassifierEvaluator
     from keystone_tpu_torch.nodes.learning.classifiers import (
@@ -1009,6 +1108,8 @@ def amazon_phase(dev, card) -> None:
           "features")
     check(not any(launches.values()),
           f"AmazonReviewsPipeline launched kernels: {launches}")
+    return dict(train=Xs, train_labels=y, test=Xt,
+                test_labels=actual.astype(np.int64))
 
 
 def stupid_backoff_phase(dev, card) -> None:
@@ -1147,6 +1248,253 @@ def workflow_phase(train, test, config, staged_seconds, staged_accuracy,
           f"the fitted pipeline launched the chain kernel: {fit_launches}, "
           f"{apply_launches}")
     return k4
+
+
+def lsq_objective64(X, Y, W, b, lam) -> float:
+    """½‖XW + b − Y‖² + ½λ‖W‖² in float64 on the host, X a scipy CSR."""
+    W = W.double().cpu().numpy()
+    R = (X.astype(np.float64) @ W + b.double().cpu().numpy()
+         - Y.double().cpu().numpy())
+    return float(0.5 * np.sum(R * R) + 0.5 * lam * np.sum(W * W))
+
+
+def calibration_section(dev, card) -> dict:
+    """The cost weights measured on the card, written to
+    smoke_out/cuda_calibration.json, beside the H100's published
+    peaks and the weights resolved before the measurement."""
+    from keystone_tpu_torch.nodes.learning import calibrate, cost_model
+
+    resolved = cost_model.resolve_weights()
+    committed = None
+    if os.path.exists(cost_model.CALIBRATION_FILE):
+        committed = cost_model.read_calibration(
+            cost_model.CALIBRATION_FILE)[1]
+    applied = (committed == cost_model.live_platform()
+               and resolved != cost_model.ANALYTIC_CUDA)
+    t = time.perf_counter()
+    w = calibrate.calibrate_cost_weights(dev, CAL_GEMM_DIM, CAL_MEM_MB,
+                                         CAL_ITERS)
+    seconds = time.perf_counter() - t
+    gemm_flops = 2.0 * CAL_GEMM_DIM**3
+    mem_bytes = 2.0 * CAL_MEM_MB * (1 << 20)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    calibrate.write_calibration(
+        os.path.join(OUT_DIR, "cuda_calibration.json"), w, dict(
+            nvidia_smi=card, power_limit=card.split(",")[-1].strip(),
+            method=(f"keystone_tpu_torch.nodes.learning.calibrate."
+                    f"calibrate_cost_weights(gemm_dim={CAL_GEMM_DIM}, "
+                    f"mem_mb={CAL_MEM_MB}, iters={CAL_ITERS}): "
+                    "dependency-chained fp32 GEMM (TF32 off) and "
+                    "elementwise read+write probes between CUDA events, "
+                    "timed at N and 2N steps and differenced, median of 3; "
+                    "host_bw the best of 3 pinned host-to-device copies"),
+            notes=("network_weight is the analytic NVLink 4 rate a "
+                   "direction (450 GB/s, published): one card has no "
+                   "link to measure"),
+            script="chip_smoke.py phase 21 (least_squares)"))
+    return dict(
+        cpu_weight=w.cpu_weight, mem_weight=w.mem_weight,
+        network_weight=w.network_weight, network_weight_measured=False,
+        host_bw=w.host_bw, peak_flops=w.peak_flops, peak_bw=w.peak_bw,
+        gemm_step_seconds=w.cpu_weight * gemm_flops,
+        mem_step_seconds=w.mem_weight * mem_bytes,
+        probe_sizes=dict(gemm_dim=CAL_GEMM_DIM, mem_mb=CAL_MEM_MB,
+                         iters=CAL_ITERS),
+        calibration_seconds=seconds,
+        peak_flops_over_fp32_published=w.peak_flops / FP32_FLOPS,
+        peak_bw_over_hbm_published=w.peak_bw / HBM_BYTES,
+        committed_file_platform=committed, committed_file_applied=applied,
+        resolved_weights=list(resolved))
+
+
+def least_squares_phase(dev, card, amazon) -> None:
+    """Phase 21: the cost-model solver choice (docstring)."""
+    import scipy.sparse as sp
+
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.data.sparse import (
+        PaddedSparseDataset,
+        SparseDataset,
+    )
+    from keystone_tpu_torch.nodes.learning.lbfgs import SparseLBFGSwithL2
+    from keystone_tpu_torch.nodes.learning.least_squares import (
+        LeastSquaresEstimator,
+    )
+    from keystone_tpu_torch.nodes.learning.linear import normal_equations
+    from keystone_tpu_torch.nodes.util.basic import (
+        ClassLabelIndicatorsFromInt,
+    )
+    from keystone_tpu_torch.ops import kernels
+    from keystone_tpu_torch.pipelines import timit
+
+    kernels.reset_launches()
+    calibration = calibration_section(dev, card)
+
+    # TIMIT's features, as the solvers phase makes them
+    tm_config = timit.TimitConfig(n_synth=TIMIT_N_SYNTH)
+    tm_train, _, classes = timit.load(tm_config, dev)
+    X = timit.featurizer(tm_train.data.array.shape[1], tm_config, dev)(
+        tm_train.data).get().array
+    Y = ClassLabelIndicatorsFromInt(classes)(tm_train.labels).get().array
+    data, labels = tm_train.data.with_data(X), tm_train.data.with_data(Y)
+    lam = tm_config.lam
+
+    def objective(W, b):
+        r = torch.addmm(b, X, W) - Y
+        return float(0.5 * r.double().square().sum()
+                     + 0.5 * lam * W.double().square().sum())
+
+    lse = LeastSquaresEstimator(lam=lam)
+    lse.fit(data, labels)  # warm
+    fit_seconds, model = timed_s(lambda: lse.fit(data, labels))
+    fitted = model.stages[-1] if hasattr(model, "stages") else model
+    exact_seconds, (W, b) = timed_s(
+        lambda: normal_equations(X, Y, X.shape[0], lam, True))
+    timit_lsq = dict(n=X.shape[0], d=X.shape[1], k=Y.shape[1], lam=lam,
+                     chosen=lse.chosen, costs_seconds=lse.costs,
+                     fit_seconds=fit_seconds,
+                     objective=objective(fitted.W, fitted.b),
+                     exact_objective=objective(W, b),
+                     exact_seconds=exact_seconds)
+    timit_lsq["objective_over_exact"] = (
+        timit_lsq["objective"] / timit_lsq["exact_objective"] - 1.0)
+    del X, Y, data, labels, W, b, model, fitted, tm_train
+    torch.cuda.empty_cache()
+
+    # Amazon's training CSR against the -1/+1 indicators of its labels
+    Xa = amazon["train"]
+    Ya = Dataset(2.0 * torch.nn.functional.one_hot(torch.as_tensor(
+        amazon["train_labels"], device=dev), 2).float() - 1.0)
+    amazon_lse = LeastSquaresEstimator(lam=AMAZON_LSQ_LAM)
+    opt_seconds, solver = timed_s(
+        lambda: amazon_lse.optimize(Xa, Ya, Xa.per_shard_count))
+    solver.fit(Xa, Ya)  # warm
+    am_seconds, am_model = timed_s(lambda: solver.fit(Xa, Ya))
+    am_objective = lsq_objective64(Xa.matrix, Ya.array, am_model.W,
+                                   am_model.b, AMAZON_LSQ_LAM)
+    pred_seconds, scores = timed_s(
+        lambda: am_model.apply_batch(amazon["test"]).array)
+    am_error = float(np.mean(scores.argmax(1).cpu().numpy()
+                             != amazon["test_labels"]))
+    amazon_lsq = dict(
+        n=Xa.count, d=Xa.dim, nnz=Xa.nnz, k=2, lam=AMAZON_LSQ_LAM,
+        chosen=amazon_lse.chosen, costs_seconds=amazon_lse.costs,
+        sparse_route=getattr(solver, "route", None),
+        optimize_seconds=opt_seconds, fit_seconds=am_seconds,
+        objective=am_objective, jax_cpu_objective=AMAZON_LSQ_JAX_OBJECTIVE,
+        objective_rel_gap=am_objective / AMAZON_LSQ_JAX_OBJECTIVE - 1.0,
+        loss_history_first_last=[float(solver.loss_history[0]),
+                                 float(solver.loss_history[-1])],
+        predict_seconds=pred_seconds, test_docs=amazon["test"].count,
+        test_error=am_error, jax_cpu_test_error=AMAZON_LSQ_JAX_TEST_ERROR)
+
+    # the reference suite's sparse shape, both routes forced
+    rng = np.random.default_rng(0)
+    counts = rng.binomial(SPARSE_D, SPARSE_DENSITY, size=SPARSE_N)
+    nnz = int(counts.sum())
+    Xs = sp.csr_matrix((rng.standard_normal(nnz).astype(np.float32),
+                        rng.integers(0, SPARSE_D, size=nnz),
+                        np.concatenate([[0], np.cumsum(counts)])),
+                       shape=(SPARSE_N, SPARSE_D))
+    Xs.sum_duplicates()
+    W_true = rng.standard_normal((SPARSE_D, SPARSE_K)).astype(np.float32)
+    Ys = (Xs @ W_true + 0.1 * rng.standard_normal(
+        (SPARSE_N, SPARSE_K))).astype(np.float32)
+    sdata, slabels = SparseDataset(Xs, device=dev), Dataset(Ys, device=dev)
+    sdata.csr(), sdata.csr_t()  # the copies, outside the clocks
+    routes, models = {}, {}
+    for method in ("gram", "iterative"):
+        est = SparseLBFGSwithL2(lam=SPARSE_LAM, num_iters=SPARSE_ITERS,
+                                method=method)
+        est.fit(sdata, slabels)  # warm
+        seconds, m = timed_s(lambda: est.fit(sdata, slabels))
+        models[method] = m
+        routes[method] = dict(seconds=seconds, objective=lsq_objective64(
+            Xs, slabels.array, m.W, m.b, SPARSE_LAM),
+            loss_history_first_last=[float(est.loss_history[0]),
+                                     float(est.loss_history[-1])])
+    Wg, Wi = models["gram"].W, models["iterative"].W
+    routes_w_rel = float((Wg - Wi).abs().max() / Wg.abs().max())
+    auto = SparseLBFGSwithL2(lam=SPARSE_LAM, num_iters=SPARSE_ITERS)
+    mean_width = math.ceil(Xs.nnz / SPARSE_N)
+    est_gram, est_iter = auto.route_seconds(SPARSE_N, SPARSE_D, SPARSE_K,
+                                            mean_width)
+    pad_seconds, padded = timed_s(
+        lambda: PaddedSparseDataset.from_csr(Xs, device=dev))
+    pest = SparseLBFGSwithL2(lam=SPARSE_LAM, num_iters=SPARSE_ITERS,
+                             method="iterative")
+    pest.fit(padded, slabels)  # warm
+    pfit_seconds, pm = timed_s(lambda: pest.fit(padded, slabels))
+    padded_w_rel = float((pm.W - Wi).abs().max() / Wi.abs().max())
+    sparse = dict(
+        n=SPARSE_N, d=SPARSE_D, k=SPARSE_K, density=SPARSE_DENSITY,
+        nnz=Xs.nnz, lam=SPARSE_LAM, num_iters=SPARSE_ITERS,
+        reduced="n cut from the reference suite's 5,000,000 to 200,000",
+        routes=routes, routes_w_rel_diff=routes_w_rel,
+        auto_route=auto._route(SPARSE_N, SPARSE_D, SPARSE_K, mean_width),
+        auto_estimate_seconds=dict(gram=est_gram, iterative=est_iter),
+        padded=dict(from_csr_seconds=pad_seconds, bytes=padded.nbytes,
+                    width=padded.width,
+                    column_width=(padded.cidx.shape[1]
+                                  if padded.cidx is not None else None),
+                    fit_seconds=pfit_seconds,
+                    objective=lsq_objective64(Xs, slabels.array, pm.W,
+                                              pm.b, SPARSE_LAM),
+                    w_rel_diff_from_csr=padded_w_rel))
+    launches = launch_counts()
+    phase("least_squares", calibration=calibration, timit=timit_lsq,
+          amazon=amazon_lsq, sparse=sparse, launches=launches, card=card)
+    check(timit_lsq["objective_over_exact"] >= LSQ_EXACT_FLOOR,
+          f"the chosen solver's TIMIT objective is below the exact one: "
+          f"{timit_lsq}")
+    check(amazon_lsq["chosen"] == "sparse-lbfgs"
+          and amazon_lsq["sparse_route"] == "iterative",
+          f"Amazon's least squares chose {amazon_lsq['chosen']} "
+          f"({amazon_lsq['sparse_route']})")
+    check(abs(amazon_lsq["objective_rel_gap"]) <= AMAZON_LSQ_RTOL,
+          f"Amazon's least-squares objective {am_objective} is not within "
+          f"{AMAZON_LSQ_RTOL} of JAX's {AMAZON_LSQ_JAX_OBJECTIVE}")
+    check(routes_w_rel <= SPARSE_ROUTES_RTOL, f"the Gram and sparse-product "
+          f"routes' W differ by {routes_w_rel} of max|W|")
+    check(padded_w_rel <= PADDED_RTOL, f"the padded rows' fit differs from "
+          f"the CSR's by {padded_w_rel} of max|W|")
+    check(not any(launches.values()),
+          f"the least-squares phase launched kernels: {launches}")
+
+
+def hog_daisy_phase(dev, card) -> None:
+    """Phase 22: HOG and DAISY on a batch of gray images."""
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.nodes.images.descriptors import (
+        DaisyExtractor,
+        HogExtractor,
+    )
+    from keystone_tpu_torch.ops import kernels
+
+    kernels.reset_launches()
+    imgs = np.random.default_rng(0).random(
+        (DESC_N, DESC_SIDE, DESC_SIDE)).astype(np.float32)
+    out = {}
+    for name, ext, x in (("hog", HogExtractor(), imgs[..., None]),
+                         ("daisy", DaisyExtractor(), imgs)):
+        data = Dataset(x, device=dev)
+        ext.apply_batch(data)  # warm
+        seconds, got = timed_s(lambda: ext.apply_batch(data).array)
+        want = ext.apply_batch(Dataset(x[:DESC_CPU_CHECK],
+                                       device="cpu")).array
+        rel = float((got[:DESC_CPU_CHECK].cpu() - want).abs().max()
+                    / want.abs().max())
+        out[name] = dict(seconds=seconds, images_per_sec=DESC_N / seconds,
+                         shape=list(got.shape), cpu_check_images=DESC_CPU_CHECK,
+                         cpu_rel_diff=rel, tolerance=DESC_RTOL)
+    launches = launch_counts()
+    phase("hog_daisy", images=DESC_N, side=DESC_SIDE, **out,
+          launches=launches, card=card)
+    for name, r in out.items():
+        check(r["cpu_rel_diff"] <= DESC_RTOL, f"{name} on the card differs "
+              f"from the CPU path by {r['cpu_rel_diff']} of max|value|")
+    check(not any(launches.values()),
+          f"HOG and DAISY launched kernels: {launches}")
 
 
 def main() -> int:
@@ -2182,13 +2530,22 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 17-19. the text family -------------------------------------------
-    for run_phase in (newsgroups_phase, amazon_phase, stupid_backoff_phase):
-        run_phase(dev, card)
-        torch.cuda.empty_cache()
+    newsgroups_phase(dev, card)
+    torch.cuda.empty_cache()
+    amazon = amazon_phase(dev, card)
+    torch.cuda.empty_cache()
+    stupid_backoff_phase(dev, card)
 
     # ---- 20. the workflow: fit, save, load, apply ---------------------------
     workflow_k4 = workflow_phase(train, test, config, sum(stages.values()),
                                  test_metrics.accuracy, card)
+    torch.cuda.empty_cache()
+
+    # ---- 21-22. the solver choice; HOG and DAISY ---------------------------
+    least_squares_phase(dev, card, amazon)
+    del amazon
+    torch.cuda.empty_cache()
+    hog_daisy_phase(dev, card)
 
     record = {"kernels": [
         dict(name="conv_rectify_pool", route="cuda",

@@ -11,8 +11,18 @@ CUDA, through ``csr @ dense``). A product with Xᵀ needs the CSR of Xᵀ,
 which scipy builds on the host once (`csr_t`): a transposed CSR is a CSC
 matrix to torch, and its product is another call on CUDA.
 
-`PaddedSparseDataset`, `pad_csr` and `padded_form_ok` (`:79-249`) wait
-with `SparseLBFGSwithL2` (ROADMAP queue 1, item 7).
+`padded_form_ok`, `pad_csr` and `PaddedSparseDataset` (`:79-249`) hold
+the width-padded form: each row's nonzeros in ``w`` slots, the unused
+slots carrying the sentinel column ``dim`` and the value 0, with an
+optional column form (the same padding of Xᵀ, sentinel row ``count``).
+JAX lays it out slot-major, (w, n), and rounds w up to 8 sublanes
+(`sublane_pad8`), because the TPU's (8, 128) tiles pad a narrow minor
+axis to 128 lanes. The card's memory has no tiles, so the port keeps
+ELL rows, (n, w) row-major: a row's slots are contiguous, as cuSPARSE's
+CSR wants them, and the padded arrays are the CSR arrays of an
+(n, dim + 1) matrix whose last column is the sentinel (`csr`), with row
+pointers ``w`` apart. The size caps are JAX's shares of its 16 GB chip
+taken of the device's memory (`memory_budget`).
 """
 
 from __future__ import annotations
@@ -25,6 +35,22 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from .dataset import Dataset
+
+#: bytes the CPU stands for when a size is a share of device memory
+CPU_MEMORY_BUDGET = 16 * 2**30
+#: the padded form's share of the device: the share JAX's cap takes of
+#: its 16 GB chip (`:86-98`), room left for the column form and solver
+#: transients
+PADDED_SHARE = 5.0 / 16.0
+
+
+def memory_budget(device: DeviceLike = "cuda") -> float:
+    """Bytes of ``device``: the card's total memory, or
+    `CPU_MEMORY_BUDGET` on the CPU."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        return float(torch.cuda.get_device_properties(dev).total_memory)
+    return float(CPU_MEMORY_BUDGET)
 
 
 def _to_torch_csr(m: sp.csr_matrix, device: torch.device) -> torch.Tensor:
@@ -113,3 +139,162 @@ class SparseDataset:
     def __repr__(self) -> str:
         return (f"SparseDataset(count={self.count}, dim={self.dim}, "
                 f"nnz={self.matrix.nnz})")
+
+
+def padded_form_ok(n: int, w: int, nnz: int,
+                   device: DeviceLike = "cuda") -> bool:
+    """Whether the width-padded form of an (n rows, w slots, nnz) matrix
+    is a sane size (`:86-98`): at most `PADDED_SHARE` of ``device``'s
+    memory (ids and values, 8 bytes a slot), and, above 32 MB, at most
+    16× the bytes of the nonzeros. One outlier-dense row (a ones column,
+    one long document) makes w the dimension and the padding O(n·d)."""
+    padded_bytes = 8.0 * n * w
+    return padded_bytes <= PADDED_SHARE * memory_budget(device) and not (
+        padded_bytes > 32e6 and padded_bytes > 16.0 * 8.0 * max(nnz, 1))
+
+
+def pad_csr(matrix) -> "tuple[np.ndarray, np.ndarray]":
+    """Host CSR → ELL rows: (n, w) int32 column ids and float32 values,
+    row r's nonzeros in slots [0, len_r), the rest the sentinel column
+    ``dim`` with value 0 (`:101-124`, there slot-major)."""
+    X = sp.csr_matrix(matrix)
+    n, d = X.shape
+    lens = np.diff(X.indptr)
+    w = max(1, int(lens.max()) if n else 1)
+    rows = np.repeat(np.arange(n, dtype=np.int64), lens)
+    slots = np.arange(X.nnz, dtype=np.int64) - np.repeat(
+        X.indptr[:-1].astype(np.int64), lens)
+    idx = np.full((n, w), d, np.int32)
+    val = np.zeros((n, w), np.float32)
+    idx[rows, slots] = X.indices
+    val[rows, slots] = X.data
+    return idx, val
+
+
+def _ell_csr(idx: torch.Tensor, val: torch.Tensor, ncols: int):
+    """ELL rows (n, w) as the CSR of an (n, ncols) matrix whose slots all
+    count, the padding included (row pointers w apart)."""
+    n, w = idx.shape
+    itype = torch.int32 if n * w < 2**31 else torch.int64
+    crow = torch.arange(0, n * w + 1, w, dtype=itype, device=idx.device)
+    return torch.sparse_csr_tensor(crow, idx.reshape(-1).to(itype),
+                                   val.reshape(-1), size=(n, ncols),
+                                   check_invariants=False)
+
+
+class PaddedSparseDataset:
+    """Width-padded sparse rows on a device (`:127-249`).
+
+    ``idx`` (n, w) int32 column ids, the sentinel ``dim`` in unused
+    slots; ``val`` (n, w) float32, 0 there. The optional column form
+    ``cidx``/``cval`` (dim, wc) holds, for each feature column, the ids
+    of the rows that contain it (sentinel ``count``) and their values,
+    so a product with Xᵀ is a product with another padded matrix rather
+    than a scatter-add. ``nnz`` is the true nonzero count."""
+
+    is_dataset = True
+
+    def __init__(self, idx: torch.Tensor, val: torch.Tensor, dim: int,
+                 nnz: Optional[int] = None, cidx: Optional[torch.Tensor] = None,
+                 cval: Optional[torch.Tensor] = None):
+        if idx.shape != val.shape or idx.ndim != 2:
+            raise ValueError(f"idx {tuple(idx.shape)} and val "
+                             f"{tuple(val.shape)} must be one (n, w) shape")
+        self.idx, self.val, self.dim = idx, val, int(dim)
+        self.nnz = int(nnz) if nnz is not None else idx.numel()
+        self.cidx, self.cval = cidx, cval
+
+    @classmethod
+    def from_csr(cls, matrix, device: DeviceLike = "cuda",
+                 column_form: bool = True,
+                 max_col_pad_ratio: float = 16.0) -> "PaddedSparseDataset":
+        """The padded form of a host CSR, copied to ``device`` once; the
+        column form too unless its padding would exceed
+        ``max_col_pad_ratio`` times the nonzeros (and 1e6 slots), as a
+        column in every row makes it O(dim · n) (`:159-182`). Raises
+        where the row padding fails `padded_form_ok`: `SparseDataset`
+        holds such a matrix without padding."""
+        dev = resolve_device(device)
+        X = sp.csr_matrix(matrix)
+        n, d = X.shape
+        lens = np.diff(X.indptr)
+        w = max(1, int(lens.max()) if n else 1)
+        if not padded_form_ok(n, w, X.nnz, dev):
+            raise ValueError(
+                f"padding {n} rows to width {w} ({8.0 * n * w:.3g} bytes) "
+                f"for {X.nnz} nonzeros is outside padded_form_ok")
+        idx, val = pad_csr(X)
+        cidx = cval = None
+        if column_form and d > 0:
+            wc = max(1, int(np.diff(X.tocsc().indptr).max()))
+            if d * wc <= max(max_col_pad_ratio * max(X.nnz, 1), 1e6):
+                ci, cv = pad_csr(X.T.tocsr())
+                cidx = torch.from_numpy(ci).to(dev)
+                cval = torch.from_numpy(cv).to(dev)
+        return cls(torch.from_numpy(idx).to(dev),
+                   torch.from_numpy(val).to(dev), d, nnz=X.nnz,
+                   cidx=cidx, cval=cval)
+
+    def with_column_form(self) -> "PaddedSparseDataset":
+        """This dataset with its column form built on the device
+        (`:184-227`): a stable sort of the slots by column, each column's
+        slots at its rows' positions. The sentinel slots sort last and
+        are written to a dropped row ``dim``; the width (the longest
+        column) is read on the host, one synchronizing call."""
+        if self.cidx is not None:
+            return self
+        n, w = self.idx.shape
+        d, dev = self.dim, self.idx.device
+        flat = self.idx.reshape(-1).long()
+        order = torch.argsort(flat, stable=True)
+        cols = flat[order]
+        rows = torch.div(order, w, rounding_mode="floor")
+        starts = torch.searchsorted(cols, torch.arange(d + 1, device=dev))
+        counts = torch.diff(starts)
+        wc = max(1, int(counts.max())) if d else 1
+        pos = torch.arange(flat.numel(), device=dev) - starts[cols]
+        # the sentinel column's slots land in dropped row d, slot 0
+        pos = torch.where(cols < d, pos, 0)
+        cidx = torch.full((d + 1, wc), n, dtype=torch.int32, device=dev)
+        cval = torch.zeros((d + 1, wc), dtype=self.val.dtype, device=dev)
+        cidx[cols, pos] = rows.to(torch.int32)
+        cval[cols, pos] = self.val.reshape(-1)[order]
+        return PaddedSparseDataset(self.idx, self.val, d, nnz=self.nnz,
+                                   cidx=cidx[:d], cval=cval[:d])
+
+    def csr(self) -> torch.Tensor:
+        """The rows as an (n, dim + 1) CSR, padding included: column
+        ``dim`` is the sentinel, its values 0."""
+        return _ell_csr(self.idx, self.val, self.dim + 1)
+
+    def csr_t(self) -> torch.Tensor:
+        """Xᵀ as a (dim, n + 1) CSR from the column form (sentinel row
+        ``n`` as the last column); `with_column_form` builds it first."""
+        if self.cidx is None:
+            raise ValueError("no column form; call with_column_form()")
+        return _ell_csr(self.cidx, self.cval, self.count + 1)
+
+    @property
+    def count(self) -> int:
+        return self.idx.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.idx.shape[1]
+
+    @property
+    def sparsity(self) -> float:
+        return self.nnz / max(self.count * self.dim, 1)
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the row form and of the column form, if any."""
+        return sum(t.numel() * t.element_size() for t in (
+            self.idx, self.val, self.cidx, self.cval) if t is not None)
+
+    def __len__(self) -> int:
+        return self.count
+
+    def __repr__(self) -> str:
+        return (f"PaddedSparseDataset(count={self.count}, dim={self.dim}, "
+                f"width={self.width})")

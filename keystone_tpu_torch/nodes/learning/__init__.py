@@ -6,12 +6,27 @@ from .block_ls import (
     bcd_fit,
     raise_if_unfactored,
 )
+from .calibrate import (
+    CostWeights,
+    calibrate_cost_weights,
+    default_weights,
+    host_bandwidth,
+    machine_rates,
+    write_calibration,
+)
 from .classifiers import (
     LinearDiscriminantAnalysis,
     LogisticRegressionEstimator,
     LogisticRegressionModel,
     NaiveBayesEstimator,
     NaiveBayesModel,
+)
+from .cost_model import (
+    BlockSolverCostModel,
+    CostModel,
+    CostProfile,
+    ExactSolverCostModel,
+    LBFGSCostModel,
 )
 from .kernels import (
     BlockKernelMatrix,
@@ -22,12 +37,21 @@ from .kernels import (
 )
 from .gmm import GaussianMixtureModel, GaussianMixtureModelEstimator
 from .kmeans import KMeansModel, KMeansPlusPlusEstimator
-from .linear import LinearMapEstimator, LinearMapper
+from .lbfgs import DenseLBFGSwithL2, SparseLBFGSwithL2
+from .least_squares import LeastSquaresEstimator
+from .linear import (
+    LinearMapEstimator,
+    LinearMapper,
+    LocalLeastSquaresEstimator,
+    SparseLinearMapper,
+)
 from .pca import (
     ApproximatePCAEstimator,
     BatchPCATransformer,
     ColumnPCAEstimator,
+    DistributedPCACostModel,
     DistributedPCAEstimator,
+    LocalPCACostModel,
     PCAEstimator,
     PCATransformer,
 )
@@ -39,16 +63,22 @@ from .zca import ZCAWhitener, ZCAWhitenerEstimator, zca_from_covariance
 
 __all__ = ["ApproximatePCAEstimator", "BatchPCATransformer",
            "BlockKernelMatrix", "BlockLeastSquaresEstimator",
-           "BlockLinearMapper", "BlockWeightedLeastSquaresEstimator",
-           "ColumnPCAEstimator", "DistributedPCAEstimator",
-           "GaussianKernelGenerator", "GaussianKernelTransformer",
-           "GaussianMixtureModel", "GaussianMixtureModelEstimator",
-           "KMeansModel", "KMeansPlusPlusEstimator",
-           "KernelBlockLinearMapper", "KernelRidgeRegression",
-           "LinearDiscriminantAnalysis", "LinearMapEstimator",
-           "LinearMapper", "LogisticRegressionEstimator",
+           "BlockLinearMapper", "BlockSolverCostModel",
+           "BlockWeightedLeastSquaresEstimator", "ColumnPCAEstimator",
+           "CostModel", "CostProfile", "CostWeights", "DenseLBFGSwithL2",
+           "DistributedPCACostModel", "DistributedPCAEstimator",
+           "ExactSolverCostModel", "GaussianKernelGenerator",
+           "GaussianKernelTransformer", "GaussianMixtureModel",
+           "GaussianMixtureModelEstimator", "KMeansModel",
+           "KMeansPlusPlusEstimator", "KernelBlockLinearMapper",
+           "KernelRidgeRegression", "LBFGSCostModel",
+           "LeastSquaresEstimator", "LinearDiscriminantAnalysis",
+           "LinearMapEstimator", "LinearMapper", "LocalLeastSquaresEstimator",
+           "LocalPCACostModel", "LogisticRegressionEstimator",
            "LogisticRegressionModel", "NaiveBayesEstimator",
-           "NaiveBayesModel", "PCAEstimator",
-           "PCATransformer", "PerClassWeightedLeastSquares", "ZCAWhitener",
-           "ZCAWhitenerEstimator",
-           "bcd_fit", "raise_if_unfactored", "zca_from_covariance"]
+           "NaiveBayesModel", "PCAEstimator", "PCATransformer",
+           "PerClassWeightedLeastSquares", "SparseLBFGSwithL2",
+           "SparseLinearMapper", "ZCAWhitener", "ZCAWhitenerEstimator",
+           "bcd_fit", "calibrate_cost_weights", "default_weights",
+           "host_bandwidth", "machine_rates", "raise_if_unfactored",
+           "write_calibration", "zca_from_covariance"]

@@ -1,4 +1,4 @@
-"""Dense L-BFGS least squares with L2.
+"""L-BFGS least squares with L2, on dense and on sparse features.
 
 Counterpart of `keystone_tpu/nodes/learning/lbfgs.py`: the centring pass
 `_lbfgs_prepare` (`:88-107`), the zero start `_lbfgs_init` (`:110-113`),
@@ -25,18 +25,27 @@ differ; this module keeps its own copy of optax's algorithm,
   first also carries the slope at step 0, and the fit's first the
   starting value): those transfers are the fit's synchronizing calls,
   one per evaluation, all at `_evaluate`.
+
+`SparseLBFGSwithL2` (`:507-827`, with `_lbfgs_gram_fit` `:210-237`,
+`_sparse_matvec_fit_impl` `:240-452` and the Gram reduction `:829-949`)
+fits sparse rows by one of two routes, its docstring says which and why.
 """
 
 from __future__ import annotations
 
+import math
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from ...data.dataset import Dataset
+from ...data.sparse import PaddedSparseDataset, SparseDataset, memory_budget
 from ...workflow.pipeline import LabelEstimator
-from .linear import LinearMapper
+from . import cost_model
+from .linear import LinearMapper, SparseLinearMapper
 
 f32 = np.float32
 
@@ -335,3 +344,345 @@ class DenseLBFGSwithL2(LabelEstimator):
                                          dtype=torch.float32)
         self.linesearch_steps = res.linesearch_steps
         return LinearMapper(res.W, res.b)
+
+
+# --------------------------------------------------------------------------
+# Sparse features: SparseLBFGSwithL2
+
+
+#: a densified row block's share of device memory: the share JAX's
+#: block cap takes of its 16 GB chip (`:621-622`, `:931-933`)
+GRAM_BLOCK_SHARE = 1.0 / 32.0
+
+
+@contextmanager
+def _tf32(enabled: bool):
+    """cuBLAS's TF32 mode for float32 products while open."""
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = enabled
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _accumulate(acc: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+                precision: str) -> None:
+    """acc += aᵀb at ``precision``: "highest" true float32, "high" TF32,
+    "default" bfloat16 operands (the block's product rounded to bfloat16
+    before it is added)."""
+    if precision == "default":
+        acc += (a.T.to(torch.bfloat16) @ b.to(torch.bfloat16)).float()
+        return
+    with _tf32(precision == "high"):
+        acc.addmm_(a.T, b)
+
+
+def gram_statistics(blocks, d: int, k: int, precision: str,
+                    device: torch.device):
+    """(G = XᵀX, C = XᵀY, column sums of X) over ``blocks``, an iterable
+    of (dense row block of X, its rows of Y) (`_sparse_gram_accumulate`,
+    `:829-907`)."""
+    G = torch.zeros((d, d), dtype=torch.float32, device=device)
+    C = torch.zeros((d, k), dtype=torch.float32, device=device)
+    colsum = torch.zeros(d, dtype=torch.float32, device=device)
+    for Xb, Yb in blocks:
+        _accumulate(G, Xb, Xb, precision)
+        _accumulate(C, Xb, Yb, precision)
+        colsum += Xb.sum(dim=0)
+    return G, C, colsum
+
+
+def gram_row_block(d: int, block_rows: int, device: torch.device) -> int:
+    """Rows of a densified block: at most `GRAM_BLOCK_SHARE` of the
+    device's memory as float32 (d + 1) columns, and ``block_rows``."""
+    cap = int(GRAM_BLOCK_SHARE * memory_budget(device) / (4 * (d + 1)))
+    return max(1, min(block_rows, cap))
+
+
+def csr_row_blocks(data: SparseDataset, Y: torch.Tensor, row_block: int):
+    """The CSR's rows densified on its device a block at a time, each
+    with its rows of ``Y``. The block bounds come from the host's row
+    pointers, so no block waits for the device."""
+    X = data.csr()
+    cols, vals = X.col_indices(), X.values()
+    crow = X.crow_indices()
+    indptr = data.matrix.indptr
+    n, d, dev = data.count, data.dim, vals.device
+    for s in range(0, n, row_block):
+        e = min(n, s + row_block)
+        a, b = int(indptr[s]), int(indptr[e])
+        rows = torch.repeat_interleave(
+            torch.arange(e - s, device=dev), crow[s + 1:e + 1] - crow[s:e],
+            output_size=b - a)
+        dense = torch.zeros((e - s, d), dtype=torch.float32, device=dev)
+        dense.index_put_((rows, cols[a:b].long()), vals[a:b],
+                         accumulate=True)
+        yield dense, Y[s:e]
+
+
+def padded_row_blocks(data: PaddedSparseDataset, Y: torch.Tensor,
+                      row_block: int):
+    """Padded rows densified a block at a time (the sentinel column
+    dropped), each with its rows of ``Y``."""
+    n, d = data.count, data.dim
+    for s in range(0, n, row_block):
+        e = min(n, s + row_block)
+        dense = torch.zeros((e - s, d + 1), dtype=torch.float32,
+                            device=data.val.device)
+        dense.scatter_add_(1, data.idx[s:e].long(), data.val[s:e])
+        yield dense[:, :d], Y[s:e]
+
+
+class _GramObjective:
+    """½ tr(WᵀGW) − tr(WᵀC) + ½λ‖W‖² and its gradient GW − C + λW: the
+    ridge objective with n dropped out (`_lbfgs_gram_fit`, `:210-237`)."""
+
+    def __init__(self, G: torch.Tensor, C: torch.Tensor, lam: float):
+        self.G, self.C, self.lam = G, C, lam
+
+    def __call__(self, W: torch.Tensor):
+        GW = self.G @ W
+        value = (0.5 * _dot(W, GW) - _dot(W, self.C)
+                 + 0.5 * self.lam * _dot(W, W))
+        return value, GW - self.C + self.lam * W
+
+
+def lbfgs_gram_fit(G: torch.Tensor, C: torch.Tensor, lam: float,
+                   num_iters: int, memory_size: int):
+    """optax's L-BFGS on the Gram objective from W = 0: (W, the value at
+    the start of each step)."""
+    W0 = torch.zeros_like(C)
+    W, history, _ = lbfgs_minimize(_GramObjective(G, C, lam), W0,
+                                   num_iters, memory_size)
+    return W, history
+
+
+def sparse_matvec_fit(X: torch.Tensor, Xt: torch.Tensor, Y: torch.Tensor,
+                      lam: float, count: int, d: int, num_iters: int,
+                      memory_size: int, fit_intercept: bool):
+    """L-BFGS by sparse products (`_sparse_matvec_fit_impl`,
+    `:240-452`): (W (d, k), b (k,), the objective after each step).
+
+    ``X`` is the (n, d) CSR of the rows and ``Xt`` the (d, n) CSR of Xᵀ,
+    each perhaps with one more column, a sentinel whose entries are 0.
+    Each iteration runs two products with X and one with Xᵀ. The
+    centring is algebraic, Xc V = XV − 1(x̄ᵀV), so no centred copy
+    exists; the objective is quadratic, so the line search is its
+    closed form t* = −(⟨R, XcD⟩ + λ⟨W, D⟩)/(‖XcD‖² + λ‖D‖²); the
+    two-loop recursion runs over all ``memory_size`` slots of the
+    history ring, empty slots zero, as JAX's does. Nothing waits for the
+    device until the history is read."""
+    n, k = Y.shape
+    m = memory_size
+    dev = Y.device
+
+    def pad(A, cols):
+        return A if A.shape[0] == cols else torch.cat(
+            [A, A.new_zeros((cols - A.shape[0], A.shape[1]))])
+
+    def matvec(V):
+        return X @ pad(V, X.shape[1])
+
+    def tmatvec(R):
+        return Xt @ pad(R, Xt.shape[1])
+
+    if fit_intercept:
+        ones = torch.ones((Xt.shape[1], 1), dtype=torch.float32, device=dev)
+        xm = (Xt @ ones)[:, 0] / count
+        ym = Y.sum(dim=0) / count
+    else:
+        xm = torch.zeros(d, dtype=torch.float32, device=dev)
+        ym = torch.zeros(k, dtype=torch.float32, device=dev)
+
+    def centered_matvec(V):
+        return matvec(V) - (xm @ V)[None, :]
+
+    def grad_of(W, R):
+        return tmatvec(R) - torch.outer(xm, R.sum(dim=0)) + lam * W
+
+    W = torch.zeros((d, k), dtype=torch.float32, device=dev)
+    R = -(Y - ym)
+    g = grad_of(W, R)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    S = [torch.zeros_like(W) for _ in range(m)]
+    YH = [torch.zeros_like(W) for _ in range(m)]
+    rho = [zero] * m
+    values = []
+    for it in range(num_iters):
+        ptr = it % m
+        q, alphas = g, []
+        for j in range(m):
+            i = (ptr - 1 - j) % m
+            a = rho[i] * _dot(S[i], q)
+            q = q - a * YH[i]
+            alphas.append((i, a))
+        last = (ptr - 1) % m
+        yy = _dot(YH[last], YH[last])
+        sy = _dot(S[last], YH[last])
+        gamma = torch.where(yy > 0, sy / torch.clamp_min(yy, 1e-30), 1.0)
+        r = gamma * q
+        for i, a in reversed(alphas):
+            r = r + S[i] * (a - rho[i] * _dot(YH[i], r))
+        D = -r
+        u = centered_matvec(D)
+        den = _dot(u, u) + lam * _dot(D, D)
+        num = -(_dot(R, u) + lam * _dot(W, D))
+        t = torch.where(den > 0, num / torch.clamp_min(den, 1e-30), 0.0)
+        W = W + t * D
+        R = R + t * u
+        g_new = grad_of(W, R)
+        s_vec, y_vec = t * D, g_new - g
+        sy_new = _dot(s_vec, y_vec)
+        ok = sy_new > 1e-10
+        S[ptr] = torch.where(ok, s_vec, 0.0)
+        YH[ptr] = torch.where(ok, y_vec, 0.0)
+        rho[ptr] = torch.where(ok, 1.0 / torch.where(ok, sy_new, 1.0), 0.0)
+        g = g_new
+        values.append(0.5 * _dot(R, R) + 0.5 * lam * _dot(W, W))
+    b = ym - xm @ W if fit_intercept else torch.zeros(
+        k, dtype=torch.float32, device=dev)
+    history = torch.stack(values) if values else zero.new_zeros(0)
+    return W, b, history
+
+
+def _labels(labels, count: int, device: torch.device) -> torch.Tensor:
+    """Row-major (count, k) float32 labels on ``device`` from a `Dataset`
+    or an array, row-major or label-major (k, count) (`:711-728`);
+    row-major wins where k == count."""
+    if isinstance(labels, Dataset):
+        Y = labels.array
+    else:
+        Y = torch.as_tensor(np.asarray(labels) if not isinstance(
+            labels, torch.Tensor) else labels)
+        if Y.shape[0] != count and Y.ndim == 2 and Y.shape[1] == count:
+            Y = Y.T
+    return Y[:count].to(device=device, dtype=torch.float32)
+
+
+class SparseLBFGSwithL2(LabelEstimator):
+    """Least squares with L2 on sparse rows (LBFGS.scala
+    `SparseLBFGSwithL2`; JAX `:507-827`), by one of two routes:
+
+    - **gram**: the rows reduced once to G = XᵀX, C = XᵀY and the column
+      sums, a row block at a time densified on the device (at most
+      `GRAM_BLOCK_SHARE` of its memory) and multiplied by cuBLAS, then
+      `lbfgs_minimize` on the Gram objective, n gone. ``gram_precision``
+      maps JAX's MXU passes to the card's modes for the block products:
+      "highest" true float32, "high" TF32, "default" bfloat16 operands;
+      the L-BFGS on G stays float32.
+    - **iterative**: `sparse_matvec_fit`, three sparse products an
+      iteration on the device CSR of X and of Xᵀ (cuSPARSE SpMM), JAX's
+      closed-form step and history.
+
+    Both fit the intercept by mean correction. `_route` prices the two
+    in JAX's form (`:567-586`), one Gram pass plus 2·n·d² flops against
+    ``num_iters`` · 3 sparse passes, with the card's rates: the weights
+    `cost_model` resolves (measured on the card where its calibration
+    file applies, else the H100's published peaks) where JAX's are TPU
+    measurements. A sparse pass reads each slot's id and value and
+    gathers and writes k floats; the card has the gather hardware the
+    TPU lacks. With k = 2, 20 iterations and the H100's analytic weights
+    (67 TFLOP/s fp32, 3.35 TB/s) the Gram route is the cheaper only where
+    a row's w slots exceed d²/9,700 + d/240: dense rows below about
+    9,700 features. Amazon's 100,000 features (a 40 GB Gram) and the
+    reference suite's d = 16,384 at density 0.004 go iterative.
+
+    JAX's host-scipy Gram for an outlier-dense row (`:773-791`) exists
+    because its device routes pad rows to the widest; the port's routes
+    work from the CSR, which has no padding, so a `SparseDataset` is
+    priced by its mean row width. ``fit`` takes a `PaddedSparseDataset`
+    (returns a `LinearMapper`), a `SparseDataset` (a
+    `SparseLinearMapper`) or a dense `Dataset` (the Gram route, a
+    `LinearMapper`). After a fit ``loss_history`` holds the objective
+    at the start of each step (gram) or after it (iterative), as JAX's
+    routes record them, and ``route`` the route taken."""
+
+    def __init__(self, lam: float = 0.0, num_iters: int = 20,
+                 memory_size: int = 10, fit_intercept: bool = True,
+                 block_rows: int = 65536, method: Optional[str] = None,
+                 gram_precision: str = "highest"):
+        if method not in (None, "gram", "iterative"):
+            raise ValueError(f"method must be gram|iterative, got {method!r}")
+        if gram_precision not in ("default", "high", "highest"):
+            raise ValueError("gram_precision must be default|high|highest, "
+                             f"got {gram_precision!r}")
+        self.lam = lam
+        self.num_iters = num_iters
+        self.memory_size = memory_size
+        self.fit_intercept = fit_intercept
+        self.block_rows = block_rows
+        self.method = method
+        self.gram_precision = gram_precision
+        self.loss_history: Optional[torch.Tensor] = None
+        self.route: Optional[str] = None
+
+    def route_seconds(self, n: int, d: int, k: int, w: int):
+        """(gram, iterative) seconds `_route` estimates for n rows of w
+        slots, d features and k labels."""
+        cw, mw, _ = cost_model.resolve_weights()
+        slots = n * w
+        gram = mw * 4.0 * n * d + cw * 2.0 * n * d * d
+        iterative = self.num_iters * 3.0 * (
+            mw * slots * (8.0 + 4.0 * k) + cw * 2.0 * slots * k)
+        return gram, iterative
+
+    def _route(self, n: int, d: int, k: int, w: int) -> str:
+        if self.method is not None:
+            return self.method
+        gram, iterative = self.route_seconds(n, d, k, w)
+        return "iterative" if iterative < gram else "gram"
+
+    def _gram(self, blocks, d, Y, n, dev):
+        G, C, colsum = gram_statistics(blocks, d, Y.shape[1],
+                                       self.gram_precision, dev)
+        if self.fit_intercept:
+            xm, ym = colsum / n, Y.sum(dim=0) / n
+            G -= n * torch.outer(xm, xm)
+            C -= n * torch.outer(xm, ym)
+        W, history = lbfgs_gram_fit(G, C, self.lam, self.num_iters,
+                                    self.memory_size)
+        self.loss_history = torch.tensor(history, dtype=torch.float32)
+        return W, (ym - xm @ W if self.fit_intercept else None)
+
+    def _iterative(self, X, Xt, d, Y, n):
+        W, b, history = sparse_matvec_fit(
+            X, Xt, Y, self.lam, n, d, self.num_iters, self.memory_size,
+            self.fit_intercept)
+        self.loss_history = history.cpu()
+        return W, (b if self.fit_intercept else None)
+
+    def fit(self, data, labels):
+        if isinstance(data, PaddedSparseDataset):
+            dev, n, d = data.val.device, data.count, data.dim
+            Y = _labels(labels, n, dev)
+            self.route = self._route(n, d, Y.shape[1], data.width)
+            if self.route == "gram":
+                rows = gram_row_block(d, self.block_rows, dev)
+                W, b = self._gram(padded_row_blocks(data, Y, rows), d, Y, n,
+                                  dev)
+            else:
+                data = data.with_column_form()
+                W, b = self._iterative(data.csr(), data.csr_t(), d, Y, n)
+            return LinearMapper(W, b)
+        if isinstance(data, SparseDataset):
+            X = data.csr()
+            dev, n, d = X.device, data.count, data.dim
+            Y = _labels(labels, n, dev)
+            self.route = self._route(n, d, Y.shape[1],
+                                     max(1, math.ceil(data.nnz / max(n, 1))))
+            if self.route == "gram":
+                rows = gram_row_block(d, self.block_rows, dev)
+                W, b = self._gram(csr_row_blocks(data, Y, rows), d, Y, n,
+                                  dev)
+            else:
+                W, b = self._iterative(X, data.csr_t(), d, Y, n)
+            return SparseLinearMapper(W, b)
+        X = data.array.to(torch.float32)
+        dev, (n, d) = X.device, X.shape
+        Y = _labels(labels, n, dev)
+        rows = gram_row_block(d, self.block_rows, dev)
+        self.route = "gram"
+        W, b = self._gram(((X[s:s + rows], Y[s:s + rows])
+                           for s in range(0, n, rows)), d, Y, n, dev)
+        return LinearMapper(W, b)

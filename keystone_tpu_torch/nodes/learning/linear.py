@@ -10,15 +10,21 @@ correction Xcᵀ Xc = XᵀX − n·x̄x̄ᵀ rather than a centred copy of X.
 `LocalLeastSquaresEstimator` with `dual_solve` (`:216-255`) is the dual
 form for d ≫ n: the n×n kernel system (XXᵀ + λI)α = Y by one
 `cholesky_ex` and `cholesky_solve`, its factorization checked once a
-fit, then W = Xᵀα. `SparseLinearMapper` is not ported yet.
+fit, then W = Xᵀα. `SparseLinearMapper` (`:171-213`) applies a dense
+model to sparse rows: JAX multiplies on the host, as the TPU has no
+efficient sparse GEMM (`:174-178`); on the card the product is the
+dataset's device CSR times W (cuSPARSE SpMM), as `classifiers.py` does.
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import scipy.sparse as sp
 import torch
 
+from ...data.dataset import Dataset
+from ...data.sparse import SparseDataset, _to_torch_csr
 from ...workflow.pipeline import LabelEstimator, Transformer
 from .block_ls import raise_if_unfactored
 
@@ -36,6 +42,41 @@ class LinearMapper(Transformer):
         if self.b is None:
             return lambda x: x @ self.W
         return lambda x: x @ self.W + self.b
+
+
+class SparseLinearMapper(Transformer):
+    """y = xW (+ b) for sparse rows (SparseLinearMapper.scala:13-50).
+
+    `apply` takes one scipy sparse row (its nonzeros index W's rows), a
+    sparse matrix of rows, or a dense row or matrix; `apply_batch` a
+    `SparseDataset` (its CSR on the device times W) or a dense
+    `Dataset` (as `LinearMapper`)."""
+
+    def __init__(self, W: torch.Tensor, b: Optional[torch.Tensor] = None):
+        self.W = W
+        self.b = b
+
+    def _bias(self, out: torch.Tensor) -> torch.Tensor:
+        return out if self.b is None else out + self.b
+
+    def apply(self, x):
+        dev = self.W.device
+        if sp.issparse(x):
+            rows = sp.csr_matrix(x)
+            if rows.shape[0] == 1:
+                vals = torch.as_tensor(rows.data, dtype=self.W.dtype,
+                                       device=dev)
+                idx = torch.as_tensor(rows.indices, dtype=torch.int64,
+                                      device=dev)
+                return self._bias(vals @ self.W[idx])
+            return self._bias(_to_torch_csr(rows, dev) @ self.W)
+        return self._bias(torch.as_tensor(x, device=dev).to(self.W.dtype)
+                          @ self.W)
+
+    def apply_batch(self, data):
+        if isinstance(data, SparseDataset):
+            return Dataset(self._bias(data.csr() @ self.W))
+        return LinearMapper(self.W, self.b).apply_batch(data)
 
 
 def normal_equations(X: torch.Tensor, Y: torch.Tensor, count: int,

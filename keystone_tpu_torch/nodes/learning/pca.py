@@ -2,9 +2,7 @@
 
 Counterpart of `keystone_tpu/nodes/learning/pca.py` (`:36-327`;
 reference nodes/learning/PCA.scala:19-247, DistributedPCA.scala:20-74,
-ApproximatePCA.scala:22-85), without the two cost models (`:273-287`),
-whose weights are TPU v5e constants (ROADMAP queue 1, item 7), so
-`ColumnPCAEstimator.optimize` always chooses local PCA:
+ApproximatePCA.scala:22-85):
 
 - `PCAEstimator`, "local": the rows (at most ``sample_rows``, an even
   `linspace` subsample as in JAX) centred, their QR factor R, and the
@@ -16,7 +14,10 @@ whose weights are TPU v5e constants (ROADMAP queue 1, item 7), so
 - `ApproximatePCAEstimator`: the randomized range finder with power
   iterations. Its Gaussian test matrix is a `torch.Generator` draw where
   JAX draws with `jax.random`, so it matches JAX's by subspace, not by
-  value.
+  value;
+- `ColumnPCAEstimator` prices local against distributed PCA with
+  `LocalPCACostModel` and `DistributedPCACostModel` (`:273-287`), JAX's
+  formulas under `cost_model`'s weights.
 
 Each component's sign is fixed as the reference's matlab convention
 fixes it (`_sign_convention`), so components compare by value. Items may
@@ -33,6 +34,7 @@ import torch
 
 from ...data.dataset import Dataset, HostDataset
 from ...workflow.pipeline import Estimator, OptimizableEstimator, Transformer
+from .cost_model import CostModel, CostProfile
 
 
 def _sign_convention(V: torch.Tensor) -> torch.Tensor:
@@ -149,24 +151,64 @@ class ApproximatePCAEstimator(Estimator):
         return PCATransformer(V[:, :self.dims])
 
 
+class LocalPCACostModel(CostModel):
+    """Every row gathered to one device and one SVD there. JAX charges
+    the gather, 4·n·d bytes at the network weight, on one device too."""
+
+    def cost(self, p, cpu_weight=None, mem_weight=None, network_weight=None):
+        cw, _, nw = self._weights(cpu_weight, mem_weight, network_weight)
+        return nw * 4.0 * p.n * p.d + cw * (2.0 * p.n * p.d * p.d)
+
+
+class DistributedPCACostModel(CostModel):
+    """A QR a device, the d × d factors gathered, one small SVD."""
+
+    def cost(self, p, cpu_weight=None, mem_weight=None, network_weight=None):
+        cw, _, nw = self._weights(cpu_weight, mem_weight, network_weight)
+        return cw * (2.0 * p.n * p.d * p.d / p.num_chips + 2.0 * p.d**3) + nw * (
+            4.0 * p.d * p.d * p.num_chips)
+
+
 class ColumnPCAEstimator(OptimizableEstimator):
     """The reference's cost-model choice between local and distributed
-    PCA (PCA.scala:117-155). Its fit is its default's, local PCA.
-
-    `optimize` differs from JAX's (`pca.py:273-327`): JAX prices the two
-    routes with cost models whose weights are TPU v5e constants; until
-    they are measured on the card, the choice is always the default,
-    local PCA (``chosen = "local"``)."""
+    PCA (PCA.scala:117-155). `optimize` prices both on
+    (n, d, rows an item) measured from the sample, as JAX's does
+    (`pca.py:289-327`), and records ``chosen``, the profile it priced
+    (``cost_profile``) and both ``costs``; the fit without a sample is
+    its default, local PCA. ``num_chips=None`` is one card."""
 
     def __init__(self, dims: int, num_chips: Optional[int] = None):
         self.dims = dims
         self.num_chips = num_chips
         self.chosen = None
+        self.cost_profile: Optional[CostProfile] = None
+        self.costs: dict = {}
 
     @property
     def default(self) -> Estimator:
         return PCAEstimator(self.dims)
 
+    def profile(self, sample, num_per_shard: int) -> CostProfile:
+        """(n, d) of the rows the fit would see, from a sample of items:
+        vectors or descriptor matrices."""
+        chips = self.num_chips or 1
+        if isinstance(sample, HostDataset) and len(sample):
+            first = sample.items[0]
+            d = first.shape[-1]
+            rows_per_item = first.shape[0] if len(first.shape) == 2 else 1
+        else:
+            leaf = sample.array
+            d = leaf.shape[-1]
+            rows_per_item = leaf.shape[1] if leaf.ndim == 3 else 1
+        return CostProfile(n=num_per_shard * chips * rows_per_item, d=d,
+                           k=self.dims, sparsity=1.0, num_chips=chips)
+
     def optimize(self, sample, num_per_shard) -> Estimator:
-        self.chosen = "local"
-        return self.default
+        p = self.cost_profile = self.profile(sample, num_per_shard)
+        self.costs = {"local": LocalPCACostModel().cost(p),
+                      "distributed": DistributedPCACostModel().cost(p)}
+        if self.costs["local"] <= self.costs["distributed"]:
+            self.chosen = "local"
+            return PCAEstimator(self.dims)
+        self.chosen = "distributed"
+        return DistributedPCAEstimator(self.dims)

@@ -5,9 +5,13 @@ from .basic import (
     ClassLabelIndicatorsFromInt,
     ClassLabelIndicatorsFromIntArray,
     Densify,
+    FloatToDouble,
+    Identity,
     MatrixVectorizer,
     MaxClassifier,
+    Shuffler,
     Sparsify,
+    TopKClassifier,
     VectorCombiner,
 )
 from .fusion import FusedBatchTransformer
@@ -16,9 +20,11 @@ from .sparse_features import (
     CommonSparseFeatures,
     SparseFeatureVectorizer,
 )
+from .vector_splitter import VectorSplitter
 
 __all__ = ["AllSparseFeatures", "Cacher", "ClassLabelIndicatorsFromInt",
            "ClassLabelIndicatorsFromIntArray", "CommonSparseFeatures",
-           "Densify", "FusedBatchTransformer", "MatrixVectorizer",
-           "MaxClassifier", "SparseFeatureVectorizer", "Sparsify",
-           "VectorCombiner"]
+           "Densify", "FloatToDouble", "FusedBatchTransformer", "Identity",
+           "MatrixVectorizer", "MaxClassifier", "Shuffler",
+           "SparseFeatureVectorizer", "Sparsify", "TopKClassifier",
+           "VectorCombiner", "VectorSplitter"]

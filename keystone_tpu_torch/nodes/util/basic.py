@@ -2,11 +2,13 @@
 
 Counterpart of `ClassLabelIndicatorsFromInt`,
 `ClassLabelIndicatorsFromIntArray` (`:89-122`), `MaxClassifier`,
-`VectorCombiner` (`:165-182`), `Densify`, `Sparsify` (`:209-238`),
-`MatrixVectorizer` (`:246-259`) and `Cacher` in
+`TopKClassifier` (`:157-163`), `VectorCombiner` (`:165-182`), `Densify`,
+`Sparsify` (`:209-238`), `FloatToDouble` (`:241-244`), `MatrixVectorizer`
+(`:246-259`), `Identity`, `Shuffler` (`:262-290`) and `Cacher` in
 `keystone_tpu/nodes/util/basic.py` (reference
-nodes/util/{ClassLabelIndicators,MaxClassifier,VectorCombiner,Densify,
-Sparsify,MatrixVectorizer,Cacher}.scala).
+nodes/util/{ClassLabelIndicators,MaxClassifier,TopKClassifier,
+VectorCombiner,Densify,Sparsify,FloatToDouble,MatrixVectorizer,
+Identity,Shuffler,Cacher}.scala).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import scipy.sparse as sp
 import torch
 import torch.nn.functional as F
 
+from ...data.dataset import Dataset, HostDataset
 from ...data.sparse import SparseDataset
 from ...workflow.pipeline import Transformer
 
@@ -66,6 +69,17 @@ class MaxClassifier(Transformer):
         return lambda x: torch.argmax(x, dim=-1)
 
 
+class TopKClassifier(Transformer):
+    """The indices of the k largest scores, largest first; ties in index
+    order (a stable argsort of −x, as JAX's)."""
+
+    def __init__(self, k: int):
+        self.k = k
+
+    def batch_fn(self):
+        return lambda x: torch.argsort(-x, dim=-1, stable=True)[..., :self.k]
+
+
 class VectorCombiner(Transformer):
     """Concatenate the list of branch outputs that gather produces along
     the last axis (VectorCombiner.scala)."""
@@ -104,6 +118,18 @@ class Sparsify(Transformer):
         return SparseDataset(sp.csr_matrix(data.numpy()), device=data.device)
 
 
+class FloatToDouble(Transformer):
+    """To float64 where torch's default float type is float64, else to
+    float32: JAX's rule (float64 only under ``jax_enable_x64``, which
+    the JAX package's tests leave off) with torch's default dtype in
+    the flag's place."""
+
+    def batch_fn(self):
+        dtype = (torch.float64 if torch.get_default_dtype() == torch.float64
+                 else torch.float32)
+        return lambda x: x.to(dtype)
+
+
 class MatrixVectorizer(Transformer):
     """Flatten each item's matrix to a vector, row-major
     (MatrixVectorizer.scala)."""
@@ -115,6 +141,34 @@ class MatrixVectorizer(Transformer):
 
     def fuse(self):
         return ("MatrixVectorizer",), ()
+
+
+class Identity(Transformer):
+    def apply(self, x):
+        return x
+
+    def apply_batch(self, data):
+        return data
+
+
+class Shuffler(Transformer):
+    """A random permutation of the dataset (Shuffler.scala:16-19): the
+    permutation `np.random.default_rng(seed)` draws, JAX's, so the order
+    is JAX's; host items reordered, device rows gathered."""
+
+    def __init__(self, seed: int = 0):
+        self.seed = seed
+
+    def apply(self, x):
+        return x
+
+    def apply_batch(self, data):
+        idx = np.random.default_rng(self.seed).permutation(len(data))
+        if isinstance(data, HostDataset):
+            return HostDataset([data.items[i] for i in idx],
+                               device=data.device)
+        picked = data.array[torch.as_tensor(idx, device=data.device)]
+        return Dataset(picked, count=data.count)
 
 
 class Cacher(Transformer):
