@@ -158,7 +158,10 @@ Phases, each printed on a line of its own:
               in-memory pipeline's and its accuracy within 0.002 of the
               slice's; the synchronizing calls of the fit and of the
               apply; and one `AutoCachingOptimizer` plan's cache points.
-              No chain kernel: none of the fitted form's runs lowers.
+              The fitted form is one megafused chain (the featurizer, the
+              scaler, the linear map and the argmax; the Cacher
+              absorbed). No chain kernel: none of the fitted form's runs
+              lowers.
 21. least_squares - the cost-model solver choice. The cost weights
               measured on the card (the probes' seconds a step, the
               rates they imply beside the H100's published peaks, and
@@ -182,6 +185,25 @@ Phases, each printed on a line of its own:
 22. hog_daisy - HogExtractor and DaisyExtractor on 4,096 seeded 48x48 gray
               images (the VOC stand-in's size): seconds, and the first 64
               held against the port's CPU path. No kernel.
+23. runtime - the workflow runtime at full width. RandomPatchCifar fit,
+              saved and loaded with megafusion on and off: the plan's
+              labels (one Megafused[...]), the first apply of the 10,000
+              test images after a warm-up (turned on for it; 0
+              captures, 1 replay, K1 5 launches), a second apply (1 replay, 0 captures), the
+              apply's seconds on and off in alternating pairs (on, off,
+              off, on), its synchronizing calls, predictions equal to the
+              unmegafused apply's and scores within 1e-5 of max|score|;
+              LinearPixels' head over the 50,000 training rows as one
+              replay against 25 microbatches of 2048, and each dispatch
+              knob's cost on a whole run; VOC's featurization (5,011
+              images) with megafusion off (the gray chain chunk by chunk)
+              and on (the default: a bucket's chunks as one group) and
+              the overlap engine off and on (off, on, on, off): equal
+              descriptors, seconds, the pinned bytes at most
+              (2·depth + 2) chunks, or depth + 1 groups; and VOC's
+              train and test featurization as two branches of one graph
+              under the concurrent scheduler at 4 workers and at 1
+              (4, 1, 1, 4): equal outputs, seconds. Warm-up failures: 0.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The process-wide prefix table (`PipelineEnv`) is reset before each
@@ -676,13 +698,14 @@ def host_split(steps):
 
 def fused_microbatches(*counts) -> int:
     """Microbatches of the optimizer's fused chains over host datasets of
-    ``counts`` items, whose buckets run in chunks (`run_chunked`)."""
-    from keystone_tpu_torch.utils.batching import DEFAULT_CHUNK
+    ``counts`` items, whose buckets run in chunks of the resolved chunk
+    size (a padded tail is one microbatch too)."""
+    from keystone_tpu_torch.workflow.env import resolved_chunk_size
     from keystone_tpu_torch.workflow.fusion_rule import NodeFusionRule
 
-    mb = NodeFusionRule.microbatch
-    return sum(math.ceil(min(DEFAULT_CHUNK, n - i) / mb)
-               for n in counts for i in range(0, n, DEFAULT_CHUNK))
+    mb, chunk = NodeFusionRule.microbatch, resolved_chunk_size()
+    return sum(math.ceil(min(chunk, n - i) / mb)
+               for n in counts for i in range(0, n, chunk))
 
 
 def timed_s(fn):
@@ -1139,9 +1162,10 @@ def workflow_phase(train, test, config, staged_seconds, staged_accuracy,
     from keystone_tpu_torch.nodes.images.core import Convolver
     from keystone_tpu_torch.nodes.learning.block_ls import BlockLinearMapper
     from keystone_tpu_torch.nodes.stats.scalers import StandardScalerModel
-    from keystone_tpu_torch.nodes.util.basic import Cacher, MaxClassifier
+    from keystone_tpu_torch.nodes.util.basic import MaxClassifier
     from keystone_tpu_torch.nodes.util.fusion import (
         FusedBatchTransformer,
+        MegafusedBatchTransformer,
         _ConvRectifyPoolStage,
     )
     from keystone_tpu_torch.ops import kernels
@@ -1176,11 +1200,13 @@ def workflow_phase(train, test, config, staged_seconds, staged_accuracy,
     fit_seconds, fitted = timed_s(fit)
     fit_launches = launch_counts()
     ops = list(fitted.graph.operators.values())
-    featurizers = [op for op in ops if isinstance(op, FusedBatchTransformer)
-                   and any(isinstance(s, Convolver) for s in op.stages)]
-    heads = [op for op in ops if isinstance(op, FusedBatchTransformer)
-             and [type(s) for s in op.stages] == [
-                 StandardScalerModel, BlockLinearMapper, MaxClassifier]]
+    megafused = [op for op in ops
+                 if isinstance(op, MegafusedBatchTransformer)]
+    featurizers = [s for op in megafused for s in op.stages
+                   if isinstance(s, FusedBatchTransformer)
+                   and any(isinstance(t, Convolver) for t in s.stages)]
+    heads = [op for op in megafused if [type(s) for s in op.stages[1:]] == [
+        StandardScalerModel, BlockLinearMapper, MaxClassifier]]
     fitted_form = [op.label for op in ops]
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "random_patch_cifar.pkl")
@@ -1189,7 +1215,8 @@ def workflow_phase(train, test, config, staged_seconds, staged_accuracy,
         load_seconds, loaded = timed_s(
             lambda: FittedPipeline.load(path, device="cuda"))
     in_memory = fitted.apply(test.data).array
-    loaded.apply(test.data)  # warm
+    for _ in range(2):  # warm: the first call runs eagerly, the second
+        loaded.apply(test.data)  # captures the graph the timed one replays
     kernels.reset_launches()
     apply_seconds, predictions = timed_s(lambda: loaded.apply(test.data))
     apply_launches = launch_counts()
@@ -1228,19 +1255,17 @@ def workflow_phase(train, test, config, staged_seconds, staged_accuracy,
           f"conv_rectify_pool {apply_k1} times for {test_mb} microbatches")
     check(len(featurizers) == 1 and isinstance(featurizers[0].fused[1],
                                                _ConvRectifyPoolStage)
-          and len(heads) == 1
-          and sum(isinstance(op, Cacher) for op in ops) == 1
-          and len(ops) == 3, f"the fitted pipeline is {fitted_form}, not "
-          "the featurizer, the Cacher and one fused scaler, linear map and "
-          "argmax")
+          and len(heads) == 1 and len(ops) == 1, f"the fitted pipeline is "
+          f"{fitted_form}, not one megafused chain of the featurizer, the "
+          "scaler, the linear map and the argmax")
     check(bit_equal, "the loaded pipeline's predictions differ from the "
           "in-memory pipeline's")
     check(abs(accuracy - staged_accuracy) <= 0.002, f"the fitted pipeline's "
           f"test accuracy {accuracy} is not within 0.002 of the staged "
           f"pipeline's {staged_accuracy}")
     # every fused transformer tags its own chain-kernel run, but none
-    # lowers here: the featurizer is one opaque stage of the fused head,
-    # and the scaler, the only stage of the head with a chain body, is
+    # lowers here: the featurizer is one opaque stage of the megafused
+    # chain, and the scaler, the only stage with a chain body, is
     # followed by the linear map
     k4 = fit_launches["elementwise_chain"] + apply_launches[
         "elementwise_chain"]
@@ -1497,6 +1522,320 @@ def hog_daisy_phase(dev, card) -> None:
           f"HOG and DAISY launched kernels: {launches}")
 
 
+def runtime_phase(dev, train, test, config, card) -> dict:
+    """Phase 23: the workflow runtime at full width (see the module
+    docstring); returns K1's and K4's launches in its measured applies."""
+    from keystone_tpu_torch.data.dataset import HostDataset
+    from keystone_tpu_torch.nodes.util.basic import MaxClassifier
+    from keystone_tpu_torch.nodes.util.fusion import (
+        FusedBatchTransformer,
+        MegafusedBatchTransformer,
+    )
+    from keystone_tpu_torch.ops import chain_kernels, kernels
+    from keystone_tpu_torch.pipelines import voc_sift_fisher
+    from keystone_tpu_torch.pipelines.cifar_variants import (
+        LINEAR_PIXELS_MICROBATCH,
+        LinearPixelsConfig,
+        build_linear_pixels,
+    )
+    from keystone_tpu_torch.pipelines.random_patch_cifar import build_pipeline
+    from keystone_tpu_torch.utils import batching
+    from keystone_tpu_torch.workflow import FittedPipeline, PipelineEnv
+    from keystone_tpu_torch.workflow.env import (
+        config_override,
+        dispatch_override,
+        execution_config,
+        overlap_override,
+        resolved_chunk_size,
+    )
+    from keystone_tpu_torch.workflow.executor import (
+        GraphExecutor,
+        drain_warmups,
+    )
+    from keystone_tpu_torch.workflow.graph import Graph
+    from keystone_tpu_torch.workflow.operators import (
+        GatherTransformerOperator,
+    )
+    from keystone_tpu_torch.workflow.pipeline import (
+        PipelineDataset,
+        _bind,
+        _splice_result,
+    )
+
+    failures_before = GraphExecutor.warmup_failures
+    x_test = test.data.array
+
+    # ---- RandomPatchCifar: fit, save, load, with megafusion on and off
+    plan_labels = [op.label for op in build_pipeline(train, config)(
+        test.data).executor.optimized_graph.operators.values()]
+    PipelineEnv.reset()
+    loaded = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mega in (True, False):
+            with config_override(megafusion=mega):
+                fitted = build_pipeline(train, config).fit()
+            path = os.path.join(tmp, f"rpc_{mega}.pkl")
+            fitted.save(path)
+            loaded[mega] = FittedPipeline.load(path, device=dev)
+            del fitted
+            PipelineEnv.reset()
+    ops_on = list(loaded[True].graph.operators.values())
+    ops_off = list(loaded[False].graph.operators.values())
+    mega_op = ops_on[0]
+    # what one capture of the apply's graph costs: a fresh copy of the
+    # megafused chain warmed up (an eager run, then the capture)
+    fresh = MegafusedBatchTransformer(mega_op.stages,
+                                      microbatch=mega_op.microbatch)
+    capture_seconds, _ = timed_s(lambda: fresh.warmup(
+        tuple(x_test.shape[1:]), x_test.dtype, test.data.count, dev))
+    del fresh
+    # the first apply after the executor's warm-up (off by default, on
+    # here as a server would turn it on): its graph is captured
+    g, cls = _bind(loaded[True].graph, loaded[True].source, test.data)
+    result = cls(GraphExecutor(g, optimize=False), loaded[True].sink)
+    with config_override(aot_warmup=True):
+        expr = result.executor.execute(result.sink)
+    drain_warmups()
+    torch.cuda.synchronize()
+    warm_captures = mega_op.graph_captures
+    kernels.reset_launches()
+    replays0, captures0 = mega_op.graph_replays, mega_op.graph_captures
+    first_seconds, first = timed_s(lambda: expr.get)
+    first_k1 = kernels.conv_rectify_pool.launches
+    first_replays = mega_op.graph_replays - replays0
+    first_captures = mega_op.graph_captures - captures0
+    kernels.reset_launches()
+    replays0, captures0 = mega_op.graph_replays, mega_op.graph_captures
+    second_seconds, second = timed_s(lambda: loaded[True].apply(test.data))
+    second_k1 = kernels.conv_rectify_pool.launches
+    second_replays = mega_op.graph_replays - replays0
+    second_captures = mega_op.graph_captures - captures0
+    loaded[False].apply(test.data)  # warm
+    apply_seconds = {True: [], False: []}
+    for mega in (True, False, False, True):
+        with config_override(megafusion=mega):
+            seconds, out = timed_s(lambda: loaded[mega].apply(test.data))
+        apply_seconds[mega].append(seconds)
+        if not mega:
+            off_predictions = out.array
+    _, apply_sync_count = count_syncs(lambda: loaded[True].apply(test.data))
+    predictions_equal = bool(torch.equal(second.array, off_predictions)
+                             and torch.equal(first.array, second.array))
+    # the scores: the megafused chain without its argmax against the
+    # unmegafused featurizer and fused head without theirs
+    featurizer_off = [op for op in ops_off
+                      if isinstance(op, FusedBatchTransformer)][0]
+    head_off = [op for op in ops_off
+                if isinstance(op, FusedBatchTransformer)][-1]
+    # the third call replays (the first runs eagerly, the second captures)
+    scores_fn = MegafusedBatchTransformer(
+        mega_op.stages[:-1], microbatch=mega_op.microbatch).batch_fn()
+    for _ in range(3):
+        scores_on = scores_fn(x_test)
+    scores_off = FusedBatchTransformer(
+        head_off.stages[:-1], microbatch=head_off.microbatch).batch_fn()(
+            featurizer_off.batch_fn()(x_test))
+    score_rel = float((scores_on - scores_off).abs().max()
+                      / scores_off.abs().max())
+    del scores_on, scores_off, loaded, expr, result, first, second
+    torch.cuda.empty_cache()
+
+    # ---- LinearPixels: the head as one replay against 25 microbatches
+    PipelineEnv.reset()
+    lp = build_linear_pixels(train, LinearPixelsConfig())
+    pixels = cut(lp, 2)(train.data).get().array
+    model = lp.fitted(0)
+    lp_head = {}
+    for name, head in (
+            ("megafused", MegafusedBatchTransformer([model, MaxClassifier()])),
+            ("microbatches_2048", FusedBatchTransformer(
+                [model, MaxClassifier()], microbatch=2048))):
+        fn = head.batch_fn()
+        lp_head[name] = dict(ms=time_ms(lambda: fn(pixels)))
+    lp_head["equal"] = bool(torch.equal(
+        MegafusedBatchTransformer([model, MaxClassifier()]).batch_fn()(
+            pixels), FusedBatchTransformer(
+                [model, MaxClassifier()], microbatch=2048).batch_fn()(pixels)))
+    for _ in range(2):  # its first call runs eagerly, the second captures
+        lp(test.data).get()
+    kernels.reset_launches()
+    lp_apply_seconds, _ = timed_s(lambda: lp(test.data).get())
+    lp_k4 = chain_kernels.elementwise_chain.launches
+    lp_labels = [op.label for op in lp(test.data).executor
+                 .optimized_graph.operators.values()]
+    del lp, pixels, model
+    # what each knob costs a whole LinearPixels run (build, fit, predict
+    # the training rows): the default, each knob flipped from it, all off
+    # (the dispatch before the runtime), in order and then in reverse
+    knobs = dict(default={}, dispatch_on=dict(concurrent_dispatch=True),
+                 warmup_on=dict(aot_warmup=True),
+                 overlap_off=dict(overlap=False),
+                 megafusion_off=dict(megafusion=False),
+                 all_off=dict(concurrent_dispatch=False, aot_warmup=False,
+                              overlap=False, megafusion=False))
+    knob_seconds = {name: [] for name in knobs}
+    for order in (list(knobs), list(knobs)[::-1]):
+        for name in order:
+            PipelineEnv.reset()
+            with config_override(**knobs[name]):
+                seconds, _ = timed_s(lambda: build_linear_pixels(
+                    train, LinearPixelsConfig())(train.data).get())
+            drain_warmups()
+            knob_seconds[name].append(seconds)
+    PipelineEnv.reset()
+    torch.cuda.empty_cache()
+
+    # ---- VOC's featurization, overlap off and on
+    vc_config = voc_sift_fisher.VOCSIFTFisherConfig(
+        num_classes=VOC_CLASSES, pca_dims=VOC_PCA_DIMS, gmm_k=VOC_GMM_K)
+    vc_train = voc_sift_fisher._synthetic_voc(VOC_N_TRAIN, VOC_CLASSES,
+                                              vc_config.seed)
+    vc_test = voc_sift_fisher._synthetic_voc(VOC_N_TEST, VOC_CLASSES,
+                                             vc_config.seed + 1)
+    vc_tr = HostDataset(vc_train.items, device=dev)
+    vc_te = HostDataset(vc_test.items, device=dev)
+    depth = execution_config().prefetch_depth
+    chunk = resolved_chunk_size()
+    image = np.asarray(vc_train.items[0].image)
+    chunk_bytes = chunk * image.nbytes
+    # a megafused group is one unit of the ring: its chunks, at most
+    # batching._MEGAFUSED_MAX_TRIPS of them, in each of depth + 1 buffers
+    group_bound = (depth + 1) * min(batching._MEGAFUSED_MAX_TRIPS, math.ceil(
+        len(vc_train) / chunk)) * chunk_bytes
+
+    def sift_of(data):
+        PipelineEnv.reset()
+        model = voc_sift_fisher.build(data, vc_config, dev)
+        return model.sift(data).get()
+
+    def buckets_equal(a, b):
+        return a.count == b.count and all(
+            torch.equal(x, y) for x, y in zip(a.items, b.items))
+
+    # megafusion off: the gray chain's chunks one by one; the default:
+    # a bucket's chunks as one megafused group, staged as one unit
+    overlap = {mega: {on: dict(seconds=[], peak_pinned_bytes=[])
+                      for on in (False, True)} for mega in (False, True)}
+    outs = {}
+    for mega in (False, True):
+        with config_override(megafusion=mega):
+            sift_of(HostDataset(vc_train.items[:SIFT_FISHER_WARM],
+                                device=dev))
+            for on in (False, True, True, False):
+                batching.map_host_batched_stream.peak_pinned_bytes = 0
+                with overlap_override(on):
+                    seconds, outs[mega, on] = timed_s(lambda: sift_of(vc_tr))
+                overlap[mega][on]["seconds"].append(seconds)
+                overlap[mega][on]["peak_pinned_bytes"].append(
+                    batching.map_host_batched_stream.peak_pinned_bytes)
+    overlap_equal = all(buckets_equal(outs[False, False], outs[key])
+                        for key in outs)
+    del outs
+    torch.cuda.empty_cache()
+
+    # ---- the scheduler: train and test featurization as two branches
+    def both():
+        PipelineEnv.reset()
+        model = voc_sift_fisher.build(vc_tr, vc_config, dev)
+        g = Graph()
+        g, a = _splice_result(g, model.sift(vc_tr))
+        g, b = _splice_result(g, model.sift(vc_te))
+        g, gid = g.add_node(GatherTransformerOperator(), [a, b])
+        g, sink = g.add_sink(gid)
+        return PipelineDataset(GraphExecutor(g), sink).get()
+
+    runs_before = GraphExecutor.scheduler_runs
+    sched = {4: [], 1: []}
+    outs = {}
+    for workers in (4, 1, 1, 4):
+        with dispatch_override(True, workers=workers):
+            seconds, outs[workers] = timed_s(both)
+        sched[workers].append(seconds)
+    sched_equal = all(buckets_equal(p, q) for p, q in zip(
+        outs[4].parts, outs[1].parts))
+    sched_runs = GraphExecutor.scheduler_runs - runs_before
+    del outs, vc_tr, vc_te
+    PipelineEnv.reset()
+    torch.cuda.empty_cache()
+    drain_warmups()
+    warmup_failures = GraphExecutor.warmup_failures - failures_before
+
+    phase("runtime", config=dict(
+              overlap=execution_config().overlap, prefetch_depth=depth,
+              concurrent_dispatch=execution_config().concurrent_dispatch,
+              dispatch_workers=execution_config().dispatch_workers,
+              chunk_size=chunk, pad_chunks=execution_config().pad_chunks,
+              aot_warmup=execution_config().aot_warmup,
+              megafusion=execution_config().megafusion),
+          random_patch_cifar=dict(
+              plan_labels=plan_labels, fitted_on=[op.label for op in ops_on],
+              fitted_off=[op.label for op in ops_off],
+              trip_rows=mega_op.microbatch, rung_rows=mega_op.rung(
+                  test.data.count),
+              warm_up_captures=warm_captures,
+              capture_seconds=capture_seconds,
+              first_apply=dict(seconds=first_seconds, replays=first_replays,
+                               captures=first_captures, k1=first_k1),
+              second_apply=dict(seconds=second_seconds,
+                                replays=second_replays,
+                                captures=second_captures, k1=second_k1),
+              apply_seconds_on=apply_seconds[True],
+              apply_seconds_off=apply_seconds[False],
+              apply_syncs=apply_sync_count,
+              predictions_equal=predictions_equal,
+              score_rel_diff=score_rel),
+          linear_pixels=dict(head_over_train_rows=lp_head,
+                             test_apply_seconds=lp_apply_seconds,
+                             test_apply_k4=lp_k4, plan_labels=lp_labels,
+                             run_seconds_by_knob=knob_seconds),
+          voc_overlap=dict(images=len(vc_train), chunk_bytes=chunk_bytes,
+                           pinned_bound_bytes=(2 * depth + 2) * chunk_bytes,
+                           megafusion_off=dict(off=overlap[False][False],
+                                               on=overlap[False][True]),
+                           default=dict(off=overlap[True][False],
+                                        on=overlap[True][True]),
+                           group_pinned_bound_bytes=group_bound,
+                           equal=overlap_equal),
+          scheduler=dict(workers_4=sched[4], workers_1=sched[1],
+                         equal=sched_equal, scheduler_runs=sched_runs),
+          warmup_failures=warmup_failures, card=card)
+    test_mb = math.ceil(test.data.count / config.microbatch)
+    check(sum(label.startswith("Megafused[") for label in plan_labels) == 1,
+          f"the plan holds no single Megafused node: {plan_labels}")
+    check(len(ops_on) == 1 and isinstance(mega_op, MegafusedBatchTransformer),
+          f"the fitted pipeline is {[op.label for op in ops_on]}")
+    check(warm_captures == 1 and first_captures == 0 and first_replays == 1
+          and first_k1 == test_mb, f"the first apply after the warm-up "
+          f"captured {first_captures}, replayed {first_replays} and launched "
+          f"conv_rectify_pool {first_k1} times (want 0, 1, {test_mb})")
+    check(second_captures == 0 and second_replays == 1
+          and second_k1 == test_mb, f"the second apply captured "
+          f"{second_captures}, replayed {second_replays}, launched "
+          f"conv_rectify_pool {second_k1} times")
+    check(predictions_equal, "the megafused apply's predictions differ from "
+          "the unmegafused apply's")
+    check(score_rel <= 1e-5, f"the megafused scores are {score_rel} of "
+          "max|score| from the unmegafused scores")
+    check(lp_head["equal"], "LinearPixels' megafused head disagrees with "
+          "its microbatched head")
+    check(lp_k4 == math.ceil(test.data.count / LINEAR_PIXELS_MICROBATCH),
+          f"LinearPixels' megafused test apply launched the chain kernel "
+          f"{lp_k4} times")
+    check(overlap_equal, "VOC's descriptors differ with the overlap engine "
+          "on and off")
+    for mega, bound in ((False, (2 * depth + 2) * chunk_bytes),
+                        (True, group_bound)):
+        pinned_on = overlap[mega][True]["peak_pinned_bytes"]
+        check(max(pinned_on) <= bound and min(pinned_on) > 0
+              and max(overlap[mega][False]["peak_pinned_bytes"]) == 0,
+              f"pinned bytes {overlap[mega]} (megafusion {mega}) against "
+              f"{bound}")
+    check(sched_equal and sched_runs >= 2, "the scheduler's outputs at 4 "
+          f"workers differ from 1 worker's (or it ran {sched_runs} times)")
+    check(warmup_failures == 0, f"{warmup_failures} warm-ups failed")
+    return dict(k1=second_k1, k4=lp_k4)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -1568,6 +1907,8 @@ def main() -> int:
         timit,
     )
     from keystone_tpu_torch.workflow import PipelineEnv
+    from keystone_tpu_torch.workflow.env import config_override
+    from keystone_tpu_torch.workflow.executor import drain_warmups
     from keystone_tpu_torch.workflow.fusion_rule import NodeFusionRule
 
     # ---- 1. device -------------------------------------------------------
@@ -2405,7 +2746,23 @@ def main() -> int:
     # the test apply's plan: the gather pass's fused stage, no chain kernel
     mn_gathers = fused_in_plan(mn.pop("predictor")(mn_test.data))
     mn_planned = [f.planned_kernel for f in mn_gathers]
+    # what the workflow runtime's knobs cost this run: each run
+    # builds its pipeline anew, as a one-shot run does
+    mn_knobs = {knob: [] for knob in ("default", "megafusion_off",
+                                      "all_off")}
+    knob_fields = dict(default={}, megafusion_off=dict(megafusion=False),
+                       all_off=dict(megafusion=False, overlap=False,
+                                    aot_warmup=False,
+                                    concurrent_dispatch=False))
+    for knob in ("default", "megafusion_off", "all_off", "all_off",
+                 "megafusion_off", "default"):
+        PipelineEnv.reset()
+        with config_override(**knob_fields[knob]):
+            mn_knobs[knob].append(mnist_random_fft.run_on(
+                mn_train, mn_test, mn_config)["seconds"])
+        drain_warmups()
     phase("mnist", seconds=mn["seconds"], rows_per_sec=mn["rows_per_sec"],
+          seconds_by_knob=mn_knobs,
           rate_basis="train+test rows", train_error=mn["train_error"],
           test_accuracy=mn["test_accuracy"],
           jax_cpu_test_accuracy=MNIST_JAX_ACC,
@@ -2546,6 +2903,10 @@ def main() -> int:
     del amazon
     torch.cuda.empty_cache()
     hog_daisy_phase(dev, card)
+    torch.cuda.empty_cache()
+
+    # ---- 23. the workflow runtime ------------------------------------------
+    runtime = runtime_phase(dev, train, test, config, card)
 
     record = {"kernels": [
         dict(name="conv_rectify_pool", route="cuda",
@@ -2560,6 +2921,7 @@ def main() -> int:
              augmented=dict(k1["augmented"], library_ms=None),
              launches_by_path=dict(
                  slice=k1_launches, kernel_cifar=kc_k1, fused=fused_k1,
+                 runtime=runtime["k1"],
                  random_cifar=rc_k1, augmented=ag_k1,
                  augmented_kernel=ak_k1),
              ptxas=regs["conv_rectify_pool"]),
@@ -2580,7 +2942,8 @@ def main() -> int:
              launches=k4_launches,
              launches_by_path=dict(linear_pixels=k4_launches, voc=voc_k4,
                                    imagenet=imagenet_k4,
-                                   workflow=workflow_k4),
+                                   workflow=workflow_k4,
+                                   runtime=runtime["k4"]),
              max_abs_err=k4["max_abs_err"],
              rel_err=k4["rel_err"], tolerance_rel=K4_TOL, ms=k4["ms"],
              device_ms=k4["device_ms"],

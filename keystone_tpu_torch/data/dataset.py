@@ -8,13 +8,17 @@ nothing to pad, so ``padded_count == count`` and ``mask`` is all ones.
 Both stay for API parity.
 
 A `HostDataset` is a list of items: host objects (labeled images, numpy
-arrays of any shape) or tensors. A batched stage over it
-(`HostDataset.map_batches`, `utils/batching.py`) groups the items by
-shape, stacks each group on the device once, and keeps its results as
-those groups: (item indices, one stacked tensor) each. The next batched
-stage takes the groups whole, so a chain of stages over images of one
-shape makes one call a stage, not one per item, and per-item views exist
-only when someone asks for ``items``.
+arrays of any shape) or tensors. A batched stage over host items
+(`HostDataset.map_batches`) runs through
+`utils/batching.py::map_host_batched_stream`: the items are grouped by
+shape, each group is stacked onto the device a chunk at a time
+(overlapped with the card's work on the previous chunk), and the results
+stay on the device as buckets, (item indices, one stacked tensor) a
+group: each chunk's rows are written into its group's tensor as they
+arrive. The next batched stage takes the buckets whole, chunk by chunk,
+so a chain of stages over images of one shape makes one call a stage
+and chunk, not one per item, and per-item views exist only when someone
+asks for ``items``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,12 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..utils.batching import DEFAULT_CHUNK, bucket_by_shape, run_chunked
+from ..utils.batching import (
+    USE_CONFIG_CHUNK,
+    _resolve_chunk,
+    bucket_by_shape,
+    map_host_batched_stream,
+)
 
 
 class Dataset:
@@ -231,14 +240,47 @@ class HostDataset:
         idx = np.linspace(0, self._count - 1, num=m, dtype=np.int64)
         return HostDataset([self.items[i] for i in idx], device=self.device)
 
+    def map_batches_stream(self, fn: Callable[[torch.Tensor], torch.Tensor],
+                           chunk=USE_CONFIG_CHUNK):
+        """``(indices, rows)`` chunks of a batched (leading-axis) function
+        over the items: host items through `map_host_batched_stream`,
+        items already stacked on the device a slice of their bucket at a
+        time. ``chunk``: items a call (default
+        ``ExecutionConfig.chunk_size``; None: a bucket at once)."""
+        if self._buckets is None:
+            return map_host_batched_stream(self.items, fn, chunk,
+                                           self.device)
+        return self._bucket_chunks(fn, _resolve_chunk(chunk))
+
+    def _bucket_chunks(self, fn, chunk):
+        for idx, stacked in self._buckets:
+            step = chunk or len(idx)
+            for start in range(0, len(idx), step):
+                yield idx[start:start + step], fn(stacked[start:start + step])
+
     def map_batches(self, fn: Callable[[torch.Tensor], torch.Tensor],
-                    chunk: Optional[int] = DEFAULT_CHUNK) -> "HostDataset":
-        """A batched (leading-axis) function over each bucket, in chunks
-        of at most ``chunk`` items (None: a bucket at once); the results
-        stay bucketed on the device."""
-        return HostDataset.from_buckets(
-            [(idx, run_chunked(fn, stacked, chunk))
-             for idx, stacked in self.buckets()], self._count, self.device)
+                    chunk=USE_CONFIG_CHUNK) -> "HostDataset":
+        """`map_batches_stream`, each group's chunks written into one
+        tensor on the device as they arrive (a chunk is freed once
+        written, so a group's result is held once): the result's
+        buckets."""
+        groups = (bucket_by_shape(self.items) if self._buckets is None
+                  else [list(idx) for idx, _ in self._buckets])
+        buckets: List[Bucket] = []
+        data, filled = None, 0
+        for idx, rows in self.map_batches_stream(fn, chunk):
+            group = groups[len(buckets)]
+            if list(idx) != group[filled:filled + len(idx)]:
+                raise RuntimeError("map_batches: a chunk out of its "
+                                   "group's order")
+            if data is None:
+                data = rows.new_empty((len(group),) + tuple(rows.shape[1:]))
+            data[filled:filled + len(idx)] = rows
+            filled += len(idx)
+            if filled == len(group):
+                buckets.append((group, data))
+                data, filled = None, 0
+        return HostDataset.from_buckets(buckets, self._count, self.device)
 
     def stack(self, dtype=None) -> Dataset:
         """Equal-shape items as one device `Dataset`, in item order:

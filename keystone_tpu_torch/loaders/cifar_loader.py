@@ -39,13 +39,22 @@ def cifar_loader(path: str, device: DeviceLike = "cuda") -> LabeledData:
          if f.endswith(".bin")]
         if os.path.isdir(path) else [path]
     )
-    raw = [np.fromfile(f, dtype=np.uint8) for f in files]
-    for f, r in zip(files, raw):
-        if r.size % RECORD_BYTES:
+    from ..utils.batching import prefetch_iterator
+
+    def read(f):
+        raw = np.fromfile(f, dtype=np.uint8)
+        if raw.size % RECORD_BYTES:
             raise ValueError(
-                f"{f}: size {r.size} is not a multiple of {RECORD_BYTES}")
-    images, labels = parse_cifar(
-        np.concatenate(raw).reshape(-1, RECORD_BYTES))
+                f"{f}: size {raw.size} is not a multiple of {RECORD_BYTES}")
+        return raw.reshape(-1, RECORD_BYTES)
+
+    # file k+1 is read in a bounded background queue while file k parses
+    # (`keystone_tpu/loaders/cifar_loader.py:28-43`); parsing file by
+    # file is record for record the parse of the concatenated records
+    parsed = [parse_cifar(records)
+              for records in prefetch_iterator(read(f) for f in files)]
+    images = np.concatenate([p[0] for p in parsed])
+    labels = np.concatenate([p[1] for p in parsed])
     return LabeledData(labels=Dataset(labels, device=device),
                        data=Dataset(images, device=device))
 

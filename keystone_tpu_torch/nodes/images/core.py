@@ -43,6 +43,8 @@ class PixelScaler(Transformer):
     232-262`) the images of one shape go through one batched call, on
     the device."""
 
+    chunkable = True  # per-item: distributes over chunks
+
     fusable = True
 
     def batch_fn(self):
@@ -56,6 +58,8 @@ class GrayScaler(Transformer):
     """NTSC grayscale (GrayScaler.scala:9): (..., 3) → (..., 1), the
     identity on one channel. Over a `HostDataset` (`core.py:268-305`)
     one batched call per image shape."""
+
+    chunkable = True  # per-item: distributes over chunks
 
     fusable = True
 
@@ -162,6 +166,8 @@ class Pooler(Transformer):
 class ImageVectorizer(Transformer):
     """(H, W, C) → flat vector (ImageVectorizer.scala:12)."""
 
+    chunkable = True  # per-item: distributes over chunks
+
     fusable = True
 
     def batch_fn(self):
@@ -174,6 +180,8 @@ class ImageVectorizer(Transformer):
 class Cropper(Transformer):
     """The box rows y0..y1−1, columns x0..x1−1 of every image
     (Cropper.scala:19)."""
+
+    chunkable = True  # per-item: distributes over chunks
 
     fusable = True
 

@@ -28,11 +28,19 @@ class _GridDescriptorExtractor(Transformer):
     `HostDataset` one call a bucket chunk of equal-shape images, over a
     device `Dataset` one call."""
 
+    chunkable = True  # per-item: distributes over chunks
+
     def _batch(self, images: torch.Tensor) -> torch.Tensor:
         raise NotImplementedError
 
     def batch_fn(self):
         return lambda x: self._batch(x.to(torch.float32))
+
+    def apply_batch_stream(self, data):
+        """The batched path's chunks over a `HostDataset`, each as it
+        comes off the card (`keystone_tpu/nodes/images/descriptors.py:
+        58-62`)."""
+        return data.map_batches_stream(self.batch_fn())
 
 
 class LCSExtractor(_GridDescriptorExtractor):

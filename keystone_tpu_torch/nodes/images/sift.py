@@ -163,6 +163,8 @@ class SIFTExtractor(SIFTExtractorInterface):
     step 1. Over a `HostDataset` one batched call a bucket chunk; over a
     device `Dataset` of equal images one call."""
 
+    chunkable = True  # per-item: distributes over chunks
+
     def __init__(self, step: int = 3, bin_size: int = 4, num_scales: int = 4,
                  scale_step: int = 1):
         self.step = step
@@ -175,4 +177,9 @@ class SIFTExtractor(SIFTExtractorInterface):
         return lambda x: sift_batch(x, self.step, self.bin_size,
                                     self.num_scales, self.scale_step,
                                     self._constants)
+
+    def apply_batch_stream(self, data):
+        """The batched path's chunks over a `HostDataset`, each as it
+        comes off the card (`keystone_tpu/nodes/images/sift.py:218-223`)."""
+        return data.map_batches_stream(self.batch_fn())
 

@@ -79,6 +79,8 @@ class BlockLinearMapper(Transformer):
     """x ↦ x W + b; inputs narrower than W are zero-padded, as the fit
     padded them (BlockLinearMapper.scala:22-137)."""
 
+    chunkable = True  # per-item: distributes over chunks
+
     fusable = True
 
     def __init__(self, W: torch.Tensor, b: Optional[torch.Tensor] = None):

@@ -32,6 +32,8 @@ from .block_ls import raise_if_unfactored
 class LinearMapper(Transformer):
     """y = xW (+ b) (LinearMapper.scala:18-63)."""
 
+    chunkable = True  # per-item: distributes over chunks
+
     fusable = True  # a GEMM (the port's mapper carries no feature scaler)
 
     def __init__(self, W: torch.Tensor, b: Optional[torch.Tensor] = None):

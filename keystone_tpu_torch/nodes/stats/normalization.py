@@ -34,6 +34,8 @@ def _sorted_choice(n: int, size: int, seed: int) -> np.ndarray:
 class NormalizeRows(Transformer):
     """x / max(‖x‖₂, eps) per item (NormalizeRows.scala:10)."""
 
+    chunkable = True  # per-item: distributes over chunks
+
     fusable = True
 
     def __init__(self, eps: float = 2.2e-16):
@@ -53,6 +55,8 @@ class NormalizeRows(Transformer):
 
 class SignedHellingerMapper(Transformer):
     """sign(x)·sqrt(|x|) (SignedHellingerMapper.scala:12-22)."""
+
+    chunkable = True  # per-item: distributes over chunks
 
     fusable = True
 
@@ -91,6 +95,8 @@ class ColumnSampler(Transformer):
     """At most ``num_cols`` rows of each item's (rows × dim) matrix
     (Sampling.scala:12-25): every item with n rows keeps the same rows,
     so a bucket of equal-shape items is sampled in one gather."""
+
+    chunkable = True  # per-item: distributes over chunks
 
     def __init__(self, num_cols: int, seed: int = 0):
         self.num_cols = num_cols

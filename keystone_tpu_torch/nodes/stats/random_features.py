@@ -34,6 +34,8 @@ class CosineRandomFeatures(Transformer):
     """cos(x W + b) with W (input_dim, num_features) ~ gamma·N(0, 1)
     (``"gaussian"``) or gamma·Cauchy (``"cauchy"``), b ~ U[0, 2π)."""
 
+    chunkable = True  # per-item: distributes over chunks
+
     fusable = True
 
     def __init__(self, input_dim: int, num_features: int, gamma: float = 1.0,
@@ -61,6 +63,8 @@ class CosineRandomFeatures(Transformer):
 
 class RandomSignNode(Transformer):
     """Elementwise product with a fixed random ±1 vector."""
+
+    chunkable = True  # per-item: distributes over chunks
 
     fusable = True
 
@@ -95,6 +99,8 @@ class PaddedFFT(Transformer):
     part of the first half of the real FFT's bins (the Nyquist bin is
     dropped, as in the JAX package)."""
 
+    chunkable = True  # per-item: distributes over chunks
+
     fusable = True
 
     def batch_fn(self):
@@ -110,6 +116,8 @@ class PaddedFFT(Transformer):
 
 class LinearRectifier(Transformer):
     """max(max_val, x − alpha)."""
+
+    chunkable = True  # per-item: distributes over chunks
 
     fusable = True
 

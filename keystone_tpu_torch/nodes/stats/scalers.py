@@ -30,6 +30,8 @@ def moments(x: torch.Tensor, count: int, normalize_std: bool):
 class StandardScalerModel(Transformer):
     """(x − mean) / std, or x − mean when ``std`` is None."""
 
+    chunkable = True  # per-item: distributes over chunks
+
     fusable = True
 
     #: the JAX package's batch path re-zeros padded rows after this

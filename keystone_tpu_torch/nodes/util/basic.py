@@ -26,6 +26,8 @@ from ...workflow.pipeline import Transformer
 class ClassLabelIndicatorsFromInt(Transformer):
     """int label → length-k float32 vector of −1/+1."""
 
+    chunkable = True  # per-item: distributes over chunks
+
     fusable = True
 
     def __init__(self, num_classes: int):
@@ -42,6 +44,8 @@ class ClassLabelIndicatorsFromIntArray(Transformer):
     """Multi-label int array → length-k float32 vector of −1/+1
     (ClassLabelIndicators.scala:38-55). Items are fixed-length label
     arrays padded with −1; the padding marks no class."""
+
+    chunkable = True  # per-item: distributes over chunks
 
     fusable = True
 
@@ -62,6 +66,8 @@ class ClassLabelIndicatorsFromIntArray(Transformer):
 
 class MaxClassifier(Transformer):
     """argmax over scores → int label (MaxClassifier.scala)."""
+
+    chunkable = True  # per-item: distributes over chunks
 
     fusable = True
 
@@ -133,6 +139,8 @@ class FloatToDouble(Transformer):
 class MatrixVectorizer(Transformer):
     """Flatten each item's matrix to a vector, row-major
     (MatrixVectorizer.scala)."""
+
+    chunkable = True  # per-item: distributes over chunks
 
     fusable = True
 

@@ -19,18 +19,34 @@ columns of the rows allocated once. A `FusedBatchTransformer` is itself
 a fusable stage (`:328-330`): inside a larger fused chain it is one
 opaque stage keyed ``("FusedChain", ...)``, which no chain kernel
 absorbs, while its own peephole and planned kernel still run inside it.
-The JAX package's program caching, planned precision and sharding tags
-have no counterpart here.
+`MegafusedBatchTransformer` (`:745-804`) is the whole-plan chain that
+`workflow/fusion_rule.py::MegafusionRule` builds: its rows are padded to
+a rung and its chunk loop runs as one CUDA graph replay a call
+(`utils/graphs.py`), captured at its second use or at warm-up (the first
+use runs the padded loop eagerly); on the CPU the same padded loop runs
+eagerly over the plain versions. Host streams run a fused chain's
+chunks the same way (`FusedBatchTransformer.run_rung`), so each chain
+keeps one cache of graphs. A fused chain is
+``chunkable`` when every stage is (`:292, 405-410`). The JAX package's
+program caching, planned precision and sharding tags have no counterpart
+here.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Sequence, Tuple
 
 import torch
 
 from ...ops.chain_kernels import build_chain_fn, lowerability
-from ...ops.kernels import conv_rectify_pool, hwio_to_cmajor, rectify_pool
+from ...ops.kernels import (
+    conv_rectify_pool,
+    hwio_to_cmajor,
+    rectify_pool,
+    tallied,
+    tally,
+)
 from ...workflow.pipeline import Transformer
 
 
@@ -107,6 +123,10 @@ class _GatherConcatStage(Transformer):
     @property
     def label(self) -> str:
         return "Gather[" + " | ".join(b.label for b in self.branches) + "]"
+
+    @property
+    def chunkable(self) -> bool:
+        return all(getattr(b, "chunkable", False) for b in self.branches)
 
     def _fns(self):
         return [b.batch_fn() for b in self.branches]
@@ -241,10 +261,27 @@ class FusedBatchTransformer(Transformer):
             stage_fuse(s)[0] for s in self.fused)
         self._chain = None  # (tag, chain fn) of the planned sub-trail
         self.microbatches_run = 0  # microbatches through batch_fn, ever
+        self.graph_captures = self.graph_replays = self.scan_trips = 0
+        self._init_graphs()
+
+    def _init_graphs(self) -> None:
+        # the padded loops' graphs (`run_rung`) by (item shape, dtype,
+        # rows, trip, device), and the eager calls made at each key
+        self._graphs = {}
+        self._eager_calls = {}
+        self.graph_lock = threading.Lock()
+        #: (item shape, dtype, device) keys the chain has run at: a
+        #: warm-up of one of them has nothing left to do
+        self._ran_at = set()
 
     @property
     def label(self) -> str:
         return "Fused[" + " >> ".join(s.label for s in self.stages) + "]"
+
+    @property
+    def chunkable(self) -> bool:
+        """A fused chain distributes over chunks iff every stage does."""
+        return all(getattr(s, "chunkable", False) for s in self.stages)
 
     def fuse(self):
         """``(("FusedChain",) + the peepholed stages' keys, their
@@ -255,11 +292,19 @@ class FusedBatchTransformer(Transformer):
                 tuple(f[1] for f in fused))
 
     def __getstate__(self):
-        # the chain function holds its launch plans and a closure; it is
-        # rebuilt at first use
+        # the chain function holds its launch plans and a closure, a graph
+        # its buffers on the card: both are rebuilt at first use
         state = dict(self.__dict__)
         state["_chain"] = None
+        for key in ("_graphs", "_eager_calls", "graph_lock", "_ran_at"):
+            state.pop(key, None)
         return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._init_graphs()
+        for count in ("graph_captures", "graph_replays", "scan_trips"):
+            self.__dict__.setdefault(count, 0)
 
     def _chain_fn(self):
         """The planned sub-trail's chain function, built once per tag and
@@ -313,8 +358,9 @@ class FusedBatchTransformer(Transformer):
 
         def fn(x):
             n, out = x.shape[0], None
+            self._ran_at.add((tuple(x.shape[1:]), x.dtype, x.device))
             for start in range(0, n, self.microbatch):
-                self.microbatches_run += 1
+                tally(self, "microbatches_run")
                 y = _run(head, x[start:start + self.microbatch])
                 if last is not None:
                     # the last stage writes its rows of the result
@@ -332,4 +378,166 @@ class FusedBatchTransformer(Transformer):
                 out[start:start + y.shape[0]] = y
             return out if out is not None else _run(fns, x)
 
+        fn.owner = self  # a fused chain: host streams may capture it
         return fn
+
+    #: calls at a `run_rung` key that run the padded loop eagerly before
+    #: the key's graph is captured: a chain applied once at a shape pays
+    #: no capture, and the capture's own eager run is the call's result
+    eager_calls_before_capture = 1
+
+    def _trip_fn(self, trip: int):
+        """The chain over rows in consecutive ``trip``-row slices, each
+        slice's result written into its rows of one output."""
+        fn = FusedBatchTransformer.batch_fn(self)
+        if trip % self.microbatch == 0:
+            return fn  # it runs microbatches of its own, inside each trip
+
+        def loop(x):
+            out = None
+            for start in range(0, x.shape[0], trip):
+                y = fn(x[start:start + trip])
+                if out is None:
+                    out = y.new_empty((x.shape[0],) + tuple(y.shape[1:]))
+                out[start:start + trip] = y
+            return out
+
+        return loop
+
+    @staticmethod
+    def _graph_key(item_shape, dtype, rows: int, trip: int, device) -> tuple:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device(device.type, torch.cuda.current_device())
+        return tuple(item_shape), dtype, rows, trip, device
+
+    def _capture(self, key, x: Optional[torch.Tensor]):
+        """The padded loop at ``key`` captured (`utils/graphs.py`): after
+        an eager run on ``x`` (the call's rows, its result kept as the
+        loop's ``first``) or, for a warm-up, on zero rows. Called under
+        ``graph_lock``."""
+        from ...utils.graphs import CapturedLoop
+
+        item_shape, dtype, rows, trip, device = key
+        fn = self._trip_fn(trip)
+        loop = CapturedLoop(fn, (rows,) + item_shape, dtype, device, x,
+                            keep=(self._chain, tuple(self.fused)))
+        self._graphs[key] = loop
+        tally(self, "graph_captures")
+        return loop
+
+    def run_rung(self, x: torch.Tensor, rows: int,
+                 trip: int) -> torch.Tensor:
+        """The chain over ``x`` padded with zero rows to ``rows`` (a
+        whole number of ``trip``-row trips, or one trip), its trips one
+        after another; ``x``'s rows of the result. On the card the first
+        `eager_calls_before_capture` calls at an (item shape, dtype,
+        rows, trip) key run the loop eagerly over the real rows alone
+        (no graph needs the padded shape yet), the next one captures it
+        (its eager run before the capture is its result), and every later
+        one replays the graph. A capture that fails raises. On the CPU
+        the loop runs eagerly. ``scan_trips`` counts the trips run."""
+        n = x.shape[0]
+        tally(self, "scan_trips", -(-rows // trip))
+        if x.device.type == "cuda":
+            key = self._graph_key(x.shape[1:], x.dtype, rows, trip, x.device)
+            with self.graph_lock:
+                loop = self._graphs.get(key)
+                if loop is None:
+                    calls = self._eager_calls.get(key, 0)
+                    if calls >= self.eager_calls_before_capture:
+                        loop = self._capture(key, x)
+                        first, loop.first = loop.first, None
+                        return first
+                    self._eager_calls[key] = calls + 1
+            if loop is not None:
+                out = loop(x)
+                tally(self, "graph_replays")
+                return out
+        if x.device.type == "cuda" or rows == n:
+            # no graph to fit yet: the real rows alone, in the same trips
+            return self._trip_fn(trip)(x)
+        x = torch.cat([x, x.new_zeros((rows - n,) + tuple(x.shape[1:]))])
+        return self._trip_fn(trip)(x)[:n]
+
+    def is_warm(self, item_shape, dtype, count: int, device) -> bool:
+        """Whether a warm-up for these rows has nothing left to do."""
+        return (tuple(item_shape), dtype, torch.device(device)) in \
+            self._ran_at
+
+    def warmup(self, item_shape, dtype, count: int, device) -> None:
+        """Ready the chain for rows of ``item_shape``: build its launch
+        plans (one per item shape) and load its kernels by one eager run
+        on a zero row, whose launches count nowhere. Nothing to do where
+        the chain has run at that item shape."""
+        if self.is_warm(item_shape, dtype, count, device):
+            return
+        x = torch.zeros((1,) + tuple(item_shape), dtype=dtype,
+                        device=device)
+        with tallied({}):
+            FusedBatchTransformer.batch_fn(self)(x)
+
+
+class MegafusedBatchTransformer(FusedBatchTransformer):
+    """A whole apply path as one chain whose chunk loop is one CUDA graph
+    replay (`keystone_tpu/nodes/util/fusion.py:745-804`, the JAX
+    package's in-program ``lax.scan``), built by
+    `workflow/fusion_rule.py::MegafusionRule`.
+
+    On a CUDA tensor of n rows, ``batch_fn`` pads the rows to the rung
+    (`rung`: the power-of-two ladder up to one microbatch, else
+    ``ceil(n / microbatch)`` trips of ``microbatch`` rows) and runs the
+    padded loop (`run_rung`): eagerly at the first call at an (item
+    shape, dtype, rung), captured at the second, replayed from then on
+    (or from the first call, after a warm-up captured it). A replay
+    copies the rows into the graph's static input and returns a copy of
+    the real rows (the next replay overwrites the graph's output). A
+    capture that fails raises. On the CPU the same padded loop runs
+    eagerly over the plain versions. Counts: ``graph_captures``,
+    ``graph_replays`` and ``scan_trips`` (trips run); the kernels'
+    launches and the nested chains' ``microbatches_run`` grow at each
+    replay by what the capture recorded."""
+
+    def rung(self, n: int) -> int:
+        """Rows a call of ``n`` rows runs at."""
+        mb = self.microbatch
+        if n <= mb:
+            return min(mb, 1 << max(0, n - 1).bit_length())
+        return -(-n // mb) * mb
+
+    def batch_fn(self):
+        eager = FusedBatchTransformer.batch_fn(self)
+
+        def fn(x):
+            n = x.shape[0]
+            if n == 0:
+                return eager(x)
+            return self.run_rung(x, self.rung(n), self.microbatch)
+
+        # its own padded loop per call: a host stream runs it chunk by
+        # chunk
+        fn.owner = None
+        return fn
+
+    def is_warm(self, item_shape, dtype, count: int, device) -> bool:
+        device = torch.device(device)
+        if device.type != "cuda":
+            return super().is_warm(item_shape, dtype, count, device)
+        return self._rung_key(item_shape, dtype, count, device) in \
+            self._graphs
+
+    def _rung_key(self, item_shape, dtype, count: int, device) -> tuple:
+        return self._graph_key(item_shape, dtype, self.rung(max(1, count)),
+                               self.microbatch, device)
+
+    def warmup(self, item_shape, dtype, count: int, device) -> None:
+        """Capture the graph of ``count`` rows' rung (on the card; one
+        eager run on the CPU), counting no launch."""
+        device = torch.device(device)
+        if device.type != "cuda":
+            super().warmup(item_shape, dtype, count, device)
+            return
+        key = self._rung_key(item_shape, dtype, count, device)
+        with self.graph_lock:
+            if key not in self._graphs:
+                self._capture(key, None)

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 import weakref
 from dataclasses import dataclass
 from typing import Callable, Optional
@@ -43,6 +44,7 @@ from .kernels import (
     _raise_on_error,
     _stream,
     rectify_pool_vectorize,
+    tally,
 )
 
 #: stages no chain kernel absorbs, each with the reason why
@@ -462,7 +464,7 @@ class ChainPlan:
                        _stream(x.device))
         if rc:
             _raise_on_error(self._lib, "elementwise_chain", rc)
-        elementwise_chain.launches += 1
+        tally(elementwise_chain)
         return out
 
 
@@ -507,12 +509,18 @@ def build_chain_fn(statics, params, family: Optional[str] = None):
         return fn
 
     plans = {}
+    lock = threading.Lock()
 
     def plan_for(xb) -> ChainPlan:
+        # built once under the lock: a plan is never replaced, since a
+        # captured graph reads its buffers (`utils/graphs.py`)
         key = (tuple(xb.shape[1:]), xb.device)
         plan = plans.get(key)
         if plan is None:
-            plan = plans[key] = ChainPlan(statics, params, *key)
+            with lock:
+                plan = plans.get(key)
+                if plan is None:
+                    plan = plans[key] = ChainPlan(statics, params, *key)
         return plan
 
     def fn(xb, out=None):

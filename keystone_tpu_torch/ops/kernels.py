@@ -15,12 +15,19 @@ by one per kernel launch and by nothing else. One `rbf_block` call
 launches three kernels: the split prepass on X and on Yb, counted in
 ``rbf_split.launches``, and the product, counted in
 ``rbf_block.launches``.
+
+Counts go through `tally`. While a thread runs inside `tallied(sink)`
+(a chain warmed up or captured into a CUDA graph), its counts go into
+``sink`` instead, and the graph adds them to the counters at each replay
+(`utils/graphs.py`): a replay launches what the capture recorded.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
+from contextlib import contextmanager
 from typing import Optional
 
 import torch
@@ -31,6 +38,38 @@ from . import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+#: per thread: the sink its counts go into, or None for the counters
+_tally_local = threading.local()
+
+#: the counters are shared by the scheduler's and warm-up threads
+_tally_lock = threading.Lock()
+
+
+def tally(obj, attr: str = "launches", n: int = 1) -> None:
+    """Add ``n`` to ``obj.<attr>``, or to this thread's sink while one is
+    installed by `tallied`."""
+    sink = getattr(_tally_local, "sink", None)
+    if sink is None:
+        with _tally_lock:
+            setattr(obj, attr, getattr(obj, attr) + n)
+        return
+    entry = sink.setdefault((id(obj), attr), [obj, attr, 0])
+    entry[2] += n
+
+
+@contextmanager
+def tallied(sink: dict):
+    """Within, this thread's `tally` calls add to ``sink`` (keyed by
+    object and attribute: ``[obj, attr, n]`` entries), not to the
+    counters."""
+    prev = getattr(_tally_local, "sink", None)
+    _tally_local.sink = sink
+    try:
+        yield sink
+    finally:
+        _tally_local.sink = prev
 
 
 # ---------------------------------------------------------------------------
@@ -336,7 +375,7 @@ def conv_rectify_pool(images, g_cmajor, colsum, bias, alpha: float,
                 patch, pool, stride, rows, float(alpha), float(max_val),
                 int(bool(normalize)), _stream(images.device))
         _raise_on_error(lib, "conv_rectify_pool", rc)
-        conv_rectify_pool.launches += 1
+        tally(conv_rectify_pool)
     return out
 
 
@@ -368,7 +407,7 @@ def rectify_pool(x, alpha: float, max_val: float, pool: int,
     rc = fn(x.data_ptr(), out.data_ptr(), n, h, w, k, pool, stride,
             float(alpha), float(max_val), _stream(x.device))
     _raise_on_error(lib, "rectify_pool", rc)
-    rectify_pool.launches += 1
+    tally(rectify_pool)
     return out
 
 
@@ -380,9 +419,9 @@ def rectify_pool_vectorize(x, alpha: float, max_val: float, pool: int,
     """`rectify_pool` followed by a flatten to (N, gy·gx·2K): the same
     kernel, and a view of its output. Its own count holds the launches
     made through it."""
-    before = rectify_pool.launches
     y = rectify_pool(x, alpha, max_val, pool, stride)
-    rectify_pool_vectorize.launches += rectify_pool.launches - before
+    if x.device.type == "cuda" and x.shape[0] > 0:
+        tally(rectify_pool_vectorize)
     return y.reshape(y.shape[0], -1)
 
 
@@ -431,7 +470,7 @@ def rbf_split(X) -> tuple:
                 None if hi is None else hi.data_ptr(), x2.data_ptr(),
                 _stream(X.device))
         _raise_on_error(lib, "rbf_split", rc)
-        rbf_split.launches += 1
+        tally(rbf_split)
     return None if hi is None else hi[:, :d], lo[:, :d], x2
 
 
@@ -481,8 +520,8 @@ def _rbf_block_cuda(X, Yb, gamma: float, write_hi: bool) -> torch.Tensor:
             None if hi is None else hi.data_ptr(), norms.data_ptr(),
             out.data_ptr(), m, n, d, ld, float(gamma), _stream(X.device))
     _raise_on_error(lib, "rbf_block", rc)
-    rbf_split.launches += 2  # the prepass on X, then on Yb
-    rbf_block.launches += 1  # the product
+    tally(rbf_split, n=2)  # the prepass on X, then on Yb
+    tally(rbf_block)  # the product
     return out
 
 

@@ -3,15 +3,32 @@ typed combinator API (counterpart of `keystone_tpu/workflow`)."""
 
 from . import analysis
 from .autocache import AutoCacheRule, CacheMarker
-from .env import IdentityKey, PipelineEnv, Prefix, compute_prefix
-from .executor import GraphExecutor
+from .env import (
+    ExecutionConfig,
+    IdentityKey,
+    PipelineEnv,
+    Prefix,
+    compute_prefix,
+    config_override,
+    dispatch_override,
+    execution_config,
+    overlap_override,
+    set_execution_config,
+)
+from .executor import GraphExecutor, drain_warmups
 from .expressions import (
     DatasetExpression,
     DatumExpression,
     Expression,
+    StreamingDatasetExpression,
     TransformerExpression,
 )
-from .fusion_rule import FusedChainOperator, NodeFusionRule
+from .fusion_rule import (
+    FusedChainOperator,
+    MegafusedPlanOperator,
+    MegafusionRule,
+    NodeFusionRule,
+)
 from .graph import Graph, NodeId, NodeOrSourceId, SinkId, SourceId
 from .operators import (
     DatasetOperator,

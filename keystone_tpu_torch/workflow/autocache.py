@@ -38,6 +38,8 @@ class CacheMarker(TransformerOperator):
     """Identity node that materializes and prefix-memoizes its input
     (≈ Cacher, nodes/util/Cacher.scala:15-25)."""
 
+    chunkable = True  # per-item: distributes over chunks
+
     saveable = True
 
     def __init__(self, name: str = ""):

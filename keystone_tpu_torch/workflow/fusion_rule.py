@@ -1,6 +1,6 @@
-"""The stage-fusion rule.
+"""The stage-fusion and megafusion rules.
 
-Counterpart of `keystone_tpu/workflow/fusion_rule.py:102-300, 601-805`.
+Counterpart of `keystone_tpu/workflow/fusion_rule.py:102-600, 601-805`.
 `NodeFusionRule` finds maximal linear chains of adjacent nodes and
 replaces each chain with one operator:
 
@@ -21,19 +21,31 @@ replaces each chain with one operator:
 
 A node with two children ends a chain (fusing across a fan-out would
 repeat work for one consumer), and discovery walks up to the chain head
-from any member, so the result does not depend on node-id order. The JAX
-package's `MegafusionRule` has no counterpart here.
+from any member, so the result does not depend on node-id order.
+
+`MegafusionRule` (`:374-535`) runs after it and merges the fused members
+that remain on a fan-out-free chain (fused transformers, fused chains
+with their fit slots re-indexed, `Cacher`s absorbed) into one
+`MegafusedPlanOperator`, whose forced form is a
+`MegafusedBatchTransformer`: the apply path's chunk loop as one CUDA
+graph replay. Every member's saveable prefix is dropped.
+`megafusion_blockers` (`:538-600`) says what stops a plan from
+collapsing. The JAX package's ``scan_live_nbytes`` and its KP401
+diagnostic need the spec analysis, which the port does not have yet
+(ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+import threading
+from typing import List, Sequence, Tuple
 
 from .analysis import children
 from .expressions import (
     DatasetExpression,
     DatumExpression,
     Expression,
+    StreamingDatasetExpression,
     TransformerExpression,
 )
 from .graph import Graph, NodeId
@@ -43,8 +55,15 @@ from .operators import (
     ExpressionOperator,
     GatherTransformerOperator,
     Operator,
+    _overlap_enabled,
+    _streamed_batch,
+    is_stream_origin,
 )
 from .optimizer import Plan, Rule
+
+
+#: guards the fused chains' kept builds across the scheduler's workers
+_MATERIALIZE_LOCK = threading.RLock()
 
 
 class _FitSlot:
@@ -71,9 +90,20 @@ class FusedChainOperator(Operator):
     transformer that is not fusable makes it a `TransformerChain`: the
     same values, stage by stage."""
 
+    #: the scheduler keeps a chunk stream into it lazy
+    may_consume_chunks = True
+
+    #: display prefix, overridden by `MegafusedPlanOperator`
+    _label_prefix = "Fused"
+
     def __init__(self, stage_specs: Sequence, microbatch: int = 2048):
         self.stage_specs = list(stage_specs)
         self.microbatch = microbatch
+
+    def _fused_cls(self):
+        from ..nodes.util.fusion import FusedBatchTransformer
+
+        return FusedBatchTransformer
 
     @property
     def n_fits(self) -> int:
@@ -86,22 +116,39 @@ class FusedChainOperator(Operator):
 
     @property
     def label(self) -> str:
-        return "Fused[" + " >> ".join(
+        return self._label_prefix + "[" + " >> ".join(
             repr(s) if isinstance(s, _FitSlot) else s.label
             for s in self.stage_specs) + "]"
 
     def materialize(self, fitted: Sequence):
         """Resolve the `_FitSlot`s against ``fitted`` (one transformer
         per estimator dependency, in order) and build the runnable
-        transformer. Shared by force-time execution and `Pipeline.fit`."""
-        from ..nodes.util.fusion import FusedBatchTransformer
+        transformer. Shared by force-time execution, warm-ups and
+        `Pipeline.fit`. The last build is kept and returned again for the
+        same fitted transformers, so its launch plans and graphs (the
+        JAX package's structure-keyed program caches) serve every apply
+        and the warm-up's work is the force's."""
         from .pipeline import TransformerChain
 
-        stages = [fitted[s.index] if isinstance(s, _FitSlot) else s
-                  for s in self.stage_specs]
-        if all(getattr(s, "fusable", False) for s in stages):
-            return FusedBatchTransformer(stages, microbatch=self.microbatch)
-        return TransformerChain(stages)
+        fitted = tuple(fitted)
+        with _MATERIALIZE_LOCK:
+            hit = self.__dict__.get("_materialized")
+            if hit is not None and len(hit[0]) == len(fitted) and all(
+                    a is b for a, b in zip(hit[0], fitted)):
+                return hit[1]
+            stages = [fitted[s.index] if isinstance(s, _FitSlot) else s
+                      for s in self.stage_specs]
+            if all(getattr(s, "fusable", False) for s in stages):
+                built = self._fused_cls()(stages, microbatch=self.microbatch)
+            else:
+                built = TransformerChain(stages)
+            self._materialized = (fitted, built)
+            return built
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state.pop("_materialized", None)
+        return state
 
     def execute(self, deps: Sequence[Expression]) -> Expression:
         deps = list(deps)
@@ -123,7 +170,219 @@ class FusedChainOperator(Operator):
         if isinstance(data, DatumExpression):
             return DatumExpression(
                 lambda: make().single_transform([data.get]))
+        if _overlap_enabled():
+            return StreamingDatasetExpression(
+                lambda: _streamed_batch(make(), data))
         return DatasetExpression(lambda: make().batch_transform([data.get]))
+
+
+class MegafusedPlanOperator(FusedChainOperator):
+    """A whole apply path as one chain (`keystone_tpu/workflow/
+    fusion_rule.py:301-321`): forcing it materializes a
+    `MegafusedBatchTransformer`, whose chunk loop is one CUDA graph
+    replay, with the fitted transformers in their slots."""
+
+    _label_prefix = "Megafused"
+
+    def _fused_cls(self):
+        from ..nodes.util.fusion import MegafusedBatchTransformer
+
+        return MegafusedBatchTransformer
+
+
+class MegafusionRule(Rule):
+    """Collapse a fan-out-free chain of fused members into one
+    `MegafusedPlanOperator` (`keystone_tpu/workflow/fusion_rule.py:
+    374-535`).
+
+    Runs after `NodeFusionRule`. Members consume each other as their one
+    data input: fused chains (their fit slots re-indexed into the merged
+    operator's estimator dependencies), fusable single-input
+    transformers, and `Cacher`s (absorbed: inside one graph there is no
+    intermediate to keep). A fan-out, a stage that is not fusable or a
+    stream-producing stage ends the chain. A merge needs two members
+    that run work; a lone fused chain on the plan's input is promoted
+    too, being the whole apply path. `ExecutionConfig.megafusion` is read
+    when the rule runs; off, the plan is `NodeFusionRule`'s.
+
+    The merged chain's trip is the widest microbatch among the rule's
+    and its nested fused members', so each nested chain launches its
+    kernels at most once a trip, as it does on its own."""
+
+    def __init__(self, microbatch: int = 2048):
+        self.microbatch = microbatch
+
+    @staticmethod
+    def _member_kind(graph: Graph, node: NodeId):
+        """'chain' (carries fit slots), 'stage' (fusable), 'cache' (an
+        identity the chain absorbs), or None (ends the chain)."""
+        from ..nodes.util.basic import Cacher
+        from .operators import TransformerOperator
+
+        op = graph.get_operator(node)
+        deps = graph.get_dependencies(node)
+        if isinstance(op, FusedChainOperator):
+            return "chain"
+        if isinstance(op, Cacher) and len(deps) == 1:
+            return "cache"
+        if isinstance(op, TransformerOperator) \
+                and getattr(op, "fusable", False) and len(deps) == 1:
+            return "stage"
+        return None
+
+    @staticmethod
+    def _data_dep(graph: Graph, node: NodeId):
+        deps = graph.get_dependencies(node)
+        if isinstance(graph.get_operator(node), FusedChainOperator):
+            return deps[-1]
+        return deps[0]
+
+    @staticmethod
+    def _is_plan_input(graph: Graph, dep) -> bool:
+        """Whether ``dep`` is the plan's own input (an unbound source,
+        bound data or saved state), not a node mid-plan."""
+        from .graph import SourceId
+        from .operators import DatasetOperator, DatumOperator
+
+        if isinstance(dep, SourceId):
+            return True
+        if not isinstance(dep, NodeId):
+            return False
+        return isinstance(graph.get_operator(dep),
+                          (DatasetOperator, DatumOperator, ExpressionOperator))
+
+    def apply(self, plan: Plan) -> Plan:
+        from ..nodes.util.fusion import FusedBatchTransformer
+        from .env import execution_config
+
+        if not execution_config().megafusion:
+            return plan
+        graph, prefixes = plan
+        visited: set = set()
+        chains: List[List[NodeId]] = []
+        for node in sorted(graph.operators, key=lambda n: n.id):
+            if node in visited or self._member_kind(graph, node) is None:
+                continue
+            head = node
+            while True:
+                dep = self._data_dep(graph, head)
+                if (isinstance(dep, NodeId)
+                        and self._member_kind(graph, dep) is not None
+                        and len(children(graph, dep)) == 1):
+                    head = dep
+                else:
+                    break
+            chain = [head]
+            cur = head
+            while True:
+                kids = children(graph, cur)
+                if len(kids) != 1:
+                    break
+                (kid,) = kids
+                if (isinstance(kid, NodeId)
+                        and self._member_kind(graph, kid) is not None
+                        and self._data_dep(graph, kid) == cur):
+                    chain.append(kid)
+                    cur = kid
+                else:
+                    break
+            visited.update(chain)
+            kinds = [self._member_kind(graph, n) for n in chain]
+            programs = sum(1 for k in kinds if k != "cache")
+            whole_plan_single = (
+                len(chain) == 1 and kinds[0] == "chain"
+                and self._is_plan_input(graph,
+                                        self._data_dep(graph, chain[0])))
+            if (len(chain) >= 2 and programs >= 2) or whole_plan_single:
+                chains.append(chain)
+
+        for chain in chains:
+            if any(n not in graph.operators for n in chain):
+                continue
+            head_data_dep = self._data_dep(graph, chain[0])
+            est_deps: List = []
+            stage_specs: List = []
+            for n in chain:
+                kind = self._member_kind(graph, n)
+                op = graph.get_operator(n)
+                if kind == "chain":
+                    base = len(est_deps)
+                    est_deps.extend(graph.get_dependencies(n)[:-1])
+                    for s in op.stage_specs:
+                        stage_specs.append(
+                            _FitSlot(base + s.index)
+                            if isinstance(s, _FitSlot) else s)
+                elif kind == "stage":
+                    stage_specs.append(op)
+            trip = max([self.microbatch] + [
+                s.microbatch for s in stage_specs
+                if isinstance(s, FusedBatchTransformer)])
+            fused = MegafusedPlanOperator(stage_specs, microbatch=trip)
+            graph = graph.set_operator(chain[0], fused)
+            graph = graph.replace_dependency(chain[-1], chain[0])
+            graph = graph.set_dependencies(
+                chain[0], tuple(est_deps) + (head_data_dep,))
+            for n in reversed(chain[1:]):
+                graph = graph.set_dependencies(n, ())
+                graph = graph.remove_node(n)
+            # every member's prefix goes, the head's too: the head now
+            # computes the whole chain, and saving that under the old
+            # head's prefix (an absorbed Cacher's) would hand a later
+            # pipeline the wrong value
+            for n in chain:
+                prefixes.pop(n, None)
+        return graph, prefixes
+
+
+def megafusion_blockers(graph: Graph) -> List[Tuple[NodeId, str, str]]:
+    """Why a plan cannot collapse to one graph (`keystone_tpu/workflow/
+    fusion_rule.py:538-600`): ``(vertex, label, reason)`` for each
+    blocker next to an otherwise fusable member of the node-fused
+    plan."""
+    from .operators import TransformerOperator
+
+    fused_graph = NodeFusionRule().apply((graph, {}))[0]
+    kinds = {n: MegafusionRule._member_kind(fused_graph, n)
+             for n in fused_graph.operators}
+
+    def neighbors(node):
+        out = [d for d in fused_graph.get_dependencies(node)
+               if isinstance(d, NodeId)]
+        out.extend(u for u in children(fused_graph, node)
+                   if isinstance(u, NodeId))
+        return out
+
+    blockers: List[Tuple[NodeId, str, str]] = []
+    for node in sorted(fused_graph.operators, key=lambda n: n.id):
+        op = fused_graph.get_operator(node)
+        if kinds.get(node) is not None:
+            kids = [k for k in children(fused_graph, node)
+                    if isinstance(k, NodeId) and kinds.get(k) is not None]
+            all_kids = children(fused_graph, node)
+            if len(all_kids) > 1 and kids:
+                blockers.append((node, op.label, (
+                    f"fan-out ({len(all_kids)} consumers) ends the "
+                    "megafused chain here; each branch runs on its own")))
+            continue
+        if not any(kinds.get(nb) is not None for nb in neighbors(node)):
+            continue
+        if is_stream_origin(op):
+            blockers.append((node, op.label, (
+                "stream-producing host stage stays on the overlapped "
+                "host-staging path; one graph can only start after it")))
+        elif isinstance(op, DelegatingOperator):
+            deps = fused_graph.get_dependencies(node)
+            if deps and NodeFusionRule._est_fusable(fused_graph, deps[0]):
+                continue
+            blockers.append((node, op.label, (
+                "estimator apply boundary is not provably fusable (the "
+                "estimator does not declare fusable_fit)")))
+        elif isinstance(op, TransformerOperator) \
+                and not getattr(op, "fusable", False):
+            blockers.append((node, op.label, (
+                "host-code stage (fusable=False) cannot enter a graph; "
+                "the chain splits around it")))
+    return blockers
 
 
 class NodeFusionRule(Rule):

@@ -10,9 +10,14 @@ The dual batch/single dispatch (`batch_transform` against
 `single_transform`, chosen by the dependency expressions' types,
 Operator.scala:77-100) is kept: one pipeline graph serves a whole
 dataset (anything marked ``is_dataset``: `Dataset`, `HostDataset`,
-`SparseDataset`) and a single datum. The JAX package's static
-``abstract_eval`` hooks (its analysis tiers) and its overlap-engine
-branches have no counterpart here yet.
+`SparseDataset`) and a single datum. With the overlap engine on
+(`ExecutionConfig.overlap`), a one-input transformer or delegate returns
+a `StreamingDatasetExpression` (`:27-60, 265-274, 419-427`): at force
+time the stage consumes its input's chunks where it is ``chunkable``,
+produces its own where it has a streaming batch path, and otherwise
+yields its whole value as one chunk. The JAX package's static
+``abstract_eval`` hooks (its analysis tiers) have no counterpart here
+yet.
 """
 
 from __future__ import annotations
@@ -23,8 +28,77 @@ from .expressions import (
     DatasetExpression,
     DatumExpression,
     Expression,
+    StreamingDatasetExpression,
     TransformerExpression,
 )
+
+
+def _overlap_enabled() -> bool:
+    from .env import execution_config
+
+    return execution_config().overlap
+
+
+def _chunk_payload(out, n: int):
+    """A stage's result over one chunk of ``n`` items as a chunk
+    payload: the rows of its single bucket, a dataset's rows, or the
+    list of its items."""
+    from ..data.dataset import HostDataset
+
+    if isinstance(out, HostDataset):
+        buckets = out._buckets
+        if (buckets is not None and len(buckets) == 1
+                and list(buckets[0][0]) == list(range(n))):
+            return buckets[0][1]
+        return list(out.items)
+    if hasattr(out, "array") and getattr(out, "count", None) == n:
+        return out.array[:n]
+    return list(out)
+
+
+def _chunk_items(transformer, payload) -> Any:
+    """A chunkable transformer's batch path over one chunk's payload."""
+    from ..data.dataset import HostDataset
+
+    n = len(payload)
+    if isinstance(payload, list):
+        ds = HostDataset(payload)
+    else:
+        ds = HostDataset.from_buckets([(list(range(n)), payload)], n,
+                                      device=payload.device)
+    return _chunk_payload(transformer.batch_transform([ds]), n)
+
+
+def is_stream_origin(op) -> bool:
+    """Whether ``op`` produces a chunk stream itself (it overrides
+    `Transformer.apply_batch_stream`), as opposed to passing chunks
+    through (`keystone_tpu/analysis/hazards.py:127-133`)."""
+    from .pipeline import Transformer
+
+    fn = getattr(type(op), "apply_batch_stream", None)
+    return fn is not None and fn is not Transformer.apply_batch_stream
+
+
+def _streamed_batch(transformer, dep: Expression):
+    """Chunks of one transformer stage over one dependency: the
+    dependency's chunks mapped where it streams and the transformer is
+    ``chunkable``; the transformer's own stream where it has one;
+    else its batch result as one whole-value chunk."""
+    if isinstance(dep, StreamingDatasetExpression) and getattr(
+            transformer, "chunkable", False):
+        for idxs, payload in dep.iter_chunks():
+            if idxs is None:
+                yield None, transformer.batch_transform([payload])
+            else:
+                yield idxs, _chunk_items(transformer, payload)
+        return
+    value = dep.get
+    stream_fn = getattr(transformer, "batch_transform_stream", None)
+    stream = stream_fn([value]) if stream_fn is not None else None
+    if stream is None:
+        yield None, transformer.batch_transform([value])
+    else:
+        yield from stream
 
 
 class Operator:
@@ -99,6 +173,10 @@ class TransformerOperator(Operator):
         if n_datum:
             return DatumExpression(
                 lambda: self.single_transform([d.get for d in deps]))
+        if len(deps) == 1 and _overlap_enabled():
+            dep = deps[0]
+            return StreamingDatasetExpression(
+                lambda: _streamed_batch(self, dep))
         return DatasetExpression(
             lambda: self.batch_transform([d.get for d in deps]))
 
@@ -144,6 +222,12 @@ class DelegatingOperator(Operator):
         if n_datum:
             return DatumExpression(lambda: transformer_expr.get
                                    .single_transform([d.get for d in data_deps]))
+        if len(data_deps) == 1 and _overlap_enabled():
+            # the fitted transformer exists only at force time: forcing
+            # it here would run the fit eagerly
+            dep = data_deps[0]
+            return StreamingDatasetExpression(
+                lambda: _streamed_batch(transformer_expr.get, dep))
         return DatasetExpression(lambda: transformer_expr.get
                                  .batch_transform([d.get for d in data_deps]))
 

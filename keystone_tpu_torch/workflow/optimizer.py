@@ -11,11 +11,12 @@ rules):
     (EquivalentNodeMergeRule.scala:13-48)
   - NodeOptimizationRule: sample-driven node-level implementation choice
     (NodeOptimizationRule.scala:14-198)
-  - NodeFusionRule (`fusion_rule.py`) and AutoCacheRule (`autocache.py`).
+  - NodeFusionRule and MegafusionRule (`fusion_rule.py`) and
+    AutoCacheRule (`autocache.py`).
 
 The JAX `DefaultOptimizer`'s ``unified``, ``place`` and ``precision``
-batches and its `MegafusionRule` price TPU programs, meshes and XLA
-compiles; they have no counterpart here (ROADMAP queue 1, item 9).
+batches price TPU programs, meshes and XLA compiles; they are re-derived
+for the card with multi-GPU (ROADMAP queue 1, item 10), not copied.
 
 A *plan* is ``(Graph, dict[NodeId, Prefix])``, the prefix map holding
 only the saveable nodes' structural prefixes.
@@ -248,16 +249,22 @@ class DefaultOptimizer(Optimizer):
     """The batches of DefaultOptimizer.scala:8-31 (saved-state reuse and
     dead-branch removal once, CSE to fixpoint, node-level optimization
     once) with the fusion pass between CSE and node-level optimization,
-    as the JAX package orders them with its planners off."""
+    as the JAX package orders them with its planners off
+    (`keystone_tpu/workflow/optimizer.py:966-988`). ``megafuse`` appends
+    `MegafusionRule` to the ``fuse`` batch, after `NodeFusionRule`; the
+    rule also reads `ExecutionConfig.megafusion` when it runs."""
 
-    def __init__(self):
-        from .fusion_rule import NodeFusionRule
+    def __init__(self, megafuse: bool = True):
+        from .fusion_rule import MegafusionRule, NodeFusionRule
 
+        fuse: List[Rule] = [NodeFusionRule()]
+        if megafuse:
+            fuse.append(MegafusionRule(NodeFusionRule.microbatch))
         self._batches = [
             Batch("state", [ExtractSaveablePrefixes(), SavedStateLoadRule(),
                             UnusedBranchRemovalRule()]),
             Batch("cse", [EquivalentNodeMergeRule()], max_iterations=10),
-            Batch("fuse", [NodeFusionRule()]),
+            Batch("fuse", fuse),
             Batch("node-opt", [NodeOptimizationRule()]),
         ]
 

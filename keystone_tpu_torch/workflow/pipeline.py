@@ -62,6 +62,15 @@ class PipelineResult:
     def get(self):
         return self.executor.execute(self.sink).get
 
+    def stream(self):
+        """The result chunk by chunk (`keystone_tpu/workflow/pipeline.py:
+        57-64`): ``(indices, rows)`` as the last stage drains, or one
+        ``(None, value)`` chunk where the pipeline does not stream.
+        Drained chunks are memoized: after a full drain ``.get()`` is
+        free, and after an early exit it resumes the remaining chunks
+        without re-running the ones already seen."""
+        return self.executor.execute_stream(self.sink)
+
 
 class PipelineDataset(PipelineResult):
     """Lazy dataset result (PipelineDataset.scala:10-23)."""
@@ -327,7 +336,28 @@ class Transformer(TransformerOperator, Chainable):
     """A batched tensor function (Transformer.scala:18-70). Subclasses
     implement `batch_fn`, which maps a (n, ...) tensor of rows to a
     (n, ...) tensor, or override `apply` and `apply_batch`; `apply` runs
-    `batch_fn` on one datum."""
+    `batch_fn` on one datum.
+
+    Overlap-engine hooks (`keystone_tpu/workflow/pipeline.py:430-468`):
+    ``chunkable = True`` declares that the batch path distributes over
+    chunks of items, so the stage consumes an upstream chunk stream as
+    it drains; `apply_batch_stream` (an iterator of ``(indices, rows)``
+    chunks over a `HostDataset`, or None) makes the stage a stream
+    producer."""
+
+    chunkable = False
+
+    def apply_batch_stream(self, data: Any):
+        """A streaming batch path over a `HostDataset`, or None (the
+        operator then yields one whole-value chunk)."""
+        return None
+
+    def batch_transform_stream(self, inputs: List[Any]):
+        from ..data.dataset import HostDataset
+
+        if isinstance(inputs[0], HostDataset):
+            return self.apply_batch_stream(inputs[0])
+        return None
 
     def batch_fn(self) -> Callable[[torch.Tensor], torch.Tensor]:
         raise NotImplementedError
@@ -368,6 +398,8 @@ class Transformer(TransformerOperator, Chainable):
 class _FunctionTransformer(Transformer):
     """``fn`` on each item: a host dataset's items, or a device
     dataset's rows stacked back."""
+
+    chunkable = True  # per-item: distributes over chunks
 
     def __init__(self, fn: Callable[[Any], Any]):
         self.fn = fn
@@ -462,6 +494,10 @@ class LabelEstimator(EstimatorOperator, Chainable):
 class TransformerChain(Transformer):
     def __init__(self, stages: Sequence[Transformer]):
         self.stages = list(stages)
+
+    @property
+    def chunkable(self) -> bool:  # a chain distributes iff every stage does
+        return all(getattr(s, "chunkable", False) for s in self.stages)
 
     @property
     def label(self) -> str:

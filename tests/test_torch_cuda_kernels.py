@@ -441,3 +441,235 @@ def test_cuda_linear_pixels_transformer_reuses_its_plan(cuda_device):
     assert len(fbt._chain[1].plans) == 1
     _k4_check(got, chain_kernels.elementwise_chain_reference(statics, params,
                                                              x))
+
+
+# ---- chains captured as CUDA graphs ------------------------------------------
+
+
+def _k1_featurizer(device, k=64, microbatch=512):
+    """RandomPatchCifar's featurizer (K1 after the peephole) with random
+    filters and an identity whitener, at a narrow bank."""
+    from keystone_tpu_torch.nodes.images.core import (
+        Convolver,
+        ImageVectorizer,
+        PixelScaler,
+        Pooler,
+        SymmetricRectifier,
+    )
+    from keystone_tpu_torch.nodes.util.fusion import FusedBatchTransformer
+
+    filters = torch.tensor(np.random.default_rng(7).normal(
+        size=(k, 6 * 6 * 3)), dtype=torch.float32, device=device) / 10.0
+    return FusedBatchTransformer([
+        PixelScaler(),
+        Convolver(filters, 32, 32, 3, normalize_patches=True),
+        SymmetricRectifier(alpha=0.25),
+        Pooler(13, 14, pool_fn="sum"),
+        ImageVectorizer(),
+    ], microbatch=microbatch)
+
+
+def _k4_featurizer(microbatch=512):
+    from keystone_tpu_torch.nodes.images.core import (
+        GrayScaler,
+        ImageVectorizer,
+        PixelScaler,
+    )
+    from keystone_tpu_torch.nodes.util.fusion import FusedBatchTransformer
+
+    return FusedBatchTransformer([PixelScaler(), GrayScaler(),
+                                  ImageVectorizer()], microbatch=microbatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["k1", "k4"])
+def test_cuda_megafused_chain_replays_its_capture(cuda_device, which):
+    """A megafused chain over a K1 or a K4 featurizer at the rung of
+    1,100 rows (3 trips of 512): the first call runs the padded loop
+    eagerly, the second captures it (its eager run is its result), later
+    calls replay. Every call adds 3 launches, 3 trips and 3 microbatches
+    to the counters, and its rows equal the eager chain's, for 1,100
+    rows and for 1,030 rows on the same rung (a smaller tail of phantom
+    rows)."""
+    from keystone_tpu_torch.nodes.util.fusion import (
+        MegafusedBatchTransformer,
+    )
+    from keystone_tpu_torch.ops import chain_kernels
+
+    featurizer = (_k1_featurizer(cuda_device) if which == "k1"
+                  else _k4_featurizer())
+    counter = (kernels.conv_rectify_pool if which == "k1"
+               else chain_kernels.elementwise_chain)
+    mega = MegafusedBatchTransformer([featurizer], microbatch=512)
+    eager = featurizer.batch_fn()
+    fn = mega.batch_fn()
+    rng = np.random.default_rng(8)
+    for call, n in enumerate((1100, 1030, 1100, 1030)):
+        x = torch.tensor(rng.random(size=(n, 32, 32, 3)) * 255.0,
+                         dtype=torch.float32, device=cuda_device)
+        want = eager(x)
+        launches, replays = counter.launches, mega.graph_replays
+        trips, inner = mega.scan_trips, featurizer.microbatches_run
+        got = fn(x)
+        torch.cuda.synchronize()
+        assert counter.launches - launches == 3
+        assert mega.graph_captures == (0 if call == 0 else 1)
+        assert mega.graph_replays - replays == (1 if call >= 2 else 0)
+        assert mega.scan_trips - trips == 3
+        assert featurizer.microbatches_run - inner == 3
+        assert got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert mega.graph_captures == 1 and len(mega._graphs) == 1
+
+
+@pytest.mark.cuda
+def test_cuda_warmup_capture_races_an_eager_force(cuda_device):
+    """A warm-up thread captures a megafused K4 chain while the main
+    thread forces the same featurizer eagerly at the same item shape:
+    one launch plan is built and kept, the replays equal the eager rows
+    after the allocator has reused freed memory, and the graph is freed
+    with its transformer (no reference cycle holds it)."""
+    import threading
+    import weakref
+
+    from keystone_tpu_torch.nodes.util.fusion import (
+        MegafusedBatchTransformer,
+    )
+
+    rng = np.random.default_rng(11)
+    x = torch.tensor(rng.random(size=(700, 32, 32, 3)) * 255.0,
+                     dtype=torch.float32, device=cuda_device)
+    for _ in range(3):
+        featurizer = _k4_featurizer()
+        mega = MegafusedBatchTransformer([featurizer], microbatch=512)
+        errors = []
+
+        def warm():
+            try:
+                mega.warmup((32, 32, 3), torch.float32, 700, cuda_device)
+            except BaseException as e:  # re-raised below
+                errors.append(e)
+
+        t = threading.Thread(target=warm)
+        t.start()
+        want = featurizer.batch_fn()(x)
+        t.join(timeout=120.0)
+        assert not t.is_alive() and not errors
+        assert len(featurizer._chain[1].plans) == 1
+        junk = [torch.rand((1 << 20,), device=cuda_device)
+                for _ in range(8)]
+        for _ in range(2):
+            got = mega.batch_fn()(x)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+        assert mega.graph_captures == 1 and mega.graph_replays == 2
+        ref = weakref.ref(mega)
+        del mega, junk, warm
+        assert ref() is None
+
+
+@pytest.mark.cuda
+def test_cuda_megafused_warmup_captures_without_counting(cuda_device):
+    """A warm-up captures the rung's graph and counts no launch; the
+    first call after it replays (no capture)."""
+    from keystone_tpu_torch.nodes.util.fusion import (
+        MegafusedBatchTransformer,
+    )
+    from keystone_tpu_torch.ops import chain_kernels
+
+    mega = MegafusedBatchTransformer([_k4_featurizer()], microbatch=512)
+    before = chain_kernels.elementwise_chain.launches
+    mega.warmup((32, 32, 3), torch.float32, 700, cuda_device)
+    torch.cuda.synchronize()
+    assert chain_kernels.elementwise_chain.launches == before
+    assert mega.graph_captures == 1
+    x = torch.rand((700, 32, 32, 3), device=cuda_device) * 255.0
+    mega.batch_fn()(x)
+    assert mega.graph_captures == 1 and mega.graph_replays == 1
+    assert chain_kernels.elementwise_chain.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_megafused_capture_failure_raises(cuda_device):
+    """A chain that synchronizes cannot be captured: its first call runs
+    eagerly, the second (which captures) raises, and no eager result
+    stands in for the graph."""
+    from keystone_tpu_torch.nodes.util.fusion import (
+        MegafusedBatchTransformer,
+    )
+    from keystone_tpu_torch.workflow.pipeline import Transformer
+
+    class _Syncs(Transformer):
+        fusable = True
+
+        def batch_fn(self):
+            return lambda x: x * float(x.sum().item() * 0.0 + 1.0)
+
+    mega = MegafusedBatchTransformer([_Syncs()], microbatch=64)
+    x = torch.ones((10, 4), device=cuda_device)
+    mega.batch_fn()(x)
+    with pytest.raises(RuntimeError):
+        mega.batch_fn()(x)
+    assert mega.graph_captures == 0 and not mega._graphs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [False, True])
+def test_cuda_host_stream_matches_per_item(cuda_device, overlap):
+    """Host images through `map_host_batched_stream` on the card, overlap
+    off and on, megafusion off: each chunk's rows equal the chain on the
+    items one by one; overlapped, the pinned ring holds at most
+    depth + 1 chunks."""
+    from keystone_tpu_torch.utils import batching
+    from keystone_tpu_torch.workflow.env import config_override
+
+    rng = np.random.default_rng(9)
+    items = [rng.random(size=(32, 32, 3)).astype(np.float32) * 255.0
+             for _ in range(700)]
+    fn = _k4_featurizer().batch_fn()
+    batching.map_host_batched_stream.peak_pinned_bytes = 0
+    with config_override(overlap=overlap, megafusion=False,
+                         prefetch_depth=2):
+        out = batching.map_host_batched(items, fn, chunk=128,
+                                        device=cuda_device)
+    torch.cuda.synchronize()
+    want = fn(torch.tensor(np.stack(items), device=cuda_device))
+    torch.testing.assert_close(torch.stack(out), want, rtol=0, atol=0)
+    peak = batching.map_host_batched_stream.peak_pinned_bytes
+    chunk_bytes = 128 * items[0].nbytes
+    assert (0 < peak <= 3 * chunk_bytes) if overlap else peak == 0
+
+
+@pytest.mark.cuda
+def test_cuda_host_megafused_stream_is_one_replay(cuda_device):
+    """A fused chain's batch function over 700 host images at chunk 128
+    (6 chunks, the tail padded), overlap on: the first stream runs the
+    padded loop eagerly, the second captures it, the third is one replay
+    of the one graph; each launches 6 times and its rows equal the eager
+    chain's. The group goes through the pinned ring (one buffer of the 6
+    chunks)."""
+    from keystone_tpu_torch.ops import chain_kernels
+    from keystone_tpu_torch.utils import batching
+    from keystone_tpu_torch.workflow.env import config_override
+
+    rng = np.random.default_rng(10)
+    items = [rng.random(size=(32, 32, 3)).astype(np.float32) * 255.0
+             for _ in range(700)]
+    fbt = _k4_featurizer()
+    fn = fbt.batch_fn()
+    want = fn(torch.tensor(np.stack(items), device=cuda_device))
+    for call in range(3):
+        before = chain_kernels.elementwise_chain.launches
+        replays = fbt.graph_replays
+        batching.map_host_batched_stream.peak_pinned_bytes = 0
+        with config_override(megafusion=True, pad_chunks=True, overlap=True):
+            out = batching.map_host_batched(items, fn, chunk=128,
+                                            device=cuda_device)
+        torch.cuda.synchronize()
+        assert chain_kernels.elementwise_chain.launches - before == 6
+        assert fbt.graph_captures == (0 if call == 0 else 1)
+        assert fbt.graph_replays - replays == (1 if call == 2 else 0)
+        assert batching.map_host_batched_stream.peak_pinned_bytes == \
+            6 * 128 * items[0].nbytes
+        torch.testing.assert_close(torch.stack(out), want, rtol=0, atol=0)
+    assert fbt.scan_trips == 18

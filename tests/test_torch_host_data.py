@@ -65,6 +65,7 @@ from keystone_tpu_torch.nodes.util import (
     MatrixVectorizer,
 )
 from keystone_tpu_torch.utils.batching import map_host_batched
+from keystone_tpu_torch.workflow.env import config_override
 from keystone_tpu_torch.utils.images import LabeledImage, MultiLabeledImage
 
 CPU = "cpu"
@@ -101,8 +102,14 @@ def test_map_host_batched_keeps_item_order_over_three_shapes():
     got = map_host_batched(items, batch_fn, chunk=2, device=CPU)
     want = [batch_fn(torch.from_numpy(x)[None])[0] for x in items]
     _assert_items_equal(got, want)
-    # one call a chunk of two: buckets of 4, 3 and 4 items
-    assert [c[0] for c in calls[:7]] == [2, 2, 2, 1, 2, 2, 1]
+    # one call a chunk of two: buckets of 4, 3 and 4 items, the 3-item
+    # bucket's tail padded to the chunk (ExecutionConfig.pad_chunks)
+    assert [c[0] for c in calls[:6]] == [2, 2, 2, 2, 2, 2]
+    calls.clear()
+    with config_override(pad_chunks=False):
+        got = map_host_batched(items, batch_fn, chunk=2, device=CPU)
+    _assert_items_equal(got, want)
+    assert [c[0] for c in calls] == [2, 2, 2, 1, 2, 2]
 
 
 def test_map_batches_keeps_buckets_and_stacks_without_copies():

@@ -4,10 +4,10 @@ port nodes, and plan parity with the JAX package.
 Plan parity: RandomPatchCifar, LinearPixels and MnistRandomFFT are built
 small in both packages from the same numpy-seeded data, and after each of
 the batches ``state``, ``cse``, ``fuse`` and ``node-opt`` the port's
-`DefaultOptimizer` must hold the same number of nodes, with the same
-operator class names in `linearize` order, as JAX's
-`DefaultOptimizer(megafuse=False, sharding_planner=False,
-precision_planner=False, unified_planner=False)`. No name mapping is
+`DefaultOptimizer(megafuse=m)` must hold the same number of nodes, with
+the same operator class names in `linearize` order, as JAX's
+`DefaultOptimizer(megafuse=m, sharding_planner=False,
+precision_planner=False, unified_planner=False)`, for ``m`` off and on. No name mapping is
 needed: each port class carries its JAX twin's name. JAX's ``unified``
 batch (with the planner off, a rule that clears a planned chunk size)
 has no port counterpart and is skipped.
@@ -407,17 +407,21 @@ def _mnist_random_fft():
     return jax_pipe.graph, mnist.build(train, cfg).graph
 
 
+@pytest.mark.parametrize("megafuse", [False, True],
+                         ids=["megafuse_off", "megafuse_on"])
 @pytest.mark.parametrize("build", [_random_patch_cifar, _linear_pixels,
                                    _mnist_random_fft],
                          ids=["random_patch_cifar", "linear_pixels",
                               "mnist_random_fft"])
-def test_plan_parity_with_jax_batch_by_batch(build, one_device_mesh):
+def test_plan_parity_with_jax_batch_by_batch(build, megafuse,
+                                             one_device_mesh):
     jax_graph, port_graph = build()
-    jax_opt = JaxDefaultOptimizer(megafuse=False, sharding_planner=False,
+    jax_opt = JaxDefaultOptimizer(megafuse=megafuse, sharding_planner=False,
                                   precision_planner=False,
                                   unified_planner=False)
     want = _plan_trace(jax_opt, jax_graph, jax_linearize, JaxNodeId)
-    got = _plan_trace(DefaultOptimizer(), port_graph, linearize, NodeId)
+    got = _plan_trace(DefaultOptimizer(megafuse=megafuse), port_graph,
+                      linearize, NodeId)
     assert [b for b, _, _ in got] == list(PARITY_BATCHES)
     assert got == want
 
@@ -425,13 +429,22 @@ def test_plan_parity_with_jax_batch_by_batch(build, one_device_mesh):
 def test_plan_parity_shapes_the_slice():
     """RandomPatchCifar's optimized plan: CSE leaves one training
     featurization, and the apply path ends in one fused chain through
-    the scaler's and the solver's apply boundaries."""
+    the scaler's and the solver's apply boundaries; with megafusion (the
+    default) that chain also takes in the source's featurizer and
+    absorbs its Cacher."""
     _, graph = _random_patch_cifar()
-    g, _ = DefaultOptimizer().execute(graph)
+    g, _ = DefaultOptimizer(megafuse=False).execute(graph)
     labels = [g.get_operator(v).label for v in linearize(g)
               if isinstance(v, NodeId)]
     assert labels.count("Cacher[features]") == 2  # train, and the source's
     assert labels[-1] == "Fused[fit:0 >> fit:1 >> MaxClassifier]"
+    g, _ = DefaultOptimizer().execute(graph)
+    labels = [g.get_operator(v).label for v in linearize(g)
+              if isinstance(v, NodeId)]
+    assert labels.count("Cacher[features]") == 1  # train's only
+    assert labels[-1] == (
+        "Megafused[Fused[PixelScaler >> Convolver >> SymmetricRectifier >> "
+        "Pooler >> ImageVectorizer] >> fit:0 >> fit:1 >> MaxClassifier]")
 
 
 def test_fused_transformers_tag_their_own_kernel_runs():

@@ -41,7 +41,10 @@ from keystone_tpu_torch.nodes.util import (
     ClassLabelIndicatorsFromInt,
     MaxClassifier,
 )
-from keystone_tpu_torch.nodes.util.fusion import FusedBatchTransformer
+from keystone_tpu_torch.nodes.util.fusion import (
+    FusedBatchTransformer,
+    MegafusedBatchTransformer,
+)
 from keystone_tpu_torch.pipelines import random_patch_cifar as rpc
 from keystone_tpu_torch.workflow import (
     DatasetOperator,
@@ -549,15 +552,17 @@ def test_slice_fit_save_load_apply_matches_jax(slice_fit, tmp_path):
     filters = convert.to_tensor(slice_fit["filters"], "cpu")
     whitener = convert.whitener(w.whitener, w.means, "cpu")
     fitted = _port_pipeline(train, filters, whitener, config).fit()
-    # the fitted form: the featurizer, the Cacher, and the fused scaler,
-    # linear map and argmax that the fusion pass made of the apply path
+    # the fitted form: one megafused chain of the featurizer, the fused
+    # scaler, linear map and argmax that the fusion passes made of the
+    # apply path, its Cacher absorbed
     ops = [fitted.graph.get_operator(n) for n in sorted(fitted.graph.nodes)]
     assert [op.label for op in ops] == [
-        "Fused[PixelScaler >> Convolver >> SymmetricRectifier >> Pooler >> "
-        "ImageVectorizer]", "Cacher[features]",
-        "Fused[StandardScalerModel >> BlockLinearMapper >> MaxClassifier]"]
-    assert all(isinstance(op, FusedBatchTransformer) for op in ops[::2])
-    assert ops[2].planned_kernel is None
+        "Fused[Fused[PixelScaler >> Convolver >> SymmetricRectifier >> "
+        "Pooler >> ImageVectorizer] >> StandardScalerModel >> "
+        "BlockLinearMapper >> MaxClassifier]"]
+    assert isinstance(ops[0], MegafusedBatchTransformer)
+    assert isinstance(ops[0].stages[0], FusedBatchTransformer)
+    assert ops[0].planned_kernel is None
     path = str(tmp_path / "rpc.pkl")
     fitted.save(path)
     loaded = FittedPipeline.load(path, device="cpu")

@@ -132,8 +132,11 @@ def test_pipeline_featurizes_train_once(fitted, monkeypatch):
     real = FusedBatchTransformer.apply_batch
 
     def counting(self, data):
-        # the featurizer's microbatched chain, not the fused apply path
-        if any(isinstance(s, Convolver) for s in self.stages):
+        # the featurizer's microbatched chain, or the megafused apply path
+        # that holds it, not the fused apply head
+        if any(isinstance(s, Convolver) or any(
+                isinstance(t, Convolver) for t in getattr(s, "stages", ()))
+               for s in self.stages):
             rows.append(data.count)
         return real(self, data)
 
