@@ -8,7 +8,9 @@ Run from the repository root on a machine with the card:
 Phases, each printed on a line of its own:
 
 1. device   - the card (nvidia-smi name and power limit), torch and CUDA.
-2. build    - nvcc builds every kernel of the main path from csrc/.
+2. build    - nvcc builds every kernel of the main path from csrc/, and
+              c++ the image loaders' host libraries (the tar index and the
+              baseline JPEG decoder).
 3. kernels  - each kernel against its plain PyTorch version on the card,
               at the main path's shapes and at ragged ones, with its
               error, tolerance and times: ``ms``, single calls between
@@ -24,8 +26,11 @@ Phases, each printed on a line of its own:
               block-a-row design on the same arrays seen as rows of ten.
               Its ``at_path_shapes`` holds and times it at the chains the
               fusion pass tags in the SIFT-Fisher pipelines: VOC's
-              PixelScaler >> GrayScaler on 48x48 images and the
-              Fisher-vector tail on VOC's and ImageNet's encodings.
+              PixelScaler >> GrayScaler on 48x48 images and on 500x333
+              real ones (rows cut into 333 segments, once more with the
+              gray stage masked and 5 rows zeroed), and the
+              Fisher-vector tail on VOC's and ImageNet's encodings,
+              each with its own bound.
 4. slice    - RandomPatchCifar at full width (256 filters) on 50,000
               synthetic training and 10,000 test images, as the JAX
               package's bench times its headline; test accuracy must
@@ -203,7 +208,43 @@ Phases, each printed on a line of its own:
               (2·depth + 2) chunks, or depth + 1 groups; and VOC's
               train and test featurization as two branches of one graph
               under the concurrent scheduler at 4 workers and at 1
-              (4, 1, 1, 4): equal outputs, seconds. Warm-up failures: 0.
+              (4, 1, 1, 4): equal outputs, seconds. Warm-up failures: 0;
+              the loaded apply 0 synchronizing calls (the live plane on);
+              three calls of one chain at one rung compile 0, 1 (its
+              capture), 0.
+24. loaders - the image loaders on the card's machine: the committed
+              voc_mini.tar, imagenet_mini.tar and 000012.jpg decoded onto
+              the card by the port's baseline decoder (the machine has no
+              libjpeg); names and labels equal to the JAX package's, and
+              each image's pixel sum and digest equal to those pinned from
+              the JAX package's native (libjpeg) decode. A tar of 1,000
+              copies of 000012.jpg (VOC 2007's 5,011 training images cut
+              to 1,000: their float32 decode would take 10 GB) with a
+              labels CSV (class i mod 20): `voc_loader`'s seconds,
+              images/s, decode threads and bytes; VOCSIFTFisher at the
+              reference's widths (PCA 80, GMM 256, 40,960 features) through
+              `run` from that tar (train = test): seconds, peak memory,
+              K4 launches, synchronizing calls, its mAP printed, not held
+              (the images are copies); and VOCSIFTFisher and
+              ImageNetSiftLcsFV from the mini tars at small widths, their
+              card scores against the port's CPU path on the card's
+              fitted weights within 1e-3 of max|score|.
+25. telemetry - RandomPatchCifar at full size (fit and test apply) under
+              `trace_run` with a ledger path: the trace loads, has spans
+              of categories pipeline, phase, node, chunk and step with
+              parent ids, its node self-times sum to no more than the
+              run's wall clock, and the traced and untraced runs make the
+              same synchronizing calls, K1 launches (30) and
+              ``dispatch.programs_executed``; traced against untraced
+              seconds in 3 alternating pairs for RandomPatchCifar and
+              LinearPixels; a fitted LinearPixels applied with megafusion
+              on, then off, each with a ledger: `diff_runs` names the
+              ``KEYSTONE_MEGAFUSION`` flip; the compile accounting after
+              the initial build and at the end, and the runtime phase's
+              one capture; a flight-recorder dump: a valid Chrome trace
+              within its capacity; 200 requests of 64 images to a fitted
+              LinearPixels with the live plane off and on (off, on, on,
+              off) and `health()`'s p50 and p99 per padded shape.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The process-wide prefix table (`PipelineEnv`) is reset before each
@@ -212,7 +253,9 @@ datasets, and its peak memory holds only its own run. The RBF kernel
 counts its products (``rbf_block.launches``) and its split prepasses
 (``rbf_split.launches``, two a product) apart.
 
-Then a ``kernels`` JSON line, the card line, and as the last line
+Then a ``total`` line (the script's seconds from its start, the
+build included), a ``kernels`` JSON line, the card line, and as the last
+line
 ``{"ok": true, "device": {...}}``. Any failure raises and the script
 exits non-zero; with no card it exits non-zero before any phase.
 """
@@ -221,6 +264,7 @@ from __future__ import annotations
 
 import collections
 import gc
+import io
 import json
 import math
 import os
@@ -280,6 +324,8 @@ K2_TOL = 1e-5   # fp32 sums in another order: max error over max |plain|
 # over max |plain|, the JAX interpret test's limit
 # (tests/test_chain_kernels.py:128)
 K4_TOL = 1e-6
+#: rows of the segmented K4 check whose masked stage zeroes them
+K4_MASKED_ROWS = 5
 # the RBF block: max abs error on outputs in (0, 1], and the same below 1
 # on the diagonal, where x2 + y2 - 2xy cancels. At a fit block's width
 # one TF32 product misses by about 6e-3 there; the kernel's three
@@ -410,6 +456,44 @@ PADDED_RTOL = 1e-5
 # HOG and DAISY on the card against the CPU path, a share of max|value|
 DESC_N, DESC_SIDE, DESC_CPU_CHECK, DESC_RTOL = 4096, 48, 64, 1e-4
 
+# phase 24: the committed archives and what the JAX package's native
+# (libjpeg) decode gives for them, here as each image's uint8 pixel sum
+# and the first 16 hex digits of the SHA-256 of its uint8 bytes
+RES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                       "resources")
+VOC_MINI, VOC_MINI_CSV = "voc_mini.tar", "voc_mini_labels.csv"
+IMAGENET_MINI, JPEG_12 = "imagenet_mini.tar", "000012.jpg"
+DECODE_PINS = {
+    "voc_mini.tar": [
+        ("JPEGImages/000001.jpg", (64, 64, 3), 1260417, "015903b0cba0fc2f"),
+        ("JPEGImages/000002.jpg", (64, 64, 3), 845029, "fa0d0cf9663ef1bf"),
+        ("JPEGImages/000003.jpg", (64, 64, 3), 740533, "80571a7935e2710c"),
+        ("JPEGImages/000009.jpg", (64, 64, 3), 1110866, "d894f418a03dd348")],
+    "imagenet_mini.tar": [
+        ("n01234567/im_a.jpg", (64, 64, 3), 1260417, "015903b0cba0fc2f"),
+        ("n01234567/im_b.jpg", (64, 64, 3), 1109824, "c83c52a7e051bc72"),
+        ("n07654321/im_c.jpg", (64, 64, 3), 1110866, "d894f418a03dd348"),
+        ("n07654321/im_d.jpg", (64, 64, 3), 845029, "fa0d0cf9663ef1bf"),
+        ("n99999999/im_e.jpg", (64, 64, 3), 996532, "74106fc3dcec8dc3")],
+    "000012.jpg": [
+        ("000012.jpg", (333, 500, 3), 42230637, "403f6b399a8bf220")],
+}
+# the JAX package's loaders on the mini tars: (file, labels) of
+# `voc_loader`, (name, label) of `imagenet_loader` with this labels map
+VOC_MINI_ROWS = [("000001.jpg", [3, 11]), ("000002.jpg", [0]),
+                 ("000003.jpg", [19])]
+IMAGENET_MINI_LABELS = {"n01234567": 0, "n07654321": 1}
+IMAGENET_MINI_ROWS = [0, 0, 1, 1]
+# the 1,000-image tar (VOC 2007's 5,011 training images cut to 1,000)
+BIG_TAR_N = 1000
+# 000012.jpg's (and a VOC 2007 image's usual) height and width: K4's
+# segmented path at the kernels phase
+VOC_REAL_H, VOC_REAL_W = DECODE_PINS[JPEG_12][0][1][:2]
+MINI_PCA_DIMS, MINI_GMM_K = 8, 4
+# phase 25
+TRACE_PAIRS = 3
+REQUESTS, REQUEST_ROWS = 200, 64
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -525,11 +609,11 @@ def k2_bound_ms(n, h, w, k, pool, gy, gx):
 def k4_bound_ms(n, layout):
     """(ms, bound_by): each row read once and written once (plus the
     stages' vectors) against two fp32 operations per element per stage,
-    an upper count."""
-    in_len = layout.lens[0]
+    an upper count. ``layout.lens`` describes one segment of a row."""
+    in_len = layout.lens[0] * layout.segments
     out_len = math.prod(layout.out_shape)
     nbytes = 4.0 * (n * in_len + n * out_len + layout.packed.numel())
-    flops = 2.0 * n * sum(layout.lens)
+    flops = 2.0 * n * sum(layout.lens) * layout.segments
     t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                        else "bytes")
@@ -1539,6 +1623,7 @@ def runtime_phase(dev, train, test, config, card) -> dict:
         build_linear_pixels,
     )
     from keystone_tpu_torch.pipelines.random_patch_cifar import build_pipeline
+    from keystone_tpu_torch.telemetry import counter, gauge
     from keystone_tpu_torch.utils import batching
     from keystone_tpu_torch.workflow import FittedPipeline, PipelineEnv
     from keystone_tpu_torch.workflow.env import (
@@ -1562,7 +1647,10 @@ def runtime_phase(dev, train, test, config, card) -> dict:
         _splice_result,
     )
 
-    failures_before = GraphExecutor.warmup_failures
+    def count(name):
+        return counter(name).value
+
+    failures_before = count("dispatch.warmup_failures")
     x_test = test.data.array
 
     # ---- RandomPatchCifar: fit, save, load, with megafusion on and off
@@ -1593,23 +1681,26 @@ def runtime_phase(dev, train, test, config, card) -> dict:
     # here as a server would turn it on): its graph is captured
     g, cls = _bind(loaded[True].graph, loaded[True].source, test.data)
     result = cls(GraphExecutor(g, optimize=False), loaded[True].sink)
+    captures0 = count("megafusion.graph_captures")
     with config_override(aot_warmup=True):
         expr = result.executor.execute(result.sink)
     drain_warmups()
     torch.cuda.synchronize()
-    warm_captures = mega_op.graph_captures
+    warm_captures = count("megafusion.graph_captures") - captures0
     kernels.reset_launches()
-    replays0, captures0 = mega_op.graph_replays, mega_op.graph_captures
+    replays0 = count("megafusion.graph_replays")
+    captures0 = count("megafusion.graph_captures")
     first_seconds, first = timed_s(lambda: expr.get)
     first_k1 = kernels.conv_rectify_pool.launches
-    first_replays = mega_op.graph_replays - replays0
-    first_captures = mega_op.graph_captures - captures0
+    first_replays = count("megafusion.graph_replays") - replays0
+    first_captures = count("megafusion.graph_captures") - captures0
     kernels.reset_launches()
-    replays0, captures0 = mega_op.graph_replays, mega_op.graph_captures
+    replays0 = count("megafusion.graph_replays")
+    captures0 = count("megafusion.graph_captures")
     second_seconds, second = timed_s(lambda: loaded[True].apply(test.data))
     second_k1 = kernels.conv_rectify_pool.launches
-    second_replays = mega_op.graph_replays - replays0
-    second_captures = mega_op.graph_captures - captures0
+    second_replays = count("megafusion.graph_replays") - replays0
+    second_captures = count("megafusion.graph_captures") - captures0
     loaded[False].apply(test.data)  # warm
     apply_seconds = {True: [], False: []}
     for mega in (True, False, False, True):
@@ -1627,11 +1718,16 @@ def runtime_phase(dev, train, test, config, card) -> dict:
                       if isinstance(op, FusedBatchTransformer)][0]
     head_off = [op for op in ops_off
                 if isinstance(op, FusedBatchTransformer)][-1]
-    # the third call replays (the first runs eagerly, the second captures)
+    # the third call replays (the first runs eagerly, the second captures,
+    # counted as one cold compile)
     scores_fn = MegafusedBatchTransformer(
         mega_op.stages[:-1], microbatch=mega_op.microbatch).batch_fn()
+    compiled_by_call = []
     for _ in range(3):
+        compiled0 = count("dispatch.programs_compiled")
         scores_on = scores_fn(x_test)
+        compiled_by_call.append(count("dispatch.programs_compiled")
+                                - compiled0)
     scores_off = FusedBatchTransformer(
         head_off.stages[:-1], microbatch=head_off.microbatch).batch_fn()(
             featurizer_off.batch_fn()(x_test))
@@ -1722,12 +1818,12 @@ def runtime_phase(dev, train, test, config, card) -> dict:
             sift_of(HostDataset(vc_train.items[:SIFT_FISHER_WARM],
                                 device=dev))
             for on in (False, True, True, False):
-                batching.map_host_batched_stream.peak_pinned_bytes = 0
+                pinned = gauge("overlap.peak_pinned_bytes")
+                pinned.reset()
                 with overlap_override(on):
                     seconds, outs[mega, on] = timed_s(lambda: sift_of(vc_tr))
                 overlap[mega][on]["seconds"].append(seconds)
-                overlap[mega][on]["peak_pinned_bytes"].append(
-                    batching.map_host_batched_stream.peak_pinned_bytes)
+                overlap[mega][on]["peak_pinned_bytes"].append(pinned.max)
     overlap_equal = all(buckets_equal(outs[False, False], outs[key])
                         for key in outs)
     del outs
@@ -1744,7 +1840,7 @@ def runtime_phase(dev, train, test, config, card) -> dict:
         g, sink = g.add_sink(gid)
         return PipelineDataset(GraphExecutor(g), sink).get()
 
-    runs_before = GraphExecutor.scheduler_runs
+    runs_before = count("dispatch.scheduler_runs")
     sched = {4: [], 1: []}
     outs = {}
     for workers in (4, 1, 1, 4):
@@ -1753,12 +1849,12 @@ def runtime_phase(dev, train, test, config, card) -> dict:
         sched[workers].append(seconds)
     sched_equal = all(buckets_equal(p, q) for p, q in zip(
         outs[4].parts, outs[1].parts))
-    sched_runs = GraphExecutor.scheduler_runs - runs_before
+    sched_runs = count("dispatch.scheduler_runs") - runs_before
     del outs, vc_tr, vc_te
     PipelineEnv.reset()
     torch.cuda.empty_cache()
     drain_warmups()
-    warmup_failures = GraphExecutor.warmup_failures - failures_before
+    warmup_failures = count("dispatch.warmup_failures") - failures_before
 
     phase("runtime", config=dict(
               overlap=execution_config().overlap, prefetch_depth=depth,
@@ -1783,7 +1879,8 @@ def runtime_phase(dev, train, test, config, card) -> dict:
               apply_seconds_off=apply_seconds[False],
               apply_syncs=apply_sync_count,
               predictions_equal=predictions_equal,
-              score_rel_diff=score_rel),
+              score_rel_diff=score_rel,
+              compiles_by_call_at_a_rung=compiled_by_call),
           linear_pixels=dict(head_over_train_rows=lp_head,
                              test_apply_seconds=lp_apply_seconds,
                              test_apply_k4=lp_k4, plan_labels=lp_labels,
@@ -1814,6 +1911,10 @@ def runtime_phase(dev, train, test, config, card) -> dict:
           f"conv_rectify_pool {second_k1} times")
     check(predictions_equal, "the megafused apply's predictions differ from "
           "the unmegafused apply's")
+    check(apply_sync_count == 0, f"the loaded apply made {apply_sync_count} "
+          "synchronizing calls (the live plane on)")
+    check(compiled_by_call == [0, 1, 0], "the three calls at one rung "
+          f"compiled {compiled_by_call} (want one capture, at the second)")
     check(score_rel <= 1e-5, f"the megafused scores are {score_rel} of "
           "max|score| from the unmegafused scores")
     check(lp_head["equal"], "LinearPixels' megafused head disagrees with "
@@ -1833,7 +1934,387 @@ def runtime_phase(dev, train, test, config, card) -> dict:
     check(sched_equal and sched_runs >= 2, "the scheduler's outputs at 4 "
           f"workers differ from 1 worker's (or it ran {sched_runs} times)")
     check(warmup_failures == 0, f"{warmup_failures} warm-ups failed")
-    return dict(k1=second_k1, k4=lp_k4)
+    return dict(k1=second_k1, k4=lp_k4, compiles_by_call=compiled_by_call)
+
+
+def without_argmax(pipeline):
+    """``pipeline`` ending before its final `MaxClassifier`, if any: its
+    scores."""
+    from keystone_tpu_torch.nodes.util.basic import MaxClassifier
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    g = pipeline.graph
+    last = g.get_sink_dependency(pipeline.sink)
+    if not isinstance(g.get_operator(last), MaxClassifier):
+        return pipeline
+    return Pipeline(g.set_sink_dependency(pipeline.sink,
+                                          g.get_dependencies(last)[0]),
+                    pipeline.source, pipeline.sink)
+
+
+def cpu_path_rel(predictor, test) -> tuple:
+    """(the largest gap between the card's scores of ``test`` and the
+    port's CPU path's on the card's fitted weights, as a share of
+    max|score|; whether their argmax agree): ``predictor``'s scores
+    fitted, saved, and loaded on the CPU."""
+    from keystone_tpu_torch.data.dataset import HostDataset
+    from keystone_tpu_torch.workflow import FittedPipeline
+
+    fitted = without_argmax(predictor).fit()
+    card_scores = fitted.apply(test).array.cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fitted.pkl")
+        fitted.save(path)
+        on_cpu = FittedPipeline.load(path, device="cpu")
+    items = [type(x)(*[v.cpu() if isinstance(v, torch.Tensor) else v
+                       for v in vars(x).values()]) for x in test.items]
+    cpu_scores = on_cpu.apply(HostDataset(items, device="cpu")).numpy()
+    rel = float(np.abs(cpu_scores - card_scores).max()
+                / np.abs(card_scores).max())
+    return rel, bool((cpu_scores.argmax(1) == card_scores.argmax(1)).all())
+
+
+def loaders_phase(dev, card) -> dict:
+    """Phase 24: the image loaders (see the module docstring); returns
+    the K4 launches of VOCSIFTFisher from the 1,000-image tar."""
+    import hashlib
+    import tarfile
+
+    from keystone_tpu_torch.loaders import imagenet_loader, voc_loader
+    from keystone_tpu_torch.ops import kernels
+    from keystone_tpu_torch.pipelines import (
+        imagenet_sift_lcs_fv,
+        voc_sift_fisher,
+    )
+    from keystone_tpu_torch.utils import native_io
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    def digest(img):
+        u = img.to(torch.uint8).cpu().numpy()
+        return (tuple(u.shape), int(u.astype(np.int64).sum()),
+                hashlib.sha256(u.tobytes()).hexdigest()[:16])
+
+    # the committed images, decoded onto the card
+    decoded, mismatched = {}, []
+    for archive, pins in DECODE_PINS.items():
+        with open(os.path.join(RES_DIR, archive), "rb") as f:
+            buf = f.read()
+        if archive.endswith(".tar"):
+            index = native_io.tar_index(buf)
+            names = [n for n, _, _ in index]
+            entries = [(o, s) for _, o, s in index]
+        else:
+            names, entries = [archive], [(0, len(buf))]
+        images, ok = native_io.decode_jpeg_batch(buf, entries, dev)
+        check(ok == len(pins) and names == [p[0] for p in pins],
+              f"{archive}: decoded {ok} of {names}")
+        for (name, shape, total, sha), img in zip(pins, images):
+            check(img.device.type == "cuda" and img.dtype == torch.float32,
+                  f"{archive}/{name} decoded to {img.device} {img.dtype}")
+            got = digest(img)
+            decoded[f"{archive}/{name}"] = dict(sum=got[1], sha256_16=got[2])
+            if got != (shape, total, sha):
+                mismatched.append(f"{archive}/{name}: {got} against "
+                                  f"{(shape, total, sha)}")
+    voc_mini = voc_loader(os.path.join(RES_DIR, VOC_MINI),
+                          os.path.join(RES_DIR, VOC_MINI_CSV), device=dev)
+    voc_rows = [(os.path.basename(x.filename), list(x.labels))
+                for x in voc_mini.items]
+    im_mini = imagenet_loader(os.path.join(RES_DIR, IMAGENET_MINI),
+                              IMAGENET_MINI_LABELS, device=dev)
+    im_rows = [x.label for x in im_mini.items]
+
+    # 1,000 copies of a real VOC 2007 image, with a labels CSV
+    with open(os.path.join(RES_DIR, JPEG_12), "rb") as f:
+        jpeg = f.read()
+    with tempfile.TemporaryDirectory() as tmp:
+        big_tar = os.path.join(tmp, "voc_1000.tar")
+        big_csv = os.path.join(tmp, "voc_1000_labels.csv")
+        with tarfile.open(big_tar, "w", format=tarfile.USTAR_FORMAT) as tar:
+            for i in range(BIG_TAR_N):
+                info = tarfile.TarInfo(f"JPEGImages/{i:06d}.jpg")
+                info.size = len(jpeg)
+                tar.addfile(info, io.BytesIO(jpeg))
+        with open(big_csv, "w") as f:
+            f.writelines(f"{i:06d}.jpg,{i % VOC_CLASSES}\n"
+                         for i in range(BIG_TAR_N))
+        voc_loader(big_tar, big_csv, max_images=8, device=dev)  # warm
+        load_seconds, big = timed_s(lambda: voc_loader(big_tar, big_csv,
+                                                       device=dev))
+        big_pixels = sum(int(np.prod(x.image.shape)) for x in big.items)
+        big_ok = len(big) == BIG_TAR_N and all(
+            digest(x.image)[1:] == DECODE_PINS[JPEG_12][0][2:]
+            for x in big.items[::97])
+        del big
+        # VOCSIFTFisher at the reference's widths from that tar
+        big_config = voc_sift_fisher.VOCSIFTFisherConfig(
+            train_tar=big_tar, train_labels=big_csv, test_tar=big_tar,
+            test_labels=big_csv, num_classes=VOC_CLASSES,
+            pca_dims=VOC_PCA_DIMS, gmm_k=VOC_GMM_K)
+        PipelineEnv.reset()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        vb = voc_sift_fisher.run(big_config, dev)
+        vb_total = time.perf_counter() - t0
+        vb_peak = torch.cuda.max_memory_allocated()
+        vb_launches = launch_counts()
+        vb_features = vb["model"].predictor.fitted().W.shape[0]
+        del vb["model"], vb["scores"]
+        PipelineEnv.reset()
+        torch.cuda.empty_cache()
+        vb_syncs, vb_sync_count = count_syncs(
+            lambda: voc_sift_fisher.run(big_config, dev))
+        PipelineEnv.reset()
+        torch.cuda.empty_cache()
+
+    # both pipelines end to end from the mini tars, at small widths
+    vm_config = voc_sift_fisher.VOCSIFTFisherConfig(
+        train_tar=os.path.join(RES_DIR, VOC_MINI),
+        train_labels=os.path.join(RES_DIR, VOC_MINI_CSV),
+        num_classes=VOC_CLASSES, pca_dims=MINI_PCA_DIMS, gmm_k=MINI_GMM_K)
+    vm = voc_sift_fisher.run(vm_config, dev)
+    vm_rel, vm_argmax = cpu_path_rel(vm["model"].predictor, voc_mini)
+    PipelineEnv.reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        labels_map = os.path.join(tmp, "labels_map.csv")
+        with open(labels_map, "w") as f:
+            f.writelines(f"{k},{v}\n"
+                         for k, v in IMAGENET_MINI_LABELS.items())
+        im_config = imagenet_sift_lcs_fv.ImageNetSiftLcsFVConfig(
+            train_tar=os.path.join(RES_DIR, IMAGENET_MINI),
+            labels_map_csv=labels_map,
+            num_classes=len(IMAGENET_MINI_LABELS), pca_dims=MINI_PCA_DIMS,
+            gmm_k=MINI_GMM_K)
+        im = imagenet_sift_lcs_fv.run(im_config, dev)
+    im_rel, im_argmax = cpu_path_rel(im["predictor"], im_mini)
+    PipelineEnv.reset()
+    torch.cuda.empty_cache()
+
+    phase("loaders", decoder="port baseline decoder (csrc/jpeg_baseline.cpp)"
+          " on the host, images copied to the card; the machine has no "
+          "libjpeg", pixels_case="exact" if not mismatched else "mismatch",
+          decoded=decoded, mismatched=mismatched, voc_mini_rows=voc_rows,
+          imagenet_mini_labels=im_rows,
+          big_tar=dict(images=BIG_TAR_N, source=JPEG_12,
+                       cut="VOC 2007's 5,011 training images cut to 1,000",
+                       load_seconds=load_seconds,
+                       images_per_sec=BIG_TAR_N / load_seconds,
+                       decode_threads=native_io.decode_threads(),
+                       host_bytes_uint8=big_pixels,
+                       device_bytes_float32=4 * big_pixels,
+                       pixels_equal_pins=big_ok),
+          voc_big=dict(seconds=vb["seconds"], seconds_with_loading=vb_total,
+                       images_per_sec=vb["images_per_sec"],
+                       features=vb_features, peak_mem_bytes=vb_peak,
+                       launches=vb_launches,
+                       k4_launches=vb_launches["elementwise_chain"],
+                       syncs=vb_sync_count, sync_lines=vb_syncs,
+                       mean_average_precision_not_held=vb["map"]),
+          voc_mini=dict(seconds=vm["seconds"], map=vm["map"],
+                        cpu_score_rel_diff=vm_rel,
+                        cpu_argmax_equal=vm_argmax),
+          imagenet_mini=dict(seconds=im["seconds"],
+                             test_accuracy=im["test_accuracy"],
+                             cpu_score_rel_diff=im_rel,
+                             cpu_argmax_equal=im_argmax),
+          card=card)
+    check(not mismatched, f"decoded pixels differ from the pins: "
+          f"{mismatched}")
+    check(voc_rows == VOC_MINI_ROWS, f"voc_loader gave {voc_rows}")
+    check(im_rows == IMAGENET_MINI_ROWS, f"imagenet_loader gave {im_rows}")
+    check(big_ok, "the 1,000-image tar did not decode to 000012.jpg's "
+          "pinned pixels")
+    check(vb_features == 2 * VOC_PCA_DIMS * VOC_GMM_K,
+          f"VOCSIFTFisher from the tar has {vb_features} features")
+    check(vb_launches["elementwise_chain"] > 0, "VOCSIFTFisher from the tar "
+          "launched no chain kernel")
+    for name, rel, argmax in (("VOCSIFTFisher", vm_rel, vm_argmax),
+                              ("ImageNetSiftLcsFV", im_rel, im_argmax)):
+        check(argmax and rel <= VOC_CPU_SCORE_RTOL, f"{name} from the mini "
+              f"tar: the CPU path's scores are {rel} of max|score| from the "
+              f"card's (argmax equal: {argmax})")
+    return dict(voc_big_k4=vb_launches["elementwise_chain"])
+
+
+def telemetry_phase(dev, train, test, config, card, compiles_after_build,
+                    runtime) -> int:
+    """Phase 25: the telemetry layer on the card (see the module
+    docstring); returns K1's launches in the traced run."""
+    from keystone_tpu_torch import telemetry
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.ops import _build, kernels
+    from keystone_tpu_torch.pipelines.cifar_variants import (
+        LinearPixelsConfig,
+        build_linear_pixels,
+    )
+    from keystone_tpu_torch.pipelines.random_patch_cifar import build_pipeline
+    from keystone_tpu_torch.telemetry import ledger
+    from keystone_tpu_torch.workflow import PipelineEnv
+    from keystone_tpu_torch.workflow.env import config_override
+
+    def rpc_run():
+        PipelineEnv.reset()
+        return build_pipeline(train, config)(test.data).get()
+
+    def lp_run():
+        PipelineEnv.reset()
+        return build_linear_pixels(train, LinearPixelsConfig())(
+            train.data).get()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        trace_path = os.path.join(tmp, "rpc.json")
+        ledger_path = os.path.join(tmp, "rpc.ledger.jsonl")
+
+        def counted(traced: bool):
+            """(syncs, K1 launches, programs executed, predictions)."""
+            kernels.reset_launches()
+            out = []
+            with telemetry.metrics_delta() as delta:
+                if traced:
+                    with config_override(ledger_path=ledger_path), \
+                            telemetry.trace_run(trace_path):
+                        _, syncs = count_syncs(lambda: out.append(rpc_run()))
+                else:
+                    _, syncs = count_syncs(lambda: out.append(rpc_run()))
+            return (syncs, kernels.conv_rectify_pool.launches,
+                    delta.counter("dispatch.programs_executed"),
+                    out[0].array)
+
+        rpc_run()  # warm
+        plain = counted(False)
+        traced = counted(True)
+        trace = telemetry.load_trace(trace_path)
+        decisions = ledger.read_ledger(ledger_path)["decisions"]
+        events = [e for e in trace["traceEvents"] if e.get("ph") == "X"]
+        cats = sorted({e.get("cat") for e in events})
+        orphans = [e["name"] for e in events if e.get("cat") in (
+            "phase", "node", "chunk", "step")
+            and "parent_id" not in e["args"]]
+        run_us = max(e["dur"] for e in events if e.get("cat") == "pipeline")
+        node_self_s = sum(a["self_s"] for a in telemetry.aggregate_spans(
+            trace, "node").values())
+        by_cat = collections.Counter(e.get("cat") for e in events)
+        # traced against untraced, alternating
+        pairs = {}
+        for name, fn in (("random_patch_cifar", rpc_run),
+                         ("linear_pixels", lp_run)):
+            fn()  # warm
+            times = dict(traced=[], untraced=[])
+            for i in range(2 * TRACE_PAIRS):
+                traced_now = (i % 4) in (0, 3)
+                if traced_now:
+                    with telemetry.trace_run():
+                        seconds, _ = timed_s(fn)
+                else:
+                    seconds, _ = timed_s(fn)
+                times["traced" if traced_now else "untraced"].append(seconds)
+            pairs[name] = times
+        PipelineEnv.reset()
+
+        # the ledger: a fitted LinearPixels applied, megafusion on then off
+        ledgers = {}
+        for mega in (True, False):
+            PipelineEnv.reset()
+            ledger.clear_session()
+            path = os.path.join(tmp, f"lp_mega_{int(mega)}.jsonl")
+            with config_override(megafusion=mega, ledger_path=path):
+                build_linear_pixels(train, LinearPixelsConfig()).fit().apply(
+                    test.data)
+            ledgers[mega] = ledger.read_ledger(path)
+        diff = ledger.diff_runs(ledgers[True], ledgers[False])
+        flips = [f["env"] for f in diff["config_flips"]]
+        PipelineEnv.reset()
+
+        # the flight recorder: every request so far went through its ring
+        recorder = telemetry.ensure_flight()
+        dump = telemetry.flight_snapshot(os.path.join(tmp, "flight.json"))
+        flight = telemetry.load_trace(dump)
+        flight_spans = sum(1 for e in flight["traceEvents"]
+                           if e.get("ph") == "X")
+        flight_meta = flight["keystone"]["flight"]
+
+    # 200 requests of 64 images to a fitted LinearPixels, live plane off
+    # and on
+    fitted = build_linear_pixels(train, LinearPixelsConfig()).fit()
+    x = test.data.array
+    span_rows = x.shape[0] - REQUEST_ROWS + 1
+    requests = [Dataset(x[s:s + REQUEST_ROWS]) for s in (
+        (i * REQUEST_ROWS) % span_rows for i in range(REQUESTS))]
+
+    def serve():
+        for d in requests:
+            fitted.apply(d)
+
+    for _ in range(3):  # its rung's eager call, capture, replay
+        fitted.apply(requests[0])
+    request_seconds = dict(live_off=[], live_on=[])
+    for live in (False, True, True, False):
+        telemetry.reset_live()
+        with config_override(live_telemetry=live):
+            seconds, _ = timed_s(serve)
+        request_seconds["live_on" if live else "live_off"].append(seconds)
+        if live:
+            live_health = telemetry.health()
+    _, request_syncs = count_syncs(serve)
+    latency = [dict(pipeline=r["pipeline"], chunk_shape=r["chunk_shape"],
+                    count=r["count"], p50_s=r["p50"], p99_s=r["p99"],
+                    max_s=r["max"]) for r in live_health["latency"]]
+    del fitted, requests
+    PipelineEnv.reset()
+    compiles = telemetry.compiles_snapshot()
+
+    phase("telemetry",
+          random_patch_cifar=dict(
+              categories=cats, spans_by_category=dict(by_cat),
+              spans_without_parent=orphans, run_seconds=run_us / 1e6,
+              node_self_seconds=node_self_s,
+              syncs=dict(untraced=plain[0], traced=traced[0]),
+              k1=dict(untraced=plain[1], traced=traced[1]),
+              programs_executed=dict(untraced=plain[2], traced=traced[2]),
+              decisions=sorted({ledger.decision_key(d)[0]
+                                for d in decisions}),
+              predictions_equal=bool(torch.equal(plain[3], traced[3]))),
+          traced_vs_untraced_seconds=pairs,
+          ledger_diff=dict(config_flips=flips,
+                           decisions_removed=diff["decisions_removed"],
+                           text=ledger.format_diff(diff)),
+          compiles=dict(after_build=compiles_after_build, at_end=compiles,
+                        runtime_rung_calls=runtime["compiles_by_call"]),
+          flight=dict(spans=flight_spans, **flight_meta,
+                      capacity_env=recorder.capacity),
+          requests=dict(count=REQUESTS, rows=REQUEST_ROWS,
+                        seconds=request_seconds, syncs=request_syncs,
+                        health_latency=latency,
+                        throughput_rps=live_health["throughput_rps"]),
+          card=card)
+    need = {"pipeline", "phase", "node", "chunk", "step"}
+    check(need <= set(cats), f"the trace's categories are {cats}")
+    check(not orphans, f"spans without a parent: {orphans[:5]}")
+    check(node_self_s * 1e6 <= run_us, f"node self-times {node_self_s} s "
+          f"exceed the run's {run_us / 1e6} s")
+    check(plain[0] == traced[0] and plain[1] == traced[1] == 30
+          and plain[2] == traced[2], "traced against untraced: syncs "
+          f"{plain[0]}/{traced[0]}, K1 {plain[1]}/{traced[1]}, programs "
+          f"{plain[2]}/{traced[2]}")
+    check(torch.equal(plain[3], traced[3]), "the traced run's predictions "
+          "differ from the untraced run's")
+    check("KEYSTONE_MEGAFUSION" in flips, f"diff_runs named {flips}")
+    check(compiles_after_build["programs_compiled"] >= len(_build.SOURCES)
+          and compiles["programs_compiled"] > compiles_after_build[
+              "programs_compiled"] and compiles["compile_cache_hits"] > 0,
+          f"compile accounting {compiles_after_build} then {compiles}")
+    check(flight_spans <= flight_meta["capacity"]
+          and flight_meta["spans_held"] <= flight_meta["capacity"],
+          f"the flight dump holds {flight_spans} spans against "
+          f"{flight_meta}")
+    check(request_syncs == 0, f"200 requests made {request_syncs} "
+          "synchronizing calls")
+    check(sum(r["count"] for r in latency) == REQUESTS and all(
+        r["chunk_shape"] == REQUEST_ROWS for r in latency),
+          f"health() holds {latency}")
+    return traced[1]
 
 
 def main() -> int:
@@ -1841,6 +2322,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
+    script_t0 = time.perf_counter()
     import torch.nn.functional as F
 
     from keystone_tpu_torch.data.dataset import Dataset
@@ -1924,11 +2406,16 @@ def main() -> int:
     # ---- 2. build --------------------------------------------------------
     t0 = time.perf_counter()
     seconds = _build.build()
+    # the loaders' host libraries: the tar index and the JPEG decoder
+    host_seconds = _build.build_host()
     regs = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
                 if "Used" in ln or "spill" in ln or "C75" in ln]
             for n in _build.SOURCES}
     phase("build", seconds=round(time.perf_counter() - t0, 3),
-          per_kernel=seconds, ptxas=regs)
+          per_kernel=seconds, per_host_library=host_seconds, ptxas=regs)
+    from keystone_tpu_torch.telemetry import compiles_snapshot
+
+    compiles_after_build = compiles_snapshot()
 
     # ---- 3. kernels against their plain versions -------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -2104,14 +2591,19 @@ def main() -> int:
 
     # the chains the optimizer's fusion pass tags in the SIFT-Fisher
     # pipelines, built from their nodes, at one fused microbatch:
-    # VOC's PixelScaler >> GrayScaler over its 48x48 images and the
-    # Fisher-vector tail over VOC's and ImageNet's encodings
+    # VOC's PixelScaler >> GrayScaler over its 48x48 synthetic images
+    # and over 500x333 real ones (the loaders phase's tar: a row too
+    # long for shared memory, cut into 333 segments of 1,500 floats, the
+    # mask repeated for each segment), and the Fisher-vector tail over
+    # VOC's and ImageNet's encodings
     fisher_tail = (MatrixVectorizer(), SignedHellingerMapper(),
                    NormalizeRows())
     im_config = imagenet_sift_lcs_fv.ImageNetSiftLcsFVConfig()
     k4_paths = {}
     for label, nodes, item in (
             ("voc_gray", (PixelScaler(), GrayScaler()), (48, 48, 3)),
+            ("voc_gray_real", (PixelScaler(), GrayScaler()),
+             (VOC_REAL_H, VOC_REAL_W, 3)),
             ("voc_fisher", fisher_tail, (VOC_PCA_DIMS, 2 * VOC_GMM_K)),
             ("imagenet_fisher", fisher_tail,
              (im_config.pca_dims, 2 * im_config.gmm_k))):
@@ -2119,7 +2611,7 @@ def main() -> int:
         statics, params = tuple(f[0] for f in fused), [f[1] for f in fused]
         n = NodeFusionRule.microbatch
         x = torch.randn((n,) + item, generator=gen, device=dev)
-        if label == "voc_gray":
+        if label.startswith("voc_gray"):
             x = torch.rand((n,) + item, generator=gen, device=dev) * 255.0
         got = chain_kernels.elementwise_chain(statics, params, x)
         torch.cuda.synchronize()
@@ -2147,6 +2639,31 @@ def main() -> int:
                 statics, params, x))
         entry["bound_ms"], entry["bound_by"] = k4_bound_ms(
             n, chain_kernels.chain_layout(statics, params, item, dev))
+        entry["segments"] = plan.segments
+        if label == "voc_gray_real":
+            check(plan.segments == VOC_REAL_H, f"elementwise_chain {label}:"
+                  f" {plan.segments} segments, not {VOC_REAL_H}")
+            # the gray stage masked, as a padded chunk's stage is: the
+            # last rows zeroed, each row's mask repeated for its segments
+            m_statics = statics[:-1] + ((statics[-1], "masked"),)
+            mask = torch.arange(n, device=dev) < n - K4_MASKED_ROWS
+            plan_m = chain_kernels.ChainPlan(m_statics, params, item, dev)
+            got = plan_m(x, mask)
+            torch.cuda.synchronize()
+            want = chain_kernels.elementwise_chain_reference(
+                m_statics, params, x, mask)
+            m_err, m_rel = rel_err(got, want)
+            zeroed = float(got[n - K4_MASKED_ROWS:].abs().max())
+            check(got.shape == want.shape and m_rel <= K4_TOL
+                  and zeroed == 0.0, f"elementwise_chain {label} masked: "
+                  f"relative error {m_rel} > {K4_TOL} or masked rows "
+                  f"{zeroed} != 0")
+            k4_checks.append(dict(chain=label, n=n,
+                                  masked_rows=K4_MASKED_ROWS,
+                                  max_abs_err=m_err, rel_err=m_rel))
+            entry["masked"] = dict(masked_rows=K4_MASKED_ROWS,
+                                   max_abs_err=m_err, rel_err=m_rel)
+            del plan_m, mask
         k4_paths[label] = entry
         del x, got, want, plan, out
     k4["at_path_shapes"] = k4_paths
@@ -2907,6 +3424,13 @@ def main() -> int:
 
     # ---- 23. the workflow runtime ------------------------------------------
     runtime = runtime_phase(dev, train, test, config, card)
+    torch.cuda.empty_cache()
+
+    # ---- 24-25. the image loaders; telemetry ----------------------------------
+    loaders = loaders_phase(dev, card)
+    torch.cuda.empty_cache()
+    telemetry_k1 = telemetry_phase(dev, train, test, config, card,
+                                   compiles_after_build, runtime)
 
     record = {"kernels": [
         dict(name="conv_rectify_pool", route="cuda",
@@ -2921,7 +3445,7 @@ def main() -> int:
              augmented=dict(k1["augmented"], library_ms=None),
              launches_by_path=dict(
                  slice=k1_launches, kernel_cifar=kc_k1, fused=fused_k1,
-                 runtime=runtime["k1"],
+                 runtime=runtime["k1"], telemetry=telemetry_k1,
                  random_cifar=rc_k1, augmented=ag_k1,
                  augmented_kernel=ak_k1),
              ptxas=regs["conv_rectify_pool"]),
@@ -2943,7 +3467,8 @@ def main() -> int:
              launches_by_path=dict(linear_pixels=k4_launches, voc=voc_k4,
                                    imagenet=imagenet_k4,
                                    workflow=workflow_k4,
-                                   runtime=runtime["k4"]),
+                                   runtime=runtime["k4"],
+                                   voc_tar=loaders["voc_big_k4"]),
              max_abs_err=k4["max_abs_err"],
              rel_err=k4["rel_err"], tolerance_rel=K4_TOL, ms=k4["ms"],
              device_ms=k4["device_ms"],
@@ -2975,6 +3500,7 @@ def main() -> int:
              matmul_tf32_gemm_only_ms=k5["matmul_tf32_gemm_only_ms"],
              ptxas=regs["rbf_block"]),
     ]}
+    phase("total", seconds=time.perf_counter() - script_t0, card=card)
     print(json.dumps(record), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {

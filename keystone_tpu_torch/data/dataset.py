@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..telemetry.instrument import record_dispatch
 from ..utils.batching import (
     USE_CONFIG_CHUNK,
     _resolve_chunk,
@@ -86,7 +87,9 @@ class Dataset:
 
     def map_batches(self, fn: Callable[[torch.Tensor], torch.Tensor],
                     count: Optional[int] = None) -> "Dataset":
-        """Apply a whole-batch function to the rows."""
+        """Apply a whole-batch function to the rows: one batched call,
+        counted in ``dispatch.programs_executed`` (`:195-203`)."""
+        record_dispatch()
         return self.with_data(fn(self.data), count=count)
 
     def with_data(self, data: torch.Tensor,

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 
 from ...data.dataset import Dataset
 from ...ops.kernels import folded_conv_reference
+from ...telemetry.instrument import record_dispatch
 from ...utils.images import (
     extract_patches_device,
     flip_horizontal,
@@ -210,6 +211,7 @@ class Windower(Transformer):
         return self.batch_fn()(torch.as_tensor(image)[None])
 
     def apply_batch(self, data):
+        record_dispatch()  # one batched call (JAX :345)
         h, w = data.array.shape[1:3]
         gy = (h - self.window_size) // self.stride + 1
         gx = (w - self.window_size) // self.stride + 1
@@ -245,6 +247,7 @@ class RandomPatcher(Transformer):
         self._rng = np.random.default_rng(seed)
 
     def apply_batch(self, data):
+        record_dispatch()  # one batched call (JAX :386)
         n = data.count
         images = data.array[:n]
         rng = np.random.default_rng(self.seed)
@@ -299,6 +302,7 @@ class CenterCornerPatcher(Transformer):
         return self._crops(torch.as_tensor(image)[None])[0]
 
     def apply_batch(self, data):
+        record_dispatch()  # one batched call (JAX :429)
         crops = self._crops(data.array[:data.count])
         return Dataset(crops.reshape((-1,) + tuple(crops.shape[2:])),
                        count=data.count * self.views)

@@ -18,7 +18,12 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from ...telemetry.instrument import record_dispatch
+from ...telemetry.metrics import counter
+from ...telemetry.spans import span
 from ...workflow.pipeline import LabelEstimator, Transformer
+
+_STEPS = counter("solver.steps")
 
 
 def bcd_fit(x: torch.Tensor, y: torch.Tensor, lam: float, block_size: int,
@@ -32,7 +37,11 @@ def bcd_fit(x: torch.Tensor, y: torch.Tensor, lam: float, block_size: int,
     `cholesky_ex`, which leaves that check on the device, so the fit
     makes no host sync of its own. Check it with `raise_if_unfactored`.
     The residual carries from one epoch into the next; ``on_epoch(i)``,
-    where given, is called after epoch ``i`` is enqueued."""
+    where given, is called after epoch ``i`` is enqueued. Each epoch is a
+    ``bcd_epoch`` step span and a ``solver.steps`` count (JAX's `:352-364`,
+    which also counts the prepare and the finalize as dispatches); the
+    spans time what the host queued."""
+    record_dispatch()  # the prepare
     n, d = x.shape
     k = y.shape[1]
     if center:
@@ -49,16 +58,20 @@ def bcd_fit(x: torch.Tensor, y: torch.Tensor, lam: float, block_size: int,
     eye = lam * torch.eye(block_size, dtype=x.dtype, device=x.device)
     info = torch.zeros((), dtype=torch.int32, device=x.device)
     for epoch in range(num_iter):
-        for b in range(num_blocks):
-            xb = xc[:, b * block_size:(b + 1) * block_size]
-            r = r + xb @ w[b]
-            gram = xb.T @ xb + eye
-            chol, failed = torch.linalg.cholesky_ex(gram)
-            info = torch.maximum(info, failed)
-            w[b] = torch.cholesky_solve(xb.T @ r, chol)
-            r = r - xb @ w[b]
+        with span("bcd_epoch", cat="step", iter=epoch, blocks=num_blocks):
+            for b in range(num_blocks):
+                xb = xc[:, b * block_size:(b + 1) * block_size]
+                r = r + xb @ w[b]
+                gram = xb.T @ xb + eye
+                chol, failed = torch.linalg.cholesky_ex(gram)
+                info = torch.maximum(info, failed)
+                w[b] = torch.cholesky_solve(xb.T @ r, chol)
+                r = r - xb @ w[b]
+        _STEPS.inc()
+        record_dispatch()
         if on_epoch is not None:
             on_epoch(epoch)
+    record_dispatch()  # the finalize
     w_full = w.reshape(d, k)
     return w_full, ym - xm @ w_full, info
 

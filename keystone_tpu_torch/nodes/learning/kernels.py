@@ -25,7 +25,12 @@ import torch
 import torch.nn.functional as F
 
 from ...ops.kernels import rbf_block
+from ...telemetry.instrument import record_dispatch
+from ...telemetry.metrics import counter
+from ...telemetry.spans import span
 from ...workflow.pipeline import Estimator, LabelEstimator, Transformer
+
+_STEPS = counter("solver.steps")
 
 
 class GaussianKernelTransformer(Transformer):
@@ -195,8 +200,11 @@ class KernelRidgeRegression(LabelEstimator):
             ids = torch.as_tensor(ids, dtype=torch.int64, device=X.device)
             first = start_block if epoch == start_epoch else 0
             for b in range(first, n_blocks):
-                krr_step(X, Y, mask, alpha, KA, self.lam, self.gamma,
-                         ids[b * B:(b + 1) * B])
+                with span("krr_step", cat="step", epoch=epoch, block=b):
+                    krr_step(X, Y, mask, alpha, KA, self.lam, self.gamma,
+                             ids[b * B:(b + 1) * B])
+                _STEPS.inc()
+                record_dispatch()
                 done += 1
                 if ckpt and done % self.blocks_before_checkpoint == 0:
                     # written whole, then renamed: a crash mid-save

@@ -43,9 +43,14 @@ import torch
 
 from ...data.dataset import Dataset
 from ...data.sparse import PaddedSparseDataset, SparseDataset, memory_budget
+from ...telemetry.instrument import record_dispatch
+from ...telemetry.metrics import counter
+from ...telemetry.spans import span
 from ...workflow.pipeline import LabelEstimator
 from . import cost_model
 from .linear import LinearMapper, SparseLinearMapper
+
+_STEPS = counter("solver.steps")
 
 f32 = np.float32
 
@@ -268,42 +273,45 @@ def lbfgs_minimize(objective, W: torch.Tensor, num_iters: int,
     prev_W = prev_grad = value = None
     history, steps = [], []
     for k in range(num_iters):
-        pending = None
-        if value is None or not np.isfinite(value):
-            pending, grad = objective(W)
-            value = None
-        if k > 0:
-            dw, du = W - prev_W, grad - prev_grad
-            vd = _dot(du, dw)
-            slot = (k - 1) % memory_size
-            dws[slot], dus[slot] = dw, du
-            rhos[slot] = torch.where(vd == 0.0, 0.0, 1.0 / vd)
-            den = _dot(du, du)
-            scale = torch.where(den > 0.0, vd / den, 1.0)
-        else:
-            # the first step: a capped reciprocal of the gradient's norm
-            scale = torch.clamp_max(1.0 / torch.sqrt(_dot(grad, grad)), 1.0)
-        # two-loop recursion over the filled slots, newest first (empty
-        # slots, zeros in optax's buffers, change nothing)
-        order = [i for i in ((k + j) % memory_size
-                             for j in range(memory_size))
-                 if dws[i] is not None]
-        vec, alphas = grad, {}
-        for i in reversed(order):
-            alphas[i] = rhos[i] * _dot(dws[i], vec)
-            vec = vec - alphas[i] * dus[i]
-        vec = scale * vec
-        for i in order:
-            beta = rhos[i] * _dot(dus[i], vec)
-            vec = vec + (alphas[i] - beta) * dws[i]
-        u = -vec
-        point, evals, start_value = zoom_linesearch(objective, W, u, value,
-                                                    grad, pending)
-        history.append(float(start_value))
-        steps.append(evals)
-        prev_W, prev_grad = W, grad
-        W = W + u * float(point.stepsize)
-        value, grad = point.value, point.grad
+        with span("lbfgs_step", cat="step", iter=k):
+            pending = None
+            if value is None or not np.isfinite(value):
+                pending, grad = objective(W)
+                value = None
+            if k > 0:
+                dw, du = W - prev_W, grad - prev_grad
+                vd = _dot(du, dw)
+                slot = (k - 1) % memory_size
+                dws[slot], dus[slot] = dw, du
+                rhos[slot] = torch.where(vd == 0.0, 0.0, 1.0 / vd)
+                den = _dot(du, du)
+                scale = torch.where(den > 0.0, vd / den, 1.0)
+            else:
+                # the first step: a capped reciprocal of the gradient's norm
+                scale = torch.clamp_max(1.0 / torch.sqrt(_dot(grad, grad)), 1.0)
+            # two-loop recursion over the filled slots, newest first (empty
+            # slots, zeros in optax's buffers, change nothing)
+            order = [i for i in ((k + j) % memory_size
+                                 for j in range(memory_size))
+                     if dws[i] is not None]
+            vec, alphas = grad, {}
+            for i in reversed(order):
+                alphas[i] = rhos[i] * _dot(dws[i], vec)
+                vec = vec - alphas[i] * dus[i]
+            vec = scale * vec
+            for i in order:
+                beta = rhos[i] * _dot(dus[i], vec)
+                vec = vec + (alphas[i] - beta) * dws[i]
+            u = -vec
+            point, evals, start_value = zoom_linesearch(objective, W, u, value,
+                                                        grad, pending)
+            history.append(float(start_value))
+            steps.append(evals)
+            prev_W, prev_grad = W, grad
+            W = W + u * float(point.stepsize)
+            value, grad = point.value, point.grad
+        _STEPS.inc()
+        record_dispatch()
     return W, history, steps
 
 
@@ -510,36 +518,39 @@ def sparse_matvec_fit(X: torch.Tensor, Xt: torch.Tensor, Y: torch.Tensor,
     rho = [zero] * m
     values = []
     for it in range(num_iters):
-        ptr = it % m
-        q, alphas = g, []
-        for j in range(m):
-            i = (ptr - 1 - j) % m
-            a = rho[i] * _dot(S[i], q)
-            q = q - a * YH[i]
-            alphas.append((i, a))
-        last = (ptr - 1) % m
-        yy = _dot(YH[last], YH[last])
-        sy = _dot(S[last], YH[last])
-        gamma = torch.where(yy > 0, sy / torch.clamp_min(yy, 1e-30), 1.0)
-        r = gamma * q
-        for i, a in reversed(alphas):
-            r = r + S[i] * (a - rho[i] * _dot(YH[i], r))
-        D = -r
-        u = centered_matvec(D)
-        den = _dot(u, u) + lam * _dot(D, D)
-        num = -(_dot(R, u) + lam * _dot(W, D))
-        t = torch.where(den > 0, num / torch.clamp_min(den, 1e-30), 0.0)
-        W = W + t * D
-        R = R + t * u
-        g_new = grad_of(W, R)
-        s_vec, y_vec = t * D, g_new - g
-        sy_new = _dot(s_vec, y_vec)
-        ok = sy_new > 1e-10
-        S[ptr] = torch.where(ok, s_vec, 0.0)
-        YH[ptr] = torch.where(ok, y_vec, 0.0)
-        rho[ptr] = torch.where(ok, 1.0 / torch.where(ok, sy_new, 1.0), 0.0)
-        g = g_new
-        values.append(0.5 * _dot(R, R) + 0.5 * lam * _dot(W, W))
+        with span("lbfgs_step", cat="step", iter=it):
+            ptr = it % m
+            q, alphas = g, []
+            for j in range(m):
+                i = (ptr - 1 - j) % m
+                a = rho[i] * _dot(S[i], q)
+                q = q - a * YH[i]
+                alphas.append((i, a))
+            last = (ptr - 1) % m
+            yy = _dot(YH[last], YH[last])
+            sy = _dot(S[last], YH[last])
+            gamma = torch.where(yy > 0, sy / torch.clamp_min(yy, 1e-30), 1.0)
+            r = gamma * q
+            for i, a in reversed(alphas):
+                r = r + S[i] * (a - rho[i] * _dot(YH[i], r))
+            D = -r
+            u = centered_matvec(D)
+            den = _dot(u, u) + lam * _dot(D, D)
+            num = -(_dot(R, u) + lam * _dot(W, D))
+            t = torch.where(den > 0, num / torch.clamp_min(den, 1e-30), 0.0)
+            W = W + t * D
+            R = R + t * u
+            g_new = grad_of(W, R)
+            s_vec, y_vec = t * D, g_new - g
+            sy_new = _dot(s_vec, y_vec)
+            ok = sy_new > 1e-10
+            S[ptr] = torch.where(ok, s_vec, 0.0)
+            YH[ptr] = torch.where(ok, y_vec, 0.0)
+            rho[ptr] = torch.where(ok, 1.0 / torch.where(ok, sy_new, 1.0), 0.0)
+            g = g_new
+            values.append(0.5 * _dot(R, R) + 0.5 * lam * _dot(W, W))
+        _STEPS.inc()
+        record_dispatch()
     b = ym - xm @ W if fit_intercept else torch.zeros(
         k, dtype=torch.float32, device=dev)
     history = torch.stack(values) if values else zero.new_zeros(0)

@@ -25,6 +25,7 @@ import torch
 
 from ...data.dataset import Dataset
 from ...data.sparse import SparseDataset, _to_torch_csr
+from ...telemetry.instrument import record_dispatch
 from ...workflow.pipeline import LabelEstimator, Transformer
 from .block_ls import raise_if_unfactored
 
@@ -113,6 +114,7 @@ class LinearMapEstimator(LabelEstimator):
         self.fit_intercept = fit_intercept
 
     def fit(self, data, labels) -> LinearMapper:
+        record_dispatch()  # one batched call (JAX :149)
         W, b = normal_equations(data.array, labels.array.to(data.array.dtype),
                                 data.count, self.lam, self.fit_intercept)
         return LinearMapper(W, b if self.fit_intercept else None)
@@ -143,6 +145,7 @@ class LocalLeastSquaresEstimator(LabelEstimator):
         self.lam = lam
 
     def fit(self, data, labels) -> LinearMapper:
+        record_dispatch()  # one batched call (JAX :248)
         W, info = dual_solve(data.array, labels.array, data.mask, self.lam)
         raise_if_unfactored(info, "the dual system XXᵀ + λI")
         return LinearMapper(W)

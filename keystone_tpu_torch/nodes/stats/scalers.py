@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from ...telemetry.instrument import record_dispatch
 from ...workflow.pipeline import Estimator, Transformer
 
 
@@ -65,6 +66,7 @@ class StandardScaler(Estimator):
         self.normalize_std_dev = normalize_std_dev
 
     def fit(self, data) -> StandardScalerModel:
+        record_dispatch()  # one batched call (JAX :122)
         mean, std = moments(data.array, data.count, self.normalize_std_dev)
         return StandardScalerModel(mean,
                                    std if self.normalize_std_dev else None)

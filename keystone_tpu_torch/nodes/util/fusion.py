@@ -30,11 +30,20 @@ keeps one cache of graphs. A fused chain is
 ``chunkable`` when every stage is (`:292, 405-410`). The JAX package's
 program caching, planned precision and sharding tags have no counterpart
 here.
+
+Telemetry (`:535-555, 784-791`): each microbatch a ``chunk`` span, each
+padded loop a ``megafused_program`` span and one count in
+``megafusion.programs`` and its trips in ``megafusion.scan_trips``; a
+capture counts in ``megafusion.graph_captures`` and as a cold compile
+(`telemetry/compile_events.py`), a replay in ``megafusion.graph_replays``.
+Counts go through `tally`, so what a capture records is added at every
+replay.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -44,10 +53,16 @@ from ...ops.kernels import (
     conv_rectify_pool,
     hwio_to_cmajor,
     rectify_pool,
-    tallied,
-    tally,
 )
+from ...telemetry.compile_events import record_compile
+from ...telemetry.metrics import counter, tallied, tally
+from ...telemetry.spans import current_tracer, span
 from ...workflow.pipeline import Transformer
+
+_PROGRAMS = counter("megafusion.programs")
+_SCAN_TRIPS = counter("megafusion.scan_trips")
+_GRAPH_CAPTURES = counter("megafusion.graph_captures")
+_GRAPH_REPLAYS = counter("megafusion.graph_replays")
 
 
 class _RectifyPoolStage(Transformer):
@@ -261,7 +276,6 @@ class FusedBatchTransformer(Transformer):
             stage_fuse(s)[0] for s in self.fused)
         self._chain = None  # (tag, chain fn) of the planned sub-trail
         self.microbatches_run = 0  # microbatches through batch_fn, ever
-        self.graph_captures = self.graph_replays = self.scan_trips = 0
         self._init_graphs()
 
     def _init_graphs(self) -> None:
@@ -303,8 +317,6 @@ class FusedBatchTransformer(Transformer):
     def __setstate__(self, state):
         self.__dict__.update(state)
         self._init_graphs()
-        for count in ("graph_captures", "graph_replays", "scan_trips"):
-            self.__dict__.setdefault(count, 0)
 
     def _chain_fn(self):
         """The planned sub-trail's chain function, built once per tag and
@@ -361,21 +373,24 @@ class FusedBatchTransformer(Transformer):
             self._ran_at.add((tuple(x.shape[1:]), x.dtype, x.device))
             for start in range(0, n, self.microbatch):
                 tally(self, "microbatches_run")
-                y = _run(head, x[start:start + self.microbatch])
-                if last is not None:
-                    # the last stage writes its rows of the result
-                    layout, write = last
-                    y = y.contiguous()
+                with span("microbatch", cat="chunk", idx=start //
+                          self.microbatch, rows=min(self.microbatch,
+                                                    n - start)):
+                    y = _run(head, x[start:start + self.microbatch])
+                    if last is not None:
+                        # the last stage writes its rows of the result
+                        layout, write = last
+                        y = y.contiguous()
+                        if out is None:
+                            shape, dtype = layout(y)
+                            out = torch.empty((n,) + tuple(shape),
+                                              dtype=dtype, device=y.device)
+                        write(y, out[start:start + y.shape[0]])
+                        continue
                     if out is None:
-                        shape, dtype = layout(y)
-                        out = torch.empty((n,) + tuple(shape), dtype=dtype,
-                                          device=y.device)
-                    write(y, out[start:start + y.shape[0]])
-                    continue
-                if out is None:
-                    out = torch.empty((n,) + tuple(y.shape[1:]),
-                                      dtype=y.dtype, device=y.device)
-                out[start:start + y.shape[0]] = y
+                        out = torch.empty((n,) + tuple(y.shape[1:]),
+                                          dtype=y.dtype, device=y.device)
+                    out[start:start + y.shape[0]] = y
             return out if out is not None else _run(fns, x)
 
         fn.owner = self  # a fused chain: host streams may capture it
@@ -420,10 +435,13 @@ class FusedBatchTransformer(Transformer):
 
         item_shape, dtype, rows, trip, device = key
         fn = self._trip_fn(trip)
+        t0 = time.perf_counter()
         loop = CapturedLoop(fn, (rows,) + item_shape, dtype, device, x,
                             keep=(self._chain, tuple(self.fused)))
+        record_compile(self.label, time.perf_counter() - t0, cold=True,
+                       kind="graph")
         self._graphs[key] = loop
-        tally(self, "graph_captures")
+        tally(_GRAPH_CAPTURES)
         return loop
 
     def run_rung(self, x: torch.Tensor, rows: int,
@@ -436,9 +454,21 @@ class FusedBatchTransformer(Transformer):
         (no graph needs the padded shape yet), the next one captures it
         (its eager run before the capture is its result), and every later
         one replays the graph. A capture that fails raises. On the CPU
-        the loop runs eagerly. ``scan_trips`` counts the trips run."""
+        the loop runs eagerly. Counts ``megafusion.programs`` (one a
+        call) and ``megafusion.scan_trips`` (the trips run), and a
+        ``megafused_program`` span."""
+        trips = -(-rows // trip)
+        tally(_PROGRAMS)
+        tally(_SCAN_TRIPS, n=trips)
+        if current_tracer() is None:  # the span's label costs a walk
+            return self._run_rung(x, rows, trip)
+        with span("megafused_program", cat="node", megafused=True,
+                  scan_trips=trips, rows=x.shape[0], label=self.label):
+            return self._run_rung(x, rows, trip)
+
+    def _run_rung(self, x: torch.Tensor, rows: int,
+                  trip: int) -> torch.Tensor:
         n = x.shape[0]
-        tally(self, "scan_trips", -(-rows // trip))
         if x.device.type == "cuda":
             key = self._graph_key(x.shape[1:], x.dtype, rows, trip, x.device)
             with self.graph_lock:
@@ -452,7 +482,7 @@ class FusedBatchTransformer(Transformer):
                     self._eager_calls[key] = calls + 1
             if loop is not None:
                 out = loop(x)
-                tally(self, "graph_replays")
+                tally(_GRAPH_REPLAYS)
                 return out
         if x.device.type == "cuda" or rows == n:
             # no graph to fit yet: the real rows alone, in the same trips
@@ -493,10 +523,11 @@ class MegafusedBatchTransformer(FusedBatchTransformer):
     copies the rows into the graph's static input and returns a copy of
     the real rows (the next replay overwrites the graph's output). A
     capture that fails raises. On the CPU the same padded loop runs
-    eagerly over the plain versions. Counts: ``graph_captures``,
-    ``graph_replays`` and ``scan_trips`` (trips run); the kernels'
-    launches and the nested chains' ``microbatches_run`` grow at each
-    replay by what the capture recorded."""
+    eagerly over the plain versions. Counts, in the registry:
+    ``megafusion.graph_captures``, ``megafusion.graph_replays``,
+    ``megafusion.programs`` and ``megafusion.scan_trips`` (trips run);
+    the kernels' launches and the nested chains' ``microbatches_run``
+    grow at each replay by what the capture recorded."""
 
     def rung(self, n: int) -> int:
         """Rows a call of ``n`` rows runs at."""

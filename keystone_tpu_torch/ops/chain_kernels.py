@@ -19,9 +19,13 @@ A chain is the static keys of its stages, ``(head, ...)`` wrapped as
 parameter tuple per stage, as the nodes' ``fuse`` methods give them. The
 TPU's VMEM block choosers and compile canaries (`:61-133, 614-655`) have
 no counterpart: `chain_launch_config` sizes the CUDA kernel's row slot
-in shared memory, and raises when a row does not fit. A
-`ChainPlan` holds what a chain's launches share, so that a microbatch
-costs one C call.
+in shared memory, and raises when a row does not fit. A row too long for
+it is cut into segments along its leading axes where every stage acts
+within a segment (`row_segments`: no vector parameter, no reduction
+across the row), so the gray chain runs on real VOC images (a 500x333
+image is 333 rows of 500 pixels); the JAX kernel's VMEM block takes
+such a row whole. A `ChainPlan` holds what a chain's launches share, so
+that a microbatch costs one C call.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..telemetry.metrics import tally
 from ..utils.images import grayscale
 from . import _build
 from .kernels import (
@@ -44,7 +49,6 @@ from .kernels import (
     _raise_on_error,
     _stream,
     rectify_pool_vectorize,
-    tally,
 )
 
 #: stages no chain kernel absorbs, each with the reason why
@@ -100,6 +104,9 @@ _BODIES = {
     ("StandardScaler", "center"): _Body(8, 1, 0, lambda x, v, s: x - v[0]),
 }
 _BODIES["MatrixVectorizer"] = _BODIES["ImageVectorizer"]
+
+#: the one stage that reduces across a row
+_NORMALIZE_ROWS = _BODIES["NormalizeRows"].code
 
 
 def _unwrap(key):
@@ -277,7 +284,8 @@ class ChainLayout:
     ``item_shape``: one table entry per stage (its code, the row length
     and last-axis length entering it, the offset of its vectors in
     ``packed``, its mask flag and two scalars), the output's item shape,
-    and the launch (`chain_launch_config`)."""
+    the launch (`chain_launch_config`), and the ``segments`` an item is
+    cut into (the kernel's rows; the table describes one segment)."""
 
     codes: list
     lens: list
@@ -289,6 +297,32 @@ class ChainLayout:
     packed: torch.Tensor
     out_shape: tuple
     launch: ChainLaunch
+    segments: int = 1
+
+
+def row_segments(stages, item_shape) -> int:
+    """The segments an item of ``item_shape`` is cut into along its
+    leading axes: 1 where the whole row fits a block's shared memory,
+    else the fewest leading axes' product whose remaining row fits,
+    provided every stage acts within a segment (no vector parameter, no
+    reduction across the row). Raises ValueError where none fits."""
+    shape = tuple(item_shape)
+    try:
+        chain_launch_config(math.prod(shape))
+        return 1
+    except ValueError:
+        local = all(body.vectors == 0 and body.code != _NORMALIZE_ROWS
+                    for _, body in stages)
+        if not local:
+            raise
+    for k in range(1, len(shape)):
+        try:
+            chain_launch_config(math.prod(shape[k:]))
+        except ValueError:
+            continue
+        return math.prod(shape[:k])
+    raise ValueError(f"elementwise_chain: no segment of a {shape} row fits "
+                     f"shared memory")
 
 
 def chain_layout(statics, params, item_shape, device) -> ChainLayout:
@@ -306,6 +340,14 @@ def chain_layout(statics, params, item_shape, device) -> ChainLayout:
     shape = tuple(item_shape)
     if not shape:
         raise ValueError("elementwise_chain: rows need at least one axis")
+    out_shape = shape
+    for _, body in stages:
+        out_shape = body.shape(out_shape)
+    segments = row_segments(stages, shape)
+    if segments > 1:  # the table describes one segment: a kernel row
+        k = next(k for k in range(1, len(shape))
+                 if math.prod(shape[:k]) == segments)
+        shape = shape[k:]
     table = {k: [] for k in ("codes", "lens", "lasts", "offs", "masked",
                              "s0", "s1")}
     vectors, off = [], 0
@@ -330,9 +372,9 @@ def chain_layout(statics, params, item_shape, device) -> ChainLayout:
         shape = body.shape(shape)
     packed = (torch.cat(vectors).contiguous() if vectors else
               torch.empty(0, dtype=torch.float32, device=device))
-    return ChainLayout(packed=packed, out_shape=shape,
-                       launch=chain_launch_config(math.prod(item_shape)),
-                       **table)
+    return ChainLayout(packed=packed, out_shape=out_shape,
+                       launch=chain_launch_config(table["lens"][0]),
+                       segments=segments, **table)
 
 
 _IntArray = ctypes.POINTER(ctypes.c_int)
@@ -393,6 +435,7 @@ class ChainPlan:
         self.layout = chain_layout(self.statics, self.params,
                                    self.item_shape, self.device)
         self.out_shape = self.layout.out_shape
+        self.segments = self.layout.segments
         self.in_len = math.prod(self.item_shape)
         self.grid = None
         self._handle = None
@@ -414,7 +457,8 @@ class ChainPlan:
         with torch.cuda.device(self.device):
             rc = lib.keystone_elementwise_chain_plan(
                 lay.packed.data_ptr() if lay.packed.numel() else None,
-                self.in_len, math.prod(self.out_shape), launch.rows,
+                self.in_len // self.segments,
+                math.prod(self.out_shape) // self.segments, launch.rows,
                 launch.group, launch.slot_bytes, launch.smem_bytes, k,
                 ints(lay.codes), ints(lay.lasts), ints(lay.offs),
                 ints(lay.masked), floats(lay.s0), floats(lay.s1),
@@ -451,17 +495,18 @@ class ChainPlan:
             return y if out is None else out.copy_(y)
         m = None
         if mask is not None:
-            m = _f32(mask, x.device).reshape(-1).contiguous()
+            m = _f32(mask, x.device).reshape(-1)
             if m.numel() != n:
                 raise ValueError("elementwise_chain: mask must be (N,)")
+            m = m.repeat_interleave(self.segments).contiguous()
         if out is None:
             out = torch.empty(shape, dtype=torch.float32, device=x.device)
         _check_cuda("elementwise_chain", x.device, x=x, out=out)
         if n == 0:
             return out
         rc = self._run(self._handle, x.data_ptr(),
-                       None if m is None else m.data_ptr(), out.data_ptr(), n,
-                       _stream(x.device))
+                       None if m is None else m.data_ptr(), out.data_ptr(),
+                       n * self.segments, _stream(x.device))
         if rc:
             _raise_on_error(self._lib, "elementwise_chain", rc)
         tally(elementwise_chain)

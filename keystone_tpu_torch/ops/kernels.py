@@ -16,9 +16,10 @@ launches three kernels: the split prepass on X and on Yb, counted in
 ``rbf_split.launches``, and the product, counted in
 ``rbf_block.launches``.
 
-Counts go through `tally`. While a thread runs inside `tallied(sink)`
-(a chain warmed up or captured into a CUDA graph), its counts go into
-``sink`` instead, and the graph adds them to the counters at each replay
+Counts go through `tally` (`telemetry/metrics.py`, which the registry's
+counters share). While a thread runs inside `tallied(sink)` (a chain
+warmed up or captured into a CUDA graph), its counts go into ``sink``
+instead, and the graph adds them to the counters at each replay
 (`utils/graphs.py`): a replay launches what the capture recorded.
 """
 
@@ -26,50 +27,17 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
-from contextlib import contextmanager
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
+from ..telemetry.metrics import tally
 from . import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-
-
-#: per thread: the sink its counts go into, or None for the counters
-_tally_local = threading.local()
-
-#: the counters are shared by the scheduler's and warm-up threads
-_tally_lock = threading.Lock()
-
-
-def tally(obj, attr: str = "launches", n: int = 1) -> None:
-    """Add ``n`` to ``obj.<attr>``, or to this thread's sink while one is
-    installed by `tallied`."""
-    sink = getattr(_tally_local, "sink", None)
-    if sink is None:
-        with _tally_lock:
-            setattr(obj, attr, getattr(obj, attr) + n)
-        return
-    entry = sink.setdefault((id(obj), attr), [obj, attr, 0])
-    entry[2] += n
-
-
-@contextmanager
-def tallied(sink: dict):
-    """Within, this thread's `tally` calls add to ``sink`` (keyed by
-    object and attribute: ``[obj, attr, n]`` entries), not to the
-    counters."""
-    prev = getattr(_tally_local, "sink", None)
-    _tally_local.sink = sink
-    try:
-        yield sink
-    finally:
-        _tally_local.sink = prev
 
 
 # ---------------------------------------------------------------------------

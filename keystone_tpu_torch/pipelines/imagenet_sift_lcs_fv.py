@@ -51,13 +51,13 @@ from ..nodes.util.basic import (
     MatrixVectorizer,
     MaxClassifier,
 )
+from ..loaders.image_loaders import imagenet_loader
 from ..utils.images import LabeledImage
 from ..workflow.pipeline import Pipeline, Transformer
 from .random_patch_cifar import _sync
 from .voc_sift_fisher import (
     BWLS_BLOCK,
     BWLS_PASSES,
-    LOADERS_NOT_PORTED,
     _Stack,
 )
 
@@ -169,16 +169,34 @@ def run_on(train: HostDataset, test: HostDataset,
 
 def run(config: ImageNetSiftLcsFVConfig,
         device: DeviceLike = "cuda") -> dict:
-    """The synthetic images at ``n_synth`` and ``n_synth // 3``, fit and
-    scored on ``device``."""
-    if config.train_tar:
-        raise NotImplementedError(LOADERS_NOT_PORTED)
+    """Fit and score on ``device``: the images of ``train_tar`` and
+    ``test_tar`` (default: the train tar), labelled through the
+    ``synset,label`` rows of ``labels_map_csv`` and decoded by
+    `loaders/image_loaders.py::imagenet_loader` onto ``device``
+    (`:114-121`); without a tar, the synthetic images at ``n_synth`` and
+    ``n_synth // 3``."""
     device = resolve_device(device)
-    train = _synthetic_imagenet(config.n_synth, config.num_classes,
-                                config.seed)
-    test = _synthetic_imagenet(config.n_synth // 3, config.num_classes,
-                               config.seed + 1)
+    if config.train_tar:
+        labels_map = read_labels_map(config.labels_map_csv)
+        train = imagenet_loader(config.train_tar, labels_map, device=device)
+        test = imagenet_loader(config.test_tar or config.train_tar,
+                               labels_map, device=device)
+    else:
+        train = _synthetic_imagenet(config.n_synth, config.num_classes,
+                                    config.seed)
+        test = _synthetic_imagenet(config.n_synth // 3, config.num_classes,
+                                   config.seed + 1)
     return run_on(train, test, config, device)
+
+
+def read_labels_map(path: str) -> dict:
+    """``synset,label`` rows → synset → label (`:115-119`)."""
+    labels_map = {}
+    with open(path) as f:
+        for line in f:
+            syn, lab = line.strip().split(",")
+            labels_map[syn] = int(lab)
+    return labels_map
 
 
 def main(argv=None):

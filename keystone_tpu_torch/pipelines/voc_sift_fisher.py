@@ -62,17 +62,13 @@ from ..nodes.util.basic import (
     ClassLabelIndicatorsFromIntArray,
     MatrixVectorizer,
 )
+from ..loaders.image_loaders import voc_loader
 from ..utils.images import MultiLabeledImage
 from ..workflow.pipeline import Pipeline, Transformer
 from .random_patch_cifar import _sync
 
 #: the solver's block and passes (`:166-181`)
 BWLS_BLOCK, BWLS_PASSES = 4096, 1
-
-LOADERS_NOT_PORTED = ("the image loaders are not ported yet (ROADMAP "
-                      "queue 1, item 8); run without --train-tar for the "
-                      "synthetic images")
-
 
 @dataclass
 class VOCSIFTFisherConfig:
@@ -223,14 +219,23 @@ def run_on(train: HostDataset, test: HostDataset,
 
 
 def run(config: VOCSIFTFisherConfig, device: DeviceLike = "cuda") -> dict:
-    """The synthetic images at ``n_synth`` and ``n_synth // 3``, fit and
-    scored on ``device``."""
-    if config.train_tar:
-        raise NotImplementedError(LOADERS_NOT_PORTED)
+    """Fit and score on ``device``: the images of ``train_tar`` (labels
+    ``train_labels``) and ``test_tar`` (default: the train tar and
+    labels), decoded by `loaders/image_loaders.py::voc_loader` onto
+    ``device`` (`:116-119`); without a tar, the synthetic images at
+    ``n_synth`` and ``n_synth // 3``."""
     device = resolve_device(device)
-    train = _synthetic_voc(config.n_synth, config.num_classes, config.seed)
-    test = _synthetic_voc(config.n_synth // 3, config.num_classes,
-                          config.seed + 1)
+    if config.train_tar:
+        train = voc_loader(config.train_tar, config.train_labels,
+                           config.num_classes, device=device)
+        test = voc_loader(config.test_tar or config.train_tar,
+                          config.test_labels or config.train_labels,
+                          config.num_classes, device=device)
+    else:
+        train = _synthetic_voc(config.n_synth, config.num_classes,
+                               config.seed)
+        test = _synthetic_voc(config.n_synth // 3, config.num_classes,
+                              config.seed + 1)
     return run_on(train, test, config, device)
 
 

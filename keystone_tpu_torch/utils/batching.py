@@ -35,6 +35,16 @@ What differs on the card:
   other callable runs chunk by chunk. A capture that fails raises: there
   is no fallback.
 
+Telemetry, at JAX's sites and names: the producer's blocked puts
+(``prefetch.producer_stall_s``), the consumer's waits
+(``prefetch.consumer_wait_s``), the queue depth (``prefetch.queue_depth``);
+one ``chunk`` span a unit (``chunk_serial``; ``chunk_stage`` on the
+producer's lane and ``chunk_drain`` on the consumer's when overlapped),
+``overlap.chunks_dispatched``, ``overlap.inflight_results``,
+``overlap.resident_chunks``, the pinned ring's peak
+(``overlap.peak_pinned_bytes``, a gauge whose ``max`` is the most a
+stream held) and one `record_dispatch` a unit run.
+
 Spill windows (`:555-667`) are not ported (ROADMAP queue 1, item 10).
 `bucket_by_shape` and `run_chunked` serve device-resident buckets, which
 need no staging.
@@ -45,11 +55,24 @@ from __future__ import annotations
 import queue
 import threading
 from collections import deque
+from time import perf_counter
 from typing import (Callable, Dict, Iterable, Iterator, List, Optional,
                     Sequence, Tuple)
 
 import numpy as np
 import torch
+
+from ..telemetry.instrument import record_dispatch
+from ..telemetry.metrics import counter, gauge, histogram
+from ..telemetry.spans import span
+
+_PRODUCER_STALL = histogram("prefetch.producer_stall_s")
+_CONSUMER_WAIT = histogram("prefetch.consumer_wait_s")
+_QUEUE_DEPTH = gauge("prefetch.queue_depth")
+_INFLIGHT = gauge("overlap.inflight_results")
+_RESIDENT = gauge("overlap.resident_chunks")
+_DISPATCHED = counter("overlap.chunks_dispatched")
+_PEAK_PINNED = gauge("overlap.peak_pinned_bytes")
 
 
 #: "use the resolved chunk size" (distinct from None: one chunk a bucket)
@@ -110,14 +133,19 @@ _DONE = object()
 
 def _bounded_put(q: "queue.Queue", item, cancel: threading.Event) -> bool:
     """A put that gives up once ``cancel`` is set, so a consumer that
-    stopped draining never leaves the producer blocked."""
-    while not cancel.is_set():
-        try:
-            q.put(item, timeout=0.05)
-            return True
-        except queue.Full:
-            continue
-    return False
+    stopped draining never leaves the producer blocked. Its blocked time
+    is the producer's stall."""
+    t0 = perf_counter()
+    try:
+        while not cancel.is_set():
+            try:
+                q.put(item, timeout=0.05)
+                return True
+            except queue.Full:
+                continue
+        return False
+    finally:
+        _PRODUCER_STALL.observe(perf_counter() - t0)
 
 
 def prefetch_iterator(it: Iterable, depth: Optional[int] = None) -> Iterator:
@@ -140,7 +168,11 @@ def prefetch_iterator(it: Iterable, depth: Optional[int] = None) -> Iterator:
     def producer():
         try:
             for item in it:
+                # counted before the put: the gauge may read one high,
+                # never negative
+                _QUEUE_DEPTH.add(1)
                 if not _bounded_put(q, (item,), cancel):
+                    _QUEUE_DEPTH.add(-1)
                     return
         except BaseException as e:  # re-raised at the consumer
             _bounded_put(q, _ProducerError(e), cancel)
@@ -152,11 +184,14 @@ def prefetch_iterator(it: Iterable, depth: Optional[int] = None) -> Iterator:
     t.start()
     try:
         while True:
+            t0 = perf_counter()
             msg = q.get()
+            _CONSUMER_WAIT.observe(perf_counter() - t0)
             if msg is _DONE:
                 break
             if isinstance(msg, _ProducerError):
                 raise msg.exc
+            _QUEUE_DEPTH.add(-1)
             yield msg[0]
     finally:
         cancel.set()
@@ -306,9 +341,13 @@ def _split_unit(res, entries):
 
 def _stream_serial(items, units, device):
     """Stack, run, yield: one unit at a time."""
-    for entries, run in units:
-        rows, _ = _stack_unit(items, entries, device)
-        yield from _split_unit(run(rows), entries)
+    for i, (entries, run) in enumerate(units):
+        with span("chunk_serial", cat="chunk", idx=i,
+                  rows=sum(len(part) for part, _ in entries)):
+            rows, _ = _stack_unit(items, entries, device)
+            record_dispatch()
+            res = run(rows)
+        yield from _split_unit(res, entries)
 
 
 def _stream_overlapped(items, units, depth: int, device):
@@ -322,28 +361,55 @@ def _stream_overlapped(items, units, depth: int, device):
         ring = _PinnedRing(depth + 1)
         copy_stream = torch.cuda.Stream(device)
 
-    def stage(unit):
-        entries, run = unit
-        return entries, run, _stack_unit(items, entries, device, ring,
-                                         copy_stream)
+    staged_count = [0]  # units the producer has stacked, not yet run
+    staged_lock = threading.Lock()
 
-    staged = prefetch_iterator((stage(u) for u in units), depth)
+    def bump_staged(d: int) -> None:
+        with staged_lock:
+            staged_count[0] += d
+
+    def stage(i, unit):
+        entries, run = unit
+        bump_staged(1)
+        with span("chunk_stage", cat="chunk", idx=i,
+                  rows=sum(len(part) for part, _ in entries)):
+            return entries, run, _stack_unit(items, entries, device, ring,
+                                             copy_stream)
+
+    staged = prefetch_iterator((stage(i, u) for i, u in enumerate(units)),
+                               depth)
     inflight: deque = deque()
+
+    def note_residency():
+        _INFLIGHT.set(len(inflight))
+        _RESIDENT.set(len(inflight) + staged_count[0])
+
+    def drain(idx):
+        entries0, res0 = inflight.popleft()
+        note_residency()
+        with span("chunk_drain", cat="chunk", idx=idx,
+                  rows=sum(len(part) for part, _ in entries0)):
+            return list(_split_unit(res0, entries0))
+
     try:
+        drained = 0
         for entries, run, (rows, event) in staged:
+            bump_staged(-1)
             _ready(rows, event, device)
+            record_dispatch()
             inflight.append((entries, run(rows)))
+            _DISPATCHED.inc()
+            note_residency()
             if len(inflight) > depth:
-                entries0, res0 = inflight.popleft()
-                yield from _split_unit(res0, entries0)
+                yield from drain(drained)
+                drained += 1
         while inflight:
-            entries0, res0 = inflight.popleft()
-            yield from _split_unit(res0, entries0)
+            yield from drain(drained)
+            drained += 1
     finally:
         staged.close()  # an early exit or a failure cancels the producer
         if ring is not None:
-            map_host_batched_stream.peak_pinned_bytes = max(
-                map_host_batched_stream.peak_pinned_bytes, ring.peak_bytes)
+            _PEAK_PINNED.set(ring.peak_bytes)
 
 
 # --------------------------------------------------------------------------
@@ -426,11 +492,6 @@ def map_host_batched_stream(items: Sequence, batch_fn: Callable,
     if cfg.overlap and len(plan) > 1:
         return _stream_overlapped(items, units, cfg.prefetch_depth, device)
     return _stream_serial(items, units, device)
-
-
-#: the most pinned host bytes one overlapped stream has held (set it to
-#: 0 to measure)
-map_host_batched_stream.peak_pinned_bytes = 0
 
 
 def map_host_batched(items: Sequence, batch_fn: Callable,

@@ -24,10 +24,10 @@ stages (``keep``) alive as long as its graph, since the graph reads
 their buffers; it holds no reference to its owner, so the graph is freed
 with the transformer that keeps it.
 
-Launch counts: the wrappers count in Python (`ops/kernels.py::tally`),
-so they count at capture and never at replay. The capture's counts
-(``per_replay``, their counters held weakly) are added to the counters
-at every replay.
+Launch counts: the wrappers count in Python (`telemetry/metrics.py::
+tally`), so they count at capture and never at replay. The capture's
+counts (``per_replay``, their counters held weakly) are added to the
+counters at every replay, under one acquisition of the registry's lock.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from ..ops.kernels import tallied, tally
+from ..telemetry.metrics import tallied, tally_all
 
 #: one capture at a time in the process
 _CAPTURE_LOCK = threading.Lock()
@@ -121,8 +121,7 @@ class CapturedLoop:
                 self.static_in[n:].zero_()
             self.graph.replay()
             out = self.static_out[:n].clone()
-        for ref, attr, n in self.per_replay:
-            obj = ref()
-            if obj is not None:
-                tally(obj, attr, n)
+        tally_all([(obj, attr, n) for obj, attr, n in
+                   ((ref(), attr, n) for ref, attr, n in self.per_replay)
+                   if obj is not None])
         return out

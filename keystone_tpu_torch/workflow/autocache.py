@@ -12,10 +12,13 @@ memory for device datasets, host memory for host ones); the saving is
 the time of re-running the producing subgraph.
 
 Caching inserts a `CacheMarker` node, which is ``saveable``, so the
-prefix table keeps its input across executors (≈ `Cacher`). Two parts
-differ from JAX: the default budget reads the card's free memory from
-`torch.cuda.mem_get_info`, and each profiled node's time is closed by a
-device sync (`executor._profiled`).
+prefix table keeps its input across executors (≈ `Cacher`), and records
+one ``cache`` decision in the ledger (`:300-330`), the greedy loop's
+scored menu as its alternatives. Profiles are measured by the shared
+node-force instrumentation (`telemetry/instrument.py`, through
+`utils/profiling.py::ExecutionProfiler`, as JAX's `:156`): each
+profiled force is closed by a device sync. The default budget reads the
+card's free memory from `torch.cuda.mem_get_info`.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..telemetry import ledger
 from .analysis import ancestors, children, linearize
 from .graph import Graph, NodeId, SinkId, SourceId
 from .operators import DatasetOperator, Operator, TransformerOperator
@@ -70,31 +74,6 @@ class Profile:
         return Profile(self.ns + other.ns, self.mem_bytes + other.mem_bytes)
 
 
-@dataclass
-class NodeProfile:
-    """What a profiler gathered for one vertex."""
-
-    label: str
-    seconds: float = 0.0
-    bytes: float = 0.0
-    forced: int = 0
-
-
-class NodeProfiler:
-    """Collects node forces by vertex id while installed on
-    `PipelineEnv.profiler` (the JAX package's `ExecutionProfiler`)."""
-
-    def __init__(self):
-        self.by_vertex: Dict[int, NodeProfile] = {}
-
-    def on_force(self, label: str, seconds: float, nbytes: float,
-                 vertex: int) -> None:
-        p = self.by_vertex.setdefault(vertex, NodeProfile(label))
-        p.seconds += seconds
-        p.bytes += nbytes
-        p.forced += 1
-
-
 def node_weight(op: Operator) -> int:
     """The passes the operator makes over its inputs (WeightedNode; a
     BCD solver declares 3·numIter+1, BlockLinearMapper.scala:205-210)."""
@@ -124,7 +103,7 @@ def profile_nodes(graph: Graph, targets: List[NodeId],
     (reference `profileNodes`:153-469, `generalizeProfiles`:104-135).
     Nodes are forced in topological order, so each node's reading holds
     its own work only: its ancestors are already forced."""
-    from .env import PipelineEnv
+    from ..utils.profiling import profile_execution
     from .executor import GraphExecutor
 
     full_scale = 1
@@ -143,10 +122,7 @@ def profile_nodes(graph: Graph, targets: List[NodeId],
                 sampled = sampled.set_operator(
                     node, DatasetOperator(op.dataset.sample_per_shard(scale)))
         executor = GraphExecutor(sampled, optimize=False)
-        collector = NodeProfiler()
-        env = PipelineEnv.get()
-        prev, env.profiler = env.profiler, collector
-        try:
+        with profile_execution() as collector:
             for target in targets:
                 order = [v for v in sorted(
                     ancestors(sampled, target) | {target},
@@ -154,8 +130,6 @@ def profile_nodes(graph: Graph, targets: List[NodeId],
                     if isinstance(v, NodeId)]
                 for v in order:
                     executor.execute(v).get  # noqa: B018 (forces the node)
-        finally:
-            env.profiler = prev
         measurements[scale] = {
             node: Profile(m.seconds * 1e9, m.bytes)
             for node in sampled.operators
@@ -265,6 +239,22 @@ class AutoCacheRule(Rule):
             graph = self._insert_cache(graph, n)
         return graph
 
+    @staticmethod
+    def _record_cache_decision(graph: Graph, node: NodeId, chosen: Dict,
+                               alternatives: List[Dict],
+                               predicted: Dict) -> None:
+        """One ledger record per cache point (kind ``cache``)."""
+        ledger.record_decision(
+            kind="cache",
+            rule="AutoCacheRule",
+            vertices=[node.id],
+            labels=[graph.get_operator(node).label],
+            chosen=chosen,
+            alternatives=alternatives or [{"entry": "no_cache",
+                                           "saving_ns": 0.0}],
+            predicted=predicted,
+        )
+
     def apply(self, plan: Plan) -> Plan:
         graph, prefixes = plan
         candidates = self._candidates(graph)
@@ -272,26 +262,57 @@ class AutoCacheRule(Rule):
             self.chosen = []
             return plan
         if self.strategy == "aggressive":
+            runs = get_runs(graph, set())
+            for n in sorted(candidates, key=lambda n: -n.id):
+                self._record_cache_decision(
+                    graph, n,
+                    chosen={"entry": "cache", "strategy": "aggressive",
+                            "runs_collapsed": runs.get(n, 1)},
+                    alternatives=[{"entry": "no_cache",
+                                   "runs": runs.get(n, 1)}],
+                    predicted={"runs_collapsed": runs.get(n, 1)})
             return self._cache(graph, candidates), prefixes
 
         profiles = profile_nodes(graph, candidates)
         budget = self._budget()
         cached: set = set()
         used = 0.0
+        #: node -> the scored menu of the greedy iteration that chose it
+        chosen_menus: Dict[NodeId, List[Dict]] = {}
+        #: node -> its own predicted marginal saving at selection time
+        chosen_savings: Dict[NodeId, float] = {}
         while True:
             current = estimate_cached_run_time(graph, cached, profiles)
             best, best_saving = None, 0.0
+            menu: List[Dict] = []
             for n in candidates:
                 p = profiles.get(n)
                 if n in cached or p is None or used + p.mem_bytes > budget:
                     continue
                 saving = current - estimate_cached_run_time(
                     graph, cached | {n}, profiles)
+                menu.append({"entry": f"cache_{n.id}",
+                             "label": graph.get_operator(n).label,
+                             "saving_ns": float(saving),
+                             "mem_bytes": float(p.mem_bytes)})
                 if saving > best_saving:
                     best, best_saving = n, saving
             if best is None:
                 break
             cached.add(best)
             used += profiles[best].mem_bytes
+            chosen_menus[best] = [m for m in menu
+                                  if m["entry"] != f"cache_{best.id}"]
+            chosen_savings[best] = float(best_saving)
         logger.info("AutoCacheRule(greedy): caching %s", sorted(cached))
+        for n in sorted(cached, key=lambda n: -n.id):
+            p, saving = profiles[n], chosen_savings[n]
+            self._record_cache_decision(
+                graph, n,
+                chosen={"entry": "cache", "strategy": "greedy",
+                        "saving_ns": saving, "mem_bytes": float(p.mem_bytes)},
+                alternatives=chosen_menus.get(n, []),
+                predicted={"saving_ns": saving,
+                           "mem_bytes": float(p.mem_bytes),
+                           "budget_bytes": float(budget)})
         return self._cache(graph, cached), prefixes

@@ -14,10 +14,11 @@ the cached dataset instead of recomputing it.
 `ExecutionConfig` keeps only the knobs the port reads, with the JAX
 package's names and environment variables. They change when and how work
 is dispatched (overlapped host staging, the concurrent scheduler, the
-chunking, warm-ups, megafusion); the same kernels run either way. The
-JAX package's compile-cache, planner, telemetry, ledger, serving and
-spill fields have no counterpart, nor has ``pallas_kernels``: the port
-has no switch that picks a plain kernel path.
+chunking, warm-ups, megafusion) and what the telemetry records (the
+trace, the ledger, the live plane); the same kernels run either way. The
+JAX package's compile-cache, planner, serving and spill fields have no
+counterpart, nor has ``pallas_kernels``: the port has no switch that
+picks a plain kernel path.
 
 The table keeps every saved expression alive, and with it its tensors on
 the device: `PipelineEnv.reset()` drops them.
@@ -100,6 +101,9 @@ class ExecutionConfig:
     pad_chunks: bool = True
     aot_warmup: bool = False
     megafusion: bool = True
+    trace_path: Optional[str] = None
+    ledger_path: Optional[str] = None
+    live_telemetry: bool = True
 
 
 _exec_config: Optional[ExecutionConfig] = None
@@ -129,6 +133,9 @@ def execution_config() -> ExecutionConfig:
             pad_chunks=_env_on("KEYSTONE_PAD_CHUNKS"),
             aot_warmup=_env_on("KEYSTONE_AOT_WARMUP", False),
             megafusion=_env_on("KEYSTONE_MEGAFUSION"),
+            trace_path=os.environ.get("KEYSTONE_TRACE") or None,
+            ledger_path=os.environ.get("KEYSTONE_LEDGER") or None,
+            live_telemetry=_env_on("KEYSTONE_LIVE_TELEMETRY"),
         )
     return _exec_config
 
@@ -235,8 +242,8 @@ class PipelineEnv:
     def __init__(self):
         self.state: Dict[Prefix, Expression] = {}
         self._optimizer = None
-        #: a node-force profiler (`autocache.NodeProfiler`) while one is
-        #: installed, else None
+        #: a node-force profiler (`utils/profiling.py::ExecutionProfiler`)
+        #: while one is installed, else None
         self.profiler = None
 
     @classmethod

@@ -32,15 +32,20 @@ next call needs: launch plans and kernels by one eager run on a zero
 row. Its rung's graph is not captured: the first call at a rung runs
 eagerly (`FusedBatchTransformer.run_rung`), so a pipeline applied once
 pays no capture. A warm-up that fails breaks nothing:
-``GraphExecutor.warmup_failures`` counts it, and the force meets the
-same error. The JAX package's ``warm_manifest`` and
+``dispatch.warmup_failures`` counts it, and the force meets the same
+error. The JAX package's ``warm_manifest`` and
 ``warm_fitted_manifest`` need the serving manifest (ROADMAP queue 1,
 item 7).
 
-While a profiler is installed on `PipelineEnv` (`autocache.profile_nodes`
-installs one), each node's force is timed, closed by a device sync so
-the card's work lands on the node that queued it, and its output's bytes
-are counted.
+While a tracer or a profiler is installed (`telemetry.trace_run`,
+`utils/profiling.py::profile_execution`, which `autocache.profile_nodes`
+uses), each node's force goes through the shared instrumentation
+(`telemetry/instrument.py::instrument_node_force`, JAX's `:682-713`):
+a ``node`` span, ``executor.node_forces``, the profiler's reading (closed
+by a device sync only for a profiler), and ``executor.memo_hits`` and
+``executor.prefix_saves``. The scheduler counts
+``dispatch.scheduler_runs`` and ``dispatch.scheduled_tasks`` and runs
+under a ``dispatch.schedule`` span (`:910-913`).
 """
 
 from __future__ import annotations
@@ -53,12 +58,20 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from ..ops.kernels import tally
+from ..telemetry.instrument import instrument_node_force
+from ..telemetry.metrics import counter
+from ..telemetry.spans import current_tracer, span
 from .env import PipelineEnv, Prefix, execution_config
 from .expressions import Expression, StreamingDatasetExpression
 from .graph import Graph, GraphId, NodeId, SinkId, SourceId
 
 logger = logging.getLogger(__name__)
+
+_MEMO_HITS = counter("executor.memo_hits")
+_PREFIX_SAVES = counter("executor.prefix_saves")
+_SCHEDULER_RUNS = counter("dispatch.scheduler_runs")
+_SCHEDULED_TASKS = counter("dispatch.scheduled_tasks")
+_WARMUP_FAILURES = counter("dispatch.warmup_failures")
 
 #: a pool worker re-entering `execute` runs its schedule serially
 _sched_local = threading.local()
@@ -103,8 +116,7 @@ def _submit_warmup(op, dataset, full: bool = True) -> None:
     daemon thread, unless it is warm for them already: fully (its
     `warmup`: a megafused chain's graph captured), or, where not
     ``full``, by the plain chain's warm-up (one eager run on a zero row).
-    A failure is counted in ``GraphExecutor.warmup_failures`` and
-    logged."""
+    A failure is counted in ``dispatch.warmup_failures`` and logged."""
     from ..nodes.util.fusion import FusedBatchTransformer
 
     data = dataset.data
@@ -121,7 +133,7 @@ def _submit_warmup(op, dataset, full: bool = True) -> None:
         try:
             warmup(*args)
         except Exception as e:
-            tally(GraphExecutor, "warmup_failures")
+            _WARMUP_FAILURES.inc()
             logger.debug("warm-up of %s failed: %s: %s", op.label,
                          type(e).__name__, e)
 
@@ -164,61 +176,7 @@ def concurrent_relation(graph: Graph):
     return unordered
 
 
-def value_bytes(value) -> float:
-    """Bytes a forced value holds: its tensors' (a dataset's rows, a
-    host dataset's stacked buckets, a host CSR's arrays), 0 for others."""
-    if isinstance(value, torch.Tensor):
-        return float(value.numel() * value.element_size())
-    if isinstance(value, (tuple, list)):
-        return float(sum(value_bytes(v) for v in value))
-    buckets = getattr(value, "_buckets", None)
-    if buckets is not None:
-        return float(sum(value_bytes(t) for _, t in buckets))
-    matrix = getattr(value, "matrix", None)
-    if matrix is not None and hasattr(matrix, "indptr"):
-        return float(matrix.data.nbytes + matrix.indices.nbytes
-                     + matrix.indptr.nbytes)
-    data = getattr(value, "data", None)
-    if data is not None and data is not value:
-        return value_bytes(data)
-    return 0.0
-
-
-def _sync_value(value) -> None:
-    """Wait until the device has produced ``value``."""
-    device = getattr(value, "device", None)
-    if isinstance(value, torch.Tensor):
-        device = value.device
-    if isinstance(device, str):
-        device = torch.device(device)
-    if isinstance(device, torch.device) and device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
-def _profiled(label: str, vertex: int, expr: Expression, profiler):
-    """``expr`` with its force reported to ``profiler``: seconds (closed
-    by a device sync) and output bytes."""
-    thunk = expr._thunk
-    if thunk is None:  # already forced: nothing to time
-        return expr
-
-    def forced():
-        t0 = time.perf_counter()
-        value = thunk()
-        _sync_value(value)
-        profiler.on_force(label, time.perf_counter() - t0,
-                          value_bytes(value), vertex)
-        return value
-
-    expr._thunk = forced
-    return expr
-
-
 class GraphExecutor:
-    #: warm-ups that raised, and schedules the pool ran, process-wide
-    warmup_failures = 0
-    scheduler_runs = 0
-
     def __init__(self, graph: Graph, optimize: bool = True,
                  plan: Optional[Tuple[Graph, Dict[NodeId, Prefix]]] = None):
         """``plan`` supplies an already-optimized (graph, prefixes) pair
@@ -315,7 +273,7 @@ class GraphExecutor:
         try:
             mat = op.materialize(fitted)
         except Exception:
-            tally(GraphExecutor, "warmup_failures")
+            _WARMUP_FAILURES.inc()
             return
         if isinstance(mat, FusedBatchTransformer):
             _submit_warmup(mat, dataset, full=False)
@@ -347,7 +305,9 @@ class GraphExecutor:
         self._check_structure(graph)
         self._warm_plan(graph)
         self._rearm_warmup()  # fits may have resolved since the scan
-        root = self._force(graph_id, graph, prefixes, PipelineEnv.get())
+        env = PipelineEnv.get()
+        observing = env.profiler is not None or current_tracer() is not None
+        root = self._force(graph_id, graph, prefixes, env, observing)
         self._arm_concurrent(graph_id, root, graph)
         return root
 
@@ -510,40 +470,50 @@ class GraphExecutor:
             finally:
                 _sched_local.active = False
 
-        tally(GraphExecutor, "scheduler_runs")
+        _SCHEDULER_RUNS.inc()
+        _SCHEDULED_TASKS.inc(len(tasks))
         n = min(workers, len(tasks))
-        threads = [threading.Thread(target=worker,
-                                    name=f"keystone-dispatch-{i}",
-                                    daemon=True) for i in range(n)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
+        with span("dispatch.schedule", cat="phase", tasks=len(tasks),
+                  workers=n):
+            threads = [threading.Thread(target=worker,
+                                        name=f"keystone-dispatch-{i}",
+                                        daemon=True) for i in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
         if failures:
             raise min(failures, key=lambda f: f[0])[1]
 
     def _force(self, vid: GraphId, graph: Graph,
-               prefixes: Dict[NodeId, Prefix], env: PipelineEnv) -> Expression:
-        """``vid``'s expression, memoized. A method, not a nested
+               prefixes: Dict[NodeId, Prefix], env: PipelineEnv,
+               observing: bool) -> Expression:
+        """``vid``'s expression, memoized; where ``observing`` (a tracer
+        or a profiler), instrumented and counted. A method, not a nested
         function: a recursive closure would hold this executor, and its
         memo's tensors, in a reference cycle after the call."""
         if vid in self._memo:
+            if observing:
+                _MEMO_HITS.inc()
             return self._memo[vid]
         if isinstance(vid, SourceId):
             raise ValueError(f"{vid} is an unbound source; bind data by "
                              "applying the pipeline")
         if isinstance(vid, SinkId):
             expr = self._force(graph.get_sink_dependency(vid), graph,
-                               prefixes, env)
+                               prefixes, env, observing)
         else:
-            dep_exprs = [self._force(d, graph, prefixes, env)
+            dep_exprs = [self._force(d, graph, prefixes, env, observing)
                          for d in graph.get_dependencies(vid)]
             op = graph.get_operator(vid)
             expr = op.execute(dep_exprs)
-            if env.profiler is not None:
-                expr = _profiled(op.label, vid.id, expr, env.profiler)
+            if observing:
+                expr = instrument_node_force(op.label, expr, vertex=vid.id,
+                                             profiler=env.profiler)
             prefix = prefixes.get(vid)
             if prefix is not None and prefix not in env.state:
                 env.state[prefix] = expr
+                if observing:
+                    _PREFIX_SAVES.inc()
         self._memo[vid] = expr
         return expr

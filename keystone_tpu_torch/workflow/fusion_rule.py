@@ -40,6 +40,7 @@ from __future__ import annotations
 import threading
 from typing import List, Sequence, Tuple
 
+from ..telemetry import ledger
 from .analysis import children
 from .expressions import (
     DatasetExpression,
@@ -60,6 +61,29 @@ from .operators import (
     is_stream_origin,
 )
 from .optimizer import Plan, Rule
+
+
+def _record_fusion_decision(kind: str, rule: str, chain, labels,
+                            chosen_entry: str, programs_before: int) -> None:
+    """One ledger record per enforced fusion rewrite (JAX's
+    `fusion_rule.py:57-99`): the chain's vertices and labels, the program
+    shape chosen, the per-stage dispatch it beat, and the programs an
+    apply saves. JAX's roofline ``predicted_seconds`` waits for the
+    analysis tiers (ROADMAP queue 1, item 8)."""
+    ledger.record_decision(
+        kind=kind,
+        rule=rule,
+        vertices=[n.id for n in chain],
+        labels=list(labels),
+        chosen={"entry": chosen_entry, "programs": 1,
+                "members": len(chain)},
+        alternatives=[{"entry": "per_stage_dispatch",
+                       "programs": programs_before,
+                       "cost_programs": programs_before}],
+        predicted={"programs_per_apply": 1,
+                   "programs_eliminated": max(0, programs_before - 1),
+                   "cold_compiles_max": 1},
+    )
 
 
 #: guards the fused chains' kept builds across the scheduler's workers
@@ -299,6 +323,12 @@ class MegafusionRule(Rule):
         for chain in chains:
             if any(n not in graph.operators for n in chain):
                 continue
+            _record_fusion_decision(
+                "megafusion", type(self).__name__, chain,
+                [graph.get_operator(n).label for n in chain],
+                "megafused_scan_program",
+                max(1, sum(1 for n in chain
+                           if self._member_kind(graph, n) != "cache")))
             head_data_dep = self._data_dep(graph, chain[0])
             est_deps: List = []
             stage_specs: List = []
@@ -341,7 +371,10 @@ def megafusion_blockers(graph: Graph) -> List[Tuple[NodeId, str, str]]:
     plan."""
     from .operators import TransformerOperator
 
-    fused_graph = NodeFusionRule().apply((graph, {}))[0]
+    # an analysis re-run on a throwaway graph: no executor enforces these
+    # rewrites, so they stay out of the run's ledger
+    with ledger.suppressed():
+        fused_graph = NodeFusionRule().apply((graph, {}))[0]
     kinds = {n: MegafusionRule._member_kind(fused_graph, n)
              for n in fused_graph.operators}
 
@@ -462,6 +495,12 @@ class NodeFusionRule(Rule):
             if graph.get_dependencies(kid) != (g,):
                 continue
             (src,) = srcs
+            _record_fusion_decision(
+                "fusion", type(self).__name__, list(deps) + [g, kid],
+                [graph.get_operator(b).label for b in deps]
+                + [graph.get_operator(g).label,
+                   graph.get_operator(kid).label],
+                "gather_concat_program", len(deps) + 1)
             stage = _GatherConcatStage([graph.get_operator(b) for b in deps])
             graph = graph.set_operator(kid, FusedBatchTransformer(
                 [stage], microbatch=self.microbatch))
@@ -524,6 +563,10 @@ class NodeFusionRule(Rule):
         for chain in chains:
             if any(n not in graph.operators for n in chain):
                 continue  # already rewritten by an overlapping chain
+            _record_fusion_decision(
+                "fusion", type(self).__name__, chain,
+                [graph.get_operator(n).label for n in chain],
+                "fused_chain_program", len(chain))
             head_data_dep = self._data_dep(graph, chain[0])
             est_deps: List = []
             stage_specs: List = []

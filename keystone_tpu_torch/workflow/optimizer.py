@@ -28,10 +28,14 @@ import logging
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
+from ..telemetry.metrics import counter
+from ..telemetry.spans import span
 from .analysis import ancestors, linearize
 from .env import PipelineEnv, Prefix, compute_prefix
 from .graph import Graph, NodeId
 from .operators import DatasetOperator, ExpressionOperator
+
+_PREFIX_REUSE = counter("executor.prefix_reuse")
 
 logger = logging.getLogger(__name__)
 
@@ -91,12 +95,16 @@ class RuleExecutor:
         raise NotImplementedError
 
     def execute(self, graph: Graph) -> Plan:
+        """The batches in order: an ``optimize`` phase span, one
+        ``optimizer:<batch>`` span each (JAX's `:72-77`)."""
         plan: Plan = (graph, {})
-        for batch in self.batches:
-            plan = run_batch(batch, plan)
-            if logger.isEnabledFor(logging.DEBUG):
-                logger.debug("after batch %s:\n%s", batch.name,
-                             plan[0].to_dot())
+        with span("optimize", cat="phase", batches=len(self.batches)):
+            for batch in self.batches:
+                with span(f"optimizer:{batch.name}", cat="phase"):
+                    plan = run_batch(batch, plan)
+                if logger.isEnabledFor(logging.DEBUG):
+                    logger.debug("after batch %s:\n%s", batch.name,
+                                 plan[0].to_dot())
         return plan
 
 
@@ -127,6 +135,7 @@ class SavedStateLoadRule(Rule):
             expr = env.state.get(prefix)
             if expr is not None and not isinstance(
                     graph.get_operator(node), ExpressionOperator):
+                _PREFIX_REUSE.inc()
                 graph = graph.set_operator(
                     node, ExpressionOperator(
                         expr, name=str(prefix.operator_key[0]))

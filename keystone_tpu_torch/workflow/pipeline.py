@@ -30,6 +30,7 @@ from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
+from ..telemetry.watchdog import request_scope
 from .env import PipelineEnv
 from .executor import GraphExecutor
 from .graph import Graph, NodeId, NodeOrSourceId, SinkId, SourceId
@@ -298,9 +299,19 @@ class FittedPipeline(Chainable):
 
     def apply(self, data: Any):
         """The pipeline's output on ``data`` (a dataset or a datum), run
-        now."""
-        g, cls = _bind(self.graph, self.source, data)
-        return cls(GraphExecutor(g, optimize=False), self.sink).get()
+        now. Each apply is one live request
+        (`telemetry/watchdog.py::request_scope`, JAX's `:353-370`): its
+        padded shape, host seconds and the armed watchdog's check; a
+        no-op with ``KEYSTONE_LIVE_TELEMETRY=0``."""
+        batch = 1
+        if getattr(data, "is_dataset", False):
+            try:
+                batch = len(data)
+            except TypeError:
+                pass
+        with request_scope(batch, pipeline="fitted_pipeline"):
+            g, cls = _bind(self.graph, self.source, data)
+            return cls(GraphExecutor(g, optimize=False), self.sink).get()
 
     def __call__(self, data: Any):
         return self.apply(data)

@@ -25,9 +25,13 @@ by ``--root``) runs ``default`` only.
 
 Per run: seconds, device memory allocated at its start, its peak, and
 what stays allocated after it, before and after a garbage collection.
+With ``--profile N``, one more run of each configuration (default
+settings) under `cProfile`: the N functions with the most own host
+time, their calls and seconds, keyed by file (relative to the root) and
+name, so that two trees' profiles compare.
 
     python keystone_tpu_torch/workflow/profile_runtime.py \\
-        [--root DIR] [--configs a,b] [--reps 2] [--out FILE]
+        [--root DIR] [--configs a,b] [--reps 2] [--profile N] [--out FILE]
 """
 
 from __future__ import annotations
@@ -192,12 +196,32 @@ def _configs(dev):
     }
 
 
+def _profiled(run, top: int, root: str) -> dict:
+    """``{"file(name)": [calls, own seconds]}`` of the ``top`` functions
+    with the most own time in one run of ``run`` under `cProfile`."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    run()
+    prof.disable()
+    base = os.path.abspath(root) + os.sep
+    own = {}
+    for (path, _, fn), st in pstats.Stats(prof).stats.items():
+        row = own.setdefault(f"{path.replace(base, '')}({fn})", [0, 0.0])
+        row[0] += st[1]
+        row[1] += st[2]
+    return dict(sorted(own.items(), key=lambda kv: -kv[1][1])[:top])
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--root", default=os.path.dirname(os.path.dirname(HERE)))
     p.add_argument("--configs", default="")
     p.add_argument("--settings", default="")
     p.add_argument("--reps", type=int, default=2)
+    p.add_argument("--profile", type=int, default=0)
     p.add_argument("--out", default="")
     args = p.parse_args(argv)
     _setup_path(args.root)
@@ -225,7 +249,7 @@ def main(argv=None) -> int:
     names = [c for c in configs
              if not args.configs or c in args.configs.split(",")]
     out = dict(root=os.path.abspath(args.root), settings=settings,
-               card=torch.cuda.get_device_name(0), configs={})
+               card=torch.cuda.get_device_name(0), configs={}, profiles={})
     for name in names:
         warm, run = configs[name]
         warm()
@@ -267,6 +291,9 @@ def main(argv=None) -> int:
                     after_bytes=after, after_reset_bytes=after_reset,
                     after_gc_bytes=after_gc))
         out["configs"][name] = rows
+        if args.profile:
+            PipelineEnv.reset()
+            out["profiles"][name] = _profiled(run, args.profile, args.root)
         summary = {s: dict(
             seconds=statistics.median(r["seconds"] for r in rows[s]),
             peak_gb=max(r["peak_bytes"] for r in rows[s]) / 1e9,

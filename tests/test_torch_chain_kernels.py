@@ -214,9 +214,14 @@ def test_linear_pixels_layout_holds_one_row_in_shared_memory():
 
 
 def test_chain_layout_refuses_what_the_kernel_does_not_take():
+    # a row too long for shared memory that no segment cut can serve: a
+    # single axis, or a stage that reduces across the row
     with pytest.raises(ValueError, match="shared memory"):
         ck.chain_layout((("PixelScaler",), ("ImageVectorizer",)),
-                        [(), ()], (200, 300), "cpu")
+                        [(), ()], (60_000,), "cpu")
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.chain_layout((("PixelScaler",), ("NormalizeRows",)),
+                        [(), (1e-12,)], (200, 300), "cpu")
     with pytest.raises(ValueError, match="last axis"):
         ck.chain_layout((("RandomSignNode",), ("ImageVectorizer",)),
                         [(np.ones(5, np.float32),), ()], (4, 6), "cpu")

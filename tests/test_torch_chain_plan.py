@@ -232,3 +232,35 @@ def test_plan_writes_into_a_slice_and_leaves_its_neighbours():
         plan(x, mask, big[:8])
     with pytest.raises(ValueError, match="plan is for"):
         plan(x.reshape(9, 4, 4), mask)
+
+
+GRAY_CHAIN = (("PixelScaler",), ("GrayScaler",))
+
+
+@pytest.mark.parametrize("item,segments,seg_len", [
+    ((32, 32, 3), 1, 3072),
+    ((333, 500, 3), 333, 1500),
+    ((480, 640, 3), 480, 1920),
+    ((2, 40_000, 3), 80_000, 3),
+], ids=["cifar", "voc", "vga", "two-long-rows"])
+def test_a_long_row_of_a_local_chain_is_cut_into_segments(item, segments,
+                                                          seg_len):
+    """A row too long for a block's shared memory is cut along its
+    leading axes when every stage acts within a segment: the table
+    describes one segment, the output keeps the whole item's shape."""
+    lay = ck.chain_layout(GRAY_CHAIN, [(), ()], item, "cpu")
+    assert lay.segments == segments
+    assert lay.lens[0] == seg_len and lay.lens[1] == seg_len
+    assert lay.lasts == [3, 3]
+    assert lay.out_shape == item[:-1] + (1,)
+    plan = ck.ChainPlan(GRAY_CHAIN, [(), ()], item, "cpu")
+    x = torch.rand((2,) + item) * 255.0
+    want = ck.elementwise_chain_reference(GRAY_CHAIN, [(), ()], x)
+    torch.testing.assert_close(plan(x), want, rtol=0, atol=0)
+
+
+def test_a_long_row_that_reduces_across_the_row_is_refused():
+    """NormalizeRows reduces over the whole row: its row is not cut."""
+    with pytest.raises(ValueError, match="shared memory"):
+        ck.chain_layout((("PixelScaler",), ("NormalizeRows", 1e-12)),
+                        [(), (1e-12,)], (333, 500, 3), "cpu")

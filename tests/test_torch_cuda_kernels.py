@@ -52,6 +52,23 @@ RECTIFY_GEOMETRIES = [
 ]
 
 
+def _metric(name: str) -> float:
+    """A process-wide counter of the port's metrics registry."""
+    from keystone_tpu_torch.telemetry import counter
+
+    return counter(name).value
+
+
+def _peak_pinned():
+    """The pinned ring's peak gauge, cleared: its ``max`` is what the
+    streams after this call held at most."""
+    from keystone_tpu_torch.telemetry import gauge
+
+    g = gauge("overlap.peak_pinned_bytes")
+    g.reset()
+    return g
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -414,6 +431,53 @@ def test_cuda_elementwise_chain_writes_into_a_slice(cuda_device, name):
     assert bool((big[0] == 7.0).all()) and bool((big[n + 1:] == 7.0).all())
 
 
+# (statics, item shape, segments) of rows too long for shared memory,
+# cut along their leading axes (`chain_kernels.row_segments`): VOC's
+# PixelScaler >> GrayScaler on a 500x333 image (333 segments of 1,500
+# floats), the same with its gray stage masked as a padded chunk's
+# stage is, LinearPixels' chain vectorizing such an image, and a
+# 200x300 image (200 segments of 900 floats)
+K4_SEGMENTED = {
+    "voc_gray_333x500": ((("PixelScaler",), ("GrayScaler",)),
+                         (333, 500, 3), 333),
+    "voc_gray_masked": ((("PixelScaler",), (("GrayScaler",), "masked")),
+                        (333, 500, 3), 333),
+    "linear_pixels_333x500": (_LP, (333, 500, 3), 333),
+    "gray_200x300": ((("PixelScaler",), ("GrayScaler",)), (200, 300, 3),
+                     200),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked_rows", [0, 3])
+@pytest.mark.parametrize("name", sorted(K4_SEGMENTED))
+def test_cuda_elementwise_chain_in_segments(cuda_device, name, masked_rows):
+    """A row cut into segments, one kernel row each: against the plain
+    version, 1e-6 of scale, with and without masked rows (the mask
+    repeated for each segment), in one launch."""
+    from keystone_tpu_torch.ops import chain_kernels
+
+    statics, item, segments = K4_SEGMENTED[name]
+    params = [()] * len(statics)
+    n = 7
+    rng = np.random.default_rng(8)
+    x = torch.tensor(rng.uniform(0, 255, size=(n,) + item),
+                     dtype=torch.float32, device=cuda_device)
+    mask = None
+    if masked_rows:
+        mask = torch.arange(n, device=cuda_device) < n - masked_rows
+    plan = chain_kernels.ChainPlan(statics, params, item, cuda_device)
+    assert plan.segments == segments
+    before = chain_kernels.elementwise_chain.launches
+    got = plan(x, mask)
+    torch.cuda.synchronize()
+    assert chain_kernels.elementwise_chain.launches == before + 1
+    want = chain_kernels.elementwise_chain_reference(statics, params, x, mask)
+    _k4_check(got, want)
+    if masked_rows and name == "voc_gray_masked":
+        assert float(got[n - masked_rows:].abs().max()) == 0.0
+
+
 @pytest.mark.cuda
 def test_cuda_linear_pixels_transformer_reuses_its_plan(cuda_device):
     """LinearPixels' transformer over 9,000 images (microbatches of
@@ -504,22 +568,28 @@ def test_cuda_megafused_chain_replays_its_capture(cuda_device, which):
     eager = featurizer.batch_fn()
     fn = mega.batch_fn()
     rng = np.random.default_rng(8)
+    captures0 = _metric("megafusion.graph_captures")
     for call, n in enumerate((1100, 1030, 1100, 1030)):
         x = torch.tensor(rng.random(size=(n, 32, 32, 3)) * 255.0,
                          dtype=torch.float32, device=cuda_device)
         want = eager(x)
-        launches, replays = counter.launches, mega.graph_replays
-        trips, inner = mega.scan_trips, featurizer.microbatches_run
+        launches, replays = counter.launches, _metric(
+            "megafusion.graph_replays")
+        trips, inner = (_metric("megafusion.scan_trips"),
+                        featurizer.microbatches_run)
         got = fn(x)
         torch.cuda.synchronize()
         assert counter.launches - launches == 3
-        assert mega.graph_captures == (0 if call == 0 else 1)
-        assert mega.graph_replays - replays == (1 if call >= 2 else 0)
-        assert mega.scan_trips - trips == 3
+        assert _metric("megafusion.graph_captures") - captures0 == (
+            0 if call == 0 else 1)
+        assert _metric("megafusion.graph_replays") - replays == (
+            1 if call >= 2 else 0)
+        assert _metric("megafusion.scan_trips") - trips == 3
         assert featurizer.microbatches_run - inner == 3
         assert got.shape == want.shape
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
-    assert mega.graph_captures == 1 and len(mega._graphs) == 1
+    assert _metric("megafusion.graph_captures") - captures0 == 1
+    assert len(mega._graphs) == 1
 
 
 @pytest.mark.cuda
@@ -543,6 +613,8 @@ def test_cuda_warmup_capture_races_an_eager_force(cuda_device):
         featurizer = _k4_featurizer()
         mega = MegafusedBatchTransformer([featurizer], microbatch=512)
         errors = []
+        captures0 = _metric("megafusion.graph_captures")
+        replays0 = _metric("megafusion.graph_replays")
 
         def warm():
             try:
@@ -562,7 +634,8 @@ def test_cuda_warmup_capture_races_an_eager_force(cuda_device):
             got = mega.batch_fn()(x)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, rtol=0, atol=0)
-        assert mega.graph_captures == 1 and mega.graph_replays == 2
+        assert _metric("megafusion.graph_captures") - captures0 == 1
+        assert _metric("megafusion.graph_replays") - replays0 == 2
         ref = weakref.ref(mega)
         del mega, junk, warm
         assert ref() is None
@@ -579,13 +652,16 @@ def test_cuda_megafused_warmup_captures_without_counting(cuda_device):
 
     mega = MegafusedBatchTransformer([_k4_featurizer()], microbatch=512)
     before = chain_kernels.elementwise_chain.launches
+    captures0 = _metric("megafusion.graph_captures")
+    replays0 = _metric("megafusion.graph_replays")
     mega.warmup((32, 32, 3), torch.float32, 700, cuda_device)
     torch.cuda.synchronize()
     assert chain_kernels.elementwise_chain.launches == before
-    assert mega.graph_captures == 1
+    assert _metric("megafusion.graph_captures") - captures0 == 1
     x = torch.rand((700, 32, 32, 3), device=cuda_device) * 255.0
     mega.batch_fn()(x)
-    assert mega.graph_captures == 1 and mega.graph_replays == 1
+    assert _metric("megafusion.graph_captures") - captures0 == 1
+    assert _metric("megafusion.graph_replays") - replays0 == 1
     assert chain_kernels.elementwise_chain.launches == before + 2
 
 
@@ -607,10 +683,12 @@ def test_cuda_megafused_capture_failure_raises(cuda_device):
 
     mega = MegafusedBatchTransformer([_Syncs()], microbatch=64)
     x = torch.ones((10, 4), device=cuda_device)
+    captures0 = _metric("megafusion.graph_captures")
     mega.batch_fn()(x)
     with pytest.raises(RuntimeError):
         mega.batch_fn()(x)
-    assert mega.graph_captures == 0 and not mega._graphs
+    assert _metric("megafusion.graph_captures") == captures0
+    assert not mega._graphs
 
 
 @pytest.mark.cuda
@@ -627,7 +705,7 @@ def test_cuda_host_stream_matches_per_item(cuda_device, overlap):
     items = [rng.random(size=(32, 32, 3)).astype(np.float32) * 255.0
              for _ in range(700)]
     fn = _k4_featurizer().batch_fn()
-    batching.map_host_batched_stream.peak_pinned_bytes = 0
+    pinned = _peak_pinned()
     with config_override(overlap=overlap, megafusion=False,
                          prefetch_depth=2):
         out = batching.map_host_batched(items, fn, chunk=128,
@@ -635,7 +713,7 @@ def test_cuda_host_stream_matches_per_item(cuda_device, overlap):
     torch.cuda.synchronize()
     want = fn(torch.tensor(np.stack(items), device=cuda_device))
     torch.testing.assert_close(torch.stack(out), want, rtol=0, atol=0)
-    peak = batching.map_host_batched_stream.peak_pinned_bytes
+    peak = pinned.max
     chunk_bytes = 128 * items[0].nbytes
     assert (0 < peak <= 3 * chunk_bytes) if overlap else peak == 0
 
@@ -658,18 +736,51 @@ def test_cuda_host_megafused_stream_is_one_replay(cuda_device):
     fbt = _k4_featurizer()
     fn = fbt.batch_fn()
     want = fn(torch.tensor(np.stack(items), device=cuda_device))
+    captures0 = _metric("megafusion.graph_captures")
+    trips0 = _metric("megafusion.scan_trips")
     for call in range(3):
         before = chain_kernels.elementwise_chain.launches
-        replays = fbt.graph_replays
-        batching.map_host_batched_stream.peak_pinned_bytes = 0
+        replays = _metric("megafusion.graph_replays")
+        pinned = _peak_pinned()
         with config_override(megafusion=True, pad_chunks=True, overlap=True):
             out = batching.map_host_batched(items, fn, chunk=128,
                                             device=cuda_device)
         torch.cuda.synchronize()
         assert chain_kernels.elementwise_chain.launches - before == 6
-        assert fbt.graph_captures == (0 if call == 0 else 1)
-        assert fbt.graph_replays - replays == (1 if call == 2 else 0)
-        assert batching.map_host_batched_stream.peak_pinned_bytes == \
-            6 * 128 * items[0].nbytes
+        assert _metric("megafusion.graph_captures") - captures0 == (
+            0 if call == 0 else 1)
+        assert _metric("megafusion.graph_replays") - replays == (
+            1 if call == 2 else 0)
+        assert pinned.max == 6 * 128 * items[0].nbytes
         torch.testing.assert_close(torch.stack(out), want, rtol=0, atol=0)
-    assert fbt.scan_trips == 18
+    assert _metric("megafusion.scan_trips") - trips0 == 18
+
+
+@pytest.mark.cuda
+def test_cuda_decode_flags_the_entries_the_cpu_flags(cuda_device):
+    """`decode_jpeg_batch` for the card: the committed VOC tar with one
+    entry corrupted and one malformed (its SOF0 marker made SOF2: a
+    progressive frame whose scan is a baseline one) gives the CPU's
+    decode, pixel for pixel, on the card: both entries None and left out
+    of ``ok``, the others equal."""
+    import pathlib
+
+    from keystone_tpu_torch.utils import native_io
+
+    res = pathlib.Path(__file__).resolve().parent / "resources"
+    buf = bytearray((res / "voc_mini.tar").read_bytes())
+    entries = [(o, s) for _, o, s in native_io.tar_index(bytes(buf))]
+    off, _ = entries[1]
+    buf[off + 2:off + 40] = b"\0" * 38
+    off, size = entries[2]
+    sof = bytes(buf[off:off + size]).index(b"\xff\xc0")
+    buf[off + sof + 1] = 0xC2
+    got, ok = native_io.decode_jpeg_batch(bytes(buf), entries, cuda_device)
+    want, ok_cpu = native_io.decode_jpeg_batch(bytes(buf), entries, "cpu")
+    assert ok == ok_cpu == len(entries) - 2
+    assert [g is None for g in got] == [w is None for w in want] == \
+        [False, True, True] + [False] * (len(entries) - 3)
+    for g, w in zip(got, want):
+        if g is not None:
+            assert g.device.type == "cuda" and g.dtype == torch.float32
+            assert torch.equal(g.cpu(), w)

@@ -89,3 +89,33 @@ def test_entry_points_raise_without_a_card(tmp_path):
         FittedPipeline.load(path)
     assert resolve_device("cpu") == torch.device("cpu")
     assert isinstance(FittedPipeline.load(path, device="cpu"), FittedPipeline)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_port_file_loads_no_jax_native_library(path):
+    """The port decodes images with its own sources (`csrc/`): no port
+    module, and not `chip_smoke.py`, names the JAX package's
+    `native/libkeystone_io.so` or its `native_io` bindings."""
+    text = path.read_text()
+    assert "libkeystone_io" not in text
+    assert "keystone_tpu.utils.native_io" not in text
+    assert "keystone_tpu.utils import native_io" not in text
+
+
+def test_port_telemetry_loads_nothing_of_jax_s():
+    code = (
+        "import sys\n"
+        "import keystone_tpu_torch.telemetry\n"
+        "import keystone_tpu_torch.telemetry.__main__\n"
+        "import keystone_tpu_torch.utils.native_io\n"
+        "import keystone_tpu_torch.loaders.image_loaders\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'keystone_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

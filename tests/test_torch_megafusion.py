@@ -37,6 +37,7 @@ from keystone_tpu.workflow.analysis import linearize as jax_linearize
 from keystone_tpu.workflow.graph import Graph as JaxGraph
 from keystone_tpu.workflow.graph import NodeId as JaxNodeId
 from keystone_tpu.workflow.operators import DatasetOperator as JaxDatasetOp
+from keystone_tpu_torch.telemetry import metrics_delta
 from keystone_tpu_torch import convert
 from keystone_tpu_torch.data.dataset import Dataset, HostDataset
 from keystone_tpu_torch.nodes.learning import LinearMapEstimator
@@ -254,10 +255,12 @@ def test_megafused_apply_equals_jax(n_test, one_device_mesh):
         StandardScalerModel(convert.to_tensor(scaler.mean, "cpu"),
                             convert.to_tensor(scaler.std, "cpu")),
         convert.linear_mapper(mapper.W, mapper.b, "cpu")])
-    got = mega.batch_fn()(torch.tensor(Xt)).numpy()
+    with metrics_delta() as d:
+        got = mega.batch_fn()(torch.tensor(Xt)).numpy()
     np.testing.assert_allclose(got, want, rtol=0,
                                atol=1e-5 * float(np.abs(want).max()))
-    assert mega.scan_trips == -(-mega.rung(n_test) // mega.microbatch)
+    assert d.counter("megafusion.scan_trips") == \
+        -(-mega.rung(n_test) // mega.microbatch)
 
 
 @pytest.mark.parametrize("n_test", [24, RAGGED_N])
@@ -329,12 +332,15 @@ def test_megafused_cpu_loop_counts_trips():
                                   microbatch=512)
     mega = MegafusedBatchTransformer([inner], microbatch=512)
     x = torch.rand((1100, 7)) + 0.1
-    got = mega.batch_fn()(x)
-    assert mega.scan_trips == 3 and inner.microbatches_run == 3
+    with metrics_delta() as d:
+        got = mega.batch_fn()(x)
+    assert d.counter("megafusion.scan_trips") == 3
+    assert inner.microbatches_run == 3
     want = FusedBatchTransformer([NormalizeRows(), SignedHellingerMapper()],
                                  microbatch=512).batch_fn()(x)
     torch.testing.assert_close(got, want, rtol=0, atol=0)
-    assert mega.graph_captures == mega.graph_replays == 0
+    assert d.counter("megafusion.graph_captures") == \
+        d.counter("megafusion.graph_replays") == 0
 
 
 # ---- the host batcher: a bucket's chunks as one run --------------------------
@@ -356,7 +362,8 @@ def test_host_bucket_scans_as_one_program():
     megafusion off; indices cover range(43); equal values."""
     items = _host_items()
     fbt = _doubler()
-    with config_override(megafusion=True, pad_chunks=True):
+    with config_override(megafusion=True, pad_chunks=True), \
+            metrics_delta() as d:
         seen = {}
         for idxs, payload in batching.map_host_batched_stream(
                 items, fbt.batch_fn(), chunk=CHUNK, device=CPU):
@@ -364,13 +371,16 @@ def test_host_bucket_scans_as_one_program():
             for i, row in zip(idxs, payload):
                 assert i not in seen
                 seen[i] = row
-    assert fbt.scan_trips == 3 and fbt.microbatches_run == 3
+    assert d.counter("megafusion.scan_trips") == 3
+    assert fbt.microbatches_run == 3
     assert sorted(seen) == list(range(RAGGED_N))
     plain = _doubler()
-    with config_override(megafusion=False, pad_chunks=True):
+    with config_override(megafusion=False, pad_chunks=True), \
+            metrics_delta() as d:
         reference = batching.map_host_batched(items, plain.batch_fn(),
                                               chunk=CHUNK, device=CPU)
-    assert plain.scan_trips == 0 and plain.microbatches_run == 3
+    assert d.counter("megafusion.scan_trips") == 0
+    assert plain.microbatches_run == 3
     for i in range(RAGGED_N):
         np.testing.assert_array_equal(seen[i].numpy(),
                                       reference[i].numpy())

@@ -77,7 +77,7 @@ from keystone_tpu_torch.workflow import (
     Transformer,
 )
 from keystone_tpu_torch.workflow import autocache as ac
-from keystone_tpu_torch.workflow import executor as port_executor
+from keystone_tpu_torch.telemetry import instrument as port_instrument
 from keystone_tpu_torch.workflow.analysis import linearize
 from keystone_tpu_torch.workflow.autocache import (
     Profile,
@@ -263,7 +263,7 @@ def test_profile_nodes_attributes_compute_to_slow_node(monkeypatch):
     (on a fake clock) and the cheap node's 1 ms, extrapolated from two
     sample scales to the 64 rows; bytes are its output's."""
     clock = _FakeClock()
-    monkeypatch.setattr(port_executor, "time", clock)
+    monkeypatch.setattr(port_instrument, "perf_counter", clock.perf_counter)
 
     class Slow(Transformer):
         def apply_batch(self, data):

@@ -53,7 +53,6 @@ from keystone_tpu_torch.workflow import (
     DefaultOptimizer,
     Estimator,
     Graph,
-    GraphExecutor,
     Pipeline,
     PipelineEnv,
     Transformer,
@@ -79,6 +78,13 @@ def _clean_env():
     JaxPipelineEnv.reset()
     executor_mod.drain_warmups(timeout=30.0)
     assert not _runtime_threads()
+
+
+def _count(name: str) -> float:
+    """A process-wide counter of the port's metrics registry."""
+    from keystone_tpu_torch.telemetry import counter
+
+    return counter(name).value
 
 
 def _runtime_threads():
@@ -123,16 +129,16 @@ def test_deterministic_across_worker_counts():
 
 
 def test_scheduler_actually_ran():
-    before = GraphExecutor.scheduler_runs
+    before = _count("dispatch.scheduler_runs")
     with dispatch_override(True, workers=4):
         _gather_pipeline()(Dataset(np.ones((8, 4), np.float32),
                                    device=CPU)).get()
-    assert GraphExecutor.scheduler_runs > before
+    assert _count("dispatch.scheduler_runs") > before
     with dispatch_override(True, workers=1):
-        runs = GraphExecutor.scheduler_runs
+        runs = _count("dispatch.scheduler_runs")
         _gather_pipeline()(Dataset(np.ones((8, 4), np.float32),
                                    device=CPU)).get()
-    assert GraphExecutor.scheduler_runs == runs  # one worker is serial
+    assert _count("dispatch.scheduler_runs") == runs  # one worker is serial
 
 
 class _Boom(Transformer):
@@ -594,7 +600,7 @@ def test_warmup_runs_uncounted_and_failures_are_counted(monkeypatch):
         assert fbt.microbatches_run == 0
         out = expr.get.numpy()
         assert fbt.microbatches_run == 3
-    failures = GraphExecutor.warmup_failures
+    failures = _count("dispatch.warmup_failures")
 
     def broken(*args, **kwargs):
         raise RuntimeError("warm-up failed (simulated)")
@@ -604,13 +610,13 @@ def test_warmup_runs_uncounted_and_failures_are_counted(monkeypatch):
     with config_override(aot_warmup=True):
         got = bad(ds).get().numpy()
         executor_mod.drain_warmups(timeout=30.0)
-    assert GraphExecutor.warmup_failures == failures + 1
+    assert _count("dispatch.warmup_failures") == failures + 1
     np.testing.assert_array_equal(got, out)
     with config_override(aot_warmup=False):
-        before = GraphExecutor.warmup_failures
+        before = _count("dispatch.warmup_failures")
         bad(ds).get()
         executor_mod.drain_warmups(timeout=30.0)
-        assert GraphExecutor.warmup_failures == before
+        assert _count("dispatch.warmup_failures") == before
 
 
 def test_tally_loses_no_count_under_thread_switches():
@@ -619,7 +625,7 @@ def test_tally_loses_no_count_under_thread_switches():
     at the exact total; a thread's sink keeps its counts apart."""
     import sys
 
-    from keystone_tpu_torch.ops.kernels import tallied, tally
+    from keystone_tpu_torch.telemetry.metrics import tallied, tally
 
     class Counter:
         launches = 0
@@ -669,13 +675,13 @@ def test_a_chain_of_tasks_starts_no_pool():
     with dispatch_override(False):
         reference = pipe(train).get().numpy()
     PipelineEnv.reset()
-    runs = GraphExecutor.scheduler_runs
+    runs = _count("dispatch.scheduler_runs")
     with dispatch_override(True, workers=4):
         res = pipe(train)
         out = res.get().numpy()
         graph = res.executor.optimized_graph
         tasks, eff = res.executor._schedule_plan(res.sink, graph)
-    assert GraphExecutor.scheduler_runs == runs
+    assert _count("dispatch.scheduler_runs") == runs
     np.testing.assert_array_equal(out, reference)
     assert _sequential(["a", "b", "c"], {"a": set(), "b": {"a"},
                                          "c": {"b"}})

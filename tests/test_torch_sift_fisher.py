@@ -393,20 +393,6 @@ def test_launcher_runs_voc_as_a_module():
     assert "mAP=" in out.stdout
 
 
-@pytest.mark.parametrize("call", [
-    lambda: voc.run(voc.VOCSIFTFisherConfig(train_tar="voc.tar"),
-                    device="cpu"),
-    lambda: voc.main(["--train-tar", "voc.tar", "--device", "cpu"]),
-    lambda: imagenet.run(imagenet.ImageNetSiftLcsFVConfig(
-        train_tar="imagenet.tar"), device="cpu"),
-    lambda: imagenet.main(["--train-tar", "imagenet.tar", "--device",
-                           "cpu"]),
-], ids=["voc_run", "voc_main", "imagenet_run", "imagenet_main"])
-def test_train_tar_raises_until_the_loaders_are_ported(call):
-    with pytest.raises(NotImplementedError, match="image loaders"):
-        call()
-
-
 def test_sift_fisher_entry_points_raise_without_a_card(tmp_path):
     """Left at ``device="cuda"``, each new entry point raises with no
     card instead of running on the CPU."""
