@@ -245,6 +245,35 @@ Phases, each printed on a line of its own:
               within its capacity; 200 requests of 64 images to a fitted
               LinearPixels with the live plane off and on (off, on, on,
               off) and `health()`'s p50 and p99 per padded shape.
+26. serving - the KP9xx certifier and `ServingRuntime` on the card: the
+              seven `analyzable()` examples certified with the card's
+              calibration (each verdict, its KP9xx findings and its
+              certified bounds at 1 and 64 rows, held to
+              `SERVING_CARD_VERDICTS`, which the CPU tests pin too);
+              RandomPatchCifar at full width (256 filters, fit on the
+              50,000 images, its scores saved and loaded onto the card)
+              served from envelope max_batch 64 (ladder 1, 2, 4 ... 64):
+              2,000 single test images from 8 client threads, each answer
+              within 1e-4 of max|score| of the batch apply's and the same
+              class, no dispatch off the ladder, after `start()` no graph
+              capture, no cold compile record and no launch-plan build,
+              every dispatch one replay and K1's launches a whole number
+              of them, no watchdog breach; requests/s, p50/p99 a request,
+              the coalesced batches, synchronizing calls a dispatch, and
+              each rung's observed p50/p99 a dispatch (20 straight
+              dispatches at each rung, and at 3 and 11 rows) beside its
+              certified bound; a hot swap mid-traffic to a fit on other
+              labels (no request lost, every answer one version's, the
+              new version's captures on the swapping thread, none on the
+              dispatcher's); the kill switch (64 requests under 8 threads,
+              each the per-row apply bit for bit); a burst of 32 into a
+              queue of depth 4 (sheds counted and flight-dumped, the
+              answered ones right); LinearPixels' classes served through
+              K4 replays (500 requests); Newsgroups through `TextIngress`
+              and `split_fitted_at` (host tokens at ingress, the naive
+              Bayes tail on the card, classes equal to the direct apply);
+              `TenantRegistry` admitting the RandomPatchCifar runtime at
+              its priced peak and refusing it one byte under.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The process-wide prefix table (`PipelineEnv`) is reset before each
@@ -272,6 +301,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import traceback
 import warnings
@@ -493,6 +523,31 @@ MINI_PCA_DIMS, MINI_GMM_K = 8, 4
 # phase 25
 TRACE_PAIRS = 3
 REQUESTS, REQUEST_ROWS = 200, 64
+
+# the serving phase (26): single-image requests from the test set, client
+# threads, the envelope's largest batch (the ladder 1, 2, 4 ... 64); the
+# kill switch's, the burst's and LinearPixels' requests; Newsgroups'
+# synthetic training documents and requests; seconds of traffic on each
+# side of the hot swap; served scores against the batch apply, relative
+# to the largest score
+SERVE_REQUESTS, SERVE_CLIENTS, SERVE_MAX_BATCH = 2000, 8, 64
+SERVE_KILL_REQUESTS, SERVE_SHED_DEPTH, SERVE_SHED_BURST = 64, 4, 32
+SERVE_LP_REQUESTS, SERVE_NEWS_DOCS, SERVE_NEWS_REQUESTS = 500, 2000, 64
+SERVE_SWAP_SECONDS = 0.5
+SERVE_RUNG_REPS = 20
+SERVE_SCORE_RTOL = 1e-4
+#: each example's certificate under the card's calibration: (certified,
+#: its KP9xx [rule, severity] pairs); tests/test_torch_serving.py pins the
+#: same table on the CPU with the calibration's rates
+SERVING_CARD_VERDICTS = {
+    "MnistRandomFFT": (True, [["KP902", "INFO"], ["KP903", "INFO"]]),
+    "RandomPatchCifar": (True, [["KP902", "INFO"], ["KP903", "INFO"]]),
+    "LinearPixels": (True, [["KP902", "INFO"], ["KP903", "INFO"]]),
+    "TimitPipeline": (True, [["KP902", "INFO"], ["KP903", "INFO"]]),
+    "NewsgroupsPipeline": (False, [["KP901", "ERROR"]]),
+    "VOCSIFTFisher": (True, [["KP902", "WARNING"], ["KP903", "INFO"]]),
+    "ImageNetSiftLcsFV": (True, [["KP902", "WARNING"], ["KP903", "INFO"]]),
+}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2317,6 +2372,412 @@ def telemetry_phase(dev, train, test, config, card, compiles_after_build,
     return traced[1]
 
 
+def serving_phase(dev, train, test, config, card) -> dict:
+    """Phase 26: certified serving on the card (see the module docstring);
+    returns the kernels' launches in the served traffic."""
+    from keystone_tpu_torch.analysis import ServingEnvelope
+    from keystone_tpu_torch.analysis.examples import EXAMPLES
+    from keystone_tpu_torch.analysis.serving import certify_example
+    from keystone_tpu_torch.data.dataset import Dataset, HostDataset
+    from keystone_tpu_torch.ops import chain_kernels, kernels
+    from keystone_tpu_torch.pipelines.cifar_variants import (
+        LinearPixelsConfig,
+        build_linear_pixels,
+    )
+    from keystone_tpu_torch.pipelines.random_patch_cifar import build_pipeline
+    from keystone_tpu_torch.pipelines.text_pipelines import (
+        build_newsgroups_predictor,
+        synthetic_corpus,
+    )
+    from keystone_tpu_torch.serving import (
+        AdmissionRefused,
+        NdarrayIngress,
+        ServingRuntime,
+        ShedError,
+        TenantRegistry,
+        TextIngress,
+        split_fitted_at,
+    )
+    from keystone_tpu_torch.loaders.csv_loader import LabeledData
+    from keystone_tpu_torch.telemetry import compiles_snapshot, counter
+    from keystone_tpu_torch.telemetry import histogram
+    from keystone_tpu_torch.telemetry.watchdog import _padded_shape
+    from keystone_tpu_torch.utils import graphs
+    from keystone_tpu_torch.workflow import FittedPipeline, PipelineEnv
+    from keystone_tpu_torch.workflow.env import config_override
+
+    t_phase = time.perf_counter()
+
+    def count(name):
+        return counter(name).value
+
+    def cold():
+        return compiles_snapshot()["programs_compiled"]
+
+    # ---- the seven examples certified with the card's calibration
+    certs = {}
+    for ex in EXAMPLES:
+        cert, diags = certify_example(ex, device=dev)
+        rules = sorted({(d.rule, d.severity.name) for d in diags
+                        if d.rule.startswith("KP9")})
+        bound = {s["batch"]: s["predicted_seconds"] for s in cert.shapes}
+        certs[ex] = dict(certified=cert.certified,
+                         rules=[f"{r}:{sev}" for r, sev in rules],
+                         bound_ms_1=1e3 * bound[1],
+                         bound_ms_64=1e3 * bound[SERVE_MAX_BATCH],
+                         dominating_stage=cert.dominating_stage)
+        check((cert.certified, [list(r) for r in rules])
+              == SERVING_CARD_VERDICTS[ex],
+              f"{ex}: certified {cert.certified} with {rules}, the CPU "
+              f"tests pin {SERVING_CARD_VERDICTS[ex]}")
+
+    # captures made, and by which thread: a swap must capture on its own
+    captured_on = []
+    capture_init = graphs.CapturedLoop.__init__
+
+    def recording_init(self, *args, **kwargs):
+        captured_on.append(threading.current_thread().name)
+        capture_init(self, *args, **kwargs)
+
+    graphs.CapturedLoop.__init__ = recording_init
+
+    def fit_loaded(build, data, tmp, tag, scores=True):
+        """``build`` fit on ``data`` (its argmax cut off for ``scores``),
+        saved and loaded onto the card."""
+        PipelineEnv.reset()
+        pipeline = build(data)
+        fitted = (without_argmax(pipeline) if scores else pipeline).fit()
+        path = os.path.join(tmp, f"{tag}.pkl")
+        fitted.save(path)
+        del fitted
+        PipelineEnv.reset()
+        return FittedPipeline.load(path, device=dev)
+
+    def fire(rt, rows, clients, timeout=120.0):
+        """``rows`` submitted from ``clients`` threads: (answers, each
+        request's seconds, errors)."""
+        answers, seconds, errors = {}, {}, []
+        todo = list(range(len(rows)))
+        lock = threading.Lock()
+
+        def client():
+            while True:
+                with lock:
+                    if not todo:
+                        return
+                    i = todo.pop()
+                t0 = time.perf_counter()
+                try:
+                    answers[i] = rt.submit(rows[i], timeout=timeout)
+                except Exception as e:  # recorded, checked below
+                    errors.append((i, repr(e)))
+                seconds[i] = time.perf_counter() - t0
+
+        threads = [threading.Thread(target=client) for _ in range(clients)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return answers, seconds, errors
+
+    def pct(values, q):
+        return float(np.percentile(np.asarray(values), q)) if values else None
+
+    envelope = ServingEnvelope(max_batch=SERVE_MAX_BATCH, slo_seconds=1.0)
+    x_img = test.data.array[:SERVE_REQUESTS].cpu().numpy()
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            # ---- RandomPatchCifar at full width
+            t0 = time.perf_counter()
+            rpc = fit_loaded(lambda d: build_pipeline(d, config), train, tmp,
+                             "rpc_a")
+            shifted = LabeledData(
+                Dataset((train.labels.array + 1) % config.num_classes),
+                train.data)
+            rpc_b = fit_loaded(lambda d: build_pipeline(d, config), shifted,
+                               tmp, "rpc_b")
+            fit_seconds = time.perf_counter() - t0
+            ref = rpc.apply(Dataset(x_img, device=dev)).array.cpu().numpy()
+            ref_b = rpc_b.apply(Dataset(x_img, device=dev)).array.cpu().numpy()
+            scale = float(np.abs(ref).max())
+            rt = ServingRuntime(rpc, NdarrayIngress(x_img.shape[1:]),
+                                envelope=envelope, name="RandomPatchCifar",
+                                device=dev)
+            t0 = time.perf_counter()
+            rt.start()
+            start_seconds = time.perf_counter() - t0
+            start_captures = len(captured_on)
+            rungs = {}
+            apply_fn = rt._batcher.apply_fn
+
+            def timed(stacked):
+                t = time.perf_counter()
+                y = apply_fn(stacked)
+                rungs.setdefault(_padded_shape(len(stacked)), []).append(
+                    time.perf_counter() - t)
+                return y
+
+            rt._batcher.apply_fn = timed
+            coalesced = histogram("serving.coalesced_batch")
+            coalesced.reset()
+            kernels.reset_launches()
+            before = {n: count(n) for n in (
+                "megafusion.graph_captures", "megafusion.graph_replays",
+                "kernels.chain_plan_builds", "serving.dispatches",
+                "serving.slo_breaches")}
+            cold0, captures0 = cold(), len(captured_on)
+            t0 = time.perf_counter()
+            answers, seconds, errors = fire(rt, x_img, SERVE_CLIENTS)
+            serve_seconds = time.perf_counter() - t0
+            k1 = kernels.conv_rectify_pool.launches
+            delta = {n: count(n) - v for n, v in before.items()}
+            check(not errors, f"serving errors: {errors[:3]}")
+            got = np.stack([answers[i] for i in range(len(x_img))])
+            err = float(np.abs(got - ref).max())
+            check(err <= SERVE_SCORE_RTOL * scale,
+                  f"served scores differ from the batch apply by {err} "
+                  f"(limit {SERVE_SCORE_RTOL} x {scale})")
+            check((got.argmax(1) == ref.argmax(1)).all(),
+                  "a served class differs from the batch apply's")
+            stats = rt.stats()
+            check(stats["dispatched_outside_ladder"] == [],
+                  f"dispatched off the ladder: {stats}")
+            check(delta["megafusion.graph_captures"] == 0
+                  and cold() == cold0 and len(captured_on) == captures0,
+                  f"captures or cold records after start(): {delta}")
+            check(delta["kernels.chain_plan_builds"] == 0,
+                  "launch plans built after start()")
+            check(delta["megafusion.graph_replays"]
+                  == delta["serving.dispatches"] > 0,
+                  f"a dispatch that is no replay: {delta}")
+            replays = delta["megafusion.graph_replays"]
+            check(k1 > 0 and k1 % replays == 0,
+                  f"K1 launches {k1} for {replays} replays")
+            check(delta["serving.slo_breaches"] == 0,
+                  f"the watchdog recorded {delta['serving.slo_breaches']} "
+                  "breaches")
+            # every rung of the ladder, and two ragged counts, dispatched
+            # straight: replays, and no capture
+            kernels.reset_launches()
+            replays0 = count("megafusion.graph_replays")
+            for b in rt.stats()["ladder"] + [3, 11]:
+                for _ in range(SERVE_RUNG_REPS):
+                    t = time.perf_counter()
+                    y = rt._apply_batch(x_img[:b])
+                    rungs.setdefault(_padded_shape(b), []).append(
+                        time.perf_counter() - t)
+                check(np.abs(y - ref[:b]).max() <= SERVE_SCORE_RTOL * scale,
+                      f"a {b}-row dispatch differs from the batch apply")
+            sweep_replays = count("megafusion.graph_replays") - replays0
+            check(count("megafusion.graph_captures")
+                  == before["megafusion.graph_captures"]
+                  and cold() == cold0
+                  and kernels.conv_rectify_pool.launches
+                  == sweep_replays * (k1 // max(1, replays)),
+                  "the ladder sweep captured, or launched K1 off its replays")
+            syncs, n_syncs = count_syncs(
+                lambda: rt._apply_batch(x_img[:SERVE_MAX_BATCH]))
+            bounds = {s["batch"]: s["predicted_seconds"]
+                      for s in rt.certificate.shapes}
+            out["rpc"] = dict(
+                fit_seconds=fit_seconds, start_seconds=start_seconds,
+                start_captures=start_captures,
+                warmed_sites=rt.warmed_sites, requests=len(x_img),
+                clients=SERVE_CLIENTS, seconds=serve_seconds,
+                requests_per_sec=len(x_img) / serve_seconds,
+                p50_ms=1e3 * pct(list(seconds.values()), 50),
+                p99_ms=1e3 * pct(list(seconds.values()), 99),
+                max_abs_err=err, max_abs_score=scale,
+                coalesced_batch=coalesced.snapshot(),
+                dispatches=delta["serving.dispatches"], replays=replays,
+                k1=k1, k1_per_replay=k1 // max(1, replays),
+                syncs_per_dispatch=n_syncs, syncs=syncs,
+                rungs={str(b): dict(
+                    dispatches=len(v), p50_ms=1e3 * pct(v, 50),
+                    p99_ms=1e3 * pct(v, 99),
+                    certified_bound_ms=1e3 * bounds[b])
+                    for b, v in sorted(rungs.items())},
+                dispatched_shapes=stats["dispatched_shapes"])
+            rt._batcher.apply_fn = apply_fn
+            k1_serving = k1
+
+            # ---- hot swap mid-traffic to the fit on other labels
+            stop = threading.Event()
+            outcomes, swap_errors = [], []
+
+            def swap_client(i):
+                while not stop.is_set():
+                    j = i % len(x_img)
+                    try:
+                        y = rt.submit(x_img[j])
+                    except Exception as e:
+                        swap_errors.append(repr(e))
+                        return
+                    outcomes.append((
+                        bool(np.abs(y - ref[j]).max()
+                             <= SERVE_SCORE_RTOL * scale),
+                        bool(np.abs(y - ref_b[j]).max()
+                             <= SERVE_SCORE_RTOL * scale)))
+                    i += SERVE_CLIENTS
+
+            threads = [threading.Thread(target=swap_client, args=(i,))
+                       for i in range(SERVE_CLIENTS)]
+            for t in threads:
+                t.start()
+            time.sleep(SERVE_SWAP_SECONDS)
+            swap_captures0 = len(captured_on)
+            rt.swap(rpc_b)
+            swap_threads = set(captured_on[swap_captures0:])
+            time.sleep(SERVE_SWAP_SECONDS)
+            stop.set()
+            for t in threads:
+                t.join()
+            post = rt.submit(x_img[5])
+            check(not swap_errors, f"hot swap lost requests: "
+                  f"{swap_errors[:3]}")
+            check(outcomes and all(a or b for a, b in outcomes),
+                  "an answer during the swap is from neither version")
+            check(any(b and not a for a, b in outcomes),
+                  "no answer came from the new version")
+            check(np.abs(post - ref_b[5]).max() <= SERVE_SCORE_RTOL * scale,
+                  "after the swap an answer is not the new version's")
+            check(not any(t.endswith("-batcher") for t in swap_threads),
+                  f"a capture on the dispatcher's thread: {swap_threads}")
+            out["hot_swap"] = dict(
+                answers=len(outcomes),
+                old=sum(a for a, _ in outcomes),
+                new=sum(b and not a for a, b in outcomes),
+                captures=len(captured_on) - swap_captures0,
+                capture_threads=sorted(swap_threads),
+                hot_swaps=count("serving.hot_swaps"))
+            rt.stop()
+
+            # ---- the kill switch: each request on its caller's thread
+            with config_override(serving_coalesce=False):
+                rt_k = ServingRuntime(rpc, NdarrayIngress(x_img.shape[1:]),
+                                      envelope=envelope, name="kill",
+                                      device=dev).start()
+            rows = x_img[:SERVE_KILL_REQUESTS]
+            direct = [rpc.apply(Dataset(rows[i:i + 1], device=dev))
+                      .array.cpu().numpy()[0] for i in range(len(rows))]
+            answers, _, errors = fire(rt_k, rows, SERVE_CLIENTS)
+            rt_k.stop()
+            check(not errors, f"kill-switch errors: {errors[:3]}")
+            check(all(np.array_equal(answers[i], direct[i])
+                      for i in range(len(rows))),
+                  "a kill-switch answer is not the per-row apply bit for bit")
+            check(rt_k.stats()["dispatched_shapes"] == [1],
+                  f"kill switch dispatched {rt_k.stats()}")
+            out["kill_switch"] = dict(requests=len(rows), bit_for_bit=True)
+
+            # ---- shed: a burst into a queue of depth 4
+            flight_dir = os.path.join(tmp, "flight")
+            os.makedirs(flight_dir)
+            os.environ["KEYSTONE_FLIGHT_DIR"] = flight_dir
+            with config_override(serving_queue_depth=SERVE_SHED_DEPTH):
+                rt_s = ServingRuntime(rpc, NdarrayIngress(x_img.shape[1:]),
+                                      envelope=envelope, name="shed",
+                                      device=dev).start()
+            shed0 = count("serving.shed_total")
+            rows = x_img[:SERVE_SHED_BURST]
+            answers, _, errors = fire(rt_s, rows, SERVE_SHED_BURST)
+            rt_s.stop()
+            del os.environ["KEYSTONE_FLIGHT_DIR"]
+            shed = count("serving.shed_total") - shed0
+            dumps = [f for f in os.listdir(flight_dir) if "_shed" in f]
+            wrong = [i for i, y in answers.items()
+                     if np.abs(y - ref[i]).max() > SERVE_SCORE_RTOL * scale]
+            check(shed > 0 and dumps, f"no shed ({shed}) or no flight dump")
+            check(all("ShedError" in e for _, e in errors),
+                  f"a burst request failed otherwise: {errors[:3]}")
+            check(not wrong, f"answered requests wrong: {wrong[:5]}")
+            out["shed"] = dict(burst=len(rows), queue_depth=SERVE_SHED_DEPTH,
+                               shed=shed, answered=len(answers),
+                               flight_dumps=len(dumps))
+
+            # ---- LinearPixels: K4 in its replays. Its classes are served:
+            # without the argmax, the optimizer's megafusion stops before
+            # the fitted map (no member follows the fit)
+            lp = fit_loaded(lambda d: build_linear_pixels(
+                d, LinearPixelsConfig()), train, tmp, "lp", scores=False)
+            rows = x_img[:SERVE_LP_REQUESTS]
+            lp_ref = lp.apply(Dataset(rows, device=dev)).array.cpu().numpy()
+            rt_lp = ServingRuntime(lp, NdarrayIngress(rows.shape[1:]),
+                                   envelope=envelope, name="LinearPixels",
+                                   device=dev).start()
+            kernels.reset_launches()
+            replays0 = count("megafusion.graph_replays")
+            captures0 = count("megafusion.graph_captures")
+            t0 = time.perf_counter()
+            answers, seconds, errors = fire(rt_lp, rows, SERVE_CLIENTS)
+            lp_seconds = time.perf_counter() - t0
+            k4 = chain_kernels.elementwise_chain.launches
+            replays = count("megafusion.graph_replays") - replays0
+            check(not errors, f"LinearPixels errors: {errors[:3]}")
+            got = np.stack([answers[i] for i in range(len(rows))])
+            lp_wrong = int((got != lp_ref).sum())
+            check(lp_wrong == 0,
+                  f"LinearPixels: {lp_wrong} served classes differ from the "
+                  "batch apply's")
+            check(k4 > 0 and replays > 0 and k4 % replays == 0
+                  and count("megafusion.graph_captures") == captures0,
+                  f"LinearPixels: K4 {k4} in {replays} replays")
+            out["linear_pixels"] = dict(
+                requests=len(rows), seconds=lp_seconds,
+                requests_per_sec=len(rows) / lp_seconds,
+                p50_ms=1e3 * pct(list(seconds.values()), 50),
+                p99_ms=1e3 * pct(list(seconds.values()), 99),
+                classes_differing=lp_wrong, k4=k4, replays=replays,
+                peak_bytes=rt_lp.certificate.per_device_peak_bytes)
+            k4_serving = k4
+
+            # ---- tenants priced against a stated budget (KP905)
+            peak = rt.certificate.per_device_peak_bytes
+            fits = TenantRegistry(hbm_budget_bytes=peak)
+            fits.admit("RandomPatchCifar", rt)
+            tight = TenantRegistry(hbm_budget_bytes=peak - 1)
+            try:
+                tight.admit("RandomPatchCifar", rt)
+                refused = False
+            except AdmissionRefused:
+                refused = True
+            check(refused and fits.tenants() == ["RandomPatchCifar"],
+                  "the registry did not refuse the over-budget tenant")
+            out["registry"] = dict(peak_bytes=peak, admitted=fits.tenants(),
+                                   refused_at=peak - 1)
+            rt_lp.stop()
+
+        # ---- Newsgroups: host tokens at ingress, the device tail served
+        labels, docs = synthetic_corpus(SERVE_NEWS_DOCS, NEWS_CLASSES)
+        docs = HostDataset(docs.items, device=dev)
+        PipelineEnv.reset()
+        news = build_newsgroups_predictor(docs, labels, NEWS_CLASSES).fit()
+        doc_list = list(docs)[:SERVE_NEWS_REQUESTS]
+        direct = [int(news.apply(d)) for d in doc_list]
+        host_ops, tail = split_fitted_at(news, "NaiveBayesModel")
+        ingress = TextIngress(host_ops)
+        rt_n = ServingRuntime(tail, ingress,
+                              element_shape=ingress.accept(doc_list[0]).shape,
+                              envelope=envelope, name="Newsgroups",
+                              device=dev).start()
+        answers, _, errors = fire(rt_n, doc_list, SERVE_CLIENTS)
+        rt_n.stop()
+        check(rt_n.certificate.certified, "the Newsgroups tail did not "
+              "certify")
+        check(not errors and all(int(answers[i]) == direct[i]
+                                 for i in range(len(doc_list))),
+              f"Newsgroups served classes differ: {errors[:3]}")
+        out["newsgroups"] = dict(
+            requests=len(doc_list), host_stages=[op.label for op in host_ops],
+            features=int(ingress.accept(doc_list[0]).shape[0]))
+    finally:
+        graphs.CapturedLoop.__init__ = capture_init
+    phase("serving", certificates=certs, **out,
+          seconds=time.perf_counter() - t_phase, card=card)
+    return dict(k1=k1_serving, k4=k4_serving)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -3431,6 +3892,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     telemetry_k1 = telemetry_phase(dev, train, test, config, card,
                                    compiles_after_build, runtime)
+    torch.cuda.empty_cache()
+
+    # ---- 26. serving ----------------------------------------------------------
+    serving = serving_phase(dev, train, test, config, card)
 
     record = {"kernels": [
         dict(name="conv_rectify_pool", route="cuda",
@@ -3446,6 +3911,7 @@ def main() -> int:
              launches_by_path=dict(
                  slice=k1_launches, kernel_cifar=kc_k1, fused=fused_k1,
                  runtime=runtime["k1"], telemetry=telemetry_k1,
+                 serving=serving["k1"],
                  random_cifar=rc_k1, augmented=ag_k1,
                  augmented_kernel=ak_k1),
              ptxas=regs["conv_rectify_pool"]),
@@ -3468,7 +3934,8 @@ def main() -> int:
                                    imagenet=imagenet_k4,
                                    workflow=workflow_k4,
                                    runtime=runtime["k4"],
-                                   voc_tar=loaders["voc_big_k4"]),
+                                   voc_tar=loaders["voc_big_k4"],
+                                   serving=serving["k4"]),
              max_abs_err=k4["max_abs_err"],
              rel_err=k4["rel_err"], tolerance_rel=K4_TOL, ms=k4["ms"],
              device_ms=k4["device_ms"],

@@ -1,9 +1,25 @@
-"""Static checks of a pipeline's graph.
+"""Static pipeline analyzer: check pipelines abstractly, before any data
+loads.
 
-Counterpart of the structural tier of `keystone_tpu/analysis`
-(`structural_report`, `analysis/__init__.py:225`). The spec, memory,
-sharding and roofline tiers are not ported (ROADMAP queue 1).
+Counterpart of `keystone_tpu/analysis/__init__.py:1-298`. The tiers the
+port runs, cumulative by level: ``"structure"`` (topology lints, the
+check `GraphExecutor` runs before the first force) ⊂ ``"specs"``
+(shapes and dtypes propagated by running stage bodies on meta tensors)
+⊂ ``"memory"`` (live-memory estimates) ⊂ ``"full"`` (donation and
+streaming hazards, KP401, KP511 where the concurrent scheduler is on,
+the roofline, and the serving certificate where an envelope is
+declared).
+
+Entry points: ``Pipeline.validate(source_spec, level=..., serving=...)``
+and ``validate_graph(graph, source_specs, ...)``. The JAX package's
+contract (KP5xx), sharding (KP6xx), precision (KP7xx) and kernel-proof
+(KP10xx) tiers, its unified planner and its CLI are not ported (ROADMAP
+queue 1, item 8); nothing runs in their place.
 """
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Optional
 
 from .diagnostics import (
     RULES,
@@ -12,7 +28,107 @@ from .diagnostics import (
     Severity,
     ValidationReport,
 )
-from .propagate import structural_pass, toposort
+from .effects import class_effects, interference_pass, operator_effects
+from .hazards import hazard_pass, megafusion_pass
+from .memory import MemoryEstimate, memory_pass, resolve_chunk_rows
+from .propagate import spec_pass, structural_pass, toposort
+from .roofline import (
+    Machine,
+    RooflineEstimate,
+    StageRoofline,
+    default_machine,
+    roofline_pass,
+    stage_cost,
+)
+from .serving import (
+    ServingCertificate,
+    ServingEnvelope,
+    certify_example,
+    envelope_from_env,
+    ladder_shapes,
+    serving_pass,
+    warmup_manifest,
+)
+from .specs import (
+    UNKNOWN,
+    DataSpec,
+    ShapeDtype,
+    SpecDataset,
+    SpecMismatchError,
+    TransformerSpec,
+    as_source_spec,
+    element_nbytes,
+    shape_struct,
+    spec_of,
+)
+
+LEVELS = ("structure", "specs", "memory", "full")
+
+
+def validate_graph(
+    graph,
+    source_specs: Optional[Dict] = None,
+    *,
+    level: str = "full",
+    ignore: Iterable[str] = (),
+    hbm_budget_bytes: Optional[int] = None,
+    chunk_rows: Optional[int] = None,
+    serving=None,
+) -> ValidationReport:
+    """Run the analyzer tiers up to ``level`` over a lowered graph
+    (`keystone_tpu/analysis/__init__.py:105-224`).
+
+    ``source_specs`` maps each unbound `SourceId` to its input spec
+    (anything `as_source_spec` accepts); unlisted sources are UNKNOWN.
+    ``serving`` (level "full") is a `ServingEnvelope` arming the KP9xx
+    certifier; None falls back to ``KEYSTONE_SLO_MS``, and with neither
+    the serving tier is skipped. Touches no data and no device."""
+    if level not in LEVELS:
+        raise ValueError(f"level must be one of {LEVELS}, got {level!r}")
+    tier = LEVELS.index(level)
+
+    diags = list(structural_pass(graph))
+    specs: Dict = {}
+    memory: Optional[MemoryEstimate] = None
+    roofline = None
+
+    if tier >= 1:
+        normalized = {src: as_source_spec(s)
+                      for src, s in (source_specs or {}).items()}
+        specs, spec_diags = spec_pass(graph, normalized)
+        # cycles are the structural pass's finding already
+        diags.extend(d for d in spec_diags if d.rule != "KP001")
+    if tier >= 2:
+        memory, mem_diags = memory_pass(
+            graph, specs, hbm_budget_bytes=hbm_budget_bytes,
+            chunk_rows=chunk_rows)
+        diags.extend(mem_diags)
+    serving_cert = None
+    if tier >= 3:
+        from ..workflow.env import execution_config
+
+        cfg = execution_config()
+        diags.extend(hazard_pass(graph, specs, overlap=cfg.overlap))
+        if cfg.megafusion:
+            diags.extend(megafusion_pass(graph))
+        if cfg.concurrent_dispatch:
+            # KP511 matters only while the scheduler can force unordered
+            # vertices at once
+            diags.extend(interference_pass(graph))
+        roofline, roof_diags = roofline_pass(graph, specs,
+                                             chunk_rows=chunk_rows)
+        diags.extend(roof_diags)
+        envelope = serving if serving is not None else envelope_from_env()
+        if envelope is not None:
+            serving_cert, serve_diags = serving_pass(
+                graph, specs, envelope, memory=memory, roofline=roofline,
+                hbm_budget_bytes=hbm_budget_bytes, chunk_rows=chunk_rows)
+            diags.extend(serve_diags)
+
+    report = ValidationReport(diags, specs=specs, memory=memory,
+                              level=level, roofline=roofline,
+                              serving=serving_cert)
+    return report.filter(ignore) if ignore else report
 
 
 def structural_report(graph) -> ValidationReport:
@@ -22,6 +138,15 @@ def structural_report(graph) -> ValidationReport:
 
 
 __all__ = [
-    "Diagnostic", "PipelineValidationError", "RULES", "Severity",
-    "ValidationReport", "structural_pass", "structural_report", "toposort",
+    "DataSpec", "Diagnostic", "LEVELS", "Machine", "MemoryEstimate",
+    "PipelineValidationError", "RULES", "RooflineEstimate",
+    "ServingCertificate", "ServingEnvelope", "Severity", "ShapeDtype",
+    "SpecDataset", "SpecMismatchError", "StageRoofline", "TransformerSpec",
+    "UNKNOWN", "ValidationReport", "as_source_spec", "certify_example",
+    "class_effects", "default_machine", "element_nbytes",
+    "envelope_from_env", "hazard_pass", "interference_pass",
+    "ladder_shapes", "megafusion_pass", "memory_pass", "operator_effects",
+    "resolve_chunk_rows", "roofline_pass", "serving_pass", "shape_struct",
+    "spec_of", "spec_pass", "stage_cost", "structural_pass",
+    "structural_report", "toposort", "validate_graph", "warmup_manifest",
 ]

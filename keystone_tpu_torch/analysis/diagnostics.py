@@ -1,19 +1,21 @@
-"""Diagnostics of the structural pipeline check.
+"""Diagnostics of the static pipeline analyzer.
 
 Counterpart of `keystone_tpu/analysis/diagnostics.py` (`Severity`,
 `RULES`, `Diagnostic`, `ValidationReport`, `PipelineValidationError`,
-`:17-283`): every finding is a
-`Diagnostic` with a stable rule id, a severity and the graph vertex it
-anchors to. Only the structural tier's rules (KP001–KP005) exist here;
-the JAX package's spec, memory, sharding and roofline tiers are not
-ported.
+`:17-283`): every finding is a `Diagnostic` with a stable rule id, a
+severity and the graph vertex it anchors to. The rules of the tiers the
+port runs are here: structure (KP0xx), specs (KP1xx), memory (KP2xx),
+hazards (KP3xx, KP401), effects (KP511), roofline (KP8xx) and serving
+(KP9xx). The JAX package's contract (KP501–KP504), sharding (KP6xx),
+precision (KP7xx) and kernel-proof (KP10xx) tiers are not ported
+(ROADMAP queue 1, item 8).
 """
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
-from typing import Any, List, Optional, Sequence
+from typing import Any, Iterable, List, Optional, Sequence
 
 
 class Severity(enum.IntEnum):
@@ -31,6 +33,72 @@ RULES = {
     "KP004": "delegate-without-estimator: a DelegatingOperator's first "
              "dependency does not produce a transformer",
     "KP005": "dangling-source: a source has no consumers",
+    # spec tier
+    "KP101": "shape-mismatch: running a stage on meta tensors proved it "
+             "cannot run on its input shapes/dtypes",
+    "KP102": "count-mismatch: sibling datasets disagree on example count",
+    # memory tier
+    "KP201": "node-memory: one node's materialized output exceeds the "
+             "device memory budget",
+    "KP202": "peak-memory: peak live memory across the schedule exceeds "
+             "the device memory budget",
+    "KP203": "overlap-amplification: prefetch depth multiplies a streaming "
+             "stage's resident footprint",
+    "KP204": "megafused-loop-live-set: the captured chunk loop's per-trip "
+             "carry rides on top of stacked-input + output residency",
+    # hazard tier
+    "KP301": "donation-reuse: a buffer an operator writes in place is "
+             "still reachable by another consumer",
+    "KP302": "stream-materialization: a streaming stage feeds a "
+             "non-chunkable operator, silently materializing the stream",
+    "KP303": "cache-on-stream: a cache node on a streaming stage "
+             "materializes the stream and defeats overlap",
+    "KP401": "megafusion-fallback: a stage keeps this plan from collapsing "
+             "to one captured chunk loop (fan-out, host code, or a "
+             "streaming origin); the per-stage dispatch path remains",
+    # concurrency effect tier
+    "KP511": "concurrent-effect-interference: two effectful vertices with "
+             "no dependency ordering share mutable state; the concurrent "
+             "scheduler may force them simultaneously",
+    # roofline tier
+    "KP801": "kernel-candidate: a bandwidth-bound fan-out-free fused "
+             "chain of >=2 stages whose internal boundaries round-trip "
+             "device memory stage at a time, priced with the boundary "
+             "bytes one kernel would keep on chip",
+    "KP802": "data-movement-dominated stage: pure copy/view/index "
+             "traffic at least the larger of the stage's compute and its "
+             "unavoidable boundary bytes",
+    "KP803": "plan-roofline: the whole plan re-priced in predicted "
+             "seconds (max(flops/peak_flops, bytes/peak_bw) per stage) "
+             "against the calibrated machine balance — informational",
+    "KP804": "megafused-loop-underfilled: the captured chunk loop's "
+             "per-trip compute is below the dispatch/loop overhead "
+             "floor — raise chunk_size",
+    "KP805": "chain-kernel-wins: a KP801 candidate lowers to the "
+             "elementwise chain kernel (ops/chain_kernels) whose "
+             "predicted seconds beat the stage-at-a-time chain",
+    # serving tier
+    "KP901": "serving-host-stage: an apply-path stage that cannot run on "
+             "meta tensors (host code, or no propagated element spec) — "
+             "it can neither be warmed nor captured, so the "
+             "one-warm-program serving claim fails at this stage",
+    "KP902": "serving-recompile-exposure: an apply-path device stage "
+             "outside every warmable fused program runs cold at each "
+             "pad-ladder shape the envelope can produce (INFO when the "
+             "warmup manifest covers every shape)",
+    "KP903": "serving-latency-bound: the certified per-shape latency "
+             "upper bound (headroom x roofline seconds + per-program "
+             "floors) vs the declared SLO; ERROR when the worst "
+             "in-envelope shape busts it, with the dominating stage named",
+    "KP904": "serving-donated-request: an apply-path operator writes "
+             "into the pipeline's own input tensor in place — a serving "
+             "caller retains the request it passed",
+    "KP905": "serving-multi-tenant-residency: per-device peak bytes x "
+             "declared concurrent warmed pipelines exceeds the device "
+             "memory budget",
+    "KP906": "serving-telemetry-cardinality: an apply-path operator "
+             "formats a telemetry metric name dynamically in a hot "
+             "method — per-request names grow the registry without bound",
 }
 
 
@@ -54,12 +122,23 @@ class Diagnostic:
 
 
 class ValidationReport:
-    """The check's result: its diagnostics."""
+    """The analyzer's result: diagnostics plus, where the tiers ran, the
+    per-vertex specs, the memory and roofline estimates and the serving
+    certificate."""
 
     def __init__(self, diagnostics: Sequence[Diagnostic],
-                 level: str = "structure"):
+                 specs: Optional[dict] = None, memory: Optional[Any] = None,
+                 level: str = "structure", roofline: Optional[Any] = None,
+                 serving: Optional[Any] = None):
         self.diagnostics: List[Diagnostic] = list(diagnostics)
+        self.specs = specs or {}
+        self.memory = memory
         self.level = level
+        #: the roofline estimate (level "full"), else None
+        self.roofline = roofline
+        #: the serving certificate (level "full" with an envelope
+        #: declared), else None
+        self.serving = serving
 
     @property
     def errors(self) -> List[Diagnostic]:
@@ -75,6 +154,14 @@ class ValidationReport:
 
     def by_rule(self, rule: str) -> List[Diagnostic]:
         return [d for d in self.diagnostics if d.rule == rule]
+
+    def filter(self, ignore: Iterable[str]) -> "ValidationReport":
+        """Drop diagnostics whose rule id is in ``ignore``."""
+        ignore = set(ignore)
+        return ValidationReport(
+            [d for d in self.diagnostics if d.rule not in ignore],
+            specs=self.specs, memory=self.memory, level=self.level,
+            roofline=self.roofline, serving=self.serving)
 
     def raise_for_errors(self) -> "ValidationReport":
         if self.errors:
@@ -94,7 +181,7 @@ class ValidationReport:
 
 
 class PipelineValidationError(ValueError):
-    """The structural check rejected the pipeline before any data ran.
+    """Static validation rejected the pipeline before any data ran.
 
     A ValueError, so callers that treat malformed graphs as value errors
     keep working."""

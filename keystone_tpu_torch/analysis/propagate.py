@@ -1,21 +1,27 @@
-"""The structural check over a lowered Graph.
+"""Structural checks and abstract spec propagation over a lowered Graph.
 
-Counterpart of the structural tier of `keystone_tpu/analysis/propagate.py`
-(`toposort`, `structural_pass`, `:27-166`): pure topology lints, O(V+E) and data
-free: cycles (KP001), arity (KP002), fit-before-use (KP003), inverted
-delegate wiring (KP004) and dangling sources (KP005). `GraphExecutor`
-runs it before the first force, so a malformed plan fails before any
-data moves. The JAX package's spec propagation (`spec_pass`) is not
-ported.
+Counterpart of `keystone_tpu/analysis/propagate.py:1-217`. Two tiers:
+
+  - `structural_pass(graph)`: pure topology lints, O(V+E) and data free:
+    cycles (KP001), arity (KP002), fit-before-use (KP003), inverted
+    delegate wiring (KP004) and dangling sources (KP005). `GraphExecutor`
+    runs it before the first force, so a malformed plan fails before any
+    data moves.
+  - `spec_pass(graph, source_specs, seeds=...)`: walks the graph in
+    topological order calling each operator's ``abstract_eval`` hook (by
+    default its single-item path on meta tensors), giving every vertex a
+    spec and turning `SpecMismatchError`s into ERROR diagnostics at the
+    offending node.
 """
 
 from __future__ import annotations
 
 from collections import deque
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
-from ..workflow.graph import Graph, GraphId, NodeId, SinkId
+from ..workflow.graph import Graph, GraphId, NodeId, SinkId, SourceId
 from .diagnostics import Diagnostic, Severity
+from .specs import UNKNOWN, SpecMismatchError, is_known
 
 
 def _label(graph: Graph, vid: GraphId) -> str:
@@ -158,3 +164,53 @@ def structural_pass(graph: Graph) -> List[Diagnostic]:
                 vertex=source, label="Source"))
 
     return diags
+
+
+def spec_pass(
+    graph: Graph,
+    source_specs: Optional[Dict[SourceId, Any]] = None,
+    seeds: Optional[Dict[Any, Any]] = None,
+) -> Tuple[Dict[GraphId, Any], List[Diagnostic]]:
+    """Propagate abstract specs vertex by vertex in topological order.
+
+    No device work: every default hook runs on meta tensors, and hooks
+    that cannot tell return UNKNOWN. A `SpecMismatchError` from a hook
+    becomes an ERROR diagnostic at the node, and UNKNOWN flows on, so one
+    mismatch does not cascade.
+
+    ``seeds`` maps interior vertices to declared boundary `DataSpec`s
+    (the serving certifier's ingress declarations): a seed fills in a
+    vertex whose propagated element is unknown and never overrides one
+    that propagation proved."""
+    source_specs = source_specs or {}
+    seeds = seeds or {}
+    order, cycle_diags = toposort(graph)
+    diags: List[Diagnostic] = list(cycle_diags)
+    specs: Dict[GraphId, Any] = {}
+
+    for vid in order:
+        if isinstance(vid, SourceId):
+            specs[vid] = source_specs.get(vid, UNKNOWN)
+        elif isinstance(vid, SinkId):
+            specs[vid] = specs.get(graph.get_sink_dependency(vid), UNKNOWN)
+        else:
+            op = graph.get_operator(vid)
+            in_specs = [specs.get(d, UNKNOWN)
+                        for d in graph.get_dependencies(vid)]
+            try:
+                out = op.abstract_eval(in_specs)
+            except SpecMismatchError as e:
+                diags.append(Diagnostic(
+                    e.rule, Severity.ERROR, str(e),
+                    vertex=vid, label=_label(graph, vid)))
+                out = UNKNOWN
+            except Exception as e:  # a buggy hook must not kill validation
+                diags.append(Diagnostic(
+                    "KP101", Severity.WARNING,
+                    f"abstract_eval hook raised {type(e).__name__}: {e}",
+                    vertex=vid, label=_label(graph, vid)))
+                out = UNKNOWN
+            if vid in seeds and not is_known(getattr(out, "element", None)):
+                out = seeds[vid]
+            specs[vid] = out
+    return specs, diags

@@ -42,6 +42,39 @@ def fisher_vectors(X: torch.Tensor, means: torch.Tensor,
     return torch.cat([g_mu.transpose(1, 2), g_sig.transpose(1, 2)], dim=2)
 
 
+def _fv_fit_spec(k: int, label: str):
+    """TransformerSpec of a to-be-fitted FV encoder
+    (`keystone_tpu/nodes/images/fisher_vector.py:75-92`): descriptor
+    matrix (nd, d) → (d, 2k) float32, decidable before the GMM fit."""
+    from ...analysis.specs import (
+        SpecMismatchError,
+        TransformerSpec,
+        shape_struct,
+    )
+
+    def elem_fn(elem):
+        if getattr(elem, "ndim", 0) != 2:
+            raise SpecMismatchError(
+                f"{label} input element must be a 2-D descriptor matrix")
+        return shape_struct((int(elem.shape[-1]), 2 * k), torch.float32)
+
+    return TransformerSpec(elem_fn, label=label)
+
+
+def _fv_apply_flops(k: int, in_elem) -> "float | None":
+    """≈8·nd·d·k an item (`:95-107`): the posterior GEMM, the two
+    aggregation GEMMs and the elementwise work; the roofline's generic
+    dense in×out model would charge descriptor rows against output
+    rows."""
+    from ...analysis.specs import tree_leaves
+
+    leaves = tree_leaves(in_elem)
+    if len(leaves) != 1 or getattr(leaves[0], "ndim", 0) != 2:
+        return None
+    nd, d = leaves[0].shape
+    return 8.0 * float(nd) * float(d) * float(k)
+
+
 class FisherVector(Transformer):
     """Descriptor matrix (nd, d) → FV matrix (d, 2k)
     (FisherVector.scala:14-62)."""
@@ -64,6 +97,12 @@ class ScalaGMMFisherVectorEstimator(Estimator):
         self.num_iters = num_iters
         self.seed = seed
 
+    def abstract_fit(self, in_specs):
+        return _fv_fit_spec(self.k, self.label)
+
+    def abstract_apply_flops(self, in_elem, out_elem):
+        return _fv_apply_flops(self.k, in_elem)
+
     def fit(self, data) -> FisherVector:
         return FisherVector(GaussianMixtureModelEstimator(
             self.k, num_iters=self.num_iters, seed=self.seed).fit(data))
@@ -82,6 +121,12 @@ class GMMFisherVectorEstimator(OptimizableEstimator):
         self.k = k
         self.num_iters = num_iters
         self.seed = seed
+
+    def abstract_fit(self, in_specs):
+        return _fv_fit_spec(self.k, self.label)
+
+    def abstract_apply_flops(self, in_elem, out_elem):
+        return _fv_apply_flops(self.k, in_elem)
 
     @property
     def default(self) -> Estimator:

@@ -126,6 +126,20 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         #: passes over the features (`workflow/autocache.py::node_weight`)
         self.weight = 3 * num_iter + 1
 
+    def abstract_fit(self, in_specs):
+        """Static fit (`keystone_tpu/nodes/learning/block_ls.py:
+        302-314`): (d,) features + (k,) labels → a model mapping (d,) to
+        (k,); the solver zero-pads features to a block multiple, so apply
+        accepts any dim ≤ ceil(d/bs)·bs."""
+        from ...analysis.specs import leaf_vector_dim, supervised_fit_spec
+
+        d = leaf_vector_dim(in_specs[0] if in_specs else None)
+        d_pad = None
+        if d is not None:
+            bs = min(self.block_size, d)
+            d_pad = -(-d // bs) * bs
+        return supervised_fit_spec(in_specs, self.label, max_in_dim=d_pad)
+
     def fit(self, data, labels) -> BlockLinearMapper:
         x, y = data.array, labels.array.to(data.array.dtype)
         d = x.shape[1]

@@ -47,6 +47,8 @@ def _as_dense(x, device: torch.device) -> torch.Tensor:
     if sp.issparse(x):
         arr = np.asarray(x.todense(), np.float32)
         x = arr.ravel() if arr.shape[0] == 1 else arr
+    if isinstance(x, torch.Tensor) and x.device.type == "meta":
+        return x.to(torch.float32)  # the static analyzer's run
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 

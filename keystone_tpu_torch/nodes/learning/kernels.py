@@ -154,6 +154,11 @@ class KernelRidgeRegression(LabelEstimator):
         self.checkpoint_dir = checkpoint_dir
         self.blocks_before_checkpoint = blocks_before_checkpoint
 
+    def abstract_fit(self, in_specs):
+        from ...analysis.specs import supervised_fit_spec
+
+        return supervised_fit_spec(in_specs, self.label)
+
     @property
     def weight(self) -> int:
         """Passes over the features (`workflow/autocache.py::node_weight`)."""

@@ -344,6 +344,11 @@ class DenseLBFGSwithL2(LabelEstimator):
         self.loss_history: Optional[torch.Tensor] = None
         self.linesearch_steps: List[int] = []
 
+    def abstract_fit(self, in_specs):
+        from ...analysis.specs import supervised_fit_spec
+
+        return supervised_fit_spec(in_specs, self.label)
+
     def fit(self, data, labels) -> LinearMapper:
         res = lbfgs_fit(data.array, labels.array, data.mask, self.lam,
                         data.count, self.num_iters, self.memory_size,

@@ -63,6 +63,13 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
         self.chosen: Optional[str] = None
         self.costs: dict = {}
 
+    def abstract_fit(self, in_specs):
+        """Whichever solver the cost model picks, the model maps (d,)
+        features to (k,) scores."""
+        from ...analysis.specs import supervised_fit_spec
+
+        return supervised_fit_spec(in_specs, self.label)
+
     @classmethod
     def calibrated(cls, lam: float = 0.0, probe_kwargs: Optional[dict] = None,
                    **kwargs) -> "LeastSquaresEstimator":

@@ -113,6 +113,11 @@ class LinearMapEstimator(LabelEstimator):
         self.lam = lam
         self.fit_intercept = fit_intercept
 
+    def abstract_fit(self, in_specs):
+        from ...analysis.specs import supervised_fit_spec
+
+        return supervised_fit_spec(in_specs, self.label)
+
     def fit(self, data, labels) -> LinearMapper:
         record_dispatch()  # one batched call (JAX :149)
         W, b = normal_equations(data.array, labels.array.to(data.array.dtype),
@@ -143,6 +148,11 @@ class LocalLeastSquaresEstimator(LabelEstimator):
 
     def __init__(self, lam: float = 0.0):
         self.lam = lam
+
+    def abstract_fit(self, in_specs):
+        from ...analysis.specs import supervised_fit_spec
+
+        return supervised_fit_spec(in_specs, self.label)
 
     def fit(self, data, labels) -> LinearMapper:
         record_dispatch()  # one batched call (JAX :248)

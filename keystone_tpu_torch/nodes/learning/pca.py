@@ -91,12 +91,47 @@ def _components_of_centred(Xc: torch.Tensor) -> torch.Tensor:
     return _sign_convention(Vt.T)
 
 
+def _pca_fit_spec(dims: int, label: str, train_spec=None):
+    """TransformerSpec of a to-be-fitted PCA
+    (`keystone_tpu/nodes/learning/pca.py:108-137`): last axis d → dims,
+    d pinned from the training spec where it is known."""
+    from ...analysis.specs import (
+        SpecMismatchError,
+        TransformerSpec,
+        is_known,
+        shape_struct,
+        tree_leaves,
+    )
+
+    d = None
+    if train_spec is not None and is_known(
+            getattr(train_spec, "element", None)):
+        leaves = tree_leaves(train_spec.element)
+        if len(leaves) == 1 and getattr(leaves[0], "ndim", 0) >= 1:
+            d = int(leaves[0].shape[-1])
+
+    def elem_fn(elem):
+        if getattr(elem, "ndim", 0) < 1:
+            raise SpecMismatchError(f"{label} input element must be ≥ 1-D")
+        if d is not None and elem.shape[-1] != d:
+            raise SpecMismatchError(
+                f"{label} was fit on {d}-dim rows but the input element's "
+                f"last axis is {elem.shape[-1]}")
+        return shape_struct(tuple(elem.shape[:-1]) + (dims,), torch.float32)
+
+    return TransformerSpec(elem_fn, label=label)
+
+
 class PCAEstimator(Estimator):
     """Local PCA (PCA.scala:162-247)."""
 
     def __init__(self, dims: int, sample_rows: Optional[int] = 100_000):
         self.dims = dims
         self.sample_rows = sample_rows
+
+    def abstract_fit(self, in_specs):
+        return _pca_fit_spec(self.dims, self.label,
+                             in_specs[0] if in_specs else None)
 
     def fit(self, data) -> PCATransformer:
         X = collect_rows(data, self.sample_rows)
@@ -110,6 +145,10 @@ class DistributedPCAEstimator(Estimator):
 
     def __init__(self, dims: int):
         self.dims = dims
+
+    def abstract_fit(self, in_specs):
+        return _pca_fit_spec(self.dims, self.label,
+                             in_specs[0] if in_specs else None)
 
     def fit(self, data) -> PCATransformer:
         X = collect_rows(data)
@@ -142,6 +181,10 @@ class ApproximatePCAEstimator(Estimator):
         self.oversample = oversample
         self.q = q
         self.seed = seed
+
+    def abstract_fit(self, in_specs):
+        return _pca_fit_spec(self.dims, self.label,
+                             in_specs[0] if in_specs else None)
 
     def fit(self, data) -> PCATransformer:
         X = collect_rows(data)
@@ -183,6 +226,10 @@ class ColumnPCAEstimator(OptimizableEstimator):
         self.chosen = None
         self.cost_profile: Optional[CostProfile] = None
         self.costs: dict = {}
+
+    def abstract_fit(self, in_specs):
+        return _pca_fit_spec(self.dims, self.label,
+                             in_specs[0] if in_specs else None)
 
     @property
     def default(self) -> Estimator:

@@ -105,6 +105,11 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         #: passes over the features (`workflow/autocache.py::node_weight`)
         self.weight = 3 * num_iter + 1
 
+    def abstract_fit(self, in_specs):
+        from ...analysis.specs import supervised_fit_spec
+
+        return supervised_fit_spec(in_specs, self.label)
+
     def fit(self, data, labels) -> LinearMapper:
         X, Y = data.array, labels.array.to(data.array.dtype)
         d = X.shape[1]

@@ -65,6 +65,28 @@ class StandardScaler(Estimator):
     def __init__(self, normalize_std_dev: bool = True):
         self.normalize_std_dev = normalize_std_dev
 
+    def abstract_fit(self, in_specs):
+        """Static fit (`keystone_tpu/nodes/stats/scalers.py:99-119`):
+        shape-preserving, but the fitted mean and std pin the feature
+        dim."""
+        from ...analysis.specs import (
+            SpecMismatchError,
+            TransformerSpec,
+            leaf_vector_dim,
+        )
+
+        d = leaf_vector_dim(in_specs[0] if in_specs else None)
+
+        def elem_fn(elem):
+            if d is not None and getattr(elem, "ndim", None) == 1 \
+                    and elem.shape[0] != d:
+                raise SpecMismatchError(
+                    f"StandardScaler was fit on {d}-dim features but is "
+                    f"applied to a {elem.shape[0]}-dim element")
+            return elem
+
+        return TransformerSpec(elem_fn, label=self.label, chunkable=True)
+
     def fit(self, data) -> StandardScalerModel:
         record_dispatch()  # one batched call (JAX :122)
         mean, std = moments(data.array, data.count, self.normalize_std_dev)

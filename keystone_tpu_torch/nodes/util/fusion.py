@@ -27,9 +27,10 @@ use runs the padded loop eagerly); on the CPU the same padded loop runs
 eagerly over the plain versions. Host streams run a fused chain's
 chunks the same way (`FusedBatchTransformer.run_rung`), so each chain
 keeps one cache of graphs. A fused chain is
-``chunkable`` when every stage is (`:292, 405-410`). The JAX package's
-program caching, planned precision and sharding tags have no counterpart
-here.
+``chunkable`` when every stage is (`:292, 405-410`). On meta tensors
+(the static analyzer's run) the stages run once, with no microbatch
+loop, rung, count or capture. The JAX package's program caching,
+planned precision and sharding tags have no counterpart here.
 
 Telemetry (`:535-555, 784-791`): each microbatch a ``chunk`` span, each
 padded loop a ``megafused_program`` span and one count in
@@ -369,6 +370,10 @@ class FusedBatchTransformer(Transformer):
         head = fns if last is None else fns[:-1]
 
         def fn(x):
+            if x.device.type == "meta":
+                # the static analyzer's run (`ops/meta.py`): the stages
+                # once, no microbatch loop, nothing counted
+                return _run(fns, x)
             n, out = x.shape[0], None
             self._ran_at.add((tuple(x.shape[1:]), x.dtype, x.device))
             for start in range(0, n, self.microbatch):
@@ -541,7 +546,7 @@ class MegafusedBatchTransformer(FusedBatchTransformer):
 
         def fn(x):
             n = x.shape[0]
-            if n == 0:
+            if n == 0 or x.device.type == "meta":
                 return eager(x)
             return self.run_rung(x, self.rung(n), self.microbatch)
 

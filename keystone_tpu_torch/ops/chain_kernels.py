@@ -25,7 +25,9 @@ within a segment (`row_segments`: no vector parameter, no reduction
 across the row), so the gray chain runs on real VOC images (a 500x333
 image is 333 rows of 500 pixels); the JAX kernel's VMEM block takes
 such a row whole. A `ChainPlan` holds what a chain's launches share, so
-that a microbatch costs one C call.
+that a microbatch costs one C call; ``kernels.chain_plan_builds`` counts
+the plans built. A meta tensor gets the meta branch (`ops/meta.py`): no
+plan, no launch.
 """
 
 from __future__ import annotations
@@ -40,9 +42,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..telemetry.metrics import tally
+from ..telemetry.metrics import counter, tally
 from ..utils.images import grayscale
-from . import _build
+from . import _build, meta
 from .kernels import (
     MAX_SMEM_BYTES,
     _check_cuda,
@@ -406,6 +408,10 @@ def _library():
     return lib
 
 
+#: `ChainPlan`s built, ever: a warm server builds none after its start
+_PLAN_BUILDS = counter("kernels.chain_plan_builds")
+
+
 class ChainPlan:
     """One chain over rows of one item shape on one device, planned once
     and launched for every microbatch.
@@ -439,6 +445,7 @@ class ChainPlan:
         self.in_len = math.prod(self.item_shape)
         self.grid = None
         self._handle = None
+        _PLAN_BUILDS.inc()
         if self.device.type == "cuda":
             self._plan_kernel()
 
@@ -521,7 +528,27 @@ def elementwise_chain(statics, params, x: torch.Tensor,
     run the kernel in ``csrc/elementwise_chain.cu``; CPU tensors run
     `elementwise_chain_reference`. Its ``launches`` count every launch
     of the kernel, by a plan or through here."""
+    if x.device.type == "meta":
+        return _elementwise_chain_meta(statics, params, x, out)
     return ChainPlan(statics, params, x.shape[1:], x.device)(x, mask, out)
+
+
+def _elementwise_chain_meta(statics, params, x, out):
+    """K4's meta branch (`ops/meta.py`): no plan is built. The output's
+    shape, two operations an element a stage, against each row read
+    once, each output row written once and the stages' vectors read."""
+    n = x.shape[0]
+    shape = tuple(x.shape[1:])
+    elems = 0
+    for _, body in _compile(statics):
+        elems += math.prod(shape)
+        shape = tuple(body.shape(shape))
+    vectors = sum(q.numel() for p in params for q in p
+                  if isinstance(q, torch.Tensor))
+    meta.report("elementwise_chain", 2.0 * n * elems,
+                4.0 * (n * math.prod(x.shape[1:]) + n * math.prod(shape)
+                       + vectors))
+    return out if out is not None else meta.empty((n,) + shape)
 
 
 elementwise_chain.launches = 0
@@ -569,6 +596,8 @@ def build_chain_fn(statics, params, family: Optional[str] = None):
         return plan
 
     def fn(xb, out=None):
+        if xb.device.type == "meta":
+            return _elementwise_chain_meta(statics, params, xb, out)
         return plan_for(xb)(xb, None, out)
 
     fn.plans, fn.plan_for = plans, plan_for

@@ -9,7 +9,10 @@ conv+rectify+pool kernel, `:591-659`, the rectify+pool kernel,
 
 Each wrapper takes its plain version only for tensors on the CPU. For
 CUDA tensors it launches the hand-written kernel (`csrc/`, built at first
-use by `_build`) or raises: there is no fallback. Each wrapper counts its
+use by `_build`) or raises: there is no fallback. A meta tensor (the
+static analyzer's, `ops/meta.py`) gets an empty meta result of the
+output's shape, no launch, and the kernel's FLOPs and bytes reported to
+the analyzer's cost collector. Each wrapper counts its
 launches in a plain integer attribute, ``<wrapper>.launches``, that grows
 by one per kernel launch and by nothing else. One `rbf_block` call
 launches three kernels: the split prepass on X and on Yb, counted in
@@ -33,7 +36,7 @@ import torch
 import torch.nn.functional as F
 
 from ..telemetry.metrics import tally
-from . import _build
+from . import _build, meta
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -289,6 +292,8 @@ def conv_rectify_pool(images, g_cmajor, colsum, bias, alpha: float,
             return y
         _check_out("conv_rectify_pool", out, y.shape, images.device)
         return out.copy_(y.reshape(out.shape))
+    if images.device.type == "meta":
+        return _conv_rectify_pool_meta(images, k, patch, pool, stride, out)
     if images.device.type != "cuda":
         raise ValueError(f"conv_rectify_pool: unsupported device "
                          f"{images.device}")
@@ -350,6 +355,23 @@ def conv_rectify_pool(images, g_cmajor, colsum, bias, alpha: float,
 conv_rectify_pool.launches = 0
 
 
+def _conv_rectify_pool_meta(images, k: int, patch: int, pool: int,
+                            stride: int, out):
+    """K1's meta branch (`ops/meta.py`): the output's shape, and the
+    conv's products at the positions some pool window covers, against
+    each input read once and the output written once."""
+    n, h, w, c = images.shape
+    ph, pw = h - patch + 1, w - patch + 1
+    gy, gx = pooled_grid(ph, pw, pool, stride)
+    cy = min(ph, (gy - 1) * stride + pool)
+    cx = min(pw, (gx - 1) * stride + pool)
+    meta.report("conv_rectify_pool",
+                2.0 * n * cy * cx * c * patch * patch * k,
+                4.0 * (n * h * w * c + c * patch * patch * k + 2 * k
+                       + n * gy * gx * 2 * k))
+    return out if out is not None else meta.empty((n, gy, gx, 2 * k))
+
+
 def rectify_pool(x, alpha: float, max_val: float, pool: int,
                  stride: int) -> torch.Tensor:
     """Two-sided rectify + sum pool. x (N,H,W,K) f32 → (N,gy,gx,2K) f32.
@@ -357,6 +379,14 @@ def rectify_pool(x, alpha: float, max_val: float, pool: int,
     run `rectify_pool_reference`."""
     if x.device.type == "cpu":
         return rectify_pool_reference(x, alpha, max_val, pool, stride)
+    if x.device.type == "meta":
+        # K2's meta branch (`ops/meta.py`): six operations a window
+        # value against each input read and the output written once
+        n, h, w, k = x.shape
+        gy, gx = pooled_grid(h, w, pool, stride)
+        meta.report("rectify_pool", 6.0 * n * gy * gx * pool * pool * k,
+                    4.0 * (n * h * w * k + n * gy * gx * 2 * k))
+        return meta.empty((n, gy, gx, 2 * k))
     if x.device.type != "cuda":
         raise ValueError(f"rectify_pool: unsupported device {x.device}")
     _check_cuda("rectify_pool", x.device, x=x)
@@ -418,6 +448,10 @@ def rbf_split(X) -> tuple:
     if X.device.type == "cpu":
         hi, lo = tf32_split(X)
         return hi, lo, (X * X).sum(dim=1)
+    if X.device.type == "meta":
+        m, d = X.shape
+        meta.report("rbf_split", 3.0 * m * d, 4.0 * (m * d + 2 * m * d + m))
+        return meta.empty((m, d)), meta.empty((m, d)), meta.empty((m,))
     if X.device.type != "cuda":
         raise ValueError(f"rbf_split: unsupported device {X.device}")
     _check_cuda("rbf_split", X.device, X=X)
@@ -456,6 +490,14 @@ def rbf_block(X, Yb, gamma: float) -> torch.Tensor:
     too, at a row stride of whole 16-byte units."""
     if X.device.type == "cpu":
         return rbf_block_reference(X, Yb, gamma)
+    if X.device.type == "meta":
+        # K5's meta branch (`ops/meta.py`): three TF32 products of
+        # 2·m·n·d operations against X and Yb read and the block written
+        m, d = X.shape
+        n = Yb.shape[0]
+        meta.report("rbf_block", 3 * 2.0 * m * n * d,
+                    4.0 * (m * d + n * d + m * n))
+        return meta.empty((m, n))
     if X.device.type != "cuda":
         raise ValueError(f"rbf_block: unsupported device {X.device}")
     return _rbf_block_cuda(X, Yb, gamma,

@@ -122,6 +122,29 @@ def build_linear_pixels(train, config: LinearPixelsConfig):
                                labels) >> MaxClassifier()
 
 
+def analyzable(config: Optional[LinearPixelsConfig] = None,
+               device="cuda"):
+    """The LinearPixels predictor over abstract placeholder data, for
+    static validation (`keystone_tpu/pipelines/cifar_variants.py:68-89`).
+    It holds no weights before its fit, so ``device`` is unused. Returns
+    ``(pipeline, source_spec)``."""
+    from ..analysis import SpecDataset
+
+    config = config or LinearPixelsConfig()
+    h = w = 32
+    c = 3
+    n = 256
+    feats = (FusedBatchTransformer([PixelScaler(), GrayScaler(),
+                                    ImageVectorizer()], microbatch=4096)
+             .to_pipeline() >> Cacher("pixels"))
+    data = SpecDataset((h, w, c), np.float32, count=n, name="cifar-images")
+    raw_labels = SpecDataset((), np.int32, count=n, name="cifar-labels")
+    labels = ClassLabelIndicatorsFromInt(config.num_classes)(raw_labels)
+    predictor = feats.and_then(LinearMapEstimator(config.lam), data,
+                               labels) >> MaxClassifier()
+    return predictor, (h, w, c)
+
+
 def run_linear_pixels(config: LinearPixelsConfig, device="cuda"):
     """Load or synthesize the data, fit LinearPixels, score train and
     test."""

@@ -124,6 +124,56 @@ def _fv_branch(base: Pipeline, train: HostDataset,
         >> NormalizeRows())
 
 
+class _Image(Transformer):
+    """A `LabeledImage`'s image: the request boundary the serving
+    certifier declares for this pipeline (`keystone_tpu/pipelines/
+    imagenet_sift_lcs_fv.py:60-65`)."""
+
+    def apply(self, x):
+        return x.image
+
+    def apply_batch(self, data):
+        return HostDataset([x.image for x in data.items])
+
+
+def analyzable(config: Optional[ImageNetSiftLcsFVConfig] = None,
+               device: DeviceLike = "cuda"):
+    """The dual-branch (SIFT + LCS) predictor over abstract placeholder
+    data, for static validation (`keystone_tpu/pipelines/
+    imagenet_sift_lcs_fv.py:81-110`): the JAX package's graph, whose
+    branches hold no `Cacher`. It holds no weights before its fits, so
+    ``device`` is unused. Returns ``(pipeline, source_spec)``."""
+    from ..analysis import SpecDataset
+
+    config = config or ImageNetSiftLcsFVConfig()
+    n = 64
+    train = SpecDataset(count=n, name="imagenet-images", on_device=False)
+    img = _Image().to_pipeline() >> PixelScaler()
+
+    def branch(base):
+        sampled = (base >> ColumnSampler(config.descriptor_samples)).apply(
+            train)
+        pca = base.and_then(ColumnPCAEstimator(config.pca_dims).with_data(
+            sampled))
+        fv_sample = (pca >> ColumnSampler(config.descriptor_samples)).apply(
+            train)
+        return (pca.and_then(GMMFisherVectorEstimator(config.gmm_k)
+                             .with_data(fv_sample))
+                >> MatrixVectorizer() >> SignedHellingerMapper()
+                >> NormalizeRows())
+
+    sift_branch = branch(img >> GrayScaler()
+                         >> SIFTExtractor(step=6, num_scales=2))
+    lcs_branch = branch(img >> LCSExtractor(stride=6))
+    feats = Pipeline.gather([sift_branch, lcs_branch]) >> _Concat() >> _Stack()
+    raw_labels = SpecDataset((), np.int32, count=n, name="imagenet-labels")
+    labels = ClassLabelIndicatorsFromInt(config.num_classes)(raw_labels)
+    predictor = feats.and_then(
+        BlockWeightedLeastSquaresEstimator(4096, 1, config.lam), train,
+        labels) >> MaxClassifier()
+    return predictor, None
+
+
 def build(train: HostDataset, config: ImageNetSiftLcsFVConfig,
           device: DeviceLike = "cuda") -> Pipeline:
     """gather(SIFT branch, LCS branch) >> _Concat >> _Stack >> BWLS >>

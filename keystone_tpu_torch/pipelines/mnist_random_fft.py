@@ -132,6 +132,33 @@ def run_on(train: LabeledData, test: LabeledData,
     }
 
 
+def analyzable(config: Optional[MnistRandomFFTConfig] = None,
+               device: DeviceLike = "cuda"):
+    """The predictor graph over abstract placeholder data, for static
+    validation (`keystone_tpu/pipelines/mnist_random_fft.py:62-86`): no
+    data loads and no fit runs; the random signs live on ``device``.
+    Returns ``(pipeline, source_spec)``."""
+    from ..analysis import SpecDataset
+
+    config = config or MnistRandomFFTConfig(num_ffts=2)
+    dim, n = 64, 256
+    branches = [
+        RandomSignNode(dim, seed=config.seed + i, device=device)
+        >> PaddedFFT()
+        >> LinearRectifier(0.0)
+        for i in range(config.num_ffts)
+    ]
+    feats = Pipeline.gather(branches) >> VectorCombiner()
+    data = SpecDataset((dim,), np.float32, count=n, name="mnist-data")
+    raw_labels = SpecDataset((), np.int32, count=n, name="mnist-labels")
+    labels = ClassLabelIndicatorsFromInt(config.num_classes)(raw_labels)
+    predictor = feats.and_then(
+        BlockLeastSquaresEstimator(min(config.block_size, dim), num_iter=1,
+                                   lam=config.lam),
+        data, labels) >> MaxClassifier()
+    return predictor, (dim,)
+
+
 def run(config: MnistRandomFFTConfig, device: DeviceLike = "cuda") -> dict:
     """Load the data (`_load`), fit and score on ``device``."""
     device = resolve_device(device)

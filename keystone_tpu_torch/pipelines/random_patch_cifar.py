@@ -178,6 +178,42 @@ def make_featurizer(filters, whitener, h, w, c, config,
     )
 
 
+def analyzable(config: Optional[RandomPatchCifarConfig] = None,
+               device="cuda"):
+    """The prediction path over abstract placeholder data, for static
+    validation (`keystone_tpu/pipelines/random_patch_cifar.py:46-81`):
+    random filters stand in for the learned ones, whose shapes are the
+    same, and live on ``device``; no data loads and no fit runs. Returns
+    ``(pipeline, source_spec)``."""
+    from ..analysis import SpecDataset
+
+    config = config or RandomPatchCifarConfig(num_filters=32)
+    h = w = 32
+    c = 3
+    n = 256
+    rng = np.random.default_rng(config.seed)
+    d = config.patch_size * config.patch_size * c
+    filters = rng.normal(size=(config.num_filters, d)).astype(np.float32)
+    feats = (
+        PixelScaler().to_pipeline()
+        >> Convolver(filters, h, w, c, whitener=None, device=device)
+        >> SymmetricRectifier(alpha=config.alpha)
+        >> Pooler(config.pool_stride, config.pool_size, pool_fn="sum")
+        >> ImageVectorizer()
+        >> Cacher("features")
+    )
+    data = SpecDataset((h, w, c), np.float32, count=n, name="cifar-images")
+    raw_labels = SpecDataset((), np.int32, count=n, name="cifar-labels")
+    labels = ClassLabelIndicatorsFromInt(config.num_classes)(raw_labels)
+    predictor = (
+        feats.and_then(StandardScaler(), data)
+        .and_then(BlockLeastSquaresEstimator(config.block_size, 1,
+                                             config.lam), data, labels)
+        >> MaxClassifier()
+    )
+    return predictor, (h, w, c)
+
+
 def build_pipeline(train, config):
     """Build + fit the full prediction pipeline."""
     filters, whitener = learn_filters(train.data, config)

@@ -146,6 +146,31 @@ def build_newsgroups_predictor(train_docs, train_labels, num_classes: int,
                             common_features).predictor
 
 
+def analyzable(config: Optional["NewsgroupsConfig"] = None,
+               device: DeviceLike = "cuda"):
+    """The Newsgroups predictor over abstract placeholder data, for static
+    validation (`keystone_tpu/pipelines/text_pipelines.py:65-103`): the
+    JAX package's graph (the featurizer and the naive Bayes fit without
+    this module's two `Cacher`s). The NLP stages are host code, so their
+    specs are UNKNOWN. It holds no weights before its fit, so ``device``
+    is unused. Returns ``(pipeline, source_spec)``."""
+    from ..analysis import SpecDataset
+
+    config = config or NewsgroupsConfig()
+    n = 128
+    num_classes = min(config.num_classes, 4)
+    docs = SpecDataset(count=n, name="newsgroups-docs", on_device=False)
+    labels = SpecDataset((), np.int32, count=n, name="newsgroups-labels",
+                         on_device=False)
+    feats = (Trim().to_pipeline() >> LowerCase() >> Tokenizer()
+             >> NGramsFeaturizer(config.ngram_orders)
+             >> TermFrequency(math.sqrt)).and_then(
+        CommonSparseFeatures(config.common_features), docs)
+    predictor = feats.and_then(NaiveBayesEstimator(num_classes), docs,
+                               labels) >> MaxClassifier()
+    return predictor, None
+
+
 @dataclass
 class NewsgroupsConfig:
     train_path: Optional[str] = None

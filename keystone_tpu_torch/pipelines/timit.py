@@ -139,6 +139,32 @@ def run_on(train: LabeledData, test: LabeledData, config: TimitConfig,
     }
 
 
+def analyzable(config: Optional[TimitConfig] = None,
+               device: DeviceLike = "cuda"):
+    """The predictor graph over abstract placeholder data, for static
+    validation (`keystone_tpu/pipelines/timit.py:55-81`); the cosine
+    weights live on ``device``. Returns ``(pipeline, source_spec)``."""
+    from ..analysis import SpecDataset
+
+    config = config or TimitConfig()
+    dim, n = config.synth_dim, 256
+    num_classes = min(config.num_classes, 12)
+    feats = (CosineRandomFeatures(
+        dim, config.num_cosines, config.gamma,
+        distribution=config.distribution, seed=config.seed,
+        device=device).to_pipeline()
+        >> Cacher("timit-features"))
+    data = SpecDataset((dim,), np.float32, count=n, name="timit-data")
+    raw_labels = SpecDataset((), np.int32, count=n, name="timit-labels")
+    labels = ClassLabelIndicatorsFromInt(num_classes)(raw_labels)
+    predictor = feats.and_then(
+        BlockLeastSquaresEstimator(
+            min(config.block_size, config.num_cosines), config.num_epochs,
+            config.lam),
+        data, labels) >> MaxClassifier()
+    return predictor, (dim,)
+
+
 def run(config: TimitConfig, device: DeviceLike = "cuda") -> dict:
     """Load or synthesize the data (`load`), fit and score on
     ``device``."""

@@ -195,6 +195,38 @@ def build(train: HostDataset, config: VOCSIFTFisherConfig,
     return VOCModel(sift, pca_node, fisher, featurizer, predictor)
 
 
+def analyzable(config: Optional[VOCSIFTFisherConfig] = None,
+               device: DeviceLike = "cuda"):
+    """The VOC predictor over abstract placeholder data, for static
+    validation (`keystone_tpu/pipelines/voc_sift_fisher.py:72-112`): the
+    SIFT → PCA → Fisher vector → solver graph of the JAX package (without
+    this module's `Cacher`); the host image stages propagate UNKNOWN. It
+    holds no weights before its fits, so ``device`` is unused. Returns
+    ``(pipeline, source_spec)``."""
+    from ..analysis import SpecDataset
+
+    config = config or VOCSIFTFisherConfig()
+    n = 64
+    train = SpecDataset(count=n, name="voc-images", on_device=False)
+    sift = (MultiLabeledImageExtractor().to_pipeline() >> PixelScaler()
+            >> GrayScaler() >> SIFTExtractor(step=6, num_scales=2))
+    sampled = (sift >> ColumnSampler(config.descriptor_samples)).apply(train)
+    pca_featurizer = sift.and_then(
+        ColumnPCAEstimator(config.pca_dims).with_data(sampled))
+    fisher_sample = (pca_featurizer
+                     >> ColumnSampler(config.descriptor_samples)).apply(train)
+    fisher = GMMFisherVectorEstimator(config.gmm_k).with_data(fisher_sample)
+    feats = (pca_featurizer.and_then(fisher) >> MatrixVectorizer()
+             >> SignedHellingerMapper() >> NormalizeRows() >> _Stack())
+    labels = SpecDataset((config.num_classes,), np.float32, count=n,
+                         name="voc-labels")
+    predictor = feats.and_then(
+        BlockWeightedLeastSquaresEstimator(4096, 1, config.lam,
+                                           config.mixture_weight),
+        train, labels)
+    return predictor, None
+
+
 def run_on(train: HostDataset, test: HostDataset,
            config: VOCSIFTFisherConfig, device: DeviceLike = "cuda") -> dict:
     """Build the predictor, fit it on ``train`` and score ``test``.

@@ -19,9 +19,11 @@ sketch and runs the armed watchdog's check. A request's seconds are host
 seconds: the scope adds no sync. With ``KEYSTONE_LIVE_TELEMETRY=0`` it
 is a no-op.
 
-Arming from a certificate computed at execution (JAX's
-`workflow/executor.py:437-441`) waits for the serving certifier
-(ROADMAP queue 1, items 7 and 8).
+`maybe_arm_from_certificate` (`:199-214`) arms it from the certificate
+an executor embeds under a tracer with an envelope armed
+(`workflow/executor.py::_record_static_estimates`, JAX's
+`workflow/executor.py:419-441`); the serving runtime arms it at its
+start.
 """
 
 from __future__ import annotations
@@ -190,6 +192,19 @@ def disarm_watchdog() -> None:
     global _active_watchdog
     with _arm_lock:
         _active_watchdog = None
+
+
+def maybe_arm_from_certificate(record: Optional[Dict[str, Any]],
+                               pipeline: str = "pipeline") -> None:
+    """The executor's hook: arm (or refresh) the watchdog from the
+    certificate record a run embeds, so later applies in the process are
+    checked against it. Never raises."""
+    if not record:
+        return
+    try:
+        arm_watchdog(record, pipeline=pipeline)
+    except Exception:
+        pass  # telemetry never takes down the measured run
 
 
 # ------------------------------------------------------ per-request scope

@@ -15,10 +15,11 @@ the cached dataset instead of recomputing it.
 package's names and environment variables. They change when and how work
 is dispatched (overlapped host staging, the concurrent scheduler, the
 chunking, warm-ups, megafusion) and what the telemetry records (the
-trace, the ledger, the live plane); the same kernels run either way. The
-JAX package's compile-cache, planner, serving and spill fields have no
-counterpart, nor has ``pallas_kernels``: the port has no switch that
-picks a plain kernel path.
+trace, the ledger, the live plane) and how the serving runtime batches
+(`serving/`); the same kernels run either way. The JAX package's
+compile-cache, planner and spill fields have no counterpart, nor has
+``pallas_kernels``: the port has no switch that picks a plain kernel
+path.
 
 The table keeps every saved expression alive, and with it its tensors on
 the device: `PipelineEnv.reset()` drops them.
@@ -91,6 +92,17 @@ class ExecutionConfig:
     replay once captured (at the second), and host streams of fused
     batch functions run a bucket's chunks as one such loop. Read at
     optimization and dispatch time.
+
+    ``hbm_budget_bytes`` (``KEYSTONE_HBM_BUDGET_GB``, in GiB; default
+    none): the device memory budget the static memory pass (KP201,
+    KP202), the serving certifier's residency check (KP905) and the
+    tenant registry price against (`:242, 343-346`).
+
+    ``serving_coalesce`` (``KEYSTONE_SERVING_COALESCE``, default on),
+    ``serving_queue_depth`` (``KEYSTONE_SERVING_QUEUE_DEPTH``, 256) and
+    ``serving_window_ms`` (``KEYSTONE_SERVING_WINDOW_MS``, 2.0): the
+    serving runtime's micro-batcher (`serving/batcher.py`; `:259-261,
+    380-386`). Off, each request is applied on its caller's thread.
     """
 
     overlap: bool = True
@@ -104,6 +116,10 @@ class ExecutionConfig:
     trace_path: Optional[str] = None
     ledger_path: Optional[str] = None
     live_telemetry: bool = True
+    hbm_budget_bytes: Optional[int] = None
+    serving_coalesce: bool = True
+    serving_queue_depth: int = 256
+    serving_window_ms: float = 2.0
 
 
 _exec_config: Optional[ExecutionConfig] = None
@@ -136,6 +152,14 @@ def execution_config() -> ExecutionConfig:
             trace_path=os.environ.get("KEYSTONE_TRACE") or None,
             ledger_path=os.environ.get("KEYSTONE_LEDGER") or None,
             live_telemetry=_env_on("KEYSTONE_LIVE_TELEMETRY"),
+            hbm_budget_bytes=(
+                int(float(os.environ["KEYSTONE_HBM_BUDGET_GB"]) * (1 << 30))
+                if os.environ.get("KEYSTONE_HBM_BUDGET_GB") else None),
+            serving_coalesce=_env_on("KEYSTONE_SERVING_COALESCE"),
+            serving_queue_depth=max(1, int(os.environ.get(
+                "KEYSTONE_SERVING_QUEUE_DEPTH", "256"))),
+            serving_window_ms=max(0.0, float(os.environ.get(
+                "KEYSTONE_SERVING_WINDOW_MS", "2.0"))),
         )
     return _exec_config
 

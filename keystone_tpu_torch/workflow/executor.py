@@ -33,9 +33,24 @@ row. Its rung's graph is not captured: the first call at a rung runs
 eagerly (`FusedBatchTransformer.run_rung`), so a pipeline applied once
 pays no capture. A warm-up that fails breaks nothing:
 ``dispatch.warmup_failures`` counts it, and the force meets the same
-error. The JAX package's ``warm_manifest`` and
-``warm_fitted_manifest`` need the serving manifest (ROADMAP queue 1,
-item 7).
+error. With a serving envelope armed (``KEYSTONE_SLO_MS``), a chain
+over a bound dataset is warmed at every rung of the envelope's pad
+ladder too (`_serving_warm_counts`, `:160-182`).
+
+Serving (`:111-128, 610-672`): `GraphExecutor.warm_manifest` takes the
+certifier's `analysis.serving.warmup_manifest()` enumeration and warms
+each fused program site at every ladder count it lists (on the card, a
+megafused chain's graph captured at each rung); `warm_fitted_manifest`
+does it for a fitted pipeline, which the serving runtime does before
+its first request.
+
+Under a tracer, the first execute embeds the static estimates in the
+trace's metadata (`_record_static_estimates`, `:301-445`): the memory
+pass's per-node bytes (``static_memory``), the roofline's per-stage
+seconds (``roofline``) and, with an envelope armed, the serving
+certificate (``serving``), from which it arms the conformance watchdog
+(`telemetry/watchdog.py::maybe_arm_from_certificate`). The JAX
+package's per-device sharding columns wait for the sharding tier.
 
 While a tracer or a profiler is installed (`telemetry.trace_run`,
 `utils/profiling.py::profile_execution`, which `autocache.profile_nodes`
@@ -111,33 +126,91 @@ def _warmable(dataset) -> bool:
             and getattr(dataset, "count", 0) > 0)
 
 
-def _submit_warmup(op, dataset, full: bool = True) -> None:
+def _submit_warmup(op, dataset, full: bool = True,
+                   counts: Tuple[int, ...] = ()) -> None:
     """Warm ``op`` (a fused transformer) for ``dataset``'s rows on a
     daemon thread, unless it is warm for them already: fully (its
     `warmup`: a megafused chain's graph captured), or, where not
     ``full``, by the plain chain's warm-up (one eager run on a zero row).
-    A failure is counted in ``dispatch.warmup_failures`` and logged."""
+    ``counts`` adds row counts to warm fully (a serving envelope's
+    ladder). A failure is counted in ``dispatch.warmup_failures`` and
+    logged."""
+    data = dataset.data
+    _submit_counts(op, tuple(data.shape[1:]), data.dtype, data.device,
+                   (dataset.count,), full)
+    if counts:
+        _submit_counts(op, tuple(data.shape[1:]), data.dtype, data.device,
+                       counts, True)
+
+
+def _submit_counts(op, item_shape, dtype, device, counts, full: bool = True,
+                   thread: bool = True) -> None:
+    """Warm ``op`` for rows of ``item_shape`` at each of ``counts``, the
+    counts one after another on one daemon thread (or on this thread),
+    skipping those it is warm for."""
     from ..nodes.util.fusion import FusedBatchTransformer
 
-    data = dataset.data
-    args = (tuple(data.shape[1:]), data.dtype, dataset.count, data.device)
     if full:
         is_warm, warmup = op.is_warm, op.warmup
     else:
         is_warm = functools.partial(FusedBatchTransformer.is_warm, op)
         warmup = functools.partial(FusedBatchTransformer.warmup, op)
-    if is_warm(*args):
+    todo = [c for c in dict.fromkeys(int(c) for c in counts if c)
+            if not is_warm(item_shape, dtype, c, device)]
+    if not todo:
         return
 
     def run():
-        try:
-            warmup(*args)
-        except Exception as e:
-            _WARMUP_FAILURES.inc()
-            logger.debug("warm-up of %s failed: %s: %s", op.label,
-                         type(e).__name__, e)
+        for count in todo:
+            try:
+                warmup(item_shape, dtype, count, device)
+            except Exception as e:
+                _WARMUP_FAILURES.inc()
+                logger.debug("warm-up of %s at %d rows failed: %s: %s",
+                             op.label, count, type(e).__name__, e)
 
-    _spawn_warm_thread(run, "keystone-warmup")
+    if thread:
+        _spawn_warm_thread(run, "keystone-warmup")
+    else:
+        run()
+
+
+def _serving_warm_counts() -> List[int]:
+    """The extra warm counts a declared serving envelope demands: every
+    pad-ladder rung `analysis.serving.ladder_shapes` enumerates, the
+    counts `warmup_manifest` lists (`keystone_tpu/workflow/executor.py:
+    160-182`). Empty when no envelope is armed; a certifier fault never
+    breaks a warm-up."""
+    try:
+        from ..analysis.serving import envelope_from_env, ladder_shapes
+
+        envelope = envelope_from_env()
+        if envelope is None:
+            return []
+        return ladder_shapes(envelope)
+    except Exception:
+        return []
+
+
+def warm_fitted_manifest(fitted, manifest, sample, device=None) -> int:
+    """Warm a fitted pipeline before traffic (`:610-634`): ``sample`` (a
+    host batch of the ingress element, or a dataset) bound into an
+    executor over the fitted apply graph, which takes ``manifest`` (an
+    `analysis.serving.warmup_manifest()` enumeration) to
+    `GraphExecutor.warm_manifest`. The graphs captured and plans built
+    are the fitted transformers' own, so every later
+    `FittedPipeline.apply` replays them. ``device``: where the sample
+    goes (default the card). The warm-up runs on the calling thread.
+    Returns the program sites warmed."""
+    from ..data.dataset import Dataset
+    from .operators import DatasetOperator
+
+    data = (sample if getattr(sample, "is_dataset", False)
+            else Dataset(sample, device=device))
+    g, nid = fitted.graph.add_node(DatasetOperator(data), [])
+    g = g.replace_dependency(fitted.source, nid).remove_source(fitted.source)
+    return GraphExecutor(g, optimize=False).warm_manifest(manifest,
+                                                          data.device)
 
 
 def _sequential(tasks: List[GraphId], eff_deps) -> bool:
@@ -193,6 +266,7 @@ class GraphExecutor:
         self._warm_pending: List[tuple] = []
         self._warm_est_watch: set = set()
         self._warm_lock = threading.Lock()
+        self._static_recorded = False
 
     @property
     def graph(self) -> Graph:
@@ -237,6 +311,7 @@ class GraphExecutor:
         from .fusion_rule import FusedChainOperator
         from .operators import DatasetOperator, ExpressionOperator
 
+        serving_counts = tuple(_serving_warm_counts())
         for vid in sorted(graph.operators, key=lambda n: n.id):
             op = graph.get_operator(vid)
             deps = graph.get_dependencies(vid)
@@ -247,7 +322,7 @@ class GraphExecutor:
                     and _warmable(data_op.dataset)):
                 continue
             if isinstance(op, FusedBatchTransformer) and len(deps) == 1:
-                _submit_warmup(op, data_op.dataset)
+                _submit_warmup(op, data_op.dataset, counts=serving_counts)
             elif isinstance(op, FusedChainOperator):
                 fitted = []
                 for dep in deps[:-1]:
@@ -298,11 +373,153 @@ class GraphExecutor:
             with self._warm_lock:
                 self._warm_pending.extend(still)
 
+    def warm_manifest(self, manifest, device) -> int:
+        """Warm each site of a `warmup_manifest()` enumeration at every
+        count it lists, on the calling thread (`:636-672`, where JAX
+        submits to warm-up threads): the entry resolved against this
+        executor's plan by vertex id, else by label; a fused chain over
+        estimator fits materialized from its forced fits. Returns the
+        sites warmed; never raises (a failure counts in
+        ``dispatch.warmup_failures``)."""
+        graph, _ = self._optimized_plan()
+        from ..analysis.specs import ShapeDtype
+        from ..nodes.util.fusion import FusedBatchTransformer
+        from .expressions import TransformerExpression
+        from .fusion_rule import FusedChainOperator
+        from .operators import ExpressionOperator
+
+        def resolve(entry):
+            by_label = None
+            for vid in graph.operators:
+                op = graph.get_operator(vid)
+                if not isinstance(op, (FusedBatchTransformer,
+                                       FusedChainOperator)):
+                    continue
+                if vid.id == entry.get("vertex"):
+                    return vid, op
+                if by_label is None and op.label == entry.get("label"):
+                    by_label = (vid, op)
+            return by_label
+
+        warmed = 0
+        for entry in manifest or ():
+            try:
+                hit = resolve(entry)
+                elem = entry.get("element")
+                if hit is None or not isinstance(elem, ShapeDtype):
+                    continue
+                vid, op = hit
+                if isinstance(op, FusedChainOperator):
+                    fitted = []
+                    for dep in graph.get_dependencies(vid)[:-1]:
+                        eop = (graph.get_operator(dep)
+                               if isinstance(dep, NodeId) else None)
+                        expr = (eop.expression
+                                if isinstance(eop, ExpressionOperator)
+                                else self._memo.get(dep))
+                        if not (isinstance(expr, TransformerExpression)
+                                and expr.is_forced):
+                            fitted = None
+                            break
+                        fitted.append(expr.get)
+                    if fitted is None:
+                        continue
+                    op = op.materialize(fitted)
+                    if not isinstance(op, FusedBatchTransformer):
+                        continue
+                _submit_counts(op, tuple(elem.shape), elem.dtype,
+                               torch.device(device), entry["counts"],
+                               thread=False)
+                warmed += 1
+            except Exception:
+                _WARMUP_FAILURES.inc()
+                continue
+        return warmed
+
+    def _record_static_estimates(self, graph: Graph, tracer) -> None:
+        """Embed the static estimates in the trace's metadata, once an
+        executor and only under a tracer (`:301-445`): the memory pass's
+        per-node bytes and peak (``static_memory``), the roofline's
+        per-stage FLOPs, bytes and seconds (``roofline``) and, with an
+        envelope armed (``KEYSTONE_SLO_MS``), the serving certificate
+        (``serving``), which also arms the conformance watchdog. The
+        graph is bound, so no source spec is needed. Never fails a run."""
+        if self._static_recorded:
+            return
+        self._static_recorded = True
+        try:
+            from ..analysis.memory import memory_pass
+            from ..analysis.propagate import spec_pass
+
+            specs, _ = spec_pass(graph, {})
+            est, _ = memory_pass(graph, specs)
+            meta = tracer.metadata.setdefault(
+                "static_memory", {"per_node": {}, "peak_bytes": 0})
+            for vid, nbytes in est.per_node.items():
+                if nbytes is None:
+                    continue
+                label = graph.get_operator(vid).label
+                key = f"{vid.id}:{label}"
+                prev = meta["per_node"].get(key)
+                # train and test applies collide on id:label: keep the
+                # larger estimate
+                if prev is None or prev["bytes"] < int(nbytes):
+                    meta["per_node"][key] = {"label": label,
+                                             "vertex": vid.id,
+                                             "bytes": int(nbytes)}
+            meta["peak_bytes"] = max(meta["peak_bytes"], int(est.peak_bytes))
+            roof = None
+            try:
+                from ..analysis.roofline import roofline_pass
+
+                roof, _ = roofline_pass(graph, specs)
+                rmeta = tracer.metadata.setdefault(
+                    "roofline", {"per_node": {}, "plan_predicted_seconds": 0.0,
+                                 "peak_flops": roof.machine.peak_flops,
+                                 "peak_bw": roof.machine.peak_bw})
+                for vid, st in roof.stages.items():
+                    key = f"{vid.id}:{st.label}"
+                    prev = rmeta["per_node"].get(key)
+                    if prev is None or prev["predicted_seconds"] \
+                            < st.predicted_seconds:
+                        rmeta["per_node"][key] = {
+                            "label": st.label, "vertex": vid.id,
+                            "flops": float(st.flops),
+                            "hbm_bytes": int(st.hbm_bytes),
+                            "intensity": float(st.intensity),
+                            "bound": st.bound,
+                            "predicted_seconds": float(st.predicted_seconds),
+                        }
+                rmeta["plan_predicted_seconds"] = max(
+                    rmeta["plan_predicted_seconds"], float(roof.plan_seconds))
+            except Exception:
+                pass  # the byte estimates above must still land
+            try:
+                from ..analysis.serving import envelope_from_env, serving_pass
+                from ..telemetry.watchdog import maybe_arm_from_certificate
+
+                envelope = envelope_from_env()
+                if envelope is not None:
+                    cert, _ = serving_pass(graph, specs, envelope, memory=est,
+                                           roofline=roof, record=False)
+                    record = cert.as_record()
+                    # a later executor (the apply after the fit) wins
+                    tracer.metadata["serving"] = record
+                    maybe_arm_from_certificate(
+                        record, pipeline=cert.dominating_stage or "pipeline")
+            except Exception:
+                pass
+        except Exception:  # estimation never breaks execution
+            pass
+
     def execute(self, graph_id: GraphId) -> Expression:
         """Execute up to ``graph_id``, returning its lazy Expression
         (GraphExecutor.scala:53-80)."""
         graph, prefixes = self._optimized_plan()
         self._check_structure(graph)
+        tracer = current_tracer()
+        if tracer is not None:
+            self._record_static_estimates(graph, tracer)
         self._warm_plan(graph)
         self._rearm_warmup()  # fits may have resolved since the scan
         env = PipelineEnv.get()

@@ -30,9 +30,9 @@ with their fit slots re-indexed, `Cacher`s absorbed) into one
 `MegafusedBatchTransformer`: the apply path's chunk loop as one CUDA
 graph replay. Every member's saveable prefix is dropped.
 `megafusion_blockers` (`:538-600`) says what stops a plan from
-collapsing. The JAX package's ``scan_live_nbytes`` and its KP401
-diagnostic need the spec analysis, which the port does not have yet
-(ROADMAP queue 1, item 8).
+collapsing; the hazard pass reports it as KP401. The fused operators'
+``abstract_eval`` (`:218-275`) and `MegafusedPlanOperator.
+scan_live_nbytes` (`:323-371`) serve the static analyzer.
 """
 
 from __future__ import annotations
@@ -174,6 +174,61 @@ class FusedChainOperator(Operator):
         state.pop("_materialized", None)
         return state
 
+    def abstract_eval(self, in_specs: List) -> object:
+        from ..analysis.specs import (
+            UNKNOWN,
+            DataSpec,
+            SpecMismatchError,
+            TransformerSpec,
+            is_known,
+            trace_element,
+        )
+
+        if len(in_specs) != self.n_fits + 1:
+            raise SpecMismatchError(
+                f"fused chain expects {self.n_fits} estimator "
+                f"dependency(ies) plus data, got {len(in_specs)}",
+                rule="KP002")
+        t_specs, data_spec = in_specs[:-1], in_specs[-1]
+        for i, ts in enumerate(t_specs):
+            if isinstance(ts, DataSpec):
+                raise SpecMismatchError(
+                    f"fused-chain dependency {i} produces data, not a "
+                    "transformer", rule="KP004")
+        if isinstance(data_spec, TransformerSpec):
+            raise SpecMismatchError(
+                "a transformer output is consumed as the fused chain's "
+                "data input (fit-before-use)", rule="KP003")
+        if not isinstance(data_spec, DataSpec):
+            return UNKNOWN
+        elem = data_spec.element
+        for s in self.stage_specs:
+            if not is_known(elem):
+                elem = UNKNOWN
+                break
+            if isinstance(s, _FitSlot):
+                ts = t_specs[s.index]
+                elem = (ts.apply_element(elem)  # may raise mismatch
+                        if isinstance(ts, TransformerSpec) else UNKNOWN)
+            else:
+                elem = trace_element(
+                    lambda x, s=s: s.single_transform([x]), (elem,))
+        # a fitted slot's chunk capability is provable only where the
+        # estimator's spec declares it
+        chunk_ok = all(
+            getattr(s, "chunkable", False) if not isinstance(s, _FitSlot)
+            else (isinstance(t_specs[s.index], TransformerSpec)
+                  and t_specs[s.index].chunkable)
+            for s in self.stage_specs)
+        return DataSpec(
+            element=elem,
+            count=data_spec.count if data_spec.kind == "dataset" else None,
+            kind=data_spec.kind,
+            on_device=data_spec.on_device,
+            streaming=(data_spec.kind == "dataset" and data_spec.streaming
+                       and chunk_ok),
+        )
+
     def execute(self, deps: Sequence[Expression]) -> Expression:
         deps = list(deps)
         if len(deps) != self.n_fits + 1:
@@ -212,6 +267,52 @@ class MegafusedPlanOperator(FusedChainOperator):
         from ..nodes.util.fusion import MegafusedBatchTransformer
 
         return MegafusedBatchTransformer
+
+    def scan_live_nbytes(self, dep_specs: Sequence, chunk_rows: int):
+        """Bytes live inside the captured chunk loop a trip: one chunk's
+        largest pair of adjacent stage boundaries, which the memory pass
+        prices in place of the intermediates that never become graph
+        nodes. None where a boundary element is unknown."""
+        from ..analysis.specs import (
+            DataSpec,
+            TransformerSpec,
+            element_nbytes,
+            is_known,
+            trace_element,
+        )
+
+        if not dep_specs:
+            return None
+        t_specs, data_spec = dep_specs[:-1], dep_specs[-1]
+        if not isinstance(data_spec, DataSpec):
+            return None
+        elem = data_spec.element
+        boundary_nbytes = []
+        for s in self.stage_specs:
+            if not is_known(elem):
+                return None
+            per_item = element_nbytes(elem)
+            if per_item is None:
+                return None
+            boundary_nbytes.append(per_item)
+            try:
+                if isinstance(s, _FitSlot):
+                    ts = t_specs[s.index]
+                    if not isinstance(ts, TransformerSpec):
+                        return None
+                    elem = ts.apply_element(elem)
+                else:
+                    elem = trace_element(
+                        lambda x, s=s: s.single_transform([x]), (elem,))
+            except Exception:
+                return None
+        out_nbytes = element_nbytes(elem)
+        if out_nbytes is None:
+            return None
+        boundary_nbytes.append(out_nbytes)
+        worst = max(boundary_nbytes[i] + boundary_nbytes[i + 1]
+                    for i in range(len(boundary_nbytes) - 1))
+        return int(worst * chunk_rows)
 
 
 class MegafusionRule(Rule):

@@ -15,14 +15,24 @@ dataset (anything marked ``is_dataset``: `Dataset`, `HostDataset`,
 a `StreamingDatasetExpression` (`:27-60, 265-274, 419-427`): at force
 time the stage consumes its input's chunks where it is ``chunkable``,
 produces its own where it has a streaming batch path, and otherwise
-yields its whole value as one chunk. The JAX package's static
-``abstract_eval`` hooks (its analysis tiers) have no counterpart here
-yet.
+yields its whole value as one chunk.
+
+Every operator has the static ``abstract_eval(in_specs)`` hook of the
+analyzer (`:127, 155, 175, 236, 285, 362, 445, 480`): it maps its
+dependencies' specs (`analysis/specs.py`) to its own without touching
+data. A transformer runs its single-item path on meta tensors
+(`analysis/specs.py::trace_element`) unless it declares
+``abstract_apply``; an estimator declares its fitted transformer's shape
+function with ``abstract_fit``. ``donates_deps`` (`:121`) names the
+dependencies whose tensors an operator writes into in place: the hazard
+pass (KP301) and the serving certifier (KP904) check them.
 """
 
 from __future__ import annotations
 
 from typing import Any, List, Sequence
+
+import torch
 
 from .expressions import (
     DatasetExpression,
@@ -101,12 +111,62 @@ def _streamed_batch(transformer, dep: Expression):
         yield from stream
 
 
+def _check_data_specs(in_specs: List[Any]):
+    """The static form of `TransformerOperator.execute`'s argument checks
+    (`:70-110`): no transformer consumed as data, no datum/dataset mix,
+    agreeing dataset counts. Returns ``(kind, count, on_device, elems)``."""
+    from ..analysis.specs import (
+        UNKNOWN,
+        DataSpec,
+        SpecMismatchError,
+        TransformerSpec,
+    )
+
+    if not in_specs:
+        raise SpecMismatchError(
+            "requires at least one data dependency", rule="KP002")
+    for s in in_specs:
+        if isinstance(s, TransformerSpec):
+            raise SpecMismatchError(
+                "a transformer output is consumed as data (fit-before-use)",
+                rule="KP003")
+    data = [s for s in in_specs if isinstance(s, DataSpec)]
+    kinds = {s.kind for s in data}
+    if kinds == {"datum", "dataset"}:
+        raise SpecMismatchError(
+            "dependencies mix datums and datasets", rule="KP002")
+    kind = "datum" if kinds == {"datum"} else "dataset"
+    counts = {s.count for s in data
+              if s.kind == "dataset" and s.count is not None}
+    if len(counts) > 1:
+        raise SpecMismatchError(
+            f"dependency datasets disagree on example count: "
+            f"{sorted(counts)}", rule="KP102")
+    count = next(iter(counts)) if counts else None
+    on_device = data[0].on_device if data else True
+    elems = [s.element if isinstance(s, DataSpec) else UNKNOWN
+             for s in in_specs]
+    return kind, count, on_device, elems
+
+
 class Operator:
     """Base class. Subclasses implement ``execute``."""
+
+    #: indices of dependencies whose tensor this operator writes into in
+    #: place (the JAX package's donated buffers, `:113-121`)
+    donates_deps: tuple = ()
 
     @property
     def label(self) -> str:
         return type(self).__name__
+
+    def abstract_eval(self, in_specs: List[Any]) -> Any:
+        """Map dependency specs to this operator's output spec without
+        touching data. Default: unknowable. Hooks raise
+        `SpecMismatchError` when the inputs provably cannot work."""
+        from ..analysis.specs import UNKNOWN
+
+        return UNKNOWN
 
     def execute(self, deps: Sequence[Expression]) -> Expression:
         raise NotImplementedError
@@ -127,6 +187,11 @@ class DatasetOperator(Operator):
     def label(self) -> str:
         return f"Dataset[{self.name}]"
 
+    def abstract_eval(self, in_specs: List[Any]) -> Any:
+        from ..analysis.specs import spec_of
+
+        return spec_of(self.dataset)
+
     def execute(self, deps: Sequence[Expression]) -> Expression:
         assert not deps
         return DatasetExpression.of(self.dataset)
@@ -141,6 +206,14 @@ class DatumOperator(Operator):
     @property
     def label(self) -> str:
         return "Datum"
+
+    def abstract_eval(self, in_specs: List[Any]) -> Any:
+        from ..analysis.specs import UNKNOWN, DataSpec, spec_of
+
+        spec = spec_of(self.datum)
+        if isinstance(spec, DataSpec):
+            return spec
+        return DataSpec(element=UNKNOWN, kind="datum", on_device=False)
 
     def execute(self, deps: Sequence[Expression]) -> Expression:
         assert not deps
@@ -160,6 +233,45 @@ class TransformerOperator(Operator):
 
     def batch_transform(self, inputs: List[Any]) -> Any:
         raise NotImplementedError
+
+    # ------------------------------------------------------ static analysis
+
+    def _abstract_element(self, elems: List[Any]) -> Any:
+        """Per-item output element spec: the ``abstract_apply(elem)``
+        hook where one is declared, else ``single_transform`` run on
+        meta tensors (`analysis/specs.py::trace_element`)."""
+        from ..analysis.specs import trace_element
+
+        hook = getattr(self, "abstract_apply", None)
+        if hook is not None and len(elems) == 1:
+            return hook(elems[0])
+        return trace_element(
+            lambda *xs: self.single_transform(list(xs)), elems)
+
+    def _streams_out(self, in_specs: List[Any]) -> bool:
+        from ..analysis.specs import DataSpec
+
+        if is_stream_origin(self):
+            return True
+        in_streams = any(
+            isinstance(s, DataSpec) and s.streaming for s in in_specs)
+        return in_streams and bool(getattr(self, "chunkable", False))
+
+    def abstract_eval(self, in_specs: List[Any]) -> Any:
+        from ..analysis.specs import UNKNOWN, DataSpec, is_known
+
+        kind, count, on_device, elems = _check_data_specs(in_specs)
+        if all(is_known(e) for e in elems):
+            out_elem = self._abstract_element(elems)
+        else:
+            out_elem = UNKNOWN
+        return DataSpec(
+            element=out_elem,
+            count=count if kind == "dataset" else None,
+            kind=kind,
+            on_device=on_device,
+            streaming=kind == "dataset" and self._streams_out(in_specs),
+        )
 
     def execute(self, deps: Sequence[Expression]) -> Expression:
         deps = list(deps)
@@ -188,6 +300,32 @@ class EstimatorOperator(Operator):
     def fit_datasets(self, inputs: List[Any]) -> TransformerOperator:
         raise NotImplementedError
 
+    def abstract_eval(self, in_specs: List[Any]) -> Any:
+        """Static fit: count agreement across training datasets, then
+        the estimator's ``abstract_fit(in_specs) -> TransformerSpec``
+        hook where it declares one; opaque otherwise."""
+        from ..analysis.specs import (
+            DataSpec,
+            SpecMismatchError,
+            TransformerSpec,
+        )
+
+        if not in_specs:
+            raise SpecMismatchError(
+                "estimator requires training data dependencies",
+                rule="KP002")
+        counts = {s.count for s in in_specs
+                  if isinstance(s, DataSpec) and s.kind == "dataset"
+                  and s.count is not None}
+        if len(counts) > 1:
+            raise SpecMismatchError(
+                f"training datasets disagree on example count: "
+                f"{sorted(counts)}", rule="KP102")
+        hook = getattr(self, "abstract_fit", None)
+        if hook is not None:
+            return hook(in_specs)
+        return TransformerSpec(None, label=self.label)
+
     def execute(self, deps: Sequence[Expression]) -> Expression:
         deps = list(deps)
         return TransformerExpression(
@@ -202,6 +340,44 @@ class DelegatingOperator(Operator):
     #: dependency indices that consume an estimator output (KP003
     #: fit-before-use exempts these; see `analysis.propagate`)
     estimator_positions: tuple = (0,)
+
+    def abstract_eval(self, in_specs: List[Any]) -> Any:
+        from ..analysis.specs import (
+            UNKNOWN,
+            DataSpec,
+            SpecMismatchError,
+            TransformerSpec,
+            is_known,
+        )
+
+        if not in_specs:
+            raise SpecMismatchError(
+                "DelegatingOperator requires a transformer dependency",
+                rule="KP002")
+        tspec, data_specs = in_specs[0], in_specs[1:]
+        if isinstance(tspec, DataSpec):
+            raise SpecMismatchError(
+                "first dependency produces data, not a transformer",
+                rule="KP004")
+        if not data_specs:
+            raise SpecMismatchError(
+                "DelegatingOperator requires data dependencies",
+                rule="KP002")
+        kind, count, on_device, elems = _check_data_specs(data_specs)
+        out_elem = UNKNOWN
+        if isinstance(tspec, TransformerSpec) and len(elems) == 1 \
+                and is_known(elems[0]):
+            out_elem = tspec.apply_element(elems[0])  # may raise mismatch
+        in_streams = any(
+            isinstance(s, DataSpec) and s.streaming for s in data_specs)
+        chunkable = isinstance(tspec, TransformerSpec) and tspec.chunkable
+        return DataSpec(
+            element=out_elem,
+            count=count if kind == "dataset" else None,
+            kind=kind,
+            on_device=on_device,
+            streaming=kind == "dataset" and in_streams and chunkable,
+        )
 
     def execute(self, deps: Sequence[Expression]) -> Expression:
         deps = list(deps)
@@ -244,6 +420,20 @@ class ExpressionOperator(Operator):
     def label(self) -> str:
         return f"Saved[{self.name}]"
 
+    def abstract_eval(self, in_specs: List[Any]) -> Any:
+        from ..analysis.specs import UNKNOWN, TransformerSpec, spec_of
+
+        if isinstance(self.expression, TransformerExpression):
+            if self.expression.is_forced:
+                fitted = self.expression.get
+                return TransformerSpec(
+                    fitted_elem_fn(fitted), label=self.label,
+                    chunkable=bool(getattr(fitted, "chunkable", False)))
+            return TransformerSpec(None, label=self.label)
+        if self.expression.is_forced:
+            return spec_of(self.expression.get)
+        return UNKNOWN
+
     def execute(self, deps: Sequence[Expression]) -> Expression:
         return self.expression
 
@@ -253,9 +443,22 @@ class GatherTransformerOperator(TransformerOperator):
     the inputs for one datum; the datasets zipped row by row
     (`zip_datasets`) for a batch."""
 
+    #: value-preserving plumbing: the certifier looks through the zip
+    precision_passthrough = True
+
     @property
     def label(self) -> str:
         return "Gather"
+
+    def abstract_eval(self, in_specs: List[Any]) -> Any:
+        from ..analysis.specs import UNKNOWN, DataSpec, is_known
+
+        kind, count, on_device, elems = _check_data_specs(in_specs)
+        out_elem = (tuple(elems) if all(is_known(e) for e in elems)
+                    else UNKNOWN)
+        return DataSpec(element=out_elem,
+                        count=count if kind == "dataset" else None,
+                        kind=kind, on_device=on_device)
 
     def single_transform(self, inputs: List[Any]) -> Any:
         return list(inputs)
@@ -267,16 +470,20 @@ class GatherTransformerOperator(TransformerOperator):
 
 
 def fitted_elem_fn(transformer: TransformerOperator):
-    """Element → element function of an already-fitted transformer, for
-    shape checks that touch no data (`keystone_tpu/workflow/operators.py`
-    `fitted_elem_fn`): its ``abstract_apply`` hook when it has one, else
-    its single-item path on the element, which callers pass as a tensor
-    on torch's ``meta`` device (shape and dtype, no storage)."""
+    """Element → element spec function of an already-fitted transformer
+    (`keystone_tpu/workflow/operators.py:329-345`): its ``abstract_apply``
+    hook when it has one, else its single-item path run on meta tensors.
+    Given a meta tensor rather than a spec, it returns the output tensor."""
 
     def fn(elem):
+        from ..analysis.specs import trace_element
+
+        if isinstance(elem, torch.Tensor):
+            return transformer.single_transform([elem])
         hook = getattr(transformer, "abstract_apply", None)
         if hook is not None:
             return hook(elem)
-        return transformer.single_transform([elem])
+        return trace_element(
+            lambda x: transformer.single_transform([x]), (elem,))
 
     return fn

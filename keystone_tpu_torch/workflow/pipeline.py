@@ -72,6 +72,12 @@ class PipelineResult:
         without re-running the ones already seen."""
         return self.executor.execute_stream(self.sink)
 
+    def validate(self, **kwargs):
+        """Statically validate this applied pipeline's graph: its sources
+        are bound, so specs come from the bound datasets. See
+        `Pipeline.validate`."""
+        return _validate(self.graph, {}, **kwargs)
+
 
 class PipelineDataset(PipelineResult):
     """Lazy dataset result (PipelineDataset.scala:10-23)."""
@@ -92,6 +98,22 @@ def _splice_result(g: Graph, result: PipelineResult) -> Tuple[Graph, NodeOrSourc
     for k in kmap.values():
         g2 = g2.remove_sink(k)
     return g2, vid
+
+
+def _validate(graph, source_specs, *, level: str = "full", ignore=(),
+              hbm_budget_bytes=None, chunk_rows=None, serving=None,
+              raise_on_error=True):
+    """`Pipeline.validate` and `PipelineResult.validate`
+    (`keystone_tpu/workflow/pipeline.py:103-122`)."""
+    from ..analysis import validate_graph
+
+    report = validate_graph(
+        graph, source_specs, level=level, ignore=ignore,
+        hbm_budget_bytes=hbm_budget_bytes, chunk_rows=chunk_rows,
+        serving=serving)
+    if raise_on_error:
+        report.raise_for_errors()
+    return report
 
 
 def _add_data_vertex(g: Graph, data: Any) -> Tuple[Graph, NodeOrSourceId]:
@@ -185,6 +207,29 @@ class Pipeline(Chainable):
 
     def __call__(self, data: Any) -> PipelineResult:
         return self.apply(data)
+
+    def validate(self, source_spec=None, *, level: str = "full", ignore=(),
+                 hbm_budget_bytes=None, chunk_rows=None, serving=None,
+                 raise_on_error: bool = True):
+        """Statically validate this pipeline before any data loads
+        (`keystone_tpu/workflow/pipeline.py:183-225`): specs propagated
+        by running stage bodies on meta tensors, live memory against
+        ``hbm_budget_bytes``, hazards, the roofline and, with
+        ``serving`` (a `analysis.ServingEnvelope`, or
+        ``KEYSTONE_SLO_MS``), the KP9xx certificate on
+        ``report.serving``. ``source_spec`` describes the input: a
+        `analysis.SpecDataset`, a `analysis.ShapeDtype`, a ``(shape,
+        dtype)`` pair or a bare shape (float32); None leaves it unknown.
+        ``level``: "structure" ⊂ "specs" ⊂ "memory" ⊂ "full". Raises
+        `analysis.PipelineValidationError` on an ERROR finding unless
+        ``raise_on_error=False``; returns the `ValidationReport`."""
+        from ..analysis import as_source_spec
+
+        return _validate(
+            self.graph, {self.source: as_source_spec(source_spec)},
+            level=level, ignore=ignore, hbm_budget_bytes=hbm_budget_bytes,
+            chunk_rows=chunk_rows, serving=serving,
+            raise_on_error=raise_on_error)
 
     def data_path(self) -> List[NodeId]:
         """The nodes from this pipeline's source to its sink along their

@@ -119,3 +119,26 @@ def test_port_telemetry_loads_nothing_of_jax_s():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_the_serving_and_analysis_modules_are_in_scope():
+    """The serving runtime and the analysis tiers are held to the same
+    rule as the rest of the port."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ("serving/__init__.py", "serving/batcher.py",
+                   "serving/ingress.py", "serving/registry.py",
+                   "serving/runtime.py", "analysis/specs.py",
+                   "analysis/memory.py", "analysis/roofline.py",
+                   "analysis/effects.py", "analysis/hazards.py",
+                   "analysis/serving.py", "analysis/examples.py",
+                   "ops/meta.py"):
+        assert f"keystone_tpu_torch/{module}" in names, module
+
+
+def test_serving_runtime_asks_for_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from keystone_tpu_torch.serving import ServingRuntime
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingRuntime(object(), element_shape=(4,))
