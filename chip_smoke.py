@@ -274,6 +274,40 @@ Phases, each printed on a line of its own:
               Bayes tail on the card, classes equal to the direct apply);
               `TenantRegistry` admitting the RandomPatchCifar runtime at
               its priced peak and refusing it one byte under.
+27. planners - RandomPatchCifar (256 filters, BCD 4096) and LinearPixels
+              on the slice's 50,000/10,000 images through `Pipeline.fit`
+              and the test apply with the planners on (the default),
+              with the precision planner alone (the unified planner off,
+              so its bf16 trail in front of K1 is enforced) and off: each
+              arm's ledger decisions by kind, planned chunk, precision
+              trails, K1 and K4 launches, test score, seconds and peak
+              memory; `plan_unified` (sequential and joint seconds,
+              changed kinds) and `plan_stage_precision` (trails, saved
+              bytes) called directly on each path's fused graph, where
+              the rules would swallow a failure; K1 on the bf16
+              PixelScaler output of 2,048 test images against its plain
+              version; VOCSIFTFisher's planned chunk and peak (from the
+              voc phase). Held: scores within 0.005 of the planner-off
+              arm and RandomPatchCifar's in ACC_BAND, K4's launches equal
+              in every arm, the direct calls answered (a trail for
+              RandomPatchCifar's featurizer, as JAX prices one), K1 on
+              bf16 within 2e-2.
+28. out_of_core - RandomPatchCifar at full width trained from 500,000
+              CIFAR-shaped images (6.1 GB as float32) drawn 8,192 at a
+              time from seed + i on the slice's class templates
+              (`synthetic_cifar_out_of_core`), tested on 10,000 drawn the
+              same way; the filters learned once from a sample of the
+              source (each shard drawn once); trained under
+              hbm_budget_bytes = 2 GiB and without a budget. Each run's
+              seconds, score, planned chunk and windows, decisions, host
+              caches, the spill.* counters, the reload stall against the
+              planner's reload seconds, and peak memory beside the
+              budget. Held: the budgeted plan holds a host `CacheMarker`
+              and a ``spill`` record whose alternatives include an
+              infeasible device cache; K1 once a microbatch of every
+              window and of the test images in both runs; the score in
+              ACC_BAND; 99% of the budgeted run's predictions equal to
+              the unbudgeted run's.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The process-wide prefix table (`PipelineEnv`) is reset before each
@@ -548,6 +582,19 @@ SERVING_CARD_VERDICTS = {
     "VOCSIFTFisher": (True, [["KP902", "WARNING"], ["KP903", "INFO"]]),
     "ImageNetSiftLcsFV": (True, [["KP902", "WARNING"], ["KP903", "INFO"]]),
 }
+
+
+# phases 27-28: the plan tier and the out-of-core tier. ACC_BAND is the
+# slice's accuracy floor (and 1); a planner-on run stays within
+# PLANNER_ACC_GAP of its planner-off twin, the slice's own 0.005
+ACC_BAND = (0.72, 1.0)
+PLANNER_ACC_GAP = 0.005
+OOC_N = 500_000           # CIFAR-shaped training images, drawn a shard
+OOC_SHARD = 8192          # at a time from seed + i
+OOC_TEST = 10_000
+OOC_BUDGET = 2 << 30      # hbm_budget_bytes of the budgeted run
+OOC_AGREE = 0.99          # predictions equal to the unbudgeted run's
+OOC_TEST_SEED = 1 << 20   # the test images' seed, past every shard's
 
 
 def check(cond: bool, msg: str) -> None:
@@ -918,6 +965,10 @@ def voc_phase(dev, card) -> int:
     vc = voc_sift_fisher.run_on(vc_train, vc_test, vc_config, dev)
     vc_peak = torch.cuda.max_memory_allocated()
     vc_launches = launch_counts()
+    from keystone_tpu_torch.workflow.env import planned_chunk_size
+
+    VOC_PLAN.update(planned_chunk=planned_chunk_size(),
+                    peak_mem_bytes=vc_peak)
     # the same run one stage at a time, each closed by a device sync
     vc_tr = HostDataset(vc_train.items, device=dev)
     vc_te = HostDataset(vc_test.items, device=dev)
@@ -982,6 +1033,10 @@ def voc_phase(dev, card) -> int:
     check(vc_k4 == vc_k4_want and not others, f"VOCSIFTFisher launched "
           f"{vc_launches}, not elementwise_chain {vc_k4_want} times alone")
     return vc_k4
+
+
+#: VOCSIFTFisher's planned chunk and peak memory, for the planners phase
+VOC_PLAN: dict = {}
 
 
 def imagenet_phase(dev, card) -> int:
@@ -2778,6 +2833,304 @@ def serving_phase(dev, train, test, config, card) -> dict:
     return dict(k1=k1_serving, k4=k4_serving)
 
 
+def plan_report(applied):
+    """The planners' decisions for the graph a run optimizes, made by
+    calling them directly (their rules swallow a failure, as JAX's do):
+    `plan_unified` as `UnifiedPlannerRule` calls it, and
+    `plan_stage_precision` on each fused program, on the fused plan."""
+    from keystone_tpu_torch.analysis.plan_ir import plan_unified
+    from keystone_tpu_torch.analysis.precision import plan_stage_precision
+    from keystone_tpu_torch.analysis.propagate import spec_pass
+    from keystone_tpu_torch.workflow.env import execution_config
+    from keystone_tpu_torch.workflow.optimizer import (
+        DefaultOptimizer,
+        _fused_program,
+    )
+
+    cfg = execution_config()
+    fused, _ = DefaultOptimizer(
+        unified_planner=False, sharding_planner=False,
+        precision_planner=False).execute(applied.executor.graph)
+    specs, _ = spec_pass(fused, {})
+    uplan = plan_unified(
+        fused, specs, hbm_budget_bytes=cfg.hbm_budget_bytes,
+        chunk_default=cfg.chunk_size, include_boundary_policies=False,
+        precision_floor_bytes=cfg.precision_min_savings_bytes)
+    trails = {}
+    for vid in sorted(fused.operators, key=lambda v: v.id):
+        op = fused.get_operator(vid)
+        if _fused_program(op):
+            decided = plan_stage_precision(fused, vid, op, specs)
+            trails[f"{op.label}@{vid.id}"] = None if decided is None \
+                else dict(storage=list(decided[0]), bytes_saved=decided[1])
+    return uplan, trails
+
+
+def decisions_by_kind(records) -> dict:
+    out = collections.Counter(f"{r['kind']}:{r['rule']}" for r in records)
+    return dict(sorted(out.items()))
+
+
+def planners_phase(dev, train, test, config, lp_config, card) -> dict:
+    """Phase 27: RandomPatchCifar and LinearPixels at full width through
+    `Pipeline.fit` with the planners on (the default), with the
+    precision planner alone (the unified planner off: its trails are
+    enforced as they are), and off; returns the K1 and K4 launches of
+    the planner-on runs."""
+    from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.nodes.images.core import Convolver
+    from keystone_tpu_torch.ops import chain_kernels, kernels
+    from keystone_tpu_torch.pipelines.cifar_variants import (
+        build_linear_pixels,
+    )
+    from keystone_tpu_torch.pipelines.random_patch_cifar import (
+        build_pipeline,
+        learn_filters,
+    )
+    from keystone_tpu_torch.telemetry import ledger
+    from keystone_tpu_torch.workflow import PipelineEnv
+    from keystone_tpu_torch.workflow.env import (
+        config_override,
+        planned_chunk_size,
+    )
+
+    phase_t0 = time.perf_counter()
+    evaluator = MulticlassClassifierEvaluator(config.num_classes)
+    learned = learn_filters(train.data, config)
+    arms = (("on", {}), ("precision_only", dict(unified_planner=False)),
+            ("off", dict(unified_planner=False, precision_planner=False,
+                         sharding_planner=False)))
+    out, launches = {}, {}
+    for name, build in (
+            ("random_patch_cifar",
+             lambda: build_pipeline(train, config, learned)),
+            ("linear_pixels", lambda: build_linear_pixels(train, lp_config))):
+        runs = {}
+        # the planners called directly on the graph the fit optimizes,
+        # before any fit fills the prefix table
+        PipelineEnv.reset()
+        uplan, trails = plan_report(build()(train.data))
+        for arm, cfg in arms:
+            with config_override(**cfg):
+                PipelineEnv.reset()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                mark = ledger.session_mark()
+                kernels.reset_launches()
+                t0 = time.perf_counter()
+                pipe = build()
+                fitted = pipe.fit()
+                acc = evaluator(fitted.apply(test.data),
+                                test.labels).accuracy
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                counts = dict(k1=kernels.conv_rectify_pool.launches,
+                              k4=chain_kernels.elementwise_chain.launches)
+                records = ledger.session_since(mark)
+                runs[arm] = dict(
+                    test_accuracy=acc, seconds=seconds,
+                    peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                    launches=counts, planned_chunk=planned_chunk_size(),
+                    decisions=decisions_by_kind(records),
+                    precision_tags=[r["chosen"]["storage"] for r in records
+                                    if r["kind"] == "precision"])
+                if arm == "on":
+                    launches[name] = counts
+            del pipe, fitted
+        check(uplan is not None, f"{name}: plan_unified returned nothing")
+        # JAX prices RandomPatchCifar's featurizer trail; LinearPixels'
+        # GrayScaler declares no tolerance, so it has none in either
+        check(name != "random_patch_cifar"
+              or any(t is not None for t in trails.values()),
+              f"{name}: plan_stage_precision priced no trail")
+        runs["plan_unified"] = dict(
+            sequential_seconds=uplan.sequential_seconds,
+            joint_seconds=uplan.joint_seconds, improved=uplan.improved,
+            changed_kinds=uplan.changed_kinds(), chunk=uplan.chunk_size)
+        runs["trails"] = trails
+        out[name] = runs
+        for arm in ("on", "precision_only"):
+            gap = abs(runs[arm]["test_accuracy"]
+                      - runs["off"]["test_accuracy"])
+            check(gap <= PLANNER_ACC_GAP, f"{name}: planners {arm} and off "
+                  f"differ by {gap} in test accuracy")
+            # the kernel axis keeps every chain kernel (decision (b))
+            check(runs[arm]["launches"]["k4"]
+                  == runs["off"]["launches"]["k4"],
+                  f"{name}: K4 launched {runs[arm]['launches']['k4']} "
+                  f"times ({arm}), {runs['off']['launches']['k4']} without "
+                  "planners")
+    rpc = out["random_patch_cifar"]
+    check(ACC_BAND[0] <= rpc["on"]["test_accuracy"] <= ACC_BAND[1],
+          f"RandomPatchCifar planner-on test accuracy "
+          f"{rpc['on']['test_accuracy']} outside {ACC_BAND}")
+    check(ACC_BAND[0] <= rpc["precision_only"]["test_accuracy"]
+          <= ACC_BAND[1], f"RandomPatchCifar precision-only test accuracy "
+          f"{rpc['precision_only']['test_accuracy']} outside {ACC_BAND}")
+    # the trail that puts bf16 in front of K1 (decision (c)): K1 on the
+    # bf16 PixelScaler output of test images against its plain version
+    # on the same values, at K1's limit
+    check(any(t[0] == "bfloat16"
+              for t in rpc["precision_only"]["precision_tags"]),
+          "RandomPatchCifar: the precision planner put no bf16 trail in "
+          "front of K1")
+    cv = Convolver(learned[0], 32, 32, 3, whitener=learned[1],
+                   normalize_patches=True)
+    x = (test.data.array[:HEADLINE_N] / 255.0).to(torch.bfloat16)
+    g = kernels.hwio_to_cmajor(cv.kernel).contiguous()
+    args = (cv.colsum.contiguous(), cv.bias.contiguous(), config.alpha, 0.0,
+            config.pool_size, config.pool_stride, True)
+    before = kernels.conv_rectify_pool.launches
+    got = kernels.conv_rectify_pool(x, g, *args, cv.patch)
+    torch.cuda.synchronize()
+    kernels.conv_rectify_pool.launches = before  # a check, not the path
+    want = kernels.conv_rectify_pool_reference(x.float(), cv.kernel, *args)
+    err, rel = rel_err(got, want)
+    k1_bf16 = dict(n=HEADLINE_N, max_abs_err=err, rel_err=rel,
+                   tolerance_rel=K1_TOL)
+    check(rel <= K1_TOL, f"K1 on bf16 images: relative error {rel} > "
+          f"{K1_TOL}")
+    del x, g, got, want
+    phase("planners", **out, k1_bf16_input=k1_bf16, voc=VOC_PLAN,
+          phase_seconds=time.perf_counter() - phase_t0, card=card)
+    return launches
+
+
+def out_of_core_phase(dev, config, card) -> dict:
+    """Phase 28: RandomPatchCifar at full width trained from OOC_N
+    CIFAR-shaped images drawn a shard at a time, under an HBM budget of
+    OOC_BUDGET and without one; returns the budgeted run's K1 launches."""
+    from keystone_tpu_torch.data.dataset import Dataset, SpilledDataset
+    from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.loaders.cifar_loader import (
+        CifarShards,
+        synthetic_cifar_out_of_core,
+    )
+    from keystone_tpu_torch.loaders.csv_loader import LabeledData
+    from keystone_tpu_torch.ops import kernels
+    from keystone_tpu_torch.pipelines.random_patch_cifar import (
+        build_pipeline,
+        learn_filters,
+    )
+    from keystone_tpu_torch.telemetry import counter, histogram, ledger
+    from keystone_tpu_torch.utils.batching import _window_plan
+    from keystone_tpu_torch.workflow import PipelineEnv
+    from keystone_tpu_torch.workflow.autocache import CacheMarker
+    from keystone_tpu_torch.workflow.env import (
+        config_override,
+        resolved_chunk_size,
+    )
+
+    phase_t0 = time.perf_counter()
+    images, labels = synthetic_cifar_out_of_core(
+        OOC_N, OOC_SHARD, num_classes=config.num_classes, seed=config.seed,
+        device=dev)
+    train = LabeledData(labels=labels, data=images)
+    tx, ty = CifarShards(config.num_classes, config.seed).shard(
+        OOC_TEST, config.seed + OOC_TEST_SEED)
+    test = LabeledData(labels=Dataset(ty, device=dev),
+                       data=Dataset(tx, device=dev))
+    evaluator = MulticlassClassifierEvaluator(config.num_classes)
+    t0 = time.perf_counter()
+    learned = learn_filters(images, config)
+    filter_seconds = time.perf_counter() - t0
+    spill_names = ("spill.bytes_out", "spill.bytes_in",
+                   "spill.window_trips")
+    stall = histogram("spill.reload_stall_s")
+    runs, launches = {}, {}
+    for arm, budget in (("budgeted", OOC_BUDGET), ("unbudgeted", None)):
+        with config_override(hbm_budget_bytes=budget):
+            PipelineEnv.reset()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            mark = ledger.session_mark()
+            before = {n: counter(n).value for n in spill_names}
+            stall_before = stall.total
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            applied = build_pipeline(train, config, learned)(test.data)
+            graph = applied.executor.optimized_graph
+            chunk = resolved_chunk_size()
+            pred = applied.get()
+            acc = evaluator(pred, test.labels).accuracy
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            k1 = kernels.conv_rectify_pool.launches
+            records = ledger.session_since(mark)
+            windows = _window_plan(OOC_N, chunk)
+            want = (sum(math.ceil(p / config.microbatch)
+                        for _, _, p in windows)
+                    + math.ceil(OOC_TEST / config.microbatch))
+            run = dict(
+                seconds=seconds, test_accuracy=acc, k1_launches=k1,
+                k1_launches_expected=want, windows=len(windows),
+                chunk=chunk, budget_bytes=budget,
+                peak_mem_bytes=torch.cuda.max_memory_allocated(),
+                decisions=decisions_by_kind(records),
+                host_caches=[op.label for op in graph.operators.values()
+                             if isinstance(op, CacheMarker)
+                             and op.placement == "host"],
+                spill={n: counter(n).value - before[n]
+                       for n in spill_names},
+                reload_stall_seconds=stall.total - stall_before)
+            check(k1 == want, f"out_of_core {arm}: K1 launched {k1} times, "
+                  f"not once a microbatch of its {len(windows)} windows "
+                  f"and of the test images ({want})")
+            if arm == "budgeted":
+                spills = [r for r in records if r["kind"] == "spill"]
+                check(bool(run["host_caches"] and spills),
+                      "out_of_core: the budgeted plan holds no host cache "
+                      "or no spill record")
+                check(any(a["entry"].startswith("cache_")
+                          and not a["feasible"]
+                          for a in spills[0]["alternatives"]),
+                      "out_of_core: the spill record's alternatives hold "
+                      "no infeasible device cache")
+                run["predicted_reload_seconds"] = \
+                    spills[0]["predicted"].get("reload_seconds")
+                run["spill_chosen"] = spills[0]["chosen"]
+                launches["k1"] = k1
+            run["predictions"] = pred.array.cpu()
+            runs[arm] = run
+            del applied, pred, graph
+    a = runs["budgeted"].pop("predictions")
+    b = runs["unbudgeted"].pop("predictions")
+    agree = float((a == b).float().mean())
+    # one spilled cache's round trip at the featurized size, against the
+    # planner's reload_seconds for it (2 · bytes / host_bw + a dispatch a
+    # window trip): the spill into pinned memory, then a whole re-entry
+    PipelineEnv.reset()
+    torch.cuda.empty_cache()
+    rows = Dataset(torch.zeros((OOC_N, 2 * 2 * 2 * config.num_filters),
+                               device=dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    spilled = SpilledDataset.spill(rows)
+    spill_s = time.perf_counter() - t0
+    del rows
+    t0 = time.perf_counter()
+    back = spilled.rehydrate()
+    torch.cuda.synchronize()
+    round_trip = dict(bytes=spilled.nbytes, spill_seconds=spill_s,
+                      rehydrate_seconds=time.perf_counter() - t0,
+                      predicted_reload_seconds=runs["budgeted"][
+                          "spill_chosen"]["spills"][0]["reload_seconds"])
+    del spilled, back
+    phase("out_of_core", train_images=OOC_N, shard_rows=OOC_SHARD,
+          shards=math.ceil(OOC_N / OOC_SHARD), test_images=OOC_TEST,
+          source_bytes=OOC_N * 32 * 32 * 3 * 4,
+          filter_seconds=filter_seconds, agreement=agree, **runs,
+          spill_round_trip=round_trip,
+          phase_seconds=time.perf_counter() - phase_t0, card=card)
+    check(ACC_BAND[0] <= runs["budgeted"]["test_accuracy"] <= ACC_BAND[1],
+          f"out_of_core test accuracy {runs['budgeted']['test_accuracy']} "
+          f"outside {ACC_BAND}")
+    check(agree >= OOC_AGREE, f"out_of_core: the budgeted run agrees with "
+          f"the unbudgeted one on {agree} of the test images")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
@@ -3896,6 +4249,13 @@ def main() -> int:
 
     # ---- 26. serving ----------------------------------------------------------
     serving = serving_phase(dev, train, test, config, card)
+    torch.cuda.empty_cache()
+
+    # ---- 27-28. the planners; out of core -------------------------------------
+    planners = planners_phase(dev, train, test, config, lp_config, card)
+    torch.cuda.empty_cache()
+    ooc = out_of_core_phase(dev, config, card)
+    torch.cuda.empty_cache()
 
     record = {"kernels": [
         dict(name="conv_rectify_pool", route="cuda",
@@ -3913,7 +4273,9 @@ def main() -> int:
                  runtime=runtime["k1"], telemetry=telemetry_k1,
                  serving=serving["k1"],
                  random_cifar=rc_k1, augmented=ag_k1,
-                 augmented_kernel=ak_k1),
+                 augmented_kernel=ak_k1,
+                 planners=planners["random_patch_cifar"]["k1"],
+                 out_of_core=ooc["k1"]),
              ptxas=regs["conv_rectify_pool"]),
         dict(name="rectify_pool", route="cuda",
              source="keystone_tpu_torch/csrc/rectify_pool.cu",
@@ -3935,7 +4297,8 @@ def main() -> int:
                                    workflow=workflow_k4,
                                    runtime=runtime["k4"],
                                    voc_tar=loaders["voc_big_k4"],
-                                   serving=serving["k4"]),
+                                   serving=serving["k4"],
+                                   planners=planners["linear_pixels"]["k4"]),
              max_abs_err=k4["max_abs_err"],
              rel_err=k4["rel_err"], tolerance_rel=K4_TOL, ms=k4["ms"],
              device_ms=k4["device_ms"],

@@ -7,14 +7,18 @@ check `GraphExecutor` runs before the first force) ⊂ ``"specs"``
 (shapes and dtypes propagated by running stage bodies on meta tensors)
 ⊂ ``"memory"`` (live-memory estimates) ⊂ ``"full"`` (donation and
 streaming hazards, KP401, KP511 where the concurrent scheduler is on,
-the roofline, and the serving certificate where an envelope is
-declared).
+the card's residency against the budget (KP600, in KP202's place), the
+roofline, the precision lints of a given plan (KP701–KP703), and the
+serving certificate where an envelope is declared).
 
 Entry points: ``Pipeline.validate(source_spec, level=..., serving=...)``
-and ``validate_graph(graph, source_specs, ...)``. The JAX package's
-contract (KP5xx), sharding (KP6xx), precision (KP7xx) and kernel-proof
-(KP10xx) tiers, its unified planner and its CLI are not ported (ROADMAP
-queue 1, item 8); nothing runs in their place.
+and ``validate_graph(graph, source_specs, ...)``. The plan tier's
+deciders are `precision.plan_precision` / `plan_stage_precision` and
+`plan_ir.plan_unified`, which `workflow/optimizer.py`'s planner rules
+enforce. The JAX package's contract tier (KP5xx), its multi-device
+sharding lints (KP601–KP604), its telemetry joins (`reconcile.py`) and
+its CLI wait (ROADMAP queue 1, items 8 and 10); its kernel proofs
+(KP10xx) are about Mosaic's VMEM and have no counterpart.
 """
 
 from __future__ import annotations
@@ -31,6 +35,15 @@ from .diagnostics import (
 from .effects import class_effects, interference_pass, operator_effects
 from .hazards import hazard_pass, megafusion_pass
 from .memory import MemoryEstimate, memory_pass, resolve_chunk_rows
+from .plan_ir import UnifiedPlan, plan_unified
+from .planner import per_device_pass
+from .precision import (
+    PrecisionPlan,
+    plan_precision,
+    plan_stage_precision,
+    precision_pass,
+    reprice_memory,
+)
 from .propagate import spec_pass, structural_pass, toposort
 from .roofline import (
     Machine,
@@ -74,6 +87,7 @@ def validate_graph(
     hbm_budget_bytes: Optional[int] = None,
     chunk_rows: Optional[int] = None,
     serving=None,
+    precision=None,
 ) -> ValidationReport:
     """Run the analyzer tiers up to ``level`` over a lowered graph
     (`keystone_tpu/analysis/__init__.py:105-224`).
@@ -82,7 +96,10 @@ def validate_graph(
     (anything `as_source_spec` accepts); unlisted sources are UNKNOWN.
     ``serving`` (level "full") is a `ServingEnvelope` arming the KP9xx
     certifier; None falls back to ``KEYSTONE_SLO_MS``, and with neither
-    the serving tier is skipped. Touches no data and no device."""
+    the serving tier is skipped. ``precision`` (level "full") is a
+    `PrecisionPlan` to lint (KP701, KP702) and re-price (KP703), as
+    `plan_unified`'s ``boundary_precision``; JAX's package runs these
+    lints from its CLI. Touches no data and no device."""
     if level not in LEVELS:
         raise ValueError(f"level must be one of {LEVELS}, got {level!r}")
     tier = LEVELS.index(level)
@@ -115,6 +132,18 @@ def validate_graph(
             # KP511 matters only while the scheduler can force unordered
             # vertices at once
             diags.extend(interference_pass(graph))
+        if memory is not None:
+            # on the card the peak against the budget is KP600's
+            # finding, in KP202's place (`:171-192`)
+            budget = (hbm_budget_bytes if hbm_budget_bytes is not None
+                      else cfg.hbm_budget_bytes)
+            diags = [d for d in diags if d.rule != "KP202"] \
+                + per_device_pass(graph, memory, budget)
+        if precision is not None:
+            diags.extend(precision_pass(graph, specs, precision))
+            _, _, kp703 = reprice_memory(graph, specs, precision,
+                                         chunk_rows=chunk_rows)
+            diags.extend(kp703)
         roofline, roof_diags = roofline_pass(graph, specs,
                                              chunk_rows=chunk_rows)
         diags.extend(roof_diags)
@@ -139,14 +168,17 @@ def structural_report(graph) -> ValidationReport:
 
 __all__ = [
     "DataSpec", "Diagnostic", "LEVELS", "Machine", "MemoryEstimate",
-    "PipelineValidationError", "RULES", "RooflineEstimate",
+    "PipelineValidationError", "PrecisionPlan", "RULES", "RooflineEstimate",
     "ServingCertificate", "ServingEnvelope", "Severity", "ShapeDtype",
     "SpecDataset", "SpecMismatchError", "StageRoofline", "TransformerSpec",
     "UNKNOWN", "ValidationReport", "as_source_spec", "certify_example",
     "class_effects", "default_machine", "element_nbytes",
     "envelope_from_env", "hazard_pass", "interference_pass",
     "ladder_shapes", "megafusion_pass", "memory_pass", "operator_effects",
+    "per_device_pass", "plan_precision", "plan_stage_precision",
+    "plan_unified", "precision_pass", "reprice_memory",
     "resolve_chunk_rows", "roofline_pass", "serving_pass", "shape_struct",
     "spec_of", "spec_pass", "stage_cost", "structural_pass",
-    "structural_report", "toposort", "validate_graph", "warmup_manifest",
+    "structural_report", "toposort", "UnifiedPlan", "validate_graph",
+    "warmup_manifest",
 ]

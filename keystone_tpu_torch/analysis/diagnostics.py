@@ -5,10 +5,12 @@ Counterpart of `keystone_tpu/analysis/diagnostics.py` (`Severity`,
 `:17-283`): every finding is a `Diagnostic` with a stable rule id, a
 severity and the graph vertex it anchors to. The rules of the tiers the
 port runs are here: structure (KP0xx), specs (KP1xx), memory (KP2xx),
-hazards (KP3xx, KP401), effects (KP511), roofline (KP8xx) and serving
-(KP9xx). The JAX package's contract (KP501–KP504), sharding (KP6xx),
-precision (KP7xx) and kernel-proof (KP10xx) tiers are not ported
-(ROADMAP queue 1, item 8).
+hazards (KP3xx, KP401), effects (KP511), the card's residency (KP600),
+precision (KP701–KP703), roofline (KP8xx) and serving (KP9xx). The JAX
+package's contract (KP501–KP504) tier and its multi-device sharding
+lints (KP601–KP604) wait (ROADMAP queue 1, items 8 and 10); its
+kernel-proof tier (KP10xx) is about Mosaic's VMEM and has no
+counterpart.
 """
 
 from __future__ import annotations
@@ -46,6 +48,20 @@ RULES = {
              "stage's resident footprint",
     "KP204": "megafused-loop-live-set: the captured chunk loop's per-trip "
              "carry rides on top of stacked-input + output residency",
+    # the card's residency (one card: KP202's place at the full tier)
+    "KP600": "per-device-hbm: peak live memory per device — live-set "
+             "residency divided over each leaf's actual shard count — "
+             "exceeds the per-device HBM budget",
+    # precision tier
+    "KP701": "precision-policy-on-intolerant-stage: a reduced-precision "
+             "policy is pinned on a boundary whose producer or consumer "
+             "declares (or probes) exact f32 precision",
+    "KP702": "cast-thrash: a boundary stores bf16 but every consumer's "
+             "boundary is f32 and the halving saves less than the two "
+             "casts the flip pair costs",
+    "KP703": "dtype-dependent memory re-pricing: a chosen precision "
+             "policy changes a stage's static KP2xx residency (bf16 "
+             "halves the chosen float boundaries) — informational",
     # hazard tier
     "KP301": "donation-reuse: a buffer an operator writes in place is "
              "still reachable by another consumer",

@@ -156,6 +156,22 @@ def memory_pass(
             est.resident[vid] = None
             continue
         resident = full
+        # the host tier (`:172-194`): a host-placed cache's output and an
+        # out-of-core or spilled source live in host memory; the card
+        # holds two windows of their rows
+        host_tier = getattr(op, "placement", None) == "host"
+        if not host_tier:
+            ds = getattr(op, "dataset", None)
+            host_tier = bool(getattr(ds, "is_out_of_core", False)
+                             or getattr(ds, "is_spilled", False))
+        if host_tier and isinstance(spec, DataSpec):
+            per_elem = element_nbytes(spec.element)
+            if per_elem is not None:
+                window_bytes = per_elem * chunk_rows * 2
+                if window_bytes < full:
+                    resident = window_bytes
+            est.resident[vid] = resident
+            continue
         if overlap and isinstance(spec, DataSpec) and spec.kind == "dataset" \
                 and (spec.streaming or _may_stream(op)):
             per_elem = element_nbytes(spec.element)

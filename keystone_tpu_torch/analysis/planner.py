@@ -1,0 +1,189 @@
+"""The placement axis of the plan tier, on one card.
+
+Counterpart of `keystone_tpu/analysis/planner.py:78-91, 160-290,
+484-583`: the placement families a stage's output may take, how many
+shards each splits it into, and the collective each family flip costs.
+The unified planner (`plan_ir.py`) reads them. On one card every family
+is the whole card: each family has one shard, every boundary collective
+moves nothing (JAX's `parallel/mesh.py::collective_cost` prices
+``shards <= 1`` at zero, host gathers included) and `plan_sharding`
+has nothing to decide, as JAX's returns None on a one-device mesh. The
+multi-card menu (the data and model axes, the KP6xx formulas over
+NVLink) extends this module with multi-GPU (ROADMAP queue 1, item 10).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional, Tuple
+
+from ..workflow.graph import Graph, GraphId, NodeId
+from .diagnostics import Diagnostic, Severity
+from .memory import MemoryEstimate, _fmt_bytes
+from .propagate import _label
+
+#: the placement menu (`:78-84`)
+FAMILY_DATA = "data"
+FAMILY_DATA_MODEL = "data_model"
+FAMILY_MODEL = "model"
+FAMILY_REPLICATED = "replicated"
+MENU: Tuple[str, ...] = (
+    FAMILY_DATA, FAMILY_DATA_MODEL, FAMILY_MODEL, FAMILY_REPLICATED)
+
+#: objective bytes charged per boundary move besides its payload (`:88`)
+RESHARD_PENALTY_BYTES = 64 << 10
+
+#: one card: the data and model axes of the device layout
+ONE_CARD = {"data": 1, "model": 1}
+
+
+def device_count(layout: Optional[Dict[str, int]] = None) -> int:
+    layout = layout or ONE_CARD
+    return int(layout.get("data", 1)) * int(layout.get("model", 1))
+
+
+def family_shards(family: Optional[str],
+                  layout: Optional[Dict[str, int]] = None) -> int:
+    """Shards ``family`` splits a value into over ``layout``'s axes
+    (`:160-170`): 1 for every family on one card."""
+    layout = layout or ONE_CARD
+    data = int(layout.get("data", 1))
+    model = int(layout.get("model", 1))
+    return {
+        FAMILY_DATA: data,
+        FAMILY_MODEL: model,
+        FAMILY_DATA_MODEL: data * model,
+        FAMILY_REPLICATED: 1,
+        None: 1,
+    }[family]
+
+
+@dataclass(frozen=True)
+class CollectiveCost:
+    """One boundary collective: its kind, bytes moved and seconds."""
+
+    kind: str
+    bytes_moved: int
+    seconds: float
+
+
+def collective_cost(kind: str, nbytes: Optional[int],
+                    shards: int = 1) -> CollectiveCost:
+    """A boundary collective's price (JAX `parallel/mesh.py:213-242`):
+    a value that lives whole on one card moves nothing. A price over
+    more than one shard needs the card-to-card rate, which comes with
+    multi-GPU."""
+    if kind not in ("all_to_all", "all_gather", "broadcast"):
+        raise ValueError(f"unknown collective kind {kind!r}")
+    if not nbytes or shards <= 1:
+        return CollectiveCost(kind, 0, 0.0)
+    raise NotImplementedError(
+        "collectives across cards are priced with multi-GPU (ROADMAP "
+        "queue 1, item 10)")
+
+
+def transition_cost(u_fam: Optional[str], v_fam: Optional[str],
+                    nbytes: Optional[int],
+                    layout: Optional[Dict[str, int]] = None,
+                    u_spec=None) -> Optional[CollectiveCost]:
+    """The collective relaying a producer's output from its family to
+    its consumer's (`:204-236`), or None where the boundary is free: a
+    matching layout, a replicated producer, and every boundary of one
+    card."""
+    if u_fam is None or v_fam is None or not nbytes or u_fam == v_fam:
+        return None
+    if u_fam == FAMILY_REPLICATED:
+        return None
+    shards = max(family_shards(u_fam, layout), family_shards(v_fam, layout))
+    if shards <= 1:
+        return None
+    kind = "all_gather" if v_fam == FAMILY_REPLICATED else "all_to_all"
+    return collective_cost(kind, nbytes, shards)
+
+
+def demand_cost(demand: Optional[str], fam: Optional[str],
+                nbytes: Optional[int],
+                layout: Optional[Dict[str, int]] = None
+                ) -> Optional[CollectiveCost]:
+    """An operator's unmet input-layout demand (`:251-276`): free on one
+    card, where every family already holds the whole value."""
+    if demand is None or fam is None or not nbytes:
+        return None
+    if device_count(layout) <= 1:
+        return None
+    return collective_cost("all_gather", nbytes, device_count(layout))
+
+
+def gather_cost(fam: Optional[str], nbytes: Optional[int],
+                layout: Optional[Dict[str, int]] = None
+                ) -> Optional[CollectiveCost]:
+    """A host consumer gathering a device-sharded value (`:292-299`):
+    JAX prices it over the family's shards, which is zero on one card."""
+    if fam is None or fam == FAMILY_REPLICATED or not nbytes:
+        return None
+    return collective_cost("all_gather", nbytes, family_shards(fam, layout))
+
+
+def per_device_pass(graph: Graph, memory: MemoryEstimate,
+                    hbm_budget_bytes: Optional[int] = None,
+                    layout: Optional[Dict[str, int]] = None
+                    ) -> List[Diagnostic]:
+    """KP600 on one card (JAX `analysis/sharding.py:690-750`): the peak
+    live memory of the card against ``hbm_budget_bytes``. Each value's
+    share on one card is the whole value, so the card's residency is the
+    memory model's live set (streaming and host-tier discounts
+    included) and its peak the memory model's peak; the finding takes
+    KP202's place at the full tier, as in JAX."""
+    if device_count(layout) > 1:
+        raise NotImplementedError(
+            "per-card residency across cards comes with multi-GPU")
+    peak, peak_at = memory.peak_bytes, memory.peak_at
+    if not hbm_budget_bytes or peak <= hbm_budget_bytes:
+        return []
+    label = _label(graph, peak_at) if peak_at is not None else ""
+    return [Diagnostic(
+        "KP600", Severity.WARNING,
+        f"peak PER-DEVICE live memory {_fmt_bytes(peak)} exceeds the "
+        f"{_fmt_bytes(hbm_budget_bytes)} per-device HBM budget (peak at "
+        f"{label}@{peak_at}, 1 device)",
+        vertex=peak_at, label=label)]
+
+
+@dataclass
+class ShardingPlan:
+    """A placement decision (`:484-520`): chosen families against the
+    default, both priced. Built only where there is more than one card
+    to place on."""
+
+    families: Dict[GraphId, str]
+    default_families: Dict[GraphId, str]
+    planned_cost_bytes: float
+    default_cost_bytes: float
+    scored_candidates: List[Dict[str, Any]] = field(default_factory=list)
+
+    @property
+    def improved(self) -> bool:
+        return self.planned_cost_bytes < self.default_cost_bytes
+
+    @property
+    def savings_bytes(self) -> int:
+        return max(0, int(self.default_cost_bytes - self.planned_cost_bytes))
+
+    def changed_vertices(self) -> List[NodeId]:
+        return [vid for vid, fam in sorted(
+                    self.families.items(),
+                    key=lambda kv: getattr(kv[0], "id", -1))
+                if self.default_families.get(vid) != fam]
+
+
+def plan_sharding(graph: Graph, specs: Dict[GraphId, Any], *,
+                  layout: Optional[Dict[str, int]] = None,
+                  hbm_budget_bytes: Optional[int] = None
+                  ) -> Optional[ShardingPlan]:
+    """The placement plan (`:547-583`): None where there is nothing to
+    decide, which on one card is always."""
+    if device_count(layout) <= 1:
+        return None
+    raise NotImplementedError(
+        "placement across cards comes with multi-GPU (ROADMAP queue 1, "
+        "item 10)")

@@ -288,6 +288,21 @@ def spec_of(value: Any) -> Any:
 
     if isinstance(value, SpecDataset):
         return value.spec
+    if getattr(value, "is_out_of_core", False) \
+            or getattr(value, "is_spilled", False):
+        # host-resident (`:228-242`): the element from one row, off the
+        # card, so no pass charges its whole payload to the card
+        element = UNKNOWN
+        try:
+            row = value.row_loader(0, 1)
+            parts = row if isinstance(row, tuple) else (row,)
+            leaves = tuple(ShapeDtype(tuple(p.shape[1:]), torch_dtype(p.dtype))
+                           for p in parts)
+            element = leaves if isinstance(row, tuple) else leaves[0]
+        except (AttributeError, IndexError, TypeError, ValueError):
+            pass
+        return DataSpec(element=element, count=value.count, kind="dataset",
+                        on_device=False)
     if isinstance(value, Dataset):
         data = value.data
         element = (tuple(ShapeDtype(tuple(p.shape[1:]), p.dtype)

@@ -81,10 +81,18 @@
 // overlap the product of the next (the four warpgroups overlap each
 // other); the gather runs on CUDA cores between barriers; the layouts are
 // unswizzled.
+// bf16 input: where the precision planner stores the kernel's input
+// boundary as bf16 (RandomPatchCifar's PixelScaler output), the same
+// kernel reads the bf16 values directly (template parameter In): the
+// bits are the ones the f32 variant rounds to, so no upcast pass runs
+// and the input bytes halve; the image is then read from device memory
+// in the conversion loop instead of being prefetched by cp.async.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -308,8 +316,13 @@ __device__ __forceinline__ void tile_product(const Tile& tl, uint32_t b_base,
   flush(tl, cur, run, f0, tq);
 }
 
+// In is float (the images copied into shared memory a block ahead by
+// cp.async, rounded to bf16 there) or __nv_bfloat16 (a bf16 storage
+// trail the precision planner chose: the bits are read as they are, the
+// values the float variant rounds to, so both give the same result).
+template <typename In>
 __global__ void __launch_bounds__(THREADS, 1)
-conv_rectify_pool_kernel(const float* __restrict__ images,
+conv_rectify_pool_kernel(const In* __restrict__ images,
                          const float* __restrict__ g,
                          const float* __restrict__ colsum,
                          const float* __restrict__ bias,
@@ -342,13 +355,16 @@ conv_rectify_pool_kernel(const float* __restrict__ images,
   float* acc_s = (float*)(smem + L.acc);
   const int t = threadIdx.x;
 
+  constexpr bool kF32 = std::is_same<In, float>::value;
   auto prefetch = [&](int img, int buf) {
-    const float* src = images + (size_t)img * hwc;
-    const uint32_t dst = smem_u32(smem + L.imgf + buf * L.imgf_bytes);
-    for (int i = t; i < hwc; i += THREADS)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                       dst + 4 * i),
-                   "l"(src + i));
+    if constexpr (kF32) {
+      const float* src = images + (size_t)img * hwc;
+      const uint32_t dst = smem_u32(smem + L.imgf + buf * L.imgf_bytes);
+      for (int i = t; i < hwc; i += THREADS)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                         dst + 4 * i),
+                     "l"(src + i));
+    }
   };
   prefetch(blockIdx.x, 0);  // the grid has at most n blocks
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -410,10 +426,16 @@ conv_rectify_pool_kernel(const float* __restrict__ images,
     __syncthreads();
     // the image in bf16 and, per pixel, the sum of its bf16 channels
     const float* cur = (const float*)(smem + L.imgf + buf * L.imgf_bytes);
+    const uint16_t* cur_b =
+        (const uint16_t*)(const void*)images + (size_t)img * hwc;
     for (int px = t; px < h * w; px += THREADS) {
       float s = 0.f;
       for (int ch = 0; ch < c; ++ch) {
-        const uint16_t b = bf16_bits(cur[px * c + ch]);
+        uint16_t b;
+        if constexpr (kF32)
+          b = bf16_bits(cur[px * c + ch]);
+        else
+          b = cur_b[px * c + ch];
         imgb[px * c + ch] = b;
         s += bf16_value(b);
       }
@@ -513,7 +535,8 @@ size_t keystone_conv_rectify_pool_smem(int h, int w, int c, int patch, int k,
   return layout(h, w, c, patch, kpad, rows, cells, k).total;
 }
 
-// images (N,H,W,C), g (C·P·P, ldk), colsum (k,), bias (k,), all float32;
+// images (N,H,W,C) float32, or bfloat16 where images_bf16 is set; g
+// (C·P·P, ldk), colsum (k,), bias (k,) float32;
 // row_pos (rows,) and group_windows (rows/8,) int32, the row plan of
 // ops/kernels.py::conv_row_plan -> out (N,gy,gx,2·ldk) float32, of which
 // this launch writes columns [0, k) and [ldk, ldk + k): the first k of
@@ -526,14 +549,18 @@ int keystone_conv_rectify_pool(const void* images, const void* g,
                                void* out, int n, int h, int w, int c, int k,
                                int ldk, int patch, int pool, int stride,
                                int rows, float alpha, float max_val,
-                               int normalize, void* stream) {
+                               int normalize, int images_bf16, void* stream) {
   const int ph = h - patch + 1, pw = w - patch + 1;
   const int gy = (ph - pool) / stride + 1, gx = (pw - pool) / stride + 1;
   const size_t smem =
       keystone_conv_rectify_pool_smem(h, w, c, patch, k, gy * gx, rows);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_rectify_pool_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  cudaError_t err = images_bf16
+      ? cudaFuncSetAttribute(conv_rectify_pool_kernel<__nv_bfloat16>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem)
+      : cudaFuncSetAttribute(conv_rectify_pool_kernel<float>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);
@@ -541,11 +568,20 @@ int keystone_conv_rectify_pool(const void* images, const void* g,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
   const int grid = n < sms ? n : sms;
-  conv_rectify_pool_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)images, (const float*)g, (const float*)colsum,
-      (const float*)bias, (const int*)row_pos, (const int*)group_windows,
-      (float*)out, n, h, w, c, k, ldk, patch, gx, gy * gx, rows, alpha,
-      max_val, normalize);
+  if (images_bf16)
+    conv_rectify_pool_kernel<__nv_bfloat16>
+        <<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+            (const __nv_bfloat16*)images, (const float*)g,
+            (const float*)colsum, (const float*)bias, (const int*)row_pos,
+            (const int*)group_windows, (float*)out, n, h, w, c, k, ldk, patch,
+            gx, gy * gx, rows, alpha, max_val, normalize);
+  else
+    conv_rectify_pool_kernel<float>
+        <<<grid, THREADS, smem, (cudaStream_t)stream>>>(
+            (const float*)images, (const float*)g, (const float*)colsum,
+            (const float*)bias, (const int*)row_pos,
+            (const int*)group_windows, (float*)out, n, h, w, c, k, ldk, patch,
+            gx, gy * gx, rows, alpha, max_val, normalize);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 """Device-resident and host-list dataset handles.
 
 Counterpart of `keystone_tpu/data/dataset.py::Dataset` (`:95-276`),
-single-device part only, of `HostDataset` (`:278-341`) and of
-`zip_datasets` (`:592-610`). The JAX `Dataset` pads its leading axis to a
+single-device part only, of `HostDataset` (`:278-341`), of the
+out-of-core tier's `SpilledDataset` and `OutOfCoreDataset`
+(`:344-591`) and of `zip_datasets` (`:592-610`). The JAX `Dataset` pads its leading axis to a
 multiple of the mesh's data shards; with one device and no mesh there is
 nothing to pad, so ``padded_count == count`` and ``mask`` is all ones.
 Both stay for API parity.
@@ -344,6 +345,298 @@ class ZippedHostDataset(HostDataset):
             self._items = [list(t) for t in
                            zip(*(p.items for p in self.parts))]
         return self._items
+
+
+def _leaves(tree) -> list:
+    return list(tree) if isinstance(tree, tuple) else [tree]
+
+
+def _tree_map(fn, tree):
+    return tuple(fn(x) for x in tree) if isinstance(tree, tuple) else fn(tree)
+
+
+def _host_tensor(x) -> torch.Tensor:
+    """A host array or tensor as a CPU tensor (no copy where it is one)."""
+    if isinstance(x, torch.Tensor):
+        return x if x.device.type == "cpu" else x.cpu()
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _device_dataset(host, count: int, device) -> Dataset:
+    """Host rows (a tensor, an array, or a tuple of them) as a `Dataset`
+    on ``device``."""
+    leaves = [_host_tensor(x).to(device) for x in _leaves(host)]
+    if len(leaves) == 1:
+        return Dataset(leaves[0], count=count)
+    return ZippedDataset(leaves, count)
+
+
+class SpilledDataset:
+    """A dataset held in host memory: the out-of-core tier's cache
+    payload (`keystone_tpu/data/dataset.py:344-463`).
+
+    A host-placed `workflow/autocache.py::CacheMarker` copies its input
+    off the card into one of these, in pinned host memory where a card is
+    present (``spill.bytes_out``). Consumers take it back in windows
+    (`window_iter`: bounded row windows on the pad ladder, each reload
+    overlapped with the previous window's work through the pinned ring
+    and copy stream of `utils/batching.py`) or whole (`rehydrate`,
+    ``spill.bytes_in``). Like JAX's, it exposes neither ``data`` nor
+    ``items``, so the telemetry's byte estimate counts nothing of it
+    against the card. ``device`` is where its rows go back to."""
+
+    is_dataset = True
+    is_spilled = True
+
+    def __init__(self, host_data, count: Optional[int] = None,
+                 device: DeviceLike = None, name: str = ""):
+        leaves = [_host_tensor(x) for x in _leaves(host_data)]
+        if not leaves:
+            raise ValueError("SpilledDataset requires at least one array")
+        n = int(leaves[0].shape[0])
+        self.count = int(count) if count is not None else n
+        if self.count > n:
+            raise ValueError("count exceeds data length")
+        self.device = resolve_device(device)
+        self.name = name
+        # the true rows only: a reload never uploads padding
+        host = [x[: self.count] for x in leaves]
+        self._host = tuple(host) if isinstance(host_data, tuple) else host[0]
+
+    @staticmethod
+    def spill(dataset, name: str = "") -> "SpilledDataset":
+        """A device `Dataset` (or a `HostDataset` of device buckets)
+        copied to host memory, pinned where the rows are on a card:
+        the device-to-host spill, counted in ``spill.bytes_out``."""
+        from ..telemetry.metrics import counter
+
+        if isinstance(dataset, HostDataset):
+            dataset = dataset.stack()
+        parts = (dataset.data if isinstance(dataset.data, tuple)
+                 else (dataset.data,))
+        host = []
+        for x in parts:
+            x = x[: dataset.count]
+            if x.device.type == "cuda":
+                buf = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                buf.copy_(x)
+                host.append(buf)
+            else:
+                host.append(x.clone())
+        counter("spill.bytes_out").inc(float(sum(
+            h.numel() * h.element_size() for h in host)))
+        data = tuple(host) if isinstance(dataset.data, tuple) else host[0]
+        return SpilledDataset(data, count=dataset.count,
+                              device=dataset.device, name=name)
+
+    @property
+    def nbytes(self) -> int:
+        return int(sum(x.numel() * x.element_size()
+                       for x in _leaves(self._host)))
+
+    @property
+    def item_shape(self) -> tuple:
+        return tuple(_leaves(self._host)[0].shape[1:])
+
+    def row_loader(self, lo: int, hi: int):
+        """Host rows [lo, hi): what the windowed reload stages."""
+        return _tree_map(lambda x: x[lo:hi], self._host)
+
+    def window_iter(self, window=USE_CONFIG_CHUNK):
+        """``(indices, device_window)`` pairs, a window's rows on the
+        card at a time (`utils/batching.py::stream_spill_windows`)."""
+        from ..utils.batching import stream_spill_windows
+
+        return stream_spill_windows(self.row_loader, self.count, window,
+                                    device=self.device)
+
+    def rehydrate(self) -> Dataset:
+        """The whole value back on its device, counted in
+        ``spill.bytes_in``; consumers that take windows use
+        `window_iter`."""
+        from ..telemetry.metrics import counter
+
+        counter("spill.bytes_in").inc(float(self.nbytes))
+        return _device_dataset(self._host, self.count, self.device)
+
+    def numpy(self):
+        return _tree_map(lambda x: x.numpy(), self._host)
+
+    def take(self, k: int):
+        return _tree_map(lambda x: x[: min(k, self.count)].numpy(),
+                         self._host)
+
+    @property
+    def per_shard_count(self) -> int:
+        return self.count  # one card is one shard
+
+    def sample_per_shard(self, k: int, seed: int = 0) -> Dataset:
+        m = min(self.count, k)
+        idx = torch.as_tensor(
+            np.linspace(0, self.count - 1, num=m, dtype=np.int64))
+        return _device_dataset(_tree_map(lambda x: x[idx], self._host), m,
+                               self.device)
+
+    def cache(self) -> "SpilledDataset":
+        return self  # materialized already, in host memory
+
+    def sync(self) -> "SpilledDataset":
+        return self
+
+    def __len__(self) -> int:
+        return self.count
+
+    def __repr__(self) -> str:
+        return (f"SpilledDataset(count={self.count}, "
+                f"host_bytes={self.nbytes})")
+
+
+class OutOfCoreDataset:
+    """A source drawn a shard at a time, for data larger than the card
+    (`keystone_tpu/data/dataset.py:466-591`, arXiv 1610.09451 §5).
+
+    ``loaders[i]()`` returns shard i's host rows (an array or a tuple of
+    them) with ``counts[i]`` rows; nothing loads until a window asks.
+    Rows reach the card a window at a time (`window_iter`,
+    `map_windowed`), so the card holds O(window) of them; one loaded
+    shard is kept (the walk is sequential). `materialize` is the whole
+    source on the card, for runs that are not constrained. ``device``:
+    where windows go (None: the card)."""
+
+    is_dataset = True
+    is_out_of_core = True
+
+    def __init__(self, loaders: Sequence[Callable[[], Any]],
+                 counts: Sequence[int], device: DeviceLike = None,
+                 name: str = "ooc"):
+        if not loaders:
+            raise ValueError("OutOfCoreDataset requires at least one shard")
+        if len(loaders) != len(counts):
+            raise ValueError("one count per shard loader required")
+        self._loaders = list(loaders)
+        self._counts = [int(c) for c in counts]
+        if any(c <= 0 for c in self._counts):
+            raise ValueError("shard counts must be positive")
+        self._offsets = np.concatenate(([0], np.cumsum(self._counts)))
+        self.count = int(self._offsets[-1])
+        self.device = resolve_device(device)
+        self.name = name
+        self._hot: Tuple[Optional[int], Any] = (None, None)
+
+    def _shard(self, i: int):
+        """Shard i's host rows, through the one-shard cache."""
+        hot_i, hot_v = self._hot
+        if hot_i != i:
+            hot_v = self._loaders[i]()
+            n = _leaves(hot_v)[0].shape[0]
+            if int(n) != self._counts[i]:
+                raise ValueError(f"shard {i} loader returned {n} rows, "
+                                 f"declared {self._counts[i]}")
+            self._hot = (i, hot_v)
+        return hot_v
+
+    def row_loader(self, lo: int, hi: int):
+        """Host rows [lo, hi), joined across the shards the range
+        overlaps: the windowed reload's ``load``."""
+        if not (0 <= lo <= hi <= self.count):
+            raise IndexError(f"rows [{lo}, {hi}) out of range")
+        first = int(np.searchsorted(self._offsets, lo, side="right")) - 1
+        pieces = []
+        i = first
+        while i < len(self._loaders) and int(self._offsets[i]) < hi:
+            base = int(self._offsets[i])
+            a, b = max(lo - base, 0), min(hi - base, self._counts[i])
+            pieces.append(_tree_map(lambda x, a=a, b=b: x[a:b],
+                                    self._shard(i)))
+            i += 1
+        if len(pieces) == 1:
+            return pieces[0]
+        if isinstance(pieces[0], tuple):
+            return tuple(np.concatenate([p[k] for p in pieces])
+                         for k in range(len(pieces[0])))
+        return np.concatenate(pieces)
+
+    def gather(self, indices) -> Any:
+        """Host rows at ``indices`` (any order), each shard loaded once."""
+        idx = np.asarray(indices, dtype=np.int64)
+        order = np.argsort(idx, kind="stable")
+        shard_of = np.searchsorted(self._offsets, idx, side="right") - 1
+        first = _leaves(self._shard(int(shard_of[order[0]])))
+        out = [np.empty((len(idx),) + tuple(x.shape[1:]), dtype=x.dtype)
+               for x in first]
+        for i in np.unique(shard_of):
+            rows = np.nonzero(shard_of == i)[0]
+            shard = _leaves(self._shard(int(i)))
+            for o, x in zip(out, shard):
+                o[rows] = np.asarray(x)[idx[rows] - self._offsets[i]]
+        return tuple(out) if len(out) > 1 else out[0]
+
+    @property
+    def nbytes(self) -> int:
+        """Host bytes of the whole source, from shard 0's bytes a row."""
+        per_row = sum(x.nbytes / max(1, x.shape[0])
+                      for x in _leaves(self._shard(0)))
+        return int(per_row * self.count)
+
+    @property
+    def item_shape(self) -> tuple:
+        return tuple(_leaves(self._shard(0))[0].shape[1:])
+
+    def window_iter(self, window=USE_CONFIG_CHUNK):
+        from ..utils.batching import stream_spill_windows
+
+        return stream_spill_windows(self.row_loader, self.count, window,
+                                    device=self.device)
+
+    def map_windowed(self, fn: Callable, window=USE_CONFIG_CHUNK):
+        """``(indices, rows)`` chunks of ``fn`` over the windows on the
+        card (`utils/batching.py::map_spill_windows`)."""
+        from ..utils.batching import map_spill_windows
+
+        return map_spill_windows(self.row_loader, self.count, fn, window,
+                                 device=self.device)
+
+    def materialize(self) -> Dataset:
+        """The whole source on its device, counted in
+        ``spill.bytes_in``."""
+        from ..telemetry.metrics import counter
+
+        host = self.row_loader(0, self.count)
+        counter("spill.bytes_in").inc(float(sum(
+            np.asarray(x).nbytes for x in _leaves(host))))
+        return _device_dataset(host, self.count, self.device)
+
+    def spill(self, name: str = "") -> SpilledDataset:
+        """The whole source in host memory as a `SpilledDataset`, with no
+        trip through the card."""
+        return SpilledDataset(self.row_loader(0, self.count),
+                              count=self.count, device=self.device,
+                              name=name or self.name)
+
+    def numpy(self):
+        return self.row_loader(0, self.count)
+
+    def take(self, k: int):
+        return self.row_loader(0, min(k, self.count))
+
+    @property
+    def per_shard_count(self) -> int:
+        return self.count  # one card is one shard
+
+    def sample_per_shard(self, k: int, seed: int = 0) -> Dataset:
+        m = min(self.count, k)
+        idx = np.linspace(0, self.count - 1, num=m, dtype=np.int64)
+        return _device_dataset(self.gather(idx), m, self.device)
+
+    def cache(self) -> "OutOfCoreDataset":
+        return self  # caching it is the planner's decision
+
+    def __len__(self) -> int:
+        return self.count
+
+    def __repr__(self) -> str:
+        return (f"OutOfCoreDataset(count={self.count}, "
+                f"shards={len(self._loaders)})")
 
 
 def zip_datasets(datasets: Sequence):

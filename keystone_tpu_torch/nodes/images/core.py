@@ -44,6 +44,8 @@ class PixelScaler(Transformer):
     232-262`) the images of one shape go through one batched call, on
     the device."""
 
+    precision_tolerance = "tolerant"  # uint8 decode: 8 significant bits
+
     chunkable = True  # per-item: distributes over chunks
 
     fusable = True
@@ -79,6 +81,8 @@ class Convolver(Transformer):
     filters: (K, D) with D = patch·patch·C in (patch, patch, C) order, or
     (K, patch, patch, C); a tensor or an array. The folded bank lives on
     the filters' device (an array goes to ``device``)."""
+
+    precision_tolerance = "tolerant"
 
     fusable = True
 
@@ -123,6 +127,8 @@ class SymmetricRectifier(Transformer):
     """Two-sided ReLU: channels double to [max(mv, x−α), max(mv, −x−α)]
     (SymmetricRectifier.scala:7-32)."""
 
+    precision_tolerance = "tolerant"  # elementwise two-sided ReLU
+
     fusable = True
 
     def __init__(self, max_val: float = 0.0, alpha: float = 0.0):
@@ -138,6 +144,8 @@ class SymmetricRectifier(Transformer):
 class Pooler(Transformer):
     """Strided sum or max pooling over (N, H, W, C) with an elementwise
     pre-map (Pooler.scala:21-69)."""
+
+    precision_tolerance = "tolerant"  # windowed sum/max over featurize
 
     fusable = True
 
@@ -166,6 +174,8 @@ class Pooler(Transformer):
 
 class ImageVectorizer(Transformer):
     """(H, W, C) → flat vector (ImageVectorizer.scala:12)."""
+
+    precision_tolerance = "tolerant"  # reshape: values untouched
 
     chunkable = True  # per-item: distributes over chunks
 

@@ -92,6 +92,8 @@ class BlockLinearMapper(Transformer):
     """x ↦ x W + b; inputs narrower than W are zero-padded, as the fit
     padded them (BlockLinearMapper.scala:22-137)."""
 
+    precision_tolerance = "exact"  # solver apply: f32/HIGHEST inputs
+
     chunkable = True  # per-item: distributes over chunks
 
     fusable = True
@@ -114,6 +116,8 @@ class BlockLinearMapper(Transformer):
 
 class BlockLeastSquaresEstimator(LabelEstimator):
     """BCD least squares with L2 (BlockLinearMapper.scala:199-283)."""
+
+    precision_tolerance = "exact"
 
     fusable_fit = True
 

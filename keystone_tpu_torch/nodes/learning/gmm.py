@@ -104,6 +104,8 @@ class GaussianMixtureModelEstimator(Estimator):
     ``min_variance_factor`` times the global variance, on at most
     ``max_rows`` rows (GaussianMixtureModelEstimator.scala:25-203)."""
 
+    precision_tolerance = "exact"  # moments/decomposition: f32 inputs
+
     def __init__(self, k: int, num_iters: int = 30, init: str = "kmeans++",
                  min_variance_factor: float = 0.01, seed: int = 0,
                  max_rows: int = 200_000):

@@ -104,6 +104,8 @@ class KernelBlockLinearMapper(Transformer):
     block is zero-padded to the block size: its padded anchors have
     alpha 0 and add nothing."""
 
+    precision_tolerance = "exact"  # kernel solve apply: f32 inputs
+
     def __init__(self, train_X: torch.Tensor, alpha: torch.Tensor,
                  gamma: float, block_size: int = 4096):
         self.train_X = train_X
@@ -141,6 +143,8 @@ class KernelRidgeRegression(LabelEstimator):
     saved every ``blocks_before_checkpoint`` blocks to an ``.npz`` named
     after a fingerprint of the data, restored by a later fit on the same
     data, and deleted when the fit completes."""
+
+    precision_tolerance = "exact"  # solver: f32/HIGHEST inputs
 
     def __init__(self, gamma: float, lam: float, block_size: int = 2048,
                  num_epochs: int = 1, seed: int = 0,

@@ -89,6 +89,8 @@ def kmeans_pp_init(X, k: int, rng: np.random.Generator) -> torch.Tensor:
 class KMeansPlusPlusEstimator(Estimator):
     """k-means++ seeding from ``default_rng(seed)``, then Lloyd's."""
 
+    precision_tolerance = "exact"  # moments/decomposition: f32 inputs
+
     def __init__(self, num_means: int, num_iters: int = 20, seed: int = 0):
         self.num_means = num_means
         self.num_iters = num_iters

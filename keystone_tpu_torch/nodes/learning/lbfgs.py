@@ -335,6 +335,8 @@ class DenseLBFGSwithL2(LabelEstimator):
     objective at the start of each step and ``linesearch_steps`` each
     step's evaluations."""
 
+    precision_tolerance = "exact"  # solver: f32/HIGHEST inputs
+
     def __init__(self, lam: float = 0.0, num_iters: int = 20,
                  memory_size: int = 10, fit_intercept: bool = True):
         self.lam = lam
@@ -613,6 +615,8 @@ class SparseLBFGSwithL2(LabelEstimator):
     `LinearMapper`). After a fit ``loss_history`` holds the objective
     at the start of each step (gram) or after it (iterative), as JAX's
     routes record them, and ``route`` the route taken."""
+
+    precision_tolerance = "exact"  # solver: f32/HIGHEST inputs
 
     def __init__(self, lam: float = 0.0, num_iters: int = 20,
                  memory_size: int = 10, fit_intercept: bool = True,

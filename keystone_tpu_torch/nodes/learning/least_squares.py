@@ -49,6 +49,8 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
     resolved ones (`cost_model`). After `optimize`, ``chosen`` names
     the candidate and ``costs`` holds each candidate's estimate."""
 
+    precision_tolerance = "exact"  # whichever solver wins, it pins f32
+
     def __init__(self, lam: float = 0.0, num_iters: int = 20,
                  block_size: int = 4096, num_chips: Optional[int] = None,
                  cpu_weight: Optional[float] = None,

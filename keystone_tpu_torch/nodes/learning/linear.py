@@ -33,6 +33,8 @@ from .block_ls import raise_if_unfactored
 class LinearMapper(Transformer):
     """y = xW (+ b) (LinearMapper.scala:18-63)."""
 
+    precision_tolerance = "exact"  # solver apply: f32/HIGHEST inputs
+
     chunkable = True  # per-item: distributes over chunks
 
     fusable = True  # a GEMM (the port's mapper carries no feature scaler)
@@ -106,6 +108,8 @@ def normal_equations(X: torch.Tensor, Y: torch.Tensor, count: int,
 class LinearMapEstimator(LabelEstimator):
     """Exact OLS/ridge by the normal equations
     (LinearMapper.scala:69-161)."""
+
+    precision_tolerance = "exact"  # exact normal equations
 
     fusable_fit = True  # always fits a LinearMapper
 

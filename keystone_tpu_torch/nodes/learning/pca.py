@@ -125,6 +125,8 @@ def _pca_fit_spec(dims: int, label: str, train_spec=None):
 class PCAEstimator(Estimator):
     """Local PCA (PCA.scala:162-247)."""
 
+    precision_tolerance = "exact"  # moments/decomposition: f32 inputs
+
     def __init__(self, dims: int, sample_rows: Optional[int] = 100_000):
         self.dims = dims
         self.sample_rows = sample_rows
@@ -142,6 +144,8 @@ class PCAEstimator(Estimator):
 class DistributedPCAEstimator(Estimator):
     """PCA by TSQR and the SVD of R (DistributedPCA.scala:20-74), on one
     device: the QR of all the centred rows."""
+
+    precision_tolerance = "exact"  # moments/decomposition: f32 inputs
 
     def __init__(self, dims: int):
         self.dims = dims
@@ -174,6 +178,8 @@ def randomized_components(X: torch.Tensor, k: int, q: int,
 
 class ApproximatePCAEstimator(Estimator):
     """Randomized sketch PCA (ApproximatePCA.scala:22-85)."""
+
+    precision_tolerance = "exact"  # moments/decomposition: f32 inputs
 
     def __init__(self, dims: int, oversample: int = 10, q: int = 2,
                  seed: int = 0):

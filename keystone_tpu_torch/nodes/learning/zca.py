@@ -43,6 +43,8 @@ class ZCAWhitenerEstimator(Estimator):
     """Fit a `ZCAWhitener` on an (m × D) sample matrix: its mean, and the
     whitener of its covariance over m − 1 (ZCAWhitener.scala:53-60)."""
 
+    precision_tolerance = "exact"  # moments/decomposition: f32 inputs
+
     def __init__(self, eps: float = 0.1):
         self.eps = eps
 

@@ -34,6 +34,8 @@ def _sorted_choice(n: int, size: int, seed: int) -> np.ndarray:
 class NormalizeRows(Transformer):
     """x / max(‖x‖₂, eps) per item (NormalizeRows.scala:10)."""
 
+    precision_tolerance = "tolerant"  # per-item norm: featurize scale
+
     chunkable = True  # per-item: distributes over chunks
 
     fusable = True
@@ -55,6 +57,8 @@ class NormalizeRows(Transformer):
 
 class SignedHellingerMapper(Transformer):
     """sign(x)·sqrt(|x|) (SignedHellingerMapper.scala:12-22)."""
+
+    precision_tolerance = "tolerant"  # elementwise sign·sqrt
 
     chunkable = True  # per-item: distributes over chunks
 

@@ -34,6 +34,8 @@ class CosineRandomFeatures(Transformer):
     """cos(x W + b) with W (input_dim, num_features) ~ gamma·N(0, 1)
     (``"gaussian"``) or gamma·Cauchy (``"cauchy"``), b ~ U[0, 2π)."""
 
+    precision_tolerance = "tolerant"
+
     chunkable = True  # per-item: distributes over chunks
 
     fusable = True
@@ -63,6 +65,8 @@ class CosineRandomFeatures(Transformer):
 
 class RandomSignNode(Transformer):
     """Elementwise product with a fixed random ±1 vector."""
+
+    precision_tolerance = "tolerant"  # elementwise ±1 flip
 
     chunkable = True  # per-item: distributes over chunks
 
@@ -99,6 +103,8 @@ class PaddedFFT(Transformer):
     part of the first half of the real FFT's bins (the Nyquist bin is
     dropped, as in the JAX package)."""
 
+    precision_tolerance = "tolerant"  # featurize transform
+
     chunkable = True  # per-item: distributes over chunks
 
     fusable = True
@@ -116,6 +122,8 @@ class PaddedFFT(Transformer):
 
 class LinearRectifier(Transformer):
     """max(max_val, x − alpha)."""
+
+    precision_tolerance = "tolerant"  # elementwise max/sub
 
     chunkable = True  # per-item: distributes over chunks
 

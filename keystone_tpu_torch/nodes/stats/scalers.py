@@ -31,6 +31,8 @@ def moments(x: torch.Tensor, count: int, normalize_std: bool):
 class StandardScalerModel(Transformer):
     """(x − mean) / std, or x − mean when ``std`` is None."""
 
+    precision_tolerance = "exact"
+
     chunkable = True  # per-item: distributes over chunks
 
     fusable = True
@@ -59,6 +61,8 @@ class StandardScalerModel(Transformer):
 
 class StandardScaler(Estimator):
     """Fit per-feature mean/std (StandardScaler.scala:36-60)."""
+
+    precision_tolerance = "exact"  # `_moments` is an exact reduction
 
     fusable_fit = True
 

@@ -26,6 +26,8 @@ from ...workflow.pipeline import Transformer
 class ClassLabelIndicatorsFromInt(Transformer):
     """int label → length-k float32 vector of −1/+1."""
 
+    precision_tolerance = "exact"  # label stage: ±1 targets feed solvers
+
     chunkable = True  # per-item: distributes over chunks
 
     fusable = True
@@ -44,6 +46,8 @@ class ClassLabelIndicatorsFromIntArray(Transformer):
     """Multi-label int array → length-k float32 vector of −1/+1
     (ClassLabelIndicators.scala:38-55). Items are fixed-length label
     arrays padded with −1; the padding marks no class."""
+
+    precision_tolerance = "exact"  # label stage: ±1 targets feed solvers
 
     chunkable = True  # per-item: distributes over chunks
 
@@ -67,6 +71,8 @@ class ClassLabelIndicatorsFromIntArray(Transformer):
 class MaxClassifier(Transformer):
     """argmax over scores → int label (MaxClassifier.scala)."""
 
+    precision_tolerance = "exact"
+
     chunkable = True  # per-item: distributes over chunks
 
     fusable = True
@@ -89,6 +95,8 @@ class TopKClassifier(Transformer):
 class VectorCombiner(Transformer):
     """Concatenate the list of branch outputs that gather produces along
     the last axis (VectorCombiner.scala)."""
+
+    precision_passthrough = True
 
     def apply(self, xs):
         return torch.cat([torch.as_tensor(x) for x in xs], dim=-1)
@@ -140,6 +148,8 @@ class MatrixVectorizer(Transformer):
     """Flatten each item's matrix to a vector, row-major
     (MatrixVectorizer.scala)."""
 
+    precision_tolerance = "tolerant"  # reshape: values untouched
+
     chunkable = True  # per-item: distributes over chunks
 
     fusable = True
@@ -152,6 +162,8 @@ class MatrixVectorizer(Transformer):
 
 
 class Identity(Transformer):
+    precision_passthrough = True  # see Cacher
+
     def apply(self, x):
         return x
 
@@ -184,6 +196,8 @@ class Cacher(Transformer):
     prefix table keeps it across pipelines (Cacher.scala:15-25 with
     ExtractSaveablePrefixes): a later run of the same upstream chain on
     the same input starts here."""
+
+    precision_passthrough = True
 
     saveable = True
 

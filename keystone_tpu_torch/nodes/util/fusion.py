@@ -29,8 +29,13 @@ chunks the same way (`FusedBatchTransformer.run_rung`), so each chain
 keeps one cache of graphs. A fused chain is
 ``chunkable`` when every stage is (`:292, 405-410`). On meta tensors
 (the static analyzer's run) the stages run once, with no microbatch
-loop, rung, count or capture. The JAX package's program caching,
-planned precision and sharding tags have no counterpart here.
+loop, rung, count or capture. The precision planner's tags
+(`:355-369`) are enforced here: ``planned_precision`` casts each
+peepholed stage's output to its planned storage dtype (the last entry
+restores the unplanned output dtype), and ``planned_matmul_precision``
+runs the stages under a bf16 `torch.autocast` whose bf16 outputs are
+cast back to float32 at each stage. The JAX package's program caching
+and sharding tags have no counterpart here.
 
 Telemetry (`:535-555, 784-791`): each microbatch a ``chunk`` span, each
 padded loop a ``megafused_program`` span and one count in
@@ -70,6 +75,7 @@ class _RectifyPoolStage(Transformer):
     """SymmetricRectifier >> Pooler(sum) through the rectify+pool kernel."""
 
     fusable = True
+    precision_tolerance = "tolerant"  # both fused members are tolerant
 
     def __init__(self, alpha: float, max_val: float, pool: int, stride: int):
         self.alpha = alpha
@@ -89,9 +95,11 @@ class _RectifyPoolStage(Transformer):
 class _ConvRectifyPoolStage(Transformer):
     """Convolver >> SymmetricRectifier >> Pooler(sum) through the fused
     conv+rectify+pool kernel: the conv output and the channel-doubled
-    activations never reach device memory."""
+    activations never reach device memory. Its input may be bf16 (a
+    planned storage trail): the kernel reads it as it is."""
 
     fusable = True
+    precision_tolerance = "tolerant"  # all three fused members are
 
     def __init__(self, conv, alpha: float, max_val: float, pool: int,
                  stride: int):
@@ -143,6 +151,14 @@ class _GatherConcatStage(Transformer):
     @property
     def chunkable(self) -> bool:
         return all(getattr(b, "chunkable", False) for b in self.branches)
+
+    @property
+    def precision_tolerance(self):
+        """Tolerant iff every branch is: the collapsed diamond takes the
+        weakest member's contract."""
+        tols = {getattr(b, "precision_tolerance", None)
+                for b in self.branches}
+        return "tolerant" if tols == {"tolerant"} else "exact"
 
     def _fns(self):
         return [b.batch_fn() for b in self.branches]
@@ -257,17 +273,32 @@ class FusedBatchTransformer(Transformer):
 
     ``planned_kernel`` is ``(start, stop, family)`` over the peepholed
     stages, or None: that sub-trail runs as one chain kernel launch. In
-    the JAX package the unified planner sets the tag, and its kernel axis
-    takes any run that lowers, since it prices the kernel at one pass
-    over device memory against a round trip per stage boundary
-    (`analysis/roofline.py:907-920`). The port has no such planner (the
-    JAX unified planner prices TPU programs), so every transformer, a
-    pipeline's own featurizer or one the optimizer's fusion pass builds,
-    tags itself with the same choice: the first maximal run that lowers
-    (`plan_chain_kernel`). A nested transformer is one stage keyed
-    ``("FusedChain", ...)``, which no run takes in."""
+    the JAX package only the unified planner sets the tag, where its
+    joint plan is enforced; its kernel axis takes any run that lowers,
+    since it prices the kernel at one pass over device memory against a
+    round trip per stage boundary (`analysis/roofline.py:907-920`). On
+    the card the alternative is one launch a stage, so every transformer
+    here, a pipeline's own featurizer or one the fusion pass builds,
+    tags itself with the choice that kernel axis makes, the first
+    maximal run that lowers (`plan_chain_kernel`), and keeps it where the
+    joint plan is not enforced (`analysis/plan_ir.py` records the same
+    tag as its ``kernel`` decision). That is the one place the port's
+    plans differ from JAX's. A nested transformer is one stage keyed
+    ``("FusedChain", ...)``, which no run takes in.
+
+    ``planned_precision`` (one storage dtype name or None per peepholed
+    stage) and ``planned_matmul_precision`` are set by the precision and
+    unified planners on a copy (`tagged_copy`); see the module
+    docstring."""
 
     fusable = True
+
+    #: the precision planner's per-stage storage dtypes, or None
+    planned_precision = None
+    #: "bfloat16": the stages run under a bf16 autocast, or None
+    planned_matmul_precision = None
+    #: set on a copy the unified planner tagged
+    planned_by_unified = False
 
     def __init__(self, stages: Sequence[Transformer], microbatch: int = 2048):
         self.stages = list(stages)
@@ -297,6 +328,34 @@ class FusedBatchTransformer(Transformer):
     def chunkable(self) -> bool:
         """A fused chain distributes over chunks iff every stage does."""
         return all(getattr(s, "chunkable", False) for s in self.stages)
+
+    @property
+    def precision_tolerance(self):
+        """Tolerant iff every member is: inside a larger graph the
+        precision planner sees the whole chain as one stage."""
+        tols = {getattr(s, "precision_tolerance", None)
+                for s in self.stages}
+        return "tolerant" if tols == {"tolerant"} else "exact"
+
+    @property
+    def takes_windows(self) -> bool:
+        """A fused chain runs its rows in independent microbatches, so a
+        spilled or out-of-core input reaches it in row windows whatever
+        its stages declare."""
+        return True
+
+    def tagged_copy(self, **tags) -> "FusedBatchTransformer":
+        """A copy carrying the planner's ``tags``, with launch plans and
+        graphs of its own: a tagged program never replays the untagged
+        one's graphs."""
+        import copy
+
+        new = copy.copy(self)
+        for name, value in tags.items():
+            setattr(new, name, value)
+        new._chain = None
+        new._init_graphs()
+        return new
 
     def fuse(self):
         """``(("FusedChain",) + the peepholed stages' keys, their
@@ -351,19 +410,71 @@ class FusedBatchTransformer(Transformer):
         is the item shape and dtype of its rows for input rows ``y``. The
         stages never fall back to running one by one."""
         fns = [s.batch_fn() for s in self.fused]
+        casts = self._storage_casts()
         if self.planned_kernel is None:
+            fns = self._planned(fns, casts)
             if self.fused and isinstance(self.fused[-1], _GatherConcatStage):
-                return fns, self.fused[-1].writer()
+                layout, write = self.fused[-1].writer()
+                if casts[-1] is not None:
+                    # the writes cast into the restored output dtype
+                    return fns, (lambda y: (layout(y)[0], casts[-1]),
+                                 write)
+                return fns, (layout, write)
             return fns, None
         start, stop, _ = self.planned_kernel
         kern = self._chain_fn()
-        # one dataset device: no padded rows, so no row mask
+        # one dataset device: no padded rows, so no row mask. Inside the
+        # kernel's slice every boundary stays on chip, so only the cast
+        # at the slice's end applies (`:653-669`).
         fns[start:stop] = [lambda xb: kern(xb.contiguous())]
+        casts[start:stop] = [casts[stop - 1]]
+        if start > 0 and casts[start - 1] == torch.bfloat16:
+            # K4 reads float32 rows: a bf16 run ends at the slice's input
+            casts[start - 1] = torch.float32
+        fns = self._planned(fns, casts)
         last = None
         if stop == len(self.fused) and kern.plans is not None:
             last = (lambda y: (kern.plan_for(y).out_shape, torch.float32),
                     kern)
         return fns, last
+
+    def _storage_casts(self) -> list:
+        """The torch dtype each peepholed stage's output is cast to, or
+        None: ``planned_precision`` where it is aligned with the
+        stages (a stale tag is ignored, as in JAX's `:640-644`)."""
+        planned = self.planned_precision
+        if planned is None or len(planned) != len(self.fused):
+            return [None] * len(self.fused)
+        return [getattr(torch, name) if name is not None else None
+                for name in planned]
+
+    def _planned(self, fns, casts):
+        """``fns`` with each stage's planned storage cast applied to its
+        floating output, under a bf16 autocast where
+        ``planned_matmul_precision`` says so."""
+        autocast = self.planned_matmul_precision == "bfloat16"
+        if not autocast and not any(c is not None for c in casts):
+            return fns
+
+        def planned(fn, dtype):
+            def run(xb):
+                if autocast and xb.device.type != "meta":
+                    with torch.autocast(xb.device.type,
+                                        dtype=torch.bfloat16):
+                        y = fn(xb)
+                    if y.dtype == torch.bfloat16 \
+                            and xb.dtype != torch.bfloat16:
+                        y = y.float()  # the autocast's own bf16 result
+                else:
+                    y = fn(xb)
+                if dtype is not None and y.is_floating_point() \
+                        and y.dtype != dtype:
+                    y = y.to(dtype)
+                return y
+
+            return run
+
+        return [planned(fn, dtype) for fn, dtype in zip(fns, casts)]
 
     def batch_fn(self):
         fns, last = self._stage_fns()

@@ -236,12 +236,14 @@ def conv_filter_chunk(k: int, smem_of, limit: int = MAX_SMEM_BYTES) -> int:
     return kc
 
 
-def _check_cuda(name: str, device: torch.device, **tensors) -> None:
+def _check_cuda(name: str, device: torch.device,
+                dtypes=(torch.float32,), **tensors) -> None:
     for arg, t in tensors.items():
         if t.device != device:
             raise ValueError(f"{name}: {arg} is on {t.device}, not {device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: {arg} must be float32, not {t.dtype}")
+        if t.dtype not in dtypes:
+            raise TypeError(f"{name}: {arg} must be "
+                            f"{' or '.join(map(str, dtypes))}, not {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {arg} must be contiguous")
 
@@ -273,7 +275,9 @@ def conv_rectify_pool(images, g_cmajor, colsum, bias, alpha: float,
                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused conv + patch-mean correction + two-sided rectify + sum pool.
 
-    images (N,H,W,C) f32, g_cmajor (C·P·P, K) f32 in channel-major order,
+    images (N,H,W,C) f32 or bf16 (a bf16 storage trail of the precision
+    planner: the kernel reads the bf16 values it would round the f32
+    ones to, in the same build), g_cmajor (C·P·P, K) f32 in channel-major order,
     colsum and bias (K,) f32 → (N, gy, gx, 2K) f32. CUDA tensors run the
     kernel in ``csrc/conv_rectify_pool.cu`` (bf16 operands on the tensor
     cores, fp32 sums) over the row plan of `conv_row_plan`; CPU tensors
@@ -284,21 +288,26 @@ def conv_rectify_pool(images, g_cmajor, colsum, bias, alpha: float,
     one), the result is written there and ``out`` is returned."""
     n, h, w, c = images.shape
     k = g_cmajor.shape[1]
+    in_bf16 = images.dtype == torch.bfloat16
     if images.device.type == "cpu":
         y = conv_rectify_pool_reference(
-            images, cmajor_to_hwio(g_cmajor, patch), colsum, bias, alpha,
+            images.float() if in_bf16 else images,
+            cmajor_to_hwio(g_cmajor, patch), colsum, bias, alpha,
             max_val, pool, stride, normalize)
         if out is None:
             return y
         _check_out("conv_rectify_pool", out, y.shape, images.device)
         return out.copy_(y.reshape(out.shape))
     if images.device.type == "meta":
-        return _conv_rectify_pool_meta(images, k, patch, pool, stride, out)
+        return _conv_rectify_pool_meta(images, k, patch, pool, stride, out,
+                                       2 if in_bf16 else 4)
     if images.device.type != "cuda":
         raise ValueError(f"conv_rectify_pool: unsupported device "
                          f"{images.device}")
-    _check_cuda("conv_rectify_pool", images.device, images=images,
-                g_cmajor=g_cmajor, colsum=colsum, bias=bias)
+    _check_cuda("conv_rectify_pool", images.device, g_cmajor=g_cmajor,
+                colsum=colsum, bias=bias)
+    _check_cuda("conv_rectify_pool", images.device,
+                dtypes=(torch.float32, torch.bfloat16), images=images)
     if g_cmajor.shape[0] != c * patch * patch:
         raise ValueError(f"conv_rectify_pool: g_cmajor has "
                          f"{g_cmajor.shape[0]} rows, expected C·P·P = "
@@ -318,7 +327,7 @@ def conv_rectify_pool(images, g_cmajor, colsum, bias, alpha: float,
     lib = _build.load("conv_rectify_pool")
     fn = lib.keystone_conv_rectify_pool
     fn.argtypes = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                   _I, _I, _I, _F, _F, _I, _P]
+                   _I, _I, _I, _F, _F, _I, _I, _P]
     fn.restype = _I
     smem_fn = lib.keystone_conv_rectify_pool_smem
     smem_fn.argtypes = [_I] * 7
@@ -346,7 +355,7 @@ def conv_rectify_pool(images, g_cmajor, colsum, bias, alpha: float,
                 row_pos.data_ptr(), group_windows.data_ptr(),
                 out.data_ptr() + 4 * f0, n, h, w, c, min(kc, k - f0), k,
                 patch, pool, stride, rows, float(alpha), float(max_val),
-                int(bool(normalize)), _stream(images.device))
+                int(bool(normalize)), int(in_bf16), _stream(images.device))
         _raise_on_error(lib, "conv_rectify_pool", rc)
         tally(conv_rectify_pool)
     return out
@@ -356,7 +365,7 @@ conv_rectify_pool.launches = 0
 
 
 def _conv_rectify_pool_meta(images, k: int, patch: int, pool: int,
-                            stride: int, out):
+                            stride: int, out, in_itemsize: int = 4):
     """K1's meta branch (`ops/meta.py`): the output's shape, and the
     conv's products at the positions some pool window covers, against
     each input read once and the output written once."""
@@ -367,8 +376,9 @@ def _conv_rectify_pool_meta(images, k: int, patch: int, pool: int,
     cx = min(pw, (gx - 1) * stride + pool)
     meta.report("conv_rectify_pool",
                 2.0 * n * cy * cx * c * patch * patch * k,
-                4.0 * (n * h * w * c + c * patch * patch * k + 2 * k
-                       + n * gy * gx * 2 * k))
+                in_itemsize * n * h * w * c
+                + 4.0 * (c * patch * patch * k + 2 * k
+                         + n * gy * gx * 2 * k))
     return out if out is not None else meta.empty((n, gy, gx, 2 * k))
 
 

@@ -146,16 +146,30 @@ def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def item_shape(train_data) -> tuple:
+    """(H, W, C) of a training set's images: a device `Dataset`, or a
+    source in host memory (`SpilledDataset`, `OutOfCoreDataset`)."""
+    if hasattr(train_data, "item_shape"):
+        return tuple(train_data.item_shape)
+    return tuple(train_data.array.shape[1:])
+
+
 def learn_filters(train_data, config):
     """Whitened random-patch filter learning (reference :45-57), with
-    the draws seeded by ``config.seed``."""
-    images = train_data.array
+    the draws seeded by ``config.seed``. From a source in host memory
+    only the sampled images reach the card (each shard drawn once)."""
     n = train_data.count
-    h, w = images.shape[1:3]
+    h, w = item_shape(train_data)[:2]
     n_sample, total, m = filter_sample_sizes(n, h, w, config)
     gen = torch.Generator().manual_seed(config.seed)
     img_idx, patch_idx, filter_idx = draw_filter_indices(
         n, n_sample, total, m, config.num_filters, gen)
+    if hasattr(train_data, "gather"):
+        images = torch.from_numpy(train_data.gather(img_idx.numpy())).to(
+            train_data.device)
+        img_idx = torch.arange(n_sample)
+    else:
+        images = train_data.array
     return learn_filters_from_indices(
         images, img_idx, patch_idx, filter_idx, config.patch_size,
         config.patch_steps)
@@ -214,10 +228,14 @@ def analyzable(config: Optional[RandomPatchCifarConfig] = None,
     return predictor, (h, w, c)
 
 
-def build_pipeline(train, config):
-    """Build + fit the full prediction pipeline."""
-    filters, whitener = learn_filters(train.data, config)
-    h, w, c = train.data.array.shape[1:]
+def build_pipeline(train, config, learned=None):
+    """The full prediction pipeline, to fit. ``train.data`` is a device
+    `Dataset` or a source in host memory (an `OutOfCoreDataset`, which
+    the featurizer takes in windows); ``learned``, ``(filters,
+    whitener)``, skips filter learning."""
+    filters, whitener = (learned if learned is not None
+                         else learn_filters(train.data, config))
+    h, w, c = item_shape(train.data)
     featurizer = (
         make_featurizer(filters, whitener, h, w, c, config).to_pipeline()
         >> Cacher("features")

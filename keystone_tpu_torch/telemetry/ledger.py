@@ -58,11 +58,15 @@ KINDS = ("fusion", "megafusion", "placement", "precision", "chunk",
 #: observing its fallout.
 CONFIG_ENV = {
     "megafusion": "KEYSTONE_MEGAFUSION",
+    "sharding_planner": "KEYSTONE_SHARDING_PLANNER",
+    "precision_planner": "KEYSTONE_PRECISION_PLANNER",
+    "unified_planner": "KEYSTONE_UNIFIED_PLANNER",
     "concurrent_dispatch": "KEYSTONE_CONCURRENT_DISPATCH",
     "pad_chunks": "KEYSTONE_PAD_CHUNKS",
     "aot_warmup": "KEYSTONE_AOT_WARMUP",
     "overlap": "KEYSTONE_OVERLAP",
     "live_telemetry": "KEYSTONE_LIVE_TELEMETRY",
+    "ooc_spill": "KEYSTONE_OOC_SPILL",
 }
 
 _LOCK = threading.Lock()
@@ -586,10 +590,17 @@ def _stable_config(run: Dict[str, Any]) -> Dict[str, Any]:
 
 
 #: which config switch owns which decision kind: how a removed
-#: decision is attributed to the flip that removed it (fusion and cache
-#: have no switch of their own on the card).
+#: decision is attributed to the flip that removed it (fusion has no
+#: switch of its own; placement and precision have two owners, the
+#: sequential rule's switch and the unified planner's, `:612-629`).
 _KIND_FIELDS = {
     "megafusion": ("megafusion",),
+    "placement": ("sharding_planner", "unified_planner"),
+    "precision": ("precision_planner", "unified_planner"),
+    "chunk": ("unified_planner",),
+    "cache": ("unified_planner",),
+    "kernel": ("unified_planner",),
+    "spill": ("ooc_spill", "unified_planner"),
     "conformance": ("live_telemetry",),
 }
 

@@ -45,7 +45,15 @@ producer's lane and ``chunk_drain`` on the consumer's when overlapped),
 (``overlap.peak_pinned_bytes``, a gauge whose ``max`` is the most a
 stream held) and one `record_dispatch` a unit run.
 
-Spill windows (`:555-667`) are not ported (ROADMAP queue 1, item 10).
+Spill windows (`:555-667`): a host-resident source (a spilled cache,
+`data/dataset.py::SpilledDataset`, or a source drawn a shard at a time,
+`OutOfCoreDataset`) reaches the card in row windows of the resolved
+chunk (the unified planner's window decision), the ragged last one
+padded on the same ladder (`_window_plan`). Overlapped, the producer
+thread loads window k+1 into the pinned ring and copies it on the copy
+stream while the card runs window k, as the chunk stream does. Counted:
+``spill.bytes_in``, ``spill.window_trips``, the consumer's wait
+``spill.reload_stall_s``, and a ``spill_window`` span a window.
 `bucket_by_shape` and `run_chunked` serve device-resident buckets, which
 need no staging.
 """
@@ -410,6 +418,140 @@ def _stream_overlapped(items, units, depth: int, device):
         staged.close()  # an early exit or a failure cancels the producer
         if ring is not None:
             _PEAK_PINNED.set(ring.peak_bytes)
+
+
+# --------------------------------------------------------------------------
+# Spill windows: a host-resident source on the card a window at a time
+
+_SPILL_IN = counter("spill.bytes_in")
+_SPILL_TRIPS = counter("spill.window_trips")
+_SPILL_STALL = histogram("spill.reload_stall_s")
+
+
+def _window_plan(count: int, window: Optional[int],
+                 pad: bool = True) -> List[Tuple[int, int, int]]:
+    """``[(lo, hi, pad_to)]`` windows covering ``range(count)`` once, in
+    order; the ragged last window pads on the chunk ladder
+    (`_pad_target`)."""
+    window = window or count
+    plan: List[Tuple[int, int, int]] = []
+    lo = 0
+    while lo < count:
+        hi = min(count, lo + window)
+        pad_to = _pad_target(hi - lo, window, count) if pad else hi - lo
+        plan.append((lo, hi, pad_to))
+        lo = hi
+    return plan
+
+
+def _pad_rows(rows: torch.Tensor, pad_to: int) -> torch.Tensor:
+    n = rows.shape[0]
+    if pad_to > n:
+        rows = torch.cat([rows, rows.new_zeros(
+            (pad_to - n,) + tuple(rows.shape[1:]))])
+    return rows
+
+
+def _host_rows(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x if x.device.type == "cpu" else x.cpu()
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def _stage_spill_window(load, lo: int, hi: int, pad_to: int,
+                        device: torch.device,
+                        ring: Optional[_PinnedRing] = None,
+                        copy_stream=None):
+    """``(indices, window, event)``: host rows [lo, hi) from ``load``,
+    zero rows appended up to ``pad_to``, on ``device``. One array goes
+    through a slot of ``ring`` and a copy on ``copy_stream``, whose
+    completion ``event`` marks; a tuple of arrays is copied in order."""
+    host = load(lo, hi)
+    leaves = [_host_rows(x) for x in
+              (host if isinstance(host, tuple) else (host,))]
+    _SPILL_IN.inc(float(sum(x.numel() * x.element_size() for x in leaves)))
+    idxs = list(range(lo, hi))
+    if ring is None or len(leaves) > 1 or device.type != "cuda":
+        staged = [_pad_rows(x, pad_to).to(device) for x in leaves]
+        window = tuple(staged) if isinstance(host, tuple) else staged[0]
+        return idxs, window, None
+    x = leaves[0]
+    shape = (pad_to,) + tuple(x.shape[1:])
+    slot, buf = ring.acquire(pad_to * x[0].numel() * x.element_size()
+                             if x.shape[0] else 0)
+    pinned = buf.view(x.dtype).view(shape)
+    pinned[: x.shape[0]] = x
+    if pad_to > x.shape[0]:
+        pinned[x.shape[0]:] = 0
+    with torch.cuda.stream(copy_stream):
+        window = pinned.to(device, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(copy_stream)
+    ring.events[slot] = event
+    return idxs, window, event
+
+
+def stream_spill_windows(load: Callable, count: int,
+                         window=USE_CONFIG_CHUNK, device=None
+                         ) -> Iterator[Tuple[List[int], object]]:
+    """``(indices, device_window)`` over a host source of ``count`` rows,
+    ``window`` rows at a time (default: the resolved chunk).
+    ``load(lo, hi)`` returns host rows [lo, hi) (an array, a tensor or a
+    tuple of them). The indices cover ``range(count)`` once, in order; a
+    window's rows are padded to the ladder, so a consumer slices its
+    result to ``len(indices)`` rows (`map_spill_windows` does). With the
+    overlap engine on and more than one window, window k+1 is loaded and
+    copied while the card runs window k. ``device``: where the windows
+    go (None: the card)."""
+    from ..device import resolve_device
+    from ..workflow.env import execution_config
+
+    window = _resolve_chunk(window)
+    device = resolve_device(device)
+    cfg = execution_config()
+    plan = _window_plan(count, window, pad=cfg.pad_chunks)
+    overlapped = cfg.overlap and len(plan) > 1
+    ring = copy_stream = None
+    if overlapped and device.type == "cuda":
+        ring = _PinnedRing(cfg.prefetch_depth + 1)
+        copy_stream = torch.cuda.Stream(device)
+
+    def gen():
+        for i, (lo, hi, pad_to) in enumerate(plan):
+            with span("spill_window", cat="chunk", idx=i, rows=hi - lo):
+                yield _stage_spill_window(load, lo, hi, pad_to, device,
+                                          ring, copy_stream)
+
+    it = (prefetch_iterator(gen(), cfg.prefetch_depth) if overlapped
+          else gen())
+    try:
+        while True:
+            t0 = perf_counter()
+            try:
+                idxs, win, event = next(it)
+            except StopIteration:
+                break
+            # the consumer's wait: about the whole load and copy serially,
+            # about nothing where the producer kept ahead
+            _SPILL_STALL.observe(perf_counter() - t0)
+            _SPILL_TRIPS.inc()
+            for leaf in (win if isinstance(win, tuple) else (win,)):
+                _ready(leaf, event, device)
+            yield idxs, win
+    finally:
+        it.close()  # an early exit cancels the producer
+        if ring is not None:
+            _PEAK_PINNED.set(ring.peak_bytes)
+
+
+def map_spill_windows(load: Callable, count: int, fn: Callable,
+                      window=USE_CONFIG_CHUNK, device=None
+                      ) -> Iterator[Tuple[List[int], torch.Tensor]]:
+    """``(indices, rows)``: ``fn`` on each window on the card, its padded
+    rows sliced off before anyone sees them."""
+    for idxs, win in stream_spill_windows(load, count, window, device):
+        record_dispatch()  # one call a window
+        yield idxs, fn(win)[: len(idxs)]
 
 
 # --------------------------------------------------------------------------

@@ -40,24 +40,46 @@ logger = logging.getLogger(__name__)
 
 class CacheMarker(TransformerOperator):
     """Identity node that materializes and prefix-memoizes its input
-    (≈ Cacher, nodes/util/Cacher.scala:15-25)."""
+    (≈ Cacher, nodes/util/Cacher.scala:15-25).
 
-    chunkable = True  # per-item: distributes over chunks
+    ``placement`` (`:35-90`): ``"device"`` keeps the value on the card;
+    ``"host"``, the unified planner's spill tier, copies it into pinned
+    host memory as a `data/dataset.py::SpilledDataset`
+    (``spill.bytes_out``), from which its consumers take it back in
+    windows or, a whole-batch consumer such as a fit, whole. A host
+    cache takes its input whole, so it is not ``chunkable``."""
+
+    precision_passthrough = True
 
     saveable = True
 
-    def __init__(self, name: str = ""):
+    def __init__(self, name: str = "", placement: str = "device"):
+        if placement not in ("device", "host"):
+            raise ValueError(f"unknown cache placement {placement!r}")
         self.name = name
+        self.placement = placement
+        # per-item where it stays on the card: distributes over chunks
+        self.chunkable = placement == "device"
 
     @property
     def label(self) -> str:
+        if self.placement == "host":
+            return f"Cache[host:{self.name}]"
         return f"Cache[{self.name}]"
 
     def single_transform(self, inputs):
         return inputs[0]
 
     def batch_transform(self, inputs):
+        from ..data.dataset import Dataset, HostDataset, SpilledDataset
+
         data = inputs[0]
+        if self.placement == "host":
+            if isinstance(data, Dataset) or (
+                    isinstance(data, HostDataset)
+                    and data._buckets is not None):
+                return SpilledDataset.spill(data, name=self.name)
+            return data  # in host memory already
         return data.cache() if hasattr(data, "cache") else data
 
 
@@ -221,10 +243,12 @@ class AutoCacheRule(Rule):
         return out
 
     @staticmethod
-    def _insert_cache(graph: Graph, node: NodeId) -> Graph:
+    def _insert_cache(graph: Graph, node: NodeId,
+                      placement: str = "device") -> Graph:
         """Splice a CacheMarker between ``node`` and all its users."""
         g, cache_id = graph.add_node(
-            CacheMarker(graph.get_operator(node).label), [node])
+            CacheMarker(graph.get_operator(node).label, placement=placement),
+            [node])
         dd = {m: tuple(cache_id if (d == node and m != cache_id) else d
                        for d in deps)
               for m, deps in g.dependencies.items()}

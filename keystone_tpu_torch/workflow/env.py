@@ -16,10 +16,11 @@ package's names and environment variables. They change when and how work
 is dispatched (overlapped host staging, the concurrent scheduler, the
 chunking, warm-ups, megafusion) and what the telemetry records (the
 trace, the ledger, the live plane) and how the serving runtime batches
-(`serving/`); the same kernels run either way. The JAX package's
-compile-cache, planner and spill fields have no counterpart, nor has
-``pallas_kernels``: the port has no switch that picks a plain kernel
-path.
+(`serving/`), and which plan the optimizer's planners choose
+(precision, the unified plan, the host spill tier); the same kernels
+run either way. The JAX package's compile-cache fields have no
+counterpart, nor has ``pallas_kernels``: the port has no switch that
+picks a plain kernel path.
 
 The table keeps every saved expression alive, and with it its tensors on
 the device: `PipelineEnv.reset()` drops them.
@@ -95,8 +96,39 @@ class ExecutionConfig:
 
     ``hbm_budget_bytes`` (``KEYSTONE_HBM_BUDGET_GB``, in GiB; default
     none): the device memory budget the static memory pass (KP201,
-    KP202), the serving certifier's residency check (KP905) and the
-    tenant registry price against (`:242, 343-346`).
+    KP202, and KP600 at the full tier), the serving certifier's
+    residency check (KP905), the tenant registry and the unified
+    planner price against (`:242, 343-346`): it bounds the caches a
+    plan pins on the card and a chunk's live rows, not the run's peak
+    (a fit takes a spilled cache back whole).
+
+    ``sharding_planner`` (``KEYSTONE_SHARDING_PLANNER``, default on):
+    `ShardingPlannerRule` runs in the ``place`` batch. On one card it
+    has nothing to place and leaves every plan as it is, as the JAX
+    rule does on a one-device mesh (`:122-133`).
+
+    ``precision_planner`` (``KEYSTONE_PRECISION_PLANNER``, default on)
+    and ``precision_min_savings_bytes``
+    (``KEYSTONE_PRECISION_MIN_SAVINGS_BYTES``, default 1 MiB):
+    `PrecisionPlannerRule` gives each fused program's internal stage
+    boundaries a storage dtype (bf16 where both neighbouring stages
+    declare ``"tolerant"``), enforced only where the bytes it saves
+    clear the floor (`:135-152`).
+
+    ``unified_planner`` (``KEYSTONE_UNIFIED_PLANNER``, default on) and
+    ``unified_min_savings_seconds`` (``KEYSTONE_UNIFIED_MIN_SAVINGS_S``,
+    default 5 ms): `UnifiedPlannerRule` solves the storage dtypes, the
+    chunk size, the cache points, the chain kernels and the spills
+    jointly under ``hbm_budget_bytes``, priced in seconds on the
+    calibrated rates, and enforces the joint plan only where it beats
+    the sequential one by the floor (`:165-184`). Off, a planned chunk
+    is ignored (`resolved_chunk_size`).
+
+    ``ooc_spill`` (``KEYSTONE_OOC_SPILL``, default on): the unified
+    planner may place a cache point in host memory
+    (`CacheMarker(placement="host")`), priced by the host link's
+    calibrated rate, when a device cache would not fit the budget
+    (`:226-240`). Off, no spill is priced or enforced.
 
     ``serving_coalesce`` (``KEYSTONE_SERVING_COALESCE``, default on),
     ``serving_queue_depth`` (``KEYSTONE_SERVING_QUEUE_DEPTH``, 256) and
@@ -117,6 +149,12 @@ class ExecutionConfig:
     ledger_path: Optional[str] = None
     live_telemetry: bool = True
     hbm_budget_bytes: Optional[int] = None
+    sharding_planner: bool = True
+    precision_planner: bool = True
+    precision_min_savings_bytes: int = 1 << 20
+    unified_planner: bool = True
+    unified_min_savings_seconds: float = 5e-3
+    ooc_spill: bool = True
     serving_coalesce: bool = True
     serving_queue_depth: int = 256
     serving_window_ms: float = 2.0
@@ -155,6 +193,14 @@ def execution_config() -> ExecutionConfig:
             hbm_budget_bytes=(
                 int(float(os.environ["KEYSTONE_HBM_BUDGET_GB"]) * (1 << 30))
                 if os.environ.get("KEYSTONE_HBM_BUDGET_GB") else None),
+            sharding_planner=_env_on("KEYSTONE_SHARDING_PLANNER"),
+            precision_planner=_env_on("KEYSTONE_PRECISION_PLANNER"),
+            precision_min_savings_bytes=max(0, int(os.environ.get(
+                "KEYSTONE_PRECISION_MIN_SAVINGS_BYTES", str(1 << 20)))),
+            unified_planner=_env_on("KEYSTONE_UNIFIED_PLANNER"),
+            unified_min_savings_seconds=max(0.0, float(os.environ.get(
+                "KEYSTONE_UNIFIED_MIN_SAVINGS_S", "5e-3"))),
+            ooc_spill=_env_on("KEYSTONE_OOC_SPILL"),
             serving_coalesce=_env_on("KEYSTONE_SERVING_COALESCE"),
             serving_queue_depth=max(1, int(os.environ.get(
                 "KEYSTONE_SERVING_QUEUE_DEPTH", "256"))),
@@ -170,25 +216,32 @@ def set_execution_config(config: Optional[ExecutionConfig]) -> None:
     _exec_config = config
 
 
-#: a planner's chunk decision, or None (`:351-383`). The port has no
-#: planner that sets it; the seam is kept so the batching and a later
-#: planner read one resolution.
+#: the chunk the last enforced unified plan chose, or None
+#: (`:400-432`). Process-wide like the optimizer: the last optimized
+#: plan's decision is the live one; a stream resolves its chunk once,
+#: when its plan is built.
 _planned_chunk: Optional[int] = None
 
 
 def set_planned_chunk_size(chunk: Optional[int]) -> None:
-    """Install (or clear, with None) a planner's chunk decision."""
+    """Install (or clear, with None) the unified planner's chunk
+    decision; only `UnifiedPlannerRule` and its opt-out set it."""
     global _planned_chunk
     _planned_chunk = max(1, int(chunk)) if chunk is not None else None
 
 
 def planned_chunk_size() -> Optional[int]:
-    return _planned_chunk
+    """The live chunk decision: None when no plan holds one or the
+    unified planner is off (its switch ignores a stale decision)."""
+    if _planned_chunk is not None and execution_config().unified_planner:
+        return _planned_chunk
+    return None
 
 
 def resolved_chunk_size() -> int:
-    """The chunk the host batching uses: a planner's decision where one
-    is installed, else ``ExecutionConfig.chunk_size``."""
+    """The chunk the host batching, the spill windows and the memory
+    model use: the unified planner's decision where one is live, else
+    ``ExecutionConfig.chunk_size``."""
     planned = planned_chunk_size()
     return planned if planned is not None else execution_config().chunk_size
 

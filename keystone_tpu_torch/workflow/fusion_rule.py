@@ -7,8 +7,8 @@ replaces each chain with one operator:
   - transformer nodes that declare ``fusable = True`` fuse into one
     `FusedBatchTransformer` (`nodes/util/fusion.py`), which runs the
     chain over microbatches of rows. It tags its own chain-kernel run,
-    the choice the JAX package's unified planner makes (the port has no
-    such planner); a stage that is itself a fused featurizer is one
+    the choice the unified planner's kernel axis makes (see its
+    docstring); a stage that is itself a fused featurizer is one
     opaque stage, with its own tag inside;
   - chains extend through estimator apply boundaries: a `DelegatingOperator` whose estimator declares
     ``fusable_fit = True`` (scalers, least-squares mappers) joins the
@@ -120,6 +120,14 @@ class FusedChainOperator(Operator):
     #: display prefix, overridden by `MegafusedPlanOperator`
     _label_prefix = "Fused"
 
+    #: the planners' tags (`:162-211`), set on a `tagged_copy` and handed
+    #: to the built transformer by `materialize`: per-stage storage
+    #: dtypes, the matmul scope and the chain-kernel run
+    planned_precision = None
+    planned_matmul_precision = None
+    planned_kernel = None
+    planned_by_unified = False
+
     def __init__(self, stage_specs: Sequence, microbatch: int = 2048):
         self.stage_specs = list(stage_specs)
         self.microbatch = microbatch
@@ -164,6 +172,10 @@ class FusedChainOperator(Operator):
                       for s in self.stage_specs]
             if all(getattr(s, "fusable", False) for s in stages):
                 built = self._fused_cls()(stages, microbatch=self.microbatch)
+                for tag in ("planned_precision", "planned_matmul_precision",
+                            "planned_kernel"):
+                    if getattr(self, tag) is not None:
+                        setattr(built, tag, getattr(self, tag))
             else:
                 built = TransformerChain(stages)
             self._materialized = (fitted, built)
@@ -173,6 +185,17 @@ class FusedChainOperator(Operator):
         state = dict(self.__dict__)
         state.pop("_materialized", None)
         return state
+
+    def tagged_copy(self, **tags) -> "FusedChainOperator":
+        """A copy carrying the planner's ``tags`` that builds its own
+        transformer (the untagged operator's build is not shared)."""
+        import copy
+
+        new = copy.copy(self)
+        new.__dict__.pop("_materialized", None)
+        for name, value in tags.items():
+            setattr(new, name, value)
+        return new
 
     def abstract_eval(self, in_specs: List) -> object:
         from ..analysis.specs import (
@@ -520,8 +543,17 @@ def megafusion_blockers(graph: Graph) -> List[Tuple[NodeId, str, str]]:
 
 
 class NodeFusionRule(Rule):
-    #: rows a fused chain runs at a time (`FusedBatchTransformer`)
+    """``microbatch``: rows a fused chain runs at a time
+    (`FusedBatchTransformer`); ``fuse_apply=False`` fuses transformer
+    chains only, never through an estimator's apply (JAX's PR-3 plan,
+    `:602-616`)."""
+
+    #: rows a fused chain runs at a time, by default
     microbatch = 2048
+
+    def __init__(self, microbatch: int = 2048, fuse_apply: bool = True):
+        self.microbatch = microbatch
+        self.fuse_apply = fuse_apply
 
     @staticmethod
     def _est_fusable(graph: Graph, dep) -> bool:
@@ -544,7 +576,7 @@ class NodeFusionRule(Rule):
         deps = graph.get_dependencies(node)
         if getattr(op, "fusable", False) and len(deps) == 1:
             return True
-        return (isinstance(op, DelegatingOperator)
+        return (self.fuse_apply and isinstance(op, DelegatingOperator)
                 and len(deps) == 2
                 and self._est_fusable(graph, deps[0]))
 

@@ -79,6 +79,17 @@ def _chunk_items(transformer, payload) -> Any:
     return _chunk_payload(transformer.batch_transform([ds]), n)
 
 
+def _training_input(dep: Expression):
+    """A fit's input: a spilled or out-of-core value re-enters the card
+    whole (`:313-326`), as a whole-batch consumer needs it."""
+    value = dep.get
+    if getattr(value, "is_spilled", False):
+        return value.rehydrate()
+    if getattr(value, "is_out_of_core", False):
+        return value.materialize()
+    return value
+
+
 def is_stream_origin(op) -> bool:
     """Whether ``op`` produces a chunk stream itself (it overrides
     `Transformer.apply_batch_stream`), as opposed to passing chunks
@@ -329,7 +340,7 @@ class EstimatorOperator(Operator):
     def execute(self, deps: Sequence[Expression]) -> Expression:
         deps = list(deps)
         return TransformerExpression(
-            lambda: self.fit_datasets([d.get for d in deps]))
+            lambda: self.fit_datasets([_training_input(d) for d in deps]))
 
 
 class DelegatingOperator(Operator):

@@ -388,6 +388,13 @@ class FittedPipeline(Chainable):
 # Transformer
 
 
+def _host_tier(data) -> bool:
+    """A spilled or out-of-core value: host rows that enter the card in
+    windows or whole."""
+    return bool(getattr(data, "is_spilled", False)
+                or getattr(data, "is_out_of_core", False))
+
+
 class Transformer(TransformerOperator, Chainable):
     """A batched tensor function (Transformer.scala:18-70). Subclasses
     implement `batch_fn`, which maps a (n, ...) tensor of rows to a
@@ -399,9 +406,19 @@ class Transformer(TransformerOperator, Chainable):
     chunks of items, so the stage consumes an upstream chunk stream as
     it drains; `apply_batch_stream` (an iterator of ``(indices, rows)``
     chunks over a `HostDataset`, or None) makes the stage a stream
-    producer."""
+    producer; a spilled or out-of-core input reaches a ``chunkable``
+    stage in windows (`_windowed_batch_stream`, `:465-500`).
+
+    Precision hooks (`:439-454`, `analysis/precision.py`):
+    ``precision_tolerance`` is ``"tolerant"`` (bf16 storage and compute
+    are fine), ``"compute"``, ``"exact"`` or None (undeclared: the
+    analyzer probes the stage on a bf16 element); ``precision_passthrough
+    = True`` marks value-preserving plumbing the analyzer looks
+    through."""
 
     chunkable = False
+    precision_tolerance = None
+    precision_passthrough = False
 
     def apply_batch_stream(self, data: Any):
         """A streaming batch path over a `HostDataset`, or None (the
@@ -413,7 +430,42 @@ class Transformer(TransformerOperator, Chainable):
 
         if isinstance(inputs[0], HostDataset):
             return self.apply_batch_stream(inputs[0])
+        if _host_tier(inputs[0]) and self.takes_windows:
+            return self._windowed_batch_stream(inputs[0])
         return None
+
+    @property
+    def takes_windows(self) -> bool:
+        """Whether a spilled or out-of-core input reaches this stage in
+        row windows (`:465-479`): where it distributes over chunks."""
+        return bool(self.chunkable)
+
+    def _windowed_batch_stream(self, source):
+        """The stage over a host-resident source a window at a time
+        (`:481-496`): each window staged on the card while the previous
+        one runs (`utils/batching.py::stream_spill_windows`), this
+        stage's batch path run on it, and its real rows written into one
+        result on the card, yielded as one whole-value chunk: the card
+        holds the windows in flight and the result, never the source."""
+        yield None, self._windowed_apply(source)
+
+    def _windowed_apply(self, source):
+        from ..data.dataset import Dataset, ZippedDataset
+        from ..utils.batching import stream_spill_windows
+
+        out = None
+        for idxs, win in stream_spill_windows(source.row_loader,
+                                              source.count,
+                                              device=source.device):
+            n = win[0].shape[0] if isinstance(win, tuple) else win.shape[0]
+            ds = (ZippedDataset(win, n) if isinstance(win, tuple)
+                  else Dataset(win))
+            rows = self.apply_batch(ds).array[: len(idxs)]
+            if out is None:
+                out = rows.new_empty((source.count,)
+                                     + tuple(rows.shape[1:]))
+            out[idxs[0]:idxs[0] + len(idxs)] = rows
+        return Dataset(out)
 
     def batch_fn(self) -> Callable[[torch.Tensor], torch.Tensor]:
         raise NotImplementedError
@@ -422,6 +474,14 @@ class Transformer(TransformerOperator, Chainable):
         return self.batch_fn()(torch.as_tensor(x)[None])[0]
 
     def apply_batch(self, data: Any) -> Any:
+        """`batch_fn` over the rows. A spilled or out-of-core input runs
+        in windows where the stage takes them, else re-enters the card
+        whole (`:498-506`)."""
+        if _host_tier(data):
+            if self.takes_windows:
+                return self._windowed_apply(data)
+            data = (data.rehydrate() if getattr(data, "is_spilled", False)
+                    else data.materialize())
         return data.map_batches(self.batch_fn())
 
     def single_transform(self, inputs: List[Any]) -> Any:

@@ -107,6 +107,36 @@ def test_cuda_conv_rectify_pool_matches_plain(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,c,patch,k,pool,stride,normalize",
+                         [CONV_GEOMETRIES[0], CONV_GEOMETRIES[3],
+                          CONV_GEOMETRIES[9], CONV_GEOMETRIES[12]])
+def test_cuda_conv_rectify_pool_takes_bf16_images(
+        cuda_device, n, h, w, c, patch, k, pool, stride, normalize):
+    """K1 on bf16 images (a planned bf16 storage trail): the same result,
+    bit for bit, as on those values in float32, since the kernel rounds
+    its operands to bf16 either way; and the plain version's on the same
+    values within 5e-3 of the output's scale."""
+    rng = np.random.default_rng(2)
+    x = torch.tensor(rng.random(size=(n, h, w, c)), dtype=torch.float32,
+                     device=cuda_device).to(torch.bfloat16)
+    kern = torch.tensor(rng.normal(size=(patch, patch, c, k)),
+                        dtype=torch.float32, device=cuda_device)
+    colsum, bias = (torch.tensor(rng.normal(size=(k,)), dtype=torch.float32,
+                                 device=cuda_device) for _ in range(2))
+    g = kernels.hwio_to_cmajor(kern).contiguous()
+    args = (g, colsum, bias, 0.25, 0.0, pool, stride, normalize, patch)
+    got = kernels.conv_rectify_pool(x, *args)
+    as_f32 = kernels.conv_rectify_pool(x.float(), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, as_f32)
+    want = kernels.conv_rectify_pool_reference(x.float(), kern, colsum, bias,
+                                               0.25, 0.0, pool, stride,
+                                               normalize)
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 5e-3 * scale
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,h,w,k,pool,stride,alpha,max_val",
                          RECTIFY_GEOMETRIES)
 def test_cuda_rectify_pool_matches_plain(cuda_device, n, h, w, k, pool,

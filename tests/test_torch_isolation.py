@@ -142,3 +142,35 @@ def test_serving_runtime_asks_for_the_card():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingRuntime(object(), element_shape=(4,))
+
+
+def test_the_plan_tier_and_out_of_core_modules_are_in_scope():
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ("analysis/precision.py", "analysis/planner.py",
+                   "analysis/plan_ir.py", "loaders/ooc_loader.py",
+                   "pipelines/__main__.py", "data/dataset.py",
+                   "utils/batching.py", "workflow/optimizer.py"):
+        assert f"keystone_tpu_torch/{module}" in names, module
+
+
+def test_out_of_core_entry_points_ask_for_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    import numpy as np
+
+    from keystone_tpu_torch.data.dataset import (
+        OutOfCoreDataset,
+        SpilledDataset,
+    )
+    from keystone_tpu_torch.loaders import (
+        out_of_core_from_shards,
+        synthetic_out_of_core,
+    )
+
+    rows = np.zeros((4, 2), np.float32)
+    for make in (lambda: synthetic_out_of_core(8, 2),
+                 lambda: out_of_core_from_shards([lambda: rows], [4]),
+                 lambda: OutOfCoreDataset([lambda: rows], [4]),
+                 lambda: SpilledDataset(rows)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            make()

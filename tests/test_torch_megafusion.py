@@ -4,9 +4,9 @@ megafused apply, and the cases of `tests/test_megafusion.py:77-347`
 that need no telemetry, specs or TPU programs.
 
 Plans: after each of the batches ``state``, ``cse``, ``fuse`` and
-``node-opt``, the port's `DefaultOptimizer()` plan equals JAX's
-`DefaultOptimizer(megafuse=True, sharding_planner=False,
-precision_planner=False, unified_planner=False)` plan node by node in
+``node-opt``, the port's and JAX's `DefaultOptimizer(megafuse=True,
+sharding_planner=False, precision_planner=False,
+unified_planner=False)` plans are equal node by node in
 `linearize` order: operator class, label, stage list (fit slots as
 ``fit:i``) and whether the node keeps a saveable prefix. The JAX side
 runs on a one-device mesh (ROADMAP, ground rules). On the CPU a
@@ -186,7 +186,10 @@ def test_megafused_plan_equals_jax_batch_by_batch(build, one_device_mesh):
                                   precision_planner=False,
                                   unified_planner=False)
     want = _detail_trace(jax_opt, jax_graph, jax_linearize, JaxNodeId)
-    got = _detail_trace(DefaultOptimizer(), port_graph, linearize, NodeId)
+    got = _detail_trace(DefaultOptimizer(sharding_planner=False,
+                                         precision_planner=False,
+                                         unified_planner=False),
+                        port_graph, linearize, NodeId)
     assert [b for b, _ in got] == list(PARITY_BATCHES)
     assert got == want
 

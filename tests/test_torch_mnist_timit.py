@@ -270,6 +270,18 @@ def test_launcher_as_a_module():
     assert "train_error=" in out.stdout
 
 
+def test_launcher_from_the_pipelines_package():
+    """``python -m keystone_tpu_torch.pipelines <Name>`` runs the launcher,
+    as ``python -m keystone_tpu.pipelines`` does."""
+    out = subprocess.run(
+        [sys.executable, "-m", "keystone_tpu_torch.pipelines",
+         "TimitPipeline", "--n-synth", "200", "--num-cosines", "64",
+         "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "train_error=" in out.stdout
+
+
 @pytest.mark.parametrize("name", ["AmazonReviewsPipeline",
                                   "pipelines.text.NewsgroupsPipeline"])
 def test_launcher_refuses_unported_pipelines(name, monkeypatch):

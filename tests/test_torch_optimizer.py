@@ -4,13 +4,14 @@ port nodes, and plan parity with the JAX package.
 Plan parity: RandomPatchCifar, LinearPixels and MnistRandomFFT are built
 small in both packages from the same numpy-seeded data, and after each of
 the batches ``state``, ``cse``, ``fuse`` and ``node-opt`` the port's
-`DefaultOptimizer(megafuse=m)` must hold the same number of nodes, with
-the same operator class names in `linearize` order, as JAX's
 `DefaultOptimizer(megafuse=m, sharding_planner=False,
-precision_planner=False, unified_planner=False)`, for ``m`` off and on. No name mapping is
-needed: each port class carries its JAX twin's name. JAX's ``unified``
-batch (with the planner off, a rule that clears a planned chunk size)
-has no port counterpart and is skipped.
+precision_planner=False, unified_planner=False)` must hold the same
+number of nodes, with the same operator class names in `linearize`
+order, as JAX's with the same flags, for ``m`` off and on. No name
+mapping is needed: each port class carries its JAX twin's name. The
+``unified`` batch (with the planner off, a rule that clears a planned
+chunk size) changes no node and is not compared; the planners on are
+compared in `tests/test_torch_unified_planner.py`.
 
 `profile_nodes` is tested on a fake clock: its JAX counterpart reads the
 wall clock and is one of the unsteady tests (ROADMAP queue 3).
@@ -420,7 +421,10 @@ def test_plan_parity_with_jax_batch_by_batch(build, megafuse,
                                   precision_planner=False,
                                   unified_planner=False)
     want = _plan_trace(jax_opt, jax_graph, jax_linearize, JaxNodeId)
-    got = _plan_trace(DefaultOptimizer(megafuse=megafuse), port_graph,
+    got = _plan_trace(DefaultOptimizer(megafuse=megafuse,
+                                       sharding_planner=False,
+                                       precision_planner=False,
+                                       unified_planner=False), port_graph,
                       linearize, NodeId)
     assert [b for b, _, _ in got] == list(PARITY_BATCHES)
     assert got == want
