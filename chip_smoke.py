@@ -308,6 +308,43 @@ Phases, each printed on a line of its own:
               window and of the test images in both runs; the score in
               ACC_BAND; 99% of the budgeted run's predictions equal to
               the unbudgeted run's.
+29. measurement - the measurement tier on the card. ``dispatch``:
+              `dispatch_bench.dispatch_count_report` over its four
+              examples under its six plans: fit-run and apply-run
+              programs, K1 and K4 launches, graph replays and
+              synchronizing calls ([fit, apply] each); held: the outputs
+              of every plan equal serial_unfused's within 1e-5,
+              precision's in its band, the ledger's megafusion records
+              predicting the one-program applies, K1 and K4 in every
+              fused plan. ``compile``: `compile_bench.compile_count_report`:
+              cold and warm library builds and graph captures and both
+              runs' seconds, the host chunks' captures padded and ragged,
+              and an example rebuilt twice and applied three times a
+              build (captures a build); held: the warm runs build nothing
+              and capture no more than the cold ones, padded < ragged.
+              ``reconcile``: RandomPatchCifar (256 filters, BCD 4096) fit
+              and applied on the slice's images under a trace with a
+              ledger (K1 30), LinearPixels likewise (its ``chain_kernel``
+              spans), and one RandomPatchCifar apply alone in a trace
+              with a fresh registry: `reconcile_trace`'s worst static
+              against observed bytes, `reconcile_roofline`'s predicted and
+              observed seconds per stage and the kernel rows, the
+              decisions' run-level join (held: predicted programs_executed
+              equal to observed on the one-apply trace), and
+              `cost_model_drift`'s implied weights against the card's
+              calibration; ``python -m keystone_tpu_torch.telemetry
+              --ledger <trace> --emit-calibration <file>`` in a
+              subprocess, RandomPatchCifar's serving ladder certified on
+              the card's weights and with ``KEYSTONE_COST_CALIBRATION``
+              at the file (held: the file's weights resolve), and 500
+              requests from 8 threads to a fitted RandomPatchCifar
+              runtime under a trace, each rung's dispatch p50/p99 joined
+              to both bounds by `reconcile_serving`. ``contracts``:
+              `audit_registry`'s findings per rule (held: none),
+              `validate(level="full")` on the bound full-width
+              RandomPatchCifar (held: no error, no KP5xx) and ``python -m
+              keystone_tpu_torch.analysis --explain-roofline
+              RandomPatchCifar`` in a subprocess (held: exit 0).
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The process-wide prefix table (`PipelineEnv`) is reset before each
@@ -337,8 +374,6 @@ import sys
 import tempfile
 import threading
 import time
-import traceback
-import warnings
 
 import numpy as np
 import torch
@@ -595,6 +630,8 @@ OOC_TEST = 10_000
 OOC_BUDGET = 2 << 30      # hbm_budget_bytes of the budgeted run
 OOC_AGREE = 0.99          # predictions equal to the unbudgeted run's
 OOC_TEST_SEED = 1 << 20   # the test images' seed, past every shard's
+MEASURE_REQUESTS = 500    # phase 29's traced serving run
+MEASURE_REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def check(cond: bool, msg: str) -> None:
@@ -749,45 +786,18 @@ def run_stages(steps):
 
 def count_syncs(fn):
     """({source line: count}, total) of the calls in ``fn`` that wait for
-    the card, as torch's sync debug mode reports them. Each is named by
-    the innermost frame of the call's stack in this repository, where
-    one exists (the frame of the port's call into torch), else by the
-    warning's own frame."""
-    repo = os.path.dirname(os.path.abspath(__file__))
-    lines = collections.Counter()
+    the card (`keystone_tpu_torch/utils/profiling.py::count_syncs`)."""
+    from keystone_tpu_torch.utils.profiling import count_syncs
 
-    def record(message, category, filename, lineno, file=None, line=None):
-        if "synchronizing" not in str(message):
-            return
-        ours = [f for f in traceback.extract_stack()[:-1]
-                if f.filename.startswith(repo + os.sep)]
-        where = (ours[-1].filename, ours[-1].lineno) if ours else (
-            filename, lineno)
-        lines[f"{os.path.relpath(where[0], repo)}:{where[1]}"] += 1
-
-    torch.cuda.synchronize()
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        # installed after the mode is set: with torch 2.11 the first
-        # switch to "warn" is itself reported as a synchronizing call,
-        # and it is no call of ``fn``
-        warnings.showwarning = record
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return dict(lines), sum(lines.values())
+    return count_syncs(fn)
 
 
 def launch_counts() -> dict:
-    """Every kernel wrapper's launch count."""
-    from keystone_tpu_torch.ops import chain_kernels, kernels
+    """Every kernel wrapper's launch count
+    (`keystone_tpu_torch/utils/profiling.py::launch_counts`)."""
+    from keystone_tpu_torch.utils.profiling import launch_counts
 
-    return {w.__name__: w.launches for w in (
-        kernels.conv_rectify_pool, kernels.rectify_pool,
-        kernels.rectify_pool_vectorize, kernels.rbf_block, kernels.rbf_split,
-        chain_kernels.elementwise_chain)}
+    return launch_counts()
 
 
 def cut(pipeline, k: int):
@@ -2659,7 +2669,8 @@ def serving_phase(dev, train, test, config, card) -> dict:
 
             # ---- hot swap mid-traffic to the fit on other labels
             stop = threading.Event()
-            outcomes, swap_errors = [], []
+            outcomes, swap_errors, neither = [], [], []
+            swap_t0 = time.perf_counter()
 
             def swap_client(i):
                 while not stop.is_set():
@@ -2669,11 +2680,15 @@ def serving_phase(dev, train, test, config, card) -> dict:
                     except Exception as e:
                         swap_errors.append(repr(e))
                         return
-                    outcomes.append((
-                        bool(np.abs(y - ref[j]).max()
-                             <= SERVE_SCORE_RTOL * scale),
-                        bool(np.abs(y - ref_b[j]).max()
-                             <= SERVE_SCORE_RTOL * scale)))
+                    err_a = float(np.abs(y - ref[j]).max())
+                    err_b = float(np.abs(y - ref_b[j]).max())
+                    outcomes.append((err_a <= SERVE_SCORE_RTOL * scale,
+                                     err_b <= SERVE_SCORE_RTOL * scale))
+                    if not any(outcomes[-1]):
+                        neither.append(dict(
+                            row=j, err_a=err_a, err_b=err_b,
+                            finite=bool(np.isfinite(y).all()),
+                            seconds=time.perf_counter() - swap_t0))
                     i += SERVE_CLIENTS
 
             threads = [threading.Thread(target=swap_client, args=(i,))
@@ -2682,7 +2697,9 @@ def serving_phase(dev, train, test, config, card) -> dict:
                 t.start()
             time.sleep(SERVE_SWAP_SECONDS)
             swap_captures0 = len(captured_on)
+            swap_window = [time.perf_counter() - swap_t0]
             rt.swap(rpc_b)
+            swap_window.append(time.perf_counter() - swap_t0)
             swap_threads = set(captured_on[swap_captures0:])
             time.sleep(SERVE_SWAP_SECONDS)
             stop.set()
@@ -2692,7 +2709,11 @@ def serving_phase(dev, train, test, config, card) -> dict:
             check(not swap_errors, f"hot swap lost requests: "
                   f"{swap_errors[:3]}")
             check(outcomes and all(a or b for a, b in outcomes),
-                  "an answer during the swap is from neither version")
+                  "an answer during the swap is from neither version: "
+                  f"{len(neither)} of {len(outcomes)}, the swap from "
+                  f"{swap_window[0]:.4f} s to {swap_window[1]:.4f} s, the "
+                  f"first {neither[:5]} (tolerance "
+                  f"{SERVE_SCORE_RTOL * scale:.3g})")
             check(any(b and not a for a, b in outcomes),
                   "no answer came from the new version")
             check(np.abs(post - ref_b[5]).max() <= SERVE_SCORE_RTOL * scale,
@@ -3129,6 +3150,353 @@ def out_of_core_phase(dev, config, card) -> dict:
     check(agree >= OOC_AGREE, f"out_of_core: the budgeted run agrees with "
           f"the unbudgeted one on {agree} of the test images")
     return launches
+
+
+def measurement_phase(dev, train, test, config, lp_config, card) -> dict:
+    """Phase 29: the measurement tier on the card (see the module
+    docstring); returns the kernels' launches in its traced runs."""
+    from keystone_tpu_torch import compile_bench, dispatch_bench
+    from keystone_tpu_torch.analysis import ServingEnvelope, reconcile
+    from keystone_tpu_torch.analysis.contracts import audit_registry
+    from keystone_tpu_torch.analysis.serving import certify_example
+    from keystone_tpu_torch.nodes.learning import cost_model
+    from keystone_tpu_torch.ops import chain_kernels, kernels
+    from keystone_tpu_torch.pipelines.cifar_variants import build_linear_pixels
+    from keystone_tpu_torch.pipelines.random_patch_cifar import build_pipeline
+    from keystone_tpu_torch.serving import NdarrayIngress, ServingRuntime
+    from keystone_tpu_torch.telemetry import (
+        ledger,
+        load_trace,
+        registry,
+        to_chrome_trace,
+        trace_run,
+    )
+    from keystone_tpu_torch.telemetry.watchdog import _padded_shape
+    from keystone_tpu_torch.workflow import PipelineEnv
+    from keystone_tpu_torch.workflow.env import config_override
+    from keystone_tpu_torch.workflow.executor import drain_warmups
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t_phase = time.perf_counter()
+    out = {}
+
+    # ---- dispatch: every example under every plan
+    t0 = time.perf_counter()
+    names = tuple(dispatch_bench.EXAMPLES)
+    rep = dispatch_bench.dispatch_count_report(names, device=dev)
+    dispatch = {}
+    for ex in names:
+        e = rep["examples"][ex]
+        dispatch[ex] = {p: dict(
+            fit_programs=e["fit_run_programs"][p],
+            apply_programs=e["apply_run_programs"][p],
+            # [fit run, apply run] each
+            k1=[e["device"][p][r]["conv_rectify_pool"]
+                for r in ("fit", "apply")],
+            k4=[e["device"][p][r]["elementwise_chain"]
+                for r in ("fit", "apply")],
+            graph_replays=[e["device"][p][r]["graph_replays"]
+                           for r in ("fit", "apply")],
+            syncs=[e["device"][p][r]["syncs"] for r in ("fit", "apply")])
+            for p in dispatch_bench.PLANS}
+    out["dispatch"] = dict(
+        seconds=time.perf_counter() - t0, examples=dispatch,
+        all_outputs_match=rep["all_outputs_match"],
+        precision_in_band=rep["precision_in_band"],
+        decisions_reconciled=rep["decisions_reconciled"],
+        examples_at_one_program=rep["examples_at_one_program"])
+    phase("measurement.dispatch", **out["dispatch"], card=card)
+    check(rep["all_outputs_match"] and rep["precision_in_band"]
+          and rep["decisions_reconciled"],
+          "dispatch_count_report: outputs "
+          f"{rep['all_outputs_match']}, precision "
+          f"{rep['precision_in_band']}, decisions "
+          f"{rep['decisions_reconciled']}")
+    # every plan but serial_unfused fuses the featurizer (its peephole
+    # takes K1, its chain K4); serial_unfused runs each stage alone
+    fused_plans = dispatch_bench.PLANS[1:]
+    check(all(sum(dispatch["RandomPatchCifar"][p]["k1"]) > 0
+              and sum(dispatch["LinearPixels"][p]["k4"]) > 0
+              for p in fused_plans),
+          "a fused plan of the bench ran no K1 or no K4: "
+          f"{dispatch['RandomPatchCifar']} {dispatch['LinearPixels']}")
+    PipelineEnv.reset()
+
+    # ---- compile: cold against warm, and the host-chunk tail
+    t0 = time.perf_counter()
+    crep = compile_bench.compile_count_report(device=dev)
+    runs = {f"{ex}/{k}": dict(
+        cold=dict(library_builds=r["cold_run"]["compiles"]["library_builds"],
+                  graph_captures=r["cold_run"]["compiles"]["graph_captures"],
+                  seconds=r["cold_run"]["seconds"]),
+        warm=dict(library_builds=r["warm_run"]["compiles"]["library_builds"],
+                  graph_captures=r["warm_run"]["compiles"]["graph_captures"],
+                  seconds=r["warm_run"]["seconds"]),
+        warm_beats_cold=r["warm_beats_cold"])
+        for ex, e in crep["examples"].items() for k, r in e.items()}
+    out["compile"] = dict(
+        seconds=time.perf_counter() - t0, runs=runs,
+        plan_breakdown=crep["plan_breakdown"], host_chunk=crep["host_chunk"],
+        recapture=crep["recapture"],
+        all_warm_runs_zero_compiles=crep["all_warm_runs_zero_compiles"],
+        all_warm_captures_le_cold=crep["all_warm_captures_le_cold"],
+        cold_runs_capture=crep["cold_runs_capture"],
+        all_apply_compiles_bounded=crep["all_apply_compiles_bounded"],
+        all_warm_beats_cold=crep["all_warm_beats_cold"])
+    phase("measurement.compile", **out["compile"], card=card)
+    hc = crep["host_chunk"]
+    # every library was built by the kernels phase, so both runs build
+    # none; the captures are the counts the runs differ by: each run
+    # applies twice and captures at its second apply
+    check(crep["all_warm_runs_zero_compiles"]
+          and crep["all_warm_captures_le_cold"]
+          and crep["cold_runs_capture"]
+          and crep["all_apply_compiles_bounded"],
+          f"compile_count_report: runs {runs}")
+    check(crep["recapture"]["recapture_once_per_build"],
+          f"a rebuilt pipeline's recaptures: {crep['recapture']}")
+    check(hc["measured_by"] == "graph_captures"
+          and hc["padded_graph_captures"] < hc["ragged_graph_captures"],
+          f"host-chunk captures: padded {hc['padded_graph_captures']}, "
+          f"ragged {hc['ragged_graph_captures']}")
+    PipelineEnv.reset()
+
+    # ---- reconcile at full width
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        rpc_path = os.path.join(tmp, "rpc.json")
+        lp_path = os.path.join(tmp, "lp.json")
+        apply_path = os.path.join(tmp, "rpc_apply.json")
+        PipelineEnv.reset()
+        kernels.reset_launches()
+        # node spans that wait for the card: the emitted calibration
+        # reads their seconds
+        with config_override(ledger_path=rpc_path + ".ledger.jsonl"), \
+                trace_run(rpc_path, synchronize=True):
+            build_pipeline(train, config)(test.data).get()
+            sync()
+        k1 = kernels.conv_rectify_pool.launches
+        PipelineEnv.reset()
+        kernels.reset_launches()
+        with trace_run(lp_path):
+            build_linear_pixels(train, lp_config)(test.data).get()
+            sync()
+        k4 = chain_kernels.elementwise_chain.launches
+        # one apply run, alone in its trace, with a fresh registry
+        PipelineEnv.reset()
+        predictor = build_pipeline(train, config)
+        predictor(test.data).get()
+        sync()
+        drain_warmups()
+        ledger.clear_session()
+        registry().reset()
+        with trace_run(apply_path):
+            predictor(test.data).get()
+            sync()
+        rpc_trace, lp_trace = load_trace(rpc_path), load_trace(lp_path)
+        mem = reconcile.reconcile_trace(rpc_trace)
+        joined = [r for r in mem["rows"] if r["rel_error"] is not None]
+        worst = max(joined, key=lambda r: abs(r["rel_error"]))
+        roof = reconcile.reconcile_roofline(rpc_trace)
+        lp_roof = reconcile.reconcile_roofline(lp_trace)
+        decisions = reconcile.reconcile_decisions(
+            ledger.read_ledger(apply_path))
+        drift = reconcile.cost_model_drift(rpc_trace)
+        chain_spans = sum(1 for e in lp_trace["traceEvents"]
+                          if e.get("name") == "chain_kernel")
+        cal_path = os.path.join(tmp, "drift_calibration.json")
+        t_cli = time.perf_counter()
+        cli = subprocess.run(
+            [sys.executable, "-m", "keystone_tpu_torch.telemetry",
+             "--ledger", rpc_path, "--emit-calibration", cal_path],
+            cwd=MEASURE_REPO, capture_output=True, text=True, timeout=300)
+        cli_seconds = time.perf_counter() - t_cli
+        check(cli.returncode == 0, f"--emit-calibration exited "
+              f"{cli.returncode}: {cli.stderr[-2000:]}")
+        with open(cal_path) as f:
+            emitted = json.load(f)
+
+        # the serving ladder certified on the card's weights, then on the
+        # emitted ones; the measured rungs of a traced serving run
+        envelope = ServingEnvelope(max_batch=SERVE_MAX_BATCH,
+                                   slo_seconds=1.0)
+        before, _ = certify_example("RandomPatchCifar", envelope,
+                                    device=dev)
+        prior = os.environ.get("KEYSTONE_COST_CALIBRATION")
+        os.environ["KEYSTONE_COST_CALIBRATION"] = cal_path
+        try:
+            resolved = cost_model.resolve_weights()
+            after, _ = certify_example("RandomPatchCifar", envelope,
+                                       device=dev)
+        finally:
+            if prior is None:
+                os.environ.pop("KEYSTONE_COST_CALIBRATION", None)
+            else:
+                os.environ["KEYSTONE_COST_CALIBRATION"] = prior
+        check(resolved == (emitted["cpu_weight"], emitted["mem_weight"],
+                           emitted["network_weight"]),
+              f"KEYSTONE_COST_CALIBRATION resolved {resolved}, the file "
+              f"holds {emitted}")
+    PipelineEnv.reset()
+    fitted = without_argmax(build_pipeline(train, config)).fit()
+    x_img = test.data.array[:MEASURE_REQUESTS].cpu().numpy()
+    rt = ServingRuntime(fitted, NdarrayIngress(x_img.shape[1:]),
+                        envelope=envelope, name="RandomPatchCifar",
+                        device=dev).start()
+    rungs = {}
+    apply_fn = rt._batcher.apply_fn
+
+    def timed(stacked):
+        t = time.perf_counter()
+        y = apply_fn(stacked)
+        rungs.setdefault(_padded_shape(len(stacked)), []).append(
+            time.perf_counter() - t)
+        return y
+
+    rt._batcher.apply_fn = timed
+    todo, lock, errors = list(range(len(x_img))), threading.Lock(), []
+
+    def client():
+        while True:
+            with lock:
+                if not todo:
+                    return
+                i = todo.pop()
+            try:
+                rt.submit(x_img[i], timeout=120.0)
+            except Exception as e:  # recorded, checked below
+                errors.append(repr(e))
+
+    with trace_run() as tracer:
+        threads = [threading.Thread(target=client)
+                   for _ in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        observed = [dict(batch=b, chunk_shape=b,
+                         p50_ms=1e3 * float(np.percentile(v, 50)),
+                         p99_ms=1e3 * float(np.percentile(v, 99)),
+                         dispatches=len(v))
+                    for b, v in sorted(rungs.items())]
+        tracer.metadata["serving_observed"] = observed
+        tracer.metadata["serving"] = before.as_record()
+        served = to_chrome_trace(tracer)
+    rt.stop()
+    del fitted, rt
+    check(not errors, f"traced serving errors: {errors[:3]}")
+    join_before = reconcile.reconcile_serving(served)
+    served["keystone"]["serving"] = after.as_record()
+    join_after = reconcile.reconcile_serving(served)
+    PipelineEnv.reset()
+
+    def ms(x):
+        return None if x is None else 1e3 * x
+
+    def by_batch(join):
+        return {r["batch"]: r for r in join["rows"]}
+
+    out["reconcile"] = dict(
+        seconds=time.perf_counter() - t0, k1=k1, k4=k4,
+        memory=dict(rows_joined=len(joined),
+                    worst=dict(label=worst["label"],
+                               static_bytes=worst["static_bytes"],
+                               observed_bytes=worst["observed_bytes"],
+                               rel_error=worst["rel_error"]),
+                    peak_rel_error=mem["peak_rel_error"]),
+        roofline=dict(
+            stages_joined=roof["stages_joined"],
+            predicted_seconds=roof["predicted_seconds"],
+            observed_seconds=roof["observed_seconds"],
+            stages=[dict(label=r["label"], bound=r["bound"],
+                         predicted_s=r["predicted_seconds"],
+                         observed_s=r["observed_seconds"])
+                    for r in roof["rows"] if r["residual"] is not None],
+            linear_pixels_kernels=lp_roof["kernels"],
+            chain_kernel_spans=chain_spans),
+        decisions=dict(run_predicted=decisions["run_predicted"],
+                       run_observed=decisions["run_observed"],
+                       residuals=decisions["residuals"]),
+        drift=dict(rows=drift["rows"], spans=drift["spans"],
+                   roofline=drift["roofline"]),
+        emitted=dict(cpu_weight=emitted["cpu_weight"],
+                     mem_weight=emitted["mem_weight"],
+                     platform=emitted["provenance"]["platform"],
+                     node_spans_synchronized=emitted["provenance"][
+                         "node_spans_synchronized"],
+                     cli_seconds=cli_seconds),
+        serving=dict(
+            requests=len(x_img), clients=SERVE_CLIENTS,
+            rungs=[dict(batch=r["batch"],
+                        bound_before_ms=ms(b["predicted_bound_seconds"]),
+                        bound_after_ms=ms(a["predicted_bound_seconds"]),
+                        p50_ms=ms(b["observed_p50_seconds"]),
+                        p99_ms=ms(b["observed_p99_seconds"]),
+                        holds_before=b["holds"], holds_after=a["holds"],
+                        dispatches=r["dispatches"])
+                   for r in observed
+                   for b in [by_batch(join_before)[r["batch"]]]
+                   for a in [by_batch(join_after)[r["batch"]]]],
+            bounds_1_64_before_ms=[1e3 * s["predicted_seconds"]
+                                   for s in before.shapes
+                                   if s["batch"] in (1, SERVE_MAX_BATCH)],
+            bounds_1_64_after_ms=[1e3 * s["predicted_seconds"]
+                                  for s in after.shapes
+                                  if s["batch"] in (1, SERVE_MAX_BATCH)],
+            certified_before=before.certified,
+            certified_after=after.certified))
+    phase("measurement.reconcile", **out["reconcile"], card=card)
+    check(k1 == 30, f"the traced RandomPatchCifar run launched K1 {k1} "
+          "times")
+    check(chain_spans >= 1 and k4 >= 1,
+          f"LinearPixels' trace holds {chain_spans} chain_kernel spans "
+          f"({k4} K4 launches)")
+    check(decisions["run_predicted"].get("programs_executed") is not None
+          and decisions["run_predicted"]["programs_executed"]
+          == decisions["run_observed"].get("programs_executed"),
+          f"the one-apply trace: predicted {decisions['run_predicted']} "
+          f"against observed {decisions['run_observed']}")
+    if dev.type == "cuda":
+        check(emitted["provenance"]["platform"]
+              == torch.cuda.get_device_name(dev)
+              and emitted["provenance"]["node_spans_synchronized"],
+              f"the emitted calibration names {emitted['provenance']}")
+    check(join_before["shapes_joined"] >= 1,
+          f"no rung joined its certified bound: {join_before}")
+
+    # ---- contracts: the registry and the full-width specs
+    t0 = time.perf_counter()
+    findings, stats = audit_registry()
+    per_rule = dict(collections.Counter(d.rule for _, d in findings))
+    PipelineEnv.reset()
+    report = build_pipeline(train, config)(test.data).validate(
+        level="full", raise_on_error=False)
+    rules = dict(collections.Counter(
+        f"{d.rule}:{d.severity.name}" for d in report.diagnostics))
+    t_cli = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "keystone_tpu_torch.analysis",
+         "--explain-roofline", "RandomPatchCifar"],
+        cwd=MEASURE_REPO, capture_output=True, text=True, timeout=300)
+    out["contracts"] = dict(
+        seconds=time.perf_counter() - t0, classes=stats["classes"],
+        probed=stats["probed"], findings_per_rule=per_rule,
+        validate_full=dict(errors=len(report.errors),
+                           warnings=len(report.warnings), rules=rules),
+        explain_roofline=dict(rc=cli.returncode,
+                              seconds=time.perf_counter() - t_cli,
+                              lines=cli.stdout.splitlines()[:4]))
+    phase("measurement.contracts", **out["contracts"], card=card)
+    PipelineEnv.reset()
+    check(not findings, f"the registry audit found {per_rule}")
+    check(not report.errors and not any(r.startswith("KP5")
+                                        for r in rules),
+          f"validate(level='full') on RandomPatchCifar: {rules}")
+    check(cli.returncode == 0, f"--explain-roofline exited "
+          f"{cli.returncode}: {cli.stderr[-2000:]}")
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("measurement", seconds=out["seconds"], card=card)
+    return dict(k1=k1, k4=k4)
 
 
 def main() -> int:
@@ -4257,6 +4625,10 @@ def main() -> int:
     ooc = out_of_core_phase(dev, config, card)
     torch.cuda.empty_cache()
 
+    # ---- 29. the measurement tier ------------------------------------------
+    measurement = measurement_phase(dev, train, test, config, lp_config, card)
+    torch.cuda.empty_cache()
+
     record = {"kernels": [
         dict(name="conv_rectify_pool", route="cuda",
              source="keystone_tpu_torch/csrc/conv_rectify_pool.cu",
@@ -4275,7 +4647,7 @@ def main() -> int:
                  random_cifar=rc_k1, augmented=ag_k1,
                  augmented_kernel=ak_k1,
                  planners=planners["random_patch_cifar"]["k1"],
-                 out_of_core=ooc["k1"]),
+                 out_of_core=ooc["k1"], measurement=measurement["k1"]),
              ptxas=regs["conv_rectify_pool"]),
         dict(name="rectify_pool", route="cuda",
              source="keystone_tpu_torch/csrc/rectify_pool.cu",
@@ -4298,7 +4670,8 @@ def main() -> int:
                                    runtime=runtime["k4"],
                                    voc_tar=loaders["voc_big_k4"],
                                    serving=serving["k4"],
-                                   planners=planners["linear_pixels"]["k4"]),
+                                   planners=planners["linear_pixels"]["k4"],
+                                   measurement=measurement["k4"]),
              max_abs_err=k4["max_abs_err"],
              rel_err=k4["rel_err"], tolerance_rel=K4_TOL, ms=k4["ms"],
              device_ms=k4["device_ms"],

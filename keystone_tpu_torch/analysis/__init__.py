@@ -6,7 +6,8 @@ port runs, cumulative by level: ``"structure"`` (topology lints, the
 check `GraphExecutor` runs before the first force) ⊂ ``"specs"``
 (shapes and dtypes propagated by running stage bodies on meta tensors)
 ⊂ ``"memory"`` (live-memory estimates) ⊂ ``"full"`` (donation and
-streaming hazards, KP401, KP511 where the concurrent scheduler is on,
+streaming hazards, KP401, the operator contracts (KP501–KP504,
+`contracts.py`), KP511 where the concurrent scheduler is on,
 the card's residency against the budget (KP600, in KP202's place), the
 roofline, the precision lints of a given plan (KP701–KP703), and the
 serving certificate where an envelope is declared).
@@ -15,10 +16,13 @@ Entry points: ``Pipeline.validate(source_spec, level=..., serving=...)``
 and ``validate_graph(graph, source_specs, ...)``. The plan tier's
 deciders are `precision.plan_precision` / `plan_stage_precision` and
 `plan_ir.plan_unified`, which `workflow/optimizer.py`'s planner rules
-enforce. The JAX package's contract tier (KP5xx), its multi-device
-sharding lints (KP601–KP604), its telemetry joins (`reconcile.py`) and
-its CLI wait (ROADMAP queue 1, items 8 and 10); its kernel proofs
-(KP10xx) are about Mosaic's VMEM and have no counterpart.
+enforce. `contracts.audit_registry` audits every operator class of the
+port; `reconcile.py` joins a trace's static estimates and a run's
+decisions against what the run observed; ``python -m
+keystone_tpu_torch.analysis`` is the CLI (`__main__.py`). The JAX
+package's multi-device sharding lints (KP601–KP605) wait for multi-GPU
+(ROADMAP queue 1, item 4); its kernel proofs (KP10xx) are about
+Mosaic's VMEM and have no counterpart.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from .diagnostics import (
     Severity,
     ValidationReport,
 )
+from .contracts import audit_operator, audit_registry, contract_pass
 from .effects import class_effects, interference_pass, operator_effects
 from .hazards import hazard_pass, megafusion_pass
 from .memory import MemoryEstimate, memory_pass, resolve_chunk_rows
@@ -128,6 +133,9 @@ def validate_graph(
         diags.extend(hazard_pass(graph, specs, overlap=cfg.overlap))
         if cfg.megafusion:
             diags.extend(megafusion_pass(graph))
+        # the contract tier (`:159-164`): KP5xx over this graph's
+        # operators at their propagated specs
+        diags.extend(contract_pass(graph, specs))
         if cfg.concurrent_dispatch:
             # KP511 matters only while the scheduler can force unordered
             # vertices at once
@@ -172,6 +180,7 @@ __all__ = [
     "ServingCertificate", "ServingEnvelope", "Severity", "ShapeDtype",
     "SpecDataset", "SpecMismatchError", "StageRoofline", "TransformerSpec",
     "UNKNOWN", "ValidationReport", "as_source_spec", "certify_example",
+    "audit_operator", "audit_registry", "contract_pass",
     "class_effects", "default_machine", "element_nbytes",
     "envelope_from_env", "hazard_pass", "interference_pass",
     "ladder_shapes", "megafusion_pass", "memory_pass", "operator_effects",

@@ -5,10 +5,10 @@ Counterpart of `keystone_tpu/analysis/diagnostics.py` (`Severity`,
 `:17-283`): every finding is a `Diagnostic` with a stable rule id, a
 severity and the graph vertex it anchors to. The rules of the tiers the
 port runs are here: structure (KP0xx), specs (KP1xx), memory (KP2xx),
-hazards (KP3xx, KP401), effects (KP511), the card's residency (KP600),
-precision (KP701–KP703), roofline (KP8xx) and serving (KP9xx). The JAX
-package's contract (KP501–KP504) tier and its multi-device sharding
-lints (KP601–KP604) wait (ROADMAP queue 1, items 8 and 10); its
+hazards (KP3xx, KP401), operator contracts (KP501–KP504), effects
+(KP511), the card's residency (KP600), precision (KP701–KP703), roofline
+(KP8xx) and serving (KP9xx). The JAX package's multi-device sharding
+lints (KP601–KP605) wait for multi-GPU (ROADMAP queue 1, item 4); its
 kernel-proof tier (KP10xx) is about Mosaic's VMEM and has no
 counterpart.
 """
@@ -72,6 +72,19 @@ RULES = {
     "KP401": "megafusion-fallback: a stage keeps this plan from collapsing "
              "to one captured chunk loop (fan-out, host code, or a "
              "streaming origin); the per-stage dispatch path remains",
+    # operator contract tier (`analysis/contracts.py`)
+    "KP501": "fusable-without-structural-fuse: a fusable stage's fused "
+             "program key is id-keyed (opaque), so fused programs "
+             "containing it re-trace on every rebuilt pipeline",
+    "KP502": "chunkable-non-distributive: a chunkable-declared batch path "
+             "provably does not distribute over host chunks "
+             "(f(concat(chunks)) != concat(f(chunks)) under eval_shape)",
+    "KP503": "donation-not-implemented: donates_deps is declared but no "
+             "reachable jitted step donates its arguments (or the "
+             "donate_argnums are mis-indexed against the step signature)",
+    "KP504": "unmasked-fused-stage: the unfused batch path masks padded "
+             "rows but fuse_masks_output is undeclared — fused programs "
+             "would corrupt padded rows",
     # concurrency effect tier
     "KP511": "concurrent-effect-interference: two effectful vertices with "
              "no dependency ordering share mutable state; the concurrent "

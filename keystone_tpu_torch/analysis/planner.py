@@ -175,6 +175,39 @@ class ShardingPlan:
                     key=lambda kv: getattr(kv[0], "id", -1))
                 if self.default_families.get(vid) != fam]
 
+    def rows(self, graph: Graph) -> List[Dict[str, Any]]:
+        """Chosen against default placement per stage in topological
+        order (`:546-564`, the ``--explain-sharding --plan`` rows), the
+        families in place of JAX's partition specs."""
+        from .propagate import toposort
+
+        order, _ = toposort(graph)
+        changed = set(self.changed_vertices())
+        return [{
+            "vertex": vid.id,
+            "label": _label(graph, vid),
+            "default_spec": str(self.default_families.get(vid) or "—"),
+            "chosen_spec": str(self.families.get(
+                vid, self.default_families.get(vid)) or "—"),
+            "changed": vid in changed,
+            "default_boundary_bytes": 0,
+            "planned_boundary_bytes": 0,
+        } for vid in order if isinstance(vid, NodeId)]
+
+
+def format_plan(rows: List[Dict[str, Any]]) -> str:
+    """Text table of `ShardingPlan.rows` (`:567-578`)."""
+    lines = [f"{'stage':<38} {'default':<20} {'chosen':<20} {'Δbytes':>12}"]
+    for r in rows:
+        delta = r["default_boundary_bytes"] - r["planned_boundary_bytes"]
+        mark = "*" if r["changed"] else " "
+        name = f"{r['label']}@{r['vertex']}"
+        col = f"{delta:+,d}" if delta else "—"
+        lines.append(
+            f"{name[:38]:<38} {r['default_spec'][:20]:<20} "
+            f"{mark}{r['chosen_spec'][:19]:<19} {col:>12}")
+    return "\n".join(lines)
+
 
 def plan_sharding(graph: Graph, specs: Dict[GraphId, Any], *,
                   layout: Optional[Dict[str, int]] = None,

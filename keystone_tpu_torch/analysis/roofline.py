@@ -330,6 +330,12 @@ class RooflineEstimate:
     candidates: List[Dict[str, Any]] = field(default_factory=list)
     unknown_stages: int = 0
 
+    def rows(self, graph: Graph) -> List[Dict[str, Any]]:
+        """The priced stages' rows in topological order (`:374-377`)."""
+        order, _ = toposort(graph)
+        return [self.stages[v].as_row() for v in order
+                if isinstance(v, NodeId) and v in self.stages]
+
     def __repr__(self) -> str:
         return (f"RooflineEstimate({len(self.stages)} stage(s), "
                 f"≈{self.plan_seconds:.3e}s predicted, "
@@ -342,6 +348,21 @@ def _fmt_rate(x: float) -> str:
             return f"{x:.1f}{unit}"
         x /= 1000.0
     return str(x)
+
+
+def format_roofline(rows: List[Dict[str, Any]]) -> str:
+    """Text table of `RooflineEstimate.rows` (`:393-409`, the
+    ``--explain-roofline`` rendering)."""
+    lines = [f"{'stage':<40} {'flops':>10} {'bytes':>10} {'flop/B':>8} "
+             f"{'bound':<10} {'pred s':>10}"]
+    for r in rows:
+        name = f"{r['label']}@{r['vertex']}"
+        lines.append(
+            f"{name[:40]:<40} {_fmt_rate(r['flops']):>10} "
+            f"{_fmt_bytes(int(r['hbm_bytes'])):>10} "
+            f"{r['intensity']:>8.2f} {r['bound']:<10} "
+            f"{r['predicted_seconds']:>10.3e}")
+    return "\n".join(lines)
 
 
 # --------------------------------------------------------- trail walking
@@ -829,3 +850,26 @@ def _chain_boundary_bytes(est: RooflineEstimate, vid: NodeId) -> int:
     if st.trail:
         return int(st.trail[-1]["hbm_bytes"] // 2)
     return int(st.hbm_bytes // 2)
+
+
+# --------------------------------------------------- optimizer plumbing
+
+
+def chain_predicted_seconds(graph: Graph,
+                            vertices: Sequence[NodeId]) -> Optional[float]:
+    """Roofline seconds of one chain of vertices on a bound graph
+    (`:959-977`): the ``predicted_seconds`` a fusion or megafusion
+    ledger record carries. None where nothing in the chain can be priced
+    (unbound sources, host bodies). Never raises."""
+    try:
+        from .propagate import spec_pass
+
+        specs, _ = spec_pass(graph, {})
+        # only the chain's vertices: a pass over every stage of the
+        # graph for each record would trace each stage once a chain
+        est, _ = roofline_pass(graph, specs, only=list(vertices))
+        vals = [est.stages[v].predicted_seconds for v in vertices
+                if v in est.stages]
+        return float(sum(vals)) if vals else None
+    except Exception:
+        return None

@@ -122,6 +122,12 @@ class Convolver(Transformer):
         return lambda imgs: folded_conv_reference(
             imgs, self.kernel, self.colsum, self.bias, self.normalize_patches)
 
+    def fuse(self):
+        """Keyed by structure, the folded filters beside the key
+        (`:116-122`)."""
+        return (("Convolver", self.normalize_patches),
+                (self.kernel, self.colsum, self.bias))
+
 
 class SymmetricRectifier(Transformer):
     """Two-sided ReLU: channels double to [max(mv, x−α), max(mv, −x−α)]
@@ -139,6 +145,9 @@ class SymmetricRectifier(Transformer):
         return lambda x: torch.cat(
             [torch.clamp(x - self.alpha, min=self.max_val),
              torch.clamp(-x - self.alpha, min=self.max_val)], dim=-1)
+
+    def fuse(self):
+        return ("SymmetricRectifier", self.max_val, self.alpha), ()
 
 
 class Pooler(Transformer):
@@ -171,6 +180,12 @@ class Pooler(Transformer):
 
         return fn
 
+    def fuse(self):
+        # an arbitrary pixel_fn gets no shared key (`:204-212`)
+        if self.pixel_fn is not None:
+            return ("opaque", id(self)), ()
+        return ("Pooler", self.stride, self.pool_size, self.pool_fn), ()
+
 
 class ImageVectorizer(Transformer):
     """(H, W, C) → flat vector (ImageVectorizer.scala:12)."""
@@ -202,6 +217,10 @@ class Cropper(Transformer):
     def batch_fn(self):
         y0, x0, y1, x1 = self.box
         return lambda x: x[:, y0:y1, x0:x1, :]
+
+    def fuse(self):
+        # the box changes output shapes, so it keys the stage
+        return ("Cropper",) + tuple(self.box), ()
 
 
 class Windower(Transformer):

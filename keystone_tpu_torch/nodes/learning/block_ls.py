@@ -113,6 +113,9 @@ class BlockLinearMapper(Transformer):
 
         return fn
 
+    def fuse(self):
+        return ("BlockLinearMapper", int(self.W.shape[0])), (self.W, self.b)
+
 
 class BlockLeastSquaresEstimator(LabelEstimator):
     """BCD least squares with L2 (BlockLinearMapper.scala:199-283)."""

@@ -48,6 +48,11 @@ class LinearMapper(Transformer):
             return lambda x: x @ self.W
         return lambda x: x @ self.W + self.b
 
+    def fuse(self):
+        # JAX's key without a feature scaler (`:57-63`): the port's
+        # mapper carries none
+        return ("LinearMapper", self.b is not None), (self.W, self.b)
+
 
 class SparseLinearMapper(Transformer):
     """y = xW (+ b) for sparse rows (SparseLinearMapper.scala:13-50).

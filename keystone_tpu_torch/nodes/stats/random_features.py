@@ -62,6 +62,9 @@ class CosineRandomFeatures(Transformer):
         # one GEMM with the bias added in its epilogue, the cosine in place
         return lambda x: torch.addmm(self.b, x, self.W).cos_()
 
+    def fuse(self):
+        return ("CosineRandomFeatures",), (self.W, self.b)
+
 
 class RandomSignNode(Transformer):
     """Elementwise product with a fixed random ±1 vector."""

@@ -41,6 +41,9 @@ class ClassLabelIndicatorsFromInt(Transformer):
         return lambda y: (2.0 * F.one_hot(y.long(), self.num_classes)
                           - 1.0).to(torch.float32)
 
+    def fuse(self):
+        return ("ClassLabelIndicators", self.num_classes), ()
+
 
 class ClassLabelIndicatorsFromIntArray(Transformer):
     """Multi-label int array → length-k float32 vector of −1/+1
@@ -80,6 +83,9 @@ class MaxClassifier(Transformer):
     def batch_fn(self):
         return lambda x: torch.argmax(x, dim=-1)
 
+    def fuse(self):
+        return ("MaxClassifier",), ()
+
 
 class TopKClassifier(Transformer):
     """The indices of the k largest scores, largest first; ties in index
@@ -102,7 +108,11 @@ class VectorCombiner(Transformer):
         return torch.cat([torch.as_tensor(x) for x in xs], dim=-1)
 
     def apply_batch(self, data):
-        # one output, allocated once, each branch copied into its columns
+        # one output, allocated once, each branch copied into its columns;
+        # one executed program, as JAX counts it (`basic.py:176-181`)
+        from ...telemetry.instrument import record_dispatch
+
+        record_dispatch()
         return data.with_data(torch.cat(data.data, dim=-1))
 
 

@@ -43,7 +43,17 @@ padded loop a ``megafused_program`` span and one count in
 capture counts in ``megafusion.graph_captures`` and as a cold compile
 (`telemetry/compile_events.py`), a replay in ``megafusion.graph_replays``.
 Counts go through `tally`, so what a capture records is added at every
-replay.
+replay. A call that runs a planned chain kernel is one ``chain_kernel``
+span (`:541-553`: ``label``, ``family``, ``stages``, ``rows``,
+``predicted_seconds``, ``statically_verified``), around the eager call
+or around the graph replay that holds the kernel, since no Python runs
+inside a replay. The span waits for the card before it closes, so its
+duration is the kernel's call and not its enqueue; it is recorded, and
+the card waited for, only while a tracer is active and never inside a
+capture, so an untraced run makes no extra synchronizing call. It is
+recorded only on the card, where the kernel launches (on the CPU the
+plain version runs), and once a call: a padded loop's trips, and the
+chains nested in a megafused one, open no span of their own inside it.
 """
 
 from __future__ import annotations
@@ -61,7 +71,8 @@ from ...ops.kernels import (
     rectify_pool,
 )
 from ...telemetry.compile_events import record_compile
-from ...telemetry.metrics import counter, tallied, tally
+from ...telemetry.instrument import sync_value
+from ...telemetry.metrics import counter, tallied, tally, tallying
 from ...telemetry.spans import current_tracer, span
 from ...workflow.pipeline import Transformer
 
@@ -69,6 +80,8 @@ _PROGRAMS = counter("megafusion.programs")
 _SCAN_TRIPS = counter("megafusion.scan_trips")
 _GRAPH_CAPTURES = counter("megafusion.graph_captures")
 _GRAPH_REPLAYS = counter("megafusion.graph_replays")
+#: whether a ``chain_kernel`` span is open on this thread
+_KERNEL_SPAN = threading.local()
 
 
 class _RectifyPoolStage(Transformer):
@@ -299,6 +312,8 @@ class FusedBatchTransformer(Transformer):
     planned_matmul_precision = None
     #: set on a copy the unified planner tagged
     planned_by_unified = False
+    #: the unified planner's priced seconds for the planned kernel
+    planned_kernel_seconds = None
 
     def __init__(self, stages: Sequence[Transformer], microbatch: int = 2048):
         self.stages = list(stages)
@@ -476,9 +491,68 @@ class FusedBatchTransformer(Transformer):
 
         return [planned(fn, dtype) for fn, dtype in zip(fns, casts)]
 
-    def batch_fn(self):
+    def _kernel_span_args(self, rows: int) -> Optional[dict]:
+        """The ``chain_kernel`` span's arguments for a call of ``rows``
+        rows through this chain, or None where no planned chain kernel
+        runs in it: this chain's own, else the first nested chain's (a
+        megafused chain holds its fused members as stages)."""
+        for chain in [self] + list(self.fused):
+            if isinstance(chain, FusedBatchTransformer) \
+                    and chain.planned_kernel is not None:
+                start, stop, family = chain.planned_kernel
+                return dict(label=chain.label, family=family,
+                            stages=stop - start, rows=rows,
+                            predicted_seconds=chain.planned_kernel_seconds,
+                            statically_verified=None)
+        return None
+
+    def _kernel_span(self, x: torch.Tensor):
+        """A ``chain_kernel`` span for a call on ``x``, or None: only on
+        the card, where the planned kernel launches (on the CPU its
+        plain version runs), only under a tracer, and never inside a
+        capture or a warm-up (`tallying`: neither is a dispatch)."""
+        if x.device.type != "cuda" or current_tracer() is None \
+                or tallying() or getattr(_KERNEL_SPAN, "open", False):
+            return None
+        args = self._kernel_span_args(x.shape[0])
+        return None if args is None else span("chain_kernel", cat="node",
+                                               **args)
+
+    def _spanned(self, loop):
+        """``loop`` in one ``chain_kernel`` span a call where one is due
+        (`_kernel_span`), closed once the card has finished the call's
+        work."""
+
+        def fn(x):
+            kspan = self._kernel_span(x)
+            if kspan is None:
+                return loop(x)
+            with kspan:
+                _KERNEL_SPAN.open = True
+                try:
+                    out = loop(x)
+                    sync_value(out)
+                finally:
+                    _KERNEL_SPAN.open = False
+            return out
+
+        return fn
+
+    def _loop(self):
+        """The chain's microbatch loop, with no span of its own."""
         fns, last = self._stage_fns()
         head = fns if last is None else fns[:-1]
+        return self._microbatch_loop(fns, head, last)
+
+    def batch_fn(self):
+        loop = self._loop()
+        fn = loop if self.planned_kernel is None else self._spanned(loop)
+        fn.owner = self  # a fused chain: host streams may capture it
+        return fn
+
+    def _microbatch_loop(self, fns, head, last):
+        """The chain over ``x`` in microbatches of ``microbatch`` rows,
+        each a ``chunk`` span; on meta tensors the stages once."""
 
         def fn(x):
             if x.device.type == "meta":
@@ -509,7 +583,6 @@ class FusedBatchTransformer(Transformer):
                     out[start:start + y.shape[0]] = y
             return out if out is not None else _run(fns, x)
 
-        fn.owner = self  # a fused chain: host streams may capture it
         return fn
 
     #: calls at a `run_rung` key that run the padded loop eagerly before
@@ -519,21 +592,24 @@ class FusedBatchTransformer(Transformer):
 
     def _trip_fn(self, trip: int):
         """The chain over rows in consecutive ``trip``-row slices, each
-        slice's result written into its rows of one output."""
-        fn = FusedBatchTransformer.batch_fn(self)
-        if trip % self.microbatch == 0:
-            return fn  # it runs microbatches of its own, inside each trip
+        slice's result written into its rows of one output; one
+        ``chain_kernel`` span for the whole call, where one is due."""
+        fn = self._loop()
+        if trip % self.microbatch != 0:
+            inner = fn
 
-        def loop(x):
-            out = None
-            for start in range(0, x.shape[0], trip):
-                y = fn(x[start:start + trip])
-                if out is None:
-                    out = y.new_empty((x.shape[0],) + tuple(y.shape[1:]))
-                out[start:start + trip] = y
-            return out
+            def fn(x):
+                out = None
+                for start in range(0, x.shape[0], trip):
+                    y = inner(x[start:start + trip])
+                    if out is None:
+                        out = y.new_empty((x.shape[0],) + tuple(y.shape[1:]))
+                    out[start:start + trip] = y
+                return out
 
-        return loop
+        # else it runs microbatches of its own, inside each trip; the
+        # span is this chain's planned kernel's or a nested chain's
+        return self._spanned(fn)
 
     @staticmethod
     def _graph_key(item_shape, dtype, rows: int, trip: int, device) -> tuple:
@@ -597,7 +673,7 @@ class FusedBatchTransformer(Transformer):
                         return first
                     self._eager_calls[key] = calls + 1
             if loop is not None:
-                out = loop(x)
+                out = self._spanned(loop)(x)
                 tally(_GRAPH_REPLAYS)
                 return out
         if x.device.type == "cuda" or rows == n:

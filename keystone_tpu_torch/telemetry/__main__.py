@@ -4,24 +4,33 @@ Counterpart of `keystone_tpu/telemetry/__main__.py:1-293`:
 
     python -m keystone_tpu_torch.telemetry run.json [--top N] [--json]
     python -m keystone_tpu_torch.telemetry --ledger <run> [--json]
+    python -m keystone_tpu_torch.telemetry --ledger <run> --emit-calibration <path>
     python -m keystone_tpu_torch.telemetry --diff <run_a> <run_b> [--json]
     python -m keystone_tpu_torch.telemetry --flight <dump> [--top N] [--json]
     python -m keystone_tpu_torch.telemetry --live [--json]
 
 The trace form prints the span digest (top nodes by self-time, solver
 steps and stream chunks), overlap queue stalls, the dispatch and compile
-counts and the decisions. ``--ledger`` renders a run's decision ledger
-(a ``KEYSTONE_LEDGER`` JSONL file, or a trace whose metadata embeds the
-decisions): one row per decision, chosen entry, best-priced runner-up,
-prediction. ``--diff`` compares two runs' ledgers and names config
+counts, the decisions and the reconciliations (`analysis/reconcile.py`:
+static memory, roofline seconds and serving bounds against the run);
+``--json`` adds the memory reconciliation to the digest. ``--ledger``
+renders a run's decision ledger (a ``KEYSTONE_LEDGER`` JSONL file, or a
+trace whose metadata embeds the decisions): one row per decision, chosen
+entry, best-priced runner-up, prediction, and, where the run's trace is
+reachable, what the run observed and the residual, then the run-level
+join and the cost-model drift table. ``--emit-calibration <path>`` (with
+``--ledger``) writes the drift-implied weights in the schema of
+`nodes/learning/cuda_calibration.json`; ``KEYSTONE_COST_CALIBRATION=
+<path>`` then prices with them (on the card the file names). A card's
+run must have been traced with ``trace_run(path, synchronize=True)``,
+whose node spans wait for the card; the command refuses another. ``--diff``
+compares two runs' ledgers and their reconciliations and names config
 flips by environment variable (``KEYSTONE_MEGAFUSION``); it exits 1 on
 any regression. ``--flight`` renders a flight-recorder dump; ``--live``
 this process's live health view.
 
 Both packages write one trace and ledger format, so either CLI reads
-either package's files. The JAX package's reconciliation joins,
-observed ``--ledger`` columns and ``--emit-calibration`` (`:79-152,
-280`) wait for the analysis tiers (ROADMAP queue 1, item 8).
+either package's files.
 """
 
 from __future__ import annotations
@@ -43,18 +52,103 @@ def _read_run(path: str):
         return None
 
 
-def _ledger_main(path: str, as_json: bool) -> int:
+def _reconcile(run):
+    """The run's decision reconciliation (`:75-84`), or None where its
+    trace is not reachable."""
+    if not run.get("trace"):
+        return None
+    try:
+        from ..analysis.reconcile import reconcile_decisions
+
+        return reconcile_decisions(run)
+    except Exception:
+        return None
+
+
+def _emit_calibration(run, out_path: str, ledger_path: str) -> int:
+    """Write the run's drift-implied `CostWeights` in the schema of
+    `cuda_calibration.json` (`:86-116`). The provenance names the
+    platform the run's header recorded: weights a card's run implies
+    stay the card's wherever the file is written. A card's run must
+    have been traced with synchronized node spans (``trace_run(...,
+    synchronize=True)``): its other spans time the host's enqueue, not
+    the card, and their weights would price the card's stages too
+    fast. The CPU runs synchronously, so any trace of a CPU run will
+    do."""
+    if not run.get("trace"):
+        print("error: --emit-calibration needs a run whose trace "
+              "artifact is reachable (the drift report is computed "
+              "from observed span timings)", file=sys.stderr)
+        return 2
+    from ..analysis.reconcile import drift_cost_weights
+    from ..nodes.learning.calibrate import write_calibration
+    from ..nodes.learning.cost_model import live_platform
+
+    run_platform = (run.get("header") or {}).get("platform")
+    synchronized = bool((run["trace"].get("keystone") or {}).get(
+        "node_spans_synchronized"))
+    if (run_platform or live_platform()) != "cpu" and not synchronized:
+        print("error: --emit-calibration needs a card's run traced with "
+              "synchronized node spans (trace_run(path, "
+              "synchronize=True)); this trace's node spans time the "
+              "host's enqueue, not the card", file=sys.stderr)
+        return 2
+    weights = drift_cost_weights(run["trace"])
+    provenance = {"source": "drift_cost_weights", "ledger": ledger_path,
+                  "node_spans_synchronized": synchronized}
+    assumed = ""
+    if run_platform:
+        provenance["platform"] = run_platform
+    else:
+        assumed = (" [platform assumed from THIS host — the run's "
+                   "ledger predates the header platform field]")
+    payload = write_calibration(out_path, weights, provenance=provenance)
+    print(f"wrote {out_path}: cpu_weight={payload['cpu_weight']:.3e} "
+          f"mem_weight={payload['mem_weight']:.3e} "
+          f"(platform={payload['provenance'].get('platform')}{assumed}); "
+          "point KEYSTONE_COST_CALIBRATION at it to recalibrate "
+          "machine_rates()")
+    return 0
+
+
+def _ledger_main(path: str, as_json: bool,
+                 emit_calibration: str = None) -> int:
     from .ledger import render_ledger
 
     run = _read_run(path)
     if run is None:
         return 2
+    if emit_calibration:
+        return _emit_calibration(run, emit_calibration, path)
+    rec = _reconcile(run)
+    drift = None
+    if run.get("trace"):
+        try:
+            from ..analysis.reconcile import cost_model_drift
+
+            drift = cost_model_drift(run["trace"])
+        except Exception:
+            drift = None
     if as_json:
-        json.dump({"header": run["header"], "decisions": run["decisions"]},
-                  sys.stdout, indent=1, default=str)
+        json.dump({
+            "header": run["header"],
+            "decisions": run["decisions"],
+            "reconciliation": rec,
+            "cost_model_drift": drift,
+        }, sys.stdout, indent=1, default=str)
         print()
         return 0
-    print(render_ledger(run))
+    print(render_ledger(run, reconciliation=rec))
+    if rec is not None:
+        from ..analysis.reconcile import format_decision_reconciliation
+
+        print()
+        print(format_decision_reconciliation(rec))
+    if drift is not None:
+        from ..analysis.reconcile import format_drift
+
+        print()
+        print(format_drift(drift))
     return 0
 
 
@@ -65,7 +159,9 @@ def _diff_main(path_a: str, path_b: str, as_json: bool) -> int:
     run_b = _read_run(path_b)
     if run_a is None or run_b is None:
         return 2
-    diff = diff_runs(run_a, run_b)
+    diff = diff_runs(run_a, run_b,
+                     reconciliation_a=_reconcile(run_a),
+                     reconciliation_b=_reconcile(run_b))
     if as_json:
         json.dump(diff, sys.stdout, indent=1, default=str)
         print()
@@ -142,11 +238,20 @@ def main(argv=None) -> int:
                    help="render this process's live health view "
                         "(streaming latency percentiles, throughput, "
                         "conformance counters, armed watchdog)")
+    p.add_argument("--emit-calibration", metavar="PATH",
+                   help="with --ledger: write the run's drift-implied "
+                        "cost weights in the schema of "
+                        "cuda_calibration.json; "
+                        "KEYSTONE_COST_CALIBRATION=<PATH> then prices "
+                        "with them where the platform matches")
     args = p.parse_args(argv)
+    if args.emit_calibration and not args.ledger:
+        p.error("--emit-calibration requires --ledger")
     if args.diff:
         return _diff_main(args.diff[0], args.diff[1], args.as_json)
     if args.ledger:
-        return _ledger_main(args.ledger, args.as_json)
+        return _ledger_main(args.ledger, args.as_json,
+                            emit_calibration=args.emit_calibration)
     if args.live:
         return _live_main(args.as_json)
     if args.flight:
@@ -166,6 +271,12 @@ def main(argv=None) -> int:
             "chunks": aggregate_spans(trace, "chunk"),
             "metrics": trace.get("keystone", {}).get("metrics", {}),
         }
+        try:
+            from ..analysis.reconcile import reconcile_trace
+
+            digest["memory_reconciliation"] = reconcile_trace(trace)
+        except Exception:
+            pass
         json.dump(digest, sys.stdout, indent=1)
         print()
     else:

@@ -22,7 +22,10 @@ The metrics keep JAX's names and shape:
 
 With a tracer active each one also records a closed ``cat="compile"``
 span whose ``kind`` says what compiled (``kernel``, ``host`` or
-``graph``) and whose ``name`` says which library or chain.
+``graph``) and whose ``name`` says which library or chain. The cold
+compiles are also counted by kind (``compile.cold.<kind>``,
+`compiles_by_kind`): a library build and a graph capture are different
+costs, and `compile_bench.py` gates them apart.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ def record_compile(name: str, seconds: float, cold: bool,
     if cold:
         _COMPILED.inc()
         _COLD.observe(seconds)
+        counter(f"compile.cold.{kind}").inc()
     else:
         _HITS.inc()
         _WARM.observe(seconds)
@@ -66,3 +70,10 @@ def compiles_snapshot() -> dict:
         "cold_compile_secs": round(cold["total"], 4),
         "warm_retrieval_secs": round(warm["total"], 4),
     }
+
+
+def compiles_by_kind() -> dict:
+    """Cold compiles so far by kind: ``kernel`` and ``host`` library
+    builds, ``graph`` captures."""
+    return {kind: int(counter(f"compile.cold.{kind}").value)
+            for kind in ("kernel", "host", "graph")}

@@ -12,9 +12,10 @@ Span hierarchy survives the export: every event's ``args`` carries
 ``span_id`` and (when nested) ``parent_id``, so summaries can compute
 *self* time, a span's duration minus its direct children's.
 
-The JAX package's reconciliation sections (`:349-380`: static memory,
-roofline and serving estimates against the observed trace) wait for the
-analysis tiers (ROADMAP queue 1, item 8).
+`summarize` ends with JAX's three joins (`:349-390`), each through
+`analysis/reconcile.py`: the static memory estimates against the node
+spans' bytes, the roofline's predicted seconds against their seconds,
+and the serving certificate's bounds against measured percentiles.
 """
 
 from __future__ import annotations
@@ -346,6 +347,53 @@ def summarize(trace: Dict[str, Any], top: int = 15) -> str:
         .get("executor.live_bytes", {}).get("max"))
     if live:
         lines.append(f"observed peak live set: {_fmt_bytes(live)}")
+
+    try:
+        from ..analysis.reconcile import format_reconciliation, reconcile_trace
+
+        rec = reconcile_trace(trace)
+        if rec["rows"]:
+            lines.append("")
+            lines.append(format_reconciliation(rec))
+    except Exception as e:  # a malformed trace must still summarize
+        lines.append(f"\n(memory reconciliation unavailable: {e})")
+
+    try:
+        from ..analysis.reconcile import reconcile_roofline
+
+        roof = reconcile_roofline(trace)
+        if roof["stages_joined"]:
+            lines.append(
+                "\n== roofline (predicted vs observed seconds) ==")
+            lines.append(
+                f"{roof['stages_joined']} stage(s) joined: predicted "
+                f"{roof['predicted_seconds']:.4f}s, observed "
+                f"{roof['observed_seconds']:.4f}s, flops residual "
+                f"{roof['flops_residual_seconds']:+.4f}s")
+    except Exception:
+        pass  # advisory: partial traces summarize without it
+
+    try:
+        from ..analysis.reconcile import (
+            format_serving_reconciliation,
+            reconcile_serving,
+        )
+
+        serving = reconcile_serving(trace)
+        if serving["rows"]:
+            lines.append("")
+            lines.append(format_serving_reconciliation(serving))
+        elif ks.get("serving"):
+            cert = ks["serving"]
+            verdict = "certified" if cert.get("certified") else "UNCERTIFIED"
+            lines.append(
+                f"\nserving certificate: {verdict}, "
+                f"{len(cert.get('shapes', []))} ladder shape(s), SLO "
+                f"{(cert.get('slo_seconds') or 0) * 1e3:.0f}ms (no "
+                "observed percentiles: a serving run's per-rung "
+                "keystone.serving_observed joins them)")
+    except Exception:
+        pass  # advisory: partial traces summarize without it
 
     caps = ks.get("capabilities") or {}
     absent = {k: v for k, v in caps.items() if not v.get("available", True)}

@@ -17,10 +17,11 @@ so cache decisions and profile reports cannot disagree.
 
 Timing (JAX's rule, `:20-26`): with a profiler attached the forced value
 is synchronized (`torch.cuda.synchronize` for a value on the card), so
-the card's work lands on the node that queued it. A tracer alone
-injects no sync: node spans then measure what the host queued and
-waited for, and a traced run makes the same synchronizing calls as an
-untraced one.
+the card's work lands on the node that queued it. So it is under a
+tracer made with ``synchronize=True`` (each streamed chunk too), whose
+node spans then carry the card's seconds. Any other tracer injects no
+sync: node spans then measure what the host queued and waited for, and
+a traced run makes the same synchronizing calls as an untraced one.
 
 The per-process dimension (JAX's ``p<i>`` counters, `process_dim`)
 waits for multi-GPU runs (ROADMAP queue 1, item 10).
@@ -155,13 +156,17 @@ def _instrument_stream(label, expr, vertex, profiler):
         total = 0.0
         nbytes = 0.0
         t0_rel = None
+        sync = False
         while True:
             t0 = perf_counter()
             if t0_rel is None:
                 tracer = current_tracer()
                 t0_rel = tracer.now() if tracer is not None else 0.0
+                sync = tracer is not None and tracer.synchronize
             try:
                 item = next(it)
+                if sync:
+                    sync_value(item[1])
             except StopIteration:
                 total += perf_counter() - t0
                 _record_node(label, vertex, profiler, total, nbytes,
@@ -214,9 +219,10 @@ def instrument_node_force(
         failed = False
         try:
             value = orig_thunk()
-            if profiler is not None:
-                # the card's time lands on this node; tracing alone
-                # injects no sync
+            if profiler is not None or (tracer is not None
+                                        and tracer.synchronize):
+                # the card's time lands on this node; a tracer that
+                # does not synchronize injects no sync
                 sync_value(value)
             return value
         except BaseException:

@@ -31,8 +31,10 @@ Destinations, cheapest first:
     switches with their environment variables (`CONFIG_ENV`), which is
     what lets ``--diff`` name a ``KEYSTONE_MEGAFUSION=0`` flip.
 
-The JAX package's reconciliation of predictions against a run
-(`analysis.reconcile`) waits for the analysis tiers (item 8).
+What a run observed joins these predictions in
+`analysis/reconcile.py::reconcile_decisions`; `render_ledger` and
+`diff_runs` take that reconciliation (``python -m
+keystone_tpu_torch.telemetry --ledger``, ``--diff``).
 """
 
 from __future__ import annotations

@@ -29,8 +29,13 @@ Activation, cheapest first:
 
 A span's times are host seconds (`time.perf_counter()` from the
 tracer's epoch): a tracer injects no device sync, so a node span
-measures what the host queued and waited for. `capabilities()` also
-names the card, its power limit and the torch and CUDA versions.
+measures what the host queued and waited for. ``trace_run(...,
+synchronize=True)`` closes each node span once the card has finished
+the node's work, so its ``seconds`` are the card's, and marks the
+trace (``keystone.node_spans_synchronized``): the cost-weight
+recalibration (``--emit-calibration``) reads only such a trace of a
+card's run. `capabilities()` also names the card, its power limit and
+the torch and CUDA versions.
 """
 
 from __future__ import annotations
@@ -108,12 +113,16 @@ class Tracer:
     the GIL (list.append is atomic); per-thread span stacks live in a
     `threading.local` so producer threads nest independently."""
 
-    def __init__(self):
+    def __init__(self, synchronize: bool = False):
         self.epoch = time.perf_counter()
         self.wall_epoch = time.time()
         self.spans: List[SpanRecord] = []
         self.counter_samples: List[tuple] = []  # (name, t, value, tid)
         self.metadata: Dict[str, Any] = {}
+        #: whether a node span waits for the card's work before it closes
+        self.synchronize = bool(synchronize)
+        if self.synchronize:
+            self.metadata["node_spans_synchronized"] = True
         self._ids = itertools.count(1)
         self._local = threading.local()
         # sid → still-open SpanRecord, so a dump/export racing an open
@@ -360,14 +369,16 @@ class trace_run:
     ``KEYSTONE_TRACE`` env var); with neither, the trace is only held in
     memory on the yielded tracer. Nests: the previous tracer is restored
     on exit. Opens a root ``cat="pipeline"`` span so every run has a
-    top-level interval."""
+    top-level interval. ``synchronize``: each node span waits for the
+    card before it closes (`Tracer.synchronize`)."""
 
-    def __init__(self, path: Optional[str] = None, name: str = "pipeline_run"):
+    def __init__(self, path: Optional[str] = None, name: str = "pipeline_run",
+                 synchronize: bool = False):
         self._path = path
         self._name = name
         self._prev: Optional[Tracer] = None
         self._root = None
-        self.tracer = Tracer()
+        self.tracer = Tracer(synchronize=synchronize)
 
     def __enter__(self) -> Tracer:
         global _active

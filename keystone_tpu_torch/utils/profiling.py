@@ -14,13 +14,21 @@ that feeds spans, the metrics registry and `autocache.profile_nodes`.
 With a profiler attached each force is closed by a device sync, so the
 card's work lands on the node that queued it; a thunk that raises keeps
 its elapsed time and counts a failure.
+
+Two counters of what a call does on the card, for the benches and the
+chip smoke script: `count_syncs` (the calls that waited for the card,
+by source line) and `launch_counts` (every kernel wrapper's launches).
 """
 
 from __future__ import annotations
 
+import collections
+import os
+import traceback
+import warnings
 from contextlib import contextmanager
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 from ..telemetry.instrument import instrument_node_force
 from ..workflow.env import PipelineEnv
@@ -100,3 +108,51 @@ def profile_execution():
         yield prof
     finally:
         env.profiler = prev
+
+
+_REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+def count_syncs(fn: Callable[[], object]) -> Tuple[Dict[str, int], int]:
+    """({source line: count}, total) of the calls in ``fn`` that wait for
+    the card, as torch's sync debug mode reports them. Each is named by
+    the innermost frame of the call's stack in this repository, where
+    one exists (the frame of the port's call into torch), else by the
+    warning's own frame. Needs a card."""
+    import torch
+
+    lines: collections.Counter = collections.Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchronizing" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if f.filename.startswith(_REPO + os.sep)]
+        where = (ours[-1].filename, ours[-1].lineno) if ours else (
+            filename, lineno)
+        lines[f"{os.path.relpath(where[0], _REPO)}:{where[1]}"] += 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        # installed after the mode is set: with torch 2.11 the first
+        # switch to "warn" is itself reported as a synchronizing call,
+        # and it is no call of ``fn``
+        warnings.showwarning = record
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(lines), sum(lines.values())
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel wrapper's launch count, by the wrapper's name."""
+    from ..ops import chain_kernels, kernels
+
+    return {w.__name__: w.launches for w in (
+        kernels.conv_rectify_pool, kernels.rectify_pool,
+        kernels.rectify_pool_vectorize, kernels.rbf_block, kernels.rbf_split,
+        chain_kernels.elementwise_chain)}

@@ -249,6 +249,20 @@ def concurrent_relation(graph: Graph):
     return unordered
 
 
+def _spec_dtype_name(spec) -> Optional[str]:
+    """The boundary dtype of a propagated `DataSpec` ("float32", "uint8";
+    mixed pytrees joined with "+"), or None where unknown (`:185-200`):
+    the reconcile table's dtype column, by the formatter of
+    ``--explain-precision``."""
+    from ..analysis.precision import _elem_dtype_name
+    from ..analysis.specs import DataSpec, is_known
+
+    if not isinstance(spec, DataSpec) or not is_known(spec.element):
+        return None
+    name = _elem_dtype_name(spec)
+    return None if name == "?" else name
+
+
 class GraphExecutor:
     def __init__(self, graph: Graph, optimize: bool = True,
                  plan: Optional[Tuple[Graph, Dict[NodeId, Prefix]]] = None):
@@ -464,9 +478,15 @@ class GraphExecutor:
                 # train and test applies collide on id:label: keep the
                 # larger estimate
                 if prev is None or prev["bytes"] < int(nbytes):
-                    meta["per_node"][key] = {"label": label,
-                                             "vertex": vid.id,
-                                             "bytes": int(nbytes)}
+                    entry = {"label": label, "vertex": vid.id,
+                             "bytes": int(nbytes)}
+                    dt = _spec_dtype_name(specs.get(vid))
+                    if dt is not None:
+                        # the propagated boundary dtype (`:360-365`):
+                        # uint8 loaders and planned bf16 boundaries show
+                        # in the reconcile table
+                        entry["dtype"] = dt
+                    meta["per_node"][key] = entry
             meta["peak_bytes"] = max(meta["peak_bytes"], int(est.peak_bytes))
             roof = None
             try:

@@ -64,12 +64,26 @@ from .optimizer import Plan, Rule
 
 
 def _record_fusion_decision(kind: str, rule: str, chain, labels,
-                            chosen_entry: str, programs_before: int) -> None:
+                            chosen_entry: str, programs_before: int,
+                            graph: Graph = None) -> None:
     """One ledger record per enforced fusion rewrite (JAX's
     `fusion_rule.py:57-99`): the chain's vertices and labels, the program
     shape chosen, the per-stage dispatch it beat, and the programs an
-    apply saves. JAX's roofline ``predicted_seconds`` waits for the
-    analysis tiers (ROADMAP queue 1, item 8)."""
+    apply saves. Where the record reaches a ledger file or a trace
+    (`ledger.ledger_active`), it also carries the chain's roofline
+    ``predicted_seconds`` (`analysis/roofline.py::chain_predicted_seconds`
+    over the bound graph's specs), which `analysis/reconcile.py` joins
+    against the run's spans: pricing traces the stages on meta tensors,
+    so an untraced optimize pays nothing for it."""
+    predicted = {"programs_per_apply": 1,
+                 "programs_eliminated": max(0, programs_before - 1),
+                 "cold_compiles_max": 1}
+    if graph is not None and ledger.ledger_active():
+        from ..analysis.roofline import chain_predicted_seconds
+
+        seconds = chain_predicted_seconds(graph, list(chain))
+        if seconds is not None:
+            predicted["predicted_seconds"] = seconds
     ledger.record_decision(
         kind=kind,
         rule=rule,
@@ -80,9 +94,7 @@ def _record_fusion_decision(kind: str, rule: str, chain, labels,
         alternatives=[{"entry": "per_stage_dispatch",
                        "programs": programs_before,
                        "cost_programs": programs_before}],
-        predicted={"programs_per_apply": 1,
-                   "programs_eliminated": max(0, programs_before - 1),
-                   "cold_compiles_max": 1},
+        predicted=predicted,
     )
 
 
@@ -126,6 +138,7 @@ class FusedChainOperator(Operator):
     planned_precision = None
     planned_matmul_precision = None
     planned_kernel = None
+    planned_kernel_seconds = None
     planned_by_unified = False
 
     def __init__(self, stage_specs: Sequence, microbatch: int = 2048):
@@ -173,7 +186,7 @@ class FusedChainOperator(Operator):
             if all(getattr(s, "fusable", False) for s in stages):
                 built = self._fused_cls()(stages, microbatch=self.microbatch)
                 for tag in ("planned_precision", "planned_matmul_precision",
-                            "planned_kernel"):
+                            "planned_kernel", "planned_kernel_seconds"):
                     if getattr(self, tag) is not None:
                         setattr(built, tag, getattr(self, tag))
             else:
@@ -452,7 +465,8 @@ class MegafusionRule(Rule):
                 [graph.get_operator(n).label for n in chain],
                 "megafused_scan_program",
                 max(1, sum(1 for n in chain
-                           if self._member_kind(graph, n) != "cache")))
+                           if self._member_kind(graph, n) != "cache")),
+                graph=graph)
             head_data_dep = self._data_dep(graph, chain[0])
             est_deps: List = []
             stage_specs: List = []
@@ -633,7 +647,7 @@ class NodeFusionRule(Rule):
                 [graph.get_operator(b).label for b in deps]
                 + [graph.get_operator(g).label,
                    graph.get_operator(kid).label],
-                "gather_concat_program", len(deps) + 1)
+                "gather_concat_program", len(deps) + 1, graph=graph)
             stage = _GatherConcatStage([graph.get_operator(b) for b in deps])
             graph = graph.set_operator(kid, FusedBatchTransformer(
                 [stage], microbatch=self.microbatch))
@@ -646,11 +660,13 @@ class NodeFusionRule(Rule):
         return graph, prefixes
 
     def apply(self, plan: Plan) -> Plan:
+        plan = self._fuse_linear(plan)
+        if not self.fuse_apply:
+            return plan  # gathers collapse only with fuse_apply (`:712-721`)
         # gather diamonds need the linear pass first (each branch collapses
         # to one node over the shared source), and another linear pass
         # after, so the collapsed combiner chains with its downstream
         # neighbours
-        plan = self._fuse_linear(plan)
         plan = self._fuse_gathers(plan)
         return self._fuse_linear(plan)
 
@@ -699,7 +715,7 @@ class NodeFusionRule(Rule):
             _record_fusion_decision(
                 "fusion", type(self).__name__, chain,
                 [graph.get_operator(n).label for n in chain],
-                "fused_chain_program", len(chain))
+                "fused_chain_program", len(chain), graph=graph)
             head_data_dep = self._data_dep(graph, chain[0])
             est_deps: List = []
             stage_specs: List = []

@@ -442,9 +442,12 @@ class UnifiedPlannerRule(Rule):
                     continue
                 start, stop = cand["stage_slice"]
                 family = (cand.get("lowerable") or {}).get("family")
+                # the priced seconds ride on the tag to the chain_kernel
+                # span, which `analysis/reconcile.py` joins (`:453-460`)
                 graph = graph.set_operator(
                     vid, graph.get_operator(vid).tagged_copy(
                         planned_kernel=(int(start), int(stop), family),
+                        planned_kernel_seconds=float(cand["kernel_seconds"]),
                         planned_by_unified=True))
         if "chunk" in kinds:
             self._record(uplan, "chunk", [], graph)

@@ -814,3 +814,83 @@ def test_cuda_decode_flags_the_entries_the_cpu_flags(cuda_device):
         if g is not None:
             assert g.device.type == "cuda" and g.dtype == torch.float32
             assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.cuda
+def test_cuda_chain_kernel_span_covers_the_kernel(cuda_device):
+    """A traced call of a chain that runs its planned K4 records one
+    ``chain_kernel`` span, which waits for the card before it closes: its
+    duration is at least the kernel's own time between CUDA events. So
+    does a traced graph replay of the chain's padded loop, an eager
+    padded loop of several trips (one span for the call, not one a
+    trip), and a megafused chain around it (one span a call, none of
+    the nested chain's; the capturing call's span is its eager run
+    before the capture). An untraced call records none and makes no
+    synchronizing call for one."""
+    from keystone_tpu_torch.ops import chain_kernels
+    from keystone_tpu_torch.telemetry import to_chrome_trace, trace_run
+
+    fbt = _k4_featurizer()
+    assert fbt.planned_kernel is not None
+    x = torch.rand((8192, 32, 32, 3), device=cuda_device) * 255.0
+    fn = fbt.batch_fn()
+    fn(x)  # plans and the kernel's load
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn(x)
+    end.record()
+    end.synchronize()
+    kernel_s = start.elapsed_time(end) / 1e3
+    with trace_run() as tracer:
+        before = chain_kernels.elementwise_chain.launches
+        fn(x)
+        launched = chain_kernels.elementwise_chain.launches - before
+        trace = to_chrome_trace(tracer)
+    spans = [e for e in trace["traceEvents"]
+             if e.get("name") == "chain_kernel"]
+    assert launched >= 1 and len(spans) == 1
+    assert spans[0]["args"]["rows"] == 8192
+    assert spans[0]["dur"] / 1e6 >= 0.9 * kernel_s, (spans, kernel_s)
+
+    # a replayed padded loop: the span wraps the replay
+    rows = x[:1000]
+    for _ in range(2):  # the eager call, then the capture
+        fbt.run_rung(rows, 1024, 1024)
+    with trace_run() as tracer:
+        fbt.run_rung(rows, 1024, 1024)
+        trace = to_chrome_trace(tracer)
+    assert len([e for e in trace["traceEvents"]
+                if e.get("name") == "chain_kernel"]) == 1
+
+    # an eager padded loop of four 256-row trips: one span for the call
+    with trace_run() as tracer:
+        fbt.run_rung(rows, 1024, 256)
+        trace = to_chrome_trace(tracer)
+    assert len([e for e in trace["traceEvents"]
+                if e.get("name") == "chain_kernel"]) == 1
+
+    # a megafused chain over it: one span a call, eager or replayed, and
+    # none of the nested chain's inside it
+    from keystone_tpu_torch.nodes.util.fusion import (
+        MegafusedBatchTransformer,
+    )
+
+    mega = MegafusedBatchTransformer([fbt], microbatch=512)
+    mfn = mega.batch_fn()
+    for call in range(3):  # eager, capture, replay
+        with trace_run() as tracer:
+            mfn(rows)
+            trace = to_chrome_trace(tracer)
+        assert len([e for e in trace["traceEvents"]
+                    if e.get("name") == "chain_kernel"]) == 1, call
+
+    # untraced: no span and no sync for one
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn(x)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+

@@ -142,6 +142,10 @@ def test_serving_runtime_asks_for_the_card():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ServingRuntime(object(), element_shape=(4,))
+    from keystone_tpu_torch.serving.swap_check import swap_check
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        swap_check(swaps=1, n_train=60, n_test=30, filters=4)
 
 
 def test_the_plan_tier_and_out_of_core_modules_are_in_scope():
@@ -174,3 +178,43 @@ def test_out_of_core_entry_points_ask_for_the_card():
                  lambda: SpilledDataset(rows)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             make()
+
+
+def test_the_measurement_tier_modules_are_in_scope():
+    """The bench modules, the reconciliation, the contract auditor and
+    the analysis CLI are held to the same rule as the rest of the port."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ("dispatch_bench.py", "compile_bench.py",
+                   "analysis/reconcile.py", "analysis/contracts.py",
+                   "analysis/__main__.py"):
+        assert f"keystone_tpu_torch/{module}" in names, module
+
+
+@pytest.mark.parametrize("call", [
+    "dispatch_measure", "dispatch_report", "compile_example",
+    "compile_host_chunk", "compile_report", "analysis_cli",
+    "dispatch_cli"])
+def test_measurement_entry_points_ask_for_the_card(call):
+    """The entry points that take ``device`` default to the card and
+    raise without one; the analysis CLI's ``--device`` too."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from keystone_tpu_torch import compile_bench, dispatch_bench
+    from keystone_tpu_torch.analysis import __main__ as analysis_cli
+
+    calls = {
+        "dispatch_measure": lambda: dispatch_bench.measure_example(
+            "LinearPixels", "megafused"),
+        "dispatch_report": lambda: dispatch_bench.dispatch_count_report(
+            ("LinearPixels",)),
+        "compile_example": lambda: compile_bench.measure_example_compiles(
+            "LinearPixels"),
+        "compile_host_chunk": compile_bench.measure_host_chunk_compiles,
+        "compile_report": lambda: compile_bench.compile_count_report(
+            ("LinearPixels",)),
+        "analysis_cli": lambda: analysis_cli.main(
+            ["--explain-roofline", "LinearPixels"]),
+        "dispatch_cli": lambda: dispatch_bench.main(["LinearPixels"]),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[call]()

@@ -5,8 +5,8 @@ parseable lines, the ambient path, the ledger beside a trace, the trace
 metadata form, `suppressed()`, a truncated tail, a mid-run config change,
 ``--diff`` naming a ``KEYSTONE_MEGAFUSION`` flip, seeded prediction
 drift, a clean self-diff and the CLI's table. Its predicted-versus-
-observed joins and the cost-model drift report wait for the analysis
-tiers (ROADMAP queue 1, item 8).
+observed joins and the cost-model drift report are in
+`tests/test_torch_reconcile.py`.
 
 Parity: a ledger the JAX package wrote reads, renders and diffs the
 same through the port's `read_ledger`, `render_ledger`, `diff_runs` and

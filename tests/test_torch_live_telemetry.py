@@ -3,9 +3,8 @@
 conformance watchdog and request scope (`watchdog.py`), the kill switch
 and ``--live``.
 
-Mirrors `tests/test_live_telemetry.py`, but for the reconcile join of a
-conformance record, which waits for the analysis tiers (ROADMAP queue 1,
-item 8). Parity: `QuantileSketch` and the metrics `Histogram` give the
+Mirrors `tests/test_live_telemetry.py`; the reconcile join of a
+conformance record is in `tests/test_torch_reconcile.py`. Parity: `QuantileSketch` and the metrics `Histogram` give the
 JAX package's quantiles on the same observations. `FittedPipeline.apply`
 runs under `request_scope`.
 """

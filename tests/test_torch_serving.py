@@ -10,8 +10,7 @@ then BCD and `MaxClassifier`) in both packages.
 (``megafusion.graph_captures``); the CPU tests read the same counters,
 and the card's side is `chip_smoke.py`'s serving phase. The reconcile
 join of certified bounds with observed latencies
-(`tests/test_serving.py:424, 448`) needs `analysis/reconcile.py`, which
-is not ported (ROADMAP).
+(`tests/test_serving.py:424, 448`) is in `tests/test_torch_reconcile.py`.
 """
 
 import numpy as np
@@ -446,3 +445,18 @@ def test_fitted_certificate_matches_jax(one_device_mesh):
     for a, b in zip(jc.shapes, tc.shapes):
         assert b["predicted_seconds"] == pytest.approx(
             a["predicted_seconds"], rel=0.05)
+
+
+def test_swap_check_holds_every_answer_to_a_version():
+    """`serving/swap_check.py` at a small size on the CPU: two swaps,
+    each to a fresh load, under four client threads; every dispatch's
+    rows are the old or the new version's scores, and no request is
+    lost."""
+    from keystone_tpu_torch.serving.swap_check import swap_check
+
+    report = swap_check(swaps=2, gap=0.05, clients=4, n_train=600,
+                        n_test=300, filters=16, requests=300, device="cpu")
+    assert [w["to"] for w in report["swaps"]] == ["b", "a"]
+    assert report["dispatches"] > 0
+    assert report["neither_count"] == 0, report["neither"]
+    assert report["errors"] == []

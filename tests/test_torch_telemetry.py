@@ -7,16 +7,17 @@ nesting, the no-op span, exception paths, the profiler's failure
 accounting, the trace's schema and categories, streamed stages, the
 per-run live peak, the overlap queue bounds, the producer's failure,
 auto-caching on the shared profiles, `profile_execution`, the executor's
-counters). Its memory-reconciliation and per-process cases wait for the
-analysis tiers and multi-GPU runs (ROADMAP queue 1, items 8 and 10).
+counters). Its per-process cases wait for multi-GPU runs (ROADMAP
+queue 1, item 4); the memory reconciliation is in
+`tests/test_torch_reconcile.py`.
 
 Parity with the JAX package:
 
 - one recorded span sequence fed to both `Tracer`s gives the same
   Chrome trace up to timestamps, pids, tids and the process name;
 - a JAX-written trace gives the same summary text through both CLIs,
-  but for the JAX summary's reconciliation sections (static estimates
-  against the trace), which wait for the analysis tiers (item 8);
+  its reconciliation sections (static estimates against the trace)
+  included, and so does a port-written one;
 - a small RandomPatchCifar (JAX's filters carried across), fit and
   applied under each package's `trace_run`, gives the same node-span
   labels, the same fusion, megafusion and cache decision keys and the
@@ -584,33 +585,19 @@ def jax_trace_path(tmp_path_factory):
     return path
 
 
-#: the JAX summary's sections that join the trace against the static
-#: analyzer's estimates (`analysis.reconcile`), which the port's summary
-#: leaves out until the analysis tiers are ported (item 8)
-_RECONCILE_HEADS = ("== static vs observed memory", "== roofline",
-                    "(memory reconciliation unavailable", "serving certificate",
-                    "== serving")
-
-
-def _without_reconciliation(text: str) -> str:
-    blocks = text.rstrip("\n").split("\n\n")
-    return "\n\n".join(b for b in blocks
-                        if not b.startswith(_RECONCILE_HEADS)) + "\n"
-
-
 def test_a_jax_trace_summarizes_the_same_through_both_clis(jax_trace_path,
                                                            capsys):
-    """Equal text but for JAX's reconciliation sections."""
+    """Equal text, the reconciliation sections included."""
     assert jax_cli([jax_trace_path]) == 0
     want = capsys.readouterr().out
     assert port_cli([jax_trace_path]) == 0
     got = capsys.readouterr().out
-    assert got == _without_reconciliation(want)
-    assert "top node forces by self-time" in got and "static vs" in want
+    assert got == want
+    assert "top node forces by self-time" in got and "static vs" in got
     assert jax_cli(["--flight", jax_trace_path]) == 0
     want = capsys.readouterr().out
     assert port_cli(["--flight", jax_trace_path]) == 0
-    assert capsys.readouterr().out == _without_reconciliation(want)
+    assert capsys.readouterr().out == want
 
 
 def test_a_port_trace_summarizes_the_same_through_both_clis(tmp_path,
@@ -620,7 +607,7 @@ def test_a_port_trace_summarizes_the_same_through_both_clis(tmp_path,
     got = capsys.readouterr().out
     assert jax_cli([path]) == 0
     want = capsys.readouterr().out
-    assert got == _without_reconciliation(want)
+    assert got == want
 
 
 def test_histogram_quantiles_equal_jax_s():
