@@ -265,7 +265,12 @@ Phases, each printed on a line of its own:
               certified bound; a hot swap mid-traffic to a fit on other
               labels (no request lost, every answer one version's, the
               new version's captures on the swapping thread, none on the
-              dispatcher's); the kill switch (64 requests under 8 threads,
+              dispatcher's; an answer from neither version is printed
+              with its row, errors, time against the swap's window and
+              the rows whose answer it equals under either version), and
+              with ``--swap-repeats K`` K more, each to a fresh load of
+              the other version, each round's dispatches printed; the
+              kill switch (64 requests under 8 threads,
               each the per-row apply bit for bit); a burst of 32 into a
               queue of depth 4 (sheds counted and flight-dumped, the
               answered ones right); LinearPixels' classes served through
@@ -345,6 +350,27 @@ Phases, each printed on a line of its own:
               RandomPatchCifar (held: no error, no KP5xx) and ``python -m
               keystone_tpu_torch.analysis --explain-roofline
               RandomPatchCifar`` in a subprocess (held: exit 0).
+30. nlp     - the POS and NER taggers: `POSTagger.trained_crf` and
+              `NER.trained_crf` on the card, each the linear-chain CRF at
+              the JAX package's defaults (4,000 generated sentences, seed
+              0, 2^15 hashed buckets, 12 features a token, L-BFGS up to
+              60 steps by JAX's stopping rule; POS 15 tags and 491,760
+              weights), tagging the next 500 sentences: fit seconds with
+              the host's hashing apart, steps, evaluations, the
+              synchronizing calls of a second fit, decode tokens/s
+              (batched, warm) beside the host structured perceptron's
+              (600 sentences, 3 epochs), peak memory. Held: accuracy
+              above 0.97 and within 0.005 of the JAX package's CPU
+              accuracy, the final NLL at most 1e-3 above JAX's, POS at
+              least the perceptron's accuracy, NER's BIO rule (an I-X
+              only after I-X or B-X), the card's weights decoded on the
+              CPU path to the same tags, the objective and its gradient
+              at the card's weights in float64 on the card and on the
+              CPU within 1e-5 (value) and 1e-6 of max|gradient| (the
+              float32 figures printed beside);
+              `CoreNLPFeatureExtractor` over the card's NER on 16
+              held-out sentences equal to the CPU path's n-grams; no
+              kernel launched.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The process-wide prefix table (`PipelineEnv`) is reset before each
@@ -603,6 +629,9 @@ SERVE_REQUESTS, SERVE_CLIENTS, SERVE_MAX_BATCH = 2000, 8, 64
 SERVE_KILL_REQUESTS, SERVE_SHED_DEPTH, SERVE_SHED_BURST = 64, 4, 32
 SERVE_LP_REQUESTS, SERVE_NEWS_DOCS, SERVE_NEWS_REQUESTS = 500, 2000, 64
 SERVE_SWAP_SECONDS = 0.5
+#: hot swaps after the first, each to a fresh load of the other version
+#: (``--swap-repeats K``; 0 when the script runs with no arguments)
+SWAP_REPEATS = 0
 SERVE_RUNG_REPS = 20
 SERVE_SCORE_RTOL = 1e-4
 #: each example's certificate under the card's calibration: (certified,
@@ -632,6 +661,30 @@ OOC_AGREE = 0.99          # predictions equal to the unbudgeted run's
 OOC_TEST_SEED = 1 << 20   # the test images' seed, past every shard's
 MEASURE_REQUESTS = 500    # phase 29's traced serving run
 MEASURE_REPO = os.path.dirname(os.path.abspath(__file__))
+# the nlp phase (30): the CRF at the JAX package's defaults (crf_tagger:
+# 4,000 generated sentences, seed 0, 2^15 buckets, 60 L-BFGS steps),
+# tagging the next 500 of each corpus; the JAX package's CPU accuracy and
+# final NLL on them (`crf_tagger(task)` and its ``nll`` at the fitted
+# theta, on a one-device mesh; `tests/test_torch_crf.py` holds the same
+# objective and fit at small sizes)
+NLP_N_TRAIN, NLP_N_TEST, NLP_MAX_ITER = 4000, 500, 60
+NLP_POS_JAX_ACC, NLP_POS_JAX_NLL = 1.0, 0.15941795706748962
+NLP_NER_JAX_ACC, NLP_NER_JAX_NLL = 1.0, 0.03409198671579361
+NLP_ACC_FLOOR = 0.97      # tests/test_crf_tagger.py's bar
+NLP_ACC_GAP = 0.005
+#: the card's final NLL at most this far above JAX's, relative. Held one
+#: way: near the optimum the float32 gradient is rounding (at the fitted
+#: NER theta the CPU's float32 gradient is 0.50e-3 from float64's, its
+#: max 0.49e-3), so where L-BFGS stops under JAX's 1e-7 rule moves with
+#: the card's atomics; a fit that ends lower is no worse
+NLP_NLL_RTOL = 1e-3
+#: the card's objective at its theta against the CPU path's, both in
+#: float64 (the same function): the value relative, the gradient against
+#: max|gradient|. In float32 the CPU's own value is 3e-4 from float64's
+#: there, so float32 figures are printed, not held
+NLP_VALUE_RTOL, NLP_GRAD_RTOL = 1e-5, 1e-6
+NLP_PERCEPTRON_SENTENCES, NLP_PERCEPTRON_ITERS = 600, 3
+NLP_ANNOTATED = 16        # held-out NER sentences through the extractor
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2667,66 +2720,111 @@ def serving_phase(dev, train, test, config, card) -> dict:
             rt._batcher.apply_fn = apply_fn
             k1_serving = k1
 
-            # ---- hot swap mid-traffic to the fit on other labels
-            stop = threading.Event()
-            outcomes, swap_errors, neither = [], [], []
-            swap_t0 = time.perf_counter()
+            # ---- hot swap mid-traffic to the fit on other labels; with
+            # --swap-repeats K, K more swaps follow, each to a fresh load
+            # of the other version (ROADMAP queue 3's chase)
+            tol = SERVE_SCORE_RTOL * scale
 
-            def swap_client(i):
-                while not stop.is_set():
-                    j = i % len(x_img)
-                    try:
-                        y = rt.submit(x_img[j])
-                    except Exception as e:
-                        swap_errors.append(repr(e))
-                        return
-                    err_a = float(np.abs(y - ref[j]).max())
-                    err_b = float(np.abs(y - ref_b[j]).max())
-                    outcomes.append((err_a <= SERVE_SCORE_RTOL * scale,
-                                     err_b <= SERVE_SCORE_RTOL * scale))
-                    if not any(outcomes[-1]):
-                        neither.append(dict(
-                            row=j, err_a=err_a, err_b=err_b,
-                            finite=bool(np.isfinite(y).all()),
-                            seconds=time.perf_counter() - swap_t0))
-                    i += SERVE_CLIENTS
+            def swap_round(old_ref, new_ref, new_fitted):
+                """Traffic from 8 threads, a swap to ``new_fitted`` in
+                the middle: each answer's version, and for each answer
+                from neither its row, errors, finiteness, time against
+                the swap's window and the rows whose answer it equals
+                under either version (a staging mix-up, not a corrupt
+                product)."""
+                stop = threading.Event()
+                outcomes, swap_errors, neither = [], [], []
+                swap_t0 = time.perf_counter()
+                dispatches0 = count("serving.dispatches")
 
-            threads = [threading.Thread(target=swap_client, args=(i,))
-                       for i in range(SERVE_CLIENTS)]
-            for t in threads:
-                t.start()
-            time.sleep(SERVE_SWAP_SECONDS)
-            swap_captures0 = len(captured_on)
-            swap_window = [time.perf_counter() - swap_t0]
-            rt.swap(rpc_b)
-            swap_window.append(time.perf_counter() - swap_t0)
-            swap_threads = set(captured_on[swap_captures0:])
-            time.sleep(SERVE_SWAP_SECONDS)
-            stop.set()
-            for t in threads:
-                t.join()
-            post = rt.submit(x_img[5])
-            check(not swap_errors, f"hot swap lost requests: "
-                  f"{swap_errors[:3]}")
-            check(outcomes and all(a or b for a, b in outcomes),
-                  "an answer during the swap is from neither version: "
-                  f"{len(neither)} of {len(outcomes)}, the swap from "
-                  f"{swap_window[0]:.4f} s to {swap_window[1]:.4f} s, the "
-                  f"first {neither[:5]} (tolerance "
-                  f"{SERVE_SCORE_RTOL * scale:.3g})")
-            check(any(b and not a for a, b in outcomes),
-                  "no answer came from the new version")
-            check(np.abs(post - ref_b[5]).max() <= SERVE_SCORE_RTOL * scale,
-                  "after the swap an answer is not the new version's")
-            check(not any(t.endswith("-batcher") for t in swap_threads),
-                  f"a capture on the dispatcher's thread: {swap_threads}")
+                def swap_client(i):
+                    while not stop.is_set():
+                        j = i % len(x_img)
+                        try:
+                            y = rt.submit(x_img[j])
+                        except Exception as e:
+                            swap_errors.append(repr(e))
+                            return
+                        err_a = float(np.abs(y - old_ref[j]).max())
+                        err_b = float(np.abs(y - new_ref[j]).max())
+                        outcomes.append((err_a <= tol, err_b <= tol))
+                        if not any(outcomes[-1]):
+                            neither.append(dict(
+                                row=j, err_a=err_a, err_b=err_b,
+                                finite=bool(np.isfinite(y).all()),
+                                seconds=time.perf_counter() - swap_t0,
+                                equals_rows_old=np.flatnonzero(np.abs(
+                                    old_ref - y).max(axis=1) <= tol).tolist(),
+                                equals_rows_new=np.flatnonzero(np.abs(
+                                    new_ref - y).max(axis=1) <= tol).tolist()))
+                        i += SERVE_CLIENTS
+
+                threads = [threading.Thread(target=swap_client, args=(i,))
+                           for i in range(SERVE_CLIENTS)]
+                for t in threads:
+                    t.start()
+                time.sleep(SERVE_SWAP_SECONDS)
+                swap_captures0 = len(captured_on)
+                window = [time.perf_counter() - swap_t0]
+                rt.swap(new_fitted)
+                window.append(time.perf_counter() - swap_t0)
+                swap_threads = set(captured_on[swap_captures0:])
+                time.sleep(SERVE_SWAP_SECONDS)
+                stop.set()
+                for t in threads:
+                    t.join()
+                post = rt.submit(x_img[5])
+                return dict(
+                    answers=len(outcomes),
+                    old=sum(a for a, _ in outcomes),
+                    new=sum(b and not a for a, b in outcomes),
+                    neither=len(neither), neither_first=neither[:5],
+                    errors=swap_errors[:3],
+                    dispatches=count("serving.dispatches") - dispatches0,
+                    captures=len(captured_on) - swap_captures0,
+                    capture_threads=sorted(swap_threads),
+                    window_s=window,
+                    post_new=bool(np.abs(post - new_ref[5]).max() <= tol))
+
+            rounds = [swap_round(ref, ref_b, rpc_b)]
+            for k in range(SWAP_REPEATS):
+                back = k % 2 == 0  # b → a, then a → b, ...
+                rounds.append(swap_round(
+                    ref_b if back else ref, ref if back else ref_b,
+                    FittedPipeline.load(os.path.join(
+                        tmp, "rpc_a.pkl" if back else "rpc_b.pkl"),
+                        device=dev)))
+            first = rounds[0]
+            for n, r in enumerate(rounds):
+                check(not r["errors"], f"hot swap {n} lost requests: "
+                      f"{r['errors']}")
+                check(r["answers"] and not r["neither"],
+                      f"hot swap {n}: an answer during the swap is from "
+                      f"neither version: {r['neither']} of {r['answers']}, "
+                      f"the swap from {r['window_s'][0]:.4f} s to "
+                      f"{r['window_s'][1]:.4f} s, the first "
+                      f"{r['neither_first']} (tolerance {tol:.3g}); every "
+                      f"round: {[x['neither'] for x in rounds]}")
+                check(r["new"] > 0, f"hot swap {n}: no answer came from "
+                      "the new version")
+                check(r["post_new"], f"after hot swap {n} an answer is not "
+                      "the new version's")
+                check(not any(t.endswith("-batcher")
+                              for t in r["capture_threads"]),
+                      f"a capture on the dispatcher's thread: "
+                      f"{r['capture_threads']}")
             out["hot_swap"] = dict(
-                answers=len(outcomes),
-                old=sum(a for a, _ in outcomes),
-                new=sum(b and not a for a, b in outcomes),
-                captures=len(captured_on) - swap_captures0,
-                capture_threads=sorted(swap_threads),
-                hot_swaps=count("serving.hot_swaps"))
+                answers=first["answers"], old=first["old"],
+                new=first["new"], captures=first["captures"],
+                capture_threads=first["capture_threads"],
+                hot_swaps=count("serving.hot_swaps"),
+                dispatches=first["dispatches"])
+            if SWAP_REPEATS:
+                out["hot_swap_repeats"] = [
+                    {k: r[k] for k in ("answers", "old", "new", "neither",
+                                       "neither_first", "dispatches",
+                                       "captures", "window_s")}
+                    for r in rounds[1:]]
             rt.stop()
 
             # ---- the kill switch: each request on its caller's thread
@@ -3499,7 +3597,187 @@ def measurement_phase(dev, train, test, config, lp_config, card) -> dict:
     return dict(k1=k1, k4=k4)
 
 
+def nlp_accuracy(pred, gold) -> float:
+    n = c = 0
+    for p, g in zip(pred, gold):
+        for a, b in zip(p, g):
+            n += 1
+            c += a == b
+    return c / n
+
+
+def nlp_phase(dev, card) -> dict:
+    """Phase 30: the POS and NER taggers on the card (see the module
+    docstring); returns each task's figures."""
+    from keystone_tpu_torch.nodes.nlp import (
+        NER,
+        CoreNLPFeatureExtractor,
+        LinearChainCRFTagger,
+        POSTagger,
+        generate_ner_corpus,
+        generate_pos_corpus,
+    )
+    from keystone_tpu_torch.nodes.nlp.perceptron_tagger import (
+        StructuredPerceptronTagger,
+    )
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    out = {}
+    launches0 = launch_counts()
+    for task, gen, entry, jax_acc, jax_nll in (
+            ("pos", generate_pos_corpus, POSTagger, NLP_POS_JAX_ACC,
+             NLP_POS_JAX_NLL),
+            ("ner", generate_ner_corpus, NER, NLP_NER_JAX_ACC,
+             NLP_NER_JAX_NLL)):
+        corpus = gen(NLP_N_TRAIN + NLP_N_TEST, 0)
+        train, test = corpus[:NLP_N_TRAIN], corpus[NLP_N_TRAIN:]
+        tokens = [[w for w, _ in s] for s in test]
+        gold = [[t for _, t in s] for s in test]
+        n_tokens = sum(len(t) for t in tokens)
+        # the entry point: the tagger fits once a process on the card
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # what earlier phases hold
+        t0 = time.perf_counter()
+        annotator = entry.trained_crf(device=dev)
+        torch.cuda.synchronize()
+        fit_seconds = time.perf_counter() - t0
+        tagger = annotator.model
+        fit_peak = torch.cuda.max_memory_allocated() - held
+        hash_seconds = tagger.hash_seconds
+        pred = tagger.predict_batch(tokens)  # warm
+        t0 = time.perf_counter()
+        pred = tagger.predict_batch(tokens)
+        decode_seconds = time.perf_counter() - t0
+        acc = nlp_accuracy(pred, gold)
+        # the same fit again under the sync counter (the card's fits are
+        # not bit-stable: its steps may differ by one)
+        again = {}
+        syncs, n_syncs = count_syncs(lambda: again.setdefault(
+            "t", LinearChainCRFTagger(max_iter=NLP_MAX_ITER, device=dev)
+            .train(train)))
+        # the card's theta on the CPU path: tags, and the objective with
+        # its gradient in float64 on both (the same function), and in
+        # float32, whose rounding at a fitted theta is printed beside it
+        theta = tagger.theta
+        on_cpu = LinearChainCRFTagger(n_buckets=tagger.n_buckets,
+                                      device=cpu)
+        card_obj = tagger.objective(train)
+        cpu_obj = on_cpu.objective(train)
+        on_cpu.set_theta(theta.cpu())
+        value32, grad32 = card_obj(theta)
+        cpu_value32, cpu_grad32 = cpu_obj(theta.cpu())
+        value, grad = card_obj(theta.double())
+        cpu_value, cpu_grad = cpu_obj(theta.cpu().double())
+        value32, cpu_value32 = float(value32), float(cpu_value32)
+        value, cpu_value = float(value), float(cpu_value)
+        grad_err = float((grad.cpu() - cpu_grad).abs().max())
+        grad_scale = float(cpu_grad.abs().max())
+        float32 = dict(
+            value=value32, cpu_value=cpu_value32,
+            grad_max_abs_err=float((grad32.cpu() - cpu_grad32).abs().max()),
+            cpu_value_err_vs_float64=abs(cpu_value32 - cpu_value),
+            cpu_grad_err_vs_float64=float(
+                (cpu_grad32.double() - cpu_grad).abs().max()))
+        cpu_pred = on_cpu.predict_batch(tokens)
+        row = dict(
+            train_sentences=NLP_N_TRAIN, train_tokens=sum(map(len, train)),
+            test_tokens=n_tokens, tags=len(tagger.tags),
+            theta_floats=theta.numel(), fit_seconds=fit_seconds,
+            hash_seconds=hash_seconds,
+            device_fit_seconds=fit_seconds - hash_seconds,
+            steps=len(tagger.loss_history),
+            evaluations=sum(tagger.linesearch_steps),
+            syncs=n_syncs, sync_sites=syncs,
+            steps_again=len(again["t"].loss_history),
+            evaluations_again=sum(again["t"].linesearch_steps),
+            final_nll=value32, final_nll_again=float(
+                card_obj(again["t"].theta)[0]),
+            jax_cpu_nll=jax_nll, nll_over_jax=value32 / jax_nll - 1.0,
+            float64=dict(value=value, cpu_value=cpu_value,
+                         grad_max_abs_err=grad_err,
+                         grad_max_abs=grad_scale),
+            float32=float32,
+            test_accuracy=acc, jax_cpu_accuracy=jax_acc,
+            decode_tokens_per_sec=n_tokens / decode_seconds,
+            decode_seconds=decode_seconds,
+            cpu_decode_equal=cpu_pred == pred, peak_bytes=fit_peak)
+        if task == "pos":
+            # the host structured perceptron on 600 sentences, 3 epochs
+            t0 = time.perf_counter()
+            perc = StructuredPerceptronTagger().train(
+                train[:NLP_PERCEPTRON_SENTENCES], n_iter=NLP_PERCEPTRON_ITERS)
+            perc_train = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            perc_pred = [perc(t) for t in tokens]
+            perc_seconds = time.perf_counter() - t0
+            row.update(perceptron_accuracy=nlp_accuracy(perc_pred, gold),
+                       perceptron_train_seconds=perc_train,
+                       perceptron_tokens_per_sec=n_tokens / perc_seconds)
+        else:
+            bio = [(p, t) for pr in pred for p, t in zip(["O"] + pr, pr)
+                   if t.startswith("I-") and p not in (t, "B-" + t[2:])]
+            row["bio_violations"] = len(bio)
+        out[task] = row
+        check(acc > NLP_ACC_FLOOR, f"{task}: CRF accuracy {acc}")
+        check(abs(acc - jax_acc) <= NLP_ACC_GAP, f"{task}: CRF accuracy "
+              f"{acc}, JAX's CPU {jax_acc}")
+        check(value32 <= jax_nll * (1.0 + NLP_NLL_RTOL),
+              f"{task}: final NLL {value32}, JAX's CPU {jax_nll}")
+        check(pred == cpu_pred, f"{task}: the CPU path decodes the card's "
+              "weights otherwise")
+        check(abs(value - cpu_value) <= NLP_VALUE_RTOL * abs(cpu_value),
+              f"{task}: NLL {value} on the card, {cpu_value} on the CPU")
+        check(grad_err <= NLP_GRAD_RTOL * grad_scale, f"{task}: gradient "
+              f"{grad_err} from the CPU's (max {grad_scale})")
+        if task == "pos":
+            check(acc >= row["perceptron_accuracy"], f"pos: CRF accuracy "
+                  f"{acc} under the perceptron's "
+                  f"{row['perceptron_accuracy']}")
+        else:
+            check(not bio, f"ner: I- tags after neither I- nor B-: {bio[:5]}")
+        del card_obj, cpu_obj, again
+    # the annotators: entities replaced by the card's NER, n-grams equal
+    # to the CPU path's on the same weights
+    ner_test = generate_ner_corpus(NLP_N_TRAIN + NLP_N_TEST, 0)[NLP_N_TRAIN:]
+    texts = [" ".join(w for w, _ in s) for s in ner_test[:NLP_ANNOTATED]]
+    card_ner = NER.trained_crf(device=dev)
+    tagger = card_ner.model
+    on_cpu = LinearChainCRFTagger(n_buckets=tagger.n_buckets, device=cpu)
+    on_cpu.tags = list(tagger.tags)
+    on_cpu.set_theta(tagger.theta.cpu())
+    grams = [CoreNLPFeatureExtractor(ner=card_ner).apply(t) for t in texts]
+    cpu_grams = [CoreNLPFeatureExtractor(ner=NER(model=on_cpu)).apply(t)
+                 for t in texts]
+    entities = sum(g[0].isupper() and "-" in g[0] for gs in grams for g in gs
+                   if len(g) == 1)
+    out["annotators"] = dict(texts=len(texts), ngrams=sum(map(len, grams)),
+                             entity_unigrams=entities,
+                             equal_to_cpu=grams == cpu_grams)
+    check(grams == cpu_grams, "CoreNLPFeatureExtractor's n-grams differ "
+          "from the CPU path's")
+    check(entities > 0, "no entity tag among the extracted unigrams")
+    launches = {k: v - launches0.get(k, 0)
+                for k, v in launch_counts().items()}
+    out["kernel_launches"] = launches
+    check(not any(launches.values()), f"a kernel launched in nlp: "
+          f"{launches}")
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("nlp", **out, card=card)
+    return out
+
+
 def main() -> int:
+    global SWAP_REPEATS
+    import argparse
+
+    parser = argparse.ArgumentParser(description="Smoke run of the port on "
+                                     "one NVIDIA Hopper card.")
+    parser.add_argument("--swap-repeats", type=int, default=SWAP_REPEATS,
+                        help="hot swaps in the serving phase after the "
+                        "first, each to a fresh load of the other version")
+    SWAP_REPEATS = parser.parse_args().swap_repeats
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
@@ -4627,6 +4905,10 @@ def main() -> int:
 
     # ---- 29. the measurement tier ------------------------------------------
     measurement = measurement_phase(dev, train, test, config, lp_config, card)
+    torch.cuda.empty_cache()
+
+    # ---- 30. the POS and NER taggers -----------------------------------------
+    nlp_phase(dev, card)
     torch.cuda.empty_cache()
 
     record = {"kernels": [

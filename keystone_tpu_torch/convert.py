@@ -16,6 +16,8 @@ weights (k,), and the class-weighted solver's W and b, assembled by
 family: a vocabulary (feature → column), naive Bayes' log priors (k,)
 and log conditionals (k, d), and logistic regression's W (d, k),
 assembled by `fitted_text_predictor` and `fitted_newsgroups_predictor`.
+For the taggers: a CRF's tags and weights (`crf_tagger_from_jax`) and a
+perceptron's weight dicts (`perceptron_from_jax`).
 """
 
 from __future__ import annotations
@@ -228,3 +230,36 @@ def fitted_newsgroups_predictor(vocab, log_priors, log_cond,
     return fitted_text_predictor(
         vocab, naive_bayes_model(log_priors, log_cond, device),
         ngram_orders) >> MaxClassifier()
+
+
+def crf_tagger_from_jax(tags, emit, trans, start, n_buckets: int,
+                        device: DeviceLike = "cuda"):
+    """A `LinearChainCRFTagger` decoding with a JAX tagger's weights: its
+    sorted ``tags``, ``emit`` (n_buckets, T), ``trans`` (T, T) and
+    ``start`` (T,)."""
+    from .nodes.nlp.crf import LinearChainCRFTagger
+
+    tagger = LinearChainCRFTagger(n_buckets=int(n_buckets), device=device)
+    tagger.tags = [str(t) for t in tags]
+    tagger.emit, tagger.trans, tagger.start = (
+        to_tensor(a, tagger.device) for a in (emit, trans, start))
+    return tagger
+
+
+def perceptron_from_jax(tags, weights, trans=None):
+    """A perceptron tagger from a JAX one's ``tags`` and ``weights``
+    (feature → tag → weight): the `StructuredPerceptronTagger` where
+    ``trans`` ((prev, tag) → weight) is given, else the greedy
+    `AveragedPerceptronTagger`."""
+    from .nodes.nlp.perceptron_tagger import (
+        AveragedPerceptronTagger,
+        StructuredPerceptronTagger,
+    )
+
+    tagger = (AveragedPerceptronTagger() if trans is None
+              else StructuredPerceptronTagger())
+    tagger.tags = list(tags)
+    tagger.weights = {f: dict(ws) for f, ws in weights.items()}
+    if trans is not None:
+        tagger.trans = dict(trans)
+    return tagger

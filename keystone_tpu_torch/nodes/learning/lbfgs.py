@@ -258,12 +258,14 @@ class LBFGSResult:
 
 
 def lbfgs_minimize(objective, W: torch.Tensor, num_iters: int,
-                   memory_size: int = 10):
+                   memory_size: int = 10, stop=None):
     """``num_iters`` steps of optax's L-BFGS from ``W`` on
     ``objective``, a callable W → (value, gradient) of device tensors:
     (final W, the objective's value at the start of each step, each
-    step's line-search evaluations). No step stops early, as JAX's
-    `lax.scan` over ``optax.lbfgs`` does not."""
+    step's line-search evaluations). Without ``stop`` no step stops
+    early, as JAX's `lax.scan` over ``optax.lbfgs`` does not; ``stop``,
+    a predicate over the start values so far, ends the run after the
+    step where it first holds (a host loop's rule, as the CRF's)."""
     if memory_size < 1:
         raise ValueError("memory_size must be >= 1")
     # the history ring: slot (k − 1) mod m holds step k's differences
@@ -312,6 +314,8 @@ def lbfgs_minimize(objective, W: torch.Tensor, num_iters: int,
             value, grad = point.value, point.grad
         _STEPS.inc()
         record_dispatch()
+        if stop is not None and stop(history):
+            break
     return W, history, steps
 
 

@@ -1,9 +1,9 @@
-"""Text nodes (counterpart of `keystone_tpu/nodes/nlp`): host Python.
+"""Text nodes (counterpart of `keystone_tpu/nodes/nlp`): host Python,
+but for the linear-chain CRF (`crf.py`), which fits and decodes on its
+device."""
 
-The POS/NER side (`annotators.py`, `crf.py`, `perceptron_tagger.py`,
-`synthetic_corpus.py`) is not ported yet (ROADMAP queue 1, item 7).
-"""
-
+from .annotators import NER, CoreNLPFeatureExtractor, POSTagger
+from .crf import LinearChainCRFTagger
 from .indexers import BackoffIndexer, NaiveBitPackIndexer, NGramIndexer
 from .stupid_backoff import (
     PackedStupidBackoffEstimator,
@@ -11,6 +11,7 @@ from .stupid_backoff import (
     StupidBackoffEstimator,
     StupidBackoffModel,
 )
+from .synthetic_corpus import generate_ner_corpus, generate_pos_corpus
 from .text import (
     HashingTF,
     LowerCase,
@@ -24,9 +25,11 @@ from .text import (
     WordFrequencyEncoder,
 )
 
-__all__ = ["BackoffIndexer", "HashingTF", "LowerCase", "NGram",
+__all__ = ["BackoffIndexer", "CoreNLPFeatureExtractor", "HashingTF",
+           "LinearChainCRFTagger", "LowerCase", "NER", "NGram",
            "NGramIndexer", "NGramsCounts", "NGramsFeaturizer",
-           "NGramsHashingTF", "NaiveBitPackIndexer",
+           "NGramsHashingTF", "NaiveBitPackIndexer", "POSTagger",
            "PackedStupidBackoffEstimator", "PackedStupidBackoffModel",
            "StupidBackoffEstimator", "StupidBackoffModel", "TermFrequency",
-           "Tokenizer", "Trim", "WordFrequencyEncoder"]
+           "Tokenizer", "Trim", "WordFrequencyEncoder",
+           "generate_ner_corpus", "generate_pos_corpus"]

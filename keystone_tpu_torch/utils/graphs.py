@@ -13,13 +13,22 @@ chain and its pointers are fixed at capture), so a `CapturedLoop` owns
 its input buffer: a call copies the rows in, zeroes the padded tail,
 replays, and returns a copy of its rows of the output, which the next
 replay overwrites. Right before the capture the loop runs once eagerly
-on the capture stream: that loads the kernel libraries and builds the
+on a warm-up stream: that loads the kernel libraries and builds the
 launch plans, neither of which may happen during a capture. Where the
 capture is made for a call, that eager run is the call's own run and its
 rows are the call's result; a warm-up's eager run is on zero rows and
 counts nowhere. The capture runs in ``thread_local`` mode under one
 process-wide lock, so the executor's worker and warm-up threads may go
-on launching while it runs. The loop keeps the chain's launch plans and
+on launching while it runs.
+
+Nothing runs eagerly on the capture stream. cuBLAS works in a workspace
+kept per (thread's handle, stream), and a product captured on a stream
+reads and writes that stream's workspace at every replay. An eager
+product on the capture stream, on the thread that captured, wrote the
+same workspace while another thread replayed: a hot swap warms the new
+version on the thread that captured the old one while the dispatcher
+replays the old one, and a replay then answered wrong
+(`serving/capture_race.py`). The loop keeps the chain's launch plans and
 stages (``keep``) alive as long as its graph, since the graph reads
 their buffers; it holds no reference to its owner, so the graph is freed
 with the transformer that keeps it.
@@ -43,16 +52,17 @@ from ..telemetry.metrics import tallied, tally_all
 #: one capture at a time in the process
 _CAPTURE_LOCK = threading.Lock()
 
-#: device index → the stream the loops warm up and capture on
-_CAPTURE_STREAMS: Dict[int, torch.cuda.Stream] = {}
+#: (device index, role) → the stream the loops run eagerly on ("warm")
+#: or capture on ("capture")
+_SIDE_STREAMS: Dict[Tuple[int, str], torch.cuda.Stream] = {}
 
 
-def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+def _side_stream(device: torch.device, role: str) -> "torch.cuda.Stream":
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    stream = _CAPTURE_STREAMS.get(index)
+    stream = _SIDE_STREAMS.get((index, role))
     if stream is None:
-        stream = _CAPTURE_STREAMS[index] = torch.cuda.Stream(device)
+        stream = _SIDE_STREAMS[index, role] = torch.cuda.Stream(device)
     return stream
 
 
@@ -85,17 +95,21 @@ class CapturedLoop:
         current = torch.cuda.current_stream(device)
         if x is not None:
             self.static_in[:x.shape[0]].copy_(x)
-        # the capture stream is shared: even a wait or an event record on
-        # it from another thread would join that thread's capture
+        # the side streams are shared: even a wait or an event record on
+        # the capture stream from another thread would join that thread's
+        # capture
         with _CAPTURE_LOCK:
-            stream = _capture_stream(device)
-            stream.wait_stream(current)
-            with torch.cuda.stream(stream):
+            warm = _side_stream(device, "warm")
+            stream = _side_stream(device, "capture")
+            warm.wait_stream(current)
+            with torch.cuda.stream(warm):
                 if x is None:
                     with tallied({}):
                         fn(self.static_in)
                 else:
                     self.first = fn(self.static_in)[:x.shape[0]].clone()
+            stream.wait_stream(warm)
+            with torch.cuda.stream(stream):
                 self.graph = torch.cuda.CUDAGraph()
                 with tallied(sink):
                     self.graph.capture_begin(

@@ -69,7 +69,7 @@ import functools
 import logging
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -119,28 +119,62 @@ def drain_warmups(timeout: float = 60.0) -> None:
 
 
 def _warmable(dataset) -> bool:
-    """A dataset whose rows a warm-up can read its shapes from: a device
-    `Dataset` on the card."""
+    """A bound dataset that puts a plan on the card: a device `Dataset`
+    there, with rows."""
     data = getattr(dataset, "data", None)
     return (isinstance(data, torch.Tensor) and data.device.type == "cuda"
             and getattr(dataset, "count", 0) > 0)
 
 
-def _submit_warmup(op, dataset, full: bool = True,
+class WarmInput(NamedTuple):
+    """What a warm-up reads of a chain's input, from its propagated
+    spec: the rows' item shape and dtype, the device, the row count."""
+
+    item_shape: Tuple[int, ...]
+    dtype: torch.dtype
+    device: torch.device
+    count: int
+
+
+def _plan_device(graph: Graph) -> Optional[torch.device]:
+    """The card a plan's bound datasets live on (`_warmable`), else None:
+    warm-ups run on the card only."""
+    from .operators import DatasetOperator
+
+    for vid in sorted(graph.operators, key=lambda n: n.id):
+        op = graph.get_operator(vid)
+        if isinstance(op, DatasetOperator) and _warmable(op.dataset):
+            return op.dataset.data.device
+    return None
+
+
+def _warm_input(spec, device) -> Optional[WarmInput]:
+    """A chain input's `WarmInput` from its propagated spec, where that
+    is a dataset on the device with a known one-array element and rows
+    (JAX's ``data_spec``, `keystone_tpu/workflow/executor.py:541-547`)."""
+    from ..analysis.specs import DataSpec, ShapeDtype
+
+    if not (isinstance(spec, DataSpec) and spec.kind == "dataset"
+            and spec.on_device and spec.count
+            and isinstance(spec.element, ShapeDtype)):
+        return None
+    return WarmInput(tuple(spec.element.shape), spec.element.dtype, device,
+                     int(spec.count))
+
+
+def _submit_warmup(op, inp: WarmInput, full: bool = True,
                    counts: Tuple[int, ...] = ()) -> None:
-    """Warm ``op`` (a fused transformer) for ``dataset``'s rows on a
-    daemon thread, unless it is warm for them already: fully (its
-    `warmup`: a megafused chain's graph captured), or, where not
-    ``full``, by the plain chain's warm-up (one eager run on a zero row).
-    ``counts`` adds row counts to warm fully (a serving envelope's
-    ladder). A failure is counted in ``dispatch.warmup_failures`` and
-    logged."""
-    data = dataset.data
-    _submit_counts(op, tuple(data.shape[1:]), data.dtype, data.device,
-                   (dataset.count,), full)
+    """Warm ``op`` (a fused transformer) for ``inp``'s rows on a daemon
+    thread, unless it is warm for them already: fully (its `warmup`: a
+    megafused chain's graph captured), or, where not ``full``, by the
+    plain chain's warm-up (one eager run on a zero row). ``counts`` adds
+    row counts to warm fully (a serving envelope's ladder). A failure is
+    counted in ``dispatch.warmup_failures`` and logged."""
+    _submit_counts(op, inp.item_shape, inp.dtype, inp.device, (inp.count,),
+                   full)
     if counts:
-        _submit_counts(op, tuple(data.shape[1:]), data.dtype, data.device,
-                       counts, True)
+        _submit_counts(op, inp.item_shape, inp.dtype, inp.device, counts,
+                       True)
 
 
 def _submit_counts(op, item_shape, dtype, device, counts, full: bool = True,
@@ -312,51 +346,65 @@ class GraphExecutor:
         self._structure_checked = True
 
     def _warm_plan(self, graph: Graph) -> None:
-        """Warm the plan's fused chains once per executor: those over a
-        bound dataset on the card now, and those whose fits resolved
-        (saved state); chains whose fits have not run yet are parked
-        until they have."""
+        """Warm the plan's fused chains once per executor (`:449-572`):
+        those whose input the propagated specs (`analysis.propagate.
+        spec_pass`) show as a dataset on the card, whatever stage made
+        it, and those whose fits resolved (saved state); chains whose fits
+        have not run yet are parked until they have. A failure of the
+        scan is counted and never breaks execution."""
         if self._warmed:
             return
         self._warmed = True
         if not execution_config().aot_warmup:
             return
+        from ..analysis.propagate import spec_pass
         from ..nodes.util.fusion import FusedBatchTransformer
         from .fusion_rule import FusedChainOperator
-        from .operators import DatasetOperator, ExpressionOperator
+        from .operators import ExpressionOperator
 
-        serving_counts = tuple(_serving_warm_counts())
+        targets = []
         for vid in sorted(graph.operators, key=lambda n: n.id):
             op = graph.get_operator(vid)
             deps = graph.get_dependencies(vid)
-            if not deps or not isinstance(deps[-1], NodeId):
-                continue
-            data_op = graph.get_operator(deps[-1])
-            if not (isinstance(data_op, DatasetOperator)
-                    and _warmable(data_op.dataset)):
-                continue
             if isinstance(op, FusedBatchTransformer) and len(deps) == 1:
-                _submit_warmup(op, data_op.dataset, counts=serving_counts)
-            elif isinstance(op, FusedChainOperator):
-                fitted = []
-                for dep in deps[:-1]:
-                    eop = (graph.get_operator(dep)
-                           if isinstance(dep, NodeId) else None)
-                    if not (isinstance(eop, ExpressionOperator)
-                            and eop.expression.is_forced):
-                        fitted = None
-                        break
-                    fitted.append(eop.expression.get)
-                if fitted is None:
-                    with self._warm_lock:
-                        self._warm_pending.append(
-                            (op, tuple(deps[:-1]), data_op.dataset))
-                        self._warm_est_watch.update(deps[:-1])
-                    continue
-                self._warm_materialized(op, fitted, data_op.dataset)
+                targets.append((op, (), deps[0]))
+            elif isinstance(op, FusedChainOperator) and deps:
+                targets.append((op, tuple(deps[:-1]), deps[-1]))
+        device = _plan_device(graph) if targets else None
+        if device is None:
+            return
+        try:
+            specs, _ = spec_pass(graph, {})
+        except Exception as e:  # a warm-up never breaks a run
+            _WARMUP_FAILURES.inc()
+            logger.debug("warm-up scan failed: %s: %s", type(e).__name__, e)
+            return
+        serving_counts = tuple(_serving_warm_counts())
+        for op, est_deps, data_dep in targets:
+            inp = _warm_input(specs.get(data_dep), device)
+            if inp is None:
+                continue
+            if isinstance(op, FusedBatchTransformer):
+                _submit_warmup(op, inp, counts=serving_counts)
+                continue
+            fitted = []
+            for dep in est_deps:
+                eop = (graph.get_operator(dep)
+                       if isinstance(dep, NodeId) else None)
+                if not (isinstance(eop, ExpressionOperator)
+                        and eop.expression.is_forced):
+                    fitted = None
+                    break
+                fitted.append(eop.expression.get)
+            if fitted is None:
+                with self._warm_lock:
+                    self._warm_pending.append((op, est_deps, inp))
+                    self._warm_est_watch.update(est_deps)
+                continue
+            self._warm_materialized(op, fitted, inp)
 
     @staticmethod
-    def _warm_materialized(op, fitted, dataset) -> None:
+    def _warm_materialized(op, fitted, inp: WarmInput) -> None:
         from ..nodes.util.fusion import FusedBatchTransformer
 
         try:
@@ -365,7 +413,7 @@ class GraphExecutor:
             _WARMUP_FAILURES.inc()
             return
         if isinstance(mat, FusedBatchTransformer):
-            _submit_warmup(mat, dataset, full=False)
+            _submit_warmup(mat, inp, full=False)
 
     def _rearm_warmup(self) -> None:
         """Warm the parked chains whose fits have all resolved since."""
@@ -376,13 +424,13 @@ class GraphExecutor:
         with self._warm_lock:
             pending, self._warm_pending = self._warm_pending, []
         still = []
-        for op, est_deps, dataset in pending:
+        for op, est_deps, inp in pending:
             exprs = [self._memo.get(d) for d in est_deps]
             if all(isinstance(e, TransformerExpression) and e.is_forced
                    for e in exprs):
-                self._warm_materialized(op, [e.get for e in exprs], dataset)
+                self._warm_materialized(op, [e.get for e in exprs], inp)
             else:
-                still.append((op, est_deps, dataset))
+                still.append((op, est_deps, inp))
         if still:
             with self._warm_lock:
                 self._warm_pending.extend(still)

@@ -20,7 +20,9 @@ import torch
 from keystone_tpu.data.dataset import Dataset as JaxDataset
 from keystone_tpu.nodes.stats import (
     LinearRectifier as JaxRectifier,
+    NormalizeRows as JaxNormalizeRows,
     RandomSignNode as JaxSign,
+    SignedHellingerMapper as JaxHellinger,
 )
 from keystone_tpu.nodes.util import VectorCombiner as JaxCombiner
 from keystone_tpu.workflow import Pipeline as JaxPipeline
@@ -581,6 +583,75 @@ def test_warmup_rearms_after_fit_resolution(monkeypatch):
         [v for v in ex.optimized_graph.operators
          if ex.optimized_graph.get_operator(v) is chain[0]][0])[:-1]]
     assert chain[0].materialize(fits) is op  # the force's own transformer
+
+
+class _JaxSortHead(JaxTransformer):
+    """An unfused stage that changes the item shape: the first four
+    columns, sorted."""
+
+    def apply(self, x):
+        import jax.numpy as jnp
+
+        return jnp.sort(x[:4], axis=-1)
+
+    def apply_batch(self, data):
+        import jax.numpy as jnp
+
+        return data.map_batches(lambda x: jnp.sort(x[:, :4], axis=-1),
+                                jitted=False)
+
+
+class _SortHead(Transformer):
+    def batch_fn(self):
+        return lambda x: torch.sort(x[:, :4], dim=-1).values
+
+
+@pytest.mark.parametrize("head", [False, True],
+                         ids=["over_the_dataset", "after_an_unfused_stage"])
+def test_warm_plan_takes_shapes_from_specs_as_jax(monkeypatch, head):
+    """With ``aot_warmup`` on, the port warms the chains JAX's
+    `_warm_plan` warms, at the same item shapes and counts, reading them
+    from the propagated specs: also a fused chain whose input an unfused
+    stage makes (its item shape is the stage's output, not the
+    dataset's)."""
+    import keystone_tpu.workflow.executor as jax_executor
+    from keystone_tpu.workflow.env import config_override as jax_config
+
+    X = np.abs(np.random.default_rng(0).normal(size=(20, 6))).astype(
+        np.float32) + 0.1
+    jax_warmed, warmed = [], []
+
+    def jax_submit(op, element, counts):
+        counts = (counts,) if isinstance(counts, int) else tuple(counts)
+        jax_warmed.append((op.label, tuple(element.shape), counts))
+
+    def submit(op, inp, full=True, counts=()):
+        warmed.append((op.label, inp.item_shape, (inp.count, *counts)))
+
+    monkeypatch.setattr(jax_executor, "_submit_warmup", jax_submit)
+    monkeypatch.setattr(executor_mod, "_warmable", lambda ds: True)
+    monkeypatch.setattr(executor_mod, "_submit_warmup", submit)
+    jax_chain = JaxNormalizeRows() >> JaxHellinger()
+    chain = NormalizeRows() >> SignedHellingerMapper()
+    if head:
+        jax_chain = _JaxSortHead() >> jax_chain
+        chain = _SortHead() >> chain
+    with jax_config(aot_warmup=True):
+        jax_chain(JaxDataset(X)).get()
+        jax_executor.drain_warmups()
+    with config_override(aot_warmup=True):
+        res = chain(Dataset(X, device=CPU))
+        res.get()
+        executor_mod.drain_warmups()
+    assert warmed == jax_warmed
+    assert warmed == [("Fused[NormalizeRows >> SignedHellingerMapper]",
+                       (4,) if head else (6,), (20,))]
+    # off by default: nothing warmed, no spec pass
+    warmed.clear()
+    PipelineEnv.reset()
+    with config_override(aot_warmup=False):
+        chain(Dataset(X, device=CPU)).get()
+    assert warmed == []
 
 
 def test_warmup_runs_uncounted_and_failures_are_counted(monkeypatch):

@@ -460,3 +460,15 @@ def test_swap_check_holds_every_answer_to_a_version():
     assert report["dispatches"] > 0
     assert report["neither_count"] == 0, report["neither"]
     assert report["errors"] == []
+
+
+def test_capture_race_needs_the_card():
+    """The capture race runs CUDA graphs: on the CPU it refuses, and
+    without a card its default device raises."""
+    from keystone_tpu_torch.serving.capture_race import capture_race
+
+    with pytest.raises(ValueError, match="needs the card"):
+        capture_race(0.0, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            capture_race(0.0)
