@@ -371,6 +371,21 @@ Phases, each printed on a line of its own:
               `CoreNLPFeatureExtractor` over the card's NER on 16
               held-out sentences equal to the CPU path's n-grams; no
               kernel launched.
+31. parallel - the data axis (`keystone_tpu_torch/parallel/`): a
+              one-process RandomPatchCifar (256 filters, BCD 4096) staged
+              and `run_fused` on the slice's arrays, then an NCCL group of
+              world size 1 (`init_multihost` on a free localhost port,
+              a timeout) and the same arrays placed on
+              `global_data_mesh()`: the pipeline staged and `run_fused`
+              on the mesh. Held: predictions equal to the one-process
+              run's on every test row (a difference is reported with its
+              count of rows), accuracies equal, `run_fused`'s W and b
+              equal bit for bit, K1 30 launches in each run and on the
+              mesh's rows against its plain version at K1_TOL; the
+              collectives by kind (calls, bytes, seconds on the stream,
+              share of `train_seconds`); a `format="dcp"` save and load
+              of the fitted pipeline (seconds, bytes) predicting alike;
+              the ``p0`` dispatch counter. The group is destroyed after.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The process-wide prefix table (`PipelineEnv`) is reset before each
@@ -684,6 +699,8 @@ NLP_NLL_RTOL = 1e-3
 #: there, so float32 figures are printed, not held
 NLP_VALUE_RTOL, NLP_GRAD_RTOL = 1e-5, 1e-6
 NLP_PERCEPTRON_SENTENCES, NLP_PERCEPTRON_ITERS = 600, 3
+# phase 31: a collective's wait for its peers (one rank: none)
+PARALLEL_TIMEOUT_S = 120.0
 NLP_ANNOTATED = 16        # held-out NER sentences through the extractor
 
 
@@ -3768,6 +3785,208 @@ def nlp_phase(dev, card) -> dict:
     return out
 
 
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _collective_spans(tracer, seconds: float) -> dict:
+    """``{kind: {"calls", "bytes", "seconds", "share_of_train_seconds"}}``
+    of the ``collective`` spans of a synchronizing tracer's run of
+    ``seconds``."""
+    out = {}
+    for rec in tracer.spans:
+        if rec.cat == "collective":
+            row = out.setdefault(rec.name, {"calls": 0, "bytes": 0,
+                                            "seconds": 0.0})
+            row["calls"] += 1
+            row["bytes"] += rec.args["bytes"]
+            row["seconds"] += rec.dur
+    for row in out.values():
+        row["share_of_train_seconds"] = row["seconds"] / seconds
+    return out
+
+
+def parallel_phase(dev, train, test, config, card) -> dict:
+    """31. parallel: RandomPatchCifar through `global_data_mesh()` of an
+    NCCL group of world size 1, staged and fused, held to a one-process
+    run of the same arrays made in this phase."""
+    import socket
+
+    import torch.distributed as dist
+
+    from keystone_tpu_torch import parallel, telemetry
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.loaders.csv_loader import LabeledData
+    from keystone_tpu_torch.nodes.images.core import Convolver
+    from keystone_tpu_torch.ops import kernels
+    from keystone_tpu_torch.pipelines.random_patch_cifar import (
+        build_pipeline,
+        learn_filters,
+        run_fused,
+    )
+    from keystone_tpu_torch.workflow import PipelineEnv
+    from keystone_tpu_torch.workflow.pipeline import FittedPipeline
+
+    phase_t0 = time.perf_counter()
+    evaluator = MulticlassClassifierEvaluator(config.num_classes)
+    # the one-process run on the same arrays, before any group exists
+    PipelineEnv.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one = build_pipeline(train, config)
+    evaluator(one(train.data), train.labels)
+    torch.cuda.synchronize()
+    one_seconds = time.perf_counter() - t0
+    one_preds = one(test.data).get()
+    one_acc = evaluator(one_preds, test.labels).accuracy
+    one_fused_seconds, one_fused = timed_s(
+        lambda: run_fused(train, test, config))
+    del one
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    t0 = time.perf_counter()
+    world = parallel.init_multihost(f"127.0.0.1:{port}", 1, 0, device="cuda",
+                                    timeout=PARALLEL_TIMEOUT_S)
+    init_seconds = time.perf_counter() - t0
+    out = dict(world=world, backend=dist.get_backend(),
+               init_seconds=init_seconds)
+    try:
+        mesh = parallel.global_data_mesh()
+        check(out["backend"] == "nccl" and parallel.n_data_shards(mesh) == 1,
+              f"parallel: backend {out['backend']}, "
+              f"{parallel.n_data_shards(mesh)} data shards")
+
+        def place(split):
+            return LabeledData(
+                labels=Dataset(split.labels.array, split.labels.count,
+                               mesh=mesh),
+                data=Dataset(split.data.array, split.data.count, mesh=mesh))
+
+        mtrain, mtest = place(train), place(test)
+        check(mtrain.data.padded_count == mtrain.data.count
+              and not mtrain.data.has_padding,
+              "parallel: one rank pads rows")
+
+        # staged: the pipeline through the executor on the mesh
+        PipelineEnv.reset()
+        kernels.reset_launches()
+        with telemetry.metrics_delta() as delta, \
+                telemetry.trace_run(synchronize=True) as tracer:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predictor = build_pipeline(mtrain, config)
+            train_metrics = evaluator(predictor(mtrain.data), mtrain.labels)
+            torch.cuda.synchronize()
+            train_seconds = time.perf_counter() - t0
+            preds = predictor(mtest.data).get()
+            test_metrics = evaluator(preds, mtest.labels)
+        k1 = kernels.conv_rectify_pool.launches
+        colls = _collective_spans(tracer, train_seconds)
+        differ = int((preds.array != one_preds.array).sum())
+        out["staged"] = dict(
+            train_seconds=train_seconds,
+            one_process_train_seconds=one_seconds,
+            train_error=train_metrics.error,
+            test_accuracy=test_metrics.accuracy,
+            one_process_test_accuracy=one_acc, rows_differing=differ,
+            k1_launches=k1, collectives=colls,
+            counters={k: v for k, v in delta.counters().items()
+                      if k.startswith("collectives.")})
+        check(differ == 0, f"parallel staged: {differ} of {test.data.count} "
+              "test predictions differ from the one-process run's")
+        check(test_metrics.accuracy == one_acc,
+              f"parallel staged: test accuracy {test_metrics.accuracy} != "
+              f"the one-process run's {one_acc}")
+        check(k1 == 30, f"parallel staged: K1 launched {k1} times, not 30")
+        check(colls.get("all_reduce", {}).get("calls", 0) > 0
+              and colls.get("broadcast", {}).get("calls", 0) > 0,
+              f"parallel staged: collectives {sorted(colls)}")
+
+        # K1 on the mesh path's rows against its plain version
+        filters, whitener = learn_filters(mtrain.data, config)
+        cv = Convolver(filters, 32, 32, 3, whitener=whitener,
+                       normalize_patches=True)
+        x = mtrain.data.array[:HEADLINE_N] / 255.0
+        args = (cv.colsum.contiguous(), cv.bias.contiguous(), config.alpha,
+                0.0, config.pool_size, config.pool_stride, True)
+        before = kernels.conv_rectify_pool.launches
+        got = kernels.conv_rectify_pool(
+            x, kernels.hwio_to_cmajor(cv.kernel).contiguous(), *args,
+            cv.patch)
+        torch.cuda.synchronize()
+        kernels.conv_rectify_pool.launches = before  # a check, not the path
+        want = kernels.conv_rectify_pool_reference(x, cv.kernel, *args)
+        err, rel = rel_err(got, want)
+        out["k1_check"] = dict(n=HEADLINE_N, max_abs_err=err, rel_err=rel,
+                               tolerance_rel=K1_TOL)
+        check(rel <= K1_TOL, f"parallel: K1 on the mesh's rows, relative "
+              f"error {rel} > {K1_TOL}")
+        del x, got, want
+
+        # fused: `run_fused` on the mesh
+        PipelineEnv.reset()
+        kernels.reset_launches()
+        with telemetry.trace_run(synchronize=True) as ftracer:
+            fused_seconds, fused = timed_s(
+                lambda: run_fused(mtrain, mtest, config))
+        k1_fused = kernels.conv_rectify_pool.launches
+        fcolls = _collective_spans(ftracer, fused_seconds)
+        w_equal = (torch.equal(fused["W"], one_fused["W"])
+                   and torch.equal(fused["b"], one_fused["b"]))
+        out["fused"] = dict(
+            train_seconds=fused_seconds,
+            one_process_train_seconds=one_fused_seconds,
+            test_accuracy=fused["test_accuracy"],
+            one_process_test_accuracy=one_fused["test_accuracy"],
+            W_b_bit_equal=w_equal, k1_launches=k1_fused,
+            collectives=fcolls, stage_ms=fused["stage_ms"],
+            one_process_stage_ms=one_fused["stage_ms"])
+        check(fused["test_accuracy"] == one_fused["test_accuracy"],
+              f"parallel fused: test accuracy {fused['test_accuracy']} != "
+              f"the one-process run's {one_fused['test_accuracy']}")
+        check(w_equal, "parallel fused: W, b differ from the one-process "
+              "run's")
+        check(k1_fused == 30, f"parallel fused: K1 launched {k1_fused} "
+              "times, not 30")
+
+        # a distributed checkpoint of the fitted pipeline
+        PipelineEnv.reset()
+        fitted = build_pipeline(mtrain, config).fit()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "random_patch_cifar")
+            save_seconds, _ = timed_s(lambda: fitted.save(path,
+                                                          format="dcp"))
+            ckpt_bytes = _dir_bytes(path)
+            load_seconds, loaded = timed_s(
+                lambda: FittedPipeline.load(path, device="cuda"))
+        before_preds = fitted.apply(mtest.data).array
+        after_preds = loaded.apply(mtest.data).array
+        ckpt_equal = torch.equal(before_preds, after_preds)
+        out["checkpoint"] = dict(save_seconds=save_seconds,
+                                 load_seconds=load_seconds,
+                                 bytes=ckpt_bytes,
+                                 predictions_equal=ckpt_equal)
+        check(ckpt_equal, "parallel: the loaded checkpoint predicts "
+              "otherwise")
+        p0 = telemetry.counter("dispatch.programs_executed.p0").value
+        out["p0_programs"] = p0
+        check(p0 > 0, "parallel: no p0 dispatch counter")
+        del fitted, loaded, predictor
+    finally:
+        parallel.reset_default_mesh()
+        dist.destroy_process_group()
+        PipelineEnv.reset()
+    out["phase_seconds"] = time.perf_counter() - phase_t0
+    phase("parallel", **out, card=card)
+    return dict(k1=out["staged"]["k1_launches"] + out["fused"]["k1_launches"],
+                k1_check=out["k1_check"])
+
+
 def main() -> int:
     global SWAP_REPEATS
     import argparse
@@ -4911,6 +5130,10 @@ def main() -> int:
     nlp_phase(dev, card)
     torch.cuda.empty_cache()
 
+    # ---- 31. the data axis: an NCCL group of one rank ------------------------
+    par = parallel_phase(dev, train, test, config, card)
+    torch.cuda.empty_cache()
+
     record = {"kernels": [
         dict(name="conv_rectify_pool", route="cuda",
              source="keystone_tpu_torch/csrc/conv_rectify_pool.cu",
@@ -4929,7 +5152,9 @@ def main() -> int:
                  random_cifar=rc_k1, augmented=ag_k1,
                  augmented_kernel=ak_k1,
                  planners=planners["random_patch_cifar"]["k1"],
-                 out_of_core=ooc["k1"], measurement=measurement["k1"]),
+                 out_of_core=ooc["k1"], measurement=measurement["k1"],
+                 parallel=par["k1"]),
+             parallel_check=par["k1_check"],
              ptxas=regs["conv_rectify_pool"]),
         dict(name="rectify_pool", route="cuda",
              source="keystone_tpu_torch/csrc/rectify_pool.cu",

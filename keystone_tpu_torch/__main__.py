@@ -13,8 +13,15 @@ has:
 Names take the reference's qualified form or the bare class name; the
 reference apps' camelCase flags (``--numFFTs``) are accepted. The port
 has every pipeline the JAX package registers, so `NOT_PORTED` is empty; a
-name listed there, and the JAX launcher's multi-host flags, stop the
-launcher with a message: nothing falls back.
+name listed there stops the launcher with a message: nothing falls back.
+
+The multi-host flags (`_pop_multihost_flags`, JAX's `:36-72`) join a
+process group before the pipeline runs, one process per card (NCCL;
+gloo with the pipeline's ``--device cpu``); the pipeline then fits
+data-parallel over every rank:
+
+    python -m keystone_tpu_torch --coordinator host:port \
+        --num-processes 4 --process-id $I RandomPatchCifar ...
 """
 
 from __future__ import annotations
@@ -64,6 +71,48 @@ def _short(name: str) -> str:
     return name.rsplit(".", 1)[-1]
 
 
+def _pop_multihost_flags(argv):
+    """The launcher-level multi-host flags, anywhere on the command line
+    (JAX `:36-72`): ``--coordinator`` joins the job by `init_multihost`,
+    on the device the pipeline's ``--device`` names (default the card).
+    Returns the rest of ``argv``."""
+    opts, rest = {}, []
+    it = iter(argv)
+    for a in it:
+        flag, eq, inline = a.partition("=")
+        if flag in MULTIHOST_FLAGS:
+            val = inline if eq else next(it, None)
+            if not val:
+                raise SystemExit(f"{flag} requires a value")
+            opts[flag.lstrip("-").replace("-", "_")] = val
+        else:
+            rest.append(a)
+    if opts:
+        if "coordinator" not in opts:
+            raise SystemExit(
+                "--num-processes/--process-id require --coordinator "
+                "(single-host runs need none of these flags)"
+            )
+        if "num_processes" not in opts or "process_id" not in opts:
+            raise SystemExit(
+                "--coordinator: a multi-host run needs --num-processes and "
+                "--process-id (nothing on the machine names them)")
+        from .parallel import init_multihost
+
+        device = "cuda"
+        for i, a in enumerate(rest):
+            flag, eq, inline = a.partition("=")
+            if flag == "--device":
+                device = inline if eq else rest[i + 1]
+        init_multihost(
+            coordinator_address=opts["coordinator"],
+            num_processes=int(opts["num_processes"]),
+            process_id=int(opts["process_id"]),
+            device=device,
+        )
+    return rest
+
+
 def _normalize_flags(argv):
     """The reference apps' scopt camelCase flags, as the JAX launcher
     takes them: ``--numFFTs 4`` → ``--num-ffts 4``."""
@@ -85,10 +134,7 @@ def main(argv=None) -> int:
         for name in sorted(REGISTRY):
             print(f"  {name}")
         return 0
-    for a in argv:
-        if a.partition("=")[0] in MULTIHOST_FLAGS:
-            raise SystemExit(f"{a.partition('=')[0]}: multi-host runs are "
-                             "not ported yet; the port runs on one card")
+    argv = _pop_multihost_flags(argv)
     name, rest = argv[0], _normalize_flags(argv[1:])
     entry = REGISTRY.get(name) or {
         _short(k): v for k, v in REGISTRY.items()}.get(name)

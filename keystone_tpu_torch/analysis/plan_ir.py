@@ -783,7 +783,7 @@ def plan_unified(
     if device_count(mesh) > 1:
         raise NotImplementedError(
             "the unified planner plans one card; the multi-card menu "
-            "comes with multi-GPU (ROADMAP queue 1, item 10)")
+            "comes with the sharding planner (ROADMAP queue 1, item 4)")
     if weights is not None and machine is None:
         machine = machine_from_weights(weights)
     machine = machine or default_machine()

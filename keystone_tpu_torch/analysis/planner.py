@@ -5,11 +5,12 @@ Counterpart of `keystone_tpu/analysis/planner.py:78-91, 160-290,
 shards each splits it into, and the collective each family flip costs.
 The unified planner (`plan_ir.py`) reads them. On one card every family
 is the whole card: each family has one shard, every boundary collective
-moves nothing (JAX's `parallel/mesh.py::collective_cost` prices
-``shards <= 1`` at zero, host gathers included) and `plan_sharding`
-has nothing to decide, as JAX's returns None on a one-device mesh. The
-multi-card menu (the data and model axes, the KP6xx formulas over
-NVLink) extends this module with multi-GPU (ROADMAP queue 1, item 10).
+moves nothing (`parallel/mesh.py::collective_cost`, the one formula,
+as JAX's, prices ``shards <= 1`` at zero, host gathers included) and
+`plan_sharding` has nothing to decide, as JAX's returns None on a
+one-device mesh. The multi-card menu (the data and model axes, the
+KP6xx formulas over NVLink) extends this module with the sharding
+planner (ROADMAP queue 1, item 4).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
 
+from ..parallel.mesh import CollectiveCost, collective_cost  # noqa: F401
 from ..workflow.graph import Graph, GraphId, NodeId
 from .diagnostics import Diagnostic, Severity
 from .memory import MemoryEstimate, _fmt_bytes
@@ -56,30 +58,6 @@ def family_shards(family: Optional[str],
         FAMILY_REPLICATED: 1,
         None: 1,
     }[family]
-
-
-@dataclass(frozen=True)
-class CollectiveCost:
-    """One boundary collective: its kind, bytes moved and seconds."""
-
-    kind: str
-    bytes_moved: int
-    seconds: float
-
-
-def collective_cost(kind: str, nbytes: Optional[int],
-                    shards: int = 1) -> CollectiveCost:
-    """A boundary collective's price (JAX `parallel/mesh.py:213-242`):
-    a value that lives whole on one card moves nothing. A price over
-    more than one shard needs the card-to-card rate, which comes with
-    multi-GPU."""
-    if kind not in ("all_to_all", "all_gather", "broadcast"):
-        raise ValueError(f"unknown collective kind {kind!r}")
-    if not nbytes or shards <= 1:
-        return CollectiveCost(kind, 0, 0.0)
-    raise NotImplementedError(
-        "collectives across cards are priced with multi-GPU (ROADMAP "
-        "queue 1, item 10)")
 
 
 def transition_cost(u_fam: Optional[str], v_fam: Optional[str],
@@ -218,5 +196,5 @@ def plan_sharding(graph: Graph, specs: Dict[GraphId, Any], *,
     if device_count(layout) <= 1:
         return None
     raise NotImplementedError(
-        "placement across cards comes with multi-GPU (ROADMAP queue 1, "
-        "item 10)")
+        "placement across cards comes with the sharding planner (ROADMAP "
+        "queue 1, item 4)")

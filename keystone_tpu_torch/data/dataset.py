@@ -1,12 +1,22 @@
 """Device-resident and host-list dataset handles.
 
-Counterpart of `keystone_tpu/data/dataset.py::Dataset` (`:95-276`),
-single-device part only, of `HostDataset` (`:278-341`), of the
-out-of-core tier's `SpilledDataset` and `OutOfCoreDataset`
-(`:344-591`) and of `zip_datasets` (`:592-610`). The JAX `Dataset` pads its leading axis to a
-multiple of the mesh's data shards; with one device and no mesh there is
-nothing to pad, so ``padded_count == count`` and ``mask`` is all ones.
-Both stay for API parity.
+Counterpart of `keystone_tpu/data/dataset.py::Dataset` (`:95-276`), of
+`HostDataset` (`:278-341`), of the out-of-core tier's `SpilledDataset`
+and `OutOfCoreDataset` (`:344-591`) and of `zip_datasets` (`:592-610`).
+
+A `Dataset` placed on a mesh (``mesh=``, `parallel/mesh.py`) follows
+JAX's placement along ``data`` (`:100-130, 146-180, 214-230`): the
+global count is padded to a multiple of the data shards
+(``-(-count // shards) * shards``), this rank holds its contiguous
+``per_shard_count`` rows as a plain local tensor (``data``, ``array``),
+the padded rows are zeros and ``mask`` marks this rank's valid rows.
+Built from a whole array (`from_numpy`, or a tensor every rank holds),
+it keeps this rank's slice, so every rank can make the same array from
+the same seed, as JAX does. `numpy`, `gather` and `take` all-gather the
+rows (a collective: every rank calls them) and drop the padding;
+`map_batches` and `with_data` keep the placement. Without a mesh (one
+process, the default: the port places rows only where asked) nothing is
+padded, ``padded_count == count`` and ``mask`` is all ones.
 
 A `HostDataset` is a list of items: host objects (labeled images, numpy
 arrays of any shape) or tensors. A batched stage over host items
@@ -30,6 +40,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..parallel.mesh import data_rank, n_data_shards
 from ..telemetry.instrument import record_dispatch
 from ..utils.batching import (
     USE_CONFIG_CHUNK,
@@ -39,16 +50,34 @@ from ..utils.batching import (
 )
 
 
+def mask_rows(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """``x`` with the rows ``mask`` marks invalid set to zero."""
+    return x * mask.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
+
+
 class Dataset:
-    """A tensor whose leading axis is the examples, on one device."""
+    """A tensor whose leading axis is the examples: on one device, or
+    this rank's rows of a mesh's ``data`` axis."""
 
     is_dataset = True
 
     def __init__(self, data, count: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None,
+                 placed: bool = False):
         """``data``: a tensor or an array. ``device``: where the rows
         live; None keeps a tensor where it is and puts anything else on
-        the card."""
+        the card (on a mesh: on the mesh's device). ``mesh``: place the
+        rows over its data axis; ``data`` is then the whole array, or,
+        with ``placed``, already this rank's padded rows of a ``count``
+        row array."""
+        self.mesh = mesh
+        if mesh is not None and device is None and not isinstance(
+                data, torch.Tensor):
+            device = mesh.device_type
+        if mesh is not None and not placed:
+            data = self._local_slice(data, count, mesh)
+            count = data[1]
+            data = data[0]
         if isinstance(data, torch.Tensor):
             dev = resolve_device(data.device if device is None else device)
             data = data.to(dev)
@@ -56,10 +85,47 @@ class Dataset:
             dev = resolve_device(device)
             data = torch.as_tensor(np.asarray(data), device=dev)
         n = data.shape[0]
+        if mesh is not None:
+            shards = n_data_shards(mesh)
+            self.count = n * shards if count is None else int(count)
+            if -(-self.count // shards) * shards != n * shards:
+                raise ValueError(
+                    f"{n} rows a shard do not hold {self.count} rows "
+                    f"padded over {shards} shards")
+            self.data = data
+            return
         self.count = n if count is None else int(count)
         if self.count > n:
             raise ValueError("count exceeds data length")
         self.data = data[: self.count]
+
+    @staticmethod
+    def _local_slice(data, count, mesh):
+        """(this rank's padded rows of the whole ``data``, count): sliced
+        before any copy, so a host array moves only this rank's rows."""
+        n = data.shape[0]
+        count = n if count is None else int(count)
+        if count > n:
+            raise ValueError("count exceeds data length")
+        shards = n_data_shards(mesh)
+        per = -(-count // shards) if count else 1
+        lo = min(data_rank(mesh) * per, count)
+        hi = min(lo + per, count)
+        rows = data[lo:hi]
+        if hi - lo < per:
+            pad = (per - (hi - lo),) + tuple(rows.shape[1:])
+            if isinstance(rows, torch.Tensor):
+                rows = torch.cat([rows, rows.new_zeros(pad)])
+            else:
+                rows = np.asarray(rows)
+                rows = np.concatenate([rows, np.zeros(pad, rows.dtype)])
+        return rows, count
+
+    @staticmethod
+    def from_numpy(x, count: Optional[int] = None, mesh=None) -> "Dataset":
+        """A dataset of the host array ``x`` (on a mesh: this rank's rows
+        of it)."""
+        return Dataset(np.asarray(x), count=count, mesh=mesh)
 
     @property
     def array(self) -> torch.Tensor:
@@ -70,33 +136,72 @@ class Dataset:
         return self.data.device
 
     @property
+    def _rows(self) -> int:
+        """Rows held here (this rank's, padding included)."""
+        return self.data[0].shape[0] if isinstance(self.data, tuple) \
+            else self.data.shape[0]
+
+    @property
+    def n_shards(self) -> int:
+        return n_data_shards(self.mesh) if self.mesh is not None else 1
+
+    @property
     def padded_count(self) -> int:
-        return self.data.shape[0]
+        return self._rows * self.n_shards
+
+    @property
+    def _first_row(self) -> int:
+        """Global index of this rank's first row."""
+        return data_rank(self.mesh) * self._rows if self.mesh is not None \
+            else 0
+
+    @property
+    def has_padding(self) -> bool:
+        """Whether rows held here include padded ones."""
+        return self._first_row + self._rows > self.count
 
     @property
     def mask(self) -> torch.Tensor:
-        """Validity mask over the rows: all ones on one device."""
-        return torch.ones(self.padded_count, dtype=torch.bool,
-                          device=self.device)
+        """Validity mask over the rows held here: all ones on one
+        device; on a mesh, False on this rank's padded rows."""
+        if not self.has_padding:
+            return torch.ones(self._rows, dtype=torch.bool,
+                              device=self.device)
+        valid = self.count - self._first_row
+        return torch.arange(self._rows, device=self.device) < valid
+
+    def gather(self) -> torch.Tensor:
+        """The ``count`` rows of the whole dataset on this device (≈
+        `collect` to every executor); on a mesh, one all-gather."""
+        if self.mesh is None:
+            return self.data
+        from ..parallel.collectives import all_gather_rows
+
+        return all_gather_rows(self.data, self.mesh)[: self.count]
 
     def numpy(self) -> np.ndarray:
         """Host copy (≈ `collect`)."""
-        return self.data.detach().cpu().numpy()
+        return self.gather().detach().cpu().numpy()
 
     def __len__(self) -> int:
         return self.count
 
     def map_batches(self, fn: Callable[[torch.Tensor], torch.Tensor],
                     count: Optional[int] = None) -> "Dataset":
-        """Apply a whole-batch function to the rows: one batched call,
-        counted in ``dispatch.programs_executed`` (`:195-203`)."""
+        """Apply a whole-batch function to the rows held here: one
+        batched call, counted in ``dispatch.programs_executed``
+        (`:195-203`)."""
         record_dispatch()
         return self.with_data(fn(self.data), count=count)
 
     def with_data(self, data: torch.Tensor,
                   count: Optional[int] = None) -> "Dataset":
-        """New Dataset over ``data`` with this one's count."""
-        return Dataset(data, count=self.count if count is None else count)
+        """New Dataset over ``data`` (rows in this one's placement) with
+        this one's count."""
+        count = self.count if count is None else count
+        if self.mesh is not None:
+            return Dataset(data, count=count, mesh=self.mesh, placed=True)
+        return Dataset(data, count=count)
 
     def sync(self) -> "Dataset":
         """Wait until the device has produced the rows (a timing fence)."""
@@ -112,23 +217,38 @@ class Dataset:
     @property
     def per_shard_count(self) -> int:
         """Examples a shard (≈ `numPerPartition`, WorkflowUtils.scala:
-        12-17; `:150`): one card is one shard."""
-        return self.padded_count
+        12-17; `:150`): the rows a rank holds; one card is one shard."""
+        return self._rows
 
     def sample_per_shard(self, k: int, seed: int = 0) -> "Dataset":
-        """≤ k rows at evenly spread indices (≈ SampleCollector's
-        per-partition samples, NodeOptimizationRule.scala:145-197;
-        `:262-267`)."""
-        m = min(self.count, k)
+        """≤ k rows a shard at evenly spread global indices (≈
+        SampleCollector's per-partition samples,
+        NodeOptimizationRule.scala:145-197; `:262-267`); on a mesh the
+        same rows on every rank (each rank's rows of the sample, summed
+        by one all-reduce), as one process's `Dataset`."""
+        m = min(self.count, k * self.n_shards)
         idx = np.linspace(0, self.count - 1, num=m, dtype=np.int64)
-        return Dataset(self.data[torch.as_tensor(idx, device=self.device)])
+        if self.mesh is None:
+            return Dataset(self.data[torch.as_tensor(idx,
+                                                     device=self.device)])
+        from ..parallel.collectives import all_reduce
+
+        lo = self._first_row
+        mine = np.nonzero((idx >= lo) & (idx < lo + self._rows))[0]
+        out = self.data.new_zeros((m,) + tuple(self.data.shape[1:]))
+        out[torch.as_tensor(mine, device=self.device)] = self.data[
+            torch.as_tensor(idx[mine] - lo, device=self.device)]
+        return Dataset(all_reduce(out, self.mesh))
 
     def take(self, k: int) -> np.ndarray:
+        if self.mesh is not None:
+            return self.numpy()[:k]
         return self.data[: min(k, self.count)].detach().cpu().numpy()
 
     def __repr__(self) -> str:
+        shards = f", shards={self.n_shards}" if self.mesh is not None else ""
         return (f"Dataset(count={self.count}, shape={tuple(self.data.shape)}, "
-                f"device={self.device})")
+                f"device={self.device}{shards})")
 
 
 class ZippedDataset(Dataset):
@@ -136,17 +256,15 @@ class ZippedDataset(Dataset):
     their row tensors, in order (the JAX package's `Dataset` over a
     tuple)."""
 
-    def __init__(self, parts: Sequence[torch.Tensor], count: int):
+    def __init__(self, parts: Sequence[torch.Tensor], count: int,
+                 mesh=None):
         self.data = tuple(parts)
         self.count = count
+        self.mesh = mesh
 
     @property
     def device(self) -> torch.device:
         return self.data[0].device
-
-    @property
-    def padded_count(self) -> int:
-        return self.data[0].shape[0]
 
     def __repr__(self) -> str:
         shapes = [tuple(p.shape) for p in self.data]
@@ -654,4 +772,7 @@ def zip_datasets(datasets: Sequence):
     counts = {d.count for d in datasets}
     if len(counts) != 1:
         raise ValueError(f"zip of misaligned datasets: counts {counts}")
-    return ZippedDataset([d.data for d in datasets], datasets[0].count)
+    if any(d.mesh != datasets[0].mesh for d in datasets):
+        raise ValueError("zip of datasets placed on different meshes")
+    return ZippedDataset([d.data for d in datasets], datasets[0].count,
+                         datasets[0].mesh)

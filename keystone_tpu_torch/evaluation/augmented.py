@@ -55,6 +55,9 @@ class AugmentedExamplesEvaluator:
         """ids: the original example's id for each augmented row (a
         sequence, an array or a tensor); scores: (n, k) class scores a
         row; actuals: each row's true label, one label an id."""
+        from ..parallel.mesh import require_mesh_aware
+
+        require_mesh_aware(self, (ids, scores, actuals))
         scores = _rows(scores)
         dev = scores.device
         actuals = _rows(actuals).to(dev).long().reshape(-1)

@@ -64,6 +64,9 @@ def _host_bools(x) -> np.ndarray:
 
 class BinaryClassifierEvaluator:
     def evaluate(self, predictions, actuals) -> BinaryClassifierMetrics:
+        from ..parallel.mesh import require_mesh_aware
+
+        require_mesh_aware(self, (predictions, actuals))
         p, a = _host_bools(predictions), _host_bools(actuals)
         return BinaryClassifierMetrics(
             tp=float(np.sum(p & a)),

@@ -23,6 +23,9 @@ class MeanAveragePrecisionEvaluator:
         self.num_classes = num_classes
 
     def evaluate(self, scores, actuals) -> np.ndarray:
+        from ..parallel.mesh import require_mesh_aware
+
+        require_mesh_aware(self, (scores, actuals))
         from ..data.dataset import Dataset, HostDataset
         from ..workflow.pipeline import PipelineResult
 

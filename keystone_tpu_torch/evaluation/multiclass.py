@@ -4,6 +4,9 @@ Counterpart of `keystone_tpu/evaluation/multiclass.py` (`:22-158`;
 reference evaluation/MulticlassClassifierEvaluator.scala:22-167). The
 confusion matrix is one `bincount` over (actual, predicted) pairs on the
 device; the derived metrics are computed on the host from the k×k matrix.
+On a mesh (`parallel/`) each rank counts its valid rows (its padded rows
+go to a bin that is dropped) and one all-reduce over ``data`` gives
+every rank the global matrix (JAX `:22-25, 137` under GSPMD).
 """
 
 from __future__ import annotations
@@ -13,12 +16,21 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..parallel.collectives import all_reduce
+
 
 def confusion_matrix(preds: torch.Tensor, actuals: torch.Tensor,
-                     num_classes: int) -> np.ndarray:
-    """(k, k) float64 counts, rows = actual, cols = predicted."""
+                     num_classes: int, mask=None, mesh=None) -> np.ndarray:
+    """(k, k) float64 counts, rows = actual, cols = predicted. With
+    ``mesh``, of every rank's rows: ``mask`` (None: all valid) marks this
+    rank's valid ones."""
+    k2 = num_classes * num_classes
     idx = actuals.long().reshape(-1) * num_classes + preds.long().reshape(-1)
-    cm = torch.bincount(idx, minlength=num_classes * num_classes)
+    if mask is not None:
+        idx = torch.where(mask.reshape(-1), idx, k2)
+    cm = torch.bincount(idx, minlength=k2 + (mask is not None))[:k2]
+    if mesh is not None:
+        cm = all_reduce(cm.contiguous(), mesh)
     return cm.reshape(num_classes, num_classes).cpu().numpy().astype(np.float64)
 
 
@@ -114,7 +126,10 @@ class MulticlassMetrics:
 
 
 class MulticlassClassifierEvaluator:
-    """Evaluate int predictions vs int actuals → MulticlassMetrics."""
+    """Evaluate int predictions vs int actuals → MulticlassMetrics; on a
+    mesh, the global matrix on every rank."""
+
+    mesh_aware = True  # the confusion matrix all-reduced over the data axis
 
     def __init__(self, num_classes: int):
         self.num_classes = num_classes
@@ -138,8 +153,15 @@ class MulticlassClassifierEvaluator:
             raise ValueError(
                 f"predictions/actuals misaligned: {tuple(p.shape)} vs "
                 f"{tuple(a.shape)}")
+        mesh = getattr(predictions, "mesh", None)
+        if mesh != getattr(actuals, "mesh", None):
+            raise ValueError("predictions and actuals placed on different "
+                             "meshes")
+        mask = (predictions.mask if mesh is not None
+                and predictions.has_padding else None)
         return MulticlassMetrics(
-            confusion_matrix(p, a.to(p.device), self.num_classes))
+            confusion_matrix(p, a.to(p.device), self.num_classes, mask,
+                             mesh))
 
     def __call__(self, predictions, actuals) -> MulticlassMetrics:
         return self.evaluate(predictions, actuals)

@@ -34,7 +34,8 @@ def parse_cifar(records: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return images, labels
 
 
-def cifar_loader(path: str, device: DeviceLike = "cuda") -> LabeledData:
+def cifar_loader(path: str, device: DeviceLike = "cuda",
+                 mesh=None) -> LabeledData:
     """Read CIFAR-10 binary batches (a file or a directory of *.bin)."""
     device = resolve_device(device)
     files = (
@@ -58,8 +59,8 @@ def cifar_loader(path: str, device: DeviceLike = "cuda") -> LabeledData:
               for records in prefetch_iterator(read(f) for f in files)]
     images = np.concatenate([p[0] for p in parsed])
     labels = np.concatenate([p[1] for p in parsed])
-    return LabeledData(labels=Dataset(labels, device=device),
-                       data=Dataset(images, device=device))
+    return LabeledData(labels=Dataset(labels, device=device, mesh=mesh),
+                       data=Dataset(images, device=device, mesh=mesh))
 
 
 def cifar_templates(num_classes: int = 10, seed: int = 0) -> np.ndarray:
@@ -181,12 +182,15 @@ def synthetic_cifar(
     noise: float = 0.6,
     confusion: float = 0.0,
     device: DeviceLike = "cuda",
+    mesh=None,
 ) -> Tuple[LabeledData, LabeledData]:
     """A learnable CIFAR-shaped task: each class is a smooth random
     template warped by random shifts + noise; `confusion` > 0 mixes each
     sample's template toward another class's by a weight drawn from
     Uniform(0, confusion). The arrays are made on the host with numpy,
-    exactly as the JAX package makes them, then moved to ``device``."""
+    exactly as the JAX package makes them, then moved to ``device``
+    (with ``mesh``, this rank's rows of them: every rank draws the same
+    arrays)."""
     device = resolve_device(device)
     templates = cifar_templates(num_classes, seed)
 
@@ -206,8 +210,9 @@ def synthetic_cifar(
         images += noise * r.normal(size=images.shape).astype(np.float32)
         images = (images - images.min()) / (images.max() - images.min()) * 255.0
         return LabeledData(
-            labels=Dataset(labels, device=device),
-            data=Dataset(images.astype(np.float32), device=device),
+            labels=Dataset(labels, device=device, mesh=mesh),
+            data=Dataset(images.astype(np.float32), device=device,
+                         mesh=mesh),
         )
 
     return make(n_train, seed + 1), make(n_test, seed + 2)

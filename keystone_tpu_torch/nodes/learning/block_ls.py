@@ -9,6 +9,13 @@ contribution back into the residual and re-solving it exactly with a
 Cholesky factorization of its ridge Gram matrix. Everything runs in true
 float32 (TF32 off, see `device.py`), as the JAX package pins
 ``Precision.HIGHEST`` here.
+
+On a mesh (`parallel/`), as JAX's `_bcd_prepare` and `block_step`
+(`:55-135`) do under GSPMD: the rows are masked, the centring sums are
+all-reduced over ``data`` and divided by the global count, each block's
+``XᵀX`` and ``XᵀR`` are all-reduced in one call while the residual stays
+on its rank, and every rank factors the same sums, so every rank holds
+the same bits of W and b.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ from typing import Callable, Optional
 import torch
 import torch.nn.functional as F
 
+from ...parallel.collectives import psum
 from ...telemetry.instrument import record_dispatch
 from ...telemetry.metrics import counter
 from ...telemetry.spans import span
@@ -28,7 +36,9 @@ _STEPS = counter("solver.steps")
 
 def bcd_fit(x: torch.Tensor, y: torch.Tensor, lam: float, block_size: int,
             num_iter: int, center: bool = True,
-            on_epoch: Optional[Callable[[int], None]] = None):
+            on_epoch: Optional[Callable[[int], None]] = None,
+            mask: Optional[torch.Tensor] = None, mesh=None,
+            count: Optional[int] = None):
     """(W, b, info): W, b minimize ‖(x W + b) − y‖² + lam‖W‖² by
     ``num_iter`` sweeps over feature blocks of ``block_size`` columns.
     ``x``'s width must be a multiple of ``block_size``; W has that width.
@@ -40,14 +50,27 @@ def bcd_fit(x: torch.Tensor, y: torch.Tensor, lam: float, block_size: int,
     where given, is called after epoch ``i`` is enqueued. Each epoch is a
     ``bcd_epoch`` step span and a ``solver.steps`` count (JAX's `:352-364`,
     which also counts the prepare and the finalize as dispatches); the
-    spans time what the host queued."""
+    spans time what the host queued. With ``mesh``, ``x`` and ``y`` are
+    this rank's rows, ``mask`` (None: all valid) its valid ones and
+    ``count`` the global row count."""
     record_dispatch()  # the prepare
     n, d = x.shape
     k = y.shape[1]
+    m = None if mask is None else mask.to(x.dtype)[:, None]
+    if m is not None:
+        x, y = x * m, y * m
+    if mesh is not None:
+        n = count
     if center:
-        xm = x.sum(dim=0) / n
-        ym = y.sum(dim=0) / n
+        if mesh is None:
+            xm = x.sum(dim=0) / n
+            ym = y.sum(dim=0) / n
+        else:
+            xm, ym = (v / n for v in psum((x.sum(dim=0), y.sum(dim=0)),
+                                          mesh))
         xc, r = x - xm, y - ym
+        if m is not None:
+            xc, r = xc.mul_(m), r.mul_(m)
     else:
         xm = torch.zeros(d, dtype=x.dtype, device=x.device)
         ym = torch.zeros(k, dtype=y.dtype, device=y.device)
@@ -62,10 +85,14 @@ def bcd_fit(x: torch.Tensor, y: torch.Tensor, lam: float, block_size: int,
             for b in range(num_blocks):
                 xb = xc[:, b * block_size:(b + 1) * block_size]
                 r = r + xb @ w[b]
-                gram = xb.T @ xb + eye
+                if mesh is None:
+                    gram, rhs = xb.T @ xb + eye, xb.T @ r
+                else:  # all-reduced over the data axis
+                    gram, rhs = psum((xb.T @ xb, xb.T @ r), mesh)
+                    gram = gram + eye
                 chol, failed = torch.linalg.cholesky_ex(gram)
                 info = torch.maximum(info, failed)
-                w[b] = torch.cholesky_solve(xb.T @ r, chol)
+                w[b] = torch.cholesky_solve(rhs, chol)
                 r = r - xb @ w[b]
         _STEPS.inc()
         record_dispatch()
@@ -124,6 +151,8 @@ class BlockLeastSquaresEstimator(LabelEstimator):
 
     fusable_fit = True
 
+    mesh_aware = True  # Grams all-reduced over the data axis
+
     def __init__(self, block_size: int, num_iter: int, lam: float = 0.0,
                  fit_intercept: bool = True):
         self.block_size = block_size
@@ -155,6 +184,8 @@ class BlockLeastSquaresEstimator(LabelEstimator):
         if d_pad != d:
             x = F.pad(x, (0, d_pad - d))
         w, b, info = bcd_fit(x, y, self.lam, bs, self.num_iter,
-                             self.fit_intercept)
+                             self.fit_intercept,
+                             mask=data.mask if data.has_padding else None,
+                             mesh=data.mesh, count=data.count)
         raise_if_unfactored(info)
         return BlockLinearMapper(w, b if self.fit_intercept else None)

@@ -25,6 +25,7 @@ import torch
 
 from ...data.dataset import Dataset
 from ...data.sparse import SparseDataset, _to_torch_csr
+from ...parallel.collectives import psum
 from ...telemetry.instrument import record_dispatch
 from ...workflow.pipeline import LabelEstimator, Transformer
 from .block_ls import raise_if_unfactored
@@ -90,15 +91,31 @@ class SparseLinearMapper(Transformer):
 
 
 def normal_equations(X: torch.Tensor, Y: torch.Tensor, count: int,
-                     lam: float, fit_intercept: bool):
+                     lam: float, fit_intercept: bool,
+                     mask: Optional[torch.Tensor] = None, mesh=None):
     """(W, b) minimizing ‖XW + b − Y‖² + lam‖W‖² from the Gram matrix
-    (`linear.py:108-130`); b is zeros without an intercept."""
+    (`linear.py:108-130`); b is zeros without an intercept. With
+    ``mesh`` (`:100-160` under GSPMD), ``X`` and ``Y`` are this rank's
+    rows, ``mask`` (None: all valid) its valid ones, ``count`` the global
+    count: XᵀX, XᵀY and the column sums of the valid rows are all-reduced
+    over ``data`` in one call, and every rank solves the same system."""
+    if mask is not None:
+        m = mask.to(X.dtype)[:, None]
+        X, Y = X * m, Y * m
     A = X.T @ X
     B = X.T @ Y
     d = X.shape[1]
+    sx = sy = None
     if fit_intercept:
-        xm = X.sum(dim=0) / count
-        ym = Y.sum(dim=0) / count
+        sx, sy = X.sum(dim=0), Y.sum(dim=0)
+    if mesh is not None:
+        if fit_intercept:
+            A, B, sx, sy = psum((A, B, sx, sy), mesh)
+        else:
+            A, B = psum((A, B), mesh)
+    if fit_intercept:
+        xm = sx / count
+        ym = sy / count
         A = A - count * torch.outer(xm, xm)
         B = B - count * torch.outer(xm, ym)
     A = A + lam * torch.eye(d, dtype=X.dtype, device=X.device)
@@ -118,6 +135,8 @@ class LinearMapEstimator(LabelEstimator):
 
     fusable_fit = True  # always fits a LinearMapper
 
+    mesh_aware = True  # the Gram all-reduced over the data axis
+
     def __init__(self, lam: float = 0.0, fit_intercept: bool = True):
         self.lam = lam
         self.fit_intercept = fit_intercept
@@ -130,7 +149,9 @@ class LinearMapEstimator(LabelEstimator):
     def fit(self, data, labels) -> LinearMapper:
         record_dispatch()  # one batched call (JAX :149)
         W, b = normal_equations(data.array, labels.array.to(data.array.dtype),
-                                data.count, self.lam, self.fit_intercept)
+                                data.count, self.lam, self.fit_intercept,
+                                data.mask if data.has_padding else None,
+                                data.mesh)
         return LinearMapper(W, b if self.fit_intercept else None)
 
 

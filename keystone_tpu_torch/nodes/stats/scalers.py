@@ -2,24 +2,38 @@
 
 Counterpart of `keystone_tpu/nodes/stats/scalers.py` (`_moments`,
 `_scale`, `:22-84`; reference nodes/stats/StandardScaler.scala:36-60).
-The moments are one pass of sums over the rows, as in the JAX package;
-with one device there are no padded rows, so the row mask is all ones
-and the scale needs no masking.
+The moments are one pass of sums over the rows, as in the JAX package.
+On a mesh (`parallel/`) they are `tree_aggregate`'s sums of this rank's
+valid rows (the mask zeroes the padded ones), one all-reduce of the sum
+and the sum of squares over ``data``, divided by the global count, and
+the scaled rows re-zero the padded ones (`_scale`'s mask, `:38-39, 84`;
+`Transformer.apply_batch` applies it for ``fuse_masks_output``). In one
+process there are no padded rows and no collective.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ...parallel.collectives import tree_aggregate
 from ...telemetry.instrument import record_dispatch
 from ...workflow.pipeline import Estimator, Transformer
 
 
-def moments(x: torch.Tensor, count: int, normalize_std: bool):
+def moments(x: torch.Tensor, count: int, normalize_std: bool,
+            mask=None, mesh=None):
     """Per-feature mean and unbiased std (std 1 where it is 0, and
-    everywhere when ``normalize_std`` is False)."""
-    s = x.sum(dim=0)
-    s2 = (x * x).sum(dim=0)
+    everywhere when ``normalize_std`` is False). With ``mesh``, ``x`` is
+    this rank's rows, ``mask`` (or None: all valid) its valid ones and
+    ``count`` the global count."""
+    if mesh is None:
+        s = x.sum(dim=0)
+        s2 = (x * x).sum(dim=0)
+    else:
+        if mask is not None:
+            x = x * mask.to(x.dtype)[:, None]
+        s, s2 = tree_aggregate(
+            x, lambda r: (r.sum(dim=0), (r * r).sum(dim=0)), mesh)
     mean = s / count
     if not normalize_std:
         return mean, torch.ones_like(mean)
@@ -66,6 +80,8 @@ class StandardScaler(Estimator):
 
     fusable_fit = True
 
+    mesh_aware = True  # moments all-reduced over the data axis
+
     def __init__(self, normalize_std_dev: bool = True):
         self.normalize_std_dev = normalize_std_dev
 
@@ -93,6 +109,8 @@ class StandardScaler(Estimator):
 
     def fit(self, data) -> StandardScalerModel:
         record_dispatch()  # one batched call (JAX :122)
-        mean, std = moments(data.array, data.count, self.normalize_std_dev)
+        mean, std = moments(data.array, data.count, self.normalize_std_dev,
+                            data.mask if data.has_padding else None,
+                            data.mesh)
         return StandardScalerModel(mean,
                                    std if self.normalize_std_dev else None)

@@ -71,7 +71,8 @@ from ...ops.kernels import (
     rectify_pool,
 )
 from ...telemetry.compile_events import record_compile
-from ...telemetry.instrument import sync_value
+from ...data.dataset import mask_rows
+from ...telemetry.instrument import record_dispatch, sync_value
 from ...telemetry.metrics import counter, tallied, tally, tallying
 from ...telemetry.spans import current_tracer, span
 from ...workflow.pipeline import Transformer
@@ -138,10 +139,25 @@ class _ConvRectifyPoolStage(Transformer):
                 (self.g_cmajor, self.colsum, self.bias))
 
 
-def _run(fns, xb):
+def _run(fns, xb, mb=None):
     for fn in fns:
-        xb = fn(xb)
+        xb = fn(xb, mb)
     return xb
+
+
+def _stage_fn(stage):
+    """``stage``'s batch function as ``fn(rows, mask)``, ``mask`` the
+    rows' validity or None: a nested chain takes the mask through its
+    own loop, and a stage that re-zeroes padded rows
+    (``fuse_masks_output``) has its output rows multiplied by it, as
+    JAX's fused program re-applies the mask at the stage's place
+    (`:480-532`)."""
+    fn = stage.batch_fn()
+    if isinstance(stage, FusedBatchTransformer):
+        return fn
+    if getattr(stage, "fuse_masks_output", False):
+        return lambda xb, mb: fn(xb) if mb is None else mask_rows(fn(xb), mb)
+    return lambda xb, mb: fn(xb)
 
 
 class _GatherConcatStage(Transformer):
@@ -422,9 +438,12 @@ class FusedBatchTransformer(Transformer):
         sub-trail swapped for its chain kernel; and ``(layout, write)``
         where the last stage writes its rows into a given ``out`` (the
         planned chain kernel, or a gather stage), else None: ``layout(y)``
-        is the item shape and dtype of its rows for input rows ``y``. The
+        is the item shape and dtype of its rows for input rows ``y``. Each
+        function takes ``(rows, mask)`` and ``write`` ``(rows, out,
+        mask)``: ``mask`` is the rows' validity, or None where no row is
+        padding (`_stage_fn`; the planned kernel applies it itself). The
         stages never fall back to running one by one."""
-        fns = [s.batch_fn() for s in self.fused]
+        fns = [_stage_fn(s) for s in self.fused]
         casts = self._storage_casts()
         if self.planned_kernel is None:
             fns = self._planned(fns, casts)
@@ -433,15 +452,16 @@ class FusedBatchTransformer(Transformer):
                 if casts[-1] is not None:
                     # the writes cast into the restored output dtype
                     return fns, (lambda y: (layout(y)[0], casts[-1]),
-                                 write)
-                return fns, (layout, write)
+                                 lambda y, out, mb: write(y, out))
+                return fns, (layout, lambda y, out, mb: write(y, out))
             return fns, None
         start, stop, _ = self.planned_kernel
         kern = self._chain_fn()
-        # one dataset device: no padded rows, so no row mask. Inside the
-        # kernel's slice every boundary stays on chip, so only the cast
-        # at the slice's end applies (`:653-669`).
-        fns[start:stop] = [lambda xb: kern(xb.contiguous())]
+        # the rows' mask goes into the kernel, whose masked stages
+        # re-zero padded rows in place, as JAX's fused program does.
+        # Inside the kernel's slice every boundary stays on chip, so
+        # only the cast at the slice's end applies (`:653-669`).
+        fns[start:stop] = [lambda xb, mb: kern(xb.contiguous(), mask=mb)]
         casts[start:stop] = [casts[stop - 1]]
         if start > 0 and casts[start - 1] == torch.bfloat16:
             # K4 reads float32 rows: a bf16 run ends at the slice's input
@@ -452,6 +472,19 @@ class FusedBatchTransformer(Transformer):
             last = (lambda y: (kern.plan_for(y).out_shape, torch.float32),
                     kern)
         return fns, last
+
+    def apply_batch(self, data):
+        """The chain over the rows held here: on a mesh, this rank's,
+        where K1, or K4 where planned, launch on them alone. Where those
+        rows include padded ones, their mask goes through the chain's
+        loop (and its graph), and each stage that re-zeroes padded rows
+        (``fuse_masks_output``) applies it at its place, inside a planned
+        K4 too, as JAX's fused program does (`:480-532`): a padded row
+        never reaches a reduction unmasked."""
+        if not getattr(data, "has_padding", False):
+            return super().apply_batch(data)
+        record_dispatch()
+        return data.with_data(self.batch_fn()(data.array, data.mask))
 
     def _storage_casts(self) -> list:
         """The torch dtype each peepholed stage's output is cast to, or
@@ -472,16 +505,16 @@ class FusedBatchTransformer(Transformer):
             return fns
 
         def planned(fn, dtype):
-            def run(xb):
+            def run(xb, mb):
                 if autocast and xb.device.type != "meta":
                     with torch.autocast(xb.device.type,
                                         dtype=torch.bfloat16):
-                        y = fn(xb)
+                        y = fn(xb, mb)
                     if y.dtype == torch.bfloat16 \
                             and xb.dtype != torch.bfloat16:
                         y = y.float()  # the autocast's own bf16 result
                 else:
-                    y = fn(xb)
+                    y = fn(xb, mb)
                 if dtype is not None and y.is_floating_point() \
                         and y.dtype != dtype:
                     y = y.to(dtype)
@@ -523,14 +556,14 @@ class FusedBatchTransformer(Transformer):
         (`_kernel_span`), closed once the card has finished the call's
         work."""
 
-        def fn(x):
+        def fn(x, mask=None):
             kspan = self._kernel_span(x)
             if kspan is None:
-                return loop(x)
+                return loop(x, mask)
             with kspan:
                 _KERNEL_SPAN.open = True
                 try:
-                    out = loop(x)
+                    out = loop(x, mask)
                     sync_value(out)
                 finally:
                     _KERNEL_SPAN.open = False
@@ -551,10 +584,11 @@ class FusedBatchTransformer(Transformer):
         return fn
 
     def _microbatch_loop(self, fns, head, last):
-        """The chain over ``x`` in microbatches of ``microbatch`` rows,
-        each a ``chunk`` span; on meta tensors the stages once."""
+        """The chain over ``x`` (``mask``: its rows' validity, or None)
+        in microbatches of ``microbatch`` rows, each a ``chunk`` span; on
+        meta tensors the stages once."""
 
-        def fn(x):
+        def fn(x, mask=None):
             if x.device.type == "meta":
                 # the static analyzer's run (`ops/meta.py`): the stages
                 # once, no microbatch loop, nothing counted
@@ -563,10 +597,12 @@ class FusedBatchTransformer(Transformer):
             self._ran_at.add((tuple(x.shape[1:]), x.dtype, x.device))
             for start in range(0, n, self.microbatch):
                 tally(self, "microbatches_run")
+                stop = start + self.microbatch
+                mb = None if mask is None else mask[start:stop]
                 with span("microbatch", cat="chunk", idx=start //
                           self.microbatch, rows=min(self.microbatch,
                                                     n - start)):
-                    y = _run(head, x[start:start + self.microbatch])
+                    y = _run(head, x[start:stop], mb)
                     if last is not None:
                         # the last stage writes its rows of the result
                         layout, write = last
@@ -575,13 +611,13 @@ class FusedBatchTransformer(Transformer):
                             shape, dtype = layout(y)
                             out = torch.empty((n,) + tuple(shape),
                                               dtype=dtype, device=y.device)
-                        write(y, out[start:start + y.shape[0]])
+                        write(y, out[start:start + y.shape[0]], mb)
                         continue
                     if out is None:
                         out = torch.empty((n,) + tuple(y.shape[1:]),
                                           dtype=y.dtype, device=y.device)
                     out[start:start + y.shape[0]] = y
-            return out if out is not None else _run(fns, x)
+            return out if out is not None else _run(fns, x, mask)
 
         return fn
 
@@ -598,10 +634,11 @@ class FusedBatchTransformer(Transformer):
         if trip % self.microbatch != 0:
             inner = fn
 
-            def fn(x):
+            def fn(x, mask=None):
                 out = None
                 for start in range(0, x.shape[0], trip):
-                    y = inner(x[start:start + trip])
+                    y = inner(x[start:start + trip], None if mask is None
+                              else mask[start:start + trip])
                     if out is None:
                         out = y.new_empty((x.shape[0],) + tuple(y.shape[1:]))
                     out[start:start + trip] = y
@@ -612,37 +649,43 @@ class FusedBatchTransformer(Transformer):
         return self._spanned(fn)
 
     @staticmethod
-    def _graph_key(item_shape, dtype, rows: int, trip: int, device) -> tuple:
+    def _graph_key(item_shape, dtype, rows: int, trip: int, device,
+                   masked: bool = False) -> tuple:
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device(device.type, torch.cuda.current_device())
-        return tuple(item_shape), dtype, rows, trip, device
+        return tuple(item_shape), dtype, rows, trip, device, masked
 
-    def _capture(self, key, x: Optional[torch.Tensor]):
+    def _capture(self, key, x: Optional[torch.Tensor],
+                 mask: Optional[torch.Tensor] = None):
         """The padded loop at ``key`` captured (`utils/graphs.py`): after
         an eager run on ``x`` (the call's rows, its result kept as the
-        loop's ``first``) or, for a warm-up, on zero rows. Called under
+        loop's ``first``; ``mask``, their row mask, where the key is a
+        masked one) or, for a warm-up, on zero rows. Called under
         ``graph_lock``."""
         from ...utils.graphs import CapturedLoop
 
-        item_shape, dtype, rows, trip, device = key
+        item_shape, dtype, rows, trip, device, _ = key
         fn = self._trip_fn(trip)
         t0 = time.perf_counter()
         loop = CapturedLoop(fn, (rows,) + item_shape, dtype, device, x,
-                            keep=(self._chain, tuple(self.fused)))
+                            keep=(self._chain, tuple(self.fused)),
+                            mask=mask)
         record_compile(self.label, time.perf_counter() - t0, cold=True,
                        kind="graph")
         self._graphs[key] = loop
         tally(_GRAPH_CAPTURES)
         return loop
 
-    def run_rung(self, x: torch.Tensor, rows: int,
-                 trip: int) -> torch.Tensor:
+    def run_rung(self, x: torch.Tensor, rows: int, trip: int,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The chain over ``x`` padded with zero rows to ``rows`` (a
         whole number of ``trip``-row trips, or one trip), its trips one
-        after another; ``x``'s rows of the result. On the card the first
+        after another; ``x``'s rows of the result. ``mask``: ``x``'s row
+        mask (a mesh rank's rows with padded ones), which the loop and
+        its graph take with the rows, or None. On the card the first
         `eager_calls_before_capture` calls at an (item shape, dtype,
-        rows, trip) key run the loop eagerly over the real rows alone
+        rows, trip, masked) key run the loop eagerly over the real rows alone
         (no graph needs the padded shape yet), the next one captures it
         (its eager run before the capture is its result), and every later
         one replays the graph. A capture that fails raises. On the CPU
@@ -653,34 +696,37 @@ class FusedBatchTransformer(Transformer):
         tally(_PROGRAMS)
         tally(_SCAN_TRIPS, n=trips)
         if current_tracer() is None:  # the span's label costs a walk
-            return self._run_rung(x, rows, trip)
+            return self._run_rung(x, rows, trip, mask)
         with span("megafused_program", cat="node", megafused=True,
                   scan_trips=trips, rows=x.shape[0], label=self.label):
-            return self._run_rung(x, rows, trip)
+            return self._run_rung(x, rows, trip, mask)
 
-    def _run_rung(self, x: torch.Tensor, rows: int,
-                  trip: int) -> torch.Tensor:
+    def _run_rung(self, x: torch.Tensor, rows: int, trip: int,
+                  mask: Optional[torch.Tensor]) -> torch.Tensor:
         n = x.shape[0]
         if x.device.type == "cuda":
-            key = self._graph_key(x.shape[1:], x.dtype, rows, trip, x.device)
+            key = self._graph_key(x.shape[1:], x.dtype, rows, trip, x.device,
+                                  mask is not None)
             with self.graph_lock:
                 loop = self._graphs.get(key)
                 if loop is None:
                     calls = self._eager_calls.get(key, 0)
                     if calls >= self.eager_calls_before_capture:
-                        loop = self._capture(key, x)
+                        loop = self._capture(key, x, mask)
                         first, loop.first = loop.first, None
                         return first
                     self._eager_calls[key] = calls + 1
             if loop is not None:
-                out = self._spanned(loop)(x)
+                out = self._spanned(loop)(x, mask)
                 tally(_GRAPH_REPLAYS)
                 return out
         if x.device.type == "cuda" or rows == n:
             # no graph to fit yet: the real rows alone, in the same trips
-            return self._trip_fn(trip)(x)
+            return self._trip_fn(trip)(x, mask)
         x = torch.cat([x, x.new_zeros((rows - n,) + tuple(x.shape[1:]))])
-        return self._trip_fn(trip)(x)[:n]
+        if mask is not None:
+            mask = torch.cat([mask, mask.new_zeros(rows - n)])
+        return self._trip_fn(trip)(x, mask)[:n]
 
     def is_warm(self, item_shape, dtype, count: int, device) -> bool:
         """Whether a warm-up for these rows has nothing left to do."""
@@ -731,11 +777,13 @@ class MegafusedBatchTransformer(FusedBatchTransformer):
     def batch_fn(self):
         eager = FusedBatchTransformer.batch_fn(self)
 
-        def fn(x):
+        def fn(x, mask=None):
             n = x.shape[0]
             if n == 0 or x.device.type == "meta":
-                return eager(x)
-            return self.run_rung(x, self.rung(n), self.microbatch)
+                return eager(x, mask)
+            if mask is None:  # the form host streams call too
+                return self.run_rung(x, self.rung(n), self.microbatch)
+            return self.run_rung(x, self.rung(n), self.microbatch, mask)
 
         # its own padded loop per call: a host stream runs it chunk by
         # chunk

@@ -563,7 +563,9 @@ def build_chain_fn(statics, params, family: Optional[str] = None):
     in ``fn.plans``, built at the first microbatch of that shape
     (``fn.plan_for(xb)``) and reused for every later one, and writes
     into ``out`` where given. The rectify+pool family's ``fn(xb)``
-    returns a new tensor (``fn.plans`` is None)."""
+    returns a new tensor (``fn.plans`` is None). Both take ``mask``,
+    the rows' validity (None: every row is valid), which each masked
+    stage applies."""
     statics = tuple(statics)
     verdict = lowerability(statics)
     if not verdict["lowerable"]:
@@ -574,7 +576,8 @@ def build_chain_fn(statics, params, family: Optional[str] = None):
         inner, _ = _unwrap(statics[0])
         _, alpha, max_val, pool, stride = inner[:5]
 
-        def fn(xb):
+        def fn(xb, mask=None):
+            # its one stage re-zeroes no padded row: the mask is unused
             return rectify_pool_vectorize(xb, alpha, max_val, pool, stride)
 
         fn.plans = None
@@ -595,10 +598,10 @@ def build_chain_fn(statics, params, family: Optional[str] = None):
                     plan = plans[key] = ChainPlan(statics, params, *key)
         return plan
 
-    def fn(xb, out=None):
+    def fn(xb, out=None, mask=None):
         if xb.device.type == "meta":
             return _elementwise_chain_meta(statics, params, xb, out)
-        return plan_for(xb)(xb, None, out)
+        return plan_for(xb)(xb, mask, out)
 
     fn.plans, fn.plan_for = plans, plan_for
     return fn

@@ -1,0 +1,74 @@
+"""Mesh, collectives and multi-process layers on `torch.distributed`.
+
+Counterpart of `keystone_tpu/parallel/__init__.py` (`:1-59`), its export
+list less the names of `NamedSharding`s (`data_sharding`,
+`replicated_sharding`, `spec_of_array`) and the model axis's
+`feature_sharding`, which come with the model axis (ROADMAP queue 1,
+item 4).
+"""
+
+from . import mesh
+from .collectives import (
+    all_gather_rows,
+    all_reduce,
+    broadcast,
+    co_sharded,
+    psum,
+    reshard,
+    reshard_tree,
+    tree_aggregate,
+    tree_reduce_sum,
+)
+from .mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    P,
+    PartitionSpec,
+    current_mesh,
+    make_mesh,
+    n_data_shards,
+    n_model_shards,
+    replicate,
+    reset_default_mesh,
+    spec_axes,
+    spec_shards,
+    specs_equal,
+    use_mesh,
+)
+from .multihost import (
+    barrier,
+    dataset_from_process_local,
+    global_data_mesh,
+    init_multihost,
+)
+
+__all__ = [
+    "mesh",
+    "DATA_AXIS",
+    "MODEL_AXIS",
+    "P",
+    "PartitionSpec",
+    "current_mesh",
+    "make_mesh",
+    "n_data_shards",
+    "n_model_shards",
+    "replicate",
+    "reset_default_mesh",
+    "spec_axes",
+    "spec_shards",
+    "specs_equal",
+    "use_mesh",
+    "all_gather_rows",
+    "all_reduce",
+    "broadcast",
+    "co_sharded",
+    "psum",
+    "reshard",
+    "reshard_tree",
+    "tree_aggregate",
+    "tree_reduce_sum",
+    "barrier",
+    "dataset_from_process_local",
+    "global_data_mesh",
+    "init_multihost",
+]

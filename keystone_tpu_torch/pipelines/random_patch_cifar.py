@@ -27,6 +27,15 @@ fused kernel writes its rows of one preallocated feature matrix, the
 moments, BCD on the scaled features folded back into a raw-feature
 (W, b), and both confusion matrices from one-hot products — ending in
 one packed transfer of the two 10×10 matrices to the host.
+
+On a mesh (`parallel/`; JAX `:106-222, 266-440`) every function here
+fits data-parallel, one process per card: the data are this rank's rows
+of the same arrays (`load_data`), the filters are learned from the
+global draws (`learn_filters_from_indices`), K1 runs on this rank's
+rows, and the scaler's moments, BCD's Grams and the confusion matrices
+are all-reduced over ``data``. `run` takes the current mesh, the global
+one once `parallel.init_multihost` has joined a group (the launcher's
+``--coordinator``).
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..data.dataset import mask_rows
 from ..evaluation import MulticlassClassifierEvaluator
 from ..loaders.cifar_loader import cifar_loader, synthetic_cifar
 from ..nodes.images.core import (
@@ -64,6 +74,8 @@ from ..nodes.util.basic import (
 )
 from ..nodes.util.fusion import FusedBatchTransformer
 from ..ops.kernels import conv_rectify_pool, hwio_to_cmajor, pooled_grid
+from ..parallel.collectives import all_reduce, broadcast
+from ..parallel.mesh import current_mesh, data_rank
 from ..utils.images import extract_patches_device
 
 
@@ -110,18 +122,76 @@ def draw_filter_indices(n: int, n_sample: int, total: int, m: int,
     return img_idx, patch_idx, filter_idx
 
 
-def learn_filters_from_indices(images: torch.Tensor, img_idx, patch_idx,
-                               filter_idx, patch: int, step: int,
-                               eps: float = 0.1):
+def learn_filters_from_indices(images, img_idx, patch_idx, filter_idx,
+                               patch: int, step: int, eps: float = 0.1):
     """Whitened random-patch filters from given draws
-    (`random_patch_cifar.py:139-175`). images: (N, H, W, C) raw pixels.
+    (`random_patch_cifar.py:139-175`). ``images``: (N, H, W, C) raw
+    pixels, or a `Dataset` of them placed on a mesh (JAX `:106-222`):
+    each rank cuts the patches of the drawn images it holds, one
+    all-reduce makes the drawn patch matrix on every rank, the ZCA
+    ``eigh`` runs on the data axis's rank 0, and the filters, whitener
+    and means are broadcast from it, so every rank holds the same bits.
     Returns (filters (K, P·P·C), ZCAWhitener)."""
+    mesh = getattr(images, "mesh", None)
+    if mesh is None:
+        if hasattr(images, "array"):
+            images = images.array
+        flat = _drawn_patches(images, img_idx, patch_idx, patch, step)
+        filters, whitener, mu = _whitened_filters(flat, filter_idx, eps)
+        return filters, ZCAWhitener(whitener, mu)
+    flat = _drawn_patches_on_mesh(images, img_idx, patch_idx, patch, step)
+    if data_rank(mesh) == 0:
+        parts = _whitened_filters(flat, filter_idx, eps)
+    else:
+        k, d = len(filter_idx), flat.shape[1]
+        parts = (flat.new_empty((k, d)), flat.new_empty((d, d)),
+                 flat.new_empty((d,)))
+    filters, whitener, mu = broadcast(parts, mesh)
+    return filters, ZCAWhitener(whitener, mu)
+
+
+def _drawn_patches(images: torch.Tensor, img_idx, patch_idx, patch: int,
+                   step: int) -> torch.Tensor:
+    """The drawn patches, (m, P·P·C) in [0, 1]: the drawn images' patches
+    in draw order, then the drawn rows of them."""
     dev = images.device
     sel = images[_to_device(img_idx, dev)] / 255.0
     c = sel.shape[-1]
     flat = extract_patches_device(sel, patch, step).reshape(
         -1, patch * patch * c)
-    flat = flat[_to_device(patch_idx, dev)]
+    return flat[_to_device(patch_idx, dev)]
+
+
+def _drawn_patches_on_mesh(images, img_idx, patch_idx, patch: int,
+                           step: int) -> torch.Tensor:
+    """`_drawn_patches` of a mesh `Dataset`: this rank's drawn images cut
+    into patches, its drawn rows written into a zero (m, P·P·C) matrix,
+    and one all-reduce. Each drawn patch comes from one rank, so the sum
+    is exact."""
+    rows, lo = images.array, images._first_row
+    dev = rows.device
+    img_idx = img_idx.to(torch.int64)
+    patch_idx = patch_idx.to(torch.int64)
+    owned = (img_idx >= lo) & (img_idx < lo + rows.shape[0])
+    # position of each owned draw among this rank's drawn images
+    pos = torch.cumsum(owned.to(torch.int64), 0) - 1
+    h, w, c = rows.shape[1:]
+    grid = ((h - patch) // step + 1) * ((w - patch) // step + 1)
+    mine = owned[patch_idx // grid]
+    out = torch.zeros((patch_idx.shape[0], patch * patch * c),
+                      dtype=torch.float32, device=dev)
+    if bool(owned.any()):
+        local = _drawn_patches(
+            rows, img_idx[owned] - lo,
+            (pos[patch_idx // grid] * grid + patch_idx % grid)[mine],
+            patch, step)
+        out[_to_device(torch.nonzero(mine).reshape(-1), dev)] = local
+    return all_reduce(out, images.mesh)
+
+
+def _whitened_filters(flat: torch.Tensor, filter_idx, eps: float):
+    """(filters, whitener, means) from the drawn patches."""
+    dev = flat.device
     # normalizeRows(_, 10.0): subtract the patch mean, divide by
     # max(norm, 10/255)
     flat = flat - flat.mean(dim=1, keepdim=True)
@@ -134,8 +204,7 @@ def learn_filters_from_indices(images: torch.Tensor, img_idx, patch_idx,
     whitened = (flat - mu) @ whitener
     wnorms = torch.linalg.norm(whitened, dim=1, keepdim=True)
     whitened = whitened / torch.clamp(wnorms, min=1e-8)
-    filters = whitened[_to_device(filter_idx, dev)]
-    return filters, ZCAWhitener(whitener, mu)
+    return whitened[_to_device(filter_idx, dev)], whitener, mu
 
 
 def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -164,10 +233,12 @@ def learn_filters(train_data, config):
     gen = torch.Generator().manual_seed(config.seed)
     img_idx, patch_idx, filter_idx = draw_filter_indices(
         n, n_sample, total, m, config.num_filters, gen)
-    if hasattr(train_data, "gather"):
+    if getattr(train_data, "is_out_of_core", False):
         images = torch.from_numpy(train_data.gather(img_idx.numpy())).to(
             train_data.device)
         img_idx = torch.arange(n_sample)
+    elif getattr(train_data, "mesh", None) is not None:
+        images = train_data
     else:
         images = train_data.array
     return learn_filters_from_indices(
@@ -338,7 +409,10 @@ def fused_fit(train, test, filters, whitener, config, clock=None):
     device tensors (W, b, conf_train, conf_test, info), ``info`` from
     `bcd_fit`. ``clock``, a `StageClock`, is marked after each stage."""
     clock = clock or StageClock(train.data.device)
-    images = train.data.array[:train.data.count]
+    mesh, count = train.data.mesh, train.data.count
+    # this rank's rows on a mesh (padded ones masked), else the count
+    images = train.data.array[:count if mesh is None else None]
+    mask = train.data.mask if train.data.has_padding else None
     n, h, w, c = images.shape
     conv = Convolver(filters, h, w, c, whitener=whitener,
                      normalize_patches=True)
@@ -359,31 +433,38 @@ def fused_fit(train, test, filters, whitener, config, clock=None):
                 config.pool_stride, True, conv.patch, out=x[start:stop])
         return x
 
-    def confusion(x, labels, W, b):
+    def confusion(x, labels, W, b, mask):
         pred = torch.argmax(x @ W + b, dim=1)
-        return _one_hot(labels, k).T @ _one_hot(pred, k)
+        truth = _one_hot(labels, k)
+        if mask is not None:
+            truth = mask_rows(truth, mask)
+        cm = truth.T @ _one_hot(pred, k)
+        return cm if mesh is None else all_reduce(cm, mesh)
 
     X = featurize(images)
     clock.mark("featurize")
-    mu, sd = moments(X, n, True)
+    mu, sd = moments(X, count, True, mask, mesh)
     clock.mark("scaler")
     labels = train.labels.array[:n]
     Y = 2.0 * _one_hot(labels, k) - 1.0
     d = X.shape[1]
     B = min(config.block_size, d)
     Xs = F.pad((X - mu) / sd, (0, -d % B))
-    Ws, bs, info = bcd_fit(Xs, Y, config.lam, B, config.bcd_iters)
+    Ws, bs, info = bcd_fit(Xs, Y, config.lam, B, config.bcd_iters,
+                           mask=mask, mesh=mesh, count=count)
     Ws = Ws[:d]
     # fold the scaling back: x·W + b on raw features
     W = Ws / sd[:, None]
     b = bs - (mu / sd) @ Ws
     del Xs
     clock.mark("bcd_solve")
-    conf_train = confusion(X, labels, W, b)
+    conf_train = confusion(X, labels, W, b, mask)
     clock.mark("train_eval")
     del X
-    Xt = featurize(test.data.array[:test.data.count])
-    conf_test = confusion(Xt, test.labels.array[:test.data.count], W, b)
+    Xt = featurize(test.data.array[:test.data.count if mesh is None
+                                   else None])
+    conf_test = confusion(Xt, test.labels.array[:Xt.shape[0]], W, b,
+                          test.data.mask if test.data.has_padding else None)
     clock.mark("test_featurize_eval")
     return W, b, conf_train, conf_test, info
 
@@ -416,15 +497,17 @@ def run_fused(train, test, config):
     }
 
 
-def load_data(config, device):
+def load_data(config, device, mesh=None):
     """(train, test): CIFAR from ``config.train_path``/``test_path``, or
-    ``synthetic_cifar`` at ``config.synth_train``/``synth_test``."""
+    ``synthetic_cifar`` at ``config.synth_train``/``synth_test``; with
+    ``mesh``, this rank's rows."""
     if config.train_path:
-        return (cifar_loader(config.train_path, device=device),
+        return (cifar_loader(config.train_path, device=device, mesh=mesh),
                 cifar_loader(config.test_path or config.train_path,
-                             device=device))
+                             device=device, mesh=mesh))
     return synthetic_cifar(config.synth_train, config.synth_test,
-                           config.num_classes, config.seed, device=device)
+                           config.num_classes, config.seed, device=device,
+                           mesh=mesh)
 
 
 def fit_and_score(build, train, test, num_classes: int):
@@ -451,12 +534,16 @@ def fit_and_score(build, train, test, num_classes: int):
     }
 
 
-def run(config: RandomPatchCifarConfig, device="cuda", fused: bool = False):
+def run(config: RandomPatchCifarConfig, device="cuda", fused: bool = False,
+        mesh=None):
     """Load or synthesize the data, fit, and score train and test; with
     ``fused``, through `run_fused`, whose clock also covers the test
     featurize and evaluation, so its rate counts train + test images (as
-    the JAX package reports it, `random_patch_cifar.py:501-531`)."""
-    train, test = load_data(config, device)
+    the JAX package reports it, `random_patch_cifar.py:501-531`). On
+    ``mesh`` (default the current one: none in one process), data-parallel
+    over its ranks."""
+    train, test = load_data(config, device,
+                            mesh if mesh is not None else current_mesh())
     if not fused:
         return fit_and_score(lambda: build_pipeline(train, config), train,
                              test, config.num_classes)

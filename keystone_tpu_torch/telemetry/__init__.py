@@ -103,7 +103,12 @@ from .export import (
     to_chrome_trace,
     write_trace,
 )
-from .instrument import estimate_bytes, instrument_node_force, record_dispatch
+from .instrument import (
+    estimate_bytes,
+    instrument_node_force,
+    process_dim,
+    record_dispatch,
+)
 from .compile_events import compiles_snapshot, record_compile
 from .flight import (
     FlightRecorder,
@@ -131,7 +136,8 @@ __all__ = [
     "aggregate_spans", "compile_summary", "dispatch_plan_breakdown",
     "dispatch_summary", "load_trace", "self_times",
     "summarize", "to_chrome_trace", "write_trace",
-    "estimate_bytes", "instrument_node_force", "record_dispatch",
+    "estimate_bytes", "instrument_node_force", "process_dim",
+    "record_dispatch",
     "compiles_snapshot", "record_compile",
     "FlightRecorder", "ensure_flight", "flight_recorder",
     "flight_snapshot", "reset_flight",

@@ -23,8 +23,10 @@ node spans then carry the card's seconds. Any other tracer injects no
 sync: node spans then measure what the host queued and waited for, and
 a traced run makes the same synchronizing calls as an untraced one.
 
-The per-process dimension (JAX's ``p<i>`` counters, `process_dim`)
-waits for multi-GPU runs (ROADMAP queue 1, item 10).
+The per-process dimension (JAX's `process_dim`, `:44-90`): in a
+`torch.distributed` group every process dispatches its own launches, so
+each count also lands on ``dispatch.programs_executed.p<rank>``.
+Without a group there is no second counter.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import Optional
 import numpy as np
 
 import torch
+import torch.distributed as dist
 
 from .metrics import counter, gauge, tallying
 from .spans import current_tracer
@@ -43,6 +46,16 @@ _PROGRAMS = counter("dispatch.programs_executed")
 _NODE_FORCES = counter("executor.node_forces")
 _NODE_FAILURES = counter("executor.node_failures")
 _LIVE_BYTES = gauge("executor.live_bytes")
+
+
+def process_dim() -> Optional[str]:
+    """The per-process accounting dimension: ``p<rank>`` inside a
+    `torch.distributed` group (one process per card), None without one,
+    where a second counter would duplicate the total. Read at each call:
+    a group may be joined after the first dispatch."""
+    if dist.is_available() and dist.is_initialized():
+        return f"p{dist.get_rank()}"
+    return None
 
 
 def record_dispatch(n: int = 1) -> None:
@@ -55,9 +68,13 @@ def record_dispatch(n: int = 1) -> None:
     and linear solvers' fits). Always on: the tests and `chip_smoke.py`
     read the counter directly. Nothing is counted while a graph is
     captured or a warm-up runs (`tallying`): neither executes a
-    program."""
+    program. In a process group each count also lands on
+    ``dispatch.programs_executed.p<rank>`` (`process_dim`)."""
     if not tallying():
         _PROGRAMS.inc(n)
+        dim = process_dim()
+        if dim is not None:
+            counter(f"dispatch.programs_executed.{dim}").inc(n)
 
 
 def estimate_bytes(value) -> float:

@@ -5,8 +5,9 @@ apply is one XLA program whose chunk loop is a ``lax.scan``
 (`keystone_tpu/nodes/util/fusion.py:745-804`,
 `keystone_tpu/utils/batching.py:357-553`), compiled once per input shape.
 On the card its counterpart is a CUDA graph of the loop's launches,
-captured once per (item shape, dtype, rows, trip) and replayed: one
-launch of the graph in place of a Python dispatch per kernel.
+captured once per (item shape, dtype, rows, trip, and whether a row
+mask comes with the rows) and replayed: one launch of the graph in place
+of a Python dispatch per kernel.
 
 A graph reads and writes fixed addresses (K4's ``__grid_constant__``
 chain and its pointers are fixed at capture), so a `CapturedLoop` owns
@@ -80,16 +81,28 @@ class CapturedLoop:
     ``rows``); the eager run before the capture runs on them, counted,
     and ``first`` is its result. None for a warm-up: the eager run is on
     zero rows and counts nowhere. ``keep``: what the graph reads and
-    ``fn`` does not own (launch plans, stage parameters)."""
+    ``fn`` does not own (launch plans, stage parameters). ``mask``: the
+    call's row mask (a mesh rank's rows with padded ones): the loop then
+    owns a mask buffer too, ``fn`` is called as ``fn(rows, mask)``, and
+    every call passes its rows' mask, its padded tail zero."""
 
-    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor],
+    def __init__(self, fn: Callable[..., torch.Tensor],
                  shape: Tuple[int, ...], dtype: torch.dtype,
                  device: torch.device, x: Optional[torch.Tensor] = None,
-                 keep=()):
+                 keep=(), mask: Optional[torch.Tensor] = None):
         self.rows = shape[0]
         self.keep = keep
         self.lock = threading.Lock()
         self.static_in = torch.zeros(shape, dtype=dtype, device=device)
+        self.static_mask = None
+        if mask is not None:
+            self.static_mask = torch.zeros(self.rows, dtype=torch.float32,
+                                           device=device)
+            self.static_mask[:mask.shape[0]].copy_(mask)
+            inner = fn
+
+            def fn(rows):
+                return inner(rows, self.static_mask)
         sink: dict = {}
         self.first = None
         current = torch.cuda.current_stream(device)
@@ -126,13 +139,21 @@ class CapturedLoop:
         self.per_replay = [(_weak(obj), attr, n)
                            for obj, attr, n in sink.values()]
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        """``fn`` of ``x`` (at most ``rows`` rows) by one replay."""
+    def __call__(self, x: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``fn`` of ``x`` (at most ``rows`` rows; ``mask``, its row
+        mask, where the loop was captured with one) by one replay."""
         n = x.shape[0]
+        if (mask is None) != (self.static_mask is None):
+            raise ValueError("CapturedLoop: a row mask goes to a loop "
+                             "captured with one, and only there")
         with self.lock:
             self.static_in[:n].copy_(x)
             if n < self.rows:
                 self.static_in[n:].zero_()
+            if mask is not None:
+                self.static_mask[:n].copy_(mask)
+                self.static_mask[n:].zero_()
             self.graph.replay()
             out = self.static_out[:n].clone()
         tally_all([(obj, attr, n) for obj, attr, n in

@@ -18,8 +18,8 @@ workflow/{Rule,RuleExecutor,DefaultOptimizer}.scala and the rules):
     ShardingPlannerRule (nothing to place on one card, as JAX's rule on a
     one-device mesh) and PrecisionPlannerRule (`analysis/precision.py`).
     They price on the card's calibrated rates (`calibrate.machine_rates`);
-    the multi-card placement menu comes with multi-GPU (ROADMAP queue 1,
-    item 10).
+    the multi-card placement menu comes with the sharding planner
+    (ROADMAP queue 1, item 4).
 
 A *plan* is ``(Graph, dict[NodeId, Prefix])``, the prefix map holding
 only the saveable nodes' structural prefixes.
@@ -555,7 +555,7 @@ class ShardingPlannerRule(Rule):
     """Per-stage placement as an optimizer decision (`:608-771`). On one
     card there is nothing to place, as for JAX's rule on a one-device
     mesh (`:653-654`): the plan is returned as it is. Enforcement across
-    cards comes with multi-GPU (ROADMAP queue 1, item 10)."""
+    cards comes with the sharding planner (ROADMAP queue 1, item 4)."""
 
     def apply(self, plan: Plan) -> Plan:
         from ..analysis.planner import device_count

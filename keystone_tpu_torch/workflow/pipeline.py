@@ -26,10 +26,12 @@ for.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
+from ..parallel.mesh import require_mesh_aware
 from ..telemetry.watchdog import request_scope
 from .env import PipelineEnv
 from .executor import GraphExecutor
@@ -361,24 +363,40 @@ class FittedPipeline(Chainable):
     def __call__(self, data: Any):
         return self.apply(data)
 
-    def save(self, path: str) -> None:
-        """Write to ``path`` as one pickle (FittedPipeline.scala:10), every
-        tensor as a CPU tensor. Raises TypeError, naming the operator and
-        writing nothing, when a node cannot be pickled (a `from_function`
-        lambda: the port has no cloudpickle)."""
-        from ..utils.serialization import save_pytree_pickle
+    def save(self, path: str, format: str = "pickle") -> None:
+        """Write to ``path`` (FittedPipeline.scala:10; JAX `:382-402`).
+        ``format="pickle"``: one pickle, every tensor as a CPU tensor.
+        Raises TypeError, naming the operator and writing nothing, when a
+        node cannot be pickled (a `from_function` lambda: the port has no
+        cloudpickle). ``format="dcp"``: a directory, the tensors through
+        `torch.distributed.checkpoint` (JAX's orbax format); collective
+        in a process group (`utils/serialization.py::save_pytree_dcp`)."""
+        from ..utils.serialization import save_pytree_dcp, save_pytree_pickle
 
-        save_pytree_pickle(self, path, parts=self.graph.operators.values())
+        if format == "dcp":
+            save_pytree_dcp(self, path)
+        elif format == "pickle":
+            save_pytree_pickle(self, path,
+                               parts=self.graph.operators.values())
+        else:
+            raise ValueError(f"unknown format {format!r} (pickle or dcp)")
 
     @staticmethod
     def load(path: str, device="cuda") -> "FittedPipeline":
-        """Read a saved pipeline, its tensors placed on ``device`` (the
-        card by default; without one this raises unless ``device`` is
-        "cpu")."""
+        """Read a saved pipeline of either format (a directory is the
+        distributed one, collective in a process group), its tensors
+        placed on ``device`` (the card by default; without one this
+        raises unless ``device`` is "cpu")."""
         from ..device import resolve_device
-        from ..utils.serialization import load_pytree_pickle
+        from ..utils.serialization import (
+            is_dcp_artifact,
+            load_pytree_dcp,
+            load_pytree_pickle,
+        )
 
-        obj = load_pytree_pickle(path, resolve_device(device))
+        dev = resolve_device(device)
+        obj = (load_pytree_dcp(path, dev) if is_dcp_artifact(path)
+               else load_pytree_pickle(path, dev))
         if not isinstance(obj, FittedPipeline):
             raise TypeError(f"{path} does not contain a FittedPipeline")
         return obj
@@ -386,6 +404,16 @@ class FittedPipeline(Chainable):
 
 # --------------------------------------------------------------------------
 # Transformer
+
+
+def _rezero_padded(out, data):
+    """``out`` with the rows that are padding in ``data`` (a rank's rows
+    of a mesh's data axis) set to zero, as JAX's masking stages do."""
+    if not getattr(data, "has_padding", False):
+        return out
+    from ..data.dataset import mask_rows
+
+    return out.with_data(mask_rows(out.array, data.mask))
 
 
 def _host_tier(data) -> bool:
@@ -482,7 +510,10 @@ class Transformer(TransformerOperator, Chainable):
                 return self._windowed_apply(data)
             data = (data.rehydrate() if getattr(data, "is_spilled", False)
                     else data.materialize())
-        return data.map_batches(self.batch_fn())
+        out = data.map_batches(self.batch_fn())
+        if getattr(self, "fuse_masks_output", False):
+            out = _rezero_padded(out, data)
+        return out
 
     def single_transform(self, inputs: List[Any]) -> Any:
         return self.apply(inputs[0])
@@ -549,11 +580,38 @@ class ItemTransformer(Transformer):
 # Estimators
 
 
+def _guard_fit(cls) -> None:
+    """Wrap the ``fit`` ``cls`` defines so that it raises on a dataset
+    sharded over a mesh's data axis unless the class is marked
+    ``mesh_aware`` (`parallel/mesh.py::require_mesh_aware`): fitting it
+    there would read one rank's rows only."""
+    fit = cls.__dict__.get("fit")
+    if fit is None or getattr(fit, "mesh_guarded", False):
+        return
+
+    @functools.wraps(fit)
+    def guarded(self, *args, **kwargs):
+        require_mesh_aware(self, list(args) + list(kwargs.values()))
+        return fit(self, *args, **kwargs)
+
+    guarded.mesh_guarded = True
+    cls.fit = guarded
+
+
 class Estimator(EstimatorOperator, Chainable):
     """Unsupervised estimator: `fit(data) -> Transformer`
-    (Estimator.scala:10-62)."""
+    (Estimator.scala:10-62). A subclass's ``fit`` on a dataset sharded
+    over more than one rank raises unless the class sets ``mesh_aware``
+    (`_guard_fit`)."""
 
     saveable = True  # fit results are memoized by prefix
+
+    #: whether ``fit`` reduces over every rank of a mesh's data axis
+    mesh_aware = False
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        _guard_fit(cls)
 
     def fit(self, data: Any) -> Transformer:
         raise NotImplementedError
@@ -578,9 +636,15 @@ class Estimator(EstimatorOperator, Chainable):
 
 class LabelEstimator(EstimatorOperator, Chainable):
     """Supervised estimator: `fit(data, labels) -> Transformer`
-    (LabelEstimator.scala:13-100)."""
+    (LabelEstimator.scala:13-100), guarded as `Estimator` is."""
 
     saveable = True
+
+    mesh_aware = False
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        _guard_fit(cls)
 
     def fit(self, data: Any, labels: Any) -> Transformer:
         raise NotImplementedError
@@ -633,6 +697,8 @@ class TransformerChain(Transformer):
 class EstimatorChain(Estimator):
     """prep >> estimator as one Estimator (ChainUtils.scala:12-24)."""
 
+    mesh_aware = True  # the inner estimator's fit is guarded
+
     def __init__(self, prep: Transformer, est: Estimator):
         self.prep = prep
         self.est = est
@@ -648,6 +714,8 @@ class EstimatorChain(Estimator):
 
 class LabelEstimatorChain(LabelEstimator):
     """prep >> label estimator as one (ChainUtils.scala:26-41)."""
+
+    mesh_aware = True  # the inner estimator's fit is guarded
 
     def __init__(self, prep: Transformer, est: LabelEstimator):
         self.prep = prep

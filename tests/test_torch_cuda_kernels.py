@@ -945,3 +945,105 @@ def test_cuda_replays_hold_while_their_thread_captures(cuda_device):
     assert all(s["replays"] > 0 and s["ladders_captured"] > 0
                for s in report["shapes"])
     assert report["wrong"] == 0, report
+
+
+@pytest.fixture
+def nccl_group(cuda_device):
+    """An NCCL group of world size 1 on the card (a free localhost port,
+    a 60 s timeout), destroyed after the test."""
+    import socket
+
+    import torch.distributed as dist
+
+    from keystone_tpu_torch import parallel
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    assert parallel.init_multihost(f"127.0.0.1:{port}", 1, 0, device="cuda",
+                                   timeout=60) == 1
+    try:
+        yield parallel.global_data_mesh()
+    finally:
+        parallel.reset_default_mesh()
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_collectives_at_world_one(nccl_group):
+    """The data axis on the card: NCCL's all-reduce, all-gather and
+    broadcast at world size 1 (each an identity), and a mesh `Dataset`'s
+    rows gathered back, held to the plain arrays."""
+    import torch.distributed as dist
+
+    from keystone_tpu_torch import parallel
+    from keystone_tpu_torch.data.dataset import Dataset
+
+    assert dist.get_backend() == "nccl"
+    mesh = nccl_group
+    assert parallel.n_data_shards(mesh) == 1
+    x = np.arange(64 * 5, dtype=np.float32).reshape(64, 5)
+    ds = Dataset.from_numpy(x, mesh=mesh)
+    assert ds.device.type == "cuda" and ds.count == ds.padded_count == 64
+    np.testing.assert_array_equal(parallel.tree_reduce_sum(ds).cpu().numpy(),
+                                  x.sum(axis=0))
+    np.testing.assert_array_equal(
+        parallel.all_gather_rows(ds).cpu().numpy(), x)
+    w = torch.full((4, 4), 3.0, device="cuda")
+    np.testing.assert_array_equal(parallel.broadcast(w, mesh).cpu().numpy(),
+                                  np.full((4, 4), 3.0, np.float32))
+    np.testing.assert_array_equal(ds.numpy(), x)
+    odd = Dataset.from_numpy(x[:63], mesh=mesh)
+    np.testing.assert_array_equal(odd.numpy(), x[:63])
+    local = parallel.dataset_from_process_local(x, mesh=mesh)
+    assert local.device.type == "cuda" and local.count == 64
+    np.testing.assert_array_equal(local.numpy(), x)
+
+
+@pytest.mark.cuda
+def test_cuda_planned_chain_kernel_takes_the_row_mask(nccl_group):
+    """A chain that K4 plans, its scaler the run's last stage, on the
+    card: over a mesh `Dataset` through `apply_batch`, and over rows
+    with padded ones and their mask, as `apply_batch` passes a rank's
+    (eagerly, and megafused: its eager call, its capture and a replay).
+    Each call launches K4 once a 128-row microbatch, the mask goes into
+    the kernel, and the rows are its plain version's with the mask,
+    padded rows zero. An NCCL group of one card pads no row, so the mask
+    is passed here; the gloo tests run the padded mesh path itself."""
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.nodes.util.fusion import (
+        MegafusedBatchTransformer,
+        stage_fuse,
+    )
+    from keystone_tpu_torch.ops import chain_kernels
+
+    import torch_parallel_worker as worker
+
+    chain = worker.k4_chain()
+    assert chain.planned_kernel == (0, 4, "elementwise_chain")
+    fused = [stage_fuse(s) for s in chain.fused]
+    statics, params = [f[0] for f in fused], [f[1] for f in fused]
+    x = torch.from_numpy(worker.k4_images()[:300]).cuda()
+    mask = torch.arange(300, device="cuda") < 295
+
+    def launched(fn):
+        before = chain_kernels.elementwise_chain.launches
+        out = fn()
+        torch.cuda.synchronize()
+        assert chain_kernels.elementwise_chain.launches - before == 3
+        return out
+
+    got = launched(lambda: chain.apply_batch(Dataset(x, mesh=nccl_group)))
+    _k4_check(got.array, chain_kernels.elementwise_chain_reference(
+        statics, params, x))
+    want = chain_kernels.elementwise_chain_reference(statics, params, x,
+                                                     mask)
+    got = launched(lambda: chain.batch_fn()(x, mask))
+    _k4_check(got, want)
+    assert float(got[295:].abs().max()) == 0.0
+    mega = MegafusedBatchTransformer([chain], microbatch=128).batch_fn()
+    for _ in range(3):
+        got = launched(lambda: mega(x, mask))
+        _k4_check(got, want)
+        assert float(got[295:].abs().max()) == 0.0

@@ -1,0 +1,435 @@
+"""One rank of the port's multi-process tests: a gloo group on the CPU.
+
+Spawned by `tests/test_torch_parallel.py` and `tests/test_torch_multihost.py`
+(through `run_job`), as `tests/multihost_worker.py` is for the JAX package:
+
+    python tests/torch_parallel_worker.py JOB RANK WORLD PORT OUT_DIR
+
+Each rank joins the group by `parallel.init_multihost` (gloo, a 60 s
+timeout, so a lost peer fails the job instead of hanging it), runs the
+job's checks, and writes ``OUT_DIR/JOB-RANK.json`` (flags and numbers)
+and ``OUT_DIR/JOB-RANK.npz`` (arrays) for the parent to assert on. The
+worker imports no JAX: the parent holds the results to JAX's.
+"""
+
+from __future__ import annotations
+
+import fcntl
+import json
+import os
+import socket
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+#: a collective's wait for its peers, and a whole job's
+GROUP_TIMEOUT_S = 60.0
+JOB_TIMEOUT_S = 180.0
+
+#: RandomPatchCifar at the tests' small width: 16 filters, two 64-wide
+#: BCD blocks, 601/201 synthetic images (counts that 2 and 4 ranks pad)
+CIFAR_CFG = dict(num_filters=16, block_size=64, microbatch=64,
+                 sample_patches=5000, seed=3)
+CIFAR_N = (601, 201)
+
+
+def k4_chain(microbatch: int = 128):
+    """``PixelScaler >> GrayScaler >> ImageVectorizer >>`` a scaler over
+    6×6×3 images: one run that K4 plans, whose scaler re-zeroes padded
+    rows (seeded mean and std)."""
+    import torch
+
+    from keystone_tpu_torch.nodes.images.core import (
+        GrayScaler,
+        ImageVectorizer,
+        PixelScaler,
+    )
+    from keystone_tpu_torch.nodes.stats.scalers import StandardScalerModel
+    from keystone_tpu_torch.nodes.util.fusion import FusedBatchTransformer
+
+    rng = np.random.default_rng(9)
+    mean = torch.tensor(rng.normal(size=36), dtype=torch.float32)
+    std = torch.tensor(rng.uniform(0.5, 2.0, size=36), dtype=torch.float32)
+    return FusedBatchTransformer([PixelScaler(), GrayScaler(),
+                                  ImageVectorizer(),
+                                  StandardScalerModel(mean, std)],
+                                 microbatch=microbatch)
+
+
+def k4_images() -> np.ndarray:
+    """1,001 seeded 6×6×3 images for `k4_chain`."""
+    return (np.random.default_rng(8).random((1001, 6, 6, 3))
+            * 255.0).astype(np.float32)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+# ------------------------------------------------------------------ parent
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def spawn(argvs, out_dir: str, timeout: float = JOB_TIMEOUT_S):
+    """Run one process per argv (each after ``python``), their output to
+    files under ``out_dir``; kill them all at ``timeout`` seconds.
+    Returns the outputs; raises AssertionError naming a failed rank."""
+    # one thread a rank: the ranks share the host with the other tests
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               PYTHONPATH=ROOT)
+    logs = [os.path.join(out_dir, f"rank{i}.log") for i in range(len(argvs))]
+    procs = []
+    for argv, log in zip(argvs, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable] + argv, stdout=f, stderr=subprocess.STDOUT,
+                env=env, cwd=ROOT))
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for log in logs:
+        with open(log) as f:
+            outs.append(f.read())
+    for i, p in enumerate(procs):
+        assert p.returncode == 0, (
+            f"rank {i} exited {p.returncode} (killed at the {timeout:.0f} s "
+            f"deadline if negative):\n{outs[i][-4000:]}")
+    return outs
+
+
+def once(shared: str, name: str, make) -> str:
+    """``shared/name``, a directory every pytest worker sees, after
+    ``make(directory)`` has filled it: the first caller runs it under a
+    file lock, later callers find it done."""
+    out_dir = os.path.join(shared, name)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if not os.path.exists(os.path.join(out_dir, "done")):
+                make(out_dir)
+                open(os.path.join(out_dir, "done"), "w").close()
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+    return out_dir
+
+
+def run_job(job: str, world: int, shared: str):
+    """The job's results, one ``(json, npz)`` pair a rank, run once for
+    every pytest worker (`once`)."""
+    out_dir = once(shared, f"{job}-{world}",
+                   lambda d: _run(job, world, d))
+    return [(json.load(open(os.path.join(out_dir, f"{job}-{r}.json"))),
+             dict(np.load(os.path.join(out_dir, f"{job}-{r}.npz"))))
+            for r in range(world)]
+
+
+def _run(job: str, world: int, out_dir: str) -> None:
+    port = _free_port()
+    spawn([[os.path.abspath(__file__), job, str(r), str(world), str(port),
+            out_dir] for r in range(world)], out_dir)
+
+
+# ------------------------------------------------------------------- ranks
+
+
+def collectives_job(rank, world, port, out_dir, res, arr):
+    """The collectives, the mesh, `Dataset` placement and padding, the
+    solvers, the guard and the per-process counters."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.nodes.learning import (
+        BlockLeastSquaresEstimator,
+        DenseLBFGSwithL2,
+        GaussianMixtureModelEstimator,
+        KMeansPlusPlusEstimator,
+        LinearMapEstimator,
+    )
+    from keystone_tpu_torch.nodes.learning.block_ls import BlockLinearMapper
+    from keystone_tpu_torch.nodes.stats import StandardScaler
+    from keystone_tpu_torch.nodes.util.fusion import (
+        FusedBatchTransformer,
+        MegafusedBatchTransformer,
+    )
+    from keystone_tpu_torch.parallel import (
+        DATA_AXIS,
+        P,
+        all_gather_rows,
+        broadcast,
+        co_sharded,
+        current_mesh,
+        dataset_from_process_local,
+        global_data_mesh,
+        init_multihost,
+        make_mesh,
+        n_data_shards,
+        reshard,
+        tree_aggregate,
+        tree_reduce_sum,
+    )
+    from keystone_tpu_torch.telemetry import (
+        counter,
+        record_dispatch,
+        trace_run,
+    )
+
+    mesh = global_data_mesh()
+    res["mesh_axes"] = list(mesh.mesh_dim_names)
+    res["data_shards"] = n_data_shards(mesh)
+    res["current_is_default"] = current_mesh() is current_mesh()
+    res["init_noop"] = init_multihost() == world
+    res["init_again"] = init_multihost(f"127.0.0.1:{port}", world, rank,
+                                       device="cpu") == world
+
+    x = np.arange(64 * 5, dtype=np.float32).reshape(64, 5)
+    arr["reduce_sum"] = tree_reduce_sum(
+        Dataset.from_numpy(x, mesh=mesh)).numpy()
+    x2 = np.random.default_rng(0).normal(size=(64, 3)).astype(np.float32)
+    agg = tree_aggregate(Dataset.from_numpy(x2, mesh=mesh), lambda r: {
+        "sum": r.sum(dim=0), "sumsq": (r * r).sum(dim=0),
+        "n": torch.tensor(float(r.shape[0]))})
+    arr["agg_sum"], arr["agg_sumsq"] = agg["sum"].numpy(), agg["sumsq"].numpy()
+    res["agg_n"] = float(agg["n"])
+    arr["bcast"] = broadcast(torch.full((4, 4), float(rank) + 1.0),
+                             mesh).numpy()
+    with trace_run() as tracer:
+        broadcast(torch.ones(2), mesh)
+        tree_reduce_sum(Dataset.from_numpy(x, mesh=mesh))
+    res["collective_spans"] = [[r.name, r.args["bytes"]] for r in
+                               tracer.spans if r.cat == "collective"]
+    a = Dataset.from_numpy(np.ones((16, 2), np.float32), mesh=mesh)
+    b = Dataset.from_numpy(np.zeros((16, 2), np.float32), mesh=mesh)
+    rep = reshard(a, P())
+    res["co_sharded"] = co_sharded(a, b)
+    res["co_sharded_rep"] = co_sharded(a, rep)
+    res["reshard_identity"] = (reshard(a, P(DATA_AXIS)) is a
+                               and reshard(rep, P()) is rep)
+    arr["reshard_rep"] = rep.numpy()
+    arr["reshard_back"] = reshard(rep, P(DATA_AXIS)).numpy()
+    g = all_gather_rows(Dataset.from_numpy(
+        np.arange(32, dtype=np.float32).reshape(32, 1), mesh=mesh))
+    arr["gathered"] = g.numpy()
+    local = np.arange(rank * 8, rank * 8 + 8, dtype=np.float32).reshape(8, 1)
+    ds = dataset_from_process_local(local, mesh=mesh)
+    res["local_count"] = ds.count
+    arr["local_rows"] = ds.numpy()
+    try:
+        dataset_from_process_local(local, global_count=8 * world - 8,
+                                   mesh=mesh)
+        res["local_bad_count_raises"] = world == 1
+    except ValueError:
+        res["local_bad_count_raises"] = True
+    if world > 1:
+        try:
+            make_mesh((world // 2, 2), (DATA_AXIS, "model"))
+            res["model_axis_raises"] = ""
+        except NotImplementedError as e:
+            res["model_axis_raises"] = str(e)
+
+    # padding: 1,001 rows over `world` shards
+    rng = np.random.default_rng(5)
+    X = rng.normal(size=(1001, 6)).astype(np.float32)
+    Y = (X @ rng.normal(size=(6, 3)) + 0.1 * rng.normal(size=(1001, 3))
+         ).astype(np.float32)
+    dX = Dataset.from_numpy(X, mesh=mesh)
+    dY = Dataset.from_numpy(Y, mesh=mesh)
+    arr["pad_numpy"] = dX.numpy()
+    res["pad_padded_count"] = dX.padded_count
+    res["pad_valid"] = float(tree_reduce_sum(
+        Dataset.from_numpy(np.ones((1001, 1), np.float32), mesh=mesh))[0])
+    scaler = StandardScaler().fit(dX)
+    arr["pad_mean"], arr["pad_std"] = scaler.mean.numpy(), scaler.std.numpy()
+    arr["pad_scaled"] = scaler.apply_batch(dX).numpy()
+    # a fused chain whose scaler re-zeroes padded rows before the mapper
+    W3 = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(6, 3)).astype(np.float32))
+    b3 = torch.ones(3)
+    chain = FusedBatchTransformer([scaler, BlockLinearMapper(W3, b3)],
+                                  microbatch=128)
+    out = chain.apply_batch(dX)
+    arr["pad_chain"] = out.numpy()
+    res["pad_chain_padded_rows_are_b"] = bool(
+        (out.array[~dX.mask] == b3).all())
+    res["pad_scaled_padded_rows_zero"] = bool(
+        (scaler.apply_batch(dX).array[~dX.mask] == 0).all())
+    # a chain that K4 plans: the mask goes into the kernel's scaler
+    # stage, through the eager loop and the megafused one
+    k4 = k4_chain()
+    res["pad_k4_planned"] = list(k4.planned_kernel)
+    dI = Dataset.from_numpy(k4_images(), mesh=mesh)
+    out = k4.apply_batch(dI)
+    arr["pad_k4"] = out.numpy()
+    res["pad_k4_padded_rows_zero"] = bool(
+        (out.array[~dI.mask] == 0).all())
+    out = MegafusedBatchTransformer([k4], microbatch=128).apply_batch(dI)
+    arr["pad_k4_megafused"] = out.numpy()
+    res["pad_k4_megafused_padded_rows_zero"] = bool(
+        (out.array[~dI.mask] == 0).all())
+    m = LinearMapEstimator(lam=0.1).fit(dX, dY)
+    arr["pad_exact_W"], arr["pad_exact_b"] = m.W.numpy(), m.b.numpy()
+    m = BlockLeastSquaresEstimator(2, 3, lam=0.1).fit(dX, dY)
+    arr["pad_bcd_W"], arr["pad_bcd_b"] = m.W.numpy(), m.b.numpy()
+    m = DenseLBFGSwithL2(lam=0.5, num_iters=15).fit(dX, dY)
+    arr["pad_lbfgs_W"], arr["pad_lbfgs_b"] = m.W.numpy(), m.b.numpy()
+    preds = rng.integers(0, 4, size=1001).astype(np.int64)
+    actual = rng.integers(0, 4, size=1001).astype(np.int64)
+    arr["pad_confusion"] = MulticlassClassifierEvaluator(4)(
+        Dataset.from_numpy(preds, mesh=mesh),
+        Dataset.from_numpy(actual, mesh=mesh)).confusion
+
+    # the solvers of `tests/test_parallel.py`
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(96, 6)).astype(np.float32)
+    Y = X @ rng.normal(size=(6, 3)).astype(np.float32)
+    m = LinearMapEstimator(lam=0.0).fit(Dataset.from_numpy(X, mesh=mesh),
+                                        Dataset.from_numpy(Y, mesh=mesh))
+    arr["exact_W"], arr["exact_b"] = m.W.numpy(), m.b.numpy()
+    rng = np.random.default_rng(7)
+    X = rng.normal(size=(96, 24)).astype(np.float32)
+    W = rng.normal(size=(24, 3)).astype(np.float32)
+    Y = X @ W + 0.01 * rng.normal(size=(96, 3)).astype(np.float32)
+    m = BlockLeastSquaresEstimator(block_size=8, num_iter=4, lam=0.1).fit(
+        Dataset.from_numpy(X, mesh=mesh), Dataset.from_numpy(Y, mesh=mesh))
+    arr["bcd_W"], arr["bcd_b"] = m.W.numpy(), m.b.numpy()
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(64, 16)).astype(np.float32)
+    Y = X @ rng.normal(size=(16, 2)).astype(np.float32)
+    m = DenseLBFGSwithL2(lam=0.5, num_iters=15).fit(
+        Dataset.from_numpy(X, mesh=mesh), Dataset.from_numpy(Y, mesh=mesh))
+    arr["lbfgs_W"], arr["lbfgs_b"] = m.W.numpy(), m.b.numpy()
+
+    # the guard: unsupervised fits that are not mesh-aware
+    pts = Dataset.from_numpy(np.random.default_rng(2).normal(
+        size=(40, 3)).astype(np.float32), mesh=mesh)
+    for name, est in (("gmm", GaussianMixtureModelEstimator(2)),
+                      ("kmeans", KMeansPlusPlusEstimator(2, 3))):
+        try:
+            est.fit(pts)
+            res[f"guard_{name}"] = ""
+        except NotImplementedError as e:
+            res[f"guard_{name}"] = str(e)
+
+    record_dispatch()
+    res["counters"] = {
+        f"p{r}": counter(f"dispatch.programs_executed.p{r}").value
+        for r in range(world)}
+
+
+def cifar_job(rank, world, port, out_dir, res, arr):
+    """RandomPatchCifar at the small width over the ranks: filters from
+    JAX's draws (``cifar-reference/draws.npz``, which the parent writes
+    beside the job's directory), the staged
+    pipeline and `fused_fit` on them, `run_fused` on the port's own
+    draws; a distributed checkpoint of the fitted pipeline, and a
+    corrupted sidecar."""
+    import torch
+
+    from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.loaders.cifar_loader import synthetic_cifar
+    from keystone_tpu_torch.parallel import barrier, global_data_mesh
+    from keystone_tpu_torch.pipelines import random_patch_cifar as rpc
+    from keystone_tpu_torch.workflow import PipelineEnv
+    from keystone_tpu_torch.workflow.pipeline import FittedPipeline
+
+    mesh = global_data_mesh()
+    config = rpc.RandomPatchCifarConfig(**CIFAR_CFG)
+    train, test = synthetic_cifar(*CIFAR_N, noise=1.2, confusion=0.6,
+                                  device="cpu", mesh=mesh)
+    draws = np.load(os.path.join(out_dir, "..", "cifar-reference",
+                                 "draws.npz"))
+    filters, whitener = rpc.learn_filters_from_indices(
+        train.data, *(torch.from_numpy(draws[k]) for k in
+                      ("img_idx", "patch_idx", "filter_idx")),
+        config.patch_size, config.patch_steps)
+    arr["filters"] = filters.numpy()
+    arr["whitener"] = whitener.whitener.numpy()
+    arr["means"] = whitener.means.numpy()
+
+    evaluator = MulticlassClassifierEvaluator(10)
+    PipelineEnv.reset()
+    predictor = rpc.build_pipeline(train, config, learned=(filters, whitener))
+    res["staged_test_accuracy"] = evaluator(predictor(test.data),
+                                            test.labels).accuracy
+    arr["staged_preds"] = predictor(test.data).get().numpy()
+    model = predictor.fitted(1)
+    arr["staged_W"], arr["staged_b"] = model.W.numpy(), model.b.numpy()
+
+    W, b, _, conf_test, _ = rpc.fused_fit(train, test, filters, whitener,
+                                          config)
+    arr["fused_W"], arr["fused_b"] = W.numpy(), b.numpy()
+    arr["fused_conf_test"] = conf_test.numpy()
+    stages, metrics = rpc.run_staged(train, config, evaluator)
+    res["run_staged_total"] = metrics.total
+    own, own_whitener = rpc.learn_filters(train.data, config)
+    arr["own_filters"] = own.numpy()
+    arr["own_whitener"] = own_whitener.whitener.numpy()
+    fused = rpc.run_fused(train, test, config)
+    res["run_fused_test_accuracy"] = fused["test_accuracy"]
+    arr["run_fused_W"] = fused["W"].numpy()
+
+    PipelineEnv.reset()
+    fitted = rpc.build_pipeline(train, config,
+                                learned=(filters, whitener)).fit()
+    path = os.path.join(out_dir, "..", f"ckpt-{world}")
+    fitted.save(path, format="dcp")
+    loaded = FittedPipeline.load(path, device="cpu")
+    arr["ckpt_before"] = fitted.apply(test.data).numpy()
+    arr["ckpt_after"] = loaded.apply(test.data).numpy()
+    barrier()
+    if rank == 0:
+        with open(os.path.join(path, "arrays_id.txt"), "w") as f:
+            f.write("not-the-skeleton-id")
+    barrier()
+    try:
+        FittedPipeline.load(path, device="cpu")
+        res["corrupt_sidecar"] = ""
+    except RuntimeError as e:
+        res["corrupt_sidecar"] = str(e)
+
+
+JOBS = {"collectives": collectives_job, "cifar": cifar_job}
+
+
+def main(argv) -> int:
+    job, rank, world, port, out_dir = argv
+    rank, world = int(rank), int(world)
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from keystone_tpu_torch.parallel import barrier, init_multihost
+
+    torch.manual_seed(0)
+    init_multihost(f"127.0.0.1:{port}", world, rank, device="cpu",
+                   timeout=GROUP_TIMEOUT_S)
+    res, arr = {}, {}
+    JOBS[job](rank, world, port, out_dir, res, arr)
+    barrier()
+    np.savez(os.path.join(out_dir, f"{job}-{rank}.npz"), **arr)
+    with open(os.path.join(out_dir, f"{job}-{rank}.json"), "w") as f:
+        json.dump(res, f)
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
