@@ -386,6 +386,29 @@ Phases, each printed on a line of its own:
               share of `train_seconds`); a `format="dcp"` save and load
               of the fitted pipeline (seconds, bytes) predicting alike;
               the ``p0`` dispatch counter. The group is destroyed after.
+32. model_axis - the model axis and the static side of multi-GPU: the
+              static tier (`analysis/sharding.py`, `plan_sharding`) on
+              RandomPatchCifar's fit and test graphs at 50,000/10,000 and
+              on `dispatch_bench`'s four examples, on layouts 2x4, 8x1
+              and 1x2 (no KP6xx on the examples; the planner's choices
+              and bytes equal to `MODEL_AXIS_PINNED`, the CPU's), the
+              analysis CLI's ``--explain-sharding --plan --mesh-shape
+              2x4 --json`` in this process; then two ranks of this
+              script (``--model-axis-rank``) on the one card, a gloo
+              group over its tensors on the (1, 2) mesh: RandomPatchCifar
+              at 256 filters staged and `run_fused`, the features each
+              rank's column tile and BCD gathering its block over
+              ``model``. Held: K1 30 launches a run on each rank and on
+              the rank's rows against its plain version at K1_TOL; test
+              accuracy within 0.005 of 0.831; at most 0.1% of the test
+              predictions different from phase 31's one-process run;
+              `run_fused`'s W within 2e-3 of one process's; W, b and the
+              predictions equal on both ranks; a collective over the
+              model axis in each run. Printed: the collectives by kind
+              and axis (calls, bytes; the seconds of a synchronizing
+              trace, which under gloo pass through host memory and are
+              no NVLink figure) and each rank's peak memory beside
+              `per_device_pass`'s prediction.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The process-wide prefix table (`PipelineEnv`) is reset before each
@@ -701,6 +724,36 @@ NLP_VALUE_RTOL, NLP_GRAD_RTOL = 1e-5, 1e-6
 NLP_PERCEPTRON_SENTENCES, NLP_PERCEPTRON_ITERS = 600, 3
 # phase 31: a collective's wait for its peers (one rank: none)
 PARALLEL_TIMEOUT_S = 120.0
+# phase 32: two ranks on the card's (1, 2) mesh; the slice's accuracy
+# (PERF.md §5) and the band around it; predictions that may differ from
+# phase 31's one-process run (0.1% of the test rows); run_fused's W
+# against one process's (JAX's own atol between mesh shapes)
+MODEL_AXIS_TIMEOUT_S = 300.0
+MODEL_AXIS_ACC, MODEL_AXIS_ACC_TOL = 0.831, 0.005
+MODEL_AXIS_PRED_DIFF = N_TEST // 1000
+MODEL_AXIS_W_ATOL = 2e-3
+#: the sharding planner's choices, computed by `model_axis_static` on the
+#: CPU (`python -c "import chip_smoke; print(chip_smoke.model_axis_static(
+#: 'cpu'))"`): per graph and layout, [default boundary bytes, planned
+#: boundary bytes, improved, the chosen families in vertex order, run-
+#: length coded: d data, dm data_model, m model, r replicated]
+MODEL_AXIS_PINNED = {
+    "LinearPixels@2x4": [22176, 0, True, "d3 dm5 d3"],
+    "LinearPixels@8x1": [0, 0, False, "d11"],
+    "MnistRandomFFT@2x4": [10752, 0, True, "d27"],
+    "MnistRandomFFT@8x1": [0, 0, False, "d27"],
+    "RandomPatchCifar.fit@2x4": [2508800000, 0, True,
+                                 "d2 dm3 d1 dm7 d5"],
+    "RandomPatchCifar.fit@8x1": [0, 0, False, "d18"],
+    "RandomPatchCifar.test@2x4": [1792000000, 0, True,
+                                  "d2 dm3 d1 dm7 d5"],
+    "RandomPatchCifar.test@8x1": [0, 0, False, "d18"],
+    "RandomPatchCifar@2x4": [672, 0, True,
+                             "d10 dm2 d6 dm2 d4 dm2 d1 dm1 d1 dm1 d3"],
+    "RandomPatchCifar@8x1": [0, 0, False, "d33"],
+    "TimitPipeline@2x4": [10752, 0, True, "d2 dm3 d4"],
+    "TimitPipeline@8x1": [0, 0, False, "d9"],
+}
 NLP_ANNOTATED = 16        # held-out NER sentences through the extractor
 
 
@@ -3790,15 +3843,17 @@ def _dir_bytes(path: str) -> int:
                for d, _, files in os.walk(path) for f in files)
 
 
-def _collective_spans(tracer, seconds: float) -> dict:
+def _collective_spans(tracer, seconds: float, by_axis: bool = False) -> dict:
     """``{kind: {"calls", "bytes", "seconds", "share_of_train_seconds"}}``
     of the ``collective`` spans of a synchronizing tracer's run of
-    ``seconds``."""
+    ``seconds``; with ``by_axis``, keyed ``axis.kind``."""
     out = {}
     for rec in tracer.spans:
         if rec.cat == "collective":
-            row = out.setdefault(rec.name, {"calls": 0, "bytes": 0,
-                                            "seconds": 0.0})
+            key = (f"{rec.args.get('axis')}.{rec.name}" if by_axis
+                   else rec.name)
+            row = out.setdefault(key, {"calls": 0, "bytes": 0,
+                                       "seconds": 0.0})
             row["calls"] += 1
             row["bytes"] += rec.args["bytes"]
             row["seconds"] += rec.dur
@@ -3984,7 +4039,374 @@ def parallel_phase(dev, train, test, config, card) -> dict:
     out["phase_seconds"] = time.perf_counter() - phase_t0
     phase("parallel", **out, card=card)
     return dict(k1=out["staged"]["k1_launches"] + out["fused"]["k1_launches"],
-                k1_check=out["k1_check"])
+                k1_check=out["k1_check"],
+                one_preds=one_preds.array.cpu().numpy(),
+                one_accuracy=one_acc,
+                one_fused_W=one_fused["W"].cpu().numpy())
+
+
+def _rpc_fit_graphs(config, device):
+    """RandomPatchCifar's graphs at the slice's counts (50,000 train,
+    10,000 test) over placeholder data, the featurizer `make_featurizer`'s
+    fused program as `build_pipeline` has it: the fit with the train
+    predict, and the test apply. Random filters and an identity whitener
+    of the config's shapes stand in for the learned ones (the passes
+    read shapes)."""
+    from keystone_tpu_torch.analysis import SpecDataset
+    from keystone_tpu_torch.nodes.learning.block_ls import (
+        BlockLeastSquaresEstimator,
+    )
+    from keystone_tpu_torch.nodes.learning.zca import ZCAWhitener
+    from keystone_tpu_torch.nodes.stats.scalers import StandardScaler
+    from keystone_tpu_torch.nodes.util.basic import (
+        Cacher,
+        ClassLabelIndicatorsFromInt,
+        MaxClassifier,
+    )
+    from keystone_tpu_torch.pipelines.random_patch_cifar import (
+        make_featurizer,
+    )
+
+    rng = np.random.default_rng(config.seed)
+    d = config.patch_size * config.patch_size * 3
+    filters = torch.from_numpy(rng.normal(
+        size=(config.num_filters, d)).astype(np.float32)).to(device)
+    whitener = ZCAWhitener(torch.eye(d), torch.zeros(d), device=device)
+    feats = (make_featurizer(filters, whitener, 32, 32, 3,
+                             config).to_pipeline() >> Cacher("features"))
+    train = SpecDataset((32, 32, 3), np.float32, count=N_TRAIN,
+                        name="cifar-train")
+    labels = ClassLabelIndicatorsFromInt(config.num_classes)(
+        SpecDataset((), np.int32, count=N_TRAIN, name="cifar-labels"))
+    predictor = (feats.and_then(StandardScaler(), train)
+                 .and_then(BlockLeastSquaresEstimator(
+                     config.block_size, config.bcd_iters, config.lam),
+                     train, labels)
+                 >> MaxClassifier())
+    test = SpecDataset((32, 32, 3), np.float32, count=N_TEST,
+                       name="cifar-test")
+    return {"RandomPatchCifar.fit": predictor.apply(train).graph,
+            "RandomPatchCifar.test": predictor.apply(test).graph}
+
+
+_FAMILY_CODES = {"data": "d", "data_model": "dm", "model": "m",
+                 "replicated": "r"}
+
+
+def _run_lengths(families) -> str:
+    """``"d2 dm3 d1"``: the families in order, run-length coded."""
+    runs = []
+    for f in families:
+        code = _FAMILY_CODES[f]
+        if runs and runs[-1][0] == code:
+            runs[-1][1] += 1
+        else:
+            runs.append([code, 1])
+    return " ".join(f"{c}{n}" for c, n in runs)
+
+
+def model_axis_static(device, layouts=("2x4", "8x1", "1x2")) -> dict:
+    """The static tier on the slice's RandomPatchCifar graphs and
+    `dispatch_bench`'s four examples, per layout: the KP6xx findings,
+    the per-device peak, and the sharding planner's default and planned
+    boundary bytes and chosen families. Spec arithmetic only: the same
+    numbers on the CPU and on the card."""
+    from keystone_tpu_torch import dispatch_bench
+    from keystone_tpu_torch.analysis.memory import memory_pass
+    from keystone_tpu_torch.analysis.planner import plan_sharding
+    from keystone_tpu_torch.analysis.propagate import spec_pass
+    from keystone_tpu_torch.analysis.sharding import (
+        per_device_pass,
+        sharding_pass,
+    )
+    from keystone_tpu_torch.pipelines.random_patch_cifar import (
+        RandomPatchCifarConfig,
+    )
+
+    graphs = _rpc_fit_graphs(RandomPatchCifarConfig(num_filters=256),
+                             device)
+    for name, build in dispatch_bench.EXAMPLES.items():
+        predictor, train, _ = build(device)
+        graphs[name] = predictor(train).graph
+    out = {}
+    for name, graph in graphs.items():
+        specs, _ = spec_pass(graph, {})
+        memory, _ = memory_pass(graph, specs)
+        for shape in layouts:
+            d, m = (int(v) for v in shape.split("x"))
+            layout = {"data": d, "model": m}
+            shardings, diags, _ = sharding_pass(graph, specs, mesh=layout)
+            _, pd_diags = per_device_pass(graph, specs, shardings, memory,
+                                          mesh=layout)
+            plan = plan_sharding(graph, specs, mesh=layout)
+            fams = None if plan is None else _run_lengths(
+                f for _, f in sorted(plan.families.items(),
+                                     key=lambda kv: (type(kv[0]).__name__,
+                                                     getattr(kv[0], "id",
+                                                             -1))))
+            out[f"{name}@{shape}"] = dict(
+                kp6xx=sorted(dg.rule for dg in diags + pd_diags),
+                per_device_peak_bytes=int(memory.per_device_peak_bytes),
+                plan=None if plan is None else [
+                    int(plan.default_cost_bytes),
+                    int(plan.planned_cost_bytes), plan.improved, fams])
+    return out
+
+
+def model_axis_rank(rank: int, port: int, out_dir: str) -> int:
+    """One rank of phase 32: a gloo group of two ranks over the card's
+    tensors, the (1, 2) mesh, RandomPatchCifar at the slice's width and
+    counts staged and fused. Writes ``rank<r>.json`` and ``rank<r>.npz``
+    into ``out_dir``."""
+    from keystone_tpu_torch import parallel, telemetry
+    from keystone_tpu_torch.analysis.memory import memory_pass
+    from keystone_tpu_torch.analysis.propagate import spec_pass
+    from keystone_tpu_torch.analysis.sharding import (
+        per_device_pass,
+        sharding_pass,
+    )
+    from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.loaders.cifar_loader import synthetic_cifar
+    from keystone_tpu_torch.nodes.images.core import Convolver
+    from keystone_tpu_torch.ops import kernels
+    from keystone_tpu_torch.pipelines.random_patch_cifar import (
+        RandomPatchCifarConfig,
+        build_pipeline,
+        learn_filters,
+        run_fused,
+    )
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    t0 = time.perf_counter()
+    parallel.init_multihost(f"127.0.0.1:{port}", 2, rank, device="cuda",
+                            timeout=MODEL_AXIS_TIMEOUT_S, backend="gloo")
+    res = dict(rank=rank, init_seconds=time.perf_counter() - t0)
+    arr = {}
+    try:
+        mesh = parallel.global_data_mesh(model_shards=2)
+        res["shards"] = [parallel.n_data_shards(mesh),
+                         parallel.n_model_shards(mesh)]
+        config = RandomPatchCifarConfig(num_filters=256)
+        evaluator = MulticlassClassifierEvaluator(config.num_classes)
+        # a warm run at a tenth of the counts: a fresh process's first
+        # launches, meta traces and gloo buffers, outside the clocks
+        t0 = time.perf_counter()
+        wtrain, wtest = synthetic_cifar(N_TRAIN // 10, N_TEST // 10,
+                                        noise=1.2, confusion=0.6,
+                                        device="cuda", mesh=mesh)
+        PipelineEnv.reset()
+        warm = build_pipeline(wtrain, config)
+        evaluator(warm(wtrain.data), wtrain.labels)
+        evaluator(warm(wtest.data), wtest.labels)
+        run_fused(wtrain, wtest, config)
+        torch.cuda.synchronize()
+        res["warm_seconds"] = time.perf_counter() - t0
+        del warm, wtrain, wtest
+        train, test = synthetic_cifar(N_TRAIN, N_TEST, noise=1.2,
+                                      confusion=0.6, device="cuda",
+                                      mesh=mesh)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+        # staged: the pipeline through the executor on the mesh
+        PipelineEnv.reset()
+        kernels.reset_launches()
+        with telemetry.metrics_delta() as delta, \
+                telemetry.trace_run(synchronize=True) as tracer:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            predictor = build_pipeline(train, config)
+            applied = predictor(train.data)
+            train_metrics = evaluator(applied, train.labels)
+            torch.cuda.synchronize()
+            train_seconds = time.perf_counter() - t0
+            preds = predictor(test.data).get()
+            test_metrics = evaluator(preds, test.labels)
+        model = predictor.fitted(1)
+        res["staged"] = dict(
+            train_seconds=train_seconds,
+            train_error=train_metrics.error,
+            test_accuracy=test_metrics.accuracy,
+            k1_launches=kernels.conv_rectify_pool.launches,
+            collectives=_collective_spans(tracer, train_seconds, True),
+            counters={k: v for k, v in delta.counters().items()
+                      if k.startswith("collectives.")})
+        arr["staged_preds"] = preds.numpy()
+        arr["staged_W"] = model.W.cpu().numpy()
+        arr["staged_b"] = model.b.cpu().numpy()
+        # the per-device model of the fit on this mesh, beside the peak
+        specs, _ = spec_pass(applied.graph, {})
+        memory, _ = memory_pass(applied.graph, specs)
+        shardings, _, _ = sharding_pass(applied.graph, specs, mesh=mesh)
+        per_device_pass(applied.graph, specs, shardings, memory, mesh=mesh)
+        res["staged"]["per_device_peak_bytes_predicted"] = int(
+            memory.per_device_peak_bytes)
+        res["staged"]["peak_bytes"] = int(torch.cuda.max_memory_allocated())
+        del predictor, applied, preds
+
+        # K1 on this rank's rows against its plain version
+        filters, whitener = learn_filters(train.data, config)
+        cv = Convolver(filters, 32, 32, 3, whitener=whitener,
+                       normalize_patches=True)
+        x = train.data.array[:HEADLINE_N] / 255.0
+        args = (cv.colsum.contiguous(), cv.bias.contiguous(), config.alpha,
+                0.0, config.pool_size, config.pool_stride, True)
+        before = kernels.conv_rectify_pool.launches
+        got = kernels.conv_rectify_pool(
+            x, kernels.hwio_to_cmajor(cv.kernel).contiguous(), *args,
+            cv.patch)
+        torch.cuda.synchronize()
+        kernels.conv_rectify_pool.launches = before  # a check, not the path
+        want = kernels.conv_rectify_pool_reference(x, cv.kernel, *args)
+        err, rel = rel_err(got, want)
+        res["k1_check"] = dict(n=HEADLINE_N, max_abs_err=err, rel_err=rel,
+                               tolerance_rel=K1_TOL)
+        del x, got, want
+
+        # fused: `run_fused`, BCD on this rank's column tile
+        PipelineEnv.reset()
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with telemetry.metrics_delta() as fdelta, \
+                telemetry.trace_run(synchronize=True) as ftracer:
+            fused_seconds, fused = timed_s(
+                lambda: run_fused(train, test, config))
+        res["fused"] = dict(
+            train_seconds=fused_seconds,
+            test_accuracy=fused["test_accuracy"],
+            k1_launches=kernels.conv_rectify_pool.launches,
+            stage_ms=fused["stage_ms"],
+            collectives=_collective_spans(ftracer, fused_seconds, True),
+            counters={k: v for k, v in fdelta.counters().items()
+                      if k.startswith("collectives.")},
+            peak_bytes=int(torch.cuda.max_memory_allocated()))
+        arr["fused_W"] = fused["W"].cpu().numpy()
+        arr["fused_b"] = fused["b"].cpu().numpy()
+        parallel.barrier()
+    finally:
+        parallel.reset_default_mesh()
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arr)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def model_axis_phase(dev, card, par) -> dict:
+    """32. model_axis: the static tier and the sharding planner on the
+    slice's graphs and `dispatch_bench`'s examples (layouts 2x4 and 8x1,
+    checked against the CPU's pinned values), the analysis CLI's
+    ``--explain-sharding --plan --mesh-shape 2x4 --json`` in this
+    process, then two ranks on the card, a gloo group over its tensors
+    on the (1, 2) mesh: RandomPatchCifar staged and fused with BCD on the
+    model axis, held to phase 31's one-process run."""
+    import contextlib
+    import io
+    import socket
+
+    from keystone_tpu_torch.analysis.__main__ import main as analysis_main
+
+    phase_t0 = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    static = model_axis_static("cuda")
+    out["static_seconds"] = time.perf_counter() - t0
+    out["static"] = static
+    for key, row in static.items():
+        name, shape = key.split("@")
+        if not name.startswith("RandomPatchCifar."):
+            check(not row["kp6xx"], f"model_axis: {key} has KP6xx findings "
+                  f"{row['kp6xx']}")
+    for key, want in MODEL_AXIS_PINNED.items():
+        got = static[key]["plan"]
+        check(got == want, f"model_axis: {key}'s plan {got} != the CPU's "
+              f"{want}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = analysis_main(["--explain-sharding", "--plan", "--mesh-shape",
+                            "2x4", "--json"])
+    cli = json.loads(buf.getvalue())
+    out["cli"] = dict(
+        seconds=time.perf_counter() - t0, rc=rc, devices=cli["devices"],
+        findings=sum(len(e.get("findings", [])) for e in cli["examples"]),
+        improved=sorted(e["example"] for e in cli["examples"]
+                        if (e.get("planner") or {}).get("improved")))
+    check(rc == 0 and out["cli"]["findings"] == 0 and cli["devices"] == 8,
+          f"model_axis: the analysis CLI on 2x4: {out['cli']}")
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--model-axis-rank",
+             str(r), "--model-axis-port", str(port), "--model-axis-out",
+             tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=MODEL_AXIS_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        out["ranks_seconds"] = time.perf_counter() - t0
+        for r, p in enumerate(procs):
+            check(p.returncode == 0, f"model_axis: rank {r} exited "
+                  f"{p.returncode}:\n{logs[r][-4000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res = json.load(f)
+            ranks.append((res, dict(np.load(os.path.join(
+                tmp, f"rank{r}.npz")))))
+    for key in ("staged_preds", "staged_W", "staged_b", "fused_W",
+                "fused_b"):
+        check(np.array_equal(ranks[0][1][key], ranks[1][1][key]),
+              f"model_axis: {key} differs between the ranks")
+    arr = ranks[0][1]
+    differ = int((arr["staged_preds"] != par["one_preds"]).sum())
+    w_err = float(np.abs(arr["fused_W"] - par["one_fused_W"]).max())
+    out["ranks"] = [res for res, _ in ranks]
+    out["collective_seconds_are"] = (
+        "gloo over the card's tensors, through host memory: not an "
+        "NVLink or multi-card figure")
+    out["staged_rows_differing"] = differ
+    out["fused_W_max_abs_err"] = w_err
+    out["one_process_test_accuracy"] = par["one_accuracy"]
+    for res, _ in ranks:
+        for run in ("staged", "fused"):
+            acc = res[run]["test_accuracy"]
+            check(abs(acc - MODEL_AXIS_ACC) <= MODEL_AXIS_ACC_TOL,
+                  f"model_axis {run}: rank {res['rank']} accuracy {acc} "
+                  f"not within {MODEL_AXIS_ACC_TOL} of {MODEL_AXIS_ACC}")
+            check(res[run]["k1_launches"] == 30,
+                  f"model_axis {run}: rank {res['rank']} launched K1 "
+                  f"{res[run]['k1_launches']} times, not 30")
+            model_colls = [k for k in res[run]["counters"]
+                           if k.startswith("collectives.model.")]
+            check(model_colls, f"model_axis {run}: rank {res['rank']} ran "
+                  "no collective over the model axis")
+        check(res["k1_check"]["rel_err"] <= K1_TOL,
+              f"model_axis: K1 on rank {res['rank']}'s rows, relative "
+              f"error {res['k1_check']['rel_err']} > {K1_TOL}")
+    check(differ <= MODEL_AXIS_PRED_DIFF, f"model_axis staged: {differ} "
+          f"test predictions differ from phase 31's one-process run "
+          f"(at most {MODEL_AXIS_PRED_DIFF})")
+    check(w_err <= MODEL_AXIS_W_ATOL, f"model_axis fused: W {w_err} from "
+          f"one process's (atol {MODEL_AXIS_W_ATOL})")
+    out["phase_seconds"] = time.perf_counter() - phase_t0
+    phase("model_axis", **out, card=card)
+    return dict(k1=sum(res[run]["k1_launches"] for res, _ in ranks
+                       for run in ("staged", "fused")),
+                k1_check=[res["k1_check"] for res, _ in ranks])
 
 
 def main() -> int:
@@ -3996,11 +4418,21 @@ def main() -> int:
     parser.add_argument("--swap-repeats", type=int, default=SWAP_REPEATS,
                         help="hot swaps in the serving phase after the "
                         "first, each to a fresh load of the other version")
-    SWAP_REPEATS = parser.parse_args().swap_repeats
+    parser.add_argument("--model-axis-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--model-axis-port", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--model-axis-out", default=None,
+                        help=argparse.SUPPRESS)
+    args = parser.parse_args()
+    SWAP_REPEATS = args.swap_repeats
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an "
               "NVIDIA GPU", file=sys.stderr)
         return 1
+    if args.model_axis_rank is not None:  # one rank of phase 32
+        return model_axis_rank(args.model_axis_rank, args.model_axis_port,
+                               args.model_axis_out)
     script_t0 = time.perf_counter()
     import torch.nn.functional as F
 
@@ -5134,6 +5566,10 @@ def main() -> int:
     par = parallel_phase(dev, train, test, config, card)
     torch.cuda.empty_cache()
 
+    # ---- 32. the model axis: the static tier; two ranks on the card ----------
+    model_axis = model_axis_phase(dev, card, par)
+    torch.cuda.empty_cache()
+
     record = {"kernels": [
         dict(name="conv_rectify_pool", route="cuda",
              source="keystone_tpu_torch/csrc/conv_rectify_pool.cu",
@@ -5153,8 +5589,9 @@ def main() -> int:
                  augmented_kernel=ak_k1,
                  planners=planners["random_patch_cifar"]["k1"],
                  out_of_core=ooc["k1"], measurement=measurement["k1"],
-                 parallel=par["k1"]),
+                 parallel=par["k1"], model_axis=model_axis["k1"]),
              parallel_check=par["k1_check"],
+             model_axis_check=model_axis["k1_check"],
              ptxas=regs["conv_rectify_pool"]),
         dict(name="rectify_pool", route="cuda",
              source="keystone_tpu_torch/csrc/rectify_pool.cu",

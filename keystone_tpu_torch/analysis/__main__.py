@@ -8,6 +8,7 @@ Counterpart of `keystone_tpu/analysis/__main__.py:1-932`:
     python -m keystone_tpu_torch.analysis --level specs --hbm-budget-gb 16
     python -m keystone_tpu_torch.analysis --audit-operators [--json]
     python -m keystone_tpu_torch.analysis --explain-sharding [--plan] [--json]
+    python -m keystone_tpu_torch.analysis --explain-sharding --plan --mesh-shape 2x4
     python -m keystone_tpu_torch.analysis --explain-precision [--json]
     python -m keystone_tpu_torch.analysis --explain-roofline [--json]
     python -m keystone_tpu_torch.analysis --explain-unified [--json]
@@ -26,12 +27,17 @@ plan (or a plan prices worse than its default, an invariant the planners
 keep), ``--explain-roofline`` has an ERROR finding, or
 ``--certify-serving`` an unsuppressed KP9xx ERROR; 2 on a usage error.
 
-``--explain-sharding`` shows whole-value placement on one card: each
-stage's value lives whole on the card (``whole``), its per-device bytes
-are the memory model's residency and no boundary moves a byte; with
-``--plan`` the placement planner has nothing to decide (``planner:
-null``), as JAX's on a one-device mesh. ``--mesh-shape`` waits for
-multi-GPU (ROADMAP queue 1, item 4). ``--audit-kernels`` is not ported:
+``--explain-sharding`` (`:202-330`) propagates each example's partition
+specs over the layout, prices its boundary collectives and its bytes a
+card, and fails on any unsuppressed KP6xx finding; with ``--plan`` the
+sharding planner chooses each stage's placement and the findings are
+those under the chosen plan (on one card it has nothing to decide:
+``planner: null``). ``--mesh-shape DATAxMODEL`` (`:181-205`) plans a
+``(data, model)`` layout of that shape for ``--explain-sharding`` and
+``--explain-unified``; the layout needs no cards (`parallel/mesh.py::
+MeshLayout`), so a 2x4 deployment is priced from one card or from the
+CPU. Seconds are at the card-to-card rate (`cost_model.NETWORK_WEIGHT`).
+``--audit-kernels`` is not ported:
 `analysis/kernels.py`'s proofs are about Mosaic's VMEM, so argparse
 names the flag unknown. ``--trace-artifact`` (with ``--explain-unified``)
 prices with the weights a trace's observed spans imply
@@ -123,16 +129,48 @@ def _audit_main(args) -> int:
     return 1 if findings else 0
 
 
+def _parse_mesh_shape(raw):
+    """``--mesh-shape 2x4`` → the layout ``{"data": 2, "model": 4}``
+    (`:181-205`); None where the flag is absent (the current mesh: one
+    card without a process group). Raises ValueError on a malformed
+    shape."""
+    if not raw:
+        return None
+    from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, MeshLayout
+
+    try:
+        parts = [int(p) for p in raw.lower().split("x")]
+    except ValueError:
+        parts = []
+    if len(parts) != 2 or any(p < 1 for p in parts):
+        raise ValueError(f"--mesh-shape must be DATAxMODEL (e.g. 2x4), "
+                         f"got {raw!r}")
+    return MeshLayout({DATA_AXIS: parts[0], MODEL_AXIS: parts[1]})
+
+
 def _explain_sharding_main(args) -> int:
-    """Whole-value placement on one card (`:202-330` on a one-device
-    mesh): per stage its residency and no boundary collective; the
-    per-card budget (KP600) is the only finding this tier can make."""
-    from .memory import _fmt_bytes, memory_pass
-    from .planner import format_plan, per_device_pass, plan_sharding
-    from .propagate import toposort
+    """Per-example sharding explanation (KP6xx gate, `:208-330`):
+    propagate the partition specs, scale memory to one card, price the
+    boundary collectives, and fail on any unsuppressed KP6xx finding.
+    With ``--plan`` the sharding planner chooses a placement per example
+    and the findings are computed under the chosen plan."""
+    from ..parallel.mesh import layout_of
+    from .memory import memory_pass
+    from .planner import format_plan, plan_sharding
+    from .sharding import (
+        explain_rows,
+        format_explain,
+        per_device_pass,
+        sharding_pass,
+    )
 
     names = _names(args)
     if names is None:
+        return 2
+    try:
+        mesh = layout_of(_parse_mesh_shape(args.mesh_shape))
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
         return 2
     budget = _budget(args)
     failed = False
@@ -140,19 +178,21 @@ def _explain_sharding_main(args) -> int:
     for name in names:
         try:
             graph, specs = _specs(name, args.device)
-            splan = plan_sharding(graph, specs,
-                                  hbm_budget_bytes=budget) \
-                if args.plan else None
+            splan = None
+            plan_choices = None
+            if args.plan:
+                splan = plan_sharding(graph, specs, mesh=mesh,
+                                      hbm_budget_bytes=budget)
+                plan_choices = splan.choices if splan else None
+            shardings, diags, boundary = sharding_pass(
+                graph, specs, mesh=mesh, plan=plan_choices)
             est, _ = memory_pass(graph, specs)
-            diags = per_device_pass(graph, est, budget)
-            diags = [d for d in diags if d.rule not in set(args.ignore)]
-            order, _ = toposort(graph)
-            rows = [{"vertex": vid.id,
-                     "label": graph.get_operator(vid).label,
-                     "spec": "whole",
-                     "per_device_bytes": est.resident.get(vid),
-                     "boundary_bytes": 0}
-                    for vid in order if vid in est.per_node]
+            per_dev, pd_diags = per_device_pass(
+                graph, specs, shardings, est, mesh=mesh,
+                hbm_budget_bytes=budget)
+            diags = [d for d in diags + pd_diags
+                     if d.rule not in set(args.ignore)]
+            rows = explain_rows(graph, specs, shardings, boundary, per_dev)
         except Exception as e:
             _build_error(args, records, name, e, "explain")
             failed = True
@@ -161,35 +201,45 @@ def _explain_sharding_main(args) -> int:
         if args.json:
             rec = {
                 "example": name,
-                "devices": 1,
-                "per_device_peak_bytes": est.peak_bytes,
+                "devices": mesh.size,
+                "per_device_peak_bytes": est.per_device_peak_bytes,
                 "stages": rows,
                 "findings": [_finding(d) for d in diags],
             }
-            if args.plan:
-                rec["planner"] = None  # nothing to decide on one card
+            if splan is not None:
+                rec["planner"] = {
+                    "planned_cost_bytes": int(splan.planned_cost_bytes),
+                    "default_cost_bytes": int(splan.default_cost_bytes),
+                    "savings_bytes": splan.savings_bytes,
+                    "improved": splan.improved,
+                    "changed_stages": len(splan.changed_vertices()),
+                    "stages": splan.rows(graph),
+                }
+            elif args.plan:
+                rec["planner"] = None  # nothing to decide (one card)
             records.append(rec)
         else:
             mark = "✗" if diags else "✓"
-            print(f"{mark} {name} (1 device, per-device peak ≈ "
-                  f"{est.peak_bytes >> 10} KiB)")
-            lines = [f"{'stage':<44} {'spec':<24} {'per-dev':>10} "
-                     f"{'boundary':>10}"]
-            for r in rows:
-                pd = _fmt_bytes(r["per_device_bytes"]) \
-                    if r["per_device_bytes"] is not None else "?"
-                label = f"{r['label']}@{r['vertex']}"
-                lines.append(f"{label[:44]:<44} {r['spec']:<24} "
-                             f"{pd:>10} {'—':>10}")
+            print(f"{mark} {name} (mesh: {mesh.size} device(s), "
+                  f"per-device peak ≈ {est.per_device_peak_bytes >> 10} "
+                  "KiB)")
             if splan is not None:
-                lines = format_plan(splan.rows(graph)).splitlines()
-            elif args.plan:
-                print("  planner: nothing to decide on one card")
-            print("  " + "\n  ".join(lines))
+                print(f"  planner: boundary bytes "
+                      f"{int(splan.default_cost_bytes):,} (default) → "
+                      f"{int(splan.planned_cost_bytes):,} (chosen), "
+                      f"{splan.savings_bytes:,} saved, "
+                      f"{len(splan.changed_vertices())} stage(s) changed")
+                print("  " + format_plan(splan.rows(graph))
+                      .replace("\n", "\n  "))
+            else:
+                if args.plan:
+                    print("  planner: nothing to decide on one card")
+                print("  " + format_explain(rows).replace("\n", "\n  "))
             for d in diags:
                 print(f"    {d}")
     if args.json:
-        print(json.dumps({"devices": 1, "examples": records}, indent=2))
+        print(json.dumps({"devices": mesh.size, "examples": records},
+                         indent=2))
     return 1 if failed else 0
 
 
@@ -337,14 +387,20 @@ def _explain_unified_main(args) -> int:
     sequential seconds, the chosen axes, and the findings under the
     chosen plan (the card's budget at the chosen chunk, KP7xx against
     the joint dtypes, KP8xx errors at the chosen chunk)."""
+    from ..parallel.mesh import layout_of
     from .memory import memory_pass
     from .plan_ir import format_plan, plan_unified
-    from .planner import per_device_pass
     from .precision import precision_pass
     from .roofline import roofline_pass
+    from .sharding import per_device_pass, sharding_pass
 
     names = _names(args)
     if names is None:
+        return 2
+    try:
+        mesh = layout_of(_parse_mesh_shape(args.mesh_shape))
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
         return 2
     weights = None
     if args.trace_artifact:
@@ -358,14 +414,22 @@ def _explain_unified_main(args) -> int:
     for name in names:
         try:
             graph, specs = _specs(name, args.device)
-            uplan = plan_unified(graph, specs, hbm_budget_bytes=budget,
-                                 weights=weights)
+            uplan = plan_unified(graph, specs, mesh=mesh,
+                                 hbm_budget_bytes=budget, weights=weights)
             diags = []
             if uplan is not None:
+                plan_choices = (uplan.sharding.choices
+                                if uplan.sharding else None)
+                shardings, s_diags, _ = sharding_pass(
+                    graph, specs, mesh=mesh, plan=plan_choices)
                 # the budget holds at the chunk the plan enforces
                 est, _ = memory_pass(graph, specs,
                                      chunk_rows=uplan.chunk_size)
-                diags.extend(per_device_pass(graph, est, budget))
+                _, pd_diags = per_device_pass(
+                    graph, specs, shardings, est, mesh=mesh,
+                    hbm_budget_bytes=budget)
+                diags.extend(s_diags)
+                diags.extend(pd_diags)
                 if uplan.boundary_precision is not None:
                     diags.extend(precision_pass(
                         graph, specs, uplan.boundary_precision))
@@ -417,8 +481,8 @@ def _explain_unified_main(args) -> int:
                 if d.severity >= Severity.WARNING or args.strict:
                     print(f"    {d}")
     if args.json:
-        print(json.dumps({"devices": 1, "examples": records}, indent=2,
-                         default=str))
+        print(json.dumps({"devices": mesh.size, "examples": records},
+                         indent=2, default=str))
     return 1 if failed else 0
 
 
@@ -558,8 +622,13 @@ def main(argv=None) -> int:
                    help="sweep every operator class of the port for KP5xx "
                         "contract violations (none tolerated)")
     p.add_argument("--explain-sharding", action="store_true",
-                   help="render each example's per-stage placement on one "
-                        "card (every value whole; residency per stage)")
+                   help="render each example's per-stage partition spec, "
+                        "bytes a card and priced boundary collectives; "
+                        "fail on any unsuppressed KP6xx finding")
+    p.add_argument("--mesh-shape", default=None, metavar="DATAxMODEL",
+                   help="with --explain-sharding or --explain-unified: "
+                        "plan a (data, model) layout of this shape, e.g. "
+                        "2x4 (no cards needed)")
     p.add_argument("--explain-precision", action="store_true",
                    help="run the precision planner per example and render "
                         "the per-stage dtypes and bytes saved; fail on any "
@@ -590,8 +659,8 @@ def main(argv=None) -> int:
                    help="concurrent warmed pipelines sharing the card "
                         "(KP905; default 1)")
     p.add_argument("--plan", action="store_true",
-                   help="with --explain-sharding: run the placement "
-                        "planner (nothing to decide on one card)")
+                   help="with --explain-sharding: run the sharding planner "
+                        "and report findings under the chosen placement")
     p.add_argument("--json", action="store_true",
                    help="machine-readable output")
     p.add_argument("--list-rules", action="store_true")

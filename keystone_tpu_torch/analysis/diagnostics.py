@@ -6,11 +6,10 @@ Counterpart of `keystone_tpu/analysis/diagnostics.py` (`Severity`,
 severity and the graph vertex it anchors to. The rules of the tiers the
 port runs are here: structure (KP0xx), specs (KP1xx), memory (KP2xx),
 hazards (KP3xx, KP401), operator contracts (KP501–KP504), effects
-(KP511), the card's residency (KP600), precision (KP701–KP703), roofline
-(KP8xx) and serving (KP9xx). The JAX package's multi-device sharding
-lints (KP601–KP605) wait for multi-GPU (ROADMAP queue 1, item 4); its
-kernel-proof tier (KP10xx) is about Mosaic's VMEM and has no
-counterpart.
+(KP511), sharding (KP600 a card's residency, KP601–KP605 the boundary
+collectives and placements, `sharding.py`), precision (KP701–KP703),
+roofline (KP8xx) and serving (KP9xx). The JAX package's kernel-proof
+tier (KP10xx) is about Mosaic's VMEM and has no counterpart.
 """
 
 from __future__ import annotations
@@ -48,10 +47,26 @@ RULES = {
              "stage's resident footprint",
     "KP204": "megafused-loop-live-set: the captured chunk loop's per-trip "
              "carry rides on top of stacked-input + output residency",
-    # the card's residency (one card: KP202's place at the full tier)
+    # sharding tier (`sharding.py`; KP600 takes KP202's place at full)
     "KP600": "per-device-hbm: peak live memory per device — live-set "
              "residency divided over each leaf's actual shard count — "
              "exceeds the per-device HBM budget",
+    "KP601": "implicit-reshard: producer and consumer disagree on a stage "
+             "boundary's partition spec; the run moves the boundary "
+             "bytes there (an all-to-all)",
+    "KP602": "large-operand-replicated: an array above the replication "
+             "threshold is held replicated although a mesh axis could "
+             "shard one of its dimensions evenly",
+    "KP603": "gather-of-sharded-into-host: a host-code stage consumes "
+             "device-sharded data, forcing an all-gather of every shard "
+             "onto the host",
+    "KP604": "mesh-indivisible-rows: the data-shard count does not divide "
+             "the propagated example count, so padded shards change "
+             "per-device shapes across stages",
+    "KP605": "invalid-partition-rule: a PartitionRule (or a hook or plan "
+             "placement) pins a spec that cannot apply to the matched "
+             "stage — more entries than the value has dimensions, or a "
+             "mesh axis the current mesh does not have",
     # precision tier
     "KP701": "precision-policy-on-intolerant-stage: a reduced-precision "
              "policy is pinned on a boundary whose producer or consumer "
@@ -158,11 +173,15 @@ class ValidationReport:
     def __init__(self, diagnostics: Sequence[Diagnostic],
                  specs: Optional[dict] = None, memory: Optional[Any] = None,
                  level: str = "structure", roofline: Optional[Any] = None,
-                 serving: Optional[Any] = None):
+                 serving: Optional[Any] = None,
+                 shardings: Optional[dict] = None):
         self.diagnostics: List[Diagnostic] = list(diagnostics)
         self.specs = specs or {}
         self.memory = memory
         self.level = level
+        #: the propagated partition specs a vertex (`sharding.py`;
+        #: level "full"), else empty
+        self.shardings = shardings or {}
         #: the roofline estimate (level "full"), else None
         self.roofline = roofline
         #: the serving certificate (level "full" with an envelope
@@ -190,7 +209,8 @@ class ValidationReport:
         return ValidationReport(
             [d for d in self.diagnostics if d.rule not in ignore],
             specs=self.specs, memory=self.memory, level=self.level,
-            roofline=self.roofline, serving=self.serving)
+            roofline=self.roofline, serving=self.serving,
+            shardings=self.shardings)
 
     def raise_for_errors(self) -> "ValidationReport":
         if self.errors:

@@ -73,6 +73,11 @@ class MemoryEstimate:
     peak_bytes: int = 0
     peak_at: Optional[GraphId] = None
     unknown_nodes: int = 0
+    #: one card's picture, filled in by `sharding.per_device_pass` at
+    #: the full tier: residency scaled by each node's shard
+    per_device: Dict[NodeId, Optional[int]] = field(default_factory=dict)
+    per_device_peak_bytes: int = 0
+    per_device_peak_at: Optional[GraphId] = None
 
     def __repr__(self) -> str:
         return (

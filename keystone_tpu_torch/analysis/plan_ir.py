@@ -4,7 +4,8 @@ chunk size, the cache points, the chain kernels and the spills.
 Counterpart of `keystone_tpu/analysis/plan_ir.py:1-1181`. Per choosable
 boundary a product menu
 
-    {placement family (`planner.py`; one family on one card)
+    {placement family (`planner.py`'s menu on a layout of more than
+       one card: the sharding planner's choice set; none on one card)
      × storage dtype (`precision.py`'s boundary policies, and inside a
        fused program the per-trail `plan_stage_precision` decision)
      × cache point (`autocache.AutoCacheRule._candidates`: demanded more
@@ -20,8 +21,11 @@ Every assignment is priced in seconds by one time model:
     bytes its dtypes move (`precision.policy_nbytes`), on the card's
     calibrated rates (`calibrate.machine_rates`) unless a `Machine` is
     given;
-  - the collectives of family flips (`planner.transition_cost`; none
-    on one card);
+  - the collectives of family flips, unmet ``abstract_sharding``
+    demands and host gathers, in the sharding planner's own formulas
+    (`planner.transition_cost`, `demand_cost`, `gather_cost`) at the
+    bytes the chosen dtypes move, and a family whose per-card residency
+    busts the budget as INF (none on one card);
   - `roofline.DISPATCH_OVERHEAD_S` per chunk trip, which makes the chunk
     a real decision;
   - the casts each storage flip costs;
@@ -59,7 +63,18 @@ from dataclasses import dataclass, field, replace
 from typing import Any, Dict, FrozenSet, List, Optional, Tuple
 
 from ..workflow.graph import Graph, GraphId, NodeId, SinkId
-from .planner import device_count, family_shards, transition_cost
+from ..parallel import mesh as meshlib
+from .planner import (
+    FAMILY_REPLICATED,
+    ShardingPlan,
+    _CostModel,
+    demand_cost,
+    family_shards,
+    gather_cost,
+    plan_sharding,
+    transition_cost,
+)
+from .sharding import DEFAULT_REPLICATED_THRESHOLD
 from .precision import (
     CAST_PENALTY_BYTES,
     POLICY_F32,
@@ -158,7 +173,7 @@ class _UnifiedModel:
 
         self.graph = graph
         self.specs = specs
-        self.layout = layout
+        self.layout = meshlib.layout_of(layout)
         self.budget = hbm_budget_bytes
         self.chunk_default = int(chunk_default)
         self.machine = machine
@@ -178,8 +193,23 @@ class _UnifiedModel:
                                      chunk_rows=chunk_default)
         self.unpriced_stages = self.roof.unknown_stages
 
-        # placement: one family on one card, so no menu (`:249-263`)
+        # placement (`:230-246`): on more than one card, the sharding
+        # planner's choice set; none on one card
+        self.pmodel: Optional[_CostModel] = None
+        self.splan: Optional[ShardingPlan] = None
         self.fam_menus: Dict[Any, Tuple[str, ...]] = {}
+        if self.layout.size > 1:
+            self.splan = plan_sharding(graph, specs, mesh=self.layout,
+                                       hbm_budget_bytes=hbm_budget_bytes)
+            if self.splan is not None:
+                self.pmodel = _CostModel(
+                    graph, specs, self.layout, hbm_budget_bytes,
+                    replicated_threshold_bytes=DEFAULT_REPLICATED_THRESHOLD)
+                for vid in list(self.pmodel.menus):
+                    if vid not in self.splan.families:
+                        del self.pmodel.menus[vid]
+                self.fam_menus = {vid: tuple(menu) for vid, menu in
+                                  self.pmodel.menus.items()}
 
         # dtypes: graph-level boundary policies (reported, not enforced)
         # and per-program trails (enforced)
@@ -408,20 +438,70 @@ class _UnifiedModel:
                         continue
                     if _STORAGE[policies.get(d, POLICY_F32)] != sv:
                         total += CAST_PENALTY_BYTES / bw
+        if self.pmodel is not None:
+            placed = self._placement_seconds(families, policies)
+            if placed == _INF:
+                return _INF
+            total += placed
+        return total
+
+    def _placement_seconds(self, families, policies) -> float:
+        """The placement's collective seconds (`:536-588`): the sharding
+        planner's formulas at the bytes the chosen dtypes move, a
+        dispatch a move besides; INF where a family busts the budget."""
+        pm = self.pmodel
+        total = 0.0
+        for vid in pm.order:
+            fam_v = families.get(vid)
+            if fam_v is not None and vid in pm.menus:
+                if pm.node_cost(vid, fam_v) == _INF:
+                    return _INF
+                spec = self.specs.get(vid)
+                if fam_v == FAMILY_REPLICATED and spec.nbytes \
+                        and spec.nbytes >= pm.threshold:
+                    total += float(meshlib.collective_cost(
+                        "broadcast", spec.nbytes, shards=self.layout.size,
+                        mesh=self.layout).seconds)
+            demands = pm.demands(vid, {})
+            all_deps = (list(self.graph.get_dependencies(vid))
+                        if isinstance(vid, NodeId) else [])
+            for d in pm.data_deps(vid):
+                fam_u = families.get(d)
+                u_spec = self.specs.get(d)
+                nbytes = self.vbytes(d, policies.get(d, POLICY_F32))
+                if nbytes is None:
+                    nbytes = pm.vbytes(u_spec)
+                if pm.is_host(vid):
+                    cost = gather_cost(fam_u, nbytes, self.layout)
+                else:
+                    i = all_deps.index(d) if d in all_deps else -1
+                    demand = demands[i] if 0 <= i < len(demands) else None
+                    if demand is not None:
+                        cost = demand_cost(demand, fam_u, nbytes,
+                                           self.layout)
+                    elif fam_v is not None:
+                        cost = transition_cost(fam_u, fam_v, nbytes,
+                                               self.layout, u_spec=u_spec)
+                    else:
+                        cost = None
+                if cost is not None:
+                    total += float(cost.seconds) + DISPATCH_OVERHEAD_S
         return total
 
     # ----------------------------------------------------- the sequential
 
     def sequential(self) -> Assignment:
         """The sequential rules' plan as a point of the joint space: the
-        precision rule's trails (above its floor), `plan_precision`'s
-        boundary policies, the config's chunk, no cache (`:585-606`)."""
+        sharding planner's families, the precision rule's trails (above
+        its floor), `plan_precision`'s boundary policies, the config's
+        chunk, no cache (`:585-606`)."""
+        families = dict(self.splan.families) if self.splan else {}
         policies = dict(self.pplan.policies) if self.pplan else {}
         trails = {
             vid: bool(saved >= self.precision_floor_bytes)
             for vid, (_, saved, _) in self.program_trails.items()
         }
-        return _assign({}, policies, trails, self.chunk_default,
+        return _assign(families, policies, trails, self.chunk_default,
                        frozenset())
 
     # ------------------------------------------------------------ solver
@@ -459,7 +539,11 @@ class _UnifiedModel:
             return sec
 
         def node_cost(v, vs) -> float:
-            _, pol_v = vs
+            fam_v, pol_v = vs
+            if self.pmodel is not None and v in fam_menu \
+                    and fam_v is not None \
+                    and self.pmodel.node_cost(v, fam_v) == _INF:
+                return _INF
             st = self.roof.stages.get(v)
             if st is None:
                 return 0.0
@@ -603,10 +687,20 @@ class _UnifiedModel:
                 for chunk in ladder:
                     if chunk != best.chunk:
                         try_(f"chunk_{chunk}", replace(best, chunk=chunk))
+        fam_menu = dict(self.fam_menus)
         pol_menu = dict(self.prmodel.menus) if self.prmodel else {}
         for _sweep in range(sweeps):
             changed = False
             for vid in self.order:
+                for fam in fam_menu.get(vid, ()):
+                    if fam == best.fam().get(vid):
+                        continue
+                    fams = best.fam()
+                    fams[vid] = fam
+                    cand = replace(best, families=_by_id(fams))
+                    c = self.score(cand)
+                    if c < best_obj:
+                        best, best_obj, changed = cand, c, True
                 for pol in pol_menu.get(vid, ()):
                     if pol == best.pol().get(vid, POLICY_F32):
                         continue
@@ -648,6 +742,9 @@ class UnifiedPlan:
     spill_predictions: Dict[Any, Dict[str, Any]] = field(
         default_factory=dict)
     unpriced_stages: int = 0
+    #: the placement as a `ShardingPlan` over the joint families (what
+    #: `ShardingPlannerRule._enforce` applies), None on one card
+    sharding: Optional[ShardingPlan] = None
 
     @property
     def improved(self) -> bool:
@@ -700,6 +797,7 @@ class UnifiedPlan:
         """The chosen-against-sequential table in topological order."""
         order, _ = toposort(graph)
         seq = self.sequential_assignment
+        fams, seq_fams = self.chosen.fam(), seq.fam()
         pols, seq_pols = self.chosen.pol(), seq.pol()
         trails, seq_trails = self.chosen.trl(), seq.trl()
         caches = set(self.chosen.caches)
@@ -709,12 +807,14 @@ class UnifiedPlan:
         for vid in order:
             if not isinstance(vid, NodeId):
                 continue
-            if vid not in pols and vid not in trails \
+            if vid not in fams and vid not in pols and vid not in trails \
                     and vid not in caches and vid not in kernels:
                 continue
             rows.append({
                 "vertex": vid.id,
                 "label": _label(graph, vid),
+                "family": fams.get(vid),
+                "sequential_family": seq_fams.get(vid),
                 "policy": pols.get(vid, POLICY_F32),
                 "sequential_policy": seq_pols.get(vid, POLICY_F32),
                 "trail": trails.get(vid),
@@ -722,7 +822,8 @@ class UnifiedPlan:
                 "cached": vid in caches,
                 "spilled": vid in spills,
                 "kernel": bool(kernels.get(vid)),
-                "changed": (pols.get(vid) != seq_pols.get(vid)
+                "changed": (fams.get(vid) != seq_fams.get(vid)
+                            or pols.get(vid) != seq_pols.get(vid)
                             or trails.get(vid) != seq_trails.get(vid)
                             or vid in caches
                             or bool(kernels.get(vid))),
@@ -774,16 +875,14 @@ def plan_unified(
 ) -> Optional[UnifiedPlan]:
     """Solve the joint decision for one graph (`:1008-1181`).
 
-    ``mesh`` is the device layout (``{"data": d, "model": m}``; None is
-    one card, the only layout this slice plans for). ``weights`` (a
-    `cost_model.CostWeights`) or ``machine`` pins the rates; neither
-    takes `calibrate.machine_rates()`. None where there is nothing to
-    decide; ``improved`` is a strict win over the sequential
-    composition, else the plan is the sequential one."""
-    if device_count(mesh) > 1:
-        raise NotImplementedError(
-            "the unified planner plans one card; the multi-card menu "
-            "comes with the sharding planner (ROADMAP queue 1, item 4)")
+    ``mesh`` is the device layout (`parallel/mesh.py::layout_of`: a
+    live mesh, ``{"data": d, "model": m}``, or None for the current
+    one); on more than one card the placement axis joins the menu.
+    ``weights`` (a `cost_model.CostWeights`) or ``machine`` pins the
+    rates; neither takes `calibrate.machine_rates()`. None where there
+    is nothing to decide; ``improved`` is a strict win over the
+    sequential composition, else the plan is the sequential one."""
+    mesh = meshlib.layout_of(mesh)
     if weights is not None and machine is None:
         machine = machine_from_weights(weights)
     machine = machine or default_machine()
@@ -801,7 +900,7 @@ def plan_unified(
     if not model.roof.stages:
         return None
     has_axis = bool(model.cache_candidates or model.program_trails
-                    or model.kernel_candidates
+                    or model.kernel_candidates or model.fam_menus
                     or (model.prmodel and model.prmodel.menus)
                     or any(model._count(v) > min(ladder)
                            for v in model.roof.stages))
@@ -838,6 +937,26 @@ def plan_unified(
     if not best_obj < seq_obj:
         best, best_obj = seq, seq_obj
 
+    # the placement's enforcement payload: a ShardingPlan over the
+    # joint families (`:1103-1123`)
+    sharding = None
+    if model.splan is not None and model.pmodel is not None:
+        fams = best.fam()
+        choices = {vid: model.pmodel.menus[vid][fam]
+                   for vid, fam in fams.items()
+                   if vid in model.pmodel.menus
+                   and fam in model.pmodel.menus[vid]}
+        _, planned_bytes, planned_boundary = model.pmodel.score(fams)
+        sharding = ShardingPlan(
+            mesh=mesh, families=fams,
+            default_families=model.splan.default_families,
+            choices=choices,
+            default_shardings=model.splan.default_shardings,
+            planned_cost_bytes=planned_bytes,
+            default_cost_bytes=model.splan.default_cost_bytes,
+            planned_boundary=planned_boundary,
+            default_boundary=model.splan.default_boundary,
+            scored_candidates=model.splan.scored_candidates)
     program_precision = {
         vid: model.program_trails[vid]
         for vid, on in best.trl().items()
@@ -888,4 +1007,5 @@ def plan_unified(
         kernel_choices=kernel_choices,
         spill_predictions=spill_predictions,
         unpriced_stages=model.unpriced_stages,
+        sharding=sharding,
     )

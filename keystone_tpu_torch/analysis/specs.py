@@ -308,6 +308,9 @@ def spec_of(value: Any) -> Any:
         element = (tuple(ShapeDtype(tuple(p.shape[1:]), p.dtype)
                          for p in data) if isinstance(data, tuple)
                    else ShapeDtype(tuple(data.shape[1:]), data.dtype))
+        if getattr(value, "tiled", False):
+            # a column tile is one rank's share of the element
+            element = ShapeDtype((value.width,), data.dtype)
         return DataSpec(element=element, count=value.count, kind="dataset",
                         on_device=True)
     if isinstance(value, HostDataset):

@@ -18,6 +18,19 @@ rows (a collective: every rank calls them) and drop the padding;
 process, the default: the port places rows only where asked) nothing is
 padded, ``padded_count == count`` and ``mask`` is all ones.
 
+On a ``(data, model)`` mesh the columns follow JAX's `leaf_sharding`
+(`:44-75`): a 2-D leaf whose width the model axis divides is held as
+this rank's ``(rows, columns)`` tile (``tiled``; ``width`` is the whole
+width, ``spec`` ``P("data", "model")``), and anything else (images,
+label vectors, widths the axis does not divide) is model-replicated.
+A stage that is not marked ``model_aware`` reads its input after
+`gather_model` (`parallel/mesh.py::gather_model_inputs`), and its
+output is tiled again by `with_data` (a local slice), as JAX's default
+propagation places it; `numpy` and `gather` collect both axes.
+`reshard(spec)` (JAX `:214-230`) moves a dataset between ``P("data")``,
+``P("data", "model")``, ``P(None, "model")`` and ``P()``: a dataset whose
+rows are whole (``mesh`` None) may still be tiled over ``model_mesh``.
+
 A `HostDataset` is a list of items: host objects (labeled images, numpy
 arrays of any shape) or tensors. A batched stage over host items
 (`HostDataset.map_batches`) runs through
@@ -40,7 +53,17 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..parallel.mesh import data_rank, n_data_shards
+from ..parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    P,
+    data_rank,
+    mesh_device,
+    model_rank,
+    n_data_shards,
+    n_model_shards,
+    spec_axes,
+)
 from ..telemetry.instrument import record_dispatch
 from ..utils.batching import (
     USE_CONFIG_CHUNK,
@@ -61,29 +84,51 @@ class Dataset:
 
     is_dataset = True
 
+    #: the mesh whose model axis splits the columns held here (None:
+    #: every column)
+    model_mesh = None
+
     def __init__(self, data, count: Optional[int] = None,
                  device: DeviceLike = None, mesh=None,
-                 placed: bool = False):
+                 placed: bool = False, cols: str = "auto",
+                 model_mesh=None):
         """``data``: a tensor or an array. ``device``: where the rows
         live; None keeps a tensor where it is and puts anything else on
         the card (on a mesh: on the mesh's device). ``mesh``: place the
         rows over its data axis; ``data`` is then the whole array, or,
         with ``placed``, already this rank's padded rows of a ``count``
-        row array."""
+        row array. ``cols``, for a 2-D leaf on a mesh with a model axis
+        (``model_mesh``, default ``mesh``): "auto" tiles it where the
+        model axis divides its width (JAX's placement), "full" keeps
+        every column, "tile" says ``data`` is already this rank's
+        tile."""
         self.mesh = mesh
-        if mesh is not None and device is None and not isinstance(
+        model_mesh = model_mesh if model_mesh is not None else mesh
+        if model_mesh is not None and device is None and not isinstance(
                 data, torch.Tensor):
-            device = mesh.device_type
+            device = mesh_device(model_mesh)
         if mesh is not None and not placed:
             data = self._local_slice(data, count, mesh)
             count = data[1]
             data = data[0]
+        self.model_mesh = None
+        m = n_model_shards(model_mesh) if model_mesh is not None else 1
+        if m > 1 and len(data.shape) == 2:
+            if cols == "tile":
+                self.model_mesh = model_mesh
+            elif cols == "auto" and data.shape[1] % m == 0:
+                w = data.shape[1] // m
+                lo = model_rank(model_mesh) * w
+                data = data[:, lo:lo + w]
+                self.model_mesh = model_mesh
         if isinstance(data, torch.Tensor):
             dev = resolve_device(data.device if device is None else device)
             data = data.to(dev)
         else:
             dev = resolve_device(device)
-            data = torch.as_tensor(np.asarray(data), device=dev)
+            data = torch.as_tensor(np.ascontiguousarray(data), device=dev)
+        if self.model_mesh is not None:
+            data = data.contiguous()
         n = data.shape[0]
         if mesh is not None:
             shards = n_data_shards(mesh)
@@ -132,6 +177,94 @@ class Dataset:
         return self.data
 
     @property
+    def tiled(self) -> bool:
+        """Whether the rows held here are this rank's column tile."""
+        return self.model_mesh is not None
+
+    @property
+    def width(self) -> int:
+        """Columns of the whole dataset (a tile's times the model
+        shards)."""
+        w = int(self.data.shape[1])
+        return w * n_model_shards(self.model_mesh) if self.tiled else w
+
+    @property
+    def col_start(self) -> int:
+        """Global index of the first column held here."""
+        if not self.tiled:
+            return 0
+        return model_rank(self.model_mesh) * int(self.data.shape[1])
+
+    @property
+    def spec(self):
+        """The placement, as a batch-level `PartitionSpec`: the rows
+        over ``data`` (or whole), the columns of a tile over
+        ``model``."""
+        rows = DATA_AXIS if self.mesh is not None else None
+        if self.tiled:
+            return P(rows, MODEL_AXIS)
+        return P(rows) if rows is not None else P()
+
+    def gather_model(self) -> "Dataset":
+        """This dataset with every column on every rank of the model
+        axis, its rows as they are: one ``all_gather`` over ``model``.
+        A dataset that is not tiled is returned as it is."""
+        if not self.tiled:
+            return self
+        from ..parallel.collectives import all_gather_columns
+
+        full = all_gather_columns(self.data, self.model_mesh)
+        return Dataset(full, count=self.count, mesh=self.mesh,
+                       placed=True, cols="full")
+
+    def reshard(self, spec, mesh=None) -> "Dataset":
+        """This dataset moved to ``spec`` (JAX `:214-230`), one of
+        ``P("data")``, ``P("data", "model")``, ``P(None, "model")`` and
+        ``P()``, over ``mesh`` (default: its own). Columns are gathered
+        over ``model`` and rows over ``data`` where the target holds
+        more of them, and sliced locally where it holds fewer; a
+        dataset already laid out as ``spec`` is returned as it is (the
+        identity short-circuit: no collective)."""
+        entries = tuple(spec) + (None, None)
+        rows_target = DATA_AXIS in spec_axes((entries[0],))
+        cols_target = MODEL_AXIS in spec_axes((entries[1],))
+        mesh = mesh if mesh is not None else (
+            self.mesh if self.mesh is not None else self.model_mesh)
+        if mesh is None:
+            from ..parallel.mesh import current_mesh
+
+            mesh = current_mesh()
+            if mesh is None:  # one process: one layout
+                return self
+        if self.data.dim() != 2 or n_model_shards(mesh) <= 1 or (
+                cols_target and self.data.shape[1] % n_model_shards(mesh)
+                and not self.tiled):
+            cols_target = False
+        if rows_target == (self.mesh is not None) \
+                and cols_target == self.tiled:
+            return self
+        out = self
+        if out.tiled and not cols_target:
+            out = out.gather_model()
+        if out.mesh is not None and not rows_target:
+            from ..parallel.collectives import all_gather_rows
+
+            out = Dataset(all_gather_rows(out.data, out.mesh)[: out.count],
+                          count=out.count, model_mesh=out.model_mesh,
+                          cols="tile" if out.tiled else "full")
+        x = out.data
+        if out.tiled:  # rows move below with the tile's columns
+            cols = "tile"
+        else:
+            cols = "auto" if cols_target else "full"
+        if rows_target and out.mesh is None:
+            return Dataset(x[: out.count], count=out.count, mesh=mesh,
+                           cols=cols)
+        return Dataset(x, count=out.count, mesh=out.mesh,
+                       placed=out.mesh is not None, cols=cols,
+                       model_mesh=mesh)
+
+    @property
     def device(self) -> torch.device:
         return self.data.device
 
@@ -172,12 +305,14 @@ class Dataset:
 
     def gather(self) -> torch.Tensor:
         """The ``count`` rows of the whole dataset on this device (≈
-        `collect` to every executor); on a mesh, one all-gather."""
+        `collect` to every executor); on a mesh, one all-gather a mesh
+        axis it is split over."""
+        data = self.gather_model().data if self.tiled else self.data
         if self.mesh is None:
-            return self.data
+            return data
         from ..parallel.collectives import all_gather_rows
 
-        return all_gather_rows(self.data, self.mesh)[: self.count]
+        return all_gather_rows(data, self.mesh)[: self.count]
 
     def numpy(self) -> np.ndarray:
         """Host copy (≈ `collect`)."""
@@ -195,13 +330,28 @@ class Dataset:
         return self.with_data(fn(self.data), count=count)
 
     def with_data(self, data: torch.Tensor,
-                  count: Optional[int] = None) -> "Dataset":
+                  count: Optional[int] = None, cols: Optional[str] = None,
+                  spec=None) -> "Dataset":
         """New Dataset over ``data`` (rows in this one's placement) with
-        this one's count."""
+        this one's count. ``cols`` as in `Dataset`; None: "tile" where
+        this one is tiled and ``data`` has its tile's width (a stage
+        that ran on the tile), else "auto" (full columns, tiled as JAX
+        places a stage's output). ``spec``: the placement a planner
+        chose for the result (`reshard`)."""
         count = self.count if count is None else count
+        if cols is None:
+            cols = "tile" if (self.tiled and data.dim() == 2
+                              and data.shape[1] == self.data.shape[1]) \
+                else "auto"
+        if spec is not None and cols == "auto":
+            cols = "full"
         if self.mesh is not None:
-            return Dataset(data, count=count, mesh=self.mesh, placed=True)
-        return Dataset(data, count=count)
+            out = Dataset(data, count=count, mesh=self.mesh, placed=True,
+                          cols=cols, model_mesh=self.model_mesh)
+        else:
+            out = Dataset(data, count=count, cols=cols,
+                          model_mesh=self.model_mesh)
+        return out.reshard(spec) if spec is not None else out
 
     def sync(self) -> "Dataset":
         """Wait until the device has produced the rows (a timing fence)."""
@@ -226,6 +376,8 @@ class Dataset:
         NodeOptimizationRule.scala:145-197; `:262-267`); on a mesh the
         same rows on every rank (each rank's rows of the sample, summed
         by one all-reduce), as one process's `Dataset`."""
+        if self.tiled:
+            return self.gather_model().sample_per_shard(k, seed)
         m = min(self.count, k * self.n_shards)
         idx = np.linspace(0, self.count - 1, num=m, dtype=np.int64)
         if self.mesh is None:
@@ -241,12 +393,14 @@ class Dataset:
         return Dataset(all_reduce(out, self.mesh))
 
     def take(self, k: int) -> np.ndarray:
-        if self.mesh is not None:
+        if self.mesh is not None or self.tiled:
             return self.numpy()[:k]
         return self.data[: min(k, self.count)].detach().cpu().numpy()
 
     def __repr__(self) -> str:
         shards = f", shards={self.n_shards}" if self.mesh is not None else ""
+        if self.tiled:
+            shards += f", tile of {self.width} columns"
         return (f"Dataset(count={self.count}, shape={tuple(self.data.shape)}, "
                 f"device={self.device}{shards})")
 

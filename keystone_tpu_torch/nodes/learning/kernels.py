@@ -163,6 +163,15 @@ class KernelRidgeRegression(LabelEstimator):
 
         return supervised_fit_spec(in_specs, self.label)
 
+    def abstract_sharding(self, in_shardings, in_specs):
+        """The kernel blocks are computed against row-sharded training
+        data (JAX `kernels.py:238-245`): both training inputs must
+        arrive data-sharded, or the dual solve reshards the whole
+        training set (KP601). Static: the planner reads it."""
+        from ...analysis.sharding import fit_sharding_demands
+
+        return fit_sharding_demands(2)
+
     @property
     def weight(self) -> int:
         """Passes over the features (`workflow/autocache.py::node_weight`)."""

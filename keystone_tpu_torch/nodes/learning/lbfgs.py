@@ -43,7 +43,8 @@ import torch
 
 from ...data.dataset import Dataset
 from ...data.sparse import PaddedSparseDataset, SparseDataset, memory_budget
-from ...parallel.collectives import psum
+from ...parallel.collectives import all_gather_columns, all_reduce, psum
+from ...parallel.mesh import MODEL_AXIS
 from ...telemetry.instrument import record_dispatch
 from ...telemetry.metrics import counter
 from ...telemetry.spans import span
@@ -96,13 +97,21 @@ class _Objective:
     ``mesh`` the rows are this rank's: the data term and its gradient
     are all-reduced over ``data`` in one call (JAX `:88-172` under
     GSPMD), so every rank's line search reads the same values and takes
-    the same steps."""
+    the same steps. With ``model_mesh`` (JAX's ``x_sharding``) ``Xc`` is
+    this rank's column tile starting at ``col_start``: ``Xc·W`` is the
+    tile's partial product all-reduced over ``model``, so every rank of
+    a model group reads the same residual; the gradient's rows of the
+    tile's columns are reduced over ``data`` and gathered over
+    ``model``, so W stays whole and alike on every rank."""
 
     def __init__(self, Xc: torch.Tensor, Yc: torch.Tensor, lam: float,
-                 mesh=None):
+                 mesh=None, model_mesh=None, col_start: int = 0):
         self.Xc, self.Yc, self.lam, self.mesh = Xc, Yc, lam, mesh
+        self.model_mesh, self.col_start = model_mesh, col_start
 
     def __call__(self, W: torch.Tensor):
+        if self.model_mesh is not None:
+            return self._on_tile(W)
         resid = self.Xc @ W - self.Yc
         if self.mesh is not None:
             data, grad = psum((0.5 * _dot(resid, resid), self.Xc.T @ resid),
@@ -112,6 +121,16 @@ class _Objective:
         value = 0.5 * _dot(resid, resid) + 0.5 * self.lam * _dot(W, W)
         grad = torch.addmm(W, self.Xc.T, resid, beta=self.lam)
         return value, grad
+
+    def _on_tile(self, W: torch.Tensor):
+        lo, w = self.col_start, self.Xc.shape[1]
+        xw = all_reduce(self.Xc @ W[lo:lo + w], self.model_mesh, MODEL_AXIS)
+        resid = xw - self.Yc
+        data, grad = psum((0.5 * _dot(resid, resid), self.Xc.T @ resid),
+                          self.mesh)
+        grad = all_gather_columns(grad.T.contiguous(), self.model_mesh).T
+        return (data + 0.5 * self.lam * _dot(W, W),
+                grad.add(W, alpha=self.lam))
 
 
 def _decrease_error(stepsize, value, slope, value_init, slope_init):
@@ -338,16 +357,24 @@ def lbfgs_minimize(objective, W: torch.Tensor, num_iters: int,
 
 def lbfgs_fit(X: torch.Tensor, Y: torch.Tensor, mask: torch.Tensor,
               lam: float, count: int, num_iters: int, memory_size: int,
-              fit_intercept: bool, mesh=None) -> LBFGSResult:
+              fit_intercept: bool, mesh=None, model_mesh=None,
+              col_start: int = 0, width: Optional[int] = None
+              ) -> LBFGSResult:
     """``num_iters`` steps of optax's L-BFGS on the ridge objective from
     W = 0 (`_lbfgs_fit_impl`, `:41-85`); with ``mesh``, over every
-    rank's rows."""
+    rank's rows; with ``model_mesh``, ``X`` is this rank's column tile
+    (from ``col_start`` of ``width`` columns) and W is whole."""
     Xc, Yc, xm, ym = lbfgs_prepare(X, Y, mask, count, fit_intercept, mesh)
-    W0 = torch.zeros((X.shape[1], Yc.shape[1]), dtype=X.dtype,
-                     device=X.device)
-    W, history, steps = lbfgs_minimize(_Objective(Xc, Yc, lam, mesh), W0,
-                                       num_iters, memory_size)
-    b = ym - xm @ W if fit_intercept else None
+    d = X.shape[1] if model_mesh is None else width
+    W0 = torch.zeros((d, Yc.shape[1]), dtype=X.dtype, device=X.device)
+    W, history, steps = lbfgs_minimize(
+        _Objective(Xc, Yc, lam, mesh, model_mesh, col_start), W0,
+        num_iters, memory_size)
+    b = None
+    if fit_intercept:
+        lo = col_start
+        xw = xm @ W[lo:lo + X.shape[1]]
+        b = ym - all_reduce(xw, model_mesh, MODEL_AXIS)
     return LBFGSResult(W, b, history, steps)
 
 
@@ -360,6 +387,8 @@ class DenseLBFGSwithL2(LabelEstimator):
     precision_tolerance = "exact"  # solver: f32/HIGHEST inputs
 
     mesh_aware = True  # loss and gradient all-reduced over the data axis
+
+    model_aware = True  # the objective on a column tile
 
     def __init__(self, lam: float = 0.0, num_iters: int = 20,
                  memory_size: int = 10, fit_intercept: bool = True):
@@ -375,10 +404,23 @@ class DenseLBFGSwithL2(LabelEstimator):
 
         return supervised_fit_spec(in_specs, self.label)
 
+    def abstract_sharding(self, in_shardings, in_specs):
+        """The gradient is a partial sum over this rank's rows
+        all-reduced over ``data`` (JAX `:163-170`): both training inputs
+        must arrive row-sharded, or every step reshards (KP601)."""
+        from ...analysis.sharding import fit_sharding_demands
+
+        return fit_sharding_demands(2)
+
     def fit(self, data, labels) -> LinearMapper:
+        labels = labels.gather_model() if labels.tiled else labels
+        tile = {}
+        if data.tiled:
+            tile = dict(model_mesh=data.model_mesh,
+                        col_start=data.col_start, width=data.width)
         res = lbfgs_fit(data.array, labels.array, data.mask, self.lam,
                         data.count, self.num_iters, self.memory_size,
-                        self.fit_intercept, data.mesh)
+                        self.fit_intercept, data.mesh, **tile)
         self.loss_history = torch.tensor(res.loss_history,
                                          dtype=torch.float32)
         self.linesearch_steps = res.linesearch_steps

@@ -14,6 +14,14 @@ fit, then W = Xᵀα. `SparseLinearMapper` (`:171-213`) applies a dense
 model to sparse rows: JAX multiplies on the host, as the TPU has no
 efficient sparse GEMM (`:174-178`); on the card the product is the
 dataset's device CSR times W (cuSPARSE SpMM), as `classifiers.py` does.
+
+On a ``(data, model)`` mesh (JAX's ``x_sharding``, `:104-160`): the
+Gram ``XᵀX`` has a block for every pair of model shards, each the
+product of two shards' columns, so the columns have to meet; the exact
+fit takes its features gathered over ``model`` (one all-gather, as a
+stage that is not ``model_aware``) and then solves as on the data axis.
+`LinearMapper` applies to a tile as `BlockLinearMapper` does: the
+tile's partial ``X·W`` all-reduced over ``model``.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ from ...data.sparse import SparseDataset, _to_torch_csr
 from ...parallel.collectives import psum
 from ...telemetry.instrument import record_dispatch
 from ...workflow.pipeline import LabelEstimator, Transformer
-from .block_ls import raise_if_unfactored
+from .block_ls import apply_on_tile, raise_if_unfactored
 
 
 class LinearMapper(Transformer):
@@ -40,6 +48,8 @@ class LinearMapper(Transformer):
 
     fusable = True  # a GEMM (the port's mapper carries no feature scaler)
 
+    model_aware = True  # a tile's partial product, all-reduced over model
+
     def __init__(self, W: torch.Tensor, b: Optional[torch.Tensor] = None):
         self.W = W
         self.b = b
@@ -48,6 +58,11 @@ class LinearMapper(Transformer):
         if self.b is None:
             return lambda x: x @ self.W
         return lambda x: x @ self.W + self.b
+
+    def apply_batch(self, data):
+        if getattr(data, "tiled", False):
+            return apply_on_tile(data, self.W, self.b)
+        return super().apply_batch(data)
 
     def fuse(self):
         # JAX's key without a feature scaler (`:57-63`): the port's

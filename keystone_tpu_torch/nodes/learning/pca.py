@@ -154,6 +154,15 @@ class DistributedPCAEstimator(Estimator):
         return _pca_fit_spec(self.dims, self.label,
                              in_specs[0] if in_specs else None)
 
+    def abstract_sharding(self, in_shardings, in_specs):
+        """TSQR's first stage is a QR of each shard's rows (JAX
+        `pca.py:198-205`): the rows must arrive data-sharded, or the
+        fit reshards the whole matrix first (KP601). Static: the
+        planner reads it; the fit across ranks is TSQR's slice."""
+        from ...analysis.sharding import fit_sharding_demands
+
+        return fit_sharding_demands(1)
+
     def fit(self, data) -> PCATransformer:
         X = collect_rows(data)
         mu = X.sum(dim=0) / X.shape[0]
@@ -191,6 +200,15 @@ class ApproximatePCAEstimator(Estimator):
     def abstract_fit(self, in_specs):
         return _pca_fit_spec(self.dims, self.label,
                              in_specs[0] if in_specs else None)
+
+    def abstract_sharding(self, in_shardings, in_specs):
+        """TSQR's first stage is a QR of each shard's rows (JAX
+        `pca.py:198-205`): the rows must arrive data-sharded, or the
+        fit reshards the whole matrix first (KP601). Static: the
+        planner reads it; the fit across ranks is TSQR's slice."""
+        from ...analysis.sharding import fit_sharding_demands
+
+        return fit_sharding_demands(1)
 
     def fit(self, data) -> PCATransformer:
         X = collect_rows(data)

@@ -9,15 +9,21 @@ and the sum of squares over ``data``, divided by the global count, and
 the scaled rows re-zero the padded ones (`_scale`'s mask, `:38-39, 84`;
 `Transformer.apply_batch` applies it for ``fuse_masks_output``). In one
 process there are no padded rows and no collective.
+
+On a ``(data, model)`` mesh both run on a column tile (``model_aware``):
+the fit's moments are those of this rank's columns, reduced over
+``data`` only, then gathered over ``model`` (one all-gather of the two
+vectors) so the fitted mean and std are whole, as JAX's are
+replicated; the apply scales the tile by its columns' slice of them.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ...parallel.collectives import tree_aggregate
+from ...parallel.collectives import all_gather_columns, tree_aggregate
 from ...telemetry.instrument import record_dispatch
-from ...workflow.pipeline import Estimator, Transformer
+from ...workflow.pipeline import Estimator, Transformer, _rezero_padded
 
 
 def moments(x: torch.Tensor, count: int, normalize_std: bool,
@@ -56,14 +62,28 @@ class StandardScalerModel(Transformer):
     #: at its place in the chain (`scalers.py:42-75`)
     fuse_masks_output = True
 
+    model_aware = True  # a tile scales by its columns' moments
+
     def __init__(self, mean: torch.Tensor, std=None):
         self.mean = mean
         self.std = std
 
-    def batch_fn(self):
+    def batch_fn(self, cols: slice = slice(None)):
+        """The scaling of rows, of the columns ``cols`` of the fitted
+        width (all by default)."""
+        mean = self.mean[cols]
         if self.std is None:
-            return lambda x: x - self.mean
-        return lambda x: (x - self.mean) / self.std
+            return lambda x: x - mean
+        std = self.std[cols]
+        return lambda x: (x - mean) / std
+
+    def apply_batch(self, data):
+        if not getattr(data, "tiled", False):
+            return super().apply_batch(data)
+        lo = data.col_start
+        out = data.map_batches(self.batch_fn(
+            slice(lo, lo + data.array.shape[1])))
+        return _rezero_padded(out, data)
 
     def fuse(self):
         """The JAX package's static key and parameters
@@ -81,6 +101,8 @@ class StandardScaler(Estimator):
     fusable_fit = True
 
     mesh_aware = True  # moments all-reduced over the data axis
+
+    model_aware = True  # a tile's moments, gathered over the model axis
 
     def __init__(self, normalize_std_dev: bool = True):
         self.normalize_std_dev = normalize_std_dev
@@ -112,5 +134,8 @@ class StandardScaler(Estimator):
         mean, std = moments(data.array, data.count, self.normalize_std_dev,
                             data.mask if data.has_padding else None,
                             data.mesh)
+        if data.tiled:
+            mean, std = all_gather_columns(torch.stack([mean, std]),
+                                           data.model_mesh).unbind(0)
         return StandardScalerModel(mean,
                                    std if self.normalize_std_dev else None)

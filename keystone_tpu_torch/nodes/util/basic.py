@@ -211,6 +211,8 @@ class Cacher(Transformer):
 
     saveable = True
 
+    model_aware = True  # the identity: a tile stays a tile
+
     def __init__(self, name: str = ""):
         self.name = name
 

@@ -330,6 +330,10 @@ class FusedBatchTransformer(Transformer):
     planned_by_unified = False
     #: the unified planner's priced seconds for the planned kernel
     planned_kernel_seconds = None
+    #: the sharding planner's placement of this program's output (a
+    #: `PartitionSpec`, `workflow/optimizer.py::ShardingPlannerRule`), or
+    #: None: the default placement
+    planned_out_spec = None
 
     def __init__(self, stages: Sequence[Transformer], microbatch: int = 2048):
         self.stages = list(stages)
@@ -480,11 +484,24 @@ class FusedBatchTransformer(Transformer):
         loop (and its graph), and each stage that re-zeroes padded rows
         (``fuse_masks_output``) applies it at its place, inside a planned
         K4 too, as JAX's fused program does (`:480-532`): a padded row
-        never reaches a reduction unmasked."""
-        if not getattr(data, "has_padding", False):
+        never reaches a reduction unmasked. A ``planned_out_spec`` places
+        the output as the sharding planner chose (JAX's
+        ``with_sharding_constraint`` on the program's output, `:396-405`):
+        the result lands in that layout (`Dataset.with_data`'s
+        ``spec``)."""
+        padded = getattr(data, "has_padding", False)
+        spec = self.planned_out_spec
+        if spec is None and not padded:
             return super().apply_batch(data)
+        if not hasattr(data, "with_data") or getattr(
+                data, "is_spilled", False) or getattr(
+                data, "is_out_of_core", False):
+            out = super().apply_batch(data)
+            return out.reshard(spec) if hasattr(out, "reshard") else out
         record_dispatch()
-        return data.with_data(self.batch_fn()(data.array, data.mask))
+        y = (self.batch_fn()(data.array, data.mask) if padded
+             else self.batch_fn()(data.array))
+        return data.with_data(y, spec=spec)
 
     def _storage_casts(self) -> list:
         """The torch dtype each peepholed stage's output is cast to, or

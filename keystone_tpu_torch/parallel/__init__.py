@@ -2,17 +2,19 @@
 
 Counterpart of `keystone_tpu/parallel/__init__.py` (`:1-59`), its export
 list less the names of `NamedSharding`s (`data_sharding`,
-`replicated_sharding`, `spec_of_array`) and the model axis's
-`feature_sharding`, which come with the model axis (ROADMAP queue 1,
-item 4).
+`replicated_sharding`, `spec_of_array`: a `Dataset`'s placement is its
+``spec``), plus the static tier's `MeshLayout` and `layout_of` and the
+model axis's `all_gather_columns` and `gather_block`.
 """
 
 from . import mesh
 from .collectives import (
+    all_gather_columns,
     all_gather_rows,
     all_reduce,
     broadcast,
     co_sharded,
+    gather_block,
     psum,
     reshard,
     reshard_tree,
@@ -22,10 +24,15 @@ from .collectives import (
 from .mesh import (
     DATA_AXIS,
     MODEL_AXIS,
+    MeshLayout,
     P,
     PartitionSpec,
+    collective_cost,
     current_mesh,
+    feature_sharding,
+    layout_of,
     make_mesh,
+    model_rank,
     n_data_shards,
     n_model_shards,
     replicate,
@@ -46,10 +53,15 @@ __all__ = [
     "mesh",
     "DATA_AXIS",
     "MODEL_AXIS",
+    "MeshLayout",
     "P",
     "PartitionSpec",
+    "collective_cost",
     "current_mesh",
+    "feature_sharding",
+    "layout_of",
     "make_mesh",
+    "model_rank",
     "n_data_shards",
     "n_model_shards",
     "replicate",
@@ -58,10 +70,12 @@ __all__ = [
     "spec_shards",
     "specs_equal",
     "use_mesh",
+    "all_gather_columns",
     "all_gather_rows",
     "all_reduce",
     "broadcast",
     "co_sharded",
+    "gather_block",
     "psum",
     "reshard",
     "reshard_tree",

@@ -6,20 +6,25 @@ broadcast, `treeReduce`/`treeAggregate`, co-partitioned `zip`,
 shuffles; SURVEY.md §2.7). JAX reaches XLA's collectives two ways, GSPMD
 inserting them where sharded math needs them and `shard_map` naming
 them. The port has one way: every reduction over rows is one of the
-functions below, an explicit `torch.distributed` call on the mesh's
-data-axis group (NCCL on the card, gloo on the CPU), outside any
-kernel. Only the data axis's specs exist here, ``P()`` (replicated) and
-``P("data")`` (a rank's rows): a `Dataset` placed on a mesh is
-``P("data")``, a plain tensor ``P()``.
+functions below, an explicit `torch.distributed` call on one axis's
+group of the mesh (NCCL on the card, gloo on the CPU, or gloo over the
+card's tensors where two ranks share one card), outside any kernel. The
+data axis's group holds the ranks that share this rank's model index;
+the model axis's, the ranks that hold its rows. A plain tensor is
+``P()``; a `Dataset` on a mesh is ``P("data")``, or ``P("data",
+"model")`` where it holds a column tile (`Dataset.reshard` moves it).
+`all_gather_columns` is the model axis's gather: the one that a stage
+which does not run on a tile takes its input through.
 
 JAX's program cache (`_cached`, `_fn_key`) keeps a jitted program per
 collective and callback; eager torch builds no program, so there is
 nothing to cache and neither is ported.
 
 Every call adds one to ``collectives.<kind>`` and its payload's bytes
-to ``collectives.<kind>.bytes`` in the telemetry registry, and under a
-tracer it is one span of category ``collective`` named by its kind,
-with its ``bytes``. Under a synchronizing tracer (``trace_run(...,
+to ``collectives.<kind>.bytes`` in the telemetry registry, and the same
+to ``collectives.<axis>.<kind>`` and its ``.bytes`` for the mesh axis it
+ran over; under a tracer it is one span of category ``collective``
+named by its kind, with its ``bytes`` and ``axis``. Under a synchronizing tracer (``trace_run(...,
 synchronize=True)``) the span opens after the card has finished the
 work queued before it and closes once the collective itself has, so its
 seconds are the collective's; otherwise they are what the host waited
@@ -43,12 +48,14 @@ from ..telemetry.spans import current_tracer, span
 from . import mesh as meshlib
 
 
-def _collective(kind: str, t: torch.Tensor, call) -> None:
-    """Run ``call()``, one collective on ``t``: counted, and a span
-    under a tracer."""
+def _collective(kind: str, t: torch.Tensor, call,
+                axis: str = meshlib.DATA_AXIS) -> None:
+    """Run ``call()``, one collective on ``t`` over ``axis``: counted,
+    and a span under a tracer."""
     nbytes = t.numel() * t.element_size()
-    counter(f"collectives.{kind}").inc()
-    counter(f"collectives.{kind}.bytes").inc(float(nbytes))
+    for name in (f"collectives.{kind}", f"collectives.{axis}.{kind}"):
+        counter(name).inc()
+        counter(f"{name}.bytes").inc(float(nbytes))
     tracer = current_tracer()
     if tracer is None:
         call()
@@ -56,7 +63,7 @@ def _collective(kind: str, t: torch.Tensor, call) -> None:
     sync = tracer.synchronize and t.device.type == "cuda"
     if sync:
         torch.cuda.synchronize(t.device)
-    with span(kind, cat="collective", bytes=nbytes):
+    with span(kind, cat="collective", bytes=nbytes, axis=axis):
         call()
         if sync:
             torch.cuda.synchronize(t.device)
@@ -66,13 +73,17 @@ def _mesh(mesh):
     return mesh if mesh is not None else meshlib.current_mesh()
 
 
-def all_reduce(t: torch.Tensor, mesh) -> torch.Tensor:
-    """``t`` summed over ``mesh``'s data axis, in place (returned).
-    ``mesh`` None (one process): ``t`` as it is."""
-    if mesh is None:
+def all_reduce(t: torch.Tensor, mesh,
+               axis: str = meshlib.DATA_AXIS) -> torch.Tensor:
+    """``t`` summed over ``mesh``'s ``axis``, in place (returned).
+    ``mesh`` None (one process), or an axis of one rank: ``t`` as it
+    is."""
+    _check_axis(axis)
+    if mesh is None or (axis == meshlib.MODEL_AXIS
+                        and meshlib.n_model_shards(mesh) == 1):
         return t
     _collective("all_reduce", t, lambda: dist.all_reduce(
-        t, group=meshlib.data_group(mesh)))
+        t, group=meshlib.axis_group(mesh, axis)), axis)
     return t
 
 
@@ -117,14 +128,16 @@ def _packed(tree, op):
     return _unflatten(tree, iter(out))
 
 
-def psum(tree, mesh):
+def psum(tree, mesh, axis: str = meshlib.DATA_AXIS):
     """A tuple, list or dict of tensors (or one) summed over ``mesh``'s
-    data axis, one all-reduce a dtype: JAX's ``lax.psum`` over ``data``,
-    the all-reduce GSPMD inserts at a reduction over sharded rows.
-    ``mesh`` None: ``tree`` as it is."""
-    if mesh is None:
+    ``axis``, one all-reduce a dtype: JAX's ``lax.psum``, the all-reduce
+    GSPMD inserts at a reduction over sharded rows (``data``) or over a
+    product's split inner dimension (``model``). ``mesh`` None: ``tree``
+    as it is."""
+    if mesh is None or (axis == meshlib.MODEL_AXIS
+                        and meshlib.n_model_shards(mesh) == 1):
         return tree
-    return _packed(tree, lambda flat: all_reduce(flat, mesh))
+    return _packed(tree, lambda flat: all_reduce(flat, mesh, axis))
 
 
 def _rows(x):
@@ -148,8 +161,7 @@ def tree_reduce_sum(x, mesh=None, axis: str = meshlib.DATA_AXIS):
     zero) summed over the leading dim, then all-reduced over ``axis`` of
     ``mesh`` (default: the `Dataset`'s; a tensor given no mesh is
     replicated, so its sum is the total). The replicated total."""
-    _check_axis(axis)
-    return all_reduce(_rows(x).sum(dim=0), _placed_on(x, mesh))
+    return all_reduce(_rows(x).sum(dim=0), _placed_on(x, mesh), axis)
 
 
 def tree_aggregate(x, seq_op, mesh=None, axis: str = meshlib.DATA_AXIS):
@@ -160,22 +172,24 @@ def tree_aggregate(x, seq_op, mesh=None, axis: str = meshlib.DATA_AXIS):
     over ``mesh`` (default as in `tree_reduce_sum`).
     (StandardScaler.scala:46's moment aggregation shape.)"""
     _check_axis(axis)
-    return psum(seq_op(_rows(x)), _placed_on(x, mesh))
+    return psum(seq_op(_rows(x)), _placed_on(x, mesh), axis)
 
 
-def broadcast(x, mesh=None, src: int = 0):
-    """≈ `sc.broadcast(model)` (`:131-134`): the data axis's rank
-    ``src``'s copy of ``x`` (a tensor, or a tuple, list or dict of
-    them) on every rank, one broadcast a dtype. Without a mesh, ``x``."""
+def broadcast(x, mesh=None, src: int = 0, axis: str = meshlib.DATA_AXIS):
+    """≈ `sc.broadcast(model)` (`:131-134`): ``axis``'s rank ``src``'s
+    copy of ``x`` (a tensor, or a tuple, list or dict of them) on every
+    rank of that axis, one broadcast a dtype. Without a mesh, ``x``."""
+    _check_axis(axis)
     mesh = _mesh(mesh)
-    if mesh is None:
+    if mesh is None or meshlib.axis_size(mesh, axis) == 1 and (
+            axis == meshlib.MODEL_AXIS):
         return x
-    group = meshlib.data_group(mesh)
+    group = meshlib.axis_group(mesh, axis)
     root = dist.get_global_rank(group, src)
 
     def op(flat):
         _collective("broadcast", flat, lambda: dist.broadcast(
-            flat, src=root, group=group))
+            flat, src=root, group=group), axis)
 
     out = _packed(x, op)
     return out
@@ -195,46 +209,109 @@ def co_sharded(a, b) -> bool:
     return a.shape[0] == b.shape[0]
 
 
+def _gloo_on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` is a card's tensor in a gloo group (two ranks on
+    one card), whose gloo collectives are ``all_reduce`` and
+    ``broadcast``."""
+    return t.device.type == "cuda" and dist.get_backend() == "gloo"
+
+
+def all_gather_columns(tile: torch.Tensor, mesh) -> torch.Tensor:
+    """The model group's column tiles of a (rows, w) matrix side by
+    side, in model order: (rows, w·m) on every rank of the group, one
+    collective over ``model`` (GSPMD's gather of a ``P("data",
+    "model")`` value into ``P("data")``). Under gloo on the card it is
+    an all-reduce of a zeroed (rows, w·m) buffer holding this rank's
+    columns, which sums to the same bits (x + 0 = x); it is counted as
+    the ``all_reduce`` it is."""
+    m = meshlib.n_model_shards(mesh)
+    if m == 1:
+        return tile
+    tile = tile.contiguous()
+    group = meshlib.model_group(mesh)
+    w = tile.shape[1]
+    if _gloo_on_card(tile):
+        out = tile.new_zeros((tile.shape[0], w * m))
+        lo = meshlib.model_rank(mesh) * w
+        out[:, lo:lo + w] = tile
+        _collective("all_reduce", out, lambda: dist.all_reduce(
+            out, group=group), meshlib.MODEL_AXIS)
+        return out
+    parts = [torch.empty_like(tile) for _ in range(m)]
+    _collective("all_gather", tile, lambda: dist.all_gather(
+        parts, tile, group=group), meshlib.MODEL_AXIS)
+    return torch.cat(parts, dim=1)
+
+
+def gather_block(tile: torch.Tensor, col_start: int, lo: int, hi: int,
+                 mesh) -> torch.Tensor:
+    """Columns ``lo:hi`` of the matrix whose columns ``col_start:
+    col_start + w`` are ``tile``, on every rank of the model group: each
+    rank writes its part of the block into a zeroed (rows, hi − lo)
+    buffer and one all-reduce over ``model`` sums them (a block may
+    span shards or lie inside one; columns no rank holds stay zero)."""
+    out = tile.new_zeros((tile.shape[0], hi - lo))
+    a = max(lo, col_start)
+    b = min(hi, col_start + tile.shape[1])
+    if a < b:
+        out[:, a - lo:b - lo] = tile[:, a - col_start:b - col_start]
+    return all_reduce(out, mesh, meshlib.MODEL_AXIS)
+
+
 def all_gather_rows(x, mesh=None, axis: str = meshlib.DATA_AXIS):
     """≈ `rdd.collect()` onto every rank (`:150-161`): every rank's rows
     of ``x`` (a tensor of this rank's rows, or a `Dataset`'s) in rank
-    order, on every rank: the full padded leading axis."""
+    order, on every rank of ``axis``: the full padded leading axis.
+    Under gloo on the card, an all-reduce of a zeroed buffer (as
+    `all_gather_columns`)."""
     _check_axis(axis)
     mesh = _mesh(mesh)
     rows = x.array if hasattr(x, "padded_count") else x
     if mesh is None:
         return rows
-    group = meshlib.data_group(mesh)
+    group = meshlib.axis_group(mesh, axis)
     rows = rows.contiguous()
-    parts = [torch.empty_like(rows)
-             for _ in range(dist.get_world_size(group))]
+    size = dist.get_world_size(group)
+    if _gloo_on_card(rows):  # as `all_gather_columns` does
+        n = rows.shape[0]
+        out = rows.new_zeros((n * size,) + tuple(rows.shape[1:]))
+        lo = dist.get_group_rank(group, dist.get_rank()) * n
+        out[lo:lo + n] = rows
+        _collective("all_reduce", out, lambda: dist.all_reduce(
+            out, group=group), axis)
+        return out
+    parts = [torch.empty_like(rows) for _ in range(size)]
     _collective("all_gather", rows, lambda: dist.all_gather(
-        parts, rows, group=group))
+        parts, rows, group=group), axis)
     return torch.cat(parts)
 
 
 def reshard(x, spec, mesh=None):
-    """≈ shuffle/repartition (`:164-187`): ``x`` moved to ``spec``. A
-    `Dataset` is ``P("data")``: ``P()`` gathers its rows on every rank
-    (its ``count`` rows, padding dropped). A tensor is ``P()``:
-    ``P("data")`` keeps this rank's rows of it as a `Dataset` (every
-    rank holds the whole tensor). Moving to the current layout returns
-    ``x`` itself: no collective (the identity short-circuit)."""
+    """≈ shuffle/repartition (`:164-214`): ``x`` moved to ``spec``, one
+    of ``P()``, ``P("data")``, ``P("data", "model")`` and ``P(None,
+    "model")``. A `Dataset` moves by `Dataset.reshard`, except that
+    ``P()`` gives the tensor of its ``count`` rows (every column) on
+    every rank. A tensor is ``P()``: any other spec keeps this rank's
+    part of it as a `Dataset` (every rank holds the whole tensor).
+    Moving to the current layout returns ``x`` itself: no collective
+    (the identity short-circuit)."""
     from ..data.dataset import Dataset
 
     mesh = _mesh(mesh)
     target = meshlib.spec_axes(spec)
-    if target not in ((), (meshlib.DATA_AXIS,)):
-        raise NotImplementedError(
-            f"reshard to {spec!r}: the port places values over the data "
-            "axis only (ROADMAP queue 1, item 4)")
+    if any(a not in (meshlib.DATA_AXIS, meshlib.MODEL_AXIS) for a in target):
+        raise ValueError(f"reshard to {spec!r}: no such mesh axis")
     if isinstance(x, Dataset):
-        if target and x.mesh == mesh:
-            return x
-        return all_gather_rows(x, x.mesh)[: x.count]
+        if not target:
+            return x.gather()
+        return x.reshard(spec, mesh)
     if not target or mesh is None:
         return x
-    return Dataset(x, mesh=mesh)
+    rows = meshlib.DATA_AXIS in meshlib.spec_axes((tuple(spec) + (None,))[0:1])
+    cols = "auto" if meshlib.MODEL_AXIS in target else "full"
+    if rows:
+        return Dataset(x, mesh=mesh, cols=cols)
+    return Dataset(x, cols=cols, model_mesh=mesh)
 
 
 def reshard_tree(tree, spec, mesh=None):
@@ -248,7 +325,6 @@ def reshard_tree(tree, spec, mesh=None):
 
 
 def _check_axis(axis: str) -> None:
-    if axis != meshlib.DATA_AXIS:
-        raise NotImplementedError(
-            f"collectives over {axis!r}: the port reduces over the data "
-            "axis only (ROADMAP queue 1, item 4)")
+    if axis not in (meshlib.DATA_AXIS, meshlib.MODEL_AXIS):
+        raise ValueError(f"no mesh axis {axis!r}: the axes are "
+                         f"{meshlib.DATA_AXIS!r} and {meshlib.MODEL_AXIS!r}")

@@ -13,7 +13,8 @@ each, every row reduction an explicit collective (`collectives.py`).
     card is ``cuda:<local rank>``), gloo where the caller asked for the
     CPU; no other pairing. Its ``timeout`` bounds every collective, so a
     lost peer fails loudly instead of hanging.
-  - `global_data_mesh()` — a mesh over every rank on the ``data`` axis.
+  - `global_data_mesh(model_shards)` — a ``(world/m, m)`` mesh over
+    every rank, on the ``data`` axis alone where ``m`` is 1.
   - `dataset_from_process_local()` — a global `Dataset` from each
     process's locally loaded rows.
   - `barrier()` — a cross-process sync point (≈ a Spark stage
@@ -46,7 +47,8 @@ def init_multihost(coordinator_address: Optional[str] = None,
                    num_processes: Optional[int] = None,
                    process_id: Optional[int] = None,
                    device="cuda",
-                   timeout: float = DEFAULT_TIMEOUT_S) -> int:
+                   timeout: float = DEFAULT_TIMEOUT_S,
+                   backend: Optional[str] = None) -> int:
     """Join (or skip joining) the job; returns the group's size.
 
     Without ``coordinator_address`` (``host:port``) this is a no-op
@@ -55,7 +57,10 @@ def init_multihost(coordinator_address: Optional[str] = None,
     ``device="cuda"`` sets this process's card, ``cuda:<local rank>``
     (``process_id`` modulo the cards present), and opens an NCCL
     group, raising where CUDA or NCCL is missing; ``device="cpu"`` opens
-    a gloo group. A second call once joined returns the size."""
+    a gloo group. ``backend="gloo"`` with ``device="cuda"`` opens a gloo
+    group over the card's tensors: NCCL puts no two ranks on one card,
+    so that is how ranks share one (its collectives pass through host
+    memory). A second call once joined returns the size."""
     if coordinator_address is None or (
             dist.is_available() and dist.is_initialized()):
         return _world()
@@ -74,9 +79,18 @@ def init_multihost(coordinator_address: Optional[str] = None,
                                "which this torch build lacks")
         local = process_id % torch.cuda.device_count()
         torch.cuda.set_device(local)
-        backend = "nccl"
-        kwargs["device_id"] = torch.device("cuda", local)
+        if backend is None:
+            backend = "nccl"
+            kwargs["device_id"] = torch.device("cuda", local)
+        elif backend == "gloo":
+            meshlib._group_device = "cuda"
+        else:
+            raise ValueError(f"init_multihost: backend {backend!r} on "
+                             "the card (nccl or gloo)")
     elif dev.type == "cpu":
+        if backend not in (None, "gloo"):
+            raise ValueError(f"init_multihost: backend {backend!r} on "
+                             "the CPU (gloo only)")
         backend = "gloo"
     else:
         raise ValueError(f"init_multihost: unsupported device {device!r}")
@@ -88,11 +102,14 @@ def init_multihost(coordinator_address: Optional[str] = None,
 
 
 def global_data_mesh(model_shards: int = 1):
-    """A mesh over every rank of the job on the ``data`` axis
-    (`:74-96`). A model axis raises `NotImplementedError` (ROADMAP
-    queue 1, item 4)."""
+    """A mesh over every rank of the job (`:74-96`): ``(world/m, m)``
+    over ``(data, model)`` for ``model_shards`` m > 1, else the whole
+    job on ``data``. ``m`` must divide the world."""
     if model_shards != 1:
         world = _world()
+        if model_shards < 1 or world % model_shards:
+            raise ValueError(f"{model_shards} model shards do not divide "
+                             f"the job's {world} ranks")
         return meshlib.make_mesh((world // model_shards, model_shards),
                                  (meshlib.DATA_AXIS, meshlib.MODEL_AXIS))
     return meshlib.make_mesh()
@@ -113,7 +130,7 @@ def dataset_from_process_local(local_rows, global_count: Optional[int] = None,
 
     mesh = mesh if mesh is not None else meshlib.current_mesh()
     if device is None:
-        device = mesh.device_type if mesh is not None else "cuda"
+        device = meshlib.mesh_device(mesh)
     if isinstance(local_rows, torch.Tensor):
         rows = local_rows
     else:

@@ -36,6 +36,15 @@ rows, and the scaler's moments, BCD's Grams and the confusion matrices
 are all-reduced over ``data``. `run` takes the current mesh, the global
 one once `parallel.init_multihost` has joined a group (the launcher's
 ``--coordinator``).
+
+On a ``(data, model)`` mesh (`parallel.global_data_mesh(model_shards)`;
+JAX `:340-380`) the images are model-replicated, as JAX places 4-D
+leaves, so every rank of a model group runs K1 on its data row's images;
+the features that leave the featurizer are each rank's column tile
+(`Dataset`), the scaler's moments are the tile's, and BCD gathers each
+block over ``model`` (`nodes/learning/block_ls.py`). `fused_fit` keeps
+the same layout: its scaled features go into BCD as this rank's tile
+(`feature_sharding(mesh, d_pad)`).
 """
 
 from __future__ import annotations
@@ -75,7 +84,13 @@ from ..nodes.util.basic import (
 from ..nodes.util.fusion import FusedBatchTransformer
 from ..ops.kernels import conv_rectify_pool, hwio_to_cmajor, pooled_grid
 from ..parallel.collectives import all_reduce, broadcast
-from ..parallel.mesh import current_mesh, data_rank
+from ..parallel.mesh import (
+    current_mesh,
+    data_rank,
+    feature_sharding,
+    model_rank,
+    n_model_shards,
+)
 from ..utils.images import extract_patches_device
 
 
@@ -450,8 +465,15 @@ def fused_fit(train, test, filters, whitener, config, clock=None):
     d = X.shape[1]
     B = min(config.block_size, d)
     Xs = F.pad((X - mu) / sd, (0, -d % B))
+    tile = {}
+    if mesh is not None and feature_sharding(mesh, Xs.shape[1]) is not None:
+        # JAX's x_sharding: BCD takes this rank's column tile
+        w = Xs.shape[1] // n_model_shards(mesh)
+        lo = model_rank(mesh) * w
+        tile = dict(model_mesh=mesh, col_start=lo, width=Xs.shape[1])
+        Xs = Xs[:, lo:lo + w].contiguous()
     Ws, bs, info = bcd_fit(Xs, Y, config.lam, B, config.bcd_iters,
-                           mask=mask, mesh=mesh, count=count)
+                           mask=mask, mesh=mesh, count=count, **tile)
     Ws = Ws[:d]
     # fold the scaling back: x·W + b on raw features
     W = Ws / sd[:, None]

@@ -67,6 +67,12 @@ class CacheMarker(TransformerOperator):
             return f"Cache[host:{self.name}]"
         return f"Cache[{self.name}]"
 
+    @property
+    def model_aware(self) -> bool:
+        """A cache on the card is the identity, so a tile stays a tile;
+        a spill takes whole columns."""
+        return self.placement == "device"
+
     def single_transform(self, inputs):
         return inputs[0]
 

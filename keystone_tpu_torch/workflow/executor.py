@@ -504,19 +504,37 @@ class GraphExecutor:
         per-node bytes and peak (``static_memory``), the roofline's
         per-stage FLOPs, bytes and seconds (``roofline``) and, with an
         envelope armed (``KEYSTONE_SLO_MS``), the serving certificate
-        (``serving``), which also arms the conformance watchdog. The
-        graph is bound, so no source spec is needed. Never fails a run."""
+        (``serving``), which also arms the conformance watchdog. Each
+        node's entry carries its propagated partition spec and one
+        card's bytes of it (`analysis/sharding.py` on the current mesh),
+        the static side of a rank's observed bytes, and the metadata the
+        per-device peak (`:315-378`). The graph is bound, so no source
+        spec is needed. Never fails a run."""
         if self._static_recorded:
             return
         self._static_recorded = True
         try:
             from ..analysis.memory import memory_pass
             from ..analysis.propagate import spec_pass
+            from ..analysis.sharding import (
+                per_device_bytes,
+                per_device_pass,
+                sharding_pass,
+                spec_str,
+            )
+            from ..parallel.mesh import layout_of
 
             specs, _ = spec_pass(graph, {})
             est, _ = memory_pass(graph, specs)
+            mesh = layout_of(None)
+            try:
+                shardings, _, _ = sharding_pass(graph, specs, mesh=mesh)
+                per_device_pass(graph, specs, shardings, est, mesh=mesh)
+            except Exception:  # the byte estimates below must still land
+                shardings = {}
             meta = tracer.metadata.setdefault(
-                "static_memory", {"per_node": {}, "peak_bytes": 0})
+                "static_memory", {"per_node": {}, "peak_bytes": 0,
+                                  "per_device_peak_bytes": 0})
             for vid, nbytes in est.per_node.items():
                 if nbytes is None:
                     continue
@@ -534,8 +552,17 @@ class GraphExecutor:
                         # uint8 loaders and planned bf16 boundaries show
                         # in the reconcile table
                         entry["dtype"] = dt
+                    sv = shardings.get(vid)
+                    if sv is not None:
+                        entry["spec"] = spec_str(sv)
+                        pd = per_device_bytes(specs.get(vid), sv, mesh)
+                        if pd is not None:
+                            entry["per_device_bytes"] = int(pd)
                     meta["per_node"][key] = entry
             meta["peak_bytes"] = max(meta["peak_bytes"], int(est.peak_bytes))
+            meta["per_device_peak_bytes"] = max(
+                meta.get("per_device_peak_bytes", 0),
+                int(est.per_device_peak_bytes or 0))
             roof = None
             try:
                 from ..analysis.roofline import roofline_pass

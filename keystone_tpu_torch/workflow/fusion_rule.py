@@ -140,6 +140,8 @@ class FusedChainOperator(Operator):
     planned_kernel = None
     planned_kernel_seconds = None
     planned_by_unified = False
+    #: the sharding planner's output placement (`FusedBatchTransformer`)
+    planned_out_spec = None
 
     def __init__(self, stage_specs: Sequence, microbatch: int = 2048):
         self.stage_specs = list(stage_specs)
@@ -186,7 +188,8 @@ class FusedChainOperator(Operator):
             if all(getattr(s, "fusable", False) for s in stages):
                 built = self._fused_cls()(stages, microbatch=self.microbatch)
                 for tag in ("planned_precision", "planned_matmul_precision",
-                            "planned_kernel", "planned_kernel_seconds"):
+                            "planned_kernel", "planned_kernel_seconds",
+                            "planned_out_spec"):
                     if getattr(self, tag) is not None:
                         setattr(built, tag, getattr(self, tag))
             else:

@@ -30,6 +30,7 @@ pass (KP301) and the serving certifier (KP904) check them.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, List, Sequence
 
 import torch
@@ -231,13 +232,42 @@ class DatumOperator(Operator):
         return DatumExpression.of(self.datum)
 
 
+def _gathers_model_tiles(fn):
+    """``fn``, a batch path, taking its datasets' column tiles gathered
+    over the model axis unless its operator is ``model_aware``
+    (`parallel/mesh.py::gather_model_inputs`)."""
+    from ..parallel.mesh import gather_model_inputs
+
+    @functools.wraps(fn)
+    def wrapped(self, *args, **kwargs):
+        args, kwargs = gather_model_inputs(self, args, kwargs)
+        return fn(self, *args, **kwargs)
+
+    return wrapped
+
+
 class TransformerOperator(Operator):
     """An operator with both per-item and bulk execution paths
     (Operator.scala:37-100).
 
     Subclasses (every `Transformer` node) implement ``single_transform``
     and ``batch_transform``. If any dependency is a `DatumExpression` the
-    single-item path runs, else the batch path."""
+    single-item path runs, else the batch path. On a ``(data, model)``
+    mesh a batch path (``batch_transform``, ``apply_batch``) reads its
+    datasets' column tiles only where the class sets ``model_aware``;
+    otherwise they reach it gathered over ``model``, as GSPMD gathers a
+    model-sharded value for a stage that needs its columns whole."""
+
+    #: whether the batch path runs on a dataset's column tile
+    model_aware = False
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        for name in ("batch_transform", "apply_batch"):
+            fn = cls.__dict__.get(name)
+            if fn is not None and callable(fn) \
+                    and not hasattr(fn, "__wrapped__"):
+                setattr(cls, name, _gathers_model_tiles(fn))
 
     def single_transform(self, inputs: List[Any]) -> Any:
         raise NotImplementedError

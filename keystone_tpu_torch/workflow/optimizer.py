@@ -14,12 +14,13 @@ workflow/{Rule,RuleExecutor,DefaultOptimizer}.scala and the rules):
     AutoCacheRule (`autocache.py`);
   - the planners (`:255-945`): UnifiedPlannerRule (`analysis/plan_ir.py`
     decides, this rule enforces: the chunk, cache points on the card or
-    in host memory, precision trails, chain-kernel tags),
-    ShardingPlannerRule (nothing to place on one card, as JAX's rule on a
-    one-device mesh) and PrecisionPlannerRule (`analysis/precision.py`).
-    They price on the card's calibrated rates (`calibrate.machine_rates`);
-    the multi-card placement menu comes with the sharding planner
-    (ROADMAP queue 1, item 4).
+    in host memory, precision trails, chain-kernel tags, and on more
+    than one card the placement), ShardingPlannerRule
+    (`analysis/planner.py` decides the placement across the mesh's
+    cards; nothing to place on one card, as JAX's rule on a one-device
+    mesh) and PrecisionPlannerRule (`analysis/precision.py`). They price
+    on the card's calibrated rates (`calibrate.machine_rates`) and the
+    card-to-card rate (`cost_model.NETWORK_WEIGHT`).
 
 A *plan* is ``(Graph, dict[NodeId, Prefix])``, the prefix map holding
 only the saveable nodes' structural prefixes.
@@ -46,6 +47,8 @@ _UNIFIED_ENFORCED = counter("planner.unified_plans_enforced")
 _UNIFIED_SAVED = counter("planner.unified_seconds_saved")
 _BYTES_HALVED = counter("planner.bytes_halved")
 _PRECISION_ENFORCED = counter("planner.precision_policies_enforced")
+_PLANS_ENFORCED = counter("planner.plans_enforced")
+_BOUNDARY_SAVED = counter("planner.boundary_bytes_saved")
 
 logger = logging.getLogger(__name__)
 
@@ -363,7 +366,7 @@ class UnifiedPlannerRule(Rule):
                 from ..analysis.plan_ir import plan_unified
 
                 uplan = plan_unified(
-                    graph, _specs_of(graph),
+                    graph, _specs_of(graph), mesh=_current_layout(),
                     hbm_budget_bytes=cfg.hbm_budget_bytes,
                     chunk_default=cfg.chunk_size,
                     include_boundary_policies=False,
@@ -415,6 +418,11 @@ class UnifiedPlannerRule(Rule):
         from .env import set_planned_chunk_size
 
         kinds = uplan.changed_kinds()
+        if "placement" in kinds and uplan.sharding is not None:
+            self._record(uplan, "placement",
+                         uplan.sharding.changed_vertices(), graph)
+            graph = ShardingPlannerRule._enforce(graph, uplan.sharding,
+                                                 mark_unified=True)
         if "precision" in kinds:
             for vid, decided in sorted(
                     uplan.program_precision.items(),
@@ -471,7 +479,7 @@ class UnifiedPlannerRule(Rule):
                 if vid in graph.operators:
                     graph = AutoCacheRule._insert_cache(
                         graph, vid, placement="host")
-        if "precision" in kinds:
+        if "precision" in kinds or "placement" in kinds:
             _UNIFIED_OWNED.add(graph)
         return graph
 
@@ -511,7 +519,8 @@ class UnifiedPlannerRule(Rule):
                     for v in present for c in [uplan.kernel_choices[v]]]
             prefixes = {"chunk": ("chunk_",), "cache": ("cache_",),
                         "precision": ("trail_",), "kernel": ("kernel_",),
-                        "spill": ("spill_", "cache_")}.get(kind, ())
+                        "spill": ("spill_", "cache_"),
+                        "placement": ()}.get(kind, ())
             alternatives = [
                 c for c in uplan.scored_candidates
                 if c.get("entry") in ("sequential", "chain_dp_product")
@@ -551,15 +560,39 @@ class _ClearPlannedChunkRule(Rule):
         return plan
 
 
+def _current_layout():
+    from ..parallel.mesh import layout_of
+
+    return layout_of(None)
+
+
 class ShardingPlannerRule(Rule):
-    """Per-stage placement as an optimizer decision (`:608-771`). On one
-    card there is nothing to place, as for JAX's rule on a one-device
-    mesh (`:653-654`): the plan is returned as it is. Enforcement across
-    cards comes with the sharding planner (ROADMAP queue 1, item 4)."""
+    """Per-stage placement as an optimizer decision (`:608-771`):
+    `analysis/planner.py::plan_sharding` chooses and prices, this rule
+    enforces.
+
+    Runs after fusion and megafusion, so the decision sees the programs
+    that will run. A strict no-op (the plan as it was, bit for bit) with
+    ``ExecutionConfig.sharding_planner`` off, where an enforced unified
+    plan owns the placement, on one card, on a plan with no device
+    dataset, where the plan does not beat the default placement's priced
+    boundary bytes, and on a planner failure (logged). Enforcing a
+    winning plan:
+
+      - a fused program (`FusedChainOperator`, `FusedBatchTransformer`)
+        whose chosen output placement differs from the default is
+        replaced by a tagged copy carrying ``planned_out_spec``, so its
+        output lands in the chosen tile (`nodes/util/fusion.py`);
+      - a plan-input `DatasetOperator` is re-seeded with its dataset
+        moved to the chosen placement by `Dataset.reshard` (the
+        identity short-circuit moves nothing where it is unchanged).
+
+    Operators are copied, never mutated: an instance shared between
+    pipelines must not carry one plan's placement into another. Each
+    enforced plan leaves one ``placement`` ledger record and counts
+    ``planner.plans_enforced`` and ``planner.boundary_bytes_saved``."""
 
     def apply(self, plan: Plan) -> Plan:
-        from ..analysis.planner import device_count
-
         from .env import execution_config
 
         cfg = execution_config()
@@ -567,10 +600,91 @@ class ShardingPlannerRule(Rule):
             return plan
         if cfg.unified_planner and unified_enforced(plan[0]):
             return plan
-        if device_count() <= 1:
+        layout = _current_layout()
+        if layout.size <= 1:
             return plan
-        raise NotImplementedError(
-            "placement across cards comes with multi-GPU")
+        graph, prefixes = plan
+        if not _has_device_dataset(graph):
+            return plan
+        with span("sharding_planner", cat="phase", devices=layout.size):
+            try:
+                from ..analysis.planner import plan_sharding
+
+                splan = plan_sharding(graph, _specs_of(graph), mesh=layout,
+                                      hbm_budget_bytes=cfg.hbm_budget_bytes)
+            except Exception:
+                logger.debug("sharding planner failed; plan unchanged",
+                             exc_info=True)
+                return plan
+            if splan is None or not splan.improved:
+                return plan
+            _BOUNDARY_SAVED.inc(splan.savings_bytes)
+            _PLANS_ENFORCED.inc()
+            logger.info(
+                "ShardingPlannerRule: enforcing plan, boundary bytes "
+                "%d -> %d (%d saved)", int(splan.default_cost_bytes),
+                int(splan.planned_cost_bytes), splan.savings_bytes)
+            self._record_decision(graph, splan)
+            graph = self._enforce(graph, splan)
+        return graph, prefixes
+
+    @staticmethod
+    def _record_decision(graph: Graph, splan) -> None:
+        """One ledger record a placement plan (`:687-727`): the changed
+        stages, their families, the scored candidates as alternatives
+        and the predicted boundary bytes. Never raises."""
+        try:
+            from ..analysis.propagate import _label
+
+            changed = splan.changed_vertices()
+            chosen_cost = float(splan.planned_cost_bytes)
+            alternatives = [c for c in splan.scored_candidates
+                            if c.get("cost_bytes") != chosen_cost]
+            if not alternatives:
+                alternatives = [{"entry": "default",
+                                 "cost_bytes":
+                                 float(splan.default_cost_bytes)}]
+            ledger.record_decision(
+                kind="placement",
+                rule="ShardingPlannerRule",
+                vertices=[getattr(v, "id", -1) for v in changed],
+                labels=[_label(graph, v) for v in changed],
+                chosen={"entry": "planned_assignment",
+                        "families": {str(v): splan.families.get(v)
+                                     for v in changed},
+                        "cost_bytes": chosen_cost},
+                alternatives=alternatives,
+                predicted={"boundary_bytes": chosen_cost,
+                           "boundary_bytes_saved":
+                           int(splan.savings_bytes)})
+        except Exception:
+            logger.debug("placement decision not recorded", exc_info=True)
+
+    @staticmethod
+    def _enforce(graph: Graph, splan, mark_unified: bool = False) -> Graph:
+        """Tagged copies of the changed fused programs and re-seeded
+        plan inputs (`:740-771`)."""
+        for vid in splan.changed_vertices():
+            if vid not in getattr(graph, "operators", {}):
+                continue
+            op = graph.get_operator(vid)
+            spec = splan.spec_for(vid)
+            if spec is None:
+                continue
+            if _fused_program(op):
+                tags = dict(planned_out_spec=spec)
+                if mark_unified:
+                    tags["planned_by_unified"] = True
+                graph = graph.set_operator(vid, op.tagged_copy(**tags))
+            elif isinstance(op, DatasetOperator) \
+                    and hasattr(op.dataset, "reshard"):
+                try:
+                    reseeded = op.dataset.reshard(spec)
+                except Exception:
+                    continue  # this input keeps its default placement
+                graph = graph.set_operator(
+                    vid, DatasetOperator(reseeded, name=op.name))
+        return graph
 
 
 class PrecisionPlannerRule(Rule):

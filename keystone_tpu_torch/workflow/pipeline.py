@@ -31,7 +31,7 @@ from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
-from ..parallel.mesh import require_mesh_aware
+from ..parallel.mesh import gather_model_inputs, require_mesh_aware
 from ..telemetry.watchdog import request_scope
 from .env import PipelineEnv
 from .executor import GraphExecutor
@@ -104,7 +104,7 @@ def _splice_result(g: Graph, result: PipelineResult) -> Tuple[Graph, NodeOrSourc
 
 def _validate(graph, source_specs, *, level: str = "full", ignore=(),
               hbm_budget_bytes=None, chunk_rows=None, serving=None,
-              raise_on_error=True):
+              raise_on_error=True, partition_rules=(), mesh=None):
     """`Pipeline.validate` and `PipelineResult.validate`
     (`keystone_tpu/workflow/pipeline.py:103-122`)."""
     from ..analysis import validate_graph
@@ -112,7 +112,7 @@ def _validate(graph, source_specs, *, level: str = "full", ignore=(),
     report = validate_graph(
         graph, source_specs, level=level, ignore=ignore,
         hbm_budget_bytes=hbm_budget_bytes, chunk_rows=chunk_rows,
-        serving=serving)
+        serving=serving, partition_rules=partition_rules, mesh=mesh)
     if raise_on_error:
         report.raise_for_errors()
     return report
@@ -212,7 +212,8 @@ class Pipeline(Chainable):
 
     def validate(self, source_spec=None, *, level: str = "full", ignore=(),
                  hbm_budget_bytes=None, chunk_rows=None, serving=None,
-                 raise_on_error: bool = True):
+                 raise_on_error: bool = True, partition_rules=(),
+                 mesh=None):
         """Statically validate this pipeline before any data loads
         (`keystone_tpu/workflow/pipeline.py:183-225`): specs propagated
         by running stage bodies on meta tensors, live memory against
@@ -224,14 +225,17 @@ class Pipeline(Chainable):
         dtype)`` pair or a bare shape (float32); None leaves it unknown.
         ``level``: "structure" ⊂ "specs" ⊂ "memory" ⊂ "full". Raises
         `analysis.PipelineValidationError` on an ERROR finding unless
-        ``raise_on_error=False``; returns the `ValidationReport`."""
+        ``raise_on_error=False``; returns the `ValidationReport`.
+        ``partition_rules`` pin stages' placements and ``mesh`` is the
+        layout placed on (`analysis.sharding`)."""
         from ..analysis import as_source_spec
 
         return _validate(
             self.graph, {self.source: as_source_spec(source_spec)},
             level=level, ignore=ignore, hbm_budget_bytes=hbm_budget_bytes,
             chunk_rows=chunk_rows, serving=serving,
-            raise_on_error=raise_on_error)
+            raise_on_error=raise_on_error, partition_rules=partition_rules,
+            mesh=mesh)
 
     def data_path(self) -> List[NodeId]:
         """The nodes from this pipeline's source to its sink along their
@@ -584,13 +588,15 @@ def _guard_fit(cls) -> None:
     """Wrap the ``fit`` ``cls`` defines so that it raises on a dataset
     sharded over a mesh's data axis unless the class is marked
     ``mesh_aware`` (`parallel/mesh.py::require_mesh_aware`): fitting it
-    there would read one rank's rows only."""
+    there would read one rank's rows only. A column tile reaches the
+    fit gathered over ``model`` unless the class is ``model_aware``."""
     fit = cls.__dict__.get("fit")
     if fit is None or getattr(fit, "mesh_guarded", False):
         return
 
     @functools.wraps(fit)
     def guarded(self, *args, **kwargs):
+        args, kwargs = gather_model_inputs(self, args, kwargs)
         require_mesh_aware(self, list(args) + list(kwargs.values()))
         return fit(self, *args, **kwargs)
 
@@ -608,6 +614,9 @@ class Estimator(EstimatorOperator, Chainable):
 
     #: whether ``fit`` reduces over every rank of a mesh's data axis
     mesh_aware = False
+
+    #: whether ``fit`` runs on a dataset's column tile
+    model_aware = False
 
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)
@@ -642,6 +651,8 @@ class LabelEstimator(EstimatorOperator, Chainable):
 
     mesh_aware = False
 
+    model_aware = False
+
     def __init_subclass__(cls, **kwargs):
         super().__init_subclass__(**kwargs)
         _guard_fit(cls)
@@ -672,6 +683,8 @@ class LabelEstimator(EstimatorOperator, Chainable):
 
 
 class TransformerChain(Transformer):
+    model_aware = True  # each stage gathers what it needs
+
     def __init__(self, stages: Sequence[Transformer]):
         self.stages = list(stages)
 
@@ -699,6 +712,8 @@ class EstimatorChain(Estimator):
 
     mesh_aware = True  # the inner estimator's fit is guarded
 
+    model_aware = True  # the inner stages gather what they need
+
     def __init__(self, prep: Transformer, est: Estimator):
         self.prep = prep
         self.est = est
@@ -716,6 +731,8 @@ class LabelEstimatorChain(LabelEstimator):
     """prep >> label estimator as one (ChainUtils.scala:26-41)."""
 
     mesh_aware = True  # the inner estimator's fit is guarded
+
+    model_aware = True  # the inner stages gather what they need
 
     def __init__(self, prep: Transformer, est: LabelEstimator):
         self.prep = prep

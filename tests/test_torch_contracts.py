@@ -513,13 +513,12 @@ def test_interference_pass_direct():
 
 def test_rule_table_is_jax_s_less_the_unported_tiers():
     """Every rule the port emits is one of JAX's; JAX's rules the port
-    lacks are the multi-device sharding tier (KP601-KP605, multi-GPU)
-    and the Mosaic kernel proofs (KP10xx); the KP5xx texts are JAX's."""
+    lacks are the Mosaic kernel proofs (KP10xx); the KP5xx texts are
+    JAX's."""
     assert set(RULES) <= set(JAX_RULES)
     missing = set(JAX_RULES) - set(RULES)
     assert missing == {r for r in JAX_RULES
-                       if (r.startswith("KP60") and r != "KP600")
-                       or (r.startswith("KP10") and len(r) == 6)}
+                       if r.startswith("KP10") and len(r) == 6}
     for rule in ("KP501", "KP502", "KP503", "KP504"):
         assert RULES[rule] == JAX_RULES[rule]
 

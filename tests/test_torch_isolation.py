@@ -218,3 +218,51 @@ def test_measurement_entry_points_ask_for_the_card(call):
     }
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         calls[call]()
+
+
+def test_the_model_axis_and_sharding_modules_are_in_scope():
+    """The sharding tier and the parallel layer, extended with the model
+    axis, are held to the same rule as the rest of the port."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ("analysis/sharding.py", "analysis/planner.py",
+                   "parallel/__init__.py", "parallel/mesh.py",
+                   "parallel/collectives.py", "parallel/multihost.py"):
+        assert f"keystone_tpu_torch/{module}" in names, module
+
+
+def test_the_sharding_tier_and_plan_sharding_load_no_jax():
+    """`analysis/sharding.py`'s passes and `plan_sharding` on a 2x4
+    layout run without JAX or the JAX package in the process."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from keystone_tpu_torch.analysis import SpecDataset\n"
+        "from keystone_tpu_torch.analysis.planner import plan_sharding\n"
+        "from keystone_tpu_torch.analysis.propagate import spec_pass\n"
+        "from keystone_tpu_torch.analysis.sharding import sharding_pass\n"
+        "from keystone_tpu_torch.nodes.stats import RandomSignNode\n"
+        "applied = RandomSignNode(16, device='cpu').to_pipeline().apply(\n"
+        "    SpecDataset((16,), np.float32, count=64))\n"
+        "specs, _ = spec_pass(applied.graph, {})\n"
+        "layout = {'data': 2, 'model': 4}\n"
+        "sharding_pass(applied.graph, specs, mesh=layout)\n"
+        "plan_sharding(applied.graph, specs, mesh=layout)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'keystone_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_the_model_axis_entry_points_ask_for_the_card():
+    """A gloo group over the card's tensors needs a card, as NCCL does."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from keystone_tpu_torch.parallel import init_multihost
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_multihost("127.0.0.1:1", 2, 0, backend="gloo")

@@ -114,14 +114,15 @@ def test_init_multihost_noop_and_idempotent(ranks):
 
 
 def test_global_data_mesh_axes(ranks):
+    """`tests/test_parallel.py::test_global_data_mesh_axes`: the whole
+    job on ``data``, and ``model_shards=2`` a (world/2, 2) mesh."""
     world = ranks[0]
     for res, _ in ranks[1]:
         assert res["mesh_axes"] == ["data"]
         assert res["data_shards"] == world
         assert res["current_is_default"]
         if world > 1:
-            assert "model" in res["model_axis_raises"]
-            assert "ROADMAP queue 1, item 4" in res["model_axis_raises"]
+            assert res["model_mesh"] == [["data", "model"], world // 2, 2]
 
 
 def test_dataset_from_process_local(ranks):
@@ -377,10 +378,15 @@ def test_collective_cost_is_one_formula():
     `collective_cost`, as JAX's planner and lints share one."""
     from keystone_tpu_torch.analysis import planner
 
+    from keystone_tpu.parallel import mesh as jmesh
+
     assert planner.collective_cost is parallel.mesh.collective_cost
     assert planner.collective_cost("all_gather", 1 << 20, 1).bytes_moved == 0
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        parallel.mesh.collective_cost("all_gather", 1 << 20, 2)
+    # over more than one shard: JAX's bytes (`tests/
+    # test_torch_sharding_planner.py` holds every kind and count)
+    assert parallel.mesh.collective_cost("all_gather", 1 << 20, 2) \
+        .bytes_moved == jmesh.collective_cost("all_gather", 1 << 20, 2) \
+        .bytes_moved == 1 << 20
     with pytest.raises(ValueError):
         parallel.mesh.collective_cost("shuffle", 1, 1)
 

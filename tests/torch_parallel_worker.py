@@ -179,7 +179,6 @@ def collectives_job(rank, world, port, out_dir, res, arr):
         dataset_from_process_local,
         global_data_mesh,
         init_multihost,
-        make_mesh,
         n_data_shards,
         reshard,
         tree_aggregate,
@@ -238,11 +237,11 @@ def collectives_job(rank, world, port, out_dir, res, arr):
     except ValueError:
         res["local_bad_count_raises"] = True
     if world > 1:
-        try:
-            make_mesh((world // 2, 2), (DATA_AXIS, "model"))
-            res["model_axis_raises"] = ""
-        except NotImplementedError as e:
-            res["model_axis_raises"] = str(e)
+        from keystone_tpu_torch.parallel import n_model_shards
+
+        m2 = global_data_mesh(model_shards=2)
+        res["model_mesh"] = [list(m2.mesh_dim_names), n_data_shards(m2),
+                             n_model_shards(m2)]
 
     # padding: 1,001 rows over `world` shards
     rng = np.random.default_rng(5)
@@ -405,7 +404,351 @@ def cifar_job(rank, world, port, out_dir, res, arr):
         res["corrupt_sidecar"] = str(e)
 
 
-JOBS = {"collectives": collectives_job, "cifar": cifar_job}
+def _placement_chain(mesh, res, arr):
+    """``RandomSignNode(16) >> LinearRectifier >> LinearMapper(16→10)
+    >> MaxClassifier`` on 61 rows, stage by stage: each output's
+    placement and bytes beside what the static passes predict for the
+    same pipeline on the mesh's layout."""
+    import torch
+
+    from keystone_tpu_torch.analysis import SpecDataset, validate_graph
+    from keystone_tpu_torch.analysis.sharding import per_device_bytes
+    from keystone_tpu_torch.parallel import specs_equal
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.nodes.learning.linear import LinearMapper
+    from keystone_tpu_torch.nodes.stats import LinearRectifier, RandomSignNode
+    from keystone_tpu_torch.nodes.util import MaxClassifier
+    from keystone_tpu_torch.telemetry import counter
+    from keystone_tpu_torch.workflow.graph import NodeId
+
+    rng = np.random.default_rng(11)
+    stages = [RandomSignNode(16, seed=4, device="cpu"), LinearRectifier(0.0),
+              LinearMapper(torch.from_numpy(rng.normal(
+                  size=(16, 10)).astype(np.float32)),
+                  torch.from_numpy(rng.normal(size=10).astype(np.float32))),
+              MaxClassifier()]
+    X = rng.normal(size=(61, 16)).astype(np.float32)
+    pipe = stages[0].to_pipeline()
+    for st in stages[1:]:
+        pipe = pipe >> st
+    applied = pipe.apply(SpecDataset((16,), np.float32, count=61, name="x"))
+    report = validate_graph(applied.graph, {}, level="full", mesh=mesh)
+    static = {}
+    for vid, sv in report.shardings.items():
+        if isinstance(vid, NodeId):
+            label = applied.graph.get_operator(vid).label
+            spec = report.specs.get(vid)
+            static[label] = (sv.leaf_specs()[0],
+                             per_device_bytes(spec, sv, mesh))
+    data = Dataset.from_numpy(X, mesh=mesh)
+    rows = [["input", repr(data.spec),
+             int(data.array.numel() * data.array.element_size())]]
+    kinds = ("collectives.model.all_gather", "collectives.model.all_reduce")
+    for st in stages:
+        before = [counter(k).value for k in kinds]
+        data = st.apply_batch(data)
+        moved = [int(counter(k).value - b) for k, b in zip(kinds, before)]
+        want, want_bytes = static[st.label]
+        # the runtime spec against the static one, trailing Nones aside
+        rows.append([st.label, repr(data.spec),
+                     int(data.array.numel() * data.array.element_size()),
+                     [repr(want), want_bytes], moved,
+                     specs_equal(data.spec, want)])
+    res["placement_rows"] = rows
+    arr["placement_out"] = data.numpy()
+    one = torch.from_numpy(X)
+    for st in stages:
+        one = st.batch_fn()(one) if hasattr(st, "batch_fn") else one
+    arr["placement_one"] = one.numpy()
+
+
+def model_job(rank, world, port, out_dir, res, arr):
+    """The model axis on a ``(world/2, 2)`` mesh: `Dataset` tiles and
+    their reshards, runtime placement against the static passes, the
+    scaler, the three solvers, RandomPatchCifar staged and fused on
+    JAX's draws, and the sharding planner's enforcement."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.nodes.learning import (
+        BlockLeastSquaresEstimator,
+        DenseLBFGSwithL2,
+        LinearMapEstimator,
+    )
+    from keystone_tpu_torch.nodes.stats import StandardScaler
+    from keystone_tpu_torch.parallel import (
+        P,
+        global_data_mesh,
+        n_data_shards,
+        n_model_shards,
+    )
+    from keystone_tpu_torch.telemetry import counter
+
+    mesh = global_data_mesh(model_shards=2)
+    res["mesh_axes"] = list(mesh.mesh_dim_names)
+    res["shards"] = [n_data_shards(mesh), n_model_shards(mesh)]
+
+    # tiles and their round trips
+    X = np.arange(16 * 8, dtype=np.float32).reshape(16, 8)
+    ds = Dataset.from_numpy(X, mesh=mesh)
+    res["tile"] = [list(ds.array.shape), ds.tiled, ds.width, ds.col_start,
+                   repr(ds.spec)]
+    arr["tile_rows"] = ds.array.numpy()
+    arr["tile_numpy"] = ds.numpy()
+    imgs = Dataset.from_numpy(np.zeros((16, 4, 4, 3), np.float32), mesh=mesh)
+    odd = Dataset.from_numpy(np.ones((16, 7), np.float32), mesh=mesh)
+    res["replicated_over_model"] = [imgs.tiled, repr(imgs.spec),
+                                    odd.tiled, repr(odd.spec)]
+    trips = {}
+    for name, spec in (("data", P("data")), ("none", P()),
+                       ("model", P(None, "model")),
+                       ("data_model", P("data", "model"))):
+        moved = ds.reshard(spec)
+        trips[name] = [repr(moved.spec), list(moved.array.shape)]
+        arr[f"reshard_{name}"] = moved.numpy()
+        arr[f"reshard_{name}_back"] = moved.reshard(P("data", "model")).numpy()
+    res["reshard"] = trips
+    res["reshard_identity"] = ds.reshard(P("data", "model")) is ds
+    # the card's transport under gloo (an all-reduce of a zeroed buffer,
+    # gloo having no all-gather of a card's tensors) gives the same bits
+    from keystone_tpu_torch.parallel import collectives
+
+    direct = [collectives.all_gather_columns(ds.array, mesh),
+              collectives.all_gather_rows(ds.array, mesh)]
+    real = collectives._gloo_on_card
+    collectives._gloo_on_card = lambda t: True
+    try:
+        summed = [collectives.all_gather_columns(ds.array, mesh),
+                  collectives.all_gather_rows(ds.array, mesh)]
+    finally:
+        collectives._gloo_on_card = real
+    res["card_transport_equal"] = all(
+        torch.equal(a, b) for a, b in zip(direct, summed))
+
+    _placement_chain(mesh, res, arr)
+
+    # JAX's reconciliation of a trace: the static per-device bytes the
+    # executor embeds against one rank's observed bytes of each node
+    from keystone_tpu_torch.analysis.reconcile import reconcile_trace
+    from keystone_tpu_torch.telemetry import trace_run
+    from keystone_tpu_torch.workflow import Transformer
+
+    from keystone_tpu_torch.parallel import use_mesh
+
+    path = os.path.join(out_dir, f"trace-{rank}.json")
+    src = Dataset.from_numpy(np.ones((64, 16), np.float32), mesh=mesh)
+    with trace_run(path), use_mesh(mesh):
+        traced = Transformer.from_function(
+            lambda x: x * 2.0).to_pipeline()(src).get()
+    rec = reconcile_trace(json.load(open(path)))
+    res["trace_rows"] = [
+        [r["label"], r["static_per_device_bytes"], r["observed_bytes"],
+         r["spec"]] for r in rec["rows"]
+        if r.get("static_per_device_bytes") and r["observed_bytes"]]
+    res["trace_shard_bytes"] = int(traced.array.numel()
+                                   * traced.array.element_size())
+    res["trace_peaks"] = [rec["static_per_device_peak_bytes"],
+                          rec["static_peak_bytes"]]
+
+    # the scaler on a tile, at a count the data shards do not divide
+    rng = np.random.default_rng(5)
+    Xp = rng.normal(size=(1001, 6)).astype(np.float32)
+    Yp = (Xp @ rng.normal(size=(6, 3)) + 0.1 * rng.normal(size=(1001, 3))
+          ).astype(np.float32)
+    dX = Dataset.from_numpy(Xp, mesh=mesh)
+    dY = Dataset.from_numpy(Yp, mesh=mesh)
+    scaler = StandardScaler().fit(dX)
+    arr["pad_mean"], arr["pad_std"] = scaler.mean.numpy(), scaler.std.numpy()
+    scaled = scaler.apply_batch(dX)
+    res["pad_scaled_tiled"] = scaled.tiled
+    arr["pad_scaled"] = scaled.numpy()
+
+    def fit(name, est, X, Y):
+        before = counter("collectives.model.all_gather").value
+        m = est.fit(Dataset.from_numpy(X, mesh=mesh),
+                    Dataset.from_numpy(Y, mesh=mesh))
+        res[f"{name}_model_gathers"] = (
+            counter("collectives.model.all_gather").value - before)
+        arr[f"{name}_W"], arr[f"{name}_b"] = m.W.numpy(), m.b.numpy()
+
+    fit("pad_exact", LinearMapEstimator(lam=0.1), Xp, Yp)
+    fit("pad_bcd", BlockLeastSquaresEstimator(2, 3, lam=0.1), Xp, Yp)
+    fit("pad_lbfgs", DenseLBFGSwithL2(lam=0.5, num_iters=15), Xp, Yp)
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(96, 6)).astype(np.float32)
+    fit("exact", LinearMapEstimator(lam=0.0), X,
+        X @ rng.normal(size=(6, 3)).astype(np.float32))
+    rng = np.random.default_rng(7)
+    X = rng.normal(size=(96, 24)).astype(np.float32)
+    W = rng.normal(size=(24, 3)).astype(np.float32)
+    fit("bcd", BlockLeastSquaresEstimator(block_size=8, num_iter=4, lam=0.1),
+        X, X @ W + 0.01 * rng.normal(size=(96, 3)).astype(np.float32))
+    rng = np.random.default_rng(3)
+    X = rng.normal(size=(64, 16)).astype(np.float32)
+    fit("lbfgs", DenseLBFGSwithL2(lam=0.5, num_iters=15), X,
+        X @ rng.normal(size=(16, 2)).astype(np.float32))
+
+    _model_cifar(mesh, out_dir, res, arr)
+    _planner_enforces(mesh, res, arr)
+
+
+def _model_cifar(mesh, out_dir, res, arr):
+    """RandomPatchCifar at the small width on the mesh: filters from
+    JAX's draws, the staged pipeline, `fused_fit`, `run_staged` and
+    `run_fused` (the port's own draws)."""
+    import torch
+
+    from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.evaluation.multiclass import MulticlassMetrics
+    from keystone_tpu_torch.loaders.cifar_loader import synthetic_cifar
+    from keystone_tpu_torch.pipelines import random_patch_cifar as rpc
+    from keystone_tpu_torch.telemetry import counter
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    config = rpc.RandomPatchCifarConfig(**CIFAR_CFG)
+    train, test = synthetic_cifar(*CIFAR_N, noise=1.2, confusion=0.6,
+                                  device="cpu", mesh=mesh)
+    draws = np.load(os.path.join(out_dir, "..", "cifar-reference",
+                                 "draws.npz"))
+    filters, whitener = rpc.learn_filters_from_indices(
+        train.data, *(torch.from_numpy(draws[k]) for k in
+                      ("img_idx", "patch_idx", "filter_idx")),
+        config.patch_size, config.patch_steps)
+    arr["filters"] = filters.numpy()
+    evaluator = MulticlassClassifierEvaluator(10)
+    PipelineEnv.reset()
+    before = counter("collectives.model.all_gather").value
+    predictor = rpc.build_pipeline(train, config, learned=(filters, whitener))
+    preds = predictor(test.data).get()
+    res["staged_pred_spec"] = repr(preds.spec)
+    arr["staged_preds"] = preds.numpy()
+    res["staged_test_accuracy"] = evaluator(predictor(test.data),
+                                            test.labels).accuracy
+    res["staged_model_gathers"] = (
+        counter("collectives.model.all_gather").value - before)
+    model = predictor.fitted(1)
+    arr["staged_W"], arr["staged_b"] = model.W.numpy(), model.b.numpy()
+    W, b, _, conf_test, _ = rpc.fused_fit(train, test, filters, whitener,
+                                          config)
+    arr["fused_W"], arr["fused_b"] = W.numpy(), b.numpy()
+    res["fused_test_accuracy"] = MulticlassMetrics(
+        conf_test.numpy().astype(np.float64)).accuracy
+    _, metrics = rpc.run_staged(train, config, evaluator)
+    res["run_staged_total"] = metrics.total
+    fused = rpc.run_fused(train, test, config)
+    res["run_fused_test_accuracy"] = fused["test_accuracy"]
+    arr["run_fused_W"] = fused["W"].numpy()
+    PipelineEnv.reset()
+
+
+def planner_predictor(dim=64, classes=4):
+    """JAX's `tests/test_planner.py::_predictor`: ``RandomSignNode >>
+    PaddedFFT >> LinearRectifier`` into BCD (block 32, one epoch) and
+    `MaxClassifier`."""
+    from keystone_tpu_torch.nodes.learning import BlockLeastSquaresEstimator
+    from keystone_tpu_torch.nodes.stats import (
+        LinearRectifier,
+        PaddedFFT,
+        RandomSignNode,
+    )
+    from keystone_tpu_torch.nodes.util import (
+        ClassLabelIndicatorsFromInt,
+        MaxClassifier,
+    )
+
+    featurizer = (RandomSignNode(dim, device="cpu").to_pipeline()
+                  >> PaddedFFT() >> LinearRectifier(0.0))
+
+    def build(data, labels_ds):
+        labels = ClassLabelIndicatorsFromInt(classes)(labels_ds)
+        return featurizer.and_then(
+            BlockLeastSquaresEstimator(32, num_iter=1, lam=1e-3),
+            data, labels) >> MaxClassifier()
+
+    return build
+
+
+def planner_data(n, dim=64, classes=4, seed=0):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(n, dim).astype(np.float32),
+            rng.randint(0, classes, size=n).astype(np.int32))
+
+
+def _planner_enforces(mesh, res, arr):
+    """JAX's `test_planner_enforces_and_outputs_match_serial_unfused` on
+    the mesh: planner on against the serial unfused plan with it off, at
+    64 rows and at 43 (which the data shards do not divide)."""
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.workflow import PipelineEnv
+    from keystone_tpu_torch.workflow.env import config_override
+    from keystone_tpu_torch.workflow.operators import DatasetOperator
+    from keystone_tpu_torch.workflow.optimizer import DefaultOptimizer
+
+    from keystone_tpu_torch.parallel import use_mesh
+    from keystone_tpu_torch.telemetry import counter
+
+    build = planner_predictor()
+    for n in (64, 43):
+        X, y = planner_data(n)
+
+        def run(optimizer, planner_on):
+            PipelineEnv.reset()
+            if optimizer is not None:
+                PipelineEnv.get().set_optimizer(optimizer)
+            with config_override(sharding_planner=planner_on), \
+                    use_mesh(mesh):
+                data = Dataset.from_numpy(X, mesh=mesh)
+                labels = Dataset.from_numpy(y, mesh=mesh)
+                applied = build(data, labels)(data)
+                out = applied.get().numpy()
+                graph = applied.executor.optimized_graph
+            PipelineEnv.reset()
+            return out, graph
+
+        before = counter("planner.plans_enforced").value
+        planned, g = run(None, True)
+        res[f"planner_{n}_enforced"] = (
+            counter("planner.plans_enforced").value - before)
+        serial, _ = run(DefaultOptimizer(fuse=False, sharding_planner=False),
+                        False)
+        arr[f"planner_{n}"], arr[f"serial_{n}"] = planned, serial
+        ops = [g.get_operator(v) for v in g.operators]
+        res[f"planner_{n}_tagged"] = [
+            repr(op.planned_out_spec) for op in ops
+            if getattr(op, "planned_out_spec", None) is not None]
+        res[f"planner_{n}_reseeded"] = [
+            repr(op.dataset.spec) for op in ops
+            if isinstance(op, DatasetOperator)
+            and hasattr(op.dataset, "spec")]
+
+    # the kill switch: the plan without the planner, bit for bit
+    X, y = planner_data(64)
+
+    def optimize(planner_on, optimizer=None):
+        PipelineEnv.reset()
+        if optimizer is not None:
+            PipelineEnv.get().set_optimizer(optimizer)
+        with config_override(sharding_planner=planner_on), use_mesh(mesh):
+            data = Dataset.from_numpy(X, mesh=mesh)
+            labels = Dataset.from_numpy(y, mesh=mesh)
+            g = build(data, labels)(data).executor.optimized_graph
+        PipelineEnv.reset()
+        shape = [[v.id, type(g.get_operator(v)).__name__,
+                  [getattr(d, "id", -1) for d in g.get_dependencies(v)],
+                  repr(getattr(g.get_operator(v), "planned_out_spec", None))]
+                 for v in sorted(g.operators, key=lambda v: v.id)]
+        own = any(g.get_operator(v).dataset is data for v in g.operators
+                  if isinstance(g.get_operator(v), DatasetOperator))
+        return shape, own
+
+    res["kill_switch"] = optimize(False)
+    res["kill_switch_ctor"] = optimize(
+        True, DefaultOptimizer(sharding_planner=False))
+    res["planner_on"] = optimize(True)
+
+
+JOBS = {"collectives": collectives_job, "cifar": cifar_job,
+        "model": model_job}
 
 
 def main(argv) -> int:
