@@ -409,6 +409,47 @@ Phases, each printed on a line of its own:
               trace, which under gloo pass through host memory and are
               no NVLink figure) and each rank's peak memory beside
               `per_device_pass`'s prediction.
+33. data_axis - the image estimators on the data axis: two ranks of this
+              script (``--data-axis-rank``) on the one card, a gloo group
+              over its tensors on the (2, 1) mesh, after a warm run at a
+              tenth of the counts. RandomPatchCifarKernel at full width
+              (50,000/10,000, 256 filters, 2048-row blocks: K5 on each
+              rank's rows, each block's rows gathered), the augmented
+              pair (200,000 crops drawn once in global order and placed
+              on the ranks; K1 at 24x24 on each rank's crops),
+              VOCSIFTFisher at the reference's widths (5,011/4,952;
+              SIFT, the gray chain and the Fisher-vector tail on each
+              rank's images, the PCA and GMM on one process's sample,
+              BWLS's sums and Grams all-reduced) and ImageNetSiftLcsFV
+              (5,000/2,000), each fitted stage by stage as phases 6, 10,
+              11, 15 and 16 fit it, and held to them: KRR's alpha within
+              1e-5 of max|alpha| (RandomPatchCifarKernel) or 5e-5 (the
+              augmented kernel: 98 blocks carry the rounding of each
+              rank's KA update), BCD's W within 1e-3 of max|W| (5e-3
+              fitted whole), at most 10 of 10,000 kernel test
+              predictions different and 10 moved in each augmented test
+              confusion, at most 2 of 2,000 ImageNet test predictions
+              different, accuracies within 0.005, VOC's mAP within 1e-3;
+              VOC's PCA components within 1.5e-3, GMM means 1e-2, W
+              3.5e-2 and scores 7e-3 (TSQR moves the PCA, the GMM
+              carries it). Each rank also refits its solver on the
+              gathered rows in one process (KRR, and BCD fitted stage
+              by stage), so the split's own share of the model's
+              difference is printed. BWLS alone: VOC from
+              sideband CSVs of phase 15's PCA and GMM, in this process
+              and on the ranks, W and scores within 1e-4. The CIFAR
+              entry points as a user calls them
+              (`run_random_patch_cifar_kernel`,
+              `run_random_patch_cifar_augmented{,_kernel}` with
+              ``mesh=``, each fitted whole) against the same calls in
+              this process, at the same limits. K5 launched on each
+              rank in the KRR fit and apply, K1 in the CIFAR runs, K4 on
+              each rank in VOC and ImageNet; both ranks' results equal.
+              Printed per rank and run: K1, K4 and K5 launches, the
+              collectives by kind (calls, bytes; seconds of a
+              synchronizing trace, through host memory), the precision
+              planners' storage trails (beside the one-process run's),
+              the PCA routes, peak memory and seconds.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The process-wide prefix table (`PipelineEnv`) is reset before each
@@ -755,6 +796,39 @@ MODEL_AXIS_PINNED = {
     "TimitPipeline@8x1": [0, 0, False, "d9"],
 }
 NLP_ANNOTATED = 16        # held-out NER sentences through the extractor
+# phase 33: two ranks on the card's (2, 1) mesh. Models as shares of
+# their largest entry against the one-process run's: KRR's alpha (the
+# blocks are one process's rows; each rank's KA update rounds otherwise
+# over its rows, and the augmented kernel's 98 blocks carry that
+# further than RandomPatchCifarKernel's 25: a one-process refit of the
+# ranks' own rows sits as far from theirs as one process's fit does),
+# BCD's W (one solve of normal equations whose Gram is summed in two
+# parts; the whole run's gap is not isolated); the test predictions that
+# may differ (ImageNet's: a thousandth of its test images; a confusion's
+# entries moved, counted once a prediction), the accuracies' gap, VOC's
+# mAP gap; BWLS alone (VOC from sideband files of phase 15's PCA and
+# GMM: W and test scores); and VOC fitted whole, where TSQR over two
+# ranks' R factors moves the PCA's components (absolute, each up to its
+# sign) and the GMM fitted on its projection (k-means++'s draws, 30 EM
+# steps) carries that into its means, W and the scores. The last five
+# limits are about twice the readings on an H100 80GB HBM3 at 700 W, the
+# differences isolated upstream of BWLS
+DATA_AXIS_TIMEOUT_S = 600.0
+DATA_AXIS_ALPHA_RTOL = 1e-5
+DATA_AXIS_AUG_ALPHA_RTOL = 5e-5
+DATA_AXIS_BCD_W_RTOL = 1e-3
+DATA_AXIS_WHOLE_BCD_W_RTOL = 5e-3
+DATA_AXIS_PRED_DIFF = N_TEST // 1000
+DATA_AXIS_IMAGENET_PRED_DIFF = IMAGENET_N_TEST // 1000
+DATA_AXIS_ACC_TOL = 0.005
+DATA_AXIS_MAP_TOL = 1e-3
+DATA_AXIS_BWLS_RTOL = 1e-4
+DATA_AXIS_PCA_ATOL = 1.5e-3
+DATA_AXIS_GMM_RTOL = 1e-2
+DATA_AXIS_W_RTOL = 3.5e-2
+DATA_AXIS_SCORE_RTOL = 7e-3
+#: the one-process phases' results phase 33 is held to
+DATA_AXIS_REF: dict = {}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1070,6 +1144,17 @@ def pca_routes(pipeline) -> list:
     return out
 
 
+def precision_trails(mark: int) -> list:
+    """The storage trails the precision planners enforced since ledger
+    ``mark``: "rule program: dtypes" for each tagged program, sorted."""
+    from keystone_tpu_torch.telemetry import ledger
+
+    return sorted(
+        f"{r['rule']} {(r['labels'] or [''])[0]}: "
+        + "/".join(str(d) for d in r["chosen"].get("storage", []))
+        for r in ledger.session_since(mark) if r["kind"] == "precision")
+
+
 def voc_phase(dev, card) -> int:
     """Phase 15: VOCSIFTFisher at the reference's widths; returns the
     chain kernel's launches in its run."""
@@ -1078,6 +1163,7 @@ def voc_phase(dev, card) -> int:
     from keystone_tpu_torch.evaluation import MeanAveragePrecisionEvaluator
     from keystone_tpu_torch.ops import kernels
     from keystone_tpu_torch.pipelines import voc_sift_fisher
+    from keystone_tpu_torch.telemetry import ledger
     from keystone_tpu_torch.workflow import PipelineEnv
 
     vc_config = voc_sift_fisher.VOCSIFTFisherConfig(
@@ -1095,7 +1181,9 @@ def voc_phase(dev, card) -> int:
     PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    mark = ledger.session_mark()
     vc = voc_sift_fisher.run_on(vc_train, vc_test, vc_config, dev)
+    vc_precision = precision_trails(mark)
     vc_peak = torch.cuda.max_memory_allocated()
     vc_launches = launch_counts()
     from keystone_tpu_torch.workflow.env import planned_chunk_size
@@ -1137,6 +1225,14 @@ def voc_phase(dev, card) -> int:
                           == card_scores.argmax(1)).all())
     vc_features = solver.W.shape[0]
     vc_pca = pca_routes(model.predictor)
+    DATA_AXIS_REF.update(
+        voc_map=vc["map"], voc_W=solver.W.cpu().numpy(),
+        voc_scores=vc["scores"].numpy(),
+        voc_pca=model.pca.fitted().components.cpu().numpy(),
+        voc_gmm_means=gmm.means.cpu().numpy(),
+        voc_gmm_variances=gmm.variances.cpu().numpy(),
+        voc_gmm_weights=gmm.weights.cpu().numpy(), voc_pca_route=vc_pca,
+        voc_precision=vc_precision)
     phase("voc", seconds=vc["seconds"], images_per_sec=vc["images_per_sec"],
           rate_basis="train+test images", train_images=len(vc_train),
           test_images=len(vc_test), features=vc_features,
@@ -1178,6 +1274,7 @@ def imagenet_phase(dev, card) -> int:
     from keystone_tpu_torch.data.dataset import HostDataset
     from keystone_tpu_torch.ops import kernels
     from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv
+    from keystone_tpu_torch.telemetry import ledger
     from keystone_tpu_torch.workflow import PipelineEnv
 
     im_config = imagenet_sift_lcs_fv.ImageNetSiftLcsFVConfig()
@@ -1192,10 +1289,16 @@ def imagenet_phase(dev, card) -> int:
     PipelineEnv.reset()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
+    mark = ledger.session_mark()
     im = imagenet_sift_lcs_fv.run_on(im_train, im_test, im_config, dev)
     im_launches = launch_counts()
     im_features = im["predictor"].fitted().W.shape[0]
     im_pca = pca_routes(im["predictor"])
+    DATA_AXIS_REF.update(
+        imagenet_accuracy=im["test_accuracy"],
+        imagenet_preds=im["predictions"].numpy(),
+        imagenet_W=im["predictor"].fitted().W.cpu().numpy(),
+        imagenet_pca_route=im_pca, imagenet_precision=precision_trails(mark))
     phase("imagenet", seconds=im["seconds"],
           images_per_sec=im["images_per_sec"],
           rate_basis="train+test images", train_images=len(im_train),
@@ -4409,6 +4512,608 @@ def model_axis_phase(dev, card, par) -> dict:
                 k1_check=[res["k1_check"] for res, _ in ranks])
 
 
+def _rank_launches() -> dict:
+    """This process's launches of K1, K4 and K5 (products, prepasses)
+    since the last `kernels.reset_launches`."""
+    from keystone_tpu_torch.ops import chain_kernels, kernels
+
+    return dict(conv_rectify_pool=kernels.conv_rectify_pool.launches,
+                elementwise_chain=chain_kernels.elementwise_chain.launches,
+                rbf_block=kernels.rbf_block.launches,
+                rbf_split=kernels.rbf_split.launches)
+
+
+def _data_axis_run(name, fn, res):
+    """``fn()`` on this rank with the launch counts set to 0 just before
+    and read just after, under a synchronizing trace: its seconds,
+    launches, collectives (calls, bytes, span seconds), the planners'
+    storage trails and counters, and peak memory into ``res[name]``;
+    returns ``fn()``'s value."""
+    from keystone_tpu_torch import telemetry
+    from keystone_tpu_torch.ops import kernels
+    from keystone_tpu_torch.telemetry import ledger
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    PipelineEnv.reset()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    mark = ledger.session_mark()
+    with telemetry.metrics_delta() as delta, \
+            telemetry.trace_run(synchronize=True) as tracer:
+        seconds, out = timed_s(fn)
+    res[name] = dict(
+        seconds=seconds, launches=_rank_launches(),
+        collectives=_collective_spans(tracer, seconds),
+        counters={k: v for k, v in delta.counters().items()
+                  if k.startswith(("collectives.", "planner."))},
+        precision=precision_trails(mark),
+        peak_bytes=int(torch.cuda.max_memory_allocated()))
+    return out
+
+
+def _krr_rows(model, key: str = "train_X") -> np.ndarray:
+    """A fitted `KernelBlockLinearMapper`'s ``train_X`` or ``alpha``,
+    every training row (gathered over the data axis it was fitted
+    on)."""
+    from keystone_tpu_torch.data.dataset import Dataset
+
+    rows = getattr(model, key)
+    if model.mesh is None:
+        return rows[:model.count].cpu().numpy()
+    return Dataset(rows, count=model.count, mesh=model.mesh,
+                   placed=True).numpy()
+
+
+def _krr_alpha(model) -> np.ndarray:
+    return _krr_rows(model, "alpha")
+
+
+def whole_cifar_runs():
+    """(name, run, config, the run's scorer, its solver's training rows)
+    of the CIFAR entry points phase 33 calls as a user calls them,
+    fitted whole on synthetic data at the script's counts, in one
+    process and on the ranks; the rows (the run's own draws, placed on
+    ``mesh``) for `unsplit_model`."""
+    from keystone_tpu_torch.pipelines import cifar_variants as cv
+    from keystone_tpu_torch.pipelines.random_patch_cifar import load_data
+
+    counts = dict(num_filters=256, synth_train=N_TRAIN, synth_test=N_TEST)
+    return (
+        ("kernel", cv.run_random_patch_cifar_kernel,
+         cv.RandomPatchCifarKernelConfig(
+             gamma=2e-3, lam=10.0, kernel_block=2048, kernel_epochs=1,
+             **counts), lambda r: r["predictor"],
+         lambda c, mesh: load_data(c, "cuda", mesh)[0]),
+        ("augmented", cv.run_random_patch_cifar_augmented,
+         cv.RandomPatchCifarAugmentedConfig(**counts),
+         lambda r: r["scorer"],
+         lambda c, mesh: cv.random_crops(load_data(c, "cuda")[0], c, mesh)),
+        ("augmented_kernel", cv.run_random_patch_cifar_augmented_kernel,
+         cv.RandomPatchCifarAugmentedKernelConfig(
+             gamma=2e-4, lam=10.0, kernel_block=2048, kernel_epochs=1,
+             **counts), lambda r: r["scorer"],
+         lambda c, mesh: cv.flipped_shuffled_crops(
+             load_data(c, "cuda")[0], c, mesh)),
+    )
+
+
+def model_array(name: str, model) -> dict:
+    """A fitted solver's model under ``name``: KRR's alpha (every
+    training row), or BCD's W."""
+    if hasattr(model, "alpha"):
+        return {f"{name}_alpha": _krr_alpha(model)}
+    return {f"{name}_W": model.W.cpu().numpy()}
+
+
+def unsplit_model(name: str, scorer, train, config) -> dict:
+    """``scorer``'s solver (`model_array`) refitted in this process on
+    every row of its fit's inputs on the ranks, gathered: the scaled
+    features (KRR's own ``train_X``; for BCD the scorer cut after its
+    scaler, applied to ``train``) and ``train``'s label indicators. The
+    ranks' data with the rows not split: against the ranks' model it
+    shows what splitting the rows alone changes. For BCD, ``scorer``
+    must have been fitted stage by stage (a cut of a pipeline fitted
+    whole does not reproduce its fit's input)."""
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.nodes.learning.block_ls import (
+        BlockLeastSquaresEstimator,
+    )
+    from keystone_tpu_torch.nodes.learning.kernels import (
+        KernelRidgeRegression,
+    )
+    from keystone_tpu_torch.nodes.util.basic import (
+        ClassLabelIndicatorsFromInt,
+    )
+
+    model = scorer.fitted(1)
+    Y = ClassLabelIndicatorsFromInt(config.num_classes)(
+        train.labels).get().numpy()
+    if hasattr(model, "alpha"):
+        X = _krr_rows(model)
+        est = KernelRidgeRegression(model.gamma, config.lam,
+                                    model.block_size, seed=config.seed)
+    else:
+        X = cut(scorer, 3)(train.data).get().numpy()
+        est = BlockLeastSquaresEstimator(config.block_size, 1, config.lam)
+    dev = train.data.device
+    fitted = est.fit(Dataset(torch.from_numpy(X).to(dev)),
+                     Dataset(torch.from_numpy(Y).to(dev)))
+    return model_array(f"{name}_unsplit", fitted)
+
+
+def whole_cifar_arrays(name, out, scorer) -> dict:
+    """A whole run's test confusion and its model (`model_array`)."""
+    return dict(model_array(f"whole_{name}", scorer(out).fitted(1)),
+                **{f"whole_{name}_confusion": np.asarray(
+                    out["test_confusion"])})
+
+
+def voc_sideband_config(folder: str):
+    """VOCSIFTFisher at phase 15's widths, its PCA and GMM read from the
+    sideband CSVs in ``folder`` (`write_voc_sideband`)."""
+    from keystone_tpu_torch.pipelines import voc_sift_fisher
+
+    return voc_sift_fisher.VOCSIFTFisherConfig(
+        num_classes=VOC_CLASSES, pca_dims=VOC_PCA_DIMS, gmm_k=VOC_GMM_K,
+        **{f"{key}_file": os.path.join(folder, f"voc_{key}.csv")
+           for key in ("pca", "gmm_mean", "gmm_var", "gmm_wts")})
+
+
+def write_voc_sideband(folder: str) -> None:
+    """Phase 15's fitted PCA and GMM as the reference's sideband CSVs:
+    the PCA (k × d), the means and variances (d × clusters), the
+    weights; written at full precision, so they load bit for bit."""
+    ref = DATA_AXIS_REF
+    for key, a in (("pca", ref["voc_pca"].T),
+                   ("gmm_mean", ref["voc_gmm_means"].T),
+                   ("gmm_var", ref["voc_gmm_variances"].T),
+                   ("gmm_wts", ref["voc_gmm_weights"])):
+        np.savetxt(os.path.join(folder, f"voc_{key}.csv"),
+                   np.asarray(a, np.float64), delimiter=",")
+
+
+def data_axis_one_process(folder: str) -> dict:
+    """The one-process runs phase 33 holds its ranks' entry points to:
+    the CIFAR entry points fitted whole (`whole_cifar_runs`) and
+    VOCSIFTFisher from phase 15's PCA and GMM (BWLS alone); their
+    arrays, seconds and storage trails."""
+    from keystone_tpu_torch.pipelines import voc_sift_fisher
+    from keystone_tpu_torch.telemetry import ledger
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    arr, info = {}, {}
+    for name, run, config, scorer, _ in whole_cifar_runs():
+        PipelineEnv.reset()
+        mark = ledger.session_mark()
+        seconds, out = timed_s(lambda: run(config, "cuda"))
+        arr.update(whole_cifar_arrays(name, out, scorer))
+        info[f"whole_{name}"] = dict(seconds=seconds,
+                                     test_accuracy=out["test_accuracy"],
+                                     precision=precision_trails(mark))
+        del out
+        torch.cuda.empty_cache()
+    write_voc_sideband(folder)
+    config = voc_sideband_config(folder)
+    vc_train = voc_sift_fisher._synthetic_voc(VOC_N_TRAIN, VOC_CLASSES,
+                                              config.seed)
+    vc_test = voc_sift_fisher._synthetic_voc(VOC_N_TEST, VOC_CLASSES,
+                                             config.seed + 1)
+    PipelineEnv.reset()
+    mark = ledger.session_mark()
+    vc = voc_sift_fisher.run_on(vc_train, vc_test, config, "cuda")
+    arr.update(side_voc_W=vc["model"].predictor.fitted().W.cpu().numpy(),
+               side_voc_scores=vc["scores"].numpy())
+    info["side_voc"] = dict(seconds=vc["seconds"], map=vc["map"],
+                            precision=precision_trails(mark))
+    del vc
+    PipelineEnv.reset()
+    torch.cuda.empty_cache()
+    return arr, info
+
+
+def data_axis_rank(rank: int, port: int, out_dir: str) -> int:
+    """One rank of phase 33: a gloo group of two ranks over the card's
+    tensors, the (2, 1) mesh, RandomPatchCifarKernel, the augmented pair,
+    VOCSIFTFisher and ImageNetSiftLcsFV on each rank's rows. Writes
+    ``rank<r>.json`` and ``rank<r>.npz`` into ``out_dir``."""
+    from keystone_tpu_torch import parallel
+    from keystone_tpu_torch.data.dataset import Dataset, HostDataset
+    from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
+    from keystone_tpu_torch.loaders.cifar_loader import (
+        LabeledData,
+        synthetic_cifar,
+    )
+    from keystone_tpu_torch.nodes.util.basic import MaxClassifier
+    from keystone_tpu_torch.pipelines import (
+        imagenet_sift_lcs_fv,
+        voc_sift_fisher,
+    )
+    from keystone_tpu_torch.pipelines.cifar_variants import (
+        RandomPatchCifarAugmentedConfig,
+        RandomPatchCifarAugmentedKernelConfig,
+        RandomPatchCifarKernelConfig,
+        build_random_patch_cifar_augmented,
+        build_random_patch_cifar_augmented_kernel,
+        build_random_patch_cifar_kernel,
+        flipped_shuffled_crops,
+        random_crops,
+        score_center_corner_views,
+    )
+
+    t0 = time.perf_counter()
+    parallel.init_multihost(f"127.0.0.1:{port}", 2, rank, device="cuda",
+                            timeout=DATA_AXIS_TIMEOUT_S, backend="gloo")
+    res = dict(rank=rank, init_seconds=time.perf_counter() - t0)
+    arr = {}
+    try:
+        mesh = parallel.global_data_mesh()
+        res["shards"] = [parallel.n_data_shards(mesh),
+                         parallel.n_model_shards(mesh)]
+        kc_config = RandomPatchCifarKernelConfig(
+            num_filters=256, gamma=2e-3, lam=10.0, kernel_block=2048,
+            kernel_epochs=1)
+        evaluator = MulticlassClassifierEvaluator(kc_config.num_classes)
+
+        def placed(whole):
+            """This rank's rows of a whole `LabeledData`, as
+            `synthetic_cifar(..., mesh=mesh)` places them."""
+            return LabeledData(
+                labels=Dataset(whole.labels.array, mesh=mesh),
+                data=Dataset(whole.data.array, mesh=mesh))
+
+        def kernel_fit(train, test):
+            # phase 6's order: the featurizer, the scaler's and the KRR's
+            # fits, then the applies (the planners choose a graph's
+            # storage precisions, so another order can plan the fit's
+            # input otherwise)
+            predictor = build_random_patch_cifar_kernel(train, kc_config)
+            cut(predictor, 2)(train.data).get()
+            predictor.fitted(0)
+            predictor.fitted(1)
+            train_metrics = evaluator(predictor(train.data), train.labels)
+            preds = predictor(test.data).get()
+            return (predictor, preds, train_metrics,
+                    evaluator(preds, test.labels))
+
+        def augmented_fit(augment, build, cfg, train, test, with_flips):
+            # phases 10 and 11's order: the views drawn over the whole
+            # training set and placed, the featurizer, the fits, the
+            # training views' predict, then the test views
+            views = augment(train, cfg, mesh)
+            scorer = build(views, cfg)
+            cut(scorer, 2)(views.data).get()
+            scorer.fitted(0)
+            scorer.fitted(1)
+            train_metrics = evaluator((scorer >> MaxClassifier())(
+                views.data), views.labels)
+            test_metrics = score_center_corner_views(
+                scorer, test, cfg, with_flips, mesh)
+            return scorer, views, train_metrics, test_metrics
+
+        vc_config = voc_sift_fisher.VOCSIFTFisherConfig(
+            num_classes=VOC_CLASSES, pca_dims=VOC_PCA_DIMS, gmm_k=VOC_GMM_K)
+        vc_train = voc_sift_fisher._synthetic_voc(VOC_N_TRAIN, VOC_CLASSES,
+                                                  vc_config.seed)
+        vc_test = voc_sift_fisher._synthetic_voc(VOC_N_TEST, VOC_CLASSES,
+                                                 vc_config.seed + 1)
+        im_config = imagenet_sift_lcs_fv.ImageNetSiftLcsFVConfig()
+        im_train = imagenet_sift_lcs_fv._synthetic_imagenet(
+            IMAGENET_N_TRAIN, im_config.num_classes, im_config.seed)
+        im_test = imagenet_sift_lcs_fv._synthetic_imagenet(
+            IMAGENET_N_TEST, im_config.num_classes, im_config.seed + 1)
+        # every rank draws the whole arrays, as one process does
+        t0 = time.perf_counter()
+        whole_train, whole_test = synthetic_cifar(
+            N_TRAIN, N_TEST, noise=1.2, confusion=0.6, device="cuda")
+        train, test = placed(whole_train), placed(whole_test)
+        res["data_seconds"] = time.perf_counter() - t0
+
+        # a warm run at a tenth of the counts (VOC at 16 components, so
+        # its solve is small): a fresh process's first launches, meta
+        # traces and gloo buffers, outside the clocks
+        t0 = time.perf_counter()
+        kernel_fit(placed(LabeledData(
+            labels=Dataset(whole_train.labels.array[:N_TRAIN // 10]),
+            data=Dataset(whole_train.data.array[:N_TRAIN // 10]))),
+            placed(LabeledData(
+                labels=Dataset(whole_test.labels.array[:N_TEST // 10]),
+                data=Dataset(whole_test.data.array[:N_TEST // 10]))))
+        voc_sift_fisher.run_on(
+            HostDataset(vc_train.items[:SIFT_FISHER_WARM]),
+            HostDataset(vc_test.items[:SIFT_FISHER_WARM]),
+            voc_sift_fisher.VOCSIFTFisherConfig(
+                num_classes=VOC_CLASSES, pca_dims=VOC_PCA_DIMS, gmm_k=16),
+            "cuda", mesh)
+        torch.cuda.synchronize()
+        res["warm_seconds"] = time.perf_counter() - t0
+
+        predictor, preds, train_metrics, test_metrics = _data_axis_run(
+            "kernel", lambda: kernel_fit(train, test), res)
+        res["kernel"].update(train_error=train_metrics.error,
+                             test_accuracy=test_metrics.accuracy)
+        model = predictor.fitted(1)
+        arr["kernel_preds"] = preds.numpy()
+        arr["kernel_alpha"] = _krr_alpha(model)
+        arr.update(unsplit_model("kernel", predictor, train, kc_config))
+        del predictor, preds, model, train, test
+
+        for name, augment, build, cfg, flips in (
+                ("augmented", random_crops,
+                 build_random_patch_cifar_augmented,
+                 RandomPatchCifarAugmentedConfig(num_filters=256), False),
+                ("augmented_kernel", flipped_shuffled_crops,
+                 build_random_patch_cifar_augmented_kernel,
+                 RandomPatchCifarAugmentedKernelConfig(
+                     num_filters=256, gamma=2e-4, lam=10.0,
+                     kernel_block=2048, kernel_epochs=1), True)):
+            scorer, views, train_metrics, test_metrics = _data_axis_run(
+                name, lambda: augmented_fit(augment, build, cfg,
+                                            whole_train, whole_test, flips),
+                res)
+            res[name].update(train_views=views.data.count,
+                             train_error=train_metrics.error,
+                             test_accuracy=test_metrics.accuracy)
+            arr[f"{name}_confusion"] = np.asarray(test_metrics.confusion)
+            arr.update(model_array(name, scorer.fitted(1)))
+            arr.update(unsplit_model(name, scorer, views, cfg))
+            del scorer, views
+        del whole_train, whole_test
+
+        vc = _data_axis_run("voc", lambda: voc_sift_fisher.run_on(
+            vc_train, vc_test, vc_config, "cuda", mesh), res)
+        res["voc"].update(map=vc["map"], run_seconds=vc["seconds"],
+                          pca=pca_routes(vc["model"].predictor))
+        model = vc["model"]
+        arr["voc_scores"] = vc["scores"].numpy()
+        arr["voc_W"] = model.predictor.fitted().W.cpu().numpy()
+        arr["voc_pca"] = model.pca.fitted().components.cpu().numpy()
+        arr["voc_gmm_means"] = model.fisher.fitted().gmm.means.cpu().numpy()
+        del vc, model
+
+        im = _data_axis_run("imagenet", lambda: imagenet_sift_lcs_fv.run_on(
+            im_train, im_test, im_config, "cuda", mesh), res)
+        res["imagenet"].update(test_accuracy=im["test_accuracy"],
+                               run_seconds=im["seconds"],
+                               pca=pca_routes(im["predictor"]))
+        arr["imagenet_preds"] = im["predictions"].numpy()
+        arr["imagenet_W"] = im["predictor"].fitted().W.cpu().numpy()
+        del im
+
+        # BWLS alone: VOC from phase 15's PCA and GMM, written by the
+        # parent into ``out_dir``
+        vc = _data_axis_run("side_voc", lambda: voc_sift_fisher.run_on(
+            vc_train, vc_test, voc_sideband_config(out_dir), "cuda", mesh),
+            res)
+        res["side_voc"].update(map=vc["map"])
+        arr["side_voc_W"] = vc["model"].predictor.fitted().W.cpu().numpy()
+        arr["side_voc_scores"] = vc["scores"].numpy()
+        del vc
+
+        # the CIFAR entry points as a user calls them on the mesh
+        for name, run, config, scorer, rows in whole_cifar_runs():
+            out = _data_axis_run(f"whole_{name}",
+                                 lambda: run(config, "cuda", mesh), res)
+            res[f"whole_{name}"].update(test_accuracy=out["test_accuracy"])
+            arr.update(whole_cifar_arrays(name, out, scorer))
+            if hasattr(scorer(out).fitted(1), "alpha"):
+                # KRR keeps its fit's rows; a pipeline fitted whole
+                # gives no cut that reproduces BCD's input
+                arr.update(unsplit_model(f"whole_{name}", scorer(out),
+                                         rows(config, mesh), config))
+            del out
+        parallel.barrier()
+    finally:
+        parallel.reset_default_mesh()
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arr)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def data_axis_phase(card) -> dict:
+    """33. data_axis: two ranks on the card, a gloo group over its
+    tensors on the (2, 1) mesh, the image estimators across ranks, held
+    to the one-process phases of this run (`DATA_AXIS_REF`)."""
+    import socket
+
+    phase_t0 = time.perf_counter()
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    with tempfile.TemporaryDirectory() as tmp:
+        one_arr, one_info = data_axis_one_process(tmp)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--data-axis-rank",
+             str(r), "--data-axis-port", str(port), "--data-axis-out",
+             tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=DATA_AXIS_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(procs):
+            check(p.returncode == 0, f"data_axis: rank {r} exited "
+                  f"{p.returncode}:\n{logs[r][-4000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res = json.load(f)
+            ranks.append((res, dict(np.load(os.path.join(
+                tmp, f"rank{r}.npz")))))
+    ranks_equal = {key: bool(np.array_equal(ranks[0][1][key],
+                                            ranks[1][1][key]))
+                   for key in ranks[0][1]}
+    ref = dict(DATA_AXIS_REF, **one_arr)
+    arr = ranks[0][1]
+    out = {"ranks": [res for res, _ in ranks]}
+
+    def rel(key, other=None):
+        """max|a − b| of ``key`` as a share of max|b|."""
+        b = ref[key] if other is None else other
+        return float(np.abs(arr[key] - b).max() / np.abs(b).max())
+
+    def moved(key):
+        """Test predictions a confusion's entries moved: half the sum of
+        their changes, a prediction taken from one cell to another."""
+        return int(np.abs(arr[key].astype(np.int64)
+                          - np.asarray(ref[key], np.int64)).sum() // 2)
+
+    alpha_err = {key: rel(f"{key}_alpha")
+                 for key in ("kernel", "augmented_kernel", "whole_kernel",
+                             "whole_augmented_kernel")}
+    alpha_tol = dict(kernel=DATA_AXIS_ALPHA_RTOL,
+                     whole_kernel=DATA_AXIS_ALPHA_RTOL,
+                     augmented_kernel=DATA_AXIS_AUG_ALPHA_RTOL,
+                     whole_augmented_kernel=DATA_AXIS_AUG_ALPHA_RTOL)
+    # the ranks' alpha against a fit of the ranks' own rows in one
+    # process (only the split differs), and that fit against the
+    # one-process phase's (only the data upstream of KRR differs)
+    bcd_w_err = {key: rel(f"{key}_W")
+                 for key in ("augmented", "whole_augmented")}
+    split, upstream = {}, {}
+    for key in [f"{k}_alpha" for k in alpha_err] + [
+            f"{k}_W" for k in bcd_w_err]:
+        unsplit = arr.get(key.replace("_alpha", "_unsplit_alpha")
+                          .replace("_W", "_unsplit_W"))
+        if unsplit is not None:
+            split[key] = rel(key, unsplit)
+            upstream[key] = float(np.abs(unsplit - ref[key]).max()
+                                  / np.abs(ref[key]).max())
+    differ = int((arr["kernel_preds"] != ref["kernel_preds"]).sum())
+    im_differ = int((arr["imagenet_preds"] != ref["imagenet_preds"]).sum())
+    confusion_moved = {key: moved(f"{key}_confusion")
+                       for key in ("augmented", "augmented_kernel",
+                                   "whole_kernel", "whole_augmented",
+                                   "whole_augmented_kernel")}
+    bwls_w_err, bwls_score_err = rel("side_voc_W"), rel("side_voc_scores")
+    voc_w_err, voc_score_err = rel("voc_W"), rel("voc_scores")
+    # the PCA's components up to each column's sign
+    signs = np.sign((arr["voc_pca"] * ref["voc_pca"]).sum(axis=0))
+    voc_pca_err = float(np.abs(arr["voc_pca"] * signs - ref["voc_pca"]).max())
+    voc_gmm_err = rel("voc_gmm_means")
+    runs = ("kernel", "augmented", "augmented_kernel", "voc", "imagenet",
+            "side_voc", "whole_kernel", "whole_augmented",
+            "whole_augmented_kernel")
+    one_process = {k: v for k, v in ref.items()
+                   if not isinstance(v, np.ndarray)}
+    one_process.update(one_info)
+    out.update(
+        ranks_equal=ranks_equal, alpha_rel_err=alpha_err,
+        bcd_W_rel_err=bcd_w_err, model_rel_err_of_the_split=split,
+        model_rel_err_upstream=upstream,
+        kernel_rows_differing=differ, imagenet_rows_differing=im_differ,
+        confusion_predictions_moved=confusion_moved,
+        bwls_alone=dict(W_rel_err=bwls_w_err, scores_rel_err=bwls_score_err,
+                        one_process_sideband_W_rel_to_phase_15=float(
+                            np.abs(one_arr["side_voc_W"] - ref["voc_W"]).max()
+                            / np.abs(ref["voc_W"]).max())),
+        voc_W_rel_err=voc_w_err, voc_scores_rel_err=voc_score_err,
+        voc_pca_abs_err=voc_pca_err, voc_gmm_means_rel_err=voc_gmm_err,
+        imagenet_W_rel_err=rel("imagenet_W"),
+        precision={name: dict(
+            one_process=(one_info.get(name) or {}).get(
+                "precision", ref.get(f"{name}_precision")),
+            ranks=[res[name]["precision"] for res, _ in ranks])
+            for name in runs},
+        one_process=one_process,
+        collective_seconds_are=(
+            "gloo over the card's tensors, through host memory: not "
+            "an NVLink or multi-card figure"))
+    out["phase_seconds"] = time.perf_counter() - phase_t0
+    phase("data_axis", **out, card=card)
+    for key, equal in ranks_equal.items():
+        check(equal, f"data_axis: {key} differs between the ranks")
+    for key, err in alpha_err.items():
+        check(err <= alpha_tol[key], f"data_axis {key}: KRR's alpha "
+              f"{err} of max|alpha| from one process's (at most "
+              f"{alpha_tol[key]})")
+    for key, err in bcd_w_err.items():
+        tol = (DATA_AXIS_WHOLE_BCD_W_RTOL if key.startswith("whole_")
+               else DATA_AXIS_BCD_W_RTOL)
+        check(err <= tol, f"data_axis {key}: BCD's W {err} of max|W| from "
+              f"one process's (at most {tol})")
+    check(differ <= DATA_AXIS_PRED_DIFF, f"data_axis: {differ} kernel test "
+          f"predictions differ from phase 6's (at most "
+          f"{DATA_AXIS_PRED_DIFF})")
+    check(im_differ <= DATA_AXIS_IMAGENET_PRED_DIFF, f"data_axis: "
+          f"{im_differ} ImageNet test predictions differ from phase 16's "
+          f"(at most {DATA_AXIS_IMAGENET_PRED_DIFF})")
+    for key, n in confusion_moved.items():
+        check(n <= DATA_AXIS_PRED_DIFF, f"data_axis {key}: {n} test "
+              f"predictions moved in the confusion from one process's (at "
+              f"most {DATA_AXIS_PRED_DIFF})")
+    check(bwls_w_err <= DATA_AXIS_BWLS_RTOL and bwls_score_err
+          <= DATA_AXIS_BWLS_RTOL, f"data_axis: BWLS alone, W {bwls_w_err} "
+          f"and scores {bwls_score_err} of their max from one process's "
+          f"(at most {DATA_AXIS_BWLS_RTOL})")
+    check(voc_pca_err <= DATA_AXIS_PCA_ATOL, f"data_axis: VOC's PCA "
+          f"components {voc_pca_err} from phase 15's (at most "
+          f"{DATA_AXIS_PCA_ATOL})")
+    check(voc_gmm_err <= DATA_AXIS_GMM_RTOL, f"data_axis: VOC's GMM means "
+          f"{voc_gmm_err} of their max from phase 15's (at most "
+          f"{DATA_AXIS_GMM_RTOL})")
+    check(voc_w_err <= DATA_AXIS_W_RTOL, f"data_axis: VOC's W {voc_w_err} "
+          f"of max|W| from phase 15's (at most {DATA_AXIS_W_RTOL})")
+    check(voc_score_err <= DATA_AXIS_SCORE_RTOL, f"data_axis: VOC's test "
+          f"scores {voc_score_err} of max|score| from phase 15's (at most "
+          f"{DATA_AXIS_SCORE_RTOL})")
+    for res, _ in ranks:
+        r = res["rank"]
+        kc_blocks = math.ceil(N_TRAIN / 2048)
+        # the fit's blocks, then the train and test applies' blocks
+        for name in ("kernel", "whole_kernel"):
+            check(res[name]["launches"]["rbf_block"] == 3 * kc_blocks,
+                  f"data_axis: rank {r} launched K5 "
+                  f"{res[name]['launches']['rbf_block']} times in {name}, "
+                  f"not {3 * kc_blocks}")
+        for name in ("kernel", "augmented", "augmented_kernel",
+                     "whole_kernel", "whole_augmented",
+                     "whole_augmented_kernel"):
+            check(res[name]["launches"]["conv_rectify_pool"] > 0,
+                  f"data_axis: rank {r} launched no K1 in {name}")
+        for name in ("augmented_kernel", "whole_augmented_kernel"):
+            check(res[name]["launches"]["rbf_block"] > 0,
+                  f"data_axis: rank {r} launched no K5 in {name}")
+        for name in ("voc", "imagenet", "side_voc"):
+            check(res[name]["launches"]["elementwise_chain"] > 0,
+                  f"data_axis: rank {r} launched no K4 in {name}")
+        for name, want in (
+                ("kernel", ref["kernel_accuracy"]),
+                ("augmented", ref["augmented_accuracy"]),
+                ("augmented_kernel", ref["augmented_kernel_accuracy"]),
+                ("imagenet", ref["imagenet_accuracy"]),
+                ("whole_kernel", one_info["whole_kernel"]["test_accuracy"]),
+                ("whole_augmented",
+                 one_info["whole_augmented"]["test_accuracy"]),
+                ("whole_augmented_kernel",
+                 one_info["whole_augmented_kernel"]["test_accuracy"])):
+            acc = res[name]["test_accuracy"]
+            check(abs(acc - want) <= DATA_AXIS_ACC_TOL,
+                  f"data_axis {name}: rank {r} accuracy {acc}, one "
+                  f"process's {want}")
+        for name, want in (("voc", ref["voc_map"]),
+                           ("side_voc", one_info["side_voc"]["map"])):
+            check(abs(res[name]["map"] - want) <= DATA_AXIS_MAP_TOL,
+                  f"data_axis {name}: rank {r} mAP {res[name]['map']}, one "
+                  f"process's {want}")
+        for name in runs:
+            check(any(k.startswith("collectives.data.")
+                      for k in res[name]["counters"]),
+                  f"data_axis {name}: rank {r} ran no collective over data")
+    return {name: [res[name]["launches"] for res, _ in ranks]
+            for name in runs}
+
+
 def main() -> int:
     global SWAP_REPEATS
     import argparse
@@ -4424,6 +5129,12 @@ def main() -> int:
                         help=argparse.SUPPRESS)
     parser.add_argument("--model-axis-out", default=None,
                         help=argparse.SUPPRESS)
+    parser.add_argument("--data-axis-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--data-axis-port", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--data-axis-out", default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     SWAP_REPEATS = args.swap_repeats
     if not torch.cuda.is_available():
@@ -4433,6 +5144,9 @@ def main() -> int:
     if args.model_axis_rank is not None:  # one rank of phase 32
         return model_axis_rank(args.model_axis_rank, args.model_axis_port,
                                args.model_axis_out)
+    if args.data_axis_rank is not None:  # one rank of phase 33
+        return data_axis_rank(args.data_axis_rank, args.data_axis_port,
+                              args.data_axis_out)
     script_t0 = time.perf_counter()
     import torch.nn.functional as F
 
@@ -4458,6 +5172,7 @@ def main() -> int:
         stage_fuse,
     )
     from keystone_tpu_torch.ops import _build, chain_kernels, kernels
+    from keystone_tpu_torch.telemetry import ledger
     from keystone_tpu_torch.utils.images import GRAY_WEIGHTS
     from keystone_tpu_torch.nodes.util.basic import MaxClassifier
     from keystone_tpu_torch.pipelines.cifar_variants import (
@@ -5000,6 +5715,7 @@ def main() -> int:
 
     # the filters are learned as the pipeline is built; the featurizer
     # fills the Cacher that the scaler's and the solver's fits read
+    kc_mark = ledger.session_mark()
     kc_stages, kc_seconds, kc_train = run_stages([
         ("filter_learning", kc_build),
         ("featurize", lambda: cut(kc, 2)(train.data).get()),
@@ -5007,8 +5723,13 @@ def main() -> int:
         ("krr_fit", lambda: kc.fitted(1)),
         ("predict_eval", lambda: evaluator(kc(train.data), train.labels)),
     ])
-    kc_test = evaluator(kc(test.data), test.labels)
+    kc_test_preds = kc(test.data).get()
+    kc_test = evaluator(kc_test_preds, test.labels)
     kc_k1 = kernels.conv_rectify_pool.launches
+    DATA_AXIS_REF.update(kernel_preds=kc_test_preds.numpy(),
+                         kernel_alpha=kc.fitted(1).alpha.cpu().numpy(),
+                         kernel_accuracy=kc_test.accuracy,
+                         kernel_precision=precision_trails(kc_mark))
     kc_k5 = kernels.rbf_block.launches
     kc_k5_split = kernels.rbf_split.launches
     blocks = math.ceil(train.data.count / kc_config.kernel_block)
@@ -5181,6 +5902,7 @@ def main() -> int:
         nonlocal ag_scorer
         ag_scorer = build_random_patch_cifar_augmented(ag, ag_config)
 
+    ag_mark = ledger.session_mark()
     ag_stages, ag_seconds, ag_train = run_stages([
         ("augment", ag_augment),
         ("filter_learning", ag_build),
@@ -5195,6 +5917,10 @@ def main() -> int:
             ag_scorer, test, ag_config, with_flips=False))])
     ag_stages.update(test_stages)
     ag_k1 = kernels.conv_rectify_pool.launches
+    DATA_AXIS_REF.update(augmented_accuracy=ag_test.accuracy,
+                         augmented_confusion=np.asarray(ag_test.confusion),
+                         augmented_W=ag_scorer.fitted(1).W.cpu().numpy(),
+                         augmented_precision=precision_trails(ag_mark))
     ag_microbatches = (math.ceil(ag.data.count / ag_config.microbatch)
                        + math.ceil(5 * test.data.count / ag_config.microbatch))
     phase("augmented", train_seconds=ag_seconds,
@@ -5237,6 +5963,7 @@ def main() -> int:
         nonlocal ak_scorer
         ak_scorer = build_random_patch_cifar_augmented_kernel(ak, ak_config)
 
+    ak_mark = ledger.session_mark()
     ak_stages, ak_seconds, ak_train = run_stages([
         ("augment", ak_augment),
         ("filter_learning", ak_build),
@@ -5252,6 +5979,11 @@ def main() -> int:
             ak_scorer, test, ak_config, with_flips=True))])
     ak_stages.update(test_stages)
     ak_k1 = kernels.conv_rectify_pool.launches
+    DATA_AXIS_REF.update(
+        augmented_kernel_accuracy=ak_test.accuracy,
+        augmented_kernel_confusion=np.asarray(ak_test.confusion),
+        augmented_kernel_alpha=ak_scorer.fitted(1).alpha.cpu().numpy(),
+        augmented_kernel_precision=precision_trails(ak_mark))
     ak_k5 = kernels.rbf_block.launches
     ak_k5_split = kernels.rbf_split.launches
     ak_blocks = math.ceil(ak.data.count / ak_config.kernel_block)
@@ -5570,6 +6302,10 @@ def main() -> int:
     model_axis = model_axis_phase(dev, card, par)
     torch.cuda.empty_cache()
 
+    # ---- 33. the data axis for the image estimators: two ranks on the card
+    data_axis = data_axis_phase(card)
+    torch.cuda.empty_cache()
+
     record = {"kernels": [
         dict(name="conv_rectify_pool", route="cuda",
              source="keystone_tpu_torch/csrc/conv_rectify_pool.cu",
@@ -5589,7 +6325,9 @@ def main() -> int:
                  augmented_kernel=ak_k1,
                  planners=planners["random_patch_cifar"]["k1"],
                  out_of_core=ooc["k1"], measurement=measurement["k1"],
-                 parallel=par["k1"], model_axis=model_axis["k1"]),
+                 parallel=par["k1"], model_axis=model_axis["k1"],
+                 data_axis={name: [r["conv_rectify_pool"] for r in ranks]
+                            for name, ranks in data_axis.items()}),
              parallel_check=par["k1_check"],
              model_axis_check=model_axis["k1_check"],
              ptxas=regs["conv_rectify_pool"]),
@@ -5615,7 +6353,12 @@ def main() -> int:
                                    voc_tar=loaders["voc_big_k4"],
                                    serving=serving["k4"],
                                    planners=planners["linear_pixels"]["k4"],
-                                   measurement=measurement["k4"]),
+                                   measurement=measurement["k4"],
+                                   data_axis={
+                                       name: [r["elementwise_chain"]
+                                              for r in data_axis[name]]
+                                       for name in ("voc", "imagenet",
+                                                    "side_voc")}),
              max_abs_err=k4["max_abs_err"],
              rel_err=k4["rel_err"], tolerance_rel=K4_TOL, ms=k4["ms"],
              device_ms=k4["device_ms"],
@@ -5635,7 +6378,13 @@ def main() -> int:
              launches_by_path=dict(
                  kernel_cifar=dict(products=kc_k5, prepasses=kc_k5_split),
                  augmented_kernel=dict(products=ak_k5,
-                                       prepasses=ak_k5_split)),
+                                       prepasses=ak_k5_split),
+                 data_axis={name: [dict(products=r["rbf_block"],
+                                        prepasses=r["rbf_split"])
+                                   for r in data_axis[name]]
+                            for name in ("kernel", "augmented_kernel",
+                                         "whole_kernel",
+                                         "whole_augmented_kernel")}),
              augmented=dict(k5["augmented"], library_ms=None),
              max_abs_err=k5["max_abs_err"],
              min_diagonal=k5["min_diagonal"], tolerance_abs=K5_TOL,

@@ -57,6 +57,7 @@ from ..parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
     P,
+    axis_size,
     data_rank,
     mesh_device,
     model_rank,
@@ -453,9 +454,18 @@ class HostDataset:
 
     ``device`` is where a batched stage stacks host items (None: the
     card); it is resolved only when something is stacked, so a dataset
-    of host objects can be made anywhere."""
+    of host objects can be made anywhere.
+
+    On a mesh (`on_mesh`) the items are this rank's contiguous share of
+    ``total`` items, ``ceil(total / shards)`` a rank as `Dataset` places
+    rows, none padded: ``count`` and ``len`` are this rank's items,
+    `stack` places the rows over the mesh, and a stage's output keeps
+    the placement (`keep_host_placement`)."""
 
     is_dataset = True
+
+    #: the mesh whose data axis holds these items (None: every item)
+    mesh = None
 
     def __init__(self, items: Sequence[Any] = (),
                  device: DeviceLike = None):
@@ -463,6 +473,40 @@ class HostDataset:
         self._buckets: Optional[List[Bucket]] = None
         self._count = len(self._items)
         self.device = device
+        self._total = 0
+
+    @property
+    def total(self) -> int:
+        """Items over every rank (this rank's without a mesh)."""
+        return self._total if self.mesh is not None else self._count
+
+    @classmethod
+    def on_mesh(cls, items: Sequence[Any], mesh,
+                device: DeviceLike = None) -> "HostDataset":
+        """This rank's share of ``items`` (every rank passes all of
+        them, in one order) over ``mesh``'s data axis; with one data
+        shard, all of them."""
+        items = list(items)
+        shards = axis_size(mesh, DATA_AXIS)
+        if shards == 1:
+            return cls(items, device=device)
+        per = -(-len(items) // shards)
+        lo = min(data_rank(mesh) * per, len(items))
+        out = cls(items[lo:lo + per], device=device)
+        out.mesh, out._total = mesh, len(items)
+        return out
+
+    def placed_like(self, other: "HostDataset") -> "HostDataset":
+        """This dataset with ``other``'s placement (its rank's rows)."""
+        self.mesh, self._total = other.mesh, other.total
+        return self
+
+    def gather_items(self) -> List[Any]:
+        """Every rank's items in global order, on every rank. Without a
+        mesh, the items."""
+        if self.mesh is None:
+            return list(self.items)
+        return _gather_items(self.items, self.mesh)
 
     @classmethod
     def from_buckets(cls, buckets: Sequence[Bucket], count: int,
@@ -498,23 +542,36 @@ class HostDataset:
 
     def map(self, fn: Callable) -> "HostDataset":
         """``fn`` on each item."""
-        return HostDataset([fn(x) for x in self.items], device=self.device)
+        return HostDataset([fn(x) for x in self.items],
+                           device=self.device).placed_like(self)
 
     def cache(self) -> "HostDataset":
         return self
 
     @property
     def per_shard_count(self) -> int:
-        """Items a shard (`:292-293`): one card is one shard."""
-        return self._count
+        """Items a shard (`:292-293`): one card is one shard; on a mesh,
+        every rank's share, ``ceil(total / shards)``."""
+        if self.mesh is None:
+            return self._count
+        return -(-self.total // n_data_shards(self.mesh))
 
     def sample_per_shard(self, k: int, seed: int = 0) -> "HostDataset":
-        """≤ k items at evenly spread indices (`:301-306`)."""
-        m = min(self._count, k)
+        """≤ k items a shard at evenly spread indices (`:301-306`); on a
+        mesh the same items on every rank, one process's sample of
+        ``k · shards`` items (each rank's picks gathered), not placed."""
+        shards = n_data_shards(self.mesh) if self.mesh is not None else 1
+        m = min(self.total, k * shards)
         if m == 0:
             return HostDataset([], device=self.device)
-        idx = np.linspace(0, self._count - 1, num=m, dtype=np.int64)
-        return HostDataset([self.items[i] for i in idx], device=self.device)
+        idx = np.linspace(0, self.total - 1, num=m, dtype=np.int64)
+        if self.mesh is None:
+            return HostDataset([self.items[i] for i in idx],
+                               device=self.device)
+        lo = data_rank(self.mesh) * self.per_shard_count
+        return HostDataset(_gather_items(
+            [self.items[i - lo] for i in idx if lo <= i < lo + self._count],
+            self.mesh), device=self.device)
 
     def map_batches_stream(self, fn: Callable[[torch.Tensor], torch.Tensor],
                            chunk=USE_CONFIG_CHUNK):
@@ -556,11 +613,24 @@ class HostDataset:
             if filled == len(group):
                 buckets.append((group, data))
                 data, filled = None, 0
-        return HostDataset.from_buckets(buckets, self._count, self.device)
+        return HostDataset.from_buckets(buckets, self._count,
+                                        self.device).placed_like(self)
 
     def stack(self, dtype=None) -> Dataset:
         """Equal-shape items as one device `Dataset`, in item order:
-        the buckets' tensors, no per-item transfer."""
+        the buckets' tensors, no per-item transfer. On a mesh, this
+        rank's rows of the placed `Dataset` (zero rows pad the share)."""
+        data = self._stack(dtype)
+        if self.mesh is None:
+            return data
+        per = self.per_shard_count
+        rows = data.array
+        if rows.shape[0] < per:
+            rows = torch.cat([rows, rows.new_zeros(
+                (per - rows.shape[0],) + tuple(rows.shape[1:]))])
+        return Dataset(rows, count=self.total, mesh=self.mesh, placed=True)
+
+    def _stack(self, dtype=None) -> Dataset:
         if not self._count:
             raise ValueError("stack of an empty HostDataset")
         buckets = self.buckets()
@@ -596,7 +666,39 @@ class HostDataset:
         return iter(self.items)
 
     def __repr__(self) -> str:
-        return f"HostDataset(count={self._count})"
+        shards = (f", total={self.total}, shards="
+                  f"{n_data_shards(self.mesh)}" if self.mesh is not None
+                  else "")
+        return f"HostDataset(count={self._count}{shards})"
+
+
+def _gather_items(items: Sequence[Any], mesh) -> List[Any]:
+    """Every rank's ``items`` in rank order, on every rank of ``mesh``'s
+    data axis: one ``all_gather_object`` (tensors travel through the
+    host)."""
+    import torch.distributed as dist
+
+    mine = [x.cpu() if isinstance(x, torch.Tensor) else x for x in items]
+    parts: List[Any] = [None] * n_data_shards(mesh)
+    dist.all_gather_object(parts, mine, group=mesh.get_group(DATA_AXIS))
+    return [x for part in parts for x in part]
+
+
+def keep_host_placement(out, inputs):
+    """``out``, a stage's output: where it is a `HostDataset` with no
+    placement and as many items as a `HostDataset` of ``inputs`` placed
+    on a mesh (a dataset, or a list of them), it takes that one's
+    placement (a stage that builds its output afresh keeps its rank's
+    rows)."""
+    if not isinstance(out, HostDataset) or out.mesh is not None:
+        return out
+    for x in inputs if isinstance(inputs, (list, tuple)) else (inputs,):
+        if isinstance(x, (list, tuple)):
+            out = keep_host_placement(out, x)
+        elif isinstance(x, HostDataset) and x.mesh is not None \
+                and len(x) == len(out):
+            return out.placed_like(x)
+    return out
 
 
 class ZippedHostDataset(HostDataset):
@@ -610,6 +712,8 @@ class ZippedHostDataset(HostDataset):
         self.parts = list(parts)
         self._items = None
         self._count = min(len(p) for p in self.parts)
+        if parts[0].mesh is not None:
+            self.placed_like(parts[0])
 
     @property
     def items(self) -> List[Any]:

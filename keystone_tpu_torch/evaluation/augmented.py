@@ -8,7 +8,10 @@ aggregated by the mean, the maximum or a Borda rank sum, the aggregate's
 argmax is the example's prediction, and the multiclass metrics follow.
 Where the JAX package loops over rows in Python, the groups here are
 reduced on the scores' device: `index_add_` for the mean and the rank
-sums, `scatter_reduce_` for the maximum and the label check.
+sums, `scatter_reduce_` for the maximum and the label check. Ids, scores
+and labels given as datasets placed over a mesh's data axis are gathered
+over it first, their padded rows dropped, so every rank scores the whole
+set as one process does.
 """
 
 from __future__ import annotations
@@ -19,14 +22,18 @@ import torch
 from .multiclass import MulticlassMetrics, confusion_matrix
 
 
-def _rows(x) -> torch.Tensor:
+def _rows(x):
+    """A dataset's ``count`` rows (gathered over a mesh), or ``x``."""
     from ..data.dataset import Dataset
     from ..workflow.pipeline import PipelineResult
 
     if isinstance(x, PipelineResult):
         x = x.get()
-    if isinstance(x, Dataset):
-        return x.array[:x.count]
+    return x.gather() if isinstance(x, Dataset) else x
+
+
+def _tensor(x) -> torch.Tensor:
+    x = _rows(x)
     return x if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x))
 
 
@@ -45,6 +52,8 @@ class AugmentedExamplesEvaluator:
     ``agg`` ("mean", "max" or "borda") and evaluate the argmax of each
     group against the group's label."""
 
+    mesh_aware = True  # the rows gathered over the data axis
+
     def __init__(self, num_classes: int, agg: str = "mean"):
         if agg not in ("mean", "max", "borda"):
             raise ValueError("agg must be 'mean', 'max', or 'borda'")
@@ -55,12 +64,10 @@ class AugmentedExamplesEvaluator:
         """ids: the original example's id for each augmented row (a
         sequence, an array or a tensor); scores: (n, k) class scores a
         row; actuals: each row's true label, one label an id."""
-        from ..parallel.mesh import require_mesh_aware
-
-        require_mesh_aware(self, (ids, scores, actuals))
-        scores = _rows(scores)
+        scores = _tensor(scores)
         dev = scores.device
-        actuals = _rows(actuals).to(dev).long().reshape(-1)
+        actuals = _tensor(actuals).to(dev).long().reshape(-1)
+        ids = _rows(ids)
         if isinstance(ids, torch.Tensor):
             keys, group = torch.unique(ids, return_inverse=True)
             keys = keys.cpu().numpy()

@@ -5,7 +5,10 @@ reference evaluation/MeanAveragePrecisionEvaluator.scala:11-86): per
 class, the examples ranked by score, descending, with a stable sort,
 and the 11-point interpolated average precision. The scores come to the
 host in one transfer and the ranking runs in numpy, so ties break as
-they do in the JAX package.
+they do in the JAX package. Scores and actuals given as datasets placed
+over a mesh's data axis are gathered over it first (padded rows
+dropped), so every rank ranks the whole set as one process does; a list
+of actuals is the whole set's.
 """
 
 from __future__ import annotations
@@ -19,13 +22,12 @@ class MeanAveragePrecisionEvaluator:
     ``scores``: (n, k) scores. Returns the per-class AP (its mean is
     the mAP)."""
 
+    mesh_aware = True  # the rows gathered over the data axis
+
     def __init__(self, num_classes: int):
         self.num_classes = num_classes
 
     def evaluate(self, scores, actuals) -> np.ndarray:
-        from ..parallel.mesh import require_mesh_aware
-
-        require_mesh_aware(self, (scores, actuals))
         from ..data.dataset import Dataset, HostDataset
         from ..workflow.pipeline import PipelineResult
 
@@ -38,8 +40,13 @@ class MeanAveragePrecisionEvaluator:
         scores = np.asarray(scores)
         if isinstance(actuals, PipelineResult):
             actuals = actuals.get()
-        if isinstance(actuals, (Dataset, HostDataset)):
+        if isinstance(actuals, HostDataset) and actuals.mesh is not None:
+            actuals = actuals.gather_items()
+        elif isinstance(actuals, (Dataset, HostDataset)):
             actuals = actuals.numpy()
+        if len(actuals) != scores.shape[0]:
+            raise ValueError(f"{scores.shape[0]} score rows and "
+                             f"{len(actuals)} actuals")
 
         k = self.num_classes
         member = np.zeros((len(actuals), k), bool)

@@ -90,7 +90,10 @@ class FisherVector(Transformer):
 
 class ScalaGMMFisherVectorEstimator(Estimator):
     """A GMM fit on descriptor samples, returned as its FV encoder
-    (FisherVector.scala:69-84)."""
+    (FisherVector.scala:69-84). On a mesh the GMM sees the descriptor
+    sample one process sees (`GaussianMixtureModelEstimator`)."""
+
+    mesh_aware = True  # the GMM's fit collects over the data axis
 
     def __init__(self, k: int, num_iters: int = 30, seed: int = 0):
         self.k = k
@@ -116,6 +119,8 @@ class GMMFisherVectorEstimator(OptimizableEstimator):
     """The reference's optimizable FV estimator (FisherVector.scala:
     86-94): both of its routes are one computation, so it fits its
     default."""
+
+    mesh_aware = True  # its default is
 
     def __init__(self, k: int, num_iters: int = 30, seed: int = 0):
         self.k = k

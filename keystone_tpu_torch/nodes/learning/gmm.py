@@ -102,9 +102,13 @@ def em(X: torch.Tensor, means: torch.Tensor, variances: torch.Tensor,
 class GaussianMixtureModelEstimator(Estimator):
     """EM with a k-means++ (or random) start and a variance floor of
     ``min_variance_factor`` times the global variance, on at most
-    ``max_rows`` rows (GaussianMixtureModelEstimator.scala:25-203)."""
+    ``max_rows`` rows (GaussianMixtureModelEstimator.scala:25-203). On
+    a mesh every rank runs k-means++ and EM on the rows one process
+    collects (`pca.collect_rows`; JAX `gmm.py:134-152`), so every rank
+    fits one process's model."""
 
     precision_tolerance = "exact"  # moments/decomposition: f32 inputs
+    mesh_aware = True  # the rows collected over the data axis
 
     def __init__(self, k: int, num_iters: int = 30, init: str = "kmeans++",
                  min_variance_factor: float = 0.01, seed: int = 0,

@@ -12,19 +12,29 @@ the (B, B) system by Cholesky and updates the dual model. Everything is
 float32; the products outside the kernel (`Kb @ delta`, the apply's
 `Kb @ alpha_b`) are torch matmuls in true fp32 (TF32 off, `device.py`),
 as JAX leaves them to XLA at ``Precision.HIGHEST``.
+
+On a mesh's data axis (JAX fits the same code on a row-sharded
+``Dataset`` and GSPMD moves the rows) the fit and the apply keep every
+row-sized array on its rank and gather only a block's rows by their
+global ids (`parallel.gather_rows`), so K5 runs on each rank's rows and
+the blocks, the solves and alpha are one process's.
 """
 
 from __future__ import annotations
 
 import hashlib
+import logging
 import os
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ...ops.kernels import rbf_block
+from ...parallel.collectives import gather_rows
+from ...parallel.mesh import DATA_AXIS, axis_size, data_rank
 from ...telemetry.instrument import record_dispatch
 from ...telemetry.metrics import counter
 from ...telemetry.spans import span
@@ -76,24 +86,45 @@ class BlockKernelMatrix:
         return Kb
 
 
-def krr_step(X, Y, mask, alpha, KA, lam: float, gamma: float,
-             block_ids: torch.Tensor) -> None:
+def _data_mesh(mesh):
+    """``mesh`` where its data axis has more than one rank, else None."""
+    return mesh if axis_size(mesh, DATA_AXIS) > 1 else None
+
+
+def _block_delta(Kbb, Yb, KAb, ab, lam: float) -> torch.Tensor:
+    """Δ of (K_bb + λI) Δ = Y_b − KA_b − λ α_b."""
+    A = Kbb + lam * torch.eye(Kbb.shape[0], dtype=Kbb.dtype,
+                              device=Kbb.device)
+    return torch.cholesky_solve(Yb - KAb - lam * ab, torch.linalg.cholesky(A))
+
+
+def krr_step(mesh, X, Y, mask, alpha, KA, lam: float, gamma: float,
+             block_ids) -> None:
     """One Gauss-Seidel block update of dual KRR (K + λI)α = Y
     (`kernels.py:107-139`). KA tracks K @ alpha. For block b, solve
     (K_bb + λI) Δ = Y_b − KA_b − λ α_b, then α_b += Δ, KA += K[:, b] Δ.
 
-    ``alpha`` and ``KA`` are updated in place, where JAX donates their
-    buffers to the step. The last block of an epoch repeats ids; their
-    updates add up, as JAX's ``alpha.at[ids].add`` adds them
-    (`index_add_`; an indexed ``+=`` would keep only one)."""
-    B = block_ids.shape[0]
-    Kb = rbf_block(X, X[block_ids], gamma)
-    Kb.mul_(mask[:, None])                       # (n, B), masked rows
-    Kbb = Kb[block_ids]                          # (B, B)
-    resid = Y[block_ids] - KA[block_ids] - lam * alpha[block_ids]
-    A = Kbb + lam * torch.eye(B, dtype=X.dtype, device=X.device)
-    delta = torch.cholesky_solve(resid, torch.linalg.cholesky(A))
-    alpha.index_add_(0, block_ids, delta)
+    X, Y, ``mask``, alpha and KA are this rank's rows of ``mesh``'s data
+    axis (all of them without a mesh) and ``block_ids`` global row ids.
+    The block's rows of X are gathered (`parallel.gather_rows`), K5
+    computes this rank's rows of Kb, the block's rows of Kb, Y, KA and
+    alpha are gathered by the same ids, every rank solves the same
+    system, and the updates touch only this rank's rows. ``alpha`` and
+    ``KA`` are updated in place, where JAX donates their buffers to the
+    step. The last block of an epoch repeats ids; their updates add up,
+    as JAX's ``alpha.at[ids].add`` adds them (`index_add_`; an indexed
+    ``+=`` would keep only one)."""
+    block_ids = np.asarray(block_ids, dtype=np.int64)
+    Kb = rbf_block(X, gather_rows(X, block_ids, mesh), gamma)
+    Kb.mul_(mask[:, None])                       # this rank's rows
+    Yb, KAb, ab = gather_rows(torch.cat([Y, KA, alpha], dim=1), block_ids,
+                              mesh).split(Y.shape[1], dim=1)
+    delta = _block_delta(gather_rows(Kb, block_ids, mesh), Yb, KAb, ab, lam)
+    lo = data_rank(mesh) * X.shape[0]
+    own = np.nonzero((block_ids >= lo) & (block_ids < lo + X.shape[0]))[0]
+    alpha.index_add_(
+        0, torch.as_tensor(block_ids[own] - lo, device=X.device),
+        delta[torch.as_tensor(own, device=X.device)])
     KA.addmm_(Kb, delta)
 
 
@@ -102,27 +133,53 @@ class KernelBlockLinearMapper(Transformer):
     alpha_b over the train blocks (KernelBlockLinearMapper.scala:28-90;
     JAX `_kernel_apply_scan`, `kernels.py:142-208`). The last train
     block is zero-padded to the block size: its padded anchors have
-    alpha 0 and add nothing."""
+    alpha 0 and add nothing.
+
+    Fitted on a mesh (``mesh``), ``train_X`` and ``alpha`` are this
+    rank's rows of the ``count`` training rows: each apply block's
+    anchors and alpha are gathered over ``data`` as it is used (the
+    blocks one process uses), and K5 runs on this rank's test rows
+    against it; the whole training matrix is never gathered."""
 
     precision_tolerance = "exact"  # kernel solve apply: f32 inputs
 
     def __init__(self, train_X: torch.Tensor, alpha: torch.Tensor,
-                 gamma: float, block_size: int = 4096):
+                 gamma: float, block_size: int = 4096, mesh=None,
+                 count: Optional[int] = None):
         self.train_X = train_X
         self.alpha = alpha
         self.gamma = gamma
         self.block_size = block_size
+        self.mesh = _data_mesh(mesh)
+        self.count = train_X.shape[0] if count is None else int(count)
+
+    def abstract_apply(self, elem):
+        """The output element (JAX `kernels.py:173-182`), declared so
+        that tracing a spec runs no block (on a mesh, no gather)."""
+        from ...analysis.specs import SpecMismatchError, shape_struct
+
+        d = self.train_X.shape[1]
+        if getattr(elem, "ndim", None) == 1 and elem.shape[0] != d:
+            raise SpecMismatchError(
+                f"kernel model was trained on {d}-dim features but the "
+                f"input element has {elem.shape[0]}")
+        return shape_struct((self.alpha.shape[1],), self.alpha.dtype)
+
+    def _block(self, start: int, stop: int):
+        """Anchors and alpha of training rows ``start:stop``."""
+        ids = np.arange(start, stop)
+        return (gather_rows(self.train_X, ids, self.mesh),
+                gather_rows(self.alpha, ids, self.mesh))
 
     def batch_fn(self):
         def fn(x):
             x = x.contiguous()
-            n_train = self.train_X.shape[0]
+            n_train = self.count
             bs = min(self.block_size, n_train)
             out = torch.zeros((x.shape[0], self.alpha.shape[1]),
                               dtype=x.dtype, device=x.device)
             for start in range(0, n_train, bs):
-                Xb = self.train_X[start:start + bs]
-                ab = self.alpha[start:start + bs]
+                Xb, ab = self._block(start, min(start + bs, n_train))
                 if Xb.shape[0] < bs:
                     Xb = F.pad(Xb, (0, 0, 0, bs - Xb.shape[0]))
                     ab = F.pad(ab, (0, 0, 0, bs - ab.shape[0]))
@@ -145,6 +202,7 @@ class KernelRidgeRegression(LabelEstimator):
     data, and deleted when the fit completes."""
 
     precision_tolerance = "exact"  # solver: f32/HIGHEST inputs
+    mesh_aware = True  # K5 on each rank's rows, the block gathered
 
     def __init__(self, gamma: float, lam: float, block_size: int = 2048,
                  num_epochs: int = 1, seed: int = 0,
@@ -183,6 +241,14 @@ class KernelRidgeRegression(LabelEstimator):
         checkpoint of other data with the same shape never resumes."""
         if not self.checkpoint_dir:
             return None
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            # one process's file: every rank would race it, and the
+            # state is each rank's rows (JAX `kernels.py:260-270`)
+            logging.getLogger(__name__).warning(
+                "KernelRidgeRegression checkpointing is single-process "
+                "only; disabling for this %d-process job",
+                dist.get_world_size())
+            return None
         os.makedirs(self.checkpoint_dir, exist_ok=True)
         h = hashlib.sha1()
         h.update(np.asarray(data.take(4)).tobytes())
@@ -193,13 +259,16 @@ class KernelRidgeRegression(LabelEstimator):
         return os.path.join(self.checkpoint_dir, tag + ".npz")
 
     def fit(self, data, labels) -> KernelBlockLinearMapper:
+        """On a mesh (data placed over more than one rank) X, Y, alpha
+        and KA stay this rank's rows and each block step gathers the
+        block (`krr_step`); the blocks are one process's."""
+        mesh = _data_mesh(getattr(data, "mesh", None))
         X = data.array.contiguous()
         mask = data.mask.to(X.dtype)
         Y = labels.array.to(X.dtype) * mask[:, None]
-        n_pad = X.shape[0]
-        B = min(self.block_size, n_pad)
+        B = min(self.block_size, data.count)
         n_blocks = -(-data.count // B)
-        alpha = torch.zeros((n_pad, Y.shape[1]), dtype=X.dtype,
+        alpha = torch.zeros((X.shape[0], Y.shape[1]), dtype=X.dtype,
                             device=X.device)
         KA = torch.zeros_like(alpha)
         start_epoch, start_block = 0, 0
@@ -215,12 +284,11 @@ class KernelRidgeRegression(LabelEstimator):
                 data.count)
             pad = (-len(perm)) % (n_blocks * B)
             ids = np.concatenate([perm, perm[:pad]]) if pad else perm
-            ids = torch.as_tensor(ids, dtype=torch.int64, device=X.device)
             first = start_block if epoch == start_epoch else 0
             for b in range(first, n_blocks):
                 with span("krr_step", cat="step", epoch=epoch, block=b):
-                    krr_step(X, Y, mask, alpha, KA, self.lam, self.gamma,
-                             ids[b * B:(b + 1) * B])
+                    krr_step(mesh, X, Y, mask, alpha, KA, self.lam,
+                             self.gamma, ids[b * B:(b + 1) * B])
                 _STEPS.inc()
                 record_dispatch()
                 done += 1
@@ -233,4 +301,5 @@ class KernelRidgeRegression(LabelEstimator):
                     os.replace(tmp, ckpt)
         if ckpt and os.path.exists(ckpt):
             os.unlink(ckpt)
-        return KernelBlockLinearMapper(X, alpha, self.gamma, self.block_size)
+        return KernelBlockLinearMapper(X, alpha, self.gamma, self.block_size,
+                                       mesh=mesh, count=data.count)

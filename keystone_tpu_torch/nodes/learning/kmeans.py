@@ -87,9 +87,12 @@ def kmeans_pp_init(X, k: int, rng: np.random.Generator) -> torch.Tensor:
 
 
 class KMeansPlusPlusEstimator(Estimator):
-    """k-means++ seeding from ``default_rng(seed)``, then Lloyd's."""
+    """k-means++ seeding from ``default_rng(seed)``, then Lloyd's. On a
+    mesh every rank seeds and iterates on the rows one process collects
+    (`pca.collect_rows`; JAX `kmeans.py:76-108` collects to the host)."""
 
     precision_tolerance = "exact"  # moments/decomposition: f32 inputs
+    mesh_aware = True  # the rows collected over the data axis
 
     def __init__(self, num_means: int, num_iters: int = 20, seed: int = 0):
         self.num_means = num_means

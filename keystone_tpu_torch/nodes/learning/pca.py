@@ -9,8 +9,9 @@ ApproximatePCA.scala:22-85):
   SVD of R. XᵀX = RᵀR, so V is the SVD's V of the centred rows, which
   JAX takes directly; the tall, skinny SVD becomes a QR (cuSOLVER's
   geqrf) and a d × d SVD;
-- `DistributedPCAEstimator` in its one-device form: TSQR on one shard
-  is the QR of all the centred rows, then the SVD of R;
+- `DistributedPCAEstimator`: TSQR, a QR of each rank's centred rows
+  and a QR of the gathered R factors, then the SVD of R; on one shard
+  the QR of all the centred rows;
 - `ApproximatePCAEstimator`: the randomized range finder with power
   iterations. Its Gaussian test matrix is a `torch.Generator` draw where
   JAX draws with `jax.random`, so it matches JAX's by subspace, not by
@@ -22,7 +23,8 @@ ApproximatePCA.scala:22-85):
 Each component's sign is fixed as the reference's matlab convention
 fixes it (`_sign_convention`), so components compare by value. Items may
 be vectors or per-item descriptor matrices: `PCATransformer` maps the
-last axis. The rows are gathered on the device (`collect_rows`).
+last axis. The rows are gathered on the device (`collect_rows`), on a
+mesh's data axis from every rank in one process's order.
 """
 
 from __future__ import annotations
@@ -33,6 +35,10 @@ import numpy as np
 import torch
 
 from ...data.dataset import Dataset, HostDataset
+from ...device import resolve_device
+from ...parallel.collectives import all_gather_rows, psum
+from ...parallel.collectives import collect_rows as pcollect_rows
+from ...parallel.mesh import DATA_AXIS, axis_size, n_data_shards
 from ...workflow.pipeline import Estimator, OptimizableEstimator, Transformer
 from .cost_model import CostModel, CostProfile
 
@@ -60,24 +66,39 @@ class PCATransformer(Transformer):
 BatchPCATransformer = PCATransformer
 
 
-def collect_rows(data, max_rows: Optional[int] = None) -> torch.Tensor:
-    """The rows of a dataset of vectors or descriptor matrices as one
-    float32 (n, d) tensor on the device, items in order (the reference
-    collects them to one machine, PCA.scala:177-185); above ``max_rows``
-    rows an even `linspace` subsample of them."""
+def _local_rows(data) -> torch.Tensor:
+    """The rows held here of a dataset of vectors or descriptor
+    matrices, items in order, as one (n, d) tensor; a mesh dataset's
+    padded items dropped."""
     if isinstance(data, HostDataset):
         buckets = data.buckets()
         idx, stacked = buckets[0]
         if len(buckets) == 1 and idx == list(range(len(data))):
-            X = stacked.reshape(-1, stacked.shape[-1])
-        else:
-            X = torch.cat([torch.atleast_2d(x) for x in data.items])
-    elif isinstance(data, Dataset):
+            return stacked.reshape(-1, stacked.shape[-1])
+        dev = resolve_device(data.device)
+        return torch.cat([torch.atleast_2d(torch.as_tensor(x, device=dev))
+                          for x in data.items])
+    if isinstance(data, Dataset):
         X = data.array
-        if X.ndim == 3:
-            X = X.reshape(-1, X.shape[-1])
-    else:
-        X = torch.atleast_2d(torch.as_tensor(data))
+        if data.has_padding:
+            X = X[:int(data.mask.sum())]
+        return X.reshape(-1, X.shape[-1]) if X.ndim == 3 else X
+    return torch.atleast_2d(torch.as_tensor(data))
+
+
+def collect_rows(data, max_rows: Optional[int] = None) -> torch.Tensor:
+    """The rows of a dataset of vectors or descriptor matrices as one
+    float32 (n, d) tensor on the device, items in order (the reference
+    collects them to one machine, PCA.scala:177-185); above ``max_rows``
+    rows an even `linspace` subsample of them. A dataset placed over a
+    mesh's data axis (a `Dataset`, or a `HostDataset` of this rank's
+    items) gives every rank the rows one process collects, in its order
+    (`parallel.collect_rows`, JAX `_collect_rows` `:82-99`); only the
+    rows kept move."""
+    X = _local_rows(data)
+    mesh = getattr(data, "mesh", None)
+    if axis_size(mesh, DATA_AXIS) > 1:
+        return pcollect_rows(X.to(torch.float32), mesh, max_rows)
     if max_rows is not None and X.shape[0] > max_rows:
         idx = np.linspace(0, X.shape[0] - 1, max_rows, dtype=np.int64)
         X = X[torch.as_tensor(idx, device=X.device)]
@@ -123,9 +144,11 @@ def _pca_fit_spec(dims: int, label: str, train_spec=None):
 
 
 class PCAEstimator(Estimator):
-    """Local PCA (PCA.scala:162-247)."""
+    """Local PCA (PCA.scala:162-247): on a mesh every rank factors the
+    sample one process collects (`collect_rows`)."""
 
     precision_tolerance = "exact"  # moments/decomposition: f32 inputs
+    mesh_aware = True  # the sample collected over the data axis
 
     def __init__(self, dims: int, sample_rows: Optional[int] = 100_000):
         self.dims = dims
@@ -142,10 +165,14 @@ class PCAEstimator(Estimator):
 
 
 class DistributedPCAEstimator(Estimator):
-    """PCA by TSQR and the SVD of R (DistributedPCA.scala:20-74), on one
-    device: the QR of all the centred rows."""
+    """PCA by TSQR and the SVD of R (DistributedPCA.scala:20-74; JAX
+    `pca.py:156-224`). On a mesh's data axis: the mean all-reduced, a QR
+    of each rank's valid centred rows, the d × d R factors gathered over
+    ``data`` in rank order, a QR of their stack, then the SVD of R. One
+    rank (no mesh) is the QR of all the centred rows."""
 
     precision_tolerance = "exact"  # moments/decomposition: f32 inputs
+    mesh_aware = True  # TSQR over the data axis
 
     def __init__(self, dims: int):
         self.dims = dims
@@ -158,16 +185,28 @@ class DistributedPCAEstimator(Estimator):
         """TSQR's first stage is a QR of each shard's rows (JAX
         `pca.py:198-205`): the rows must arrive data-sharded, or the
         fit reshards the whole matrix first (KP601). Static: the
-        planner reads it; the fit across ranks is TSQR's slice."""
+        planner reads it."""
         from ...analysis.sharding import fit_sharding_demands
 
         return fit_sharding_demands(1)
 
     def fit(self, data) -> PCATransformer:
-        X = collect_rows(data)
-        mu = X.sum(dim=0) / X.shape[0]
-        V = _components_of_centred(X - mu)
-        return PCATransformer(V[:, :self.dims])
+        mesh = getattr(data, "mesh", None)
+        if axis_size(mesh, DATA_AXIS) == 1:
+            X = collect_rows(data)
+            mu = X.sum(dim=0) / X.shape[0]
+            V = _components_of_centred(X - mu)
+            return PCATransformer(V[:, :self.dims])
+        X = _local_rows(data).to(torch.float32)
+        d = X.shape[1]
+        total, n = psum((X.sum(dim=0), X.new_tensor(float(X.shape[0]))),
+                        mesh)
+        R = torch.linalg.qr(X - total / n, mode="r")[1]
+        if R.shape[0] < d:  # fewer rows here than columns
+            R = torch.cat([R, R.new_zeros((d - R.shape[0], d))])
+        R = torch.linalg.qr(all_gather_rows(R, mesh), mode="r")[1]
+        _, _, Vt = torch.linalg.svd(R, full_matrices=False)
+        return PCATransformer(_sign_convention(Vt.T)[:, :self.dims])
 
 
 def randomized_components(X: torch.Tensor, k: int, q: int,
@@ -242,7 +281,10 @@ class ColumnPCAEstimator(OptimizableEstimator):
     (n, d, rows an item) measured from the sample, as JAX's does
     (`pca.py:289-327`), and records ``chosen``, the profile it priced
     (``cost_profile``) and both ``costs``; the fit without a sample is
-    its default, local PCA. ``num_chips=None`` is one card."""
+    its default, local PCA. ``num_chips=None`` is the current mesh's data
+    shards (one card without a group), as JAX reads them (`:309-327`)."""
+
+    mesh_aware = True  # both routes are
 
     def __init__(self, dims: int, num_chips: Optional[int] = None):
         self.dims = dims
@@ -262,7 +304,7 @@ class ColumnPCAEstimator(OptimizableEstimator):
     def profile(self, sample, num_per_shard: int) -> CostProfile:
         """(n, d) of the rows the fit would see, from a sample of items:
         vectors or descriptor matrices."""
-        chips = self.num_chips or 1
+        chips = self.num_chips or n_data_shards()
         if isinstance(sample, HostDataset) and len(sample):
             first = sample.items[0]
             d = first.shape[-1]

@@ -20,7 +20,9 @@ block costs about 1 + (labels a row) Grams of work instead of k, and no
 fit (the fit's host syncs). Each class's system is factored on its own
 (`cholesky_ex`, one B × B matrix alive at a time), the infos checked
 once a fit (`block_ls.raise_if_unfactored`). Everything runs in true
-float32, as JAX pins ``HIGHEST``.
+float32, as JAX pins ``HIGHEST``. On a mesh's data axis the sums, the
+shared Gram, the correlations and each class's Gram are all-reduced a
+block, and every rank factors the same systems.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ...parallel.collectives import psum
+from ...parallel.mesh import DATA_AXIS, axis_size
 from ...workflow.pipeline import LabelEstimator
 from .block_ls import raise_if_unfactored
 from .linear import LinearMapper
@@ -35,29 +39,38 @@ from .linear import LinearMapper
 
 def bwls_fit(X: torch.Tensor, Y: torch.Tensor, mask: torch.Tensor,
              lam: float, mixture_weight: float, block_size: int,
-             num_iter: int):
+             num_iter: int, mesh=None):
     """(W, b, info) of the class-weighted BCD (`_bwls_fit`, `:31-101`).
     X (n, d) with d a multiple of ``block_size``; Y (n, k) the ±1
     indicators; ``mask`` (n,) the valid rows. ``info`` is nonzero where a
-    class's system was not positive definite."""
+    class's system was not positive definite.
+
+    On ``mesh`` X, Y and ``mask`` are this rank's rows (none of them
+    need be valid): the class sizes and the valid count, then the
+    weighted sums behind the means, and in each block the shared Gram,
+    the correlations and each class's Gram of its rows are all-reduced
+    over ``data`` (GSPMD's psum at JAX's einsums over the sharded rows),
+    and every rank solves every class's system."""
     n, d = X.shape
     k = Y.shape[1]
     dtype, dev = X.dtype, X.device
     mask = mask.to(dtype)
-    count = mask.sum()
     member = (Y > 0).to(dtype) * mask[:, None]                  # (n, k)
-    n_c = torch.clamp(member.sum(dim=0), min=1.0)
+    count, n_c = psum((mask.sum(), member.sum(dim=0)), mesh)
+    n_c = torch.clamp(n_c, min=1.0)
     a = mixture_weight / n_c                                    # (k,)
     beta = (1.0 - mixture_weight) / count
     Wts = a * member + beta * mask[:, None]                     # (n, k)
-    wsum = Wts.sum(dim=0)
-    xbar = (Wts.T @ X) / wsum[:, None]                          # (k, d)
-    ybar = (Wts * Y).sum(dim=0) / wsum
-    # the rows of each class and their counts, read once a fit
+    wsum, wx, wy = psum((Wts.sum(dim=0), Wts.T @ X,
+                         (Wts * Y).sum(dim=0)), mesh)
+    xbar = wx / wsum[:, None]                                   # (k, d)
+    ybar = wy / wsum
+    # the rows of each class held here and the classes' sizes, read
+    # once a fit
     cls, rows = member.T.nonzero(as_tuple=True)
     counts = torch.bincount(cls, minlength=k).tolist()
     class_rows = torch.split(rows, counts)
-    a_host = [mixture_weight / max(m, 1) for m in counts]
+    a_host = [mixture_weight / max(m, 1.0) for m in n_c.tolist()]
     Xm = X * mask[:, None]
 
     num_blocks = d // block_size
@@ -70,9 +83,11 @@ def bwls_fit(X: torch.Tensor, Y: torch.Tensor, mask: torch.Tensor,
             sl = slice(blk * block_size, (blk + 1) * block_size)
             Xb, xb = X[:, sl], xbar[:, sl]
             R1 = R + Xb @ W[blk]
-            shared = beta * (Xm[:, sl].T @ Xb) + eye
             WR = Wts * R1
-            C = Xb.T @ WR - xb.T * WR.sum(dim=0)                    # (B, k)
+            shared, XWR, wr = psum((Xm[:, sl].T @ Xb, Xb.T @ WR,
+                                    WR.sum(dim=0)), mesh)
+            shared = beta * shared + eye
+            C = XWR - xb.T * wr                                     # (B, k)
             u = wsum[:, None] * xb
             for c in range(k):
                 # G_c = a_c·X_cᵀX_c + shared − wsum_c·x̄_c x̄_cᵀ, factored
@@ -80,7 +95,10 @@ def bwls_fit(X: torch.Tensor, Y: torch.Tensor, mask: torch.Tensor,
                 # (the batched call takes MAGMA's, 1.6× slower at 20 ×
                 # 4096², `profile_weighted_ls.py`)
                 Xc = Xb.index_select(0, class_rows[c])
-                G = torch.addmm(shared, Xc.T, Xc, alpha=a_host[c])
+                if mesh is None:
+                    G = torch.addmm(shared, Xc.T, Xc, alpha=a_host[c])
+                else:
+                    G = psum(Xc.T @ Xc, mesh).mul_(a_host[c]).add_(shared)
                 G.addr_(u[c], xb[c], alpha=-1.0)
                 chol, failed = torch.linalg.cholesky_ex(G)
                 info = torch.maximum(info, failed)
@@ -94,7 +112,10 @@ def bwls_fit(X: torch.Tensor, Y: torch.Tensor, mask: torch.Tensor,
 class BlockWeightedLeastSquaresEstimator(LabelEstimator):
     """Class-weighted BCD (BlockWeightedLeastSquares.scala:36-371): the
     features zero-padded to a multiple of the block, which is at most
-    their width."""
+    their width. On a mesh the weighted sums and Grams are all-reduced
+    over ``data`` (`bwls_fit`)."""
+
+    mesh_aware = True  # sums and Grams all-reduced over the data axis
 
     def __init__(self, block_size: int, num_iter: int, lam: float,
                  mixture_weight: float = 0.5):
@@ -117,8 +138,10 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
         d_pad = -(-d // bs) * bs
         if d_pad != d:
             X = F.pad(X, (0, d_pad - d))
+        mesh = getattr(data, "mesh", None)
         W, b, info = bwls_fit(X, Y, data.mask, self.lam, self.mixture_weight,
-                              bs, self.num_iter)
+                              bs, self.num_iter,
+                              mesh if axis_size(mesh, DATA_AXIS) > 1 else None)
         raise_if_unfactored(info, "BWLS: a class's weighted ridge Gram "
                                   "matrix")
         return LinearMapper(W[:d], b)
@@ -127,6 +150,8 @@ class BlockWeightedLeastSquaresEstimator(LabelEstimator):
 class PerClassWeightedLeastSquares(LabelEstimator):
     """The same weighted normal equations in one block and one sweep
     (PerClassWeightedLeastSquares.scala:31-223)."""
+
+    mesh_aware = True  # as the block solver it runs
 
     def __init__(self, lam: float, mixture_weight: float = 0.5):
         self.lam = lam

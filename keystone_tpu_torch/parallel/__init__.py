@@ -4,7 +4,9 @@ Counterpart of `keystone_tpu/parallel/__init__.py` (`:1-59`), its export
 list less the names of `NamedSharding`s (`data_sharding`,
 `replicated_sharding`, `spec_of_array`: a `Dataset`'s placement is its
 ``spec``), plus the static tier's `MeshLayout` and `layout_of` and the
-model axis's `all_gather_columns` and `gather_block`.
+model axis's `all_gather_columns` and `gather_block`, and the row
+gathers by global index the data-axis estimators take, `gather_rows`
+and `collect_rows`.
 """
 
 from . import mesh
@@ -14,7 +16,9 @@ from .collectives import (
     all_reduce,
     broadcast,
     co_sharded,
+    collect_rows,
     gather_block,
+    gather_rows,
     psum,
     reshard,
     reshard_tree,
@@ -75,7 +79,9 @@ __all__ = [
     "all_reduce",
     "broadcast",
     "co_sharded",
+    "collect_rows",
     "gather_block",
+    "gather_rows",
     "psum",
     "reshard",
     "reshard_tree",

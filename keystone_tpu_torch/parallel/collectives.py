@@ -14,7 +14,10 @@ the model axis's, the ranks that hold its rows. A plain tensor is
 ``P()``; a `Dataset` on a mesh is ``P("data")``, or ``P("data",
 "model")`` where it holds a column tile (`Dataset.reshard` moves it).
 `all_gather_columns` is the model axis's gather: the one that a stage
-which does not run on a tile takes its input through.
+which does not run on a tile takes its input through. `gather_rows`
+(rows by global index, a KRR block's) and `collect_rows` (JAX's
+`_collect_rows`, one process's rows or sample on every rank) are the
+data axis's gathers for the estimators that need some rows whole.
 
 JAX's program cache (`_cached`, `_fn_key`) keeps a jitted program per
 collective and callback; eager torch builds no program, so there is
@@ -30,16 +33,18 @@ work queued before it and closes once the collective itself has, so its
 seconds are the collective's; otherwise they are what the host waited
 (all of it under gloo, which blocks).
 
-The reducing collectives (`all_reduce`, `psum`) take the mesh as a
-required argument, since a sum over ranks of a replicated value is
-wrong: `tree_reduce_sum` and `tree_aggregate` reduce over the mesh a
+The reducing collectives (`all_reduce`, `psum`) and the row gathers
+(`gather_rows`, `collect_rows`) take the mesh as a required argument
+(None: one process), since a sum or gather over ranks of a replicated
+value is wrong: `tree_reduce_sum` and `tree_aggregate` reduce over the mesh a
 `Dataset` is placed on, or the one given.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -284,6 +289,86 @@ def all_gather_rows(x, mesh=None, axis: str = meshlib.DATA_AXIS):
     _collective("all_gather", rows, lambda: dist.all_gather(
         parts, rows, group=group), axis)
     return torch.cat(parts)
+
+
+def _rank_starts(n_local: int, device, mesh, axis: str) -> np.ndarray:
+    """Each rank's first global row and the total, (size + 1,), from
+    every rank's ``n_local``: one all-reduce of a count a rank."""
+    group = meshlib.axis_group(mesh, axis)
+    counts = torch.zeros(dist.get_world_size(group), dtype=torch.int64,
+                         device=device)
+    counts[dist.get_group_rank(group, dist.get_rank())] = n_local
+    all_reduce(counts, mesh, axis)
+    return np.concatenate([[0], np.cumsum(counts.cpu().numpy())])
+
+
+def gather_rows(rows: torch.Tensor, ids, mesh, starts=None,
+                axis: str = meshlib.DATA_AXIS) -> torch.Tensor:
+    """Rows ``ids`` (global indices, in their order, repeats allowed) of
+    the matrix whose ranks along ``axis`` hold ``rows`` each, on every
+    rank: a KRR block's anchors, a sample. Rank r holds global rows
+    ``starts[r]:starts[r + 1]``; default ``rows.shape[0]`` a rank, a
+    `Dataset`'s placement. Each rank contributes the rows it owns: one
+    ``all_gather`` of a buffer as wide as the largest rank's share, or,
+    under gloo on the card, one ``all_reduce`` of a zeroed (len(ids),
+    …) buffer holding them (x + 0 = x, as `all_gather_columns`).
+    ``mesh`` None (one process), or an axis of one rank:
+    ``rows[ids]``."""
+    ids = np.asarray(ids, dtype=np.int64).reshape(-1)
+    dev = rows.device
+    if meshlib.axis_size(mesh, axis) == 1:
+        return rows[torch.as_tensor(ids, device=dev)]
+    group = meshlib.axis_group(mesh, axis)
+    size = dist.get_world_size(group)
+    me = dist.get_group_rank(group, dist.get_rank())
+    if starts is None:
+        starts = np.arange(size + 1, dtype=np.int64) * rows.shape[0]
+    owner = np.searchsorted(np.asarray(starts), ids, side="right") - 1
+    mine = np.nonzero(owner == me)[0]
+    local = torch.as_tensor(ids[mine] - starts[me], device=dev)
+    tail = tuple(rows.shape[1:])
+    if _gloo_on_card(rows):
+        out = rows.new_zeros((len(ids),) + tail)
+        out[torch.as_tensor(mine, device=dev)] = rows[local]
+        _collective("all_reduce", out, lambda: dist.all_reduce(
+            out, group=group), axis)
+        return out
+    counts = np.bincount(owner, minlength=size)
+    buf = rows.new_zeros((int(counts.max()),) + tail)
+    buf[:len(mine)] = rows[local]
+    parts = [torch.empty_like(buf) for _ in range(size)]
+    _collective("all_gather", buf, lambda: dist.all_gather(
+        parts, buf, group=group), axis)
+    out = rows.new_empty((len(ids),) + tail)
+    for r in range(size):
+        pos = np.nonzero(owner == r)[0]
+        if len(pos):
+            out[torch.as_tensor(pos, device=dev)] = parts[r][:len(pos)]
+    return out
+
+
+def collect_rows(rows: torch.Tensor, mesh,
+                 max_rows: Optional[int] = None,
+                 axis: str = meshlib.DATA_AXIS) -> torch.Tensor:
+    """JAX's `_collect_rows` over a mesh
+    (`keystone_tpu/nodes/learning/pca.py:82-99`): every rank's valid
+    ``rows`` (any count a rank) in rank order, the rows one process
+    holds, on every rank; above ``max_rows`` rows the same even
+    `linspace` subsample of them. Only the rows kept move: one
+    all-reduce of the counts, then `gather_rows`. ``mesh`` None: one
+    process."""
+    if meshlib.axis_size(mesh, axis) == 1:
+        starts = np.array([0, rows.shape[0]])
+    else:
+        starts = _rank_starts(rows.shape[0], rows.device, mesh, axis)
+    total = int(starts[-1])
+    if max_rows is not None and total > max_rows:
+        idx = np.linspace(0, total - 1, max_rows, dtype=np.int64)
+    elif meshlib.axis_size(mesh, axis) == 1:
+        return rows
+    else:
+        idx = np.arange(total, dtype=np.int64)
+    return gather_rows(rows, idx, mesh, starts, axis)
 
 
 def reshard(x, spec, mesh=None):

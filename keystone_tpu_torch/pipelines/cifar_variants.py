@@ -36,6 +36,17 @@ ones on given training views, from `random_crops` or
 `flipped_shuffled_crops`); the ``run_*`` functions load or synthesize
 the data, fit and score.
 
+On a mesh (JAX fits the same graphs on row-sharded data; `parallel/`)
+RandomPatchCifarKernel takes each rank's rows as RandomPatchCifar does:
+filters learned once and broadcast, K1 and K5 on each rank's rows, the
+KRR's blocks gathered (`nodes/learning/kernels.py`). The augmented pair
+draws its crops, flips and shuffle once over the whole training set in
+global order, as one process does, and places the views on the ranks
+(`_placed`), so every rank's views are one process's rows bit for bit;
+K1 runs at 24×24 on each rank's crops, and the test views' scores are
+gathered by `AugmentedExamplesEvaluator`. Each ``run_*`` takes the
+current mesh (none in one process).
+
     python -m keystone_tpu_torch.pipelines.cifar_variants linear-pixels
     python -m keystone_tpu_torch.pipelines.cifar_variants kernel --device cpu
     python -m keystone_tpu_torch.pipelines.cifar_variants random-cifar
@@ -79,6 +90,7 @@ from ..nodes.util.basic import (
     MaxClassifier,
 )
 from ..nodes.util.fusion import FusedBatchTransformer
+from ..parallel.mesh import DATA_AXIS, axis_size, current_mesh
 from ..utils.images import flip_horizontal
 from .random_patch_cifar import (
     RandomPatchCifarConfig,
@@ -209,9 +221,11 @@ class RandomPatchCifarKernelConfig(RandomPatchCifarConfig):
 
 
 def build_random_patch_cifar_kernel(train,
-                                    config: RandomPatchCifarKernelConfig):
-    """Build + fit the RandomPatchCifarKernel predictor on ``train``."""
-    filters, whitener = learn_filters(train.data, config)
+                                    config: RandomPatchCifarKernelConfig,
+                                    learned=None):
+    """Build + fit the RandomPatchCifarKernel predictor on ``train``;
+    ``learned``, given (filters, whitener), replaces filter learning."""
+    filters, whitener = learned or learn_filters(train.data, config)
     h, w, c = train.data.array.shape[1:]
     featurizer = (make_featurizer(filters, whitener, h, w, c, config)
                   .to_pipeline() >> Cacher("features"))
@@ -229,10 +243,12 @@ def build_random_patch_cifar_kernel(train,
 
 
 def run_random_patch_cifar_kernel(config: RandomPatchCifarKernelConfig,
-                                  device="cuda"):
+                                  device="cuda", mesh=None):
     """Load or synthesize the data, fit RandomPatchCifarKernel, score
-    train and test."""
-    train, test = load_data(config, device)
+    train and test; on ``mesh`` (default the current one) each rank's
+    rows."""
+    train, test = load_data(config, device,
+                            mesh if mesh is not None else current_mesh())
     return fit_and_score(
         lambda: build_random_patch_cifar_kernel(train, config), train, test,
         config.num_classes)
@@ -267,22 +283,35 @@ def augmented_featurizer(filters, whitener, config,
     return make_featurizer(filters, whitener, ap, ap, channels, pooled)
 
 
-def random_crops(train, config) -> LabeledData:
+def _placed(rows: torch.Tensor, mesh=None) -> Dataset:
+    """A `Dataset` of the whole ``rows``; on a mesh of more than one
+    data shard, this rank's rows of it, copied out so the whole array
+    can be freed."""
+    if axis_size(mesh, DATA_AXIS) == 1:
+        return Dataset(rows)
+    mine = Dataset(rows, mesh=mesh)
+    return Dataset(mine.array.clone(), count=mine.count, mesh=mesh,
+                   placed=True)
+
+
+def random_crops(train, config, mesh=None) -> LabeledData:
     """``patches_per_image`` random crops of every training image
     (`RandomPatcher`, seeded by ``config.seed``), each with its image's
-    label."""
+    label; ``train`` whole, the views placed on ``mesh``."""
     crops = RandomPatcher(config.patches_per_image, config.aug_patch,
                           config.aug_patch, seed=config.seed
                           ).apply_batch(train.data)
     labels = train.labels.array[:train.labels.count].repeat_interleave(
         config.patches_per_image)
-    return LabeledData(labels=Dataset(labels), data=crops)
+    return LabeledData(labels=_placed(labels, mesh),
+                       data=_placed(crops.array, mesh))
 
 
-def flipped_shuffled_crops(train, config) -> LabeledData:
+def flipped_shuffled_crops(train, config, mesh=None) -> LabeledData:
     """`random_crops`, each flipped with probability ``flip_chance``
     (seed + 1), then images and labels shuffled by one numpy permutation
-    (seed + 2) applied on the device (`cifar_variants.py:289-307`)."""
+    (seed + 2) applied on the device (`cifar_variants.py:289-307`); all
+    drawn over the whole ``train``, the views placed on ``mesh``."""
     crops = random_crops(train, config)
     images = RandomImageTransformer(config.flip_chance, flip_horizontal,
                                     seed=config.seed + 1
@@ -290,8 +319,8 @@ def flipped_shuffled_crops(train, config) -> LabeledData:
     perm = np.random.default_rng(config.seed + 2).permutation(
         crops.data.count)
     perm = torch.as_tensor(perm, device=images.device)
-    return LabeledData(labels=Dataset(crops.labels.array[perm]),
-                       data=Dataset(images.array[perm]))
+    return LabeledData(labels=_placed(crops.labels.array[perm], mesh),
+                       data=_placed(images.array[perm], mesh))
 
 
 def _learned_augmented_featurizer(aug: LabeledData, config):
@@ -330,10 +359,11 @@ def build_random_patch_cifar_augmented_kernel(
     )
 
 
-def center_corner_views(test, config, with_flips: bool):
+def center_corner_views(test, config, with_flips: bool, mesh=None):
     """(views, ids, labels): the centre and corner crops of every test
     image (and their flips), image-major, each row with its image's
-    index and label."""
+    index and label; ``test`` whole, on ``mesh`` three placed
+    datasets."""
     patcher = CenterCornerPatcher(config.aug_patch, config.aug_patch,
                                   with_flips=with_flips)
     views = patcher.apply_batch(test.data)
@@ -341,35 +371,42 @@ def center_corner_views(test, config, with_flips: bool):
     ids = torch.arange(n, device=views.device).repeat_interleave(
         patcher.views)
     labels = test.labels.array[:n].repeat_interleave(patcher.views)
-    return views, ids, labels
+    if axis_size(mesh, DATA_AXIS) == 1:
+        return views, ids, labels
+    return (_placed(views.array, mesh), _placed(ids, mesh),
+            _placed(labels, mesh))
 
 
-def score_center_corner_views(scorer, test, config, with_flips: bool):
+def score_center_corner_views(scorer, test, config, with_flips: bool,
+                              mesh=None):
     """Test metrics: ``scorer``'s scores of the test views, averaged an
-    image by `AugmentedExamplesEvaluator`."""
-    views, ids, labels = center_corner_views(test, config, with_flips)
+    image by `AugmentedExamplesEvaluator` (on ``mesh``, over every
+    rank's views)."""
+    views, ids, labels = center_corner_views(test, config, with_flips,
+                                             mesh)
     return AugmentedExamplesEvaluator(config.num_classes)(
         ids, scorer(views), labels)
 
 
 def fit_and_score_augmented(augment, build, train, test, config,
-                            with_flips: bool):
-    """Augment the training set with ``augment(train, config)``, fit
-    with ``build(views, config)`` and score the training views and the
-    test views. The train clock covers the augmentation, the fit and the
-    training views' predict and evaluation, closed by a device sync; the
-    rate counts training views."""
+                            with_flips: bool, mesh=None):
+    """Augment the training set with ``augment(train, config, mesh)``,
+    fit with ``build(views, config)`` and score the training views and
+    the test views. The train clock covers the augmentation, the fit and
+    the training views' predict and evaluation, closed by a device sync;
+    the rate counts training views. ``train`` and ``test`` are whole;
+    on ``mesh`` the views are placed on its ranks."""
     dev = train.data.device
     _sync(dev)
     t0 = time.perf_counter()
-    aug = augment(train, config)
+    aug = augment(train, config, mesh)
     scorer = build(aug, config)
     train_metrics = MulticlassClassifierEvaluator(config.num_classes)(
         (scorer >> MaxClassifier())(aug.data), aug.labels)
     _sync(dev)
     t_train = time.perf_counter() - t0
     test_metrics = score_center_corner_views(scorer, test, config,
-                                             with_flips)
+                                             with_flips, mesh)
     return {
         "train_error": train_metrics.error,
         "test_error": test_metrics.error,
@@ -378,28 +415,34 @@ def fit_and_score_augmented(augment, build, train, test, config,
         "train_views": aug.data.count,
         "images_per_sec": aug.data.count / t_train,
         "summary": test_metrics.summary(),
+        "test_confusion": test_metrics.confusion,
         "scorer": scorer,
     }
 
 
 def run_random_patch_cifar_augmented(config: RandomPatchCifarAugmentedConfig,
-                                     device="cuda"):
+                                     device="cuda", mesh=None):
     """Load or synthesize the data, fit RandomPatchCifarAugmented on
-    random crops, score five views a test image."""
+    random crops, score five views a test image; on ``mesh`` (default
+    the current one) the views placed on its ranks."""
     train, test = load_data(config, device)
-    return fit_and_score_augmented(random_crops,
-                                   build_random_patch_cifar_augmented,
-                                   train, test, config, with_flips=False)
+    return fit_and_score_augmented(
+        random_crops, build_random_patch_cifar_augmented, train, test,
+        config, with_flips=False,
+        mesh=mesh if mesh is not None else current_mesh())
 
 
 def run_random_patch_cifar_augmented_kernel(
-        config: RandomPatchCifarAugmentedKernelConfig, device="cuda"):
+        config: RandomPatchCifarAugmentedKernelConfig, device="cuda",
+        mesh=None):
     """Load or synthesize the data, fit RandomPatchCifarAugmentedKernel
-    on flipped, shuffled crops, score ten views a test image."""
+    on flipped, shuffled crops, score ten views a test image; on
+    ``mesh`` (default the current one) the views placed on its ranks."""
     train, test = load_data(config, device)
-    return fit_and_score_augmented(flipped_shuffled_crops,
-                                   build_random_patch_cifar_augmented_kernel,
-                                   train, test, config, with_flips=True)
+    return fit_and_score_augmented(
+        flipped_shuffled_crops, build_random_patch_cifar_augmented_kernel,
+        train, test, config, with_flips=True,
+        mesh=mesh if mesh is not None else current_mesh())
 
 
 #: each CLI choice: its config, its run function, and the options it

@@ -52,6 +52,7 @@ from ..nodes.util.basic import (
     MaxClassifier,
 )
 from ..loaders.image_loaders import imagenet_loader
+from ..parallel.mesh import current_mesh
 from ..utils.images import LabeledImage
 from ..workflow.pipeline import Pipeline, Transformer
 from .random_patch_cifar import _sync
@@ -105,7 +106,7 @@ class _Concat(Transformer):
         if not isinstance(data, ZippedHostDataset):
             return data.map(self.apply)
         n = len(data)
-        joined = torch.cat([p.stack().array.reshape(n, -1)
+        joined = torch.cat([p.stack().array[:n].reshape(n, -1)
                             for p in data.parts], dim=1)
         return HostDataset.from_buckets([(list(range(n)), joined)], n,
                                         data.device)
@@ -187,8 +188,8 @@ def build(train: HostDataset, config: ImageNetSiftLcsFVConfig,
     featurizer = (Pipeline.gather([sift_branch, lcs_branch]) >> _Concat()
                   >> _Stack())
     labels = ClassLabelIndicatorsFromInt(config.num_classes)(Dataset(
-        np.asarray([x.label for x in train.items], np.int32),
-        device=dev)).get()
+        np.asarray(train.map(lambda x: x.label).gather_items(), np.int32),
+        device=dev, mesh=train.mesh)).get()
     return featurizer.and_then(
         BlockWeightedLeastSquaresEstimator(BWLS_BLOCK, BWLS_PASSES,
                                            config.lam),
@@ -197,34 +198,47 @@ def build(train: HostDataset, config: ImageNetSiftLcsFVConfig,
 
 def run_on(train: HostDataset, test: HostDataset,
            config: ImageNetSiftLcsFVConfig,
-           device: DeviceLike = "cuda") -> dict:
+           device: DeviceLike = "cuda", mesh=None) -> dict:
     """Build, fit on ``train`` and evaluate on ``test``; ``seconds`` runs
     from the build to the test evaluation, closed by a device sync, as
-    the JAX package's clock (`:139-172`)."""
+    the JAX package's clock (`:139-172`). On ``mesh`` (a data axis of
+    more than one rank; every rank passes all the images) each rank
+    featurizes its share of the images (`HostDataset.on_mesh`), the
+    PCA, GMM and BWLS fits see every rank's rows, ``predictions`` are
+    this rank's rows, and the accuracy counts every rank's test
+    images."""
     dev = resolve_device(device)
-    train = HostDataset(train.items, device=dev)
-    test = HostDataset(test.items, device=dev)
+    train = HostDataset.on_mesh(train.items, mesh, device=dev)
+    test = HostDataset.on_mesh(test.items, mesh, device=dev)
+    if test.mesh is None:
+        actuals = [x.label for x in test.items]
+    else:
+        actuals = Dataset(np.asarray(
+            test.map(lambda x: x.label).gather_items(), np.int32),
+            device=dev, mesh=test.mesh)
     _sync(dev)
     t0 = time.perf_counter()
     predictor = build(train, config, dev)
+    predictions = predictor(test).get()
     test_eval = MulticlassClassifierEvaluator(config.num_classes)(
-        predictor(test), [x.label for x in test.items])
+        predictions, actuals)
     _sync(dev)
     elapsed = time.perf_counter() - t0
     return {"test_accuracy": test_eval.accuracy,
             "test_error": test_eval.error, "seconds": elapsed,
-            "images_per_sec": (len(train) + len(test)) / elapsed,
-            "predictor": predictor}
+            "images_per_sec": (train.total + test.total) / elapsed,
+            "predictions": predictions, "predictor": predictor}
 
 
 def run(config: ImageNetSiftLcsFVConfig,
-        device: DeviceLike = "cuda") -> dict:
+        device: DeviceLike = "cuda", mesh=None) -> dict:
     """Fit and score on ``device``: the images of ``train_tar`` and
     ``test_tar`` (default: the train tar), labelled through the
     ``synset,label`` rows of ``labels_map_csv`` and decoded by
     `loaders/image_loaders.py::imagenet_loader` onto ``device``
     (`:114-121`); without a tar, the synthetic images at ``n_synth`` and
-    ``n_synth // 3``."""
+    ``n_synth // 3``. On ``mesh`` (default the current one: none in
+    one process) each rank featurizes its share (`run_on`)."""
     device = resolve_device(device)
     if config.train_tar:
         labels_map = read_labels_map(config.labels_map_csv)
@@ -236,7 +250,8 @@ def run(config: ImageNetSiftLcsFVConfig,
                                     config.seed)
         test = _synthetic_imagenet(config.n_synth // 3, config.num_classes,
                                    config.seed + 1)
-    return run_on(train, test, config, device)
+    return run_on(train, test, config, device,
+                  mesh if mesh is not None else current_mesh())
 
 
 def read_labels_map(path: str) -> dict:

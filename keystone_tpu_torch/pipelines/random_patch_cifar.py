@@ -552,6 +552,7 @@ def fit_and_score(build, train, test, num_classes: int):
         "train_seconds": t_train,
         "images_per_sec": train.data.count / t_train,
         "summary": test_metrics.summary(),
+        "test_confusion": test_metrics.confusion,
         "predictor": predictor,
     }
 

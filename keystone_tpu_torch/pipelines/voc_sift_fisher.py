@@ -11,6 +11,12 @@ one pass) → scores, evaluated by mean average precision. Or the PCA and
 the GMM come from the reference's sideband CSVs (``--pca-file``,
 ``--gmm-{mean,var,wts}-file``) and are not fit.
 
+On a mesh (JAX fits the same graph on row-sharded data) every rank
+holds its share of the images; SIFT, the gray chain and the Fisher-vector
+tail (K4) run on its images, the PCA and GMM fits collect one process's
+sample from every rank (`pca.collect_rows`), BWLS all-reduces its sums
+and Grams, and the mAP is computed over every rank's scores.
+
 The images are a `HostDataset`; each stage runs once a bucket of
 equal-shape images on the device, and the descriptors, projections and
 Fisher vectors stay there. The per-image stages of the Fisher vector
@@ -63,6 +69,7 @@ from ..nodes.util.basic import (
     MatrixVectorizer,
 )
 from ..loaders.image_loaders import voc_loader
+from ..parallel.mesh import current_mesh
 from ..utils.images import MultiLabeledImage
 from ..workflow.pipeline import Pipeline, Transformer
 from .random_patch_cifar import _sync
@@ -126,12 +133,19 @@ class _Stack(Transformer):
         return data
 
 
+def _label_lists(ds: HostDataset) -> list:
+    """Each image's class ids, every rank's images on a mesh."""
+    return ds.map(lambda x: list(x.labels)).gather_items()
+
+
 def _pad_labels(ds: HostDataset, num_classes: int) -> np.ndarray:
-    """Each image's class ids, padded with −1 to the longest list."""
-    max_l = max(len(x.labels) for x in ds.items)
-    out = -np.ones((len(ds), max_l), np.int32)
-    for i, x in enumerate(ds.items):
-        out[i, :len(x.labels)] = list(x.labels)
+    """Each image's class ids, padded with −1 to the longest list (on a
+    mesh, every rank's images)."""
+    lists = _label_lists(ds)
+    max_l = max(len(x) for x in lists)
+    out = -np.ones((len(lists), max_l), np.int32)
+    for i, x in enumerate(lists):
+        out[i, :len(x)] = x
     return out
 
 
@@ -186,7 +200,8 @@ def build(train: HostDataset, config: VOCSIFTFisherConfig,
     featurizer = (pca_featurizer.and_then(fisher) >> MatrixVectorizer()
                   >> SignedHellingerMapper() >> NormalizeRows() >> _Stack())
     labels = ClassLabelIndicatorsFromIntArray(config.num_classes)(
-        Dataset(_pad_labels(train, config.num_classes), device=dev)).get()
+        Dataset(_pad_labels(train, config.num_classes), device=dev,
+                mesh=train.mesh)).get()
     predictor = featurizer.and_then(
         BlockWeightedLeastSquaresEstimator(BWLS_BLOCK, BWLS_PASSES,
                                            config.lam,
@@ -228,14 +243,19 @@ def analyzable(config: Optional[VOCSIFTFisherConfig] = None,
 
 
 def run_on(train: HostDataset, test: HostDataset,
-           config: VOCSIFTFisherConfig, device: DeviceLike = "cuda") -> dict:
+           config: VOCSIFTFisherConfig, device: DeviceLike = "cuda",
+           mesh=None) -> dict:
     """Build the predictor, fit it on ``train`` and score ``test``.
     ``seconds`` runs from the build to the test scores, closed by a
     device sync, as the JAX package's clock (`:124-185`); mAP comes
-    after it."""
+    after it. On ``mesh`` (a data axis of more than one rank; every
+    rank passes all the images) each rank runs SIFT and the Fisher
+    vectors on its share of the images (`HostDataset.on_mesh`), the
+    PCA, GMM and BWLS fits see every rank's rows, ``scores`` are this
+    rank's rows, and the mAP ranks every rank's."""
     dev = resolve_device(device)
-    train = HostDataset(train.items, device=dev)
-    test = HostDataset(test.items, device=dev)
+    train = HostDataset.on_mesh(train.items, mesh, device=dev)
+    test = HostDataset.on_mesh(test.items, mesh, device=dev)
     _sync(dev)
     t0 = time.perf_counter()
     model = build(train, config, dev)
@@ -243,19 +263,22 @@ def run_on(train: HostDataset, test: HostDataset,
     _sync(dev)
     elapsed = time.perf_counter() - t0
     aps = MeanAveragePrecisionEvaluator(config.num_classes)(
-        scores, [list(x.labels) for x in test.items])
+        scores, _label_lists(test))
     return {"map": float(aps.mean()), "aps": aps.tolist(),
             "seconds": elapsed,
-            "images_per_sec": (len(train) + len(test)) / elapsed,
+            "images_per_sec": (train.total + test.total) / elapsed,
             "scores": scores, "model": model}
 
 
-def run(config: VOCSIFTFisherConfig, device: DeviceLike = "cuda") -> dict:
+def run(config: VOCSIFTFisherConfig, device: DeviceLike = "cuda",
+        mesh=None) -> dict:
     """Fit and score on ``device``: the images of ``train_tar`` (labels
     ``train_labels``) and ``test_tar`` (default: the train tar and
     labels), decoded by `loaders/image_loaders.py::voc_loader` onto
     ``device`` (`:116-119`); without a tar, the synthetic images at
-    ``n_synth`` and ``n_synth // 3``."""
+    ``n_synth`` and ``n_synth // 3``. On ``mesh`` (default the current
+    one: none in one process) each rank featurizes its share of the
+    images (`run_on`)."""
     device = resolve_device(device)
     if config.train_tar:
         train = voc_loader(config.train_tar, config.train_labels,
@@ -268,7 +291,8 @@ def run(config: VOCSIFTFisherConfig, device: DeviceLike = "cuda") -> dict:
                                config.seed)
         test = _synthetic_voc(config.n_synth // 3, config.num_classes,
                               config.seed + 1)
-    return run_on(train, test, config, device)
+    return run_on(train, test, config, device,
+                  mesh if mesh is not None else current_mesh())
 
 
 def main(argv=None):

@@ -71,14 +71,18 @@ class StreamingDatasetExpression(DatasetExpression):
     `Chunk`s. ``iter_chunks()`` drains it while memoizing, so after a
     full drain (or a ``.get``) the expression behaves as a forced
     `DatasetExpression`. Interleaved partial drains by two consumers
-    raise."""
+    raise. ``placement``, where given, returns the stage's input once
+    the stream is drained: a `HostDataset` assembled from the chunks
+    takes its mesh placement (`data/dataset.py::keep_host_placement`)."""
 
-    __slots__ = ("_chunks_thunk", "_draining", "_drained", "_live_iter",
-                 "_failed")
+    __slots__ = ("_chunks_thunk", "_placement", "_draining", "_drained",
+                 "_live_iter", "_failed")
 
-    def __init__(self, chunks_thunk: Callable[[], Iterator[Chunk]]):
+    def __init__(self, chunks_thunk: Callable[[], Iterator[Chunk]],
+                 placement: Optional[Callable[[], Any]] = None):
         super().__init__(self._materialize)
         self._chunks_thunk = chunks_thunk
+        self._placement = placement
         self._draining = False
         # chunks pulled so far and the suspended producer: a consumer
         # that stops mid-stream must not make a later force re-run it
@@ -147,6 +151,11 @@ class StreamingDatasetExpression(DatasetExpression):
                     indexed.append((idxs, payload))
             self._value = (whole if whole is not _UNSET
                            else self._assemble(indexed))
+            if self._placement is not None:
+                from ..data.dataset import keep_host_placement
+
+                self._value = keep_host_placement(self._value,
+                                                  self._placement())
             self._thunk = None
             self._chunks_thunk = None
             self._live_iter = None
@@ -168,7 +177,7 @@ class StreamingDatasetExpression(DatasetExpression):
                 else:
                     yield idxs, chunk_fn(payload)
 
-        return StreamingDatasetExpression(thunk)
+        return StreamingDatasetExpression(thunk, lambda: self.get)
 
 
 class TransformerExpression(Expression):

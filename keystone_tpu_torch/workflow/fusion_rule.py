@@ -290,7 +290,7 @@ class FusedChainOperator(Operator):
                 lambda: make().single_transform([data.get]))
         if _overlap_enabled():
             return StreamingDatasetExpression(
-                lambda: _streamed_batch(make(), data))
+                lambda: _streamed_batch(make(), data), lambda: data.get)
         return DatasetExpression(lambda: make().batch_transform([data.get]))
 
 

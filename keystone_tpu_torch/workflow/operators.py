@@ -235,13 +235,16 @@ class DatumOperator(Operator):
 def _gathers_model_tiles(fn):
     """``fn``, a batch path, taking its datasets' column tiles gathered
     over the model axis unless its operator is ``model_aware``
-    (`parallel/mesh.py::gather_model_inputs`)."""
+    (`parallel/mesh.py::gather_model_inputs`), and keeping a mesh
+    `HostDataset`'s placement on the one it returns
+    (`data/dataset.py::keep_host_placement`)."""
+    from ..data.dataset import keep_host_placement
     from ..parallel.mesh import gather_model_inputs
 
     @functools.wraps(fn)
     def wrapped(self, *args, **kwargs):
         args, kwargs = gather_model_inputs(self, args, kwargs)
-        return fn(self, *args, **kwargs)
+        return keep_host_placement(fn(self, *args, **kwargs), args)
 
     return wrapped
 
@@ -329,7 +332,7 @@ class TransformerOperator(Operator):
         if len(deps) == 1 and _overlap_enabled():
             dep = deps[0]
             return StreamingDatasetExpression(
-                lambda: _streamed_batch(self, dep))
+                lambda: _streamed_batch(self, dep), lambda: dep.get)
         return DatasetExpression(
             lambda: self.batch_transform([d.get for d in deps]))
 
@@ -444,7 +447,8 @@ class DelegatingOperator(Operator):
             # it here would run the fit eagerly
             dep = data_deps[0]
             return StreamingDatasetExpression(
-                lambda: _streamed_batch(transformer_expr.get, dep))
+                lambda: _streamed_batch(transformer_expr.get, dep),
+                lambda: dep.get)
         return DatasetExpression(lambda: transformer_expr.get
                                  .batch_transform([d.get for d in data_deps]))
 

@@ -220,6 +220,27 @@ def test_cuda_elementwise_chain_matches_plain(cuda_device, name, n,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,ranks", [(4096, 2), (4001, 2), (4001, 4)])
+def test_cuda_rbf_block_on_a_rank_s_rows_is_the_whole_s(cuda_device, m,
+                                                        ranks):
+    """The data axis runs K5 on each rank's contiguous share of X (a KRR
+    fit block's width and depth, counts 2 and 4 ranks pad): each share's
+    block equals the whole matrix's block restricted to those rows, to
+    5e-5 (a row's entries do not depend on the rows beside it; the plain
+    version's bound)."""
+    X, Yb, _ = _rbf_fit_block(cuda_device, m=m)
+    whole = kernels.rbf_block(X, Yb, 2e-3)
+    per = -(-m // ranks)
+    for r in range(ranks):
+        rows = X[r * per:(r + 1) * per].contiguous()
+        got = kernels.rbf_block(rows, Yb, 2e-3)
+        torch.cuda.synchronize()
+        assert got.shape == (rows.shape[0], Yb.shape[0])
+        assert float((got - whole[r * per:(r + 1) * per]).abs().max()) \
+            <= 5e-5
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,n,d,gamma", [
     (70, 33, 50, 0.07),      # ragged on every axis of a 128x128x32 tile
     (300, 257, 440, 0.01),   # bench.py's KRR width, ragged

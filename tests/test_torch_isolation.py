@@ -266,3 +266,74 @@ def test_the_model_axis_entry_points_ask_for_the_card():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_multihost("127.0.0.1:1", 2, 0, backend="gloo")
+
+
+def test_the_data_axis_estimator_modules_are_in_scope():
+    """The estimators, evaluators and pipelines that fit across ranks
+    since the image side of the data axis are held to the same rule."""
+    names = {str(p.relative_to(REPO)) for p in PORT_FILES}
+    for module in ("nodes/learning/kernels.py", "nodes/learning/pca.py",
+                   "nodes/learning/kmeans.py", "nodes/learning/gmm.py",
+                   "nodes/learning/weighted_ls.py",
+                   "nodes/images/fisher_vector.py",
+                   "evaluation/augmented.py", "evaluation/map_evaluator.py",
+                   "pipelines/cifar_variants.py",
+                   "pipelines/voc_sift_fisher.py",
+                   "pipelines/imagenet_sift_lcs_fv.py"):
+        assert f"keystone_tpu_torch/{module}" in names, module
+
+
+def test_the_row_gathers_load_no_jax():
+    """`gather_rows`, `collect_rows` and a `HostDataset` placed on no
+    mesh run without JAX or the JAX package in the process."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "import torch\n"
+        "from keystone_tpu_torch.data.dataset import HostDataset\n"
+        "from keystone_tpu_torch.nodes.learning.pca import collect_rows\n"
+        "from keystone_tpu_torch.parallel import gather_rows\n"
+        "x = torch.arange(12.0).reshape(6, 2)\n"
+        "assert gather_rows(x, [5, 0, 5], None).tolist() == \\\n"
+        "    [[10.0, 11.0], [0.0, 1.0], [10.0, 11.0]]\n"
+        "items = [np.ones((2, 3), np.float32), np.zeros((1, 3), np.float32)]\n"
+        "ds = HostDataset.on_mesh(items, None, device='cpu')\n"
+        "assert ds.mesh is None and collect_rows(ds).shape == (3, 3)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m == 'jax' or m.startswith(('jax.', 'keystone_tpu.')))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("pipeline", ["kernel", "augmented",
+                                      "augmented_kernel", "voc",
+                                      "imagenet"])
+def test_the_data_axis_pipelines_ask_for_the_card(pipeline):
+    """The pipelines that take the current mesh default to the card and
+    raise without one, mesh or not."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    from keystone_tpu_torch.pipelines import cifar_variants as cv
+    from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as imagenet
+    from keystone_tpu_torch.pipelines import voc_sift_fisher as voc
+
+    calls = {
+        "kernel": lambda: cv.run_random_patch_cifar_kernel(
+            cv.RandomPatchCifarKernelConfig(synth_train=8, synth_test=4)),
+        "augmented": lambda: cv.run_random_patch_cifar_augmented(
+            cv.RandomPatchCifarAugmentedConfig(synth_train=8, synth_test=4)),
+        "augmented_kernel": lambda: cv.run_random_patch_cifar_augmented_kernel(
+            cv.RandomPatchCifarAugmentedKernelConfig(synth_train=8,
+                                                     synth_test=4)),
+        "voc": lambda: voc.run(voc.VOCSIFTFisherConfig(n_synth=6,
+                                                       num_classes=3)),
+        "imagenet": lambda: imagenet.run(
+            imagenet.ImageNetSiftLcsFVConfig(n_synth=6)),
+    }
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        calls[pipeline]()

@@ -147,7 +147,7 @@ def test_krr_repeated_ids_add_up():
     mask = torch.ones(8)
     ids = torch.tensor([0, 3, 0])
     alpha, KA = torch.zeros((8, 2)), torch.zeros((8, 2))
-    port_kernels.krr_step(Xt, Yt, mask, alpha, KA, 0.5, 0.2, ids)
+    port_kernels.krr_step(None, Xt, Yt, mask, alpha, KA, 0.5, 0.2, ids)
     Kb = kernels.rbf_block_reference(Xt, Xt[ids], 0.2)
     A = Kb[ids] + 0.5 * torch.eye(3)
     delta = torch.linalg.solve(A, Yt[ids])

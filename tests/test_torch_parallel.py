@@ -310,16 +310,18 @@ def test_solver_agrees_across_mesh_shapes(tmp_path_factory):
 
 
 def test_guard_raises_for_estimators_not_mesh_aware(ranks):
-    """GMM and k-means fit on a multi-rank `Dataset` raise, naming the
-    class and the ROADMAP item, instead of fitting one rank's rows."""
+    """The ZCA whitener and the approximate PCA fit on a multi-rank
+    `Dataset` raise, naming the class and the ROADMAP item, instead of
+    fitting one rank's rows (GMM and k-means, which this test held
+    before, fit across ranks: `test_torch_data_axis_estimators.py`)."""
     if ranks[0] == 1:
         for res, _ in ranks[1]:
-            assert res["guard_gmm"] == res["guard_kmeans"] == ""
+            assert res["guard_zca"] == res["guard_approx_pca"] == ""
         return
     for res, _ in ranks[1]:
-        assert "GaussianMixtureModelEstimator" in res["guard_gmm"]
-        assert "KMeansPlusPlusEstimator" in res["guard_kmeans"]
-        assert "ROADMAP queue 1, item 4" in res["guard_gmm"]
+        assert "ZCAWhitenerEstimator" in res["guard_zca"]
+        assert "ApproximatePCAEstimator" in res["guard_approx_pca"]
+        assert "ROADMAP queue 1, item 4" in res["guard_zca"]
 
 
 def test_per_process_dispatch_counters(ranks):

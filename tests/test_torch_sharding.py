@@ -426,22 +426,40 @@ def test_per_device_peak_divides_fleet_peak_by_shards():
 
 
 def test_kp600_per_device_budget_replaces_kp202():
+    """KP600 on the per-device budget, and the bytes equal to JAX's.
+
+    Both memory passes stream a chain's output in chunks of the
+    execution config's chunk rows, six in flight. The port's default
+    chunk is 1,024 rows (`keystone_tpu_torch/workflow/env.py`), JAX's
+    256; six 1,024-row chunks of 1 KiB rows outweigh the 4,096-row
+    stage, so at its own default the port charges each stage whole
+    (2 × 4 MiB). Given JAX's chunk, its peaks are JAX's."""
+    from keystone_tpu.workflow.env import execution_config as jax_config
+
+    chunk = jax_config().chunk_size
     graph = _chain(dim=256, count=4096).graph
-    tight = _full(graph, hbm_budget_bytes=256 << 10)
+    tight = _full(graph, hbm_budget_bytes=256 << 10, chunk_rows=chunk)
     assert tight.by_rule("KP600") and not tight.by_rule("KP202")
     mem = tight.memory
     assert mem.per_device_peak_bytes < mem.peak_bytes
-    mid = _full(graph, hbm_budget_bytes=(mem.per_device_peak_bytes
-                                         + mem.peak_bytes) // 2)
+    mid = _full(graph, chunk_rows=chunk,
+                hbm_budget_bytes=(mem.per_device_peak_bytes
+                                  + mem.peak_bytes) // 2)
     assert not mid.by_rule("KP600") and not mid.by_rule("KP202")
     jtight = jax_validate(_jax_chain(dim=256, count=4096).graph,
                           level="full", hbm_budget_bytes=256 << 10)
     assert jtight.by_rule("KP600") and not jtight.by_rule("KP202")
-    # each package's per-device peak is its own memory model's divided by
-    # the 8 data shards (the models' streaming discounts differ)
+    # JAX's 8-device mesh against DATA8: the fleet peak and a device's
+    assert mem.peak_bytes == jtight.memory.peak_bytes
+    assert mem.per_device_peak_bytes == jtight.memory.per_device_peak_bytes
     assert mem.per_device_peak_bytes == mem.peak_bytes // 8
-    assert jtight.memory.per_device_peak_bytes == \
-        jtight.memory.peak_bytes // 8
+    # one card: the per-device peak is the fleet peak, JAX's
+    one = validate_graph(graph, level="full", chunk_rows=chunk).memory
+    assert one.peak_bytes == one.per_device_peak_bytes \
+        == jtight.memory.peak_bytes
+    # the port's own chunk streams nothing here: each stage whole
+    own = validate_graph(graph, level="full").memory
+    assert own.peak_bytes == 2 * 4096 * 256 * 4
 
 
 def test_one_card_has_no_kp6xx_and_kp600_in_kp202_place():

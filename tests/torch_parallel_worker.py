@@ -157,11 +157,11 @@ def collectives_job(rank, world, port, out_dir, res, arr):
     from keystone_tpu_torch.data.dataset import Dataset
     from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
     from keystone_tpu_torch.nodes.learning import (
+        ApproximatePCAEstimator,
         BlockLeastSquaresEstimator,
         DenseLBFGSwithL2,
-        GaussianMixtureModelEstimator,
-        KMeansPlusPlusEstimator,
         LinearMapEstimator,
+        ZCAWhitenerEstimator,
     )
     from keystone_tpu_torch.nodes.learning.block_ls import BlockLinearMapper
     from keystone_tpu_torch.nodes.stats import StandardScaler
@@ -318,8 +318,8 @@ def collectives_job(rank, world, port, out_dir, res, arr):
     # the guard: unsupervised fits that are not mesh-aware
     pts = Dataset.from_numpy(np.random.default_rng(2).normal(
         size=(40, 3)).astype(np.float32), mesh=mesh)
-    for name, est in (("gmm", GaussianMixtureModelEstimator(2)),
-                      ("kmeans", KMeansPlusPlusEstimator(2, 3))):
+    for name, est in (("zca", ZCAWhitenerEstimator()),
+                      ("approx_pca", ApproximatePCAEstimator(2))):
         try:
             est.fit(pts)
             res[f"guard_{name}"] = ""
@@ -747,8 +747,252 @@ def _planner_enforces(mesh, res, arr):
     res["planner_on"] = optimize(True)
 
 
+def estimator_data():
+    """Seeded inputs of `estimators_job`, made alike by every rank and by
+    the parent: 197 rows (a count 2 and 4 ranks pad), descriptor
+    matrices of ragged counts, multi-label ±1 indicators, a 9-row BWLS
+    set (four ranks leave the last one no valid row), augmented ids and
+    scores, mAP scores with ties."""
+    rng = np.random.default_rng(11)
+    n, d = 197, 12
+    centers = rng.normal(scale=3.0, size=(4, d)).astype(np.float32)
+    which = rng.integers(0, 4, size=n)
+    X = (centers[which] + rng.normal(size=(n, d))).astype(np.float32)
+    Y = -np.ones((n, 4), np.float32)
+    Y[np.arange(n), which] = 1.0
+    Y[np.arange(0, n, 7), (which[::7] + 1) % 4] = 1.0   # multi-label rows
+    Xt = (centers[rng.integers(0, 4, size=61)]
+          + rng.normal(size=(61, d))).astype(np.float32)
+    desc = [rng.normal(size=(int(rng.integers(5, 9)), 6)).astype(np.float32)
+            for _ in range(37)]
+    Xs = rng.normal(size=(9, 6)).astype(np.float32)
+    Ys = -np.ones((9, 2), np.float32)
+    Ys[np.arange(9), np.arange(9) % 2] = 1.0
+    ids = np.repeat(np.arange(41), 5)[:197]
+    labels = rng.integers(0, 4, size=41)[ids]
+    scores = rng.normal(size=(197, 4)).astype(np.float32)
+    scores[::9] = 0.5                                       # ties
+    actual_lists = [sorted({int(which[i]), int((which[i] + i) % 4)})
+                    for i in range(n)]
+    return dict(X=X, Y=Y, Xt=Xt, desc=desc, Xs=Xs, Ys=Ys, ids=ids,
+                labels=labels, scores=scores, actual_lists=actual_lists)
+
+
+#: the estimators `estimators_job` fits, by name; each takes the data
+#: and returns its arrays (the parent runs the same on one process)
+KRR_CFG = dict(gamma=0.05, lam=0.5, block_size=32, num_epochs=2, seed=3)
+
+
+def fit_estimators(D, place, host, gather):
+    """Every estimator and evaluator of the data axis on ``D``:
+    ``place(x)`` makes a `Dataset` of a whole array, ``host(items)`` a
+    `HostDataset` of whole items, ``gather(ds)`` the whole rows of a
+    dataset. The same calls on one process (identity placement) give
+    the reference. Returns name → array."""
+    import torch
+
+    from keystone_tpu_torch.evaluation import (
+        AugmentedExamplesEvaluator,
+        MeanAveragePrecisionEvaluator,
+    )
+    from keystone_tpu_torch.nodes.images.fisher_vector import (
+        GMMFisherVectorEstimator,
+    )
+    from keystone_tpu_torch.nodes.learning import (
+        BlockWeightedLeastSquaresEstimator,
+        ColumnPCAEstimator,
+        DistributedPCAEstimator,
+        GaussianMixtureModelEstimator,
+        KernelRidgeRegression,
+        KMeansPlusPlusEstimator,
+        PCAEstimator,
+        PerClassWeightedLeastSquares,
+    )
+
+    out = {}
+    X, Y = place(D["X"]), place(D["Y"])
+    krr = KernelRidgeRegression(**KRR_CFG).fit(X, Y)
+    out["krr_alpha"] = gather(X.with_data(krr.alpha))
+    out["krr_pred"] = gather(krr.apply_batch(place(D["Xt"])))
+    krr4 = KernelRidgeRegression(0.05, 0.5, 64, 1, seed=4)
+    m4 = krr4.fit(X, Y)
+    m4.block_size = 50                        # apply blocks ≠ fit blocks
+    out["krr_pred_b50"] = gather(m4.apply_batch(place(D["Xt"])))
+    out["pca_local"] = PCAEstimator(4, sample_rows=150).fit(X).components
+    out["pca_tsqr"] = DistributedPCAEstimator(4).fit(X).components
+    out["pca_tsqr_desc"] = DistributedPCAEstimator(3).fit(
+        host(D["desc"])).components
+    col = ColumnPCAEstimator(3)
+    col.optimize(host(D["desc"]).sample_per_shard(3), 10)
+    out["column_pca_local"] = np.array(col.chosen == "local")
+    out["kmeans"] = KMeansPlusPlusEstimator(4, 10, seed=1).fit(X).centers
+    g = GaussianMixtureModelEstimator(3, num_iters=5, max_rows=150).fit(X)
+    out["gmm_means"], out["gmm_vars"], out["gmm_wts"] = (
+        g.means, g.variances, g.weights)
+    fv = GMMFisherVectorEstimator(3, num_iters=4).fit(host(D["desc"]))
+    out["fv_means"] = fv.gmm.means
+    bw = BlockWeightedLeastSquaresEstimator(4, 2, 0.1).fit(X, Y)
+    out["bwls_W"], out["bwls_b"] = bw.W, bw.b
+    small = BlockWeightedLeastSquaresEstimator(3, 2, 0.5, 0.3).fit(
+        place(D["Xs"]), place(D["Ys"]))
+    out["bwls_small_W"], out["bwls_small_b"] = small.W, small.b
+    pc = PerClassWeightedLeastSquares(0.1).fit(X, Y)
+    out["perclass_W"], out["perclass_b"] = pc.W, pc.b
+    for agg in ("mean", "max", "borda"):
+        m = AugmentedExamplesEvaluator(4, agg)(
+            place(D["ids"]), place(D["scores"]), place(D["labels"]))
+        out[f"aug_{agg}"] = m.confusion
+    out["map"] = MeanAveragePrecisionEvaluator(4)(
+        place(D["scores"]), D["actual_lists"])
+    out["map_host"] = MeanAveragePrecisionEvaluator(4)(
+        place(D["scores"]), host(D["actual_lists"]))
+    return {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v)) for k, v in out.items()}
+
+
+def estimators_job(rank, world, port, out_dir, res, arr):
+    """The data-axis estimators and evaluators on this world's ranks
+    (`fit_estimators`), the row gathers, and the guard for the
+    estimators still not mesh-aware."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import Dataset, HostDataset
+    from keystone_tpu_torch.evaluation import BinaryClassifierEvaluator
+    from keystone_tpu_torch.nodes.learning import NaiveBayesEstimator
+    from keystone_tpu_torch.parallel import (
+        collect_rows,
+        gather_rows,
+        global_data_mesh,
+    )
+    from keystone_tpu_torch.telemetry import counter
+
+    mesh = global_data_mesh()
+    D = estimator_data()
+    before = {k: counter(f"collectives.data.{k}").value
+              for k in ("all_gather", "all_reduce")}
+    ds = Dataset.from_numpy(D["X"], mesh=mesh)
+    ids = np.random.default_rng(5).integers(0, 197, size=40)
+    ids[-3:] = ids[:3]                                       # repeats
+    arr["gather_rows"] = gather_rows(ds.array, ids, mesh).numpy()
+    # no mesh: this process's rows, though a group (and so a current
+    # mesh) exists
+    arr["gather_rows_no_mesh"] = gather_rows(torch.from_numpy(D["X"]), ids,
+                                             None).numpy()
+    per = -(-len(D["desc"]) // world)
+    local = np.concatenate([np.zeros((0, 6), np.float32)]
+                           + D["desc"][rank * per:(rank + 1) * per])
+    arr["collect_rows"] = collect_rows(torch.from_numpy(local), mesh,
+                                       max_rows=100).numpy()
+    res["row_gathers"] = {k: counter(f"collectives.data.{k}").value - v
+                          for k, v in before.items()}
+    arr.update(fit_estimators(
+        D, lambda x: Dataset.from_numpy(x, mesh=mesh),
+        lambda items: HostDataset.on_mesh(items, mesh, device="cpu"),
+        lambda d: d.numpy()))
+    for name, fn in (
+            ("naive_bayes", lambda: NaiveBayesEstimator(4).fit(
+                Dataset.from_numpy(np.abs(D["X"]), mesh=mesh),
+                Dataset.from_numpy(D["ids"].astype(np.int32) % 4,
+                                   mesh=mesh))),
+            ("binary", lambda: BinaryClassifierEvaluator()(
+                Dataset.from_numpy(D["X"][:, 0] > 0, mesh=mesh),
+                Dataset.from_numpy(D["X"][:, 1] > 0, mesh=mesh)))):
+        try:
+            fn()
+            res[f"guard_{name}"] = ""
+        except NotImplementedError as e:
+            res[f"guard_{name}"] = str(e)
+
+
+#: the pipelines of `estimator_pipelines_job`, at the CPU tests' sizes
+KERNEL_CIFAR_CFG = dict(num_filters=16, microbatch=32, sample_patches=5000,
+                        kernel_block=64, gamma=2e-3, lam=10.0,
+                        kernel_epochs=1)
+KERNEL_CIFAR_N = (300, 100)
+AUG_KERNEL_CFG = dict(num_filters=8, microbatch=64, sample_patches=2000,
+                      kernel_block=64, synth_train=61, synth_test=21,
+                      lam=1.0, seed=2)
+VOC_CFG = dict(n_synth=30, num_classes=4, gmm_k=4, pca_dims=16)
+IMAGENET_CFG = dict(n_synth=40, num_classes=5, gmm_k=4, pca_dims=16)
+
+
+def _without_argmax(predictor):
+    """``predictor`` with its sink moved off the final MaxClassifier."""
+    from keystone_tpu_torch.workflow.pipeline import Pipeline
+
+    g = predictor.graph
+    argmax = g.get_sink_dependency(predictor.sink)
+    g = g.set_sink_dependency(predictor.sink, g.get_dependencies(argmax)[0])
+    return Pipeline(g, predictor.source, predictor.sink)
+
+
+def estimator_pipelines_job(rank, world, port, out_dir, res, arr):
+    """RandomPatchCifarKernel on JAX's filters (the parent writes them to
+    ``estimator-pipelines-reference/jax.npz``) and on its own, the
+    augmented pair, VOCSIFTFisher and ImageNetSiftLcsFV at small sizes
+    on this world's ranks; world 1 is one process."""
+    import torch
+
+    from keystone_tpu_torch.loaders.cifar_loader import synthetic_cifar
+    from keystone_tpu_torch.nodes.learning.zca import ZCAWhitener
+    from keystone_tpu_torch.parallel import global_data_mesh
+    from keystone_tpu_torch.pipelines import cifar_variants as cv
+    from keystone_tpu_torch.pipelines import imagenet_sift_lcs_fv as imagenet
+    from keystone_tpu_torch.pipelines import voc_sift_fisher as voc
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    mesh = global_data_mesh()
+    ref = np.load(os.path.join(out_dir, "..",
+                               "estimator-pipelines-reference", "jax.npz"))
+    config = cv.RandomPatchCifarKernelConfig(**KERNEL_CIFAR_CFG)
+    train, test = synthetic_cifar(*KERNEL_CIFAR_N, noise=1.2, confusion=0.6,
+                                  device="cpu", mesh=mesh)
+    learned = (torch.from_numpy(ref["filters"]),
+               ZCAWhitener(torch.from_numpy(ref["whitener"]),
+                           torch.from_numpy(ref["means"])))
+    PipelineEnv.reset()
+    predictor = cv.build_random_patch_cifar_kernel(train, config, learned)
+    arr["kernel_scores"] = _without_argmax(predictor)(test.data).get().numpy()
+    PipelineEnv.reset()
+    own = cv.run_random_patch_cifar_kernel(
+        cv.RandomPatchCifarKernelConfig(
+            **KERNEL_CIFAR_CFG, synth_train=KERNEL_CIFAR_N[0],
+            synth_test=KERNEL_CIFAR_N[1]), "cpu")
+    res["kernel_own_accuracy"] = own["test_accuracy"]
+    arr["kernel_own_preds"] = own["predictor"](test.data).get().numpy()
+
+    for name, run, config_cls in (
+            ("aug_kernel", cv.run_random_patch_cifar_augmented_kernel,
+             cv.RandomPatchCifarAugmentedKernelConfig),
+            ("aug", cv.run_random_patch_cifar_augmented,
+             cv.RandomPatchCifarAugmentedConfig)):
+        PipelineEnv.reset()
+        cfg = {k: v for k, v in AUG_KERNEL_CFG.items()
+               if k in config_cls.__dataclass_fields__}
+        aug = run(config_cls(**cfg), "cpu")
+        res[f"{name}_accuracy"] = aug["test_accuracy"]
+        res[f"{name}_train_error"] = aug["train_error"]
+        arr[f"{name}_confusion"] = np.asarray(aug["test_confusion"])
+
+    PipelineEnv.reset()
+    out = voc.run(voc.VOCSIFTFisherConfig(**VOC_CFG), device="cpu")
+    res["voc_map"] = out["map"]
+    arr["voc_aps"] = np.asarray(out["aps"])
+    arr["voc_scores"] = out["scores"].numpy()
+    model = out["model"]
+    arr["voc_pca"] = model.pca.fitted().components.numpy()
+    arr["voc_gmm_means"] = model.fisher.fitted().gmm.means.numpy()
+    arr["voc_W"] = model.predictor.fitted().W.numpy()
+
+    PipelineEnv.reset()
+    out = imagenet.run(imagenet.ImageNetSiftLcsFVConfig(**IMAGENET_CFG),
+                       device="cpu")
+    res["imagenet_accuracy"] = out["test_accuracy"]
+
+
 JOBS = {"collectives": collectives_job, "cifar": cifar_job,
-        "model": model_job}
+        "model": model_job, "estimators": estimators_job,
+        "estimator_pipelines": estimator_pipelines_job}
 
 
 def main(argv) -> int:
