@@ -450,6 +450,41 @@ Phases, each printed on a line of its own:
               synchronizing trace, through host memory), the precision
               planners' storage trails (beside the one-process run's),
               the PCA routes, peak memory and seconds.
+34. text_axis - the text side of the data axis: two ranks of this script
+              (``--text-axis-rank``) on the one card, a gloo group over
+              its tensors on the (2, 1) mesh, after a warm run on 500
+              documents. NewsgroupsPipeline (11,314/7,532 documents,
+              100,000 features, 20 classes) and AmazonReviewsPipeline
+              (20,000 reviews, 80/20, 50 L-BFGS steps) through
+              ``run_newsgroups(..., mesh=)`` and ``run_amazon(...,
+              mesh=)``, every rank passing every document and keeping
+              its share: the vocabularies merged over the ranks, naive
+              Bayes' counts and logistic regression's loss and gradient
+              all-reduced; `SparseLBFGSwithL2` on Amazon's training CSR
+              (λ and steps of phase 21, its iterative route on each
+              rank's rows); StupidBackoffPipeline on 11,314 documents;
+              `GaussianKernelGenerator` anchored at 4,096 seeded
+              2,048-wide rows a rank (every rank's rows collected),
+              applied to 25,000 rows a rank (K5 on the rank's rows
+              against the 8,192 anchors); ZCA, the approximate PCA, the
+              dual least squares and LDA at the sizes of their JAX
+              tests. Newsgroups and Amazon run once untraced (their
+              seconds), then traced. Held to this run's one-process
+              phases 17, 18, 19
+              and 21 (`TEXT_AXIS_REF`): the vocabularies equal, naive
+              Bayes' log-priors equal and log-conditionals within 1e-6 of
+              their largest, the Newsgroups test predictions and
+              accuracy equal; Amazon's float64 objective within 1e-3,
+              at most 4 of 4,000 test predictions moved, accuracy and F1
+              equal; the sparse fit's last objective within 1e-5 and W
+              within 1e-3 of max|W|; the backoff scores within 1e-9. In
+              each rank, against one process's fit of the whole rows:
+              K5's output (and against `rbf_block_reference`) within
+              K5_TOL, the dense fits within 1e-6. Every rank's arrays
+              equal. Printed per rank and run: seconds, K5 launches, the
+              collectives over ``data`` by kind (calls, bytes, seconds of
+              a synchronizing trace: gloo through host memory, not
+              NVLink) and peak memory.
 
 Each path's launch counts are set to 0 just before it runs and read just
 after. The process-wide prefix table (`PipelineEnv`) is reset before each
@@ -829,6 +864,24 @@ DATA_AXIS_W_RTOL = 3.5e-2
 DATA_AXIS_SCORE_RTOL = 7e-3
 #: the one-process phases' results phase 33 is held to
 DATA_AXIS_REF: dict = {}
+
+# phase 34, written before its first run on the card: the limits each
+# rank is held to against this run's one-process phases 17-19 and 21
+# (naive Bayes' log-conditionals as a share of their largest; the
+# Amazon test predictions that may move, a thousandth of 4,000; the
+# sparse fit's last objective, relative, and W, a share of max|W|) and,
+# in each rank, against one process's fit of the whole rows (the dense
+# estimators, a share of their largest entry); the kernel generator's
+# rows (seeded on the card, scaled to unit expected norm) and γ
+TEXT_AXIS_TIMEOUT_S = 400.0
+TEXT_AXIS_NB_RTOL = 1e-6
+TEXT_AXIS_AMAZON_MOVED = (AMAZON_N - int(0.8 * AMAZON_N)) // 1000
+TEXT_AXIS_SPARSE_OBJECTIVE_RTOL = 1e-5
+TEXT_AXIS_SPARSE_W_RTOL = 1e-3
+TEXT_AXIS_DENSE_RTOL = 1e-6
+KGEN_D, KGEN_ANCHORS, KGEN_ROWS, KGEN_GAMMA = 2048, 4096, 25_000, 0.5
+#: the one-process phases' results phase 34 is held to
+TEXT_AXIS_REF: dict = {}
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1368,8 +1421,21 @@ def objective64(X, y, W, lam) -> float:
                  + 0.5 * lam * np.sum(np.asarray(W, np.float64) ** 2))
 
 
+def vocab_digest(vocab: dict) -> str:
+    """SHA-256 of a vocabulary's (feature, column) pairs in column
+    order: equal digests, equal vocabularies."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for f, i in sorted(vocab.items(), key=lambda kv: kv[1]):
+        h.update(repr((f, i)).encode())
+    return h.hexdigest()
+
+
 def newsgroups_phase(dev, card) -> None:
-    """Phase 17: NewsgroupsPipeline at the reference's widths."""
+    """Phase 17: NewsgroupsPipeline at the reference's widths; its
+    vocabulary, naive Bayes model, test predictions and accuracy go to
+    `TEXT_AXIS_REF`."""
     from keystone_tpu_torch import convert
     from keystone_tpu_torch.data.dataset import HostDataset
     from keystone_tpu_torch.evaluation import MulticlassClassifierEvaluator
@@ -1408,6 +1474,12 @@ def newsgroups_phase(dev, card) -> None:
     fitted = nw.pop("model")
     card_nb = fitted.classifier.fitted()
     vocab = fitted.vocabulary.fitted().vocab
+    TEXT_AXIS_REF.update(
+        news_vocab=vocab_digest(vocab),
+        news_log_priors=card_nb.log_priors.cpu().numpy(),
+        news_log_cond=card_nb.log_cond.cpu().numpy(),
+        news_preds=nw.pop("predictions").numpy(),
+        news_accuracy=nw["test_accuracy"])
     cpu_scorer = convert.fitted_text_predictor(
         vocab, convert.naive_bayes_model(
             card_nb.log_priors.cpu().numpy(), card_nb.log_cond.cpu().numpy(),
@@ -1472,7 +1544,9 @@ def newsgroups_phase(dev, card) -> None:
 
 def amazon_phase(dev, card) -> dict:
     """Phase 18: AmazonReviewsPipeline, logistic regression by L-BFGS;
-    returns the staged run's training and test CSRs and their labels."""
+    returns the staged run's training and test CSRs and their labels.
+    The run's vocabulary, W, float64 objective, test predictions,
+    accuracy and F1 go to `TEXT_AXIS_REF`."""
     from keystone_tpu_torch.data.dataset import Dataset, HostDataset
     from keystone_tpu_torch.evaluation import BinaryClassifierEvaluator
     from keystone_tpu_torch.nodes.learning.classifiers import (
@@ -1506,6 +1580,11 @@ def amazon_phase(dev, card) -> dict:
     y = np.asarray(labels.items[:n_train], np.int64)
     W = model.classifier.fitted().W
     objective = objective64(X.matrix, y, W.cpu().numpy(), AMAZON_LAM)
+    TEXT_AXIS_REF.update(
+        amazon_vocab=vocab_digest(model.vocabulary.fitted().vocab),
+        amazon_W=W.cpu().numpy(), amazon_objective=objective,
+        amazon_preds=am.pop("predictions").numpy(),
+        amazon_accuracy=am["test_accuracy"], amazon_f1=am["f1"])
     y_dev = Dataset(y.astype(np.int32), device=dev)
     card_objective = float(est.objective(X, y_dev)(W)[0])
     # one fit's synchronizing calls, on the run's training CSR
@@ -1566,11 +1645,14 @@ def amazon_phase(dev, card) -> dict:
 
 
 def stupid_backoff_phase(dev, card) -> None:
-    """Phase 19: StupidBackoffPipeline, host code in both packages."""
+    """Phase 19: StupidBackoffPipeline, host code in both packages; its
+    result goes to `TEXT_AXIS_REF`."""
     from keystone_tpu_torch.pipelines import text_pipelines as tp
 
     sb = tp.run_stupid_backoff(tp.StupidBackoffConfig(n_synth=BACKOFF_N),
                                dev)
+    TEXT_AXIS_REF["backoff"] = {k: sb[k] for k in (
+        "vocab", "num_trigrams", "mean_log_score")}
     phase("stupid_backoff", seconds=sb["seconds"], docs=BACKOFF_N,
           vocab=sb["vocab"], num_trigrams=sb["num_trigrams"],
           mean_log_score=sb["mean_log_score"], jax_cpu=BACKOFF_JAX,
@@ -5114,6 +5196,380 @@ def data_axis_phase(card) -> dict:
             for name in runs}
 
 
+def amazon_indicators(y) -> np.ndarray:
+    """±1 indicators of Amazon's two classes, (n, 2) float32: the labels
+    of the sparse least-squares fits of phases 21 and 34."""
+    Y = -np.ones((len(y), 2), np.float32)
+    Y[np.arange(len(y)), np.asarray(y, np.int64)] = 1.0
+    return Y
+
+
+def text_axis_sparse_reference(amazon) -> None:
+    """One process's `SparseLBFGSwithL2` on phase 18's Amazon training
+    CSR at phase 21's λ and steps, its iterative route: W, b and the
+    objective after each step, into `TEXT_AXIS_REF`."""
+    from keystone_tpu_torch.data.dataset import Dataset
+    from keystone_tpu_torch.nodes.learning.lbfgs import SparseLBFGSwithL2
+
+    est = SparseLBFGSwithL2(SPARSE_LAM, SPARSE_ITERS, method="iterative")
+    model = est.fit(amazon["train"], Dataset(amazon_indicators(
+        amazon["train_labels"]), device="cuda"))
+    TEXT_AXIS_REF.update(sparse_W=model.W.cpu().numpy(),
+                         sparse_b=model.b.cpu().numpy(),
+                         sparse_history=est.loss_history.numpy())
+
+
+def _dense_fits(place):
+    """ZCA, the approximate PCA, the dual least squares and LDA on the
+    inputs (and at the sizes) of their JAX tests (`tests/test_images.py`,
+    `test_unsupervised.py`, `test_solvers.py`, `test_breadth.py`), each
+    input made a `Dataset` by ``place``: name → array."""
+    from keystone_tpu_torch.nodes.learning import (
+        ApproximatePCAEstimator,
+        LinearDiscriminantAnalysis,
+        LocalLeastSquaresEstimator,
+        ZCAWhitenerEstimator,
+    )
+
+    rng = np.random.default_rng(5)
+    A = rng.normal(size=(4, 4)).astype(np.float32)
+    Xz = (rng.normal(size=(2000, 4)) @ A).astype(np.float32)
+    rng = np.random.default_rng(0)
+    U = rng.normal(size=(2000, 3)).astype(np.float32)
+    B = rng.normal(size=(3, 12)).astype(np.float32)
+    Xp = U @ B + 0.05 * rng.normal(size=(2000, 12)).astype(np.float32)
+    rng = np.random.default_rng(0)
+    Xl = rng.normal(size=(40, 200)).astype(np.float32)
+    Yl = rng.normal(size=(40, 2)).astype(np.float32)
+    rng = np.random.default_rng(6)
+    Xd = np.concatenate([rng.normal([0, 0, 0], 1, (80, 3)),
+                         rng.normal([5, 5, 0], 1, (80, 3))]).astype(
+        np.float32)
+    yd = np.array([0] * 80 + [1] * 80, np.int32)
+    zca = ZCAWhitenerEstimator(eps=1e-5).fit(place(Xz))
+    out = dict(
+        zca_whitener=zca.whitener, zca_means=zca.means,
+        approx_pca=ApproximatePCAEstimator(3, oversample=8, q=2).fit(
+            place(Xp)).components,
+        local_ls=LocalLeastSquaresEstimator(3.0).fit(place(Xl),
+                                                     place(Yl)).W,
+        lda=LinearDiscriminantAnalysis(1).fit(place(Xd),
+                                              place(yd)).components)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def _kgen_rows():
+    """The kernel generator's whole anchors (4,096 a rank) and apply rows
+    (25,000 a rank), drawn on the card from fixed seeds, so every
+    process draws the same ones."""
+    def draw(n, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn((n, KGEN_D), generator=g, device="cuda") \
+            / math.sqrt(KGEN_D)
+
+    return draw(2 * KGEN_ANCHORS, 101), draw(2 * KGEN_ROWS, 102)
+
+
+def text_axis_rank(rank: int, port: int, out_dir: str) -> int:
+    """One rank of phase 34: a gloo group of two ranks over the card's
+    tensors, the (2, 1) mesh, the text pipelines, the sparse fit,
+    stupid backoff, the kernel generator and the dense fits on each
+    rank's rows. Writes ``rank<r>.json`` and ``rank<r>.npz`` into
+    ``out_dir``."""
+    from keystone_tpu_torch import parallel
+    from keystone_tpu_torch.data.dataset import Dataset, HostDataset
+    from keystone_tpu_torch.nodes.learning import GaussianKernelGenerator
+    from keystone_tpu_torch.nodes.learning.lbfgs import SparseLBFGSwithL2
+    from keystone_tpu_torch.ops import kernels
+    from keystone_tpu_torch.pipelines import text_pipelines as tp
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    t0 = time.perf_counter()
+    parallel.init_multihost(f"127.0.0.1:{port}", 2, rank, device="cuda",
+                            timeout=TEXT_AXIS_TIMEOUT_S, backend="gloo")
+    res = dict(rank=rank, init_seconds=time.perf_counter() - t0)
+    arr = {}
+    try:
+        mesh = parallel.global_data_mesh()
+        res["shards"] = [parallel.n_data_shards(mesh),
+                         parallel.n_model_shards(mesh)]
+        news_config = tp.NewsgroupsConfig(num_classes=NEWS_CLASSES,
+                                          common_features=TEXT_FEATURES)
+        amazon_config = tp.AmazonReviewsConfig(common_features=TEXT_FEATURES,
+                                               lam=AMAZON_LAM)
+        t0 = time.perf_counter()
+        news_sets = (*tp.synthetic_corpus(NEWS_N_TRAIN, NEWS_CLASSES,
+                                          seed=0),
+                     *tp.synthetic_corpus(NEWS_N_TEST, NEWS_CLASSES, seed=1))
+        am_labels, am_docs = tp.synthetic_corpus(AMAZON_N, 2, seed=0)
+        _, backoff_docs = tp.synthetic_corpus(BACKOFF_N, 2, seed=0)
+        res["data_seconds"] = time.perf_counter() - t0
+
+        # a warm run on a few documents: a fresh process's first
+        # products, CSR copies and gloo buffers, outside the clocks
+        t0 = time.perf_counter()
+        few = [HostDataset(d.items[:TEXT_WARM]) for d in news_sets]
+        tp.run_newsgroups_on(*few, NEWS_CLASSES, news_config, "cuda", mesh)
+        tp.run_amazon_on(HostDataset(am_labels.items[:2 * TEXT_WARM]),
+                         HostDataset(am_docs.items[:2 * TEXT_WARM]),
+                         amazon_config, "cuda", mesh)
+        torch.cuda.synchronize()
+        res["warm_seconds"] = time.perf_counter() - t0
+
+        def news():
+            return tp.run_newsgroups_on(*news_sets, NEWS_CLASSES,
+                                        news_config, "cuda", mesh)
+
+        def amazon():
+            return tp.run_amazon_on(am_labels, am_docs, amazon_config,
+                                    "cuda", mesh)
+
+        # untraced first: a trace sizes every host item a stage emits
+        # (`telemetry/instrument.py::estimate_bytes`), which the text
+        # stages' token lists make costly
+        for name, run in (("newsgroups", news), ("amazon", amazon)):
+            PipelineEnv.reset()
+            seconds, out = timed_s(run)
+            res[f"{name}_untraced"] = dict(seconds=seconds,
+                                           run_seconds=out["seconds"])
+            del out
+        nw = _data_axis_run("newsgroups", news, res)
+        nb = nw["model"].classifier.fitted()
+        res["newsgroups"].update(
+            vocab=vocab_digest(nw["model"].vocabulary.fitted().vocab),
+            test_accuracy=nw["test_accuracy"], run_seconds=nw["seconds"])
+        arr.update(news_log_priors=nb.log_priors.cpu().numpy(),
+                   news_log_cond=nb.log_cond.cpu().numpy(),
+                   news_preds=nw["predictions"].numpy())
+        del nw, nb
+
+        am = _data_axis_run("amazon", amazon, res)
+        model = am["model"]
+        res["amazon"].update(
+            vocab=vocab_digest(model.vocabulary.fitted().vocab),
+            test_accuracy=am["test_accuracy"], f1=am["f1"],
+            run_seconds=am["seconds"],
+            linesearch_evals=sum(am["estimator"].linesearch_steps))
+        arr.update(amazon_W=model.classifier.fitted().W.cpu().numpy(),
+                   amazon_preds=am["predictions"].numpy())
+        X = model.vectorizer(model.train_docs).get()
+        n_train = int(0.8 * AMAZON_N)
+        y = np.asarray(am_labels.items[:n_train], np.int64)
+        Y = Dataset(amazon_indicators(y), device="cuda", mesh=mesh)
+        res["amazon"].update(
+            train_rows=[X.count, X.total, X.first_row],
+            objective=objective64(X.gather(), y, arr["amazon_W"],
+                                  AMAZON_LAM))
+        del am, model
+
+        est = SparseLBFGSwithL2(SPARSE_LAM, SPARSE_ITERS)
+        sparse = _data_axis_run("sparse_lbfgs", lambda: est.fit(X, Y), res)
+        res["sparse_lbfgs"]["route"] = est.route
+        arr.update(sparse_W=sparse.W.cpu().numpy(),
+                   sparse_b=sparse.b.cpu().numpy(),
+                   sparse_history=est.loss_history.numpy())
+        del X, Y, sparse
+
+        sb = _data_axis_run("stupid_backoff", lambda: tp.run_stupid_backoff_on(
+            backoff_docs, mesh), res)
+        res["stupid_backoff"].update({k: sb[k] for k in (
+            "vocab", "num_trigrams", "mean_log_score")})
+
+        anchors, rows = _kgen_rows()
+        out = _data_axis_run("kernel_generator", lambda: (
+            GaussianKernelGenerator(KGEN_GAMMA).fit(
+                Dataset(anchors, mesh=mesh))
+            .apply_batch(Dataset(rows, mesh=mesh)).array), res)
+        mine = rows[rank * KGEN_ROWS:(rank + 1) * KGEN_ROWS]
+        want = kernels.rbf_block_reference(mine, anchors, KGEN_GAMMA)
+        # one process's fit of the whole rows, this rank's rows of it
+        one = GaussianKernelGenerator(KGEN_GAMMA).fit(Dataset(anchors)) \
+            .apply_batch(Dataset(rows)).array[
+                rank * KGEN_ROWS:(rank + 1) * KGEN_ROWS]
+        res["kernel_generator"].update(
+            shape=list(out.shape),
+            max_abs_err=float((out - want).abs().max()),
+            one_process_max_abs_diff=float((out - one).abs().max()))
+        del out, want, one, anchors, rows, mine
+
+        dense = _data_axis_run("dense", lambda: _dense_fits(
+            lambda x: Dataset.from_numpy(x, mesh=mesh)), res)
+        arr.update(dense)
+        one = _dense_fits(lambda x: Dataset(x, device="cuda"))
+        res["dense"]["rel_diff"] = {
+            k: float(np.abs(dense[k] - one[k]).max()
+                     / max(np.abs(one[k]).max(), 1e-30)) for k in dense}
+        parallel.barrier()
+    finally:
+        parallel.reset_default_mesh()
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **arr)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def text_axis_phase(card) -> dict:
+    """34. text_axis: two ranks on the card, a gloo group over its
+    tensors on the (2, 1) mesh, the text side of the data axis, held to
+    the one-process phases of this run (`TEXT_AXIS_REF`)."""
+    import socket
+
+    phase_t0 = time.perf_counter()
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--text-axis-rank",
+             str(r), "--text-axis-port", str(port), "--text-axis-out",
+             tmp], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for r in range(2)]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=TEXT_AXIS_TIMEOUT_S)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, p in enumerate(procs):
+            check(p.returncode == 0, f"text_axis: rank {r} exited "
+                  f"{p.returncode}:\n{logs[r][-4000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                res = json.load(f)
+            ranks.append((res, dict(np.load(os.path.join(
+                tmp, f"rank{r}.npz")))))
+    ranks_equal = {key: bool(np.array_equal(ranks[0][1][key],
+                                            ranks[1][1][key]))
+                   for key in ranks[0][1]}
+    ref, arr = TEXT_AXIS_REF, ranks[0][1]
+
+    def rel(key):
+        """max|a − b| of ``key`` as a share of max|b|."""
+        return float(np.abs(arr[key] - ref[key]).max()
+                     / np.abs(ref[key]).max())
+
+    news_differ = int((arr["news_preds"] != ref["news_preds"]).sum())
+    amazon_moved = int((arr["amazon_preds"] != ref["amazon_preds"]).sum())
+    last = float(arr["sparse_history"][-1])
+    ref_last = float(ref["sparse_history"][-1])
+    sparse_objective_rel = abs(last / ref_last - 1.0)
+    runs = ("newsgroups", "amazon", "sparse_lbfgs", "stupid_backoff",
+            "kernel_generator", "dense")
+    per_rank = {name: [dict(
+        seconds=res[name]["seconds"],
+        untraced_seconds=res.get(f"{name}_untraced", {}).get("seconds"),
+        data_bytes={k[len("collectives.data."):]: v
+                    for k, v in res[name]["counters"].items()
+                    if k.startswith("collectives.data.")},
+        collectives=res[name]["collectives"],
+        peak_bytes=res[name]["peak_bytes"],
+        k5=dict(products=res[name]["launches"]["rbf_block"],
+                prepasses=res[name]["launches"]["rbf_split"]))
+        for res, _ in ranks] for name in runs}
+    out = dict(
+        ranks=[res for res, _ in ranks], per_rank=per_rank,
+        ranks_equal=ranks_equal,
+        news_log_cond_rel_err=rel("news_log_cond"),
+        news_log_priors_equal=bool(np.array_equal(arr["news_log_priors"],
+                                                  ref["news_log_priors"])),
+        news_test_rows_differing=news_differ,
+        amazon_W_rel_err=rel("amazon_W"),
+        amazon_test_predictions_moved=amazon_moved,
+        sparse_W_rel_err=rel("sparse_W"), sparse_b_rel_err=rel("sparse_b"),
+        sparse_last_objective=last, sparse_last_objective_one_process=ref_last,
+        sparse_objective_rel_err=sparse_objective_rel,
+        one_process={k: v for k, v in ref.items()
+                     if not isinstance(v, np.ndarray)},
+        collective_seconds_are=(
+            "gloo over the card's tensors, through host memory: not "
+            "an NVLink or multi-card figure"))
+    out["phase_seconds"] = time.perf_counter() - phase_t0
+    phase("text_axis", **out, card=card)
+    for key, equal in ranks_equal.items():
+        check(equal, f"text_axis: {key} differs between the ranks")
+    check(out["news_log_priors_equal"], "text_axis: Newsgroups' log-priors "
+          "differ from phase 17's")
+    check(out["news_log_cond_rel_err"] <= TEXT_AXIS_NB_RTOL,
+          f"text_axis: Newsgroups' log-conditionals "
+          f"{out['news_log_cond_rel_err']} of their max from phase 17's (at "
+          f"most {TEXT_AXIS_NB_RTOL})")
+    check(news_differ == 0, f"text_axis: {news_differ} Newsgroups test "
+          "predictions differ from phase 17's")
+    check(amazon_moved <= TEXT_AXIS_AMAZON_MOVED, f"text_axis: "
+          f"{amazon_moved} Amazon test predictions moved from phase 18's "
+          f"(at most {TEXT_AXIS_AMAZON_MOVED})")
+    check(out["sparse_W_rel_err"] <= TEXT_AXIS_SPARSE_W_RTOL, f"text_axis: "
+          f"the sparse fit's W {out['sparse_W_rel_err']} of max|W| from one "
+          f"process's (at most {TEXT_AXIS_SPARSE_W_RTOL})")
+    check(sparse_objective_rel <= TEXT_AXIS_SPARSE_OBJECTIVE_RTOL,
+          f"text_axis: the sparse fit's last objective {last}, one "
+          f"process's {ref_last} (at most {TEXT_AXIS_SPARSE_OBJECTIVE_RTOL} "
+          "relative)")
+    for res, _ in ranks:
+        r = res["rank"]
+        check(res["shards"] == [2, 1], f"text_axis: rank {r} on a "
+              f"{res['shards']} mesh")
+        check(res["newsgroups"]["vocab"] == ref["news_vocab"],
+              f"text_axis: rank {r}'s Newsgroups vocabulary differs from "
+              "phase 17's")
+        check(res["newsgroups"]["test_accuracy"] == ref["news_accuracy"],
+              f"text_axis: rank {r}'s Newsgroups accuracy "
+              f"{res['newsgroups']['test_accuracy']}, phase 17's "
+              f"{ref['news_accuracy']}")
+        check(res["amazon"]["vocab"] == ref["amazon_vocab"],
+              f"text_axis: rank {r}'s Amazon vocabulary differs from phase "
+              "18's")
+        objective = res["amazon"]["objective"]
+        check(abs(objective / ref["amazon_objective"] - 1.0)
+              <= AMAZON_OBJECTIVE_RTOL, f"text_axis: rank {r}'s Amazon "
+              f"objective {objective}, phase 18's "
+              f"{ref['amazon_objective']} (at most {AMAZON_OBJECTIVE_RTOL} "
+              "relative)")
+        for key, name in (("test_accuracy", "amazon_accuracy"),
+                          ("f1", "amazon_f1")):
+            check(res["amazon"][key] == ref[name], f"text_axis: rank {r}'s "
+                  f"Amazon {key} {res['amazon'][key]}, phase 18's "
+                  f"{ref[name]}")
+        check(res["sparse_lbfgs"]["route"] == "iterative", f"text_axis: "
+              f"rank {r}'s sparse fit took the {res['sparse_lbfgs']['route']}"
+              " route")
+        sb, want = res["stupid_backoff"], ref["backoff"]
+        check(sb["vocab"] == want["vocab"]
+              and sb["num_trigrams"] == want["num_trigrams"]
+              and abs(sb["mean_log_score"] - want["mean_log_score"])
+              <= BACKOFF_TOL, f"text_axis: rank {r}'s backoff {sb}, phase "
+              f"19's {want}")
+        kg = res["kernel_generator"]
+        check(kg["shape"] == [KGEN_ROWS, 2 * KGEN_ANCHORS],
+              f"text_axis: rank {r}'s kernel rows {kg['shape']}")
+        check(kg["max_abs_err"] <= K5_TOL and kg["one_process_max_abs_diff"]
+              <= K5_TOL, f"text_axis: rank {r}'s K5 rows {kg['max_abs_err']}"
+              f" from rbf_block_reference and "
+              f"{kg['one_process_max_abs_diff']} from one process's (at most "
+              f"{K5_TOL})")
+        check(kg["launches"]["rbf_block"] > 0, f"text_axis: rank {r} "
+              "launched no K5 in the kernel generator's apply")
+        for key, err in res["dense"]["rel_diff"].items():
+            check(err <= TEXT_AXIS_DENSE_RTOL, f"text_axis: rank {r}'s {key} "
+                  f"{err} of its max from one process's (at most "
+                  f"{TEXT_AXIS_DENSE_RTOL})")
+        for name in runs:
+            check(any(k.startswith("collectives.data.")
+                      for k in res[name]["counters"]),
+                  f"text_axis {name}: rank {r} ran no collective over data")
+    return {name: [dict(products=res[name]["launches"]["rbf_block"],
+                        prepasses=res[name]["launches"]["rbf_split"])
+                   for res, _ in ranks] for name in ("kernel_generator",)}
+
+
 def main() -> int:
     global SWAP_REPEATS
     import argparse
@@ -5135,6 +5591,12 @@ def main() -> int:
                         help=argparse.SUPPRESS)
     parser.add_argument("--data-axis-out", default=None,
                         help=argparse.SUPPRESS)
+    parser.add_argument("--text-axis-rank", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--text-axis-port", type=int, default=None,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--text-axis-out", default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     SWAP_REPEATS = args.swap_repeats
     if not torch.cuda.is_available():
@@ -5147,6 +5609,9 @@ def main() -> int:
     if args.data_axis_rank is not None:  # one rank of phase 33
         return data_axis_rank(args.data_axis_rank, args.data_axis_port,
                               args.data_axis_out)
+    if args.text_axis_rank is not None:  # one rank of phase 34
+        return text_axis_rank(args.text_axis_rank, args.text_axis_port,
+                              args.text_axis_out)
     script_t0 = time.perf_counter()
     import torch.nn.functional as F
 
@@ -6260,6 +6725,7 @@ def main() -> int:
 
     # ---- 21-22. the solver choice; HOG and DAISY ---------------------------
     least_squares_phase(dev, card, amazon)
+    text_axis_sparse_reference(amazon)
     del amazon
     torch.cuda.empty_cache()
     hog_daisy_phase(dev, card)
@@ -6304,6 +6770,10 @@ def main() -> int:
 
     # ---- 33. the data axis for the image estimators: two ranks on the card
     data_axis = data_axis_phase(card)
+    torch.cuda.empty_cache()
+
+    # ---- 34. the text side of the data axis: two ranks on the card ---------
+    text_axis = text_axis_phase(card)
     torch.cuda.empty_cache()
 
     record = {"kernels": [
@@ -6384,7 +6854,8 @@ def main() -> int:
                                    for r in data_axis[name]]
                             for name in ("kernel", "augmented_kernel",
                                          "whole_kernel",
-                                         "whole_augmented_kernel")}),
+                                         "whole_augmented_kernel")},
+                 text_axis=text_axis),
              augmented=dict(k5["augmented"], library_ms=None),
              max_abs_err=k5["max_abs_err"],
              min_diagonal=k5["min_diagonal"], tolerance_abs=K5_TOL,

@@ -657,7 +657,12 @@ class HostDataset:
                 else x for x in self.items]
 
     def take(self, k: int) -> List[Any]:
-        return self.items[:k]
+        """The first ``k`` items; on a mesh, of the global order, on
+        every rank (each rank's part of them gathered)."""
+        if self.mesh is None:
+            return self.items[:k]
+        lo = data_rank(self.mesh) * self.per_shard_count
+        return _gather_items(self.items[:max(0, k - lo)], self.mesh)
 
     def __len__(self) -> int:
         return self._count
@@ -674,14 +679,12 @@ class HostDataset:
 
 def _gather_items(items: Sequence[Any], mesh) -> List[Any]:
     """Every rank's ``items`` in rank order, on every rank of ``mesh``'s
-    data axis: one ``all_gather_object`` (tensors travel through the
-    host)."""
-    import torch.distributed as dist
+    data axis: one counted ``all_gather_object`` (tensors travel through
+    the host; `parallel.all_gather_objects`)."""
+    from ..parallel.collectives import all_gather_objects
 
     mine = [x.cpu() if isinstance(x, torch.Tensor) else x for x in items]
-    parts: List[Any] = [None] * n_data_shards(mesh)
-    dist.all_gather_object(parts, mine, group=mesh.get_group(DATA_AXIS))
-    return [x for part in parts for x in part]
+    return [x for part in all_gather_objects(mine, mesh) for x in part]
 
 
 def keep_host_placement(out, inputs):

@@ -3,7 +3,10 @@
 Counterpart of `keystone_tpu/evaluation/binary.py` (`:13-68`; reference
 evaluation/BinaryClassifierEvaluator.scala:17-79): contingency-table
 metrics of boolean predictions against actuals, counted on the host after
-one transfer of each.
+one transfer of each. On a mesh's data axis the rows are gathered first,
+as `evaluation/augmented.py` gathers them (a `Dataset`'s `numpy`, a
+`HostDataset`'s `gather_items`; padded rows dropped), so every rank
+counts one process's table.
 """
 
 from __future__ import annotations
@@ -48,14 +51,17 @@ class BinaryClassifierMetrics:
 
 
 def _host_bools(x) -> np.ndarray:
-    """A flat boolean host array from a lazy result, a dataset, a tensor
-    or an array."""
+    """A flat boolean host array from a lazy result, a dataset (every
+    rank's rows on a mesh), a tensor or an array."""
     from ..data.dataset import Dataset, HostDataset
     from ..workflow.pipeline import PipelineResult
 
     if isinstance(x, PipelineResult):
         x = x.get()
-    if isinstance(x, (Dataset, HostDataset)):
+    if isinstance(x, HostDataset):
+        x = [v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+             for v in x.gather_items()]
+    elif isinstance(x, Dataset):
         x = x.numpy()
     elif isinstance(x, torch.Tensor):
         x = x.detach().cpu().numpy()
@@ -63,11 +69,13 @@ def _host_bools(x) -> np.ndarray:
 
 
 class BinaryClassifierEvaluator:
-    def evaluate(self, predictions, actuals) -> BinaryClassifierMetrics:
-        from ..parallel.mesh import require_mesh_aware
+    mesh_aware = True  # the rows gathered over the data axis
 
-        require_mesh_aware(self, (predictions, actuals))
+    def evaluate(self, predictions, actuals) -> BinaryClassifierMetrics:
         p, a = _host_bools(predictions), _host_bools(actuals)
+        if p.shape != a.shape:
+            raise ValueError(f"predictions/actuals misaligned: {p.shape} "
+                             f"vs {a.shape}")
         return BinaryClassifierMetrics(
             tp=float(np.sum(p & a)),
             fp=float(np.sum(p & ~a)),

@@ -21,6 +21,17 @@ that path densifies X. The single-datum path densifies its one row, as
   gradient is Xᵀ(mask·(softmax − onehot))/count + λW, in float32 (TF32
   off: JAX's "highest").
 - LDA: a host `scipy.linalg.eigh` of the d × d scatter matrices.
+
+On a mesh's data axis (a `SparseDataset` of this rank's rows, or a
+`Dataset` placed on the mesh) each fit reduces over every rank as JAX's
+does over its row-sharded array (`:64-198`): naive Bayes all-reduces its
+class counts and its (k, d) feature counts (JAX's "two masked sharded
+reductions"); logistic regression's `SoftmaxObjective` all-reduces its
+log-likelihood and gradient in one call an evaluation, so every rank
+takes the same L-BFGS steps (as `lbfgs.py::_Objective` does); LDA
+collects the rows (`data.numpy()`, the labels gathered alike) and every
+rank solves the same host `eigh`. Scores keep the input's placement.
+With no mesh the same operations run on one process's rows.
 """
 
 from __future__ import annotations
@@ -36,6 +47,7 @@ import torch.nn.functional as F
 from ...data.dataset import Dataset, HostDataset
 from ...data.sparse import SparseDataset
 from ...device import resolve_device
+from ...parallel.collectives import psum
 from ...workflow.pipeline import LabelEstimator, Transformer
 from .lbfgs import _dot, lbfgs_minimize
 from .pca import PCATransformer
@@ -52,34 +64,42 @@ def _as_dense(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.float32, device=device)
 
 
-def _labels(labels, device: torch.device) -> torch.Tensor:
+def _labels(labels, device: torch.device, data=None) -> torch.Tensor:
     """Class ids from a `Dataset`, a `HostDataset` or a sequence, as an
-    int64 vector on ``device``."""
-    if isinstance(labels, Dataset):
-        return labels.array.reshape(-1).to(device=device, dtype=torch.int64)
+    int64 vector on ``device``; for a `SparseDataset` ``data`` the ids
+    of its rows held here (`SparseDataset.local_rows`)."""
+    if isinstance(data, SparseDataset):
+        labels = data.local_rows(labels)
     if isinstance(labels, HostDataset):
         labels = labels.items
+    elif isinstance(labels, Dataset):
+        labels = labels.array
+    if isinstance(labels, torch.Tensor):
+        return labels.reshape(-1).to(device=device, dtype=torch.int64)
     return torch.as_tensor(np.asarray(labels, np.int64).reshape(-1),
                            device=device)
 
 
 def _rows_and_transpose(data):
-    """(X, Xᵀ, row mask as float32, count) for a `SparseDataset` (its
-    device CSRs, all rows valid) or a dense `Dataset`."""
+    """(X, Xᵀ, row mask as float32, count, mesh) for a `SparseDataset`
+    (its device CSRs of the rows held here, all valid; ``count`` every
+    rank's) or a dense `Dataset` (its rows held here, padded ones
+    masked)."""
     if isinstance(data, SparseDataset):
         X = data.csr()
         return X, data.csr_t(), torch.ones(
-            data.count, dtype=torch.float32, device=X.device), data.count
+            data.count, dtype=torch.float32, device=X.device), data.total, \
+            data.mesh
     X = data.array.to(torch.float32)
-    return X, X.T, data.mask.to(torch.float32), data.count
+    return X, X.T, data.mask.to(torch.float32), data.count, data.mesh
 
 
 def _scores(data, W: torch.Tensor, bias: Optional[torch.Tensor] = None):
-    """``data`` @ W (+ bias) as a device `Dataset`, the CSR product for
-    a `SparseDataset`."""
+    """``data`` @ W (+ bias) as a device `Dataset` in ``data``'s
+    placement, the CSR product for a `SparseDataset`."""
     if isinstance(data, SparseDataset):
         out = data.csr() @ W
-        return Dataset(out if bias is None else out + bias)
+        return data.rows_dataset(out if bias is None else out + bias)
     if bias is None:
         return data.map_batches(lambda X: X.to(W.dtype) @ W)
     return data.map_batches(lambda X: torch.addmm(bias, X.to(W.dtype), W))
@@ -108,17 +128,20 @@ class NaiveBayesEstimator(LabelEstimator):
     (NaiveBayesModel.scala:42-69). Labels: class ids; data: nonnegative
     count features, CSR or dense."""
 
+    mesh_aware = True  # both counts all-reduced over the data axis
+
     def __init__(self, num_classes: int, lam: float = 1.0):
         self.num_classes = num_classes
         self.lam = lam
 
     def fit(self, data, labels) -> NaiveBayesModel:
-        X, Xt, mask, _ = _rows_and_transpose(data)
-        y = _labels(labels, X.device)
+        X, Xt, mask, _, mesh = _rows_and_transpose(data)
+        y = _labels(labels, X.device, data)
         onehot = F.one_hot(y, self.num_classes).to(torch.float32) \
             * mask[:, None]
-        class_counts = onehot.sum(dim=0)
-        feat_counts = (Xt @ onehot).T  # (k, d)
+        class_counts, feat_counts = psum((onehot.sum(dim=0), Xt @ onehot),
+                                         mesh)
+        feat_counts = feat_counts.T  # (k, d)
         k, lam = self.num_classes, self.lam
         log_priors = torch.log((class_counts + lam)
                                / (class_counts.sum() + lam * k))
@@ -130,22 +153,26 @@ class NaiveBayesEstimator(LabelEstimator):
 class SoftmaxObjective:
     """The multinomial logistic loss with L2 at W (d, k), and its
     gradient, on device rows X (CSR or dense) and their transpose, in
-    `_logreg_fit`'s order of operations."""
+    `_logreg_fit`'s order of operations. With ``mesh`` the rows are this
+    rank's and ``count`` every rank's: the log-likelihood and Xᵀ·resid
+    are all-reduced over ``data`` in one call, so every rank reads the
+    same value and gradient (JAX's GSPMD all-reduce, `:98-125`)."""
 
     def __init__(self, X, Xt, onehot: torch.Tensor, mask: torch.Tensor,
-                 count: int, lam: float):
+                 count: int, lam: float, mesh=None):
         self.X, self.Xt, self.onehot, self.mask = X, Xt, onehot, mask
-        self.count, self.lam = count, lam
+        self.count, self.lam, self.mesh = count, lam, mesh
 
     def __call__(self, W: torch.Tensor):
         logits = self.X @ W
         logz = torch.logsumexp(logits, dim=1)
         picked = (logits * self.onehot).sum(dim=1)
-        ll = torch.sum((picked - logz) * self.mask)
-        value = -ll / self.count + 0.5 * self.lam * _dot(W, W)
         resid = (torch.exp(logits - logz[:, None]) - self.onehot) \
             * (self.mask / self.count)[:, None]
-        grad = torch.add(self.Xt @ resid, W, alpha=self.lam)
+        ll, xt_resid = psum((torch.sum((picked - logz) * self.mask),
+                             self.Xt @ resid), self.mesh)
+        value = -ll / self.count + 0.5 * self.lam * _dot(W, W)
+        grad = torch.add(xt_resid, W, alpha=self.lam)
         return value, grad
 
 
@@ -175,6 +202,8 @@ class LogisticRegressionEstimator(LabelEstimator):
     ``linesearch_steps`` each step's evaluations (one synchronizing call
     each, `lbfgs.py::_evaluate`)."""
 
+    mesh_aware = True  # loss and gradient all-reduced over the data axis
+
     def __init__(self, num_classes: int, lam: float = 0.0,
                  num_iters: int = 50):
         self.num_classes = num_classes
@@ -185,11 +214,11 @@ class LogisticRegressionEstimator(LabelEstimator):
         self.linesearch_steps: List[int] = []
 
     def objective(self, data, labels) -> SoftmaxObjective:
-        X, Xt, mask, count = _rows_and_transpose(data)
-        y = _labels(labels, X.device)
+        X, Xt, mask, count, mesh = _rows_and_transpose(data)
+        y = _labels(labels, X.device, data)
         onehot = F.one_hot(y, self.num_classes).to(torch.float32) \
             * mask[:, None]
-        return SoftmaxObjective(X, Xt, onehot, mask, count, self.lam)
+        return SoftmaxObjective(X, Xt, onehot, mask, count, self.lam, mesh)
 
     def fit(self, data, labels) -> LogisticRegressionModel:
         objective = self.objective(data, labels)
@@ -204,13 +233,20 @@ class LinearDiscriminantAnalysis(LabelEstimator):
     """Multiclass LDA by the generalized eigendecomposition of S_W⁻¹S_B
     (LinearDiscriminantAnalysis.scala:17-68), on the host in float64;
     d is small. Returns a `PCATransformer` of the leading ``num_dims``
-    directions on the data's device."""
+    directions on the data's device. On a mesh the rows and labels are
+    collected (`numpy`, a gather) and every rank solves alike."""
+
+    mesh_aware = True  # the rows collected over the data axis
 
     def __init__(self, num_dims: int):
         self.num_dims = num_dims
 
     def fit(self, data, labels) -> PCATransformer:
         X = np.asarray(data.numpy(), np.float64)
+        if isinstance(labels, HostDataset):
+            labels = labels.gather_items()
+        elif isinstance(labels, Dataset):
+            labels = labels.numpy()
         y = _labels(labels, torch.device("cpu")).numpy()
         classes = np.unique(y)
         mu = X.mean(axis=0)

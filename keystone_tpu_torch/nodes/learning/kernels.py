@@ -33,7 +33,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ...ops.kernels import rbf_block
-from ...parallel.collectives import gather_rows
+from ...parallel.collectives import collect_rows, gather_rows
 from ...parallel.mesh import DATA_AXIS, axis_size, data_rank
 from ...telemetry.instrument import record_dispatch
 from ...telemetry.metrics import counter
@@ -55,13 +55,22 @@ class GaussianKernelTransformer(Transformer):
 
 
 class GaussianKernelGenerator(Estimator):
-    """Fits a `GaussianKernelTransformer` anchored at the data's rows."""
+    """Fits a `GaussianKernelTransformer` anchored at the data's rows: on
+    a mesh's data axis every rank's valid rows, in global order
+    (`parallel.collect_rows`), as JAX's ``data.array[:data.count]`` of a
+    global array (`kernels.py:78-83`). The transformer then runs K5 on
+    each rank's rows against them."""
+
+    mesh_aware = True  # the anchors collected over the data axis
 
     def __init__(self, gamma: float):
         self.gamma = gamma
 
     def fit(self, data) -> GaussianKernelTransformer:
-        return GaussianKernelTransformer(data.array[:data.count], self.gamma)
+        rows = data.array[:int(data.mask.sum())] if data.has_padding \
+            else data.array
+        return GaussianKernelTransformer(
+            collect_rows(rows, _data_mesh(data.mesh)), self.gamma)
 
 
 class BlockKernelMatrix:

@@ -44,7 +44,7 @@ import torch
 from ...data.dataset import Dataset
 from ...data.sparse import PaddedSparseDataset, SparseDataset, memory_budget
 from ...parallel.collectives import all_gather_columns, all_reduce, psum
-from ...parallel.mesh import MODEL_AXIS
+from ...parallel.mesh import DATA_AXIS, MODEL_AXIS, axis_size
 from ...telemetry.instrument import record_dispatch
 from ...telemetry.metrics import counter
 from ...telemetry.spans import span
@@ -541,7 +541,7 @@ def lbfgs_gram_fit(G: torch.Tensor, C: torch.Tensor, lam: float,
 
 def sparse_matvec_fit(X: torch.Tensor, Xt: torch.Tensor, Y: torch.Tensor,
                       lam: float, count: int, d: int, num_iters: int,
-                      memory_size: int, fit_intercept: bool):
+                      memory_size: int, fit_intercept: bool, mesh=None):
     """L-BFGS by sparse products (`_sparse_matvec_fit_impl`,
     `:240-452`): (W (d, k), b (k,), the objective after each step).
 
@@ -553,7 +553,15 @@ def sparse_matvec_fit(X: torch.Tensor, Xt: torch.Tensor, Y: torch.Tensor,
     closed form t* = −(⟨R, XcD⟩ + λ⟨W, D⟩)/(‖XcD‖² + λ‖D‖²); the
     two-loop recursion runs over all ``memory_size`` slots of the
     history ring, empty slots zero, as JAX's does. Nothing waits for the
-    device until the history is read."""
+    device until the history is read.
+
+    With ``mesh`` the rows of ``X``, ``Xt`` and ``Y`` are this rank's
+    (``count`` every rank's) and each row-space reduction is all-reduced
+    over ``data``, where JAX's ``dsum`` psums them (`:296-299`,
+    `:470-504`): the column and label sums once, then an iteration's
+    line-search inner products in one call and its Xᵀ R, R's column
+    sums and ‖R‖² in another. W and the history stay replicated, alike
+    on every rank; with no mesh the same operations run unreduced."""
     n, k = Y.shape
     m = memory_size
     dev = Y.device
@@ -570,8 +578,9 @@ def sparse_matvec_fit(X: torch.Tensor, Xt: torch.Tensor, Y: torch.Tensor,
 
     if fit_intercept:
         ones = torch.ones((Xt.shape[1], 1), dtype=torch.float32, device=dev)
-        xm = (Xt @ ones)[:, 0] / count
-        ym = Y.sum(dim=0) / count
+        colsum, ysum = psum(((Xt @ ones)[:, 0], Y.sum(dim=0)), mesh)
+        xm = colsum / count
+        ym = ysum / count
     else:
         xm = torch.zeros(d, dtype=torch.float32, device=dev)
         ym = torch.zeros(k, dtype=torch.float32, device=dev)
@@ -580,11 +589,14 @@ def sparse_matvec_fit(X: torch.Tensor, Xt: torch.Tensor, Y: torch.Tensor,
         return matvec(V) - (xm @ V)[None, :]
 
     def grad_of(W, R):
-        return tmatvec(R) - torch.outer(xm, R.sum(dim=0)) + lam * W
+        """(the gradient at W, ‖R‖²)."""
+        xt_r, r_sum, rr = psum((tmatvec(R), R.sum(dim=0), _dot(R, R)),
+                               mesh)
+        return xt_r - torch.outer(xm, r_sum) + lam * W, rr
 
     W = torch.zeros((d, k), dtype=torch.float32, device=dev)
     R = -(Y - ym)
-    g = grad_of(W, R)
+    g, _ = grad_of(W, R)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     S = [torch.zeros_like(W) for _ in range(m)]
     YH = [torch.zeros_like(W) for _ in range(m)]
@@ -608,12 +620,13 @@ def sparse_matvec_fit(X: torch.Tensor, Xt: torch.Tensor, Y: torch.Tensor,
                 r = r + S[i] * (a - rho[i] * _dot(YH[i], r))
             D = -r
             u = centered_matvec(D)
-            den = _dot(u, u) + lam * _dot(D, D)
-            num = -(_dot(R, u) + lam * _dot(W, D))
+            uu, ru = psum((_dot(u, u), _dot(R, u)), mesh)
+            den = uu + lam * _dot(D, D)
+            num = -(ru + lam * _dot(W, D))
             t = torch.where(den > 0, num / torch.clamp_min(den, 1e-30), 0.0)
             W = W + t * D
             R = R + t * u
-            g_new = grad_of(W, R)
+            g_new, rr = grad_of(W, R)
             s_vec, y_vec = t * D, g_new - g
             sy_new = _dot(s_vec, y_vec)
             ok = sy_new > 1e-10
@@ -621,7 +634,7 @@ def sparse_matvec_fit(X: torch.Tensor, Xt: torch.Tensor, Y: torch.Tensor,
             YH[ptr] = torch.where(ok, y_vec, 0.0)
             rho[ptr] = torch.where(ok, 1.0 / torch.where(ok, sy_new, 1.0), 0.0)
             g = g_new
-            values.append(0.5 * _dot(R, R) + 0.5 * lam * _dot(W, W))
+            values.append(0.5 * rr + 0.5 * lam * _dot(W, W))
         _STEPS.inc()
         record_dispatch()
     b = ym - xm @ W if fit_intercept else torch.zeros(
@@ -680,9 +693,21 @@ class SparseLBFGSwithL2(LabelEstimator):
     `SparseLinearMapper`) or a dense `Dataset` (the Gram route, a
     `LinearMapper`). After a fit ``loss_history`` holds the objective
     at the start of each step (gram) or after it (iterative), as JAX's
-    routes record them, and ``route`` the route taken."""
+    routes record them, and ``route`` the route taken.
+
+    On a mesh's data axis of more than one shard (a `SparseDataset` or
+    `PaddedSparseDataset` of this rank's rows) the fit takes the
+    iterative route, as JAX forces its sharded route (`:727-737,
+    763-783`): `sparse_matvec_fit` on this rank's CSRs, its row-space
+    reductions all-reduced, every rank stepping alike. The port's
+    iterative route has no row blocks to size (JAX's `:635-640`): its
+    products are CSR products over the rows a rank holds. A dense
+    `Dataset` on a mesh takes the Gram route, G, C and the sums
+    all-reduced."""
 
     precision_tolerance = "exact"  # solver: f32/HIGHEST inputs
+
+    mesh_aware = True  # row-space reductions all-reduced over the data axis
 
     def __init__(self, lam: float = 0.0, num_iters: int = 20,
                  memory_size: int = 10, fit_intercept: bool = True,
@@ -713,17 +738,20 @@ class SparseLBFGSwithL2(LabelEstimator):
             mw * slots * (8.0 + 4.0 * k) + cw * 2.0 * slots * k)
         return gram, iterative
 
-    def _route(self, n: int, d: int, k: int, w: int) -> str:
+    def _route(self, n: int, d: int, k: int, w: int, mesh=None) -> str:
+        if axis_size(mesh, DATA_AXIS) > 1:
+            return "iterative"
         if self.method is not None:
             return self.method
         gram, iterative = self.route_seconds(n, d, k, w)
         return "iterative" if iterative < gram else "gram"
 
-    def _gram(self, blocks, d, Y, n, dev):
+    def _gram(self, blocks, d, Y, n, dev, mesh=None):
         G, C, colsum = gram_statistics(blocks, d, Y.shape[1],
                                        self.gram_precision, dev)
+        G, C, colsum, ysum = psum((G, C, colsum, Y.sum(dim=0)), mesh)
         if self.fit_intercept:
-            xm, ym = colsum / n, Y.sum(dim=0) / n
+            xm, ym = colsum / n, ysum / n
             G -= n * torch.outer(xm, xm)
             C -= n * torch.outer(xm, ym)
         W, history = lbfgs_gram_fit(G, C, self.lam, self.num_iters,
@@ -731,44 +759,50 @@ class SparseLBFGSwithL2(LabelEstimator):
         self.loss_history = torch.tensor(history, dtype=torch.float32)
         return W, (ym - xm @ W if self.fit_intercept else None)
 
-    def _iterative(self, X, Xt, d, Y, n):
+    def _iterative(self, X, Xt, d, Y, n, mesh=None):
         W, b, history = sparse_matvec_fit(
             X, Xt, Y, self.lam, n, d, self.num_iters, self.memory_size,
-            self.fit_intercept)
+            self.fit_intercept, mesh)
         self.loss_history = history.cpu()
         return W, (b if self.fit_intercept else None)
 
     def fit(self, data, labels):
         if isinstance(data, PaddedSparseDataset):
-            dev, n, d = data.val.device, data.count, data.dim
-            Y = _labels(labels, n, dev)
-            self.route = self._route(n, d, Y.shape[1], data.width)
+            dev, n, d, mesh = data.val.device, data.total, data.dim, data.mesh
+            Y = _labels(data.local_rows(labels), data.count, dev)
+            self.route = self._route(n, d, Y.shape[1], data.width, mesh)
             if self.route == "gram":
                 rows = gram_row_block(d, self.block_rows, dev)
                 W, b = self._gram(padded_row_blocks(data, Y, rows), d, Y, n,
                                   dev)
             else:
                 data = data.with_column_form()
-                W, b = self._iterative(data.csr(), data.csr_t(), d, Y, n)
+                W, b = self._iterative(data.csr(), data.csr_t(), d, Y, n,
+                                       mesh)
             return LinearMapper(W, b)
         if isinstance(data, SparseDataset):
             X = data.csr()
-            dev, n, d = X.device, data.count, data.dim
-            Y = _labels(labels, n, dev)
-            self.route = self._route(n, d, Y.shape[1],
-                                     max(1, math.ceil(data.nnz / max(n, 1))))
+            dev, n, d, mesh = X.device, data.total, data.dim, data.mesh
+            Y = _labels(data.local_rows(labels), data.count, dev)
+            self.route = self._route(
+                n, d, Y.shape[1],
+                max(1, math.ceil(data.total_nnz / max(n, 1))), mesh)
             if self.route == "gram":
                 rows = gram_row_block(d, self.block_rows, dev)
                 W, b = self._gram(csr_row_blocks(data, Y, rows), d, Y, n,
                                   dev)
             else:
-                W, b = self._iterative(X, data.csr_t(), d, Y, n)
+                W, b = self._iterative(X, data.csr_t(), d, Y, n, mesh)
             return SparseLinearMapper(W, b)
+        # a dense dataset: the Gram route; on a mesh this rank's rows
+        # (padded ones zero, as the placed labels' are) and the sums
+        # all-reduced
         X = data.array.to(torch.float32)
-        dev, (n, d) = X.device, X.shape
-        Y = _labels(labels, n, dev)
+        dev, (rows_here, d) = X.device, X.shape
+        Y = _labels(labels, rows_here, dev)
         rows = gram_row_block(d, self.block_rows, dev)
         self.route = "gram"
         W, b = self._gram(((X[s:s + rows], Y[s:s + rows])
-                           for s in range(0, n, rows)), d, Y, n, dev)
+                           for s in range(0, rows_here, rows)), d, Y,
+                          data.count, dev, data.mesh)
         return LinearMapper(W, b)

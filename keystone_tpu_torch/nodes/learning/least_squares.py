@@ -7,7 +7,9 @@ sparsity, devices) from a sample and takes the cheapest of four
 candidates by `cost_model`: dense L-BFGS, sparse L-BFGS (only below
 density 0.1), BCD (block 4096, three sweeps) and the exact normal
 equations, each dense solver behind `Densify` so sparse input survives
-the route (:59-84). ``num_chips=None`` prices one card.
+the route (:59-84). ``num_chips=None`` prices the data's mesh shards
+(the current mesh's where the sample has none; one card without a
+group), as JAX's `:92` reads them.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import numpy as np
 
 from ...data.dataset import Dataset
 from ...data.sparse import SparseDataset
+from ...parallel.mesh import n_data_shards
 from ...workflow.pipeline import (
     LabelEstimator,
     LabelEstimatorChain,
@@ -50,6 +53,8 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
     the candidate and ``costs`` holds each candidate's estimate."""
 
     precision_tolerance = "exact"  # whichever solver wins, it pins f32
+
+    mesh_aware = True  # its fit is the chosen solver's, which is guarded
 
     def __init__(self, lam: float = 0.0, num_iters: int = 20,
                  block_size: int = 4096, num_chips: Optional[int] = None,
@@ -90,7 +95,8 @@ class LeastSquaresEstimator(OptimizableLabelEstimator):
         return DenseLBFGSwithL2(self.lam, num_iters=self.num_iters)
 
     def _measure(self, sample, sample_labels, num_per_shard) -> CostProfile:
-        chips = self.num_chips or 1
+        chips = self.num_chips or n_data_shards(getattr(sample, "mesh",
+                                                        None))
         n = num_per_shard * chips
         if isinstance(sample, SparseDataset):
             d, sparsity = sample.dim, sample.sparsity

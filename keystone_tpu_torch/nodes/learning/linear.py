@@ -75,8 +75,8 @@ class SparseLinearMapper(Transformer):
 
     `apply` takes one scipy sparse row (its nonzeros index W's rows), a
     sparse matrix of rows, or a dense row or matrix; `apply_batch` a
-    `SparseDataset` (its CSR on the device times W) or a dense
-    `Dataset` (as `LinearMapper`)."""
+    `SparseDataset` (its CSR on the device times W, the rows in its
+    placement) or a dense `Dataset` (as `LinearMapper`)."""
 
     def __init__(self, W: torch.Tensor, b: Optional[torch.Tensor] = None):
         self.W = W
@@ -101,7 +101,7 @@ class SparseLinearMapper(Transformer):
 
     def apply_batch(self, data):
         if isinstance(data, SparseDataset):
-            return Dataset(self._bias(data.csr() @ self.W))
+            return data.rows_dataset(self._bias(data.csr() @ self.W))
         return LinearMapper(self.W, self.b).apply_batch(data)
 
 
@@ -187,9 +187,14 @@ def dual_solve(X: torch.Tensor, Y: torch.Tensor, mask: torch.Tensor,
 
 class LocalLeastSquaresEstimator(LabelEstimator):
     """Dual-form ridge for d ≫ n: the n×n kernelized system solved on one
-    device (LocalLeastSquaresEstimator.scala:16-61)."""
+    device (LocalLeastSquaresEstimator.scala:16-61). JAX's solve reads
+    the whole array (`:234-255`); on a mesh's data axis the rows and
+    labels are gathered (`Dataset.gather`, padding dropped) and every
+    rank solves one process's system."""
 
     fusable_fit = True  # always fits a LinearMapper
+
+    mesh_aware = True  # the rows gathered over the data axis
 
     def __init__(self, lam: float = 0.0):
         self.lam = lam
@@ -201,6 +206,8 @@ class LocalLeastSquaresEstimator(LabelEstimator):
 
     def fit(self, data, labels) -> LinearMapper:
         record_dispatch()  # one batched call (JAX :248)
-        W, info = dual_solve(data.array, labels.array, data.mask, self.lam)
+        X, Y = data.gather(), labels.gather()
+        W, info = dual_solve(X, Y, torch.ones(X.shape[0], dtype=torch.bool,
+                                              device=X.device), self.lam)
         raise_if_unfactored(info, "the dual system XXᵀ + λI")
         return LinearMapper(W)

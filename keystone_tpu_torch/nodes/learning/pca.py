@@ -225,9 +225,13 @@ def randomized_components(X: torch.Tensor, k: int, q: int,
 
 
 class ApproximatePCAEstimator(Estimator):
-    """Randomized sketch PCA (ApproximatePCA.scala:22-85)."""
+    """Randomized sketch PCA (ApproximatePCA.scala:22-85), on the rows
+    `collect_rows` gives: on a mesh every rank's, as JAX's
+    `_collect_rows` (`:259-268`)."""
 
     precision_tolerance = "exact"  # moments/decomposition: f32 inputs
+
+    mesh_aware = True  # the rows collected over the data axis
 
     def __init__(self, dims: int, oversample: int = 10, q: int = 2,
                  seed: int = 0):

@@ -4,7 +4,10 @@ Counterpart of `keystone_tpu/nodes/learning/zca.py` (reference
 nodes/learning/ZCAWhitener.scala:12-77): whitener = V diag((λ+ε)^-½) Vᵀ.
 The result does not depend on the sign `eigh` gives each eigenvector.
 `ZCAWhitenerEstimator` (`:73-87`) fits it from a sample matrix on the
-sample's device; JAX fits on the host with numpy.
+sample's device; JAX fits on the host with numpy, on the whole
+``data.numpy()`` (`:80-87`): on a mesh's data axis the port collects
+every rank's valid rows first (`pca.collect_rows`), so every rank fits
+one process's whitener.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 
 from ...workflow.pipeline import Estimator, Transformer
+from .pca import collect_rows
 
 
 def zca_from_covariance(cov: torch.Tensor, eps: float) -> torch.Tensor:
@@ -45,12 +49,13 @@ class ZCAWhitenerEstimator(Estimator):
 
     precision_tolerance = "exact"  # moments/decomposition: f32 inputs
 
+    mesh_aware = True  # the rows collected over the data axis
+
     def __init__(self, eps: float = 0.1):
         self.eps = eps
 
     def fit(self, data) -> ZCAWhitener:
-        X = data.array if hasattr(data, "array") else data
-        return self.fit_single(X)
+        return self.fit_single(collect_rows(data))
 
     def fit_single(self, X) -> ZCAWhitener:
         """Fit on an in-memory (m × D) matrix (ZCAWhitener.fitSingle): a

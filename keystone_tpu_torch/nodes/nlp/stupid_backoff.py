@@ -11,6 +11,13 @@ partitions n-grams by their first two words (`InitialBigramPartitioner`,
 :25-59) so backoff lookups stay partition-local on the cluster; here
 scoring state is a host dict.
 
+On a mesh's data axis (a `HostDataset` of this rank's items) both
+estimators count this rank's items and merge the counts over the ranks
+before building the model (`parallel.merge_counts`, and for the packed
+model each rank's vocabulary, unigram counts and n-gram table through
+`all_gather_objects`), so every rank holds the model of the whole
+corpus, as JAX's fit over its whole host list.
+
 S(w | w_{i-n+1..i-1}) = count(ngram)/count(context) if seen,
 else α · S(w | shorter context), bottoming out at unigram frequency.
 """
@@ -23,6 +30,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 
 from ...data.dataset import HostDataset
+from ...parallel.collectives import all_gather_objects, merge_counts
 from ...workflow.pipeline import Estimator, ItemTransformer
 
 ALPHA = 0.4
@@ -61,7 +69,9 @@ class StupidBackoffModel(ItemTransformer):
 
 class StupidBackoffEstimator(Estimator):
     """Fit from a dataset of (ngram tuple, count) pair lists or Counters
-    (StupidBackoff.scala:61-182)."""
+    (StupidBackoff.scala:61-182); on a mesh, every rank's counts."""
+
+    mesh_aware = True  # the counts merged over the data axis
 
     def __init__(self, unigram_counts: Dict[str, int] = None, alpha: float = ALPHA):
         self.unigram_counts = unigram_counts
@@ -73,6 +83,7 @@ class StupidBackoffEstimator(Estimator):
             pairs = item.items() if isinstance(item, (dict, Counter)) else item
             for ng, c in pairs:
                 ngram_counts[tuple(ng)] += c
+        ngram_counts = merge_counts(ngram_counts, getattr(data, "mesh", None))
         unigrams = self.unigram_counts
         if unigrams is None:
             unigrams = Counter()
@@ -214,19 +225,79 @@ class PackedStupidBackoffModel(ItemTransformer):
         return (self.keys.nbytes + self.counts.nbytes + self.unigram.nbytes)
 
 
+def _unpack_key(keys: np.ndarray):
+    """The (w1, w2, w3, order) of `_group_key`s, absent words -1."""
+    field = (1 << 20) - 1
+    return (((keys >> 44) & field) - 1, ((keys >> 24) & field) - 1,
+            ((keys >> 4) & field) - 1, keys & 0xF)
+
+
+def _merge_packed(parts):
+    """One corpus's (vocab, unigram, keys, counts) from each rank's, in
+    rank order: the words numbered in first-seen order over the ranks'
+    documents, as one pass over the whole list numbers them, each rank's
+    n-gram keys renumbered and their counts summed."""
+    from .indexers import MAX_WORD
+
+    vocab: Dict[str, int] = {}
+    remaps = []
+    for words, _, _, _ in parts:
+        # the last entry maps an absent word (-1) to itself
+        remaps.append(np.array([vocab.setdefault(w, len(vocab))
+                                for w in words] + [-1], np.int64))
+    if len(vocab) > MAX_WORD + 1:
+        raise ValueError(f"vocabulary exceeds {MAX_WORD + 1} words; "
+                         "the 20-bit packed layout cannot index it")
+    unigram = np.zeros(max(len(vocab), 1), np.int64)
+    keys, counts = [], []
+    for remap, (words, uni, k, c) in zip(remaps, parts):
+        unigram[remap[:len(words)]] += uni[:len(words)]
+        w1, w2, w3, order = _unpack_key(k)
+        keys.append(_group_key(remap[w1], remap[w2], remap[w3], order))
+        counts.append(c)
+    keys, inverse = np.unique(np.concatenate(keys), return_inverse=True)
+    counts = np.bincount(inverse.reshape(-1),
+                         weights=np.concatenate(counts).astype(np.float64),
+                         minlength=len(keys)).astype(np.int64)
+    return vocab, unigram, keys, counts
+
+
 class PackedStupidBackoffEstimator(Estimator):
     """Fit the packed model straight from a token-list corpus with
     vectorized counting: intern words, build (n-2)·3 packed key arrays,
     `np.unique` with counts — no per-ngram python objects anywhere
-    (StupidBackoff.scala:61-182 + InitialBigramPartitioner grouping)."""
+    (StupidBackoff.scala:61-182 + InitialBigramPartitioner grouping). On
+    a mesh each rank counts its documents and `_merge_packed` joins the
+    ranks' tables."""
+
+    mesh_aware = True  # the tables merged over the data axis
 
     def __init__(self, alpha: float = ALPHA):
         self.alpha = alpha
 
     def fit(self, data) -> PackedStupidBackoffModel:
+        vocab, unigram, keys, counts = self._count(
+            data.items if hasattr(data, "items") else list(data))
+        parts = all_gather_objects((list(vocab), unigram, keys, counts),
+                                   getattr(data, "mesh", None))
+        if len(parts) > 1:
+            vocab, unigram, keys, counts = _merge_packed(parts)
+        if len(keys):
+            # 12 bytes/type when counts fit uint32 (4.29e9 occurrences of
+            # one n-gram ≈ a multi-TB corpus); int64 fallback beyond
+            counts = counts.astype(
+                np.uint32 if counts.max() < 2**32 else np.int64)
+        else:
+            counts = counts.astype(np.uint32)
+        return PackedStupidBackoffModel(
+            keys, counts, unigram, int(unigram.sum()), vocab, self.alpha)
+
+    @staticmethod
+    def _count(docs):
+        """(vocab, unigram counts, sorted n-gram keys, their counts) of
+        ``docs``."""
         from .indexers import MAX_WORD
 
-        docs = data.items if hasattr(data, "items") else list(data)
         vocab: Dict[str, int] = {}
         id_docs = []
         for doc in docs:
@@ -268,12 +339,7 @@ class PackedStupidBackoffEstimator(Estimator):
             counts = np.concatenate([c for _, c in parts])
             order_ix = np.argsort(keys, kind="stable")
             keys, counts = keys[order_ix], counts[order_ix]
-            # 12 bytes/type when counts fit uint32 (4.29e9 occurrences of
-            # one n-gram ≈ a multi-TB corpus); int64 fallback beyond
-            counts = counts.astype(
-                np.uint32 if counts.max() < 2**32 else np.int64)
         else:
             keys = np.empty(0, np.int64)
-            counts = np.empty(0, np.uint32)
-        return PackedStupidBackoffModel(
-            keys, counts, unigram, int(unigram.sum()), vocab, self.alpha)
+            counts = np.empty(0, np.int64)
+        return vocab, unigram, keys, counts

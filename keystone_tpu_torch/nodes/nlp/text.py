@@ -11,7 +11,8 @@ arrays go to the card once (`data/sparse.py`).
 - `HashingTF`, `NGramsHashingTF` (`:119-146`; HashingTF.scala:15-31,
   NGramsHashingTF.scala:25-118)
 - `TermFrequency` (`:149-158`; nodes/stats/TermFrequency.scala:19)
-- `WordFrequencyEncoder` (`:161-182`; WordFrequencyEncoder.scala:7-62)
+- `WordFrequencyEncoder` (`:161-182`; WordFrequencyEncoder.scala:7-62),
+  whose counts on a mesh's data axis are merged over the ranks
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ...data.dataset import HostDataset
+from ...parallel.collectives import merge_counts
 from ...workflow.pipeline import Estimator, ItemTransformer
 
 #: the default pattern, and the bytes JAX's native tokenizer splits on
@@ -179,12 +181,16 @@ class WordFrequencyEncoder(Estimator):
     """Fit a vocabulary ranked by frequency, ties by the word; the
     transformer maps a word to its rank and an unknown word to -1
     (WordFrequencyEncoder.scala:7-62). ``word_counts`` holds the
-    counts."""
+    counts; on a mesh's data axis every rank's, merged
+    (`parallel.merge_counts`) before ranking."""
+
+    mesh_aware = True  # the counts merged over the data axis
 
     def fit(self, data) -> _WordFrequencyTransformer:
         counts: Counter = Counter()
         for tokens in data.items:
             counts.update(tokens)
+        counts = merge_counts(counts, getattr(data, "mesh", None))
         vocab = {w: i for i, (w, _) in enumerate(
             sorted(counts.items(), key=lambda kv: (-kv[1], kv[0])))}
         t = _WordFrequencyTransformer(vocab)

@@ -8,6 +8,12 @@ key (count, feature), so ties at the cut keep the larger features, and
 the kept features sorted to number the columns. The output is a host CSR
 `SparseDataset` whose arrays go to the device once, at its first product
 (`data/sparse.py`).
+
+On a mesh's data axis (a `HostDataset` of this rank's items) the
+vectorizer's CSR holds this rank's rows, placed as its input, and the
+vocabulary fits merge each rank's counts or features across ranks
+(`parallel.merge_counts`, `all_gather_objects`) before choosing, so every
+rank holds one process's vocabulary, JAX's over the whole host list.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from ...data.sparse import SparseDataset
+from ...parallel.collectives import all_gather_objects, merge_counts
 from ...workflow.pipeline import Estimator, ItemTransformer
 
 
@@ -43,7 +50,7 @@ class SparseFeatureVectorizer(ItemTransformer):
 
     def apply_batch(self, data) -> SparseDataset:
         """A `HostDataset` of pair lists → a `SparseDataset` whose device
-        is the input's."""
+        and placement are the input's."""
         rows, cols, vals = [], [], []
         for i, pairs in enumerate(data.items):
             for f, val in pairs:
@@ -55,13 +62,17 @@ class SparseFeatureVectorizer(ItemTransformer):
         mat = sp.csr_matrix(
             (vals, (rows, cols)), shape=(len(data.items), len(self.vocab)),
             dtype=np.float32)
-        return SparseDataset(mat, device=data.device)
+        mesh = getattr(data, "mesh", None)
+        return SparseDataset(mat, device=data.device, mesh=mesh,
+                             total=data.total if mesh is not None else None)
 
 
 class CommonSparseFeatures(Estimator):
     """Keep the ``num_features`` features that the most items hold
     (CommonSparseFeatures.scala:19-64: per-partition heaps and a merge,
-    here one host `Counter`)."""
+    here one host `Counter` a rank, merged over the data axis)."""
+
+    mesh_aware = True  # the counts merged over the data axis
 
     def __init__(self, num_features: int):
         self.num_features = num_features
@@ -71,6 +82,7 @@ class CommonSparseFeatures(Estimator):
         for pairs in data.items:
             for f, _ in pairs:
                 counts[f] += 1
+        counts = merge_counts(counts, getattr(data, "mesh", None))
         top = heapq.nlargest(self.num_features, counts.items(),
                              key=lambda kv: (kv[1], kv[0]))
         vocab = {f: i for i, f in enumerate(sorted(f for f, _ in top))}
@@ -79,12 +91,16 @@ class CommonSparseFeatures(Estimator):
 
 class AllSparseFeatures(Estimator):
     """Vocabulary of every observed feature, sorted
-    (AllSparseFeatures.scala:14-27)."""
+    (AllSparseFeatures.scala:14-27); on a mesh every rank's features."""
+
+    mesh_aware = True  # the feature sets gathered over the data axis
 
     def fit(self, data) -> SparseFeatureVectorizer:
         seen = set()
         for pairs in data.items:
             for f, _ in pairs:
                 seen.add(f)
+        seen = set().union(*all_gather_objects(
+            seen, getattr(data, "mesh", None)))
         return SparseFeatureVectorizer(
             {f: i for i, f in enumerate(sorted(seen))})

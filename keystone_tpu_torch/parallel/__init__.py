@@ -4,14 +4,16 @@ Counterpart of `keystone_tpu/parallel/__init__.py` (`:1-59`), its export
 list less the names of `NamedSharding`s (`data_sharding`,
 `replicated_sharding`, `spec_of_array`: a `Dataset`'s placement is its
 ``spec``), plus the static tier's `MeshLayout` and `layout_of` and the
-model axis's `all_gather_columns` and `gather_block`, and the row
+model axis's `all_gather_columns` and `gather_block`, the row
 gathers by global index the data-axis estimators take, `gather_rows`
-and `collect_rows`.
+and `collect_rows`, and the host gathers the text side's fits take,
+`all_gather_objects` and `merge_counts`.
 """
 
 from . import mesh
 from .collectives import (
     all_gather_columns,
+    all_gather_objects,
     all_gather_rows,
     all_reduce,
     broadcast,
@@ -19,6 +21,7 @@ from .collectives import (
     collect_rows,
     gather_block,
     gather_rows,
+    merge_counts,
     psum,
     reshard,
     reshard_tree,
@@ -75,6 +78,7 @@ __all__ = [
     "specs_equal",
     "use_mesh",
     "all_gather_columns",
+    "all_gather_objects",
     "all_gather_rows",
     "all_reduce",
     "broadcast",
@@ -82,6 +86,7 @@ __all__ = [
     "collect_rows",
     "gather_block",
     "gather_rows",
+    "merge_counts",
     "psum",
     "reshard",
     "reshard_tree",

@@ -18,6 +18,10 @@ which does not run on a tile takes its input through. `gather_rows`
 (rows by global index, a KRR block's) and `collect_rows` (JAX's
 `_collect_rows`, one process's rows or sample on every rank) are the
 data axis's gathers for the estimators that need some rows whole.
+`all_gather_objects` and `merge_counts` move host values (a rank's
+vocabulary counts, its n-gram tables, its CSR rows) where JAX's host
+fits read the whole host list: one pickled payload a rank, gathered
+through the host.
 
 JAX's program cache (`_cached`, `_fn_key`) keeps a jitted program per
 collective and callback; eager torch builds no program, so there is
@@ -42,7 +46,9 @@ value is wrong: `tree_reduce_sum` and `tree_aggregate` reduce over the mesh a
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+import pickle
+from collections import Counter
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -53,11 +59,13 @@ from ..telemetry.spans import current_tracer, span
 from . import mesh as meshlib
 
 
-def _collective(kind: str, t: torch.Tensor, call,
-                axis: str = meshlib.DATA_AXIS) -> None:
-    """Run ``call()``, one collective on ``t`` over ``axis``: counted,
-    and a span under a tracer."""
-    nbytes = t.numel() * t.element_size()
+def _collective(kind: str, t: Optional[torch.Tensor], call,
+                axis: str = meshlib.DATA_AXIS, nbytes: int = 0) -> None:
+    """Run ``call()``, one collective on ``t`` over ``axis`` (``t``
+    None: ``nbytes`` of host payload): counted, and a span under a
+    tracer."""
+    if t is not None:
+        nbytes = t.numel() * t.element_size()
     for name in (f"collectives.{kind}", f"collectives.{axis}.{kind}"):
         counter(name).inc()
         counter(f"{name}.bytes").inc(float(nbytes))
@@ -65,7 +73,8 @@ def _collective(kind: str, t: torch.Tensor, call,
     if tracer is None:
         call()
         return
-    sync = tracer.synchronize and t.device.type == "cuda"
+    sync = (tracer.synchronize and t is not None
+            and t.device.type == "cuda")
     if sync:
         torch.cuda.synchronize(t.device)
     with span(kind, cat="collective", bytes=nbytes, axis=axis):
@@ -369,6 +378,39 @@ def collect_rows(rows: torch.Tensor, mesh,
     else:
         idx = np.arange(total, dtype=np.int64)
     return gather_rows(rows, idx, mesh, starts, axis)
+
+
+def all_gather_objects(obj: Any, mesh,
+                       axis: str = meshlib.DATA_AXIS) -> List[Any]:
+    """Every rank's ``obj`` (any picklable host value) in rank order, on
+    every rank of ``mesh``'s ``axis``: pickled once, the payloads moved
+    by one ``all_gather_object`` through the host, counted as
+    ``all_gather_object`` with the payload's bytes. ``mesh`` None, or an
+    axis of one rank: ``[obj]``."""
+    _check_axis(axis)
+    if meshlib.axis_size(mesh, axis) == 1:
+        return [obj]
+    group = meshlib.axis_group(mesh, axis)
+    payload = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+    parts: List[Any] = [None] * dist.get_world_size(group)
+    _collective("all_gather_object", None, lambda: dist.all_gather_object(
+        parts, payload, group=group), axis, nbytes=len(payload))
+    return [pickle.loads(p) for p in parts]
+
+
+def merge_counts(counts, mesh, axis: str = meshlib.DATA_AXIS):
+    """A mapping of counts (a `Counter`, a dict of numbers) summed over
+    ``mesh``'s ``axis``: every rank's counts gathered (`all_gather_objects`)
+    and added in rank order, the merge of the reference's per-partition
+    counts (CommonSparseFeatures.scala:19-64). ``mesh`` None, or an axis
+    of one rank: ``counts`` as it is."""
+    parts = all_gather_objects(dict(counts), mesh, axis)
+    if len(parts) == 1:
+        return counts
+    out: Counter = Counter()
+    for part in parts:
+        out.update(part)
+    return out
 
 
 def reshard(x, spec, mesh=None):

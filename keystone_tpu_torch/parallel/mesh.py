@@ -359,8 +359,9 @@ def require_mesh_aware(obj, values: Iterable) -> None:
     """Raise where ``obj`` (an estimator or an evaluator) is not marked
     ``mesh_aware`` and one of ``values`` is a dataset placed on a mesh of
     more than one data shard: fitting or scoring it would read this
-    rank's rows only. (A column tile never reaches such an ``obj``:
-    `gather_model_inputs` gathers it first.)"""
+    rank's rows only. Every estimator and evaluator of the package is
+    marked; the guard holds for classes outside it. (A column tile never
+    reaches such an ``obj``: `gather_model_inputs` gathers it first.)"""
     if getattr(type(obj), "mesh_aware", False):
         return
     for v in values:
@@ -369,8 +370,8 @@ def require_mesh_aware(obj, values: Iterable) -> None:
             raise NotImplementedError(
                 f"{type(obj).__name__} is not mesh-aware: it would fit or "
                 f"score only this rank's rows of a dataset sharded "
-                f"{shards} ways over {DATA_AXIS!r}; the data axis reaches "
-                "it with ROADMAP queue 1, item 4")
+                f"{shards} ways over {DATA_AXIS!r}; mark it mesh_aware "
+                "once its fit reduces over every rank")
 
 
 def _gathered(v):

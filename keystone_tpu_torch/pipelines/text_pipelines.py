@@ -27,6 +27,14 @@ of the JAX package's class-conditional stand-in. `run_newsgroups` caps a
 synthetic run at 4 classes (`:125`); `run_newsgroups_on` and
 `run_amazon_on` take a corpus as given.
 
+Each ``run_*`` takes ``mesh=``, as `imagenet_sift_lcs_fv.run_on` does
+(`run_*` default to the current mesh: none in one process). Every rank
+passes all the documents and `HostDataset.on_mesh` keeps its share; the
+string stages and the CSR are this rank's rows, the vocabularies and the
+fits merge or reduce over the ranks, the predictions keep the rows'
+placement and the evaluators count every rank's. Amazon's 80/20 split
+is taken on the whole list before placing. The clocks are JAX's.
+
     python -m keystone_tpu_torch.pipelines.text_pipelines newsgroups \\
         --device cpu --n-synth 400
     python -m keystone_tpu_torch.pipelines.text_pipelines amazon --n-synth 400
@@ -50,6 +58,7 @@ from ..evaluation import (
     MulticlassClassifierEvaluator,
 )
 from ..loaders.text_loaders import amazon_reviews_loader, newsgroups_loader
+from ..parallel.mesh import DATA_AXIS, axis_size, current_mesh
 from ..nodes.learning.classifiers import (
     LogisticRegressionEstimator,
     NaiveBayesEstimator,
@@ -182,49 +191,68 @@ class NewsgroupsConfig:
     seed: int = 0
 
 
+def _actuals(labels: HostDataset, docs: HostDataset, device):
+    """Class ids to score ``docs``' predictions against: the list, or on
+    a mesh a `Dataset` placed as ``docs`` (every rank passes them
+    all)."""
+    if docs.mesh is None:
+        return labels.items
+    return Dataset(np.asarray(labels.items, np.int32), device=device,
+                   mesh=docs.mesh)
+
+
 def run_newsgroups_on(train_labels: HostDataset, train_docs: HostDataset,
                       test_labels: HostDataset, test_docs: HostDataset,
                       num_classes: int, config: NewsgroupsConfig,
-                      device: DeviceLike = "cuda") -> dict:
+                      device: DeviceLike = "cuda", mesh=None) -> dict:
     """Build the Newsgroups predictor on ``device`` and score the train
     and test documents. ``seconds`` runs from after the build to the test
     evaluation, the lazy fits included, as the JAX package's clock
-    (`:138-148`)."""
+    (`:138-148`). ``predictions`` are the test documents' classes (this
+    rank's on ``mesh``, where every rank passes every document and label
+    and keeps its share)."""
     dev = resolve_device(device)
-    train_docs = HostDataset(train_docs.items, device=dev)
-    test_docs = HostDataset(test_docs.items, device=dev)
-    model = build_text_model(train_docs, train_labels,
-                             NaiveBayesEstimator(num_classes),
-                             config.ngram_orders, config.common_features)
+    train_docs = HostDataset.on_mesh(train_docs.items, mesh, device=dev)
+    test_docs = HostDataset.on_mesh(test_docs.items, mesh, device=dev)
+    train_actuals = _actuals(train_labels, train_docs, dev)
+    test_actuals = _actuals(test_labels, test_docs, dev)
+    model = build_text_model(
+        train_docs, HostDataset.on_mesh(train_labels.items, mesh),
+        NaiveBayesEstimator(num_classes), config.ngram_orders,
+        config.common_features)
     _sync(dev)
     t0 = time.perf_counter()
     evaluator = MulticlassClassifierEvaluator(num_classes)
-    train_eval = evaluator(model.predictor(train_docs), train_labels.items)
-    test_eval = evaluator(model.predictor(test_docs), test_labels.items)
+    train_eval = evaluator(model.predictor(train_docs), train_actuals)
+    predictions = model.predictor(test_docs).get()
+    test_eval = evaluator(predictions, test_actuals)
     elapsed = time.perf_counter() - t0
     return {
         "train_error": train_eval.error,
         "test_error": test_eval.error,
         "test_accuracy": test_eval.accuracy,
         "seconds": elapsed,
-        "docs_per_sec": (len(train_docs) + len(test_docs)) / elapsed,
+        "docs_per_sec": (train_docs.total + test_docs.total) / elapsed,
         "summary": test_eval.summary(),
+        "predictions": predictions,
         "model": model,
     }
 
 
-def run_newsgroups(config: NewsgroupsConfig,
-                   device: DeviceLike = "cuda") -> dict:
+def run_newsgroups(config: NewsgroupsConfig, device: DeviceLike = "cuda",
+                   mesh=None) -> dict:
     """The corpus under ``train_path`` (and ``test_path``), or the
     synthetic one at ``n_synth`` and ``n_synth // 4`` documents of at
-    most `SYNTH_MAX_CLASSES` classes (`:118-135`)."""
+    most `SYNTH_MAX_CLASSES` classes (`:118-135`); on ``mesh`` (default
+    the current one) each rank keeps its share (`run_newsgroups_on`)."""
     device = resolve_device(device)
+    mesh = mesh if mesh is not None else current_mesh()
     if config.train_path:
         train = newsgroups_loader(config.train_path)
         test = newsgroups_loader(config.test_path or config.train_path)
         return run_newsgroups_on(train.labels, train.data, test.labels,
                                  test.data, len(train.class_names), config,
-                                 device)
+                                 device, mesh)
     num_classes = min(config.num_classes, SYNTH_MAX_CLASSES)
     train_labels, train_docs = synthetic_corpus(config.n_synth, num_classes,
                                                 seed=config.seed)
@@ -232,7 +260,7 @@ def run_newsgroups(config: NewsgroupsConfig,
                                               num_classes,
                                               seed=config.seed + 1)
     return run_newsgroups_on(train_labels, train_docs, test_labels,
-                             test_docs, num_classes, config, device)
+                             test_docs, num_classes, config, device, mesh)
 
 
 @dataclass
@@ -247,47 +275,52 @@ class AmazonReviewsConfig:
 
 def run_amazon_on(labels: HostDataset, docs: HostDataset,
                   config: AmazonReviewsConfig,
-                  device: DeviceLike = "cuda") -> dict:
+                  device: DeviceLike = "cuda", mesh=None) -> dict:
     """Split the reviews 80/20 in order (`:166-173`), fit logistic
     regression on the first part on ``device`` and score the rest.
     ``seconds`` runs from after the build to the test evaluation, the
-    lazy fits included (`:187-196`)."""
+    lazy fits included (`:187-196`). ``predictions`` are the test
+    reviews' classes. On ``mesh`` every rank passes every review: the
+    split is taken on the whole list, then each part placed."""
     dev = resolve_device(device)
     n_train = int(0.8 * len(docs))
-    train_docs = HostDataset(docs.items[:n_train], device=dev)
-    test_docs = HostDataset(docs.items[n_train:], device=dev)
+    train_docs = HostDataset.on_mesh(docs.items[:n_train], mesh, device=dev)
+    test_docs = HostDataset.on_mesh(docs.items[n_train:], mesh, device=dev)
     train_labels = Dataset(np.asarray(labels.items[:n_train], np.int32),
-                           device=dev)
+                           device=dev, mesh=train_docs.mesh)
     test_labels = np.asarray(labels.items[n_train:], bool)
     estimator = LogisticRegressionEstimator(2, lam=config.lam)
     model = build_text_model(train_docs, train_labels, estimator,
                              config.ngram_orders, config.common_features)
     _sync(dev)
     t0 = time.perf_counter()
-    test_eval = BinaryClassifierEvaluator()(model.predictor(test_docs),
-                                            test_labels)
+    predictions = model.predictor(test_docs).get()
+    test_eval = BinaryClassifierEvaluator()(predictions, test_labels)
     elapsed = time.perf_counter() - t0
     return {
         "test_accuracy": test_eval.accuracy,
         "f1": test_eval.f1,
         "seconds": elapsed,
         "docs_per_sec": len(docs) / elapsed,
+        "predictions": predictions,
         "model": model,
         "estimator": estimator,
     }
 
 
-def run_amazon(config: AmazonReviewsConfig,
-               device: DeviceLike = "cuda") -> dict:
+def run_amazon(config: AmazonReviewsConfig, device: DeviceLike = "cuda",
+               mesh=None) -> dict:
     """The reviews under ``data_path``, or ``n_synth`` synthetic
-    two-class documents."""
+    two-class documents; on ``mesh`` (default the current one) each rank
+    keeps its share (`run_amazon_on`)."""
     device = resolve_device(device)
+    mesh = mesh if mesh is not None else current_mesh()
     if config.data_path:
         data = amazon_reviews_loader(config.data_path)
         labels, docs = data.labels, data.data
     else:
         labels, docs = synthetic_corpus(config.n_synth, 2, seed=config.seed)
-    return run_amazon_on(labels, docs, config, device)
+    return run_amazon_on(labels, docs, config, device, mesh)
 
 
 @dataclass
@@ -297,19 +330,26 @@ class StupidBackoffConfig:
     seed: int = 0
 
 
-def run_stupid_backoff_on(docs: HostDataset) -> dict:
+def run_stupid_backoff_on(docs: HostDataset, mesh=None) -> dict:
     """Trigram counts of ``docs`` and stupid-backoff scores of the first
     100 trigrams of the first 50 documents: their mean log score, the
-    vocabulary and the distinct trigrams (`:207-233`). Host numpy."""
+    vocabulary and the distinct trigrams (`:207-233`). Host numpy. On
+    ``mesh`` every rank passes every document and counts its share; the
+    counts are merged by the fits and the first 50 documents' trigrams
+    gathered, so every rank scores as one process."""
     t0 = time.perf_counter()
+    docs = HostDataset.on_mesh(docs.items, mesh)
     tokens = (Trim().to_pipeline() >> LowerCase() >> Tokenizer())(docs).get()
     encoder = WordFrequencyEncoder().fit(tokens)
     trigrams = NGramsFeaturizer([3]).apply_batch(tokens)
     counted = NGramsCounts("default").apply_batch(trigrams)
+    # one item a rank, this rank's counts: every rank passes as many
+    # items as the data axis has ranks and keeps its own
     model = StupidBackoffEstimator(encoder.word_counts).fit(
-        HostDataset([dict(counted.items[0])]))
+        HostDataset.on_mesh([dict(counted.items[0])]
+                            * axis_size(docs.mesh, DATA_AXIS), docs.mesh))
     scores = []
-    for ngrams in trigrams.items[:min(50, len(trigrams))]:
+    for ngrams in trigrams.take(50):
         for ng in ngrams[:100]:
             s = model.score(ng)
             if s > 0:
@@ -323,17 +363,19 @@ def run_stupid_backoff_on(docs: HostDataset) -> dict:
 
 
 def run_stupid_backoff(config: StupidBackoffConfig,
-                       device: DeviceLike = "cuda") -> dict:
+                       device: DeviceLike = "cuda", mesh=None) -> dict:
     """The lines of ``data_path``, or ``n_synth`` synthetic documents.
     The pipeline is host code in both packages; ``device`` is only
-    checked, as every entry point's is."""
+    checked, as every entry point's is. On ``mesh`` (default the current
+    one) each rank counts its share (`run_stupid_backoff_on`)."""
     resolve_device(device)
+    mesh = mesh if mesh is not None else current_mesh()
     if config.data_path:
         with open(config.data_path) as f:
             docs = HostDataset([line.strip() for line in f if line.strip()])
     else:
         _, docs = synthetic_corpus(config.n_synth, 2, seed=config.seed)
-    return run_stupid_backoff_on(docs)
+    return run_stupid_backoff_on(docs, mesh)
 
 
 def main(argv=None):

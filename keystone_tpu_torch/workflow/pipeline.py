@@ -775,7 +775,11 @@ class OptimizableTransformer(Transformer):
 class OptimizableEstimator(Estimator):
     """An estimator with a default implementation and a sample-driven
     `optimize`, which `NodeOptimizationRule` consults
-    (`keystone_tpu/workflow/pipeline.py:707-716`)."""
+    (`keystone_tpu/workflow/pipeline.py:707-716`). Its ``fit`` is its
+    default's, whose own ``fit`` is guarded: a subclass that fits
+    otherwise sets ``mesh_aware`` for itself."""
+
+    mesh_aware = True  # its fit is its default's, which is guarded
 
     @property
     def default(self) -> Estimator:
@@ -792,6 +796,11 @@ class OptimizableEstimator(Estimator):
 
 
 class OptimizableLabelEstimator(LabelEstimator):
+    """`OptimizableEstimator` for a supervised default
+    (`keystone_tpu/workflow/pipeline.py:722-734`)."""
+
+    mesh_aware = True  # its fit is its default's, which is guarded
+
     @property
     def default(self) -> LabelEstimator:
         raise NotImplementedError

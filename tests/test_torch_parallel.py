@@ -309,19 +309,26 @@ def test_solver_agrees_across_mesh_shapes(tmp_path_factory):
                                atol=1e-3)
 
 
-def test_guard_raises_for_estimators_not_mesh_aware(ranks):
-    """The ZCA whitener and the approximate PCA fit on a multi-rank
-    `Dataset` raise, naming the class and the ROADMAP item, instead of
-    fitting one rank's rows (GMM and k-means, which this test held
-    before, fit across ranks: `test_torch_data_axis_estimators.py`)."""
-    if ranks[0] == 1:
-        for res, _ in ranks[1]:
-            assert res["guard_zca"] == res["guard_approx_pca"] == ""
-        return
+def test_guard_raises_for_estimators_not_mesh_aware(ranks,
+                                                    tmp_path_factory):
+    """The ZCA whitener and the approximate PCA, which raised here
+    before, fit every rank's rows of a multi-rank `Dataset`: each rank's
+    whitener, means and components equal one process's (both collect
+    the rows first). An estimator outside the package that is not marked
+    ``mesh_aware`` (this test's own) still raises there, naming the
+    class and no ROADMAP item, and fits on one rank."""
+    one = worker.run_job("collectives", 1,
+                         shared_root(tmp_path_factory))[0][1]
+    for key in ("zca_whitener", "zca_means", "approx_pca"):
+        np.testing.assert_array_equal(_same_on_every_rank(ranks, key),
+                                      one[key])
     for res, _ in ranks[1]:
-        assert "ZCAWhitenerEstimator" in res["guard_zca"]
-        assert "ApproximatePCAEstimator" in res["guard_approx_pca"]
-        assert "ROADMAP queue 1, item 4" in res["guard_zca"]
+        assert res["guard_zca"] == res["guard_approx_pca"] == ""
+        if ranks[0] == 1:
+            assert res["guard_unmarked"] == ""
+            continue
+        assert "Unmarked is not mesh-aware" in res["guard_unmarked"]
+        assert "ROADMAP" not in res["guard_unmarked"]
 
 
 def test_per_process_dispatch_counters(ranks):

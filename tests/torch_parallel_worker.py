@@ -169,6 +169,7 @@ def collectives_job(rank, world, port, out_dir, res, arr):
         FusedBatchTransformer,
         MegafusedBatchTransformer,
     )
+    from keystone_tpu_torch.workflow.pipeline import Estimator
     from keystone_tpu_torch.parallel import (
         DATA_AXIS,
         P,
@@ -315,16 +316,36 @@ def collectives_job(rank, world, port, out_dir, res, arr):
         Dataset.from_numpy(X, mesh=mesh), Dataset.from_numpy(Y, mesh=mesh))
     arr["lbfgs_W"], arr["lbfgs_b"] = m.W.numpy(), m.b.numpy()
 
-    # the guard: unsupervised fits that are not mesh-aware
+    # ZCA and the approximate PCA fit every rank's rows; an estimator
+    # that is not marked mesh-aware still raises
     pts = Dataset.from_numpy(np.random.default_rng(2).normal(
-        size=(40, 3)).astype(np.float32), mesh=mesh)
+        size=(41, 3)).astype(np.float32), mesh=mesh)
     for name, est in (("zca", ZCAWhitenerEstimator()),
                       ("approx_pca", ApproximatePCAEstimator(2))):
         try:
-            est.fit(pts)
+            model = est.fit(pts)
             res[f"guard_{name}"] = ""
         except NotImplementedError as e:
             res[f"guard_{name}"] = str(e)
+            continue
+        if name == "zca":
+            arr["zca_whitener"] = model.whitener.numpy()
+            arr["zca_means"] = model.means.numpy()
+        else:
+            arr["approx_pca"] = model.components.numpy()
+
+    class Unmarked(Estimator):
+        """An estimator outside the package whose fit reads one
+        process's rows."""
+
+        def fit(self, data):
+            return data.array.sum()
+
+    try:
+        Unmarked().fit(pts)
+        res["guard_unmarked"] = ""
+    except NotImplementedError as e:
+        res["guard_unmarked"] = str(e)
 
     record_dispatch()
     res["counters"] = {
@@ -852,8 +873,9 @@ def fit_estimators(D, place, host, gather):
 
 def estimators_job(rank, world, port, out_dir, res, arr):
     """The data-axis estimators and evaluators on this world's ranks
-    (`fit_estimators`), the row gathers, and the guard for the
-    estimators still not mesh-aware."""
+    (`fit_estimators`), the row gathers, and naive Bayes and the binary
+    evaluator on the same placed rows (the text side's, fitted and
+    scored across ranks since the guard let them through)."""
     import torch
 
     from keystone_tpu_torch.data.dataset import Dataset, HostDataset
@@ -898,10 +920,16 @@ def estimators_job(rank, world, port, out_dir, res, arr):
                 Dataset.from_numpy(D["X"][:, 0] > 0, mesh=mesh),
                 Dataset.from_numpy(D["X"][:, 1] > 0, mesh=mesh)))):
         try:
-            fn()
+            out = fn()
             res[f"guard_{name}"] = ""
         except NotImplementedError as e:
             res[f"guard_{name}"] = str(e)
+            continue
+        if name == "naive_bayes":
+            arr["nb_log_priors"] = out.log_priors.numpy()
+            arr["nb_log_cond"] = out.log_cond.numpy()
+        else:
+            arr["binary_table"] = np.array([out.tp, out.fp, out.tn, out.fn])
 
 
 #: the pipelines of `estimator_pipelines_job`, at the CPU tests' sizes
@@ -990,9 +1018,227 @@ def estimator_pipelines_job(rank, world, port, out_dir, res, arr):
     res["imagenet_accuracy"] = out["test_accuracy"]
 
 
+#: the text side's corpus: 197 documents of 4 classes (a count 2 and 4
+#: ranks pad), the pipelines' synthetic corpora at 197 documents, and
+#: the dense sets of the estimators it adds
+TEXT_N, TEXT_CLASSES, TEXT_FEATURES = 197, 4, 300
+TEXT_LAM, TEXT_ITERS = 0.1, 15
+
+
+def text_axis_data():
+    """Seeded inputs of `text_axis_job`, made alike by every rank and by
+    the parent: the corpus (the JAX package's `synthetic_corpus`, copied
+    bit for bit), ±1 indicators of its labels' parity, three-class rows
+    for LDA, rows for ZCA and the approximate PCA, a 23 × 40 dual
+    problem, anchor and apply rows for the kernel generator, and boolean
+    predictions against actuals."""
+    from keystone_tpu_torch.pipelines.text_pipelines import synthetic_corpus
+
+    labels, docs = synthetic_corpus(TEXT_N, TEXT_CLASSES, vocab_size=120,
+                                    doc_len=30, seed=5)
+    rng = np.random.default_rng(17)
+    y = np.asarray(labels.items, np.int64)
+    Yi = -np.ones((TEXT_N, 2), np.float32)
+    Yi[np.arange(TEXT_N), y % 2] = 1.0
+    centers = rng.normal(scale=2.0, size=(3, 8))
+    y3 = rng.integers(0, 3, size=TEXT_N)
+    X3 = (centers[y3] + rng.normal(size=(TEXT_N, 8))).astype(np.float32)
+    Z = (rng.normal(size=(TEXT_N, 6)) @ rng.normal(size=(6, 6))).astype(
+        np.float32)
+    L = rng.normal(size=(23, 40)).astype(np.float32)
+    LY = rng.normal(size=(23, 2)).astype(np.float32)
+    A = rng.normal(size=(37, 5)).astype(np.float32)
+    B = rng.normal(size=(61, 5)).astype(np.float32)
+    pred = rng.random(TEXT_N) < 0.6
+    actual = rng.random(TEXT_N) < 0.5
+    return dict(docs=docs.items, labels=labels.items, Yi=Yi, X3=X3,
+                y3=y3.astype(np.int32), Z=Z, L=L, LY=LY, A=A, B=B,
+                pred=pred, actual=actual)
+
+
+def _key(f) -> str:
+    """A vocabulary key (a word or an n-gram tuple) as a string."""
+    return " ".join(f) if isinstance(f, tuple) else str(f)
+
+
+def fit_text_side(D, mesh, res, arr):
+    """Every text-side estimator, the sparse datasets, the dense fits
+    this slice marks, the binary evaluator and the three text pipelines
+    on ``mesh``'s ranks (a mesh of one data shard: one process). The
+    whole-corpus values land in ``res``, the arrays in ``arr``."""
+    import torch
+
+    from keystone_tpu_torch.data.dataset import Dataset, HostDataset
+    from keystone_tpu_torch.data.sparse import PaddedSparseDataset
+    from keystone_tpu_torch.evaluation import BinaryClassifierEvaluator
+    from keystone_tpu_torch.nodes.learning import (
+        ApproximatePCAEstimator,
+        GaussianKernelGenerator,
+        LeastSquaresEstimator,
+        LinearDiscriminantAnalysis,
+        LocalLeastSquaresEstimator,
+        LogisticRegressionEstimator,
+        NaiveBayesEstimator,
+        SparseLBFGSwithL2,
+        ZCAWhitenerEstimator,
+    )
+    from keystone_tpu_torch.nodes.nlp import (
+        LowerCase,
+        NGramsCounts,
+        NGramsFeaturizer,
+        PackedStupidBackoffEstimator,
+        StupidBackoffEstimator,
+        Tokenizer,
+        Trim,
+        WordFrequencyEncoder,
+    )
+    from keystone_tpu_torch.nodes.util.sparse_features import (
+        AllSparseFeatures,
+        CommonSparseFeatures,
+    )
+    from keystone_tpu_torch.pipelines import text_pipelines as tp
+    from keystone_tpu_torch.workflow import PipelineEnv
+
+    def place(x):
+        return Dataset.from_numpy(x, mesh=mesh)
+
+    def t(x):
+        return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+            else np.asarray(x)
+
+    docs = HostDataset.on_mesh(D["docs"], mesh, device="cpu")
+    labels = HostDataset.on_mesh(D["labels"], mesh)
+    pairs = tp.text_featurizer()(docs).get()
+    vec = CommonSparseFeatures(TEXT_FEATURES).fit(pairs)
+    res["common_vocab"] = sorted([_key(f), i] for f, i in vec.vocab.items())
+    res["all_vocab"] = sorted([_key(f), i] for f, i in
+                              AllSparseFeatures().fit(pairs).vocab.items())
+    X = vec.apply_batch(pairs)
+    res["csr_placement"] = [X.count, X.total, X.per_shard_count,
+                            X.first_row, X.mesh is not None]
+    whole = X.gather()
+    arr["csr_data"], arr["csr_indices"], arr["csr_indptr"] = (
+        whole.data, whole.indices, whole.indptr)
+    sample = X.sample_per_shard(10)
+    arr["csr_sample"] = sample.matrix.toarray()
+    arr["csr_dense"] = X.densify().numpy()
+    res["sparsity"] = X.sparsity
+    padded = PaddedSparseDataset.from_csr(X, device="cpu")
+    padded_whole = PaddedSparseDataset.from_csr(whole, device="cpu",
+                                                mesh=mesh)
+    res["padded"] = [padded.width, padded.total, padded.count,
+                     padded_whole.width, padded_whole.total,
+                     bool(torch.equal(padded.idx, padded_whole.idx))]
+
+    nb = NaiveBayesEstimator(TEXT_CLASSES).fit(X, labels)
+    arr["nb_log_priors"], arr["nb_log_cond"] = t(nb.log_priors), t(
+        nb.log_cond)
+    arr["nb_scores"] = nb.apply_batch(X).numpy()
+    y_placed = place(np.asarray(D["labels"], np.int32))
+    nb_dense = NaiveBayesEstimator(TEXT_CLASSES).fit(X.densify(), y_placed)
+    arr["nb_dense_log_cond"] = t(nb_dense.log_cond)
+
+    lr = LogisticRegressionEstimator(TEXT_CLASSES, lam=1e-3,
+                                     num_iters=TEXT_ITERS)
+    lr_model = lr.fit(X, y_placed)
+    arr["lr_W"] = t(lr_model.W)
+    arr["lr_history"] = np.asarray(lr.loss_history, np.float64)
+    arr["lr_preds"] = lr_model.apply_batch(X).numpy()
+
+    Y = place(D["Yi"])
+    routed = SparseLBFGSwithL2(TEXT_LAM, TEXT_ITERS)
+    routed.fit(X, Y)
+    res["slbfgs_route"] = routed.route
+    for name, data in (("slbfgs", X), ("slbfgs_padded", padded)):
+        est = SparseLBFGSwithL2(TEXT_LAM, TEXT_ITERS, method="iterative")
+        m = est.fit(data, Y)
+        arr[f"{name}_W"], arr[f"{name}_b"] = t(m.W), t(m.b)
+        arr[f"{name}_history"] = t(est.loss_history)
+    dense_est = SparseLBFGSwithL2(TEXT_LAM, TEXT_ITERS)
+    m = dense_est.fit(X.densify(), Y)
+    res["slbfgs_dense_route"] = dense_est.route
+    arr["slbfgs_dense_W"], arr["slbfgs_dense_b"] = t(m.W), t(m.b)
+
+    lse = LeastSquaresEstimator(lam=TEXT_LAM, num_iters=TEXT_ITERS)
+    lse_model = lse.fit(X, Y)
+    res["lse_chosen"] = lse.chosen
+    res["lse_chips"] = lse._measure(X, Y, X.per_shard_count).num_chips
+    arr["lse_pred"] = lse_model.apply_batch(X).numpy()
+
+    arr["lda"] = t(LinearDiscriminantAnalysis(2).fit(
+        place(D["X3"]), place(D["y3"])).components)
+    zca = ZCAWhitenerEstimator(0.1).fit(place(D["Z"]))
+    arr["zca_whitener"], arr["zca_means"] = t(zca.whitener), t(zca.means)
+    arr["approx_pca"] = t(ApproximatePCAEstimator(3, seed=2).fit(
+        place(D["Z"])).components)
+    arr["local_ls"] = t(LocalLeastSquaresEstimator(0.5).fit(
+        place(D["L"]), place(D["LY"])).W)
+    gen = GaussianKernelGenerator(0.3).fit(place(D["A"]))
+    arr["kgen_anchors"] = t(gen.anchors)
+    arr["kgen_out"] = gen.apply_batch(place(D["B"])).numpy()
+
+    ev = BinaryClassifierEvaluator()
+    for name, (p, a) in (
+            ("binary", (place(D["pred"]), D["actual"])),
+            ("binary_host", (HostDataset.on_mesh(list(D["pred"]), mesh),
+                             HostDataset.on_mesh(list(D["actual"]), mesh)))):
+        m = ev(p, a)
+        arr[name] = np.array([m.tp, m.fp, m.tn, m.fn])
+
+    tokens = (Trim().to_pipeline() >> LowerCase() >> Tokenizer())(
+        docs).get()
+    enc = WordFrequencyEncoder().fit(tokens)
+    res["wfe_order"] = sorted(enc.vocab, key=enc.vocab.get)
+    res["wfe_counts"] = sorted(enc.word_counts.items())
+    trigrams = NGramsFeaturizer([3]).apply_batch(tokens)
+    sb = StupidBackoffEstimator().fit(
+        NGramsCounts("no-add").apply_batch(trigrams))
+    res["backoff_counts"] = sorted([_key(k), v]
+                                   for k, v in sb.ngram_counts.items())
+    res["backoff_unigrams"] = sorted(sb.unigram_counts.items())
+    packed = PackedStupidBackoffEstimator().fit(tokens)
+    res["packed_vocab"] = list(packed.vocab)
+    arr["packed_keys"], arr["packed_counts"] = packed.keys, packed.counts
+    arr["packed_unigram"] = packed.unigram
+
+    PipelineEnv.reset()
+    news = tp.run_newsgroups(tp.NewsgroupsConfig(n_synth=TEXT_N), "cpu",
+                             mesh)
+    res["news"] = [news["test_accuracy"], news["train_error"]]
+    nb = news["model"].classifier.fitted()
+    arr["news_log_cond"] = t(nb.log_cond)
+    arr["news_log_priors"] = t(nb.log_priors)
+    PipelineEnv.reset()
+    amazon = tp.run_amazon(tp.AmazonReviewsConfig(n_synth=TEXT_N), "cpu",
+                           mesh)
+    res["amazon"] = [amazon["test_accuracy"], amazon["f1"]]
+    arr["amazon_W"] = t(amazon["model"].classifier.fitted().W)
+    res["amazon_vocab"] = sorted(
+        _key(f) for f in amazon["model"].vocabulary.fitted().vocab)
+    PipelineEnv.reset()
+    backoff = tp.run_stupid_backoff(tp.StupidBackoffConfig(n_synth=TEXT_N),
+                                    "cpu", mesh)
+    res["backoff"] = [backoff["vocab"], backoff["num_trigrams"],
+                      backoff["mean_log_score"]]
+
+
+def text_axis_job(rank, world, port, out_dir, res, arr):
+    """The text side of the data axis on this world's ranks
+    (`fit_text_side`) and the collectives it ran, by kind."""
+    from keystone_tpu_torch.parallel import global_data_mesh
+    from keystone_tpu_torch.telemetry import counter
+
+    kinds = ("all_gather_object", "all_reduce", "all_gather")
+    before = {k: counter(f"collectives.data.{k}").value for k in kinds}
+    fit_text_side(text_axis_data(), global_data_mesh(), res, arr)
+    res["collectives"] = {k: counter(f"collectives.data.{k}").value - v
+                          for k, v in before.items()}
+
+
 JOBS = {"collectives": collectives_job, "cifar": cifar_job,
         "model": model_job, "estimators": estimators_job,
-        "estimator_pipelines": estimator_pipelines_job}
+        "estimator_pipelines": estimator_pipelines_job,
+        "text_axis": text_axis_job}
 
 
 def main(argv) -> int:
